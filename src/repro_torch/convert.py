@@ -1,0 +1,41 @@
+"""Load weights given as numpy arrays into the port's tensor trees.
+
+The JAX ``Model.init`` / ``init_lora`` trees, turned into numpy leaf for
+leaf by the caller, have exactly the port's layout (nested dicts,
+stacked ``[L, ...]`` block leaves, ``[in, out]`` matrices), so loading
+is a per-leaf conversion that keeps dtypes: params in
+``cfg.param_dtype``, LoRA pairs in float32.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _tensor(arr: Any, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":          # ml_dtypes; torch can't wrap it
+        a = a.astype(np.float32)
+    # a copy: the source may be a read-only view of the caller's array
+    return torch.tensor(a, dtype=dtype, device=device)
+
+
+def _tree(tree: Any, dtype: torch.dtype, device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree(v, dtype, device) for k, v in tree.items()}
+    return _tensor(tree, dtype, device)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: Dict, device="cuda") -> Dict:
+    """A JAX params tree (numpy leaves) -> the port's params, in
+    ``cfg.param_dtype`` on ``device``."""
+    return _tree(tree, getattr(torch, cfg.param_dtype), torch.device(device))
+
+
+def lora_from_numpy(tree: Dict, device="cuda") -> Dict:
+    """A JAX LoRA tree (numpy leaves) -> the port's, float32."""
+    return _tree(tree, torch.float32, torch.device(device))

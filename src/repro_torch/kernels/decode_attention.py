@@ -1,0 +1,166 @@
+"""Paged decode attention: one query token per sequence against a KV
+cache that lives in a global block pool, walked through per-sequence
+block tables.
+
+Replaces the TPU kernel ``repro.kernels.decode_attention.
+paged_decode_attention`` (``src/repro/kernels/decode_attention.py:172``,
+its ``pallas_call`` at ``:215``) with a CUDA kernel written for Hopper,
+``csrc/paged_decode_attention.cu``, built by ``kernels/_build.py`` and
+bound with ``ctypes``.  The kernel is memory-bound: each call must read
+``sum_b kv_len_b * Hkv * D * 2 * sizeof(T)`` bytes of K/V and does about
+two FLOP per element read.  Its design notes are in the source.
+
+``paged_decode_attention`` dispatches on where its tensors lie: CPU
+tensors take the plain PyTorch version ``paged_decode_attention_ref``
+(gather the logical cache, then the contiguous decode math); CUDA
+tensors launch the kernel, or raise on a dtype, shape, layout or device
+it does not take.  Nothing falls back from one to the other.
+``paged_decode_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+
+
+def decode_attention_math(q, k, v, kv_len, scale: float):
+    """Contiguous single-token GQA attention in f32: q [B,H,D]; k, v
+    [B,S,Hkv,D]; kv_len [B] -> [B,H,D] in q's dtype.  Positions at or
+    past ``kv_len`` are masked; a row with ``kv_len == 0`` gives zeros
+    (the kernel's clamped-``l`` contract)."""
+    b, h, d = q.shape
+    s = k.shape[1]
+    g = h // k.shape[2]
+    kr = k.repeat_interleave(g, dim=2) if g > 1 else k
+    vr = v.repeat_interleave(g, dim=2) if g > 1 else v
+    scores = torch.einsum("bhd,bkhd->bhk", q.float(), kr.float()) * scale
+    mask = torch.arange(s, device=q.device)[None, :] < kv_len[:, None]
+    scores = scores.masked_fill(~mask[:, None, :], float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)          # kv_len == 0 rows
+    out = torch.einsum("bhk,bkhd->bhd", probs, vr.float())
+    return out.to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len,
+                               scale: Optional[float] = None):
+    """Plain PyTorch version: gather each sequence's logical cache
+    [B, NB*bs, Hkv, D] through its table, then the contiguous math."""
+    b, nb = block_tables.shape
+    bs = k_pool.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    idx = block_tables.long()
+    k = k_pool[idx].reshape(b, nb * bs, *k_pool.shape[2:])
+    v = v_pool[idx].reshape(b, nb * bs, *v_pool.shape[2:])
+    return decode_attention_math(q, k, v, kv_len, scale)
+
+
+def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
+    dev = q.device
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("kv_len", kv_len)):
+        if t.device != dev:
+            raise ValueError(f"paged_decode_attention: {name} is on "
+                             f"{t.device}, q on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device "
+                         f"{dev} (CPU tensors take the plain version)")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"paged_decode_attention: dtype {q.dtype} not "
+                        "supported (float32, bfloat16)")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError("paged_decode_attention: q, k_pool and v_pool "
+                        f"must share a dtype, got {q.dtype}, "
+                        f"{k_pool.dtype}, {v_pool.dtype}")
+    if block_tables.dtype != torch.int32 or kv_len.dtype != torch.int32:
+        raise TypeError("paged_decode_attention: block_tables and kv_len "
+                        "must be int32")
+    if q.dim() != 3 or k_pool.dim() != 4 or block_tables.dim() != 2 \
+            or kv_len.dim() != 1:
+        raise ValueError("paged_decode_attention: expected q [B,H,D], "
+                         "pools [n_blocks,bs,Hkv,D], tables [B,NB], "
+                         "kv_len [B]")
+    b, h, d = q.shape
+    _, _, hkv, dk = k_pool.shape
+    if v_pool.shape != k_pool.shape or dk != d or h % hkv \
+            or block_tables.shape[0] != b or kv_len.shape[0] != b:
+        raise ValueError(
+            f"paged_decode_attention: shapes q {tuple(q.shape)}, pools "
+            f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
+            f"{tuple(block_tables.shape)}, kv_len {tuple(kv_len.shape)} "
+            "do not agree")
+    if not (q.is_contiguous() and k_pool.is_contiguous()
+            and v_pool.is_contiguous() and kv_len.is_contiguous()
+            and block_tables.stride(1) == 1):
+        raise ValueError("paged_decode_attention: q, pools and kv_len "
+                         "must be contiguous and table rows unit-stride")
+    # the kernel gathers K/V rows 16 bytes at a time
+    if (d * q.element_size()) % 16 or k_pool.data_ptr() % 16 \
+            or v_pool.data_ptr() % 16:
+        raise ValueError(
+            f"paged_decode_attention: head_dim {d} x {q.element_size()} "
+            "bytes must be a multiple of 16 and the pools 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    """The C entry point, built and loaded on first use."""
+    fn = _build.library("paged_decode_attention") \
+        .paged_decode_attention_launch
+    fn.restype = _I
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   ctypes.c_float, _P]
+    return fn
+
+
+def _launch(q, k_pool, v_pool, block_tables, kv_len, scale: float):
+    _check(q, k_pool, v_pool, block_tables, kv_len)
+    fn = _entry()
+    b, h, d = q.shape
+    bs, hkv = k_pool.shape[1], k_pool.shape[2]
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+                 v_pool.data_ptr(), block_tables.data_ptr(),
+                 kv_len.data_ptr(), out.data_ptr(), b, h, hkv, d, bs,
+                 block_tables.shape[1], block_tables.stride(0), scale,
+                 stream)
+    if err != 0:
+        raise RuntimeError(
+            f"paged_decode_attention: launch failed with CUDA error {err} "
+            f"(q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
+            f"tables {tuple(block_tables.shape)})")
+    paged_decode_attention.launches += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
+                           scale: Optional[float] = None):
+    """q [B,H,D]; pools [n_blocks, block_size, Hkv, D]; block_tables
+    [B, NB] int32; kv_len [B] int32 -> [B,H,D].
+
+    Table entries past a sequence's live blocks must be valid pool
+    indices (the runtime points them at scratch block 0); they are never
+    read.  CPU tensors take ``paged_decode_attention_ref``; CUDA tensors
+    launch the kernel (see the module docstring)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu" and all(
+            t.device.type == "cpu"
+            for t in (k_pool, v_pool, block_tables, kv_len)):
+        return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
+                                          kv_len, scale)
+    return _launch(q, k_pool, v_pool, block_tables, kv_len, scale)
+
+
+paged_decode_attention.launches = 0

@@ -1,0 +1,139 @@
+"""Core layers of the port: norms, RoPE, GQA attention (dense prefill,
+single-token decode over contiguous and paged caches) and the weight
+initializer — the PyTorch counterparts of ``repro.models.layers``.
+
+Plain functions on tensors.  Weight matrices use the ``[in, out]``
+convention; stacked-layer params carry a leading ``L`` dim.  Norms and
+RoPE compute in float32 and cast back, like the JAX layers.  Both decode
+layouts run through ``kernels.decode_attention.paged_decode_attention``:
+the paged pool directly, the contiguous cache through identity block
+tables.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention import paged_decode_attention
+
+
+# ---------------------------------------------------------------- norms ----
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+# ----------------------------------------------------------------- RoPE ----
+def rope_tables(positions: torch.Tensor, head_dim: int, theta: float):
+    """cos/sin tables for positions [..., S] -> [..., S, head_dim/2]."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: [B,S,H,D]; cos/sin: [S,D/2] or [B,S,D/2] (broadcast over heads).
+    Rotates the two halves of each head (no interleaving)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ attention ----
+def _gqa_repeat(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B,S,Hkv,D] -> [B,S,Hq,D] by repeating each KV head."""
+    g = n_heads // k.shape[2]
+    return k if g == 1 else k.repeat_interleave(g, dim=2)
+
+
+def attention_dense(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, kv_len=None,
+                    scale: Optional[float] = None):
+    """Reference GQA attention (materializes the full score matrix).
+
+    q: [B,Sq,Hq,D]; k,v: [B,Skv,Hkv,D].  ``q_offset`` is the absolute
+    position of q[0].  ``kv_len`` ([B] tensor or int) masks positions
+    >= kv_len.  Fully masked rows give zeros."""
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k = _gqa_repeat(k, hq)
+    v = _gqa_repeat(v, hq)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    qpos = q_offset + torch.arange(sq, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        mask &= (qpos[:, None] - kpos[None, :]) < window
+    if kv_len is not None:
+        klen = torch.as_tensor(kv_len, device=q.device)
+        if klen.dim():
+            mask = mask & (kpos[None, :] < klen[:, None, None])   # [B,Sq,Skv]
+            mask = mask[:, None]                                   # [B,1,..]
+        else:
+            mask = mask & (kpos[None, :] < klen)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.nan_to_num(probs, nan=0.0)          # fully-masked rows
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def attention_decode(q, k_cache, v_cache, kv_len,
+                     scale: Optional[float] = None):
+    """Single-token decode attention over a contiguous KV cache.
+
+    q: [B,1,Hq,D]; caches: [B,S,Hkv,D]; kv_len: [B] int32 — valid cache
+    entries (the new token's KV already written).  The cache is viewed as
+    a block pool with an identity block table (block size: the largest
+    of 256, 128, ..., 1 that divides S, as in the JAX layer), so the
+    paged kernel serves both layouts."""
+    b, _, hq, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    bk = next(bk for bk in (256, 128, 64, 32, 16, 8, 4, 2, 1) if s % bk == 0)
+    nk = s // bk
+    kp = k_cache.reshape(b * nk, bk, hkv, d)
+    vp = v_cache.reshape(b * nk, bk, hkv, d)
+    tables = torch.arange(b * nk, dtype=torch.int32,
+                          device=q.device).reshape(b, nk)
+    out = paged_decode_attention(q[:, 0], kp, vp, tables,
+                                 kv_len.to(torch.int32), scale=scale)
+    return out[:, None].to(q.dtype)
+
+
+def attention_decode_paged(q, k_pool, v_pool, block_tables, kv_len,
+                           scale: Optional[float] = None):
+    """Single-token decode attention over one layer's paged KV pool.
+
+    q: [B,1,Hq,D]; pools: [n_blocks, block_size, Hkv, D]; block_tables:
+    [B, NB] int32; kv_len: [B] int32 valid logical length."""
+    out = paged_decode_attention(q[:, 0], k_pool, v_pool, block_tables,
+                                 kv_len.to(torch.int32), scale=scale)
+    return out[:, None].to(q.dtype)
+
+
+# ----------------------------------------------------------------- init ----
+def dense_init(generator: torch.Generator, d_in: int, d_out: int,
+               dtype: torch.dtype, scale: Optional[float] = None
+               ) -> torch.Tensor:
+    """N(0, scale^2) weights on the generator's device, scale 1/sqrt(d_in)
+    by default, drawn in float32 and cast (the JAX initializer's shapes
+    and scales; the draws themselves differ between the frameworks)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * scale).to(dtype)

@@ -1,0 +1,254 @@
+"""The port's model: one ``Model`` per (ModelConfig, device) with the
+serving surface of ``repro.models.model.Model`` for the dense family:
+
+  init(generator) -> params              init_lora(generator) -> adapters
+  prefill_ragged(params, lora, batch, prompt_lens) -> (logits, caches)
+  decode_step / decode_step_paged        (one token per sequence)
+  init_caches / init_paged_caches        write_prefill_slots / _blocks
+
+Params are nested dicts of tensors in the JAX layout (stacked ``[L, ...]``
+block leaves, ``[in, out]`` matrices), so ``convert.py`` loads a JAX tree
+leaf for leaf.  The layer stack is a Python loop over per-layer views of
+the stacked leaves.  Cache writes land in the caller's cache tensors in
+place (the JAX methods return new trees); the returned caches are the
+same tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lora as lora_lib
+from repro_torch.models import transformer as tfm
+from repro_torch.models.layers import dense_init, rms_norm, rope_tables
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  Asking for CUDA on a machine
+    without a usable card raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but no CUDA device is "
+            "available; pass device='cpu' to run the plain PyTorch "
+            "versions of the kernels")
+    return dev
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s view of a stacked ``[L, ...]`` tree (None stays)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+
+    # --------------------------------------------------------------- init --
+    def init(self, generator: torch.Generator) -> Dict:
+        """Random weights with the JAX initializer's shapes and scales,
+        drawn from ``generator`` (which must live on ``self.device``)."""
+        cfg = self.cfg
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        dtype = getattr(torch, cfg.param_dtype)
+        params: Dict[str, Any] = {}
+        params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model,
+                                     dtype, scale=1.0)
+        params["blocks"] = _stack([tfm.init_block(generator, cfg)
+                                   for _ in range(cfg.n_layers)])
+        params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
+                                          device=generator.device)
+        params["lm_head"] = dense_init(generator, cfg.d_model,
+                                       cfg.vocab_size, dtype)
+        return params
+
+    def init_lora(self, generator: torch.Generator) -> Dict:
+        return lora_lib.init_lora(generator, self.cfg, self.cfg.n_layers)
+
+    # ------------------------------------------------------------ forward --
+    def _embed(self, params, batch) -> torch.Tensor:
+        return params["embed"][batch["tokens"]]
+
+    def hidden_states(self, params, lora, batch, *,
+                      collect_caches: bool = False):
+        """Full-sequence forward.  Returns (hidden, caches | None) with
+        caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        s = x.shape[1]
+        rope_cs = rope_tables(torch.arange(s, device=x.device),
+                              cfg.head_dim, cfg.rope_theta)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, (k, v) = tfm.block_full(_layer(params["blocks"], i), x, cfg,
+                                       rope_cs, lora=_layer(lora, i))
+            if collect_caches:
+                ks.append(k)
+                vs.append(v)
+        caches = {"kv": (torch.stack(ks), torch.stack(vs))} \
+            if collect_caches else None
+        return rms_norm(x, params["final_norm"]), caches
+
+    # ------------------------------------------------------------- caches --
+    def _cache_dtype(self, dtype) -> torch.dtype:
+        return dtype or getattr(torch, self.cfg.kv_cache_dtype
+                                or self.cfg.dtype)
+
+    def init_caches(self, batch: int, seq: int, dtype=None) -> Dict:
+        """Contiguous KV caches ``[L, batch, S, Hkv, Dh]`` per K/V
+        (sliding-window archs keep a ring of window size)."""
+        cfg = self.cfg
+        kv_seq = seq if cfg.sliding_window == 0 \
+            else min(seq, cfg.sliding_window)
+        shape = (cfg.n_layers, batch, kv_seq, cfg.n_kv_heads, cfg.head_dim)
+        dt = self._cache_dtype(dtype)
+        return {"kv": (torch.zeros(shape, dtype=dt, device=self.device),
+                       torch.zeros(shape, dtype=dt, device=self.device))}
+
+    def init_paged_caches(self, n_blocks: int, block_size: int,
+                          dtype=None) -> Dict:
+        """Global paged KV pool ``[L, n_blocks, block_size, Hkv, Dh]``
+        per K/V; block 0 is the runtime's scratch block."""
+        cfg = self.cfg
+        shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+                 cfg.head_dim)
+        dt = self._cache_dtype(dtype)
+        return {"kv": (torch.zeros(shape, dtype=dt, device=self.device),
+                       torch.zeros(shape, dtype=dt, device=self.device))}
+
+    # -------------------------------------------------------------- prefill -
+    def prefill_ragged(self, params, lora, batch, prompt_lens):
+        """Prefill right-padded ragged prompts in one batch.  Returns
+        (logits at each row's last real token [B,1,V], {"kv": (k, v)}
+        with k, v ``[L, B, P, Hkv, Dh]``).  Causal masking keeps pad
+        tokens out of every real position's K/V."""
+        hidden, caches = self.hidden_states(params, lora, batch,
+                                            collect_caches=True)
+        lens = torch.as_tensor(prompt_lens, device=hidden.device).long()
+        rows = torch.arange(hidden.shape[0], device=hidden.device)
+        last = hidden[rows, lens - 1][:, None]
+        return last @ params["lm_head"], caches
+
+    # ---------------------------------------------------------- slot ops ---
+    def write_prefill_slots(self, pool_caches, prefill_caches,
+                            slots: Sequence[int]):
+        """Scatter a whole prefill wave into its contiguous decode slots
+        in one indexed write per K/V leaf.  ``slots`` [W] holds host-side
+        slot ids; rows with an id outside ``[0, n_slots)`` are dropped
+        (requests that finished at admission) — filtered on the host, as
+        an out-of-range index on the card is a device assert.  Cache rows
+        past the prompt are zeroed, as the JAX scatter pads them."""
+        slots = np.asarray(slots, np.int64)
+        n_slots = pool_caches["kv"][0].shape[1]
+        keep = np.nonzero((slots >= 0) & (slots < n_slots))[0]
+        if keep.size:
+            for pool, pre in zip(pool_caches["kv"], prefill_caches["kv"]):
+                dst = torch.as_tensor(slots[keep], device=pool.device)
+                src = torch.as_tensor(keep, device=pool.device)
+                p = pre.shape[2]
+                pool[:, dst, :p] = pre[:, src].to(pool.dtype)
+                pool[:, dst, p:] = 0
+        return pool_caches
+
+    def write_prefill_blocks(self, pool_caches, prefill_caches,
+                             wave_tables):
+        """Scatter a whole prefill wave's K/V into freshly allocated pool
+        blocks in one indexed write per K/V leaf.  ``wave_tables``
+        [W, NBP] (host-side ids) maps wave row j's logical blocks to pool
+        blocks; entries outside ``[0, n_blocks)`` (the runtime uses
+        ``n_blocks`` for unused entries) are dropped on the host."""
+        tables = np.asarray(wave_tables, np.int64)
+        nbp = tables.shape[1]
+        ids = tables.reshape(-1)
+        n_blocks = pool_caches["kv"][0].shape[1]
+        keep = np.nonzero((ids >= 0) & (ids < n_blocks))[0]
+        if not keep.size:
+            return pool_caches
+        for pool, pre in zip(pool_caches["kv"], prefill_caches["kv"]):
+            nl, w, p = pre.shape[0], pre.shape[1], pre.shape[2]
+            bs = pool.shape[2]
+            if p > nbp * bs:
+                raise ValueError(f"prefill len {p} exceeds wave table "
+                                 f"coverage {nbp * bs}")
+            if p < nbp * bs:
+                pre = F.pad(pre, (0, 0, 0, 0, 0, nbp * bs - p))
+            vals = pre.reshape(nl, w * nbp, bs, *pre.shape[3:])
+            dst = torch.as_tensor(ids[keep], device=pool.device)
+            src = torch.as_tensor(keep, device=pool.device)
+            pool[:, dst] = vals[:, src].to(pool.dtype)
+        return pool_caches
+
+    # --------------------------------------------------------------- decode -
+    def _positions(self, pos, batch: int) -> torch.Tensor:
+        pos = torch.as_tensor(pos, device=self.device)
+        return pos.expand(batch) if pos.dim() == 0 else pos
+
+    def _logits(self, params, x):
+        return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+
+    def decode_step(self, params, lora, caches, token, pos):
+        """One decode step over contiguous caches.  token: [B,1] int;
+        pos: [B] (or scalar) int positions of the new tokens.  Returns
+        (logits [B,1,V], caches updated in place)."""
+        cfg = self.cfg
+        pos = self._positions(pos, token.shape[0])
+        x = params["embed"][token]
+        rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        k_all, v_all = caches["kv"]
+        for i in range(cfg.n_layers):
+            x, _ = tfm.block_decode(_layer(params["blocks"], i), x, cfg,
+                                    {"kv": (k_all[i], v_all[i])}, pos,
+                                    rope_cs, lora=_layer(lora, i))
+        return self._logits(params, x), caches
+
+    def decode_step_paged(self, params, lora, caches, token, pos,
+                          block_tables, *, ring_len: int = 0):
+        """One decode step over the paged KV pool.  token: [B,1] int;
+        pos: [B] int absolute positions; block_tables: [B, NB] int32 on
+        the model's device (entries past a sequence's live blocks point
+        at scratch block 0; rows may be a strided view).  ``ring_len`` is
+        the logical cache length of sliding-window archs (writes wrap
+        there); 0 means the table covers the whole budget.  Write block,
+        offset and kv_len are computed on the device.  Returns
+        (logits [B,1,V], caches updated in place)."""
+        cfg = self.cfg
+        k_all, v_all = caches["kv"]
+        bs = k_all.shape[2]
+        pos = self._positions(pos, token.shape[0])
+        rl = ring_len if ring_len else block_tables.shape[1] * bs
+        wpos = torch.remainder(pos, rl)
+        kv_len = torch.clamp(pos + 1, max=rl).to(torch.int32)
+        write_block = torch.gather(block_tables, 1,
+                                   (wpos // bs)[:, None].long())[:, 0]
+        write_block = write_block.long()
+        write_off = torch.remainder(wpos, bs).long()
+        x = params["embed"][token]
+        rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        for i in range(cfg.n_layers):
+            x, _ = tfm.block_decode_paged(
+                _layer(params["blocks"], i), x, cfg, (k_all[i], v_all[i]),
+                rope_cs, block_tables, write_block, write_off, kv_len,
+                lora=_layer(lora, i))
+        return self._logits(params, x), caches
+
+
+def build(cfg: ModelConfig, device="cuda") -> Model:
+    return Model(cfg, resolve_device(device))

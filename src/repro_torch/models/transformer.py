@@ -1,0 +1,222 @@
+"""Dense decoder blocks of the port — the counterparts of
+``repro.models.transformer`` for the attention-only dense family:
+
+  x += attn(norm1(x)); x += mlp(norm2(x))
+
+Block params are one layer's slice of the stacked ``[L, ...]`` tree.
+Decode writes the new token's K/V into the caller's cache tensors IN
+PLACE (the JAX blocks return new caches); the returned caches are the
+same tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.models import lora as lora_lib
+from repro_torch.models.layers import (
+    apply_rope, attention_decode, attention_decode_paged, attention_dense,
+    dense_init, rms_norm,
+)
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+# --------------------------------------------------------------- params ----
+def init_attn(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    d, h = cfg.d_model, cfg.head_dim
+    dtype = _dtype(cfg.param_dtype)
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * h, dtype),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * h, dtype),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * h, dtype),
+        "wo": dense_init(gen, cfg.n_heads * h, d, dtype,
+                         scale=1.0 / math.sqrt(cfg.n_heads * h)),
+    }
+    dev = gen.device
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.n_heads * h,), dtype=dtype, device=dev)
+        p["bk"] = torch.zeros((cfg.n_kv_heads * h,), dtype=dtype, device=dev)
+        p["bv"] = torch.zeros((cfg.n_kv_heads * h,), dtype=dtype, device=dev)
+    if cfg.qk_norm:
+        p["q_norm"] = torch.ones((h,), dtype=dtype, device=dev)
+        p["k_norm"] = torch.ones((h,), dtype=dtype, device=dev)
+    return p
+
+
+def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    d, f = cfg.d_model, cfg.d_ff
+    dtype = _dtype(cfg.param_dtype)
+    return {"wg": dense_init(gen, d, f, dtype),
+            "wu": dense_init(gen, d, f, dtype),
+            "wd": dense_init(gen, f, d, dtype)}
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    if cfg.family is not Family.DENSE:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family.value} family is not ported to "
+            "repro_torch yet; see ROADMAP.md")
+    dtype = _dtype(cfg.param_dtype)
+    dev = gen.device
+    p: Dict[str, Any] = {"ln1": torch.ones((cfg.d_model,), dtype=dtype,
+                                           device=dev)}
+    p["attn"] = init_attn(gen, cfg)
+    if cfg.d_ff > 0:
+        p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
+
+
+# ------------------------------------------------------------- attention ---
+def _proj_qkv(p, x, cfg: ModelConfig, lora):
+    sc = cfg.lora.scaling
+    q = lora_lib.apply(x, x @ p["wq"], lora.get("q") if lora else None, sc)
+    k = lora_lib.apply(x, x @ p["wk"], lora.get("k") if lora else None, sc)
+    v = lora_lib.apply(x, x @ p["wv"], lora.get("v") if lora else None, sc)
+    if "bq" in p:                      # bias after the LoRA bypass
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    b, s = x.shape[0], x.shape[1]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def _out_proj(p, o, cfg: ModelConfig, lora):
+    return lora_lib.apply(o, o @ p["wo"], lora.get("o") if lora else None,
+                          cfg.lora.scaling)
+
+
+def use_dense_prefill(cfg: ModelConfig, s: int) -> bool:
+    """Whether full-sequence attention at length ``s`` takes the dense
+    (full score matrix) path — the JAX package's rule."""
+    return cfg.attn_impl == "dense" or (
+        cfg.attn_impl == "auto" and s * s <= 1024 * 1024
+        and not cfg.unroll_attn_blocks)
+
+
+def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence attention (prefill).  Returns (out, (k, v)) so
+    prefill can stash the KV cache."""
+    s = x.shape[1]
+    if not use_dense_prefill(cfg, s):
+        raise NotImplementedError(
+            f"prefill length {s}: s*s > 1M takes the blockwise "
+            "(flash) attention path, which is not ported yet; see "
+            "ROADMAP.md (kernels/flash_attention.py::flash_attention)")
+    q, k, v = _proj_qkv(p, x, cfg, lora)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    o = attention_dense(q, k, v, causal=not cfg.encoder_only,
+                        window=cfg.sliding_window)
+    o = o.reshape(x.shape[0], s, cfg.n_heads * cfg.head_dim)
+    return _out_proj(p, o, cfg, lora), (k, v)
+
+
+def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None):
+    """One-token attention against a contiguous KV cache, ragged slots.
+
+    cache_kv: (k_cache, v_cache) [B,S,Hkv,Dh]; pos: [B] int per-sequence
+    positions of the new token.  Sliding-window archs keep a ring buffer
+    of window size (writes wrap at S).  The new K/V are written into the
+    caches in place.  Returns (out, caches)."""
+    k_cache, v_cache = cache_kv
+    cache_len = k_cache.shape[1]
+    q, k, v = _proj_qkv(p, x, cfg, lora)
+    if rope_cs is not None:
+        cos, sin = rope_cs  # [B, 1, Dh/2]
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    wpos = torch.remainder(pos, cache_len) if cfg.sliding_window > 0 \
+        else pos
+    rows = torch.arange(x.shape[0], device=x.device)
+    wpos = wpos.long()
+    k_cache[rows, wpos] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, wpos] = v[:, 0].to(v_cache.dtype)
+    kv_len = torch.clamp(pos + 1, max=cache_len)
+    o = attention_decode(q, k_cache, v_cache, kv_len)
+    o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
+    return _out_proj(p, o, cfg, lora), (k_cache, v_cache)
+
+
+def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
+                      block_tables, write_block, write_off, kv_len,
+                      lora=None):
+    """One-token attention against one layer's paged KV block pool.
+
+    pool_kv: (k_pool, v_pool) [n_blocks, block_size, Hkv, Dh];
+    block_tables: [B, NB] int32; write_block/write_off: [B] pool block id
+    and in-block offset of each sequence's new K/V; kv_len: [B] valid
+    logical length AFTER the write.  The write lands in the pools in
+    place, before the attention reads them (inactive slots all write
+    scratch block 0, where the duplicate writes are harmless).  Returns
+    (out, pools)."""
+    k_pool, v_pool = pool_kv
+    q, k, v = _proj_qkv(p, x, cfg, lora)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    k_pool[write_block, write_off] = k[:, 0].to(k_pool.dtype)
+    v_pool[write_block, write_off] = v[:, 0].to(v_pool.dtype)
+    o = attention_decode_paged(q, k_pool, v_pool, block_tables, kv_len)
+    o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
+    return _out_proj(p, o, cfg, lora), (k_pool, v_pool)
+
+
+# ----------------------------------------------------------------- blocks --
+def _mlp_out(bp, h, cfg: ModelConfig, lora):
+    sc = cfg.lora.scaling
+    mlp = bp["mlp"]
+    g = lora_lib.apply(h, h @ mlp["wg"], lora.get("gate") if lora else None,
+                       sc)
+    u = lora_lib.apply(h, h @ mlp["wu"], lora.get("up") if lora else None,
+                       sc)
+    hidden = F.silu(g) * u
+    return lora_lib.apply(hidden, hidden @ mlp["wd"],
+                          lora.get("down") if lora else None, sc)
+
+
+def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None):
+    """Full-sequence block (prefill).  Returns (x, (k, v))."""
+    attn_out, kv = attn_full(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
+                             rope_cs, lora=lora)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora)
+    return x, kv
+
+
+def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None):
+    """One-token block.  caches: {"kv": (k, v)} of this layer (updated in
+    place).  Returns (x, caches)."""
+    attn_out, _ = attn_decode(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
+                              caches["kv"], pos, rope_cs, lora=lora)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora)
+    return x, caches
+
+
+def block_decode_paged(bp, x, cfg: ModelConfig, pool_kv, rope_cs,
+                       block_tables, write_block, write_off, kv_len,
+                       lora=None):
+    """One-token block against one layer's paged KV pool (updated in
+    place).  Returns (x, pools)."""
+    attn_out, pool_kv = attn_decode_paged(
+        bp["attn"], rms_norm(x, bp["ln1"]), cfg, pool_kv, rope_cs,
+        block_tables, write_block, write_off, kv_len, lora=lora)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora)
+    return x, pool_kv

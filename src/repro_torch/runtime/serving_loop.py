@@ -1,0 +1,429 @@
+"""Slot-based continuous-batching decode runtime — the port of the core
+of ``repro.runtime.serving_loop``.
+
+A ``ContinuousBatcher`` owns a fixed pool of decode *slots* whose KV
+lives in one of two layouts:
+
+  contiguous  ``model.init_caches(n_slots, max_seq)``: every slot owns a
+              worst-case ``max_seq`` stripe;
+  paged       ``paged=True``: a global block pool
+              ``[L, n_blocks, block_size, Hkv, Dh]`` plus per-slot block
+              tables; a ``BlockAllocator`` reserves each request's worst
+              case at admission (FCFS; the queue waits when the pool
+              cannot cover the head request) and hands out blocks lazily.
+
+Each tick admits queued requests into free slots (the whole wave
+prefills through ONE ragged ``model.prefill_ragged`` call and lands in
+the cache with ONE batched write), then advances every active slot one
+token through ``decode_step`` / ``decode_step_paged`` with per-slot
+positions, and evicts finished requests so the next ones are admitted
+mid-flight.  Both decode layouts run the paged-decode-attention kernel
+in every layer.  The host reads back one argmax per wave.
+
+Not ported yet (the constructor raises ``NotImplementedError``): prefix
+caching, multi-LoRA adapters, chunked prefill, the TPOT token budget,
+oversubscription, and co-training ticks (``step(train_batch=...)``).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any, Deque, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.runtime.paging import BlockAllocator, blocks_for
+
+
+@dataclasses.dataclass
+class GenRequest:
+    """One generation request: prompt in, sampled tokens out (greedy by
+    default — ``temperature <= 0``)."""
+    request_id: int
+    prompt: np.ndarray                  # [P] int32 token ids
+    max_new_tokens: int = 16
+    # sampling: temperature <= 0 is exact greedy; top_k/top_p filter
+    # before the softmax; ``seed`` (default request_id) seeds ``rng``
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: Optional[int] = None
+    # filled by the runtime
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    finished_at: Optional[float] = None
+    rng: Any = None                     # per-request sampling stream
+
+    @property
+    def done(self) -> bool:
+        return self.finished_at is not None
+
+    @property
+    def samples(self) -> bool:
+        return self.temperature > 0.0
+
+
+def sample_token(logits: np.ndarray, *, temperature: float = 0.0,
+                 top_k: int = 0, top_p: float = 1.0,
+                 rng: Optional[np.random.Generator] = None) -> int:
+    """Sample one token id from a ``[V]`` logits row: greedy argmax for
+    ``temperature <= 0`` (or no rng), else temperature, top-k, then the
+    nucleus (smallest mass >= ``top_p``), drawn in float64 on the host."""
+    if temperature <= 0.0 or rng is None:
+        return int(np.argmax(logits))
+    row = np.asarray(logits, np.float64) / temperature
+    if 0 < top_k < row.size:
+        kth = np.partition(row, -top_k)[-top_k]
+        row = np.where(row < kth, -np.inf, row)
+    row -= row.max()
+    probs = np.exp(row)
+    probs /= probs.sum()
+    if top_p < 1.0:
+        order = np.argsort(-probs, kind="stable")
+        csum = np.cumsum(probs[order])
+        cut = int(np.searchsorted(csum, top_p)) + 1
+        mask = np.zeros_like(probs, bool)
+        mask[order[:cut]] = True
+        probs = np.where(mask, probs, 0.0)
+        probs /= probs.sum()
+    return int(rng.choice(probs.size, p=probs))
+
+
+@dataclasses.dataclass
+class ServeStats:
+    admitted: int = 0
+    finished: int = 0
+    prefill_tokens: int = 0
+    generated_tokens: int = 0
+    decode_steps: int = 0
+    wall_time: float = 0.0
+
+    def throughput(self) -> float:
+        return self.generated_tokens / max(self.wall_time, 1e-9)
+
+
+def _host_ids(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Upload host-side int32 ids (a copy: the slot arrays keep
+    changing after the upload)."""
+    return torch.tensor(arr, dtype=torch.int32, device=device)
+
+
+class ContinuousBatcher:
+    """Fixed-slot continuous batching over one model replica (see the
+    module docstring).  ``params`` and ``lora`` are the port's tensor
+    trees on the model's device; every prefill and decode reads ``lora``.
+    """
+
+    def __init__(self, engine, params, lora, *, n_slots: int = 8,
+                 max_seq: int = 128, prompt_pad: int = 32,
+                 eos_id: Optional[int] = None, paged: bool = False,
+                 block_size: int = 16, n_blocks: Optional[int] = None,
+                 prefix_cache: bool = False, adapters: Any = None,
+                 prefill_chunk: int = 0, tpot_target: float = 0.0,
+                 oversubscribe: float = 0.0):
+        cfg = engine.model.cfg
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        unported = {"prefix_cache": prefix_cache, "adapters": adapters,
+                    "prefill_chunk": prefill_chunk,
+                    "tpot_target": tpot_target,
+                    "oversubscribe": oversubscribe}
+        for name, val in unported.items():
+            if val:
+                raise NotImplementedError(
+                    f"ContinuousBatcher({name}=...) is not ported to "
+                    "repro_torch yet; see ROADMAP.md")
+        if cfg.sliding_window > 0 and prompt_pad > cfg.sliding_window:
+            raise ValueError(
+                f"{cfg.name}: prompt_pad {prompt_pad} exceeds the "
+                f"attention window {cfg.sliding_window}")
+        self.engine = engine
+        self.model = engine.model
+        self.device = engine.model.device
+        self.cfg = cfg
+        self.params = params
+        self.lora = lora
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.prompt_pad = min(prompt_pad, max_seq)
+        self.eos_id = eos_id
+        # logical cache length per slot: sliding-window archs ring-wrap
+        # at the window, everyone else uses the full budget
+        self.ring_len = min(max_seq, cfg.sliding_window) \
+            if cfg.sliding_window > 0 else max_seq
+        self.paged = paged
+        if paged:
+            self.block_size = block_size
+            self.blocks_per_slot = blocks_for(self.ring_len, block_size)
+            if n_blocks is None:
+                # full worst case + scratch block 0
+                n_blocks = 1 + n_slots * self.blocks_per_slot
+            if n_blocks < 1 + self.blocks_per_slot:
+                raise ValueError(
+                    f"n_blocks {n_blocks} cannot cover one worst-case "
+                    f"request ({self.blocks_per_slot} blocks + scratch); "
+                    "admission would deadlock")
+            self.n_blocks = n_blocks
+            self.allocator = BlockAllocator(n_blocks, block_size)
+            self.caches = self.model.init_paged_caches(n_blocks, block_size)
+            # all-zero rows park inactive slots on scratch block 0
+            self.block_tables = np.zeros((n_slots, self.blocks_per_slot),
+                                         np.int32)
+            self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
+            # worst-case blocks still reserved (not yet taken) per slot
+            self.slot_reserved = np.zeros(n_slots, np.int32)
+            # device copy of the full table, re-uploaded only when the
+            # host table changed; each tick passes a [:, :width] view
+            self._dev_tables: Optional[torch.Tensor] = None
+        else:
+            self.caches = self.model.init_caches(n_slots, max_seq)
+        self.queue: Deque[GenRequest] = collections.deque()
+        self.slot_req: List[Optional[GenRequest]] = [None] * n_slots
+        self.slot_pos = np.zeros(n_slots, np.int32)   # next write position
+        self.slot_tok = np.zeros(n_slots, np.int32)   # next token to feed
+        self.stats = ServeStats()
+
+    # ------------------------------------------------------------ ingestion -
+    def submit(self, req: GenRequest) -> None:
+        req.prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        if len(req.prompt) > self.prompt_pad:
+            raise ValueError(f"prompt len {len(req.prompt)} > prompt_pad "
+                             f"{self.prompt_pad}")
+        # a slot holds prompt + generation; clamp so writes stay in-cache
+        budget = self.max_seq - len(req.prompt)
+        req.max_new_tokens = max(1, min(req.max_new_tokens, budget))
+        self.queue.append(req)
+
+    def active_slots(self) -> List[int]:
+        return [i for i in range(self.n_slots)
+                if self.slot_req[i] is not None]
+
+    def idle(self) -> bool:
+        return not self.queue and not self.active_slots()
+
+    # ------------------------------------------------------------ admission -
+    def _worst_blocks(self, req: GenRequest) -> int:
+        """Worst-case blocks over the request's lifetime: prompt plus
+        ``max_new_tokens - 1`` decode writes, capped by the ring."""
+        tokens = min(len(req.prompt) + req.max_new_tokens - 1,
+                     self.ring_len)
+        return blocks_for(tokens, self.block_size)
+
+    def _record_finish(self, req: GenRequest, now: float) -> None:
+        req.finished_at = now
+        self.stats.finished += 1
+
+    def _prefill_wave(self, reqs: List[GenRequest]):
+        """ONE ragged (right-padded) prefill for the whole wave and ONE
+        batched argmax pull for its first tokens.  Returns (first tokens
+        [W] np, prefill caches, last-position logits [W, V])."""
+        lens = np.array([len(r.prompt) for r in reqs], np.int32)
+        padded = np.zeros((len(reqs), self.prompt_pad), np.int32)
+        for j, r in enumerate(reqs):
+            padded[j, :lens[j]] = r.prompt
+        tokens = torch.tensor(padded, dtype=torch.long, device=self.device)
+        logits, pre = self.model.prefill_ragged(
+            self.params, self.lora, {"tokens": tokens},
+            torch.tensor(lens, device=self.device))
+        last = logits[:, -1]
+        firsts = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per prefill wave
+        return firsts, pre, last
+
+    def admit(self, now: float = 0.0) -> List[GenRequest]:
+        """Fill free slots from the queue, FCFS; returns requests that
+        finished at admission (max_new_tokens == 1 / instant EOS).  Paged
+        mode admits only while the allocator can cover the head request's
+        worst case — otherwise the queue waits for an eviction."""
+        finished: List[GenRequest] = []
+        free = [i for i in range(self.n_slots) if self.slot_req[i] is None]
+        reqs: List[GenRequest] = []
+        reserved: List[int] = []
+        while len(reqs) < len(free) and self.queue:
+            if self.paged:
+                need = self._worst_blocks(self.queue[0])
+                if not self.allocator.can_reserve(need):
+                    break           # strict FCFS backpressure
+                self.allocator.reserve(need)
+                reserved.append(need)
+            reqs.append(self.queue.popleft())
+        if not reqs:
+            return finished
+        firsts, wave_pre, last_logits = self._prefill_wave(reqs)
+        # one batched write per wave; rows flagged with an out-of-range
+        # id are dropped (requests that finished at admission)
+        if self.paged:
+            nbp = blocks_for(wave_pre["kv"][0].shape[2], self.block_size)
+            wave_tables = np.full((len(reqs), nbp), self.n_blocks, np.int32)
+        else:
+            wave_slots = np.full(len(reqs), self.n_slots, np.int32)
+        admitted_rows = 0
+        for k, (slot, req) in enumerate(zip(free, reqs)):
+            first = int(firsts[k])
+            if req.samples:
+                req.rng = np.random.default_rng(
+                    req.seed if req.seed is not None else req.request_id)
+                first = sample_token(
+                    last_logits[k].float().cpu().numpy(),  # lint: host-sync-ok one logits row per sampled admission
+                    temperature=req.temperature, top_k=req.top_k,
+                    top_p=req.top_p, rng=req.rng)
+            req.tokens.append(first)
+            self.stats.admitted += 1
+            self.stats.prefill_tokens += len(req.prompt)
+            self.stats.generated_tokens += 1
+            if len(req.tokens) >= req.max_new_tokens \
+                    or first == self.eos_id:
+                # done at admission: never occupies the slot
+                self._record_finish(req, now)
+                if self.paged:
+                    self.allocator.release(reserved[k])
+                finished.append(req)
+                continue
+            if self.paged:
+                need = blocks_for(len(req.prompt), self.block_size)
+                ids = self.allocator.take(need)
+                self.slot_blocks[slot] = ids
+                self.slot_reserved[slot] = reserved[k] - need
+                self.block_tables[slot, :] = 0
+                self.block_tables[slot, :need] = ids
+                wave_tables[k, :need] = ids
+                self._dev_tables = None
+            else:
+                wave_slots[k] = slot
+            admitted_rows += 1
+            self.slot_req[slot] = req
+            self.slot_pos[slot] = len(req.prompt)
+            self.slot_tok[slot] = first
+        if admitted_rows and self.paged:
+            self.caches = self.model.write_prefill_blocks(
+                self.caches, wave_pre, wave_tables)
+        elif admitted_rows:
+            self.caches = self.model.write_prefill_slots(
+                self.caches, wave_pre, wave_slots)
+        return finished
+
+    # --------------------------------------------------------------- decode -
+    def _grow_tables(self, active: List[int]) -> None:
+        """Allocate the block each slot's next write lands in when the
+        table doesn't cover it yet (one block at a time, always against
+        the slot's admission-time reservation)."""
+        for i in active:
+            bidx = (int(self.slot_pos[i]) % self.ring_len) // self.block_size
+            if bidx >= len(self.slot_blocks[i]):
+                if self.slot_reserved[i] <= 0:
+                    raise RuntimeError(
+                        f"slot {i}: growth beyond admission reservation")
+                (bid,) = self.allocator.take(1)
+                self.slot_reserved[i] -= 1
+                self.slot_blocks[i].append(bid)
+                self.block_tables[i, bidx] = bid
+                self._dev_tables = None
+
+    def _table_width(self, active: List[int]) -> int:
+        """Live-table width: the decode tick only walks blocks up to the
+        longest active slot, rounded up to 1, 2, then multiples of 2 (the
+        JAX runtime's bucketing; the kernel takes any width)."""
+        need = max(len(self.slot_blocks[i]) for i in active)
+        width = need if need <= 2 else 2 * (-(-need // 2))
+        return min(width, self.blocks_per_slot)
+
+    def step(self, train_batch: Any = None,
+             now: float = 0.0) -> List[GenRequest]:
+        """One runtime tick: admit, then advance every active slot one
+        token.  Returns the requests that finished this tick."""
+        if train_batch is not None:
+            raise NotImplementedError(
+                "co-training ticks (step(train_batch=...)) come with the "
+                "training slice of repro_torch; see ROADMAP.md")
+        finished = self.admit(now)
+        active = self.active_slots()
+        if not active:
+            return finished
+        toks = _host_ids(self.slot_tok[:, None], self.device)
+        pos = _host_ids(self.slot_pos, self.device)
+        if self.paged:
+            self._grow_tables(active)
+            if self._dev_tables is None:
+                self._dev_tables = _host_ids(self.block_tables, self.device)
+            tables = self._dev_tables[:, :self._table_width(active)]
+            logits, self.caches = self.model.decode_step_paged(
+                self.params, self.lora, self.caches, toks, pos, tables,
+                ring_len=self.ring_len)
+        else:
+            logits, self.caches = self.model.decode_step(
+                self.params, self.lora, self.caches, toks, pos)
+        self.stats.decode_steps += 1
+        last = logits[:, -1]
+        nxt = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per decode wave
+        if any(self.slot_req[i].samples for i in active):
+            # ONE batched host fetch of the wave's logits rows
+            rows = last.float().cpu().numpy()  # lint: host-sync-ok one batched logits pull per sampling tick
+            nxt = nxt.copy()
+            for i in active:
+                req = self.slot_req[i]
+                if req.samples:
+                    nxt[i] = sample_token(
+                        rows[i], temperature=req.temperature,
+                        top_k=req.top_k, top_p=req.top_p, rng=req.rng)
+        for i in active:
+            req = self.slot_req[i]
+            req.tokens.append(int(nxt[i]))
+            self.stats.generated_tokens += 1
+            self.slot_pos[i] += 1
+            self.slot_tok[i] = nxt[i]
+            if len(req.tokens) >= req.max_new_tokens \
+                    or int(nxt[i]) == self.eos_id:
+                self._record_finish(req, now)
+                self._evict(i)
+                finished.append(req)
+        return finished
+
+    def _evict(self, i: int) -> None:
+        """Free slot ``i`` completely: request, position AND feed token,
+        plus its blocks and unused reservation in paged mode."""
+        self.slot_req[i] = None
+        self.slot_pos[i] = 0
+        self.slot_tok[i] = 0
+        if self.paged:
+            self.allocator.free(self.slot_blocks[i])
+            self.slot_blocks[i] = []
+            self.allocator.release(int(self.slot_reserved[i]))
+            self.slot_reserved[i] = 0
+            self.block_tables[i, :] = 0   # back to scratch block 0
+            self._dev_tables = None
+
+    def drain_all(self) -> List[GenRequest]:
+        """Evict every active slot, clear the queue, and return all
+        unfinished requests with their partial tokens discarded.  In paged
+        mode every block and reservation returns to the allocator."""
+        out: List[GenRequest] = list(self.queue)
+        self.queue.clear()
+        for i in self.active_slots():
+            req = self.slot_req[i]
+            self._evict(i)
+            out.append(req)
+        for r in out:
+            r.tokens.clear()
+            r.rng = None
+        return out
+
+    # ------------------------------------------------------------------ run -
+    def run(self, requests: Sequence[GenRequest]) -> ServeStats:
+        """Drain ``requests`` to completion."""
+        for r in requests:
+            self.submit(r)
+        t0 = time.perf_counter()
+        while not self.idle():
+            self.step(now=time.perf_counter() - t0)
+        # every tick ended in its argmax pull, so the device is done
+        self.stats.wall_time += time.perf_counter() - t0
+        return self.stats
+
+    # ---------------------------------------------------------- telemetry --
+    def cache_bytes(self) -> int:
+        """Allocated KV cache bytes (pool + tables)."""
+        total = sum(t.numel() * t.element_size()
+                    for t in self.caches["kv"])
+        if self.paged:
+            total += self.block_tables.nbytes
+        return total
