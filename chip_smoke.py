@@ -4,19 +4,28 @@ NVIDIA Hopper card.
 
   python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
   device      the card (``nvidia-smi`` name and power limit), TF32 off;
-  build       nvcc builds every kernel under ``src/repro_torch/csrc``;
+  build       nvcc builds every kernel under ``src/repro_torch/csrc``,
+              one process per source, all started together;
   kernel      each kernel against its plain PyTorch version on the card,
-              at the serving shape and four more (long context, GQA,
-              pool blocks of 128 and 256 rows), float32 and bfloat16:
-              worst error, kernel / plain / library time (CUDA events,
-              median of 60, L2 flushed before each), and the least time
-              the card could take (bytes over 3.35 TB/s, operations over
-              the dtype's peak rate, whichever is larger);
+              float32 and bfloat16: paged_decode_attention at the serving
+              shape and four more (long context, GQA, pool blocks of 128
+              and 256 rows); lora_matmul at the decode, train, prefill,
+              long train and long prefill shapes of qwen1.5-0.5b and two
+              ragged shapes (M 1000 and 5), plus its backward (dX, dA, dB
+              of LoRAMatmulFn against autograd of the plain version) at
+              the train shapes and the decode shape.  Worst error, kernel / plain / library time
+              (CUDA events, median of REPS, L2 flushed before each), and
+              the least time the card could take (bytes over 3.35 TB/s,
+              operations over the dtype's peak rate, whichever is
+              larger);
   reference   the port on the card against the port on the CPU (plain
-              versions) at a reduced float32 config; full-width logits
-              finite and of the right shape;
+              versions) at a reduced float32 config: decode logits, one
+              train step's loss, LoRA gradients and updated adapter;
+              full-width logits finite and of the right shape, and a
+              full-width combined_step_paged whose logits equal a
+              decode_step_paged with the pre-update adapter;
   serve       qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
               random weights from a seed) through ``run_serving``: paged
               and contiguous with 32-token prompts, then with 992-token
@@ -24,10 +33,23 @@ Phases, each printing one JSON line:
               1024-row cache, viewed as 256-row blocks); every request
               finishes, the kernel ran 24 times per decode step, the
               allocator drains, all layouts of one traffic emit the same
-              tokens;
-  tick        where a full-width decode tick's time goes: host wall per
-              tick, and under torch.profiler the device time, the
-              attention kernel's share and the kernels launched per tick;
+              tokens, lora_matmul ran 96 times per prefill wave and per
+              decode step;
+  combined    the same server co-training its adapter on every tick
+              (``run_serving(combined=True)``, train batch 4 x prompt
+              length): paged and contiguous 32+16, paged 992+32; every
+              request finishes, one train step per tick with finite
+              losses, the allocator drains, and lora_matmul ran exactly
+              96 per prefill wave, 96 per decode tick and 96 + 93 per
+              train step (forward, then dX of every projection but layer
+              0's q/k/v, whose input is the frozen embedding);
+  train       ten full-width train steps on one fixed 4 x 256 batch: the
+              loss falls, 189 lora_matmul launches per step;
+  tick        where a full-width tick's time goes (serve ticks at 32- and
+              992-token prompts, and a combined tick with a 4 x 32 train
+              batch): host wall per tick, and under torch.profiler the
+              device time, each kernel's share and the kernels launched
+              per tick;
   kernels     one line over all ported kernels.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -40,6 +62,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -54,6 +77,24 @@ PEAK_OPS_S = {torch.float32: 67e12,    # f32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REPS = 60
 ARCH = "qwen1.5-0.5b"
+N_LAYERS = 24
+N_LORA = 96         # adapter projections per forward: 24 layers x q/k/v/o
+N_LORA_BWD = 93     # their dX in the backward, but layer 0's q/k/v
+LORA_SCALING = 2.0  # alpha / r = 32 / 16
+# kernel vs plain, relative to the plain output's largest magnitude:
+# float32 sums over K <= 2816 in another order; in bfloat16 both round
+# x @ A and the output to bf16, at most one ulp apart (2^-8..2^-7)
+LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+# (name, M, K, N, r): qwen1.5-0.5b's q/k/v/o at each caller's M; between
+# them they take each of the bf16 kernel's four tile shapes
+LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
+               ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
+               ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
+               ("train_256", 1024, 1024, 1024, 16),    # 4 x 256 tokens
+               ("train_long", 3968, 1024, 1024, 16),   # 4 x 992
+               ("prefill_long", 7936, 1024, 1024, 16), # 8 x 992
+               ("ragged", 1000, 1000, 2816, 16),       # no tile multiple
+               ("ragged_decode", 5, 1000, 2816, 16)]   # the same, M <= 16
 
 
 def emit(phase, **kw):
@@ -140,6 +181,7 @@ def attention_bound(q, kp, tables, kv_len):
 
 
 def phase_kernel(pda, pda_ref):
+    """paged_decode_attention against its plain version."""
     shapes = [
         ("serve", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=3)),
         ("long", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=64)),
@@ -197,11 +239,101 @@ def phase_kernel(pda, pda_ref):
     return rows
 
 
+# ------------------------------------------------------------- lora -------
+def lora_case(m, k, n, r, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+    a = torch.randn((k, r), generator=g, device="cuda") / k ** 0.5
+    b = torch.randn((r, n), generator=g, device="cuda") * 0.1
+    return tuple(t.to(dtype) for t in (x, w, a, b))
+
+
+def lora_bound(m, k, n, r, dtype):
+    """Least time for one call: x, W, A, B read once, the output written
+    once; 2 FLOP per multiply-add of x @ W, x @ A and (x @ A) @ B."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = (m * k + k * n + k * r + r * n + m * n) * elt
+    ops = 2 * m * k * n + 2 * m * k * r + 2 * m * r * n
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_OPS_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _rel_err(out, ref):
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def phase_kernel_lora(lm, lm_ref, fn_cls):
+    """lora_matmul against its plain version at the main path's shapes,
+    then its backward at the train shapes and at the decode shape (the
+    transposed operands on the M <= 16 tile)."""
+    rows = {}
+    for si, (name, m, k, n, r) in enumerate(LORA_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, a, b = lora_case(m, k, n, r, dtype, 200 + si)
+            out = lm(x, w, a, b, LORA_SCALING)
+            ref = lm_ref(x, w, a, b, LORA_SCALING)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            rel = _rel_err(out, ref)
+            # the library yardstick: one product with the merged weight
+            # (the merge is outside the timed call; the port never merges)
+            merged = w + LORA_SCALING * (a @ b)
+            row = {
+                "shape": name, "M": m, "K": k, "N": n, "r": r,
+                "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                "rel_err": rel, "rel_tol": LORA_TOL[dtype],
+                "ms": device_ms(lambda: lm(x, w, a, b, LORA_SCALING)),
+                "plain_ms": device_ms(
+                    lambda: lm_ref(x, w, a, b, LORA_SCALING)),
+                "library_ms": device_ms(lambda: x @ merged),
+            }
+            row["bound_ms"], row["bound_by"] = lora_bound(m, k, n, r, dtype)
+            emit("kernel", kernel="lora_matmul", **row)
+            if not rel <= LORA_TOL[dtype]:
+                raise AssertionError(
+                    f"lora_matmul {name} {dtype}: kernel vs plain error "
+                    f"{rel} of the largest output, beyond {LORA_TOL[dtype]}")
+            rows[(name, dtype)] = row
+    for name, m, k, n, r in LORA_SHAPES:
+        if not (name.startswith("train") or name == "decode"):
+            continue
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, a, b = lora_case(m, k, n, r, dtype, 300)
+            dy = torch.randn((m, n), device="cuda").to(dtype)
+            xk, ak, bk = (t.clone().requires_grad_() for t in (x, a, b))
+            got = torch.autograd.grad(
+                fn_cls.apply(xk, w, ak, bk, LORA_SCALING), (xk, ak, bk), dy)
+            xr, ar, br = (t.clone().requires_grad_() for t in (x, a, b))
+            want = torch.autograd.grad(
+                lm_ref(xr, w, ar, br, LORA_SCALING), (xr, ar, br), dy)
+            errs = {g: _rel_err(u, v)
+                    for g, u, v in zip(("dx", "da", "db"), got, want)}
+            # bf16: the kernel path rounds t = s dY B^T and x A to bf16
+            # before the rank-r products, autograd of the plain version
+            # only at the end: a bf16 ulp of those, as in the forward
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            emit("kernel_backward", kernel="lora_matmul", shape=name,
+                 M=m, dtype=str(dtype).split(".")[-1], rel_tol=tol,
+                 **{f"{g}_rel_err": e for g, e in errs.items()})
+            if max(errs.values()) > tol:
+                raise AssertionError(
+                    f"LoRAMatmulFn {name} {dtype}: {errs} beyond {tol}")
+    return rows
+
+
 # --------------------------------------------------------- reference -----
-def phase_reference(get_config, build):
+def phase_reference(get_config, build, make_engine, lm):
     """The port on the card against the port on the CPU on the same
-    float32 weights (reduced config), then full-width logits sanity."""
+    float32 weights (reduced config): decode logits, then one train
+    step; full-width logits sanity; a full-width combined step against
+    a decode with the pre-update adapter."""
+    from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.paging import blocks_for
+    from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config(ARCH).scaled()
     cpu = build(cfg, "cpu")
     gpu = build(cfg, "cuda")
@@ -210,11 +342,6 @@ def phase_reference(get_config, build):
     for pair in lora.values():              # a live bypass: b != 0
         pair["b"].normal_(0.0, 0.1, generator=torch.Generator()
                           .manual_seed(2))
-
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        return tree.to(dev)
 
     lens = torch.tensor([5, 9, 3], dtype=torch.int32)
     toks = torch.randint(0, cfg.vocab_size, (3, 12),
@@ -226,8 +353,10 @@ def phase_reference(get_config, build):
     for j, n in enumerate(lens.tolist()):
         wave[j, blocks_for(n, bs):] = 1 + 3 * nb     # dropped
     outs, feed = {}, None
+    lm.launches = 0
     for name, m in (("cpu", cpu), ("cuda", gpu)):
-        p, lo = to(params, m.device), to(lora, m.device)
+        p, lo = (tree_map(lambda t: t.to(m.device), tree)
+                 for tree in (params, lora))
         logits, pre = m.prefill_ragged(p, lo, {"tokens": toks.to(m.device)},
                                        lens.to(m.device))
         caches = m.write_prefill_blocks(m.init_paged_caches(1 + 3 * nb, bs),
@@ -248,6 +377,45 @@ def phase_reference(get_config, build):
     if worst >= 5e-5:
         raise AssertionError(f"card vs CPU logits differ by {worst} "
                              "(relative to their largest magnitude)")
+    if lm.launches == 0:
+        raise AssertionError("the card's reference run never launched "
+                             "lora_matmul")
+
+    # one train step, card vs CPU, same weights and batch (lr 1e-3)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab_size, (4, 25))
+    batch = {"tokens": torch.tensor(toks[:, :-1]),
+             "labels": torch.tensor(toks[:, 1:]),
+             "mask": torch.ones((4, 24))}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(cfg, lr=1e-3, device=dev)
+        p, lo, bt = (tree_map(lambda t: t.to(dev), tree)
+                     for tree in (params, lora, batch))
+        loss, _, grads = eng.loss_and_grads(p, lo, bt)
+        new, _, met = eng.train_step(p, lo, eng.optimizer.init(lo), bt)
+        res[dev] = (loss.cpu(), [g.cpu() for g in tree_leaves(grads)],
+                    [t.cpu() for t in tree_leaves(new)], met["loss"].cpu())
+    loss_err = float((res["cuda"][0] - res["cpu"][0]).abs()
+                     / res["cpu"][0].abs())
+    grad_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                   for a, b in zip(res["cuda"][1], res["cpu"][1]))
+    lora_err = max(float((a - b).abs().max())
+                   for a, b in zip(res["cuda"][2], res["cpu"][2]))
+    lora_ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                  for a, b in zip(res["cuda"][2], res["cpu"][2]))
+    # tolerances: the loss is one float32 reduction (1e-5 relative);
+    # gradients sum over every position in another order (1e-4 of each
+    # leaf's largest); the adapter moves ~lr = 1e-3 per element, so 1e-6
+    # absolute is 0.1% of the step
+    emit("reference_train", reduced_config=cfg.name, dtype="float32",
+         loss_rel_err=loss_err, loss_tol=1e-5, grad_rel_err=grad_err,
+         grad_tol=1e-4, updated_lora_max_abs_err=lora_err,
+         updated_lora_tol="rtol 1e-5, atol 1e-6",
+         step_loss_cpu=float(res["cpu"][3]),
+         step_loss_cuda=float(res["cuda"][3]))
+    if not (loss_err < 1e-5 and grad_err < 1e-4 and lora_ok):
+        raise AssertionError("train step: card vs CPU beyond tolerance")
 
     full = build(get_config(ARCH), "cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -271,13 +439,49 @@ def phase_reference(get_config, build):
              dec.shape))
     if not (finite and shape_ok):
         raise AssertionError("full-width logits not finite or misshapen")
-    del full, params, lora, caches, pre, logits, dec
+
+    # full-width combined step: its logits come from the pre-update
+    # adapter, so they equal a plain decode with that adapter on the
+    # same cache (identical kernels on identical inputs: bitwise)
+    eng = make_engine(full.cfg, lr=3e-3, device="cuda")
+    for leaf in tree_leaves(lora):                # a live bypass: b != 0
+        if leaf.shape[1] == full.cfg.lora.rank:
+            leaf.normal_(0.0, 0.02, generator=gen)
+    pool = full.init_paged_caches(1 + 8 * 2, 16)
+    tables = torch.arange(1, 17, dtype=torch.int32,
+                          device="cuda").reshape(8, 2)
+    tok = toks[:, :1]
+    pos = torch.zeros(8, dtype=torch.int32, device="cuda")
+    data = SyntheticDataset("alpaca", vocab_size=full.cfg.vocab_size,
+                            seq_len=256, seed=0)
+    tb = {k: torch.as_tensor(v, device="cuda")
+          for k, v in data.batch(4).items()}
+    before = [t.clone() for t in tree_leaves(lora)]
+    snap = {"kv": tuple(t.clone() for t in pool["kv"])}
+    new_lora, _, comb, _, met = eng.combined_step_paged(
+        params, lora, eng.optimizer.init(lora), tb, pool, tok, pos, tables)
+    ref, _ = full.decode_step_paged(params, lora, snap, tok, pos, tables)
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(tree_leaves(new_lora), before))
+    untouched = all(torch.equal(a, b)
+                    for a, b in zip(tree_leaves(lora), before))
+    comb_err = float((comb.float() - ref.float()).abs().max())
+    emit("reference_combined", config=full.cfg.name, dtype="bfloat16",
+         logits_vs_pre_update_decode_max_abs_err=comb_err, tol=0.0,
+         pre_update_adapter_untouched=untouched,
+         adapter_max_move=moved, train_loss=float(met["ce_loss"]))
+    if comb_err != 0.0 or not untouched or moved == 0.0 \
+            or not np.isfinite(float(met["ce_loss"])):
+        raise AssertionError("combined step: logits are not the pre-update "
+                             "adapter's, or the adapter did not train")
+    del full, eng, params, lora, new_lora, caches, pool, snap, pre, logits
+    del dec, comb, ref, tb
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------- serving ----
-def phase_serve(run_serving, pda):
-    n_layers = 24
+def phase_serve(run_serving, pda, lm):
+    n_layers = N_LAYERS
     runs = [("paged", dict(paged=True, prompt_len=32, gen_tokens=16)),
             ("contiguous", dict(paged=False, prompt_len=32, gen_tokens=16)),
             ("paged_long", dict(paged=True, prompt_len=992, gen_tokens=32)),
@@ -289,10 +493,10 @@ def phase_serve(run_serving, pda):
     for name, kw in runs:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pda.launches = 0                                  # main path starts
+        pda.launches = lm.launches = 0                    # main path starts
         out = run_serving(ARCH, smoke=False, n_requests=16, batch_size=8,
                           seed=0, device="cuda", verbose=False, **kw)
-        launches = pda.launches                           # main path ends
+        launches, lora_launches = pda.launches, lm.launches  # path ends
         gen = kw["gen_tokens"]
         row = {
             "run": name, "prompt_len": kw["prompt_len"], "gen_tokens": gen,
@@ -300,7 +504,9 @@ def phase_serve(run_serving, pda):
             "finished": out["finished"],
             "tokens_generated": out["tokens_generated"],
             "decode_steps": out["decode_steps"],
+            "prefill_waves": out["prefill_waves"],
             "kernel_launches": launches,
+            "lora_matmul_launches": lora_launches,
             "throughput_tok_s": out["throughput_tok_s"],
             "wall_s": out["wall_s"],
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -319,6 +525,12 @@ def phase_serve(run_serving, pda):
             raise AssertionError(
                 f"{name}: {launches} kernel launches for "
                 f"{out['decode_steps']} decode steps of {n_layers} layers")
+        if lora_launches != N_LORA * (out["decode_steps"]
+                                      + out["prefill_waves"]):
+            raise AssertionError(
+                f"{name}: {lora_launches} lora_matmul launches for "
+                f"{out['decode_steps']} decode steps and "
+                f"{out['prefill_waves']} prefill waves")
         if kw["paged"] and (out["blocks_used_at_end"]
                             or out["blocks_reserved_at_end"]):
             raise AssertionError(f"{name}: allocator did not drain")
@@ -336,57 +548,180 @@ def phase_serve(run_serving, pda):
     return results
 
 
+# ------------------------------------------------------------ combined ----
+def phase_combined(run_serving, pda, lm):
+    """Serving while co-training the adapter on every tick."""
+    runs = [("paged", dict(paged=True, prompt_len=32, gen_tokens=16)),
+            ("contiguous", dict(paged=False, prompt_len=32, gen_tokens=16)),
+            ("paged_long", dict(paged=True, prompt_len=992, gen_tokens=32))]
+    results = {}
+    for name, kw in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pda.launches = lm.launches = 0                    # main path starts
+        out = run_serving(ARCH, smoke=False, n_requests=16, batch_size=8,
+                          combined=True, train_batch=4, seed=0,
+                          device="cuda", verbose=False, **kw)
+        launches, lora_launches = pda.launches, lm.launches  # path ends
+        gen, losses = kw["gen_tokens"], out["train_losses"]
+        want = (N_LORA * out["prefill_waves"] + N_LORA * out["decode_steps"]
+                + (N_LORA + N_LORA_BWD) * out["train_steps"])
+        row = {
+            "run": name, "prompt_len": kw["prompt_len"], "gen_tokens": gen,
+            "train_batch": [4, kw["prompt_len"]],
+            "finished": out["finished"],
+            "tokens_generated": out["tokens_generated"],
+            "decode_steps": out["decode_steps"],
+            "prefill_waves": out["prefill_waves"],
+            "train_steps": out["train_steps"],
+            "lora_matmul_launches": lora_launches,
+            "lora_matmul_launches_derived": want,
+            "attention_launches": launches,
+            "throughput_tok_s": out["throughput_tok_s"],
+            "wall_s": out["wall_s"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+        }
+        if kw["paged"]:
+            row.update(blocks_used_at_end=out["blocks_used_at_end"],
+                       blocks_reserved_at_end=out["blocks_reserved_at_end"])
+        emit("combined", **row)
+        if out["finished"] != 16 or any(len(t) != gen for t in out["tokens"]):
+            raise AssertionError(f"combined {name}: not every request "
+                                 "finished")
+        # every tick had an active slot, so ticks == decode steps
+        if out["train_steps"] != out["decode_steps"] \
+                or len(losses) != out["train_steps"]:
+            raise AssertionError(f"combined {name}: {out['train_steps']} "
+                                 f"train steps for {out['decode_steps']} "
+                                 "ticks")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"combined {name}: non-finite loss")
+        if kw["paged"] and (out["blocks_used_at_end"]
+                            or out["blocks_reserved_at_end"]):
+            raise AssertionError(f"combined {name}: allocator did not "
+                                 "drain")
+        if lora_launches != want:
+            raise AssertionError(f"combined {name}: {lora_launches} "
+                                 f"lora_matmul launches, derived {want}")
+        if launches != N_LAYERS * out["decode_steps"]:
+            raise AssertionError(f"combined {name}: {launches} attention "
+                                 "launches")
+        results[name] = row
+    return results
+
+
+def phase_train(make_engine, get_config, lm, steps=10):
+    """Full-width train steps on one fixed batch: the loss must fall."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    cfg = get_config(ARCH)
+    eng = make_engine(cfg, lr=3e-3, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = eng.model.init(gen)
+    lora = eng.model.init_lora(gen)
+    opt = eng.optimizer.init(lora)
+    data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
+                            seq_len=256, seed=1)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in data.batch(4).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    for _ in range(steps):
+        lm.launches = 0
+        t0 = time.perf_counter()
+        lora, opt, met = eng.train_step(params, lora, opt, batch)
+        losses.append(float(met["ce_loss"]))      # syncs
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(lm.launches)
+    emit("train", config=cfg.name, batch=[4, 256], lr=3e-3, losses=losses,
+         step_ms=times, lora_matmul_launches_per_step=per_step,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss did not fall {losses}")
+    if set(per_step) != {N_LORA + N_LORA_BWD}:
+        raise AssertionError(f"train: lora_matmul launches {per_step}")
+
+
 # ---------------------------------------------------------------- tick ----
 def _device_us(evt):
     return getattr(evt, "self_device_time_total", None) \
         or getattr(evt, "self_cuda_time_total", 0)
 
 
+def _is_lora(key):
+    return "lora_mma_kernel" in key or "lora_fma_kernel" in key
+
+
 def phase_tick(make_engine, get_config, n=5):
-    """Where a full-width decode tick's time goes (paged, 8 busy slots):
-    host wall per tick, then under torch.profiler the device time its
-    kernels take, the attention kernel's part, and kernels per tick."""
+    """Where a full-width tick's time goes (paged, 8 busy slots): serve
+    ticks at two prompt lengths and a combined tick (train batch 4 x 32,
+    built before timing).  Host wall per tick, then under torch.profiler
+    the device time its kernels take, each ported kernel's part, and
+    kernels per tick."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
     cfg = get_config(ARCH)
-    engine = make_engine(cfg, "cuda")
+    engine = make_engine(cfg, lr=3e-3, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = engine.model.init(gen)
     lora = engine.model.init_lora(gen)
     rng = np.random.default_rng(0)
-    for name, plen in (("serve", 32), ("long", 992)):
+    data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size, seq_len=32,
+                            seed=0)
+    for name, plen, train in (("serve", 32, False), ("long", 992, False),
+                              ("combined", 32, True)):
         b = ContinuousBatcher(engine, params, lora, n_slots=8,
-                              max_seq=plen + 16, prompt_pad=plen, paged=True)
+                              max_seq=plen + 16, prompt_pad=plen, paged=True,
+                              opt_state=engine.optimizer.init(lora))
         for i in range(8):
             b.submit(GenRequest(request_id=i, max_new_tokens=16,
                                 prompt=rng.integers(0, cfg.vocab_size, plen)))
+        # train batches on the card before any timing
+        batches = iter([{k: torch.as_tensor(v, device="cuda")
+                         for k, v in data.batch(4).items()}
+                        for _ in range(3 + 2 * n)] if train else [])
+
+        def tick():
+            b.step(train_batch=next(batches, None))
+
         for _ in range(3):                   # admission wave + warm ticks
-            b.step()
+            tick()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(n):
-            b.step()
+            tick()
         host_ms = (time.perf_counter() - t0) / n * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                b.step()
+                tick()
             torch.cuda.synchronize()
             prof_ms = (time.perf_counter() - t0) / n * 1e3
         assert len(b.active_slots()) == 8, "a slot finished inside the window"
+        assert b.stats.train_steps == (3 + 2 * n if train else 0)
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_ms = sum(_device_us(e) for e in kern) / 1e3 / n
         attn_ms = sum(_device_us(e) for e in kern
                       if "paged_decode_kernel" in e.key) / 1e3 / n
+        lora_ms = sum(_device_us(e) for e in kern
+                      if _is_lora(e.key)) / 1e3 / n
         top = sorted(kern, key=_device_us, reverse=True)[:6]
         emit("tick", context=name, prompt_len=plen, slots=8,
+             train_batch=[4, 32] if train else None,
              host_ms_per_tick=host_ms, profiled_wall_ms_per_tick=prof_ms,
              device_busy_ms_per_tick=dev_ms,
              device_busy_share=dev_ms / prof_ms if prof_ms else None,
              attention_ms_per_tick=attn_ms,
              attention_share_of_device=attn_ms / dev_ms if dev_ms else None,
+             lora_matmul_ms_per_tick=lora_ms,
+             lora_matmul_share_of_device=lora_ms / dev_ms if dev_ms else None,
+             lora_matmul_launches_per_tick=sum(
+                 e.count for e in kern if _is_lora(e.key)) / n,
              kernels_per_tick=sum(e.count for e in kern) / n,
              top_kernels_ms_per_tick=[[e.key[:60], _device_us(e) / 1e3 / n]
                                       for e in top])
@@ -401,6 +736,8 @@ def main():
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention as pda, paged_decode_attention_ref as pda_ref)
+    from repro_torch.kernels.lora_matmul import (
+        LoRAMatmulFn, lora_matmul as lm, lora_matmul_ref as lm_ref)
     from repro_torch.launch.serve import run_serving
     from repro_torch.models.model import build
 
@@ -415,15 +752,20 @@ def main():
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
 
+    # one nvcc per source, all started together: library() builds on
+    # first use and waits on nvcc outside the GIL
     t0 = time.perf_counter()
     built = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
-    for name in built:
-        _build.library(name)
+    with ThreadPoolExecutor(len(built)) as pool:
+        list(pool.map(_build.library, built))
     emit("build", seconds=time.perf_counter() - t0, built=built)
 
     rows = phase_kernel(pda, pda_ref)
-    phase_reference(get_config, build)
-    serve = phase_serve(run_serving, pda)
+    lrows = phase_kernel_lora(lm, lm_ref, LoRAMatmulFn)
+    phase_reference(get_config, build, make_engine, lm)
+    serve = phase_serve(run_serving, pda, lm)
+    combined = phase_combined(run_serving, pda, lm)
+    phase_train(make_engine, get_config, lm)
     phase_tick(make_engine, get_config)
 
     main_row = rows[("serve", torch.bfloat16)]
@@ -442,6 +784,26 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "lora_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/lora_matmul.cu",
+        "replaces": "src/repro/kernels/lora_matmul.py:57",
+        # the co-training server, paged 32+16: prefill, decode and train
+        "launches": combined["paged"]["lora_matmul_launches"],
+        "shape": "decode M=8 K=N=1024 r=16 bf16",
+        "max_abs_err": lrows[("decode", torch.bfloat16)]["max_abs_err"],
+        "worst_bf16_rel_err_all_shapes": max(
+            r["rel_err"] for (n, dt), r in lrows.items()
+            if dt == torch.bfloat16),
+        **{k: lrows[("decode", torch.bfloat16)][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms")},
+        "bf16_shapes": {n: {k: r[k] for k in ("M", "ms", "plain_ms",
+                                                "bound_ms", "bound_by",
+                                                "library_ms")}
+                        for (n, dt), r in lrows.items()
+                        if dt == torch.bfloat16},
     }]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ The JAX ``Model.init`` / ``init_lora`` trees, turned into numpy leaf for
 leaf by the caller, have exactly the port's layout (nested dicts,
 stacked ``[L, ...]`` block leaves, ``[in, out]`` matrices), so loading
 is a per-leaf conversion that keeps dtypes: params in
-``cfg.param_dtype``, LoRA pairs in float32.
+``cfg.param_dtype``, LoRA pairs in float32.  An AdamW state (step, m, v)
+converts the same way, so a test can carry a JAX optimizer state across.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.optim.adamw import AdamWState
 
 
 def _tensor(arr: Any, dtype: torch.dtype, device) -> torch.Tensor:
@@ -39,3 +41,14 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, device="cuda") -> Dict:
 def lora_from_numpy(tree: Dict, device="cuda") -> Dict:
     """A JAX LoRA tree (numpy leaves) -> the port's, float32."""
     return _tree(tree, torch.float32, torch.device(device))
+
+
+def opt_state_from_numpy(state: Any, device="cuda") -> AdamWState:
+    """A JAX ``AdamWState`` (numpy leaves, or anything with ``step``,
+    ``m`` and ``v``) -> the port's: int32 step, float32 moments."""
+    dev = torch.device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        m=_tree(state.m, torch.float32, dev),
+        v=_tree(state.v, torch.float32, dev))

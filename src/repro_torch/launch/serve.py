@@ -4,15 +4,18 @@ one model replica (``repro.launch.serve``'s single-batcher path).
 Prompts run through a real ragged prefill, finished sequences are
 evicted and new requests admitted mid-flight, and every decode tick runs
 the paged-decode-attention kernel in every layer, over either cache
-layout.  Weights are random, drawn from ``--seed``.  The multi-replica
-fabric, co-training (``--combined``) and the batcher's optional features
-are not ported yet (see ROADMAP.md).
+layout; every LoRA projection runs the fused lora_matmul kernel.
+``--combined`` co-trains the LoRA adapter on every tick (one fused train
+step per decode tick, over the same base weights).  Weights are random,
+drawn from ``--seed``.  The multi-replica fabric and the batcher's
+optional features are not ported yet (see ROADMAP.md).
 
 Usage (on a machine with an NVIDIA Hopper card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --requests 16 --prompt-len 32 --gen 16
   ... --paged --block-size 16 --n-blocks 64   # paged KV cache
-  ... --smoke --device cpu                    # reduced config on the CPU
+  ... --combined --train-batch 4              # co-train the adapter
+  ... --smoke --device cpu [--combined]       # reduced config on the CPU
                                               # (plain PyTorch versions)
 """
 from __future__ import annotations
@@ -30,18 +33,21 @@ from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
 
 def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
                 prompt_len: int = 32, gen_tokens: int = 16,
-                batch_size: int = 8, seed: int = 0, paged: bool = False,
+                batch_size: int = 8, combined: bool = False,
+                train_batch: int = 4, seed: int = 0, paged: bool = False,
                 block_size: int = 16, n_blocks: int = 0,
                 temperature: float = 0.0, top_k: int = 0,
                 top_p: float = 1.0, device="cuda",
                 verbose: bool = True) -> dict:
     """Serve ``n_requests`` synthetic prompts on a ``batch_size``-slot
     continuous batcher on ``device``; returns throughput and counts,
-    each request's tokens, and (paged) the allocator's end state."""
+    each request's tokens, (paged) the allocator's end state, and
+    (``combined``) the loss of the train step each tick co-ran on a
+    fresh ``train_batch`` x ``prompt_len`` synthetic batch."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.scaled()
-    engine = make_engine(cfg, device)
+    engine = make_engine(cfg, lr=3e-3, device=device)
     model = engine.model
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init(gen)
@@ -51,14 +57,20 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
     batcher = ContinuousBatcher(
         engine, params, lora, n_slots=batch_size,
         max_seq=prompt_len + gen_tokens, prompt_pad=prompt_len,
-        paged=paged, block_size=block_size, n_blocks=n_blocks or None)
+        opt_state=engine.optimizer.init(lora), paged=paged,
+        block_size=block_size, n_blocks=n_blocks or None)
     prompts = data.sample_tokens(n_requests)[:, :prompt_len]
     requests = [GenRequest(request_id=i, prompt=prompts[i],
                            max_new_tokens=gen_tokens,
                            temperature=temperature, top_k=top_k,
                            top_p=top_p, seed=seed + i)
                 for i in range(n_requests)]
-    stats = batcher.run(requests)
+
+    def train_fn():
+        return data.batch(train_batch)
+
+    stats = batcher.run(requests, train_data_fn=train_fn if combined
+                        else None)
     per_req = [r.finished_at for r in requests
                if r.finished_at is not None]
     out = {
@@ -66,6 +78,9 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         "tokens_generated": stats.generated_tokens,
         "prefill_tokens": stats.prefill_tokens,
         "decode_steps": stats.decode_steps,
+        "prefill_waves": batcher.prefill_waves,
+        "train_steps": stats.train_steps,
+        "train_losses": batcher.train_losses,
         "wall_s": stats.wall_time,
         "mean_completion_s": float(np.mean(per_req)) if per_req else 0.0,
         "throughput_tok_s": stats.throughput(),
@@ -83,7 +98,11 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
               f"decode steps, {out['throughput_tok_s']:.1f} tok/s on "
               f"{model.device}"
               + (f" (sampled, T={temperature:g})" if temperature > 0
-                 else ""))
+                 else "")
+              + (f"; co-trained {stats.train_steps} fused steps "
+                 f"(loss {batcher.train_losses[0]:.3f} -> "
+                 f"{batcher.train_losses[-1]:.3f})"
+                 if batcher.train_losses else ""))
     return out
 
 
@@ -97,6 +116,10 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--combined", action="store_true",
+                    help="co-train the LoRA adapter on every tick")
+    ap.add_argument("--train-batch", type=int, default=4,
+                    help="co-running train batch (--combined)")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=0,
@@ -114,7 +137,8 @@ def main() -> None:
     args = ap.parse_args()
     run_serving(args.arch, smoke=args.smoke, n_requests=args.requests,
                 prompt_len=args.prompt_len, gen_tokens=args.gen,
-                batch_size=args.batch, paged=args.paged,
+                batch_size=args.batch, combined=args.combined,
+                train_batch=args.train_batch, paged=args.paged,
                 block_size=args.block_size, n_blocks=args.n_blocks,
                 temperature=args.temperature, top_k=args.top_k,
                 top_p=args.top_p, seed=args.seed, device=args.device)

@@ -2,7 +2,10 @@
 
 One ``{"a": [L, din, r], "b": [L, r, dout]}`` pair per target projection,
 float32 (adapters train in f32), applied as a low-rank bypass over the
-frozen, shared base weights.
+frozen, shared base weights.  The model's projections go through
+``project``, which computes the base product and the bypass in one
+``kernels.lora_matmul`` call; ``apply`` is the unfused form, kept as the
+plain version of the same function.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.lora_matmul import LoRAMatmulFn, lora_matmul
 
 
 def target_dims(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
@@ -66,3 +70,22 @@ def apply(x: torch.Tensor, base_out: torch.Tensor, pair: Optional[Dict],
     a = pair["a"].to(x.dtype)
     b = pair["b"].to(x.dtype)
     return base_out + ((x @ a) @ b) * scaling
+
+
+def project(x: torch.Tensor, w: torch.Tensor, pair: Optional[Dict],
+            scaling: float) -> torch.Tensor:
+    """x @ w + scaling * (x @ A) @ B in one fused ``lora_matmul`` over
+    x's rows, with A and B cast to x's dtype first (as the JAX bypass
+    does); through ``LoRAMatmulFn`` when autograd has to see it.  Without
+    an adapter it is the plain product ``x @ w``."""
+    if pair is None:
+        return x @ w
+    a = pair["a"].to(x.dtype)
+    b = pair["b"].to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x2.requires_grad or a.requires_grad
+                                    or b.requires_grad):
+        y = LoRAMatmulFn.apply(x2, w, a, b, scaling)
+    else:
+        y = lora_matmul(x2, w, a, b, scaling)
+    return y.reshape(*x.shape[:-1], w.shape[1])

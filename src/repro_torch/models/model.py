@@ -2,6 +2,7 @@
 serving surface of ``repro.models.model.Model`` for the dense family:
 
   init(generator) -> params              init_lora(generator) -> adapters
+  forward_loss(params, lora, batch)      (training objective), logits
   prefill_ragged(params, lora, batch, prompt_lens) -> (logits, caches)
   decode_step / decode_step_paged        (one token per sequence)
   init_caches / init_paged_caches        write_prefill_slots / _blocks
@@ -16,16 +17,46 @@ same tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dense_init, rms_norm, rope_tables
+
+
+# ------------------------------------------------------------------ loss ---
+def _chunk_ce(h, head, y, m):
+    logits = (h @ head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, y[..., None].long())[..., 0]
+    return ((logz - ll) * m).sum(), m.sum()
+
+
+def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor,
+                    chunk: int = 512) -> Tuple[torch.Tensor, Dict]:
+    """Cross-entropy over a vocab head without keeping ``[B,S,V]`` f32
+    logits alive: sequence chunks of ``chunk`` (plus the remainder), each
+    under a non-reentrant ``torch.utils.checkpoint``, so its logits are
+    freed after the forward and rematerialised in the backward (the JAX
+    version scans chunks under ``jax.checkpoint``)."""
+    s = hidden.shape[1]
+    chunk = min(chunk, s)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, chunk):
+        sl = slice(lo, min(lo + chunk, s))
+        l_, c_ = checkpoint(_chunk_ce, hidden[:, sl], head, labels[:, sl],
+                            mask[:, sl], use_reentrant=False)
+        tot, cnt = tot + l_, cnt + c_
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss, {"loss_sum": tot, "token_count": cnt}
 
 
 def resolve_device(device) -> torch.device:
@@ -106,6 +137,25 @@ class Model:
         caches = {"kv": (torch.stack(ks), torch.stack(vs))} \
             if collect_caches else None
         return rms_norm(x, params["final_norm"]), caches
+
+    # --------------------------------------------------------------- loss --
+    def forward_loss(self, params, lora, batch, *, ce_chunk: int = 512):
+        """Training objective: chunked next-token CE plus 0.01 x the
+        auxiliary loss (zero for the dense family).  Returns (total,
+        metrics ``ce_loss``, ``aux_loss``, ``loss_sum``, ``token_count``)."""
+        hidden, _ = self.hidden_states(params, lora, batch)
+        loss, metrics = chunked_ce_loss(
+            hidden, params["lm_head"], batch["labels"],
+            batch["mask"].float(), chunk=ce_chunk)
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        metrics["aux_loss"] = aux
+        metrics["ce_loss"] = loss
+        return loss + 0.01 * aux, metrics
+
+    def logits(self, params, lora, batch) -> torch.Tensor:
+        """Full-vocab logits for the whole sequence (small inputs only)."""
+        hidden, _ = self.hidden_states(params, lora, batch)
+        return hidden @ params["lm_head"]
 
     # ------------------------------------------------------------- caches --
     def _cache_dtype(self, dtype) -> torch.dtype:

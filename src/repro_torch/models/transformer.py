@@ -4,6 +4,8 @@
   x += attn(norm1(x)); x += mlp(norm2(x))
 
 Block params are one layer's slice of the stacked ``[L, ...]`` tree.
+Every projection goes through ``lora.project``: an adapter-bearing one
+is one fused ``lora_matmul`` kernel call, the others a plain product.
 Decode writes the new token's K/V into the caller's cache tensors IN
 PLACE (the JAX blocks return new caches); the returned caches are the
 same tensors.
@@ -77,9 +79,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 # ------------------------------------------------------------- attention ---
 def _proj_qkv(p, x, cfg: ModelConfig, lora):
     sc = cfg.lora.scaling
-    q = lora_lib.apply(x, x @ p["wq"], lora.get("q") if lora else None, sc)
-    k = lora_lib.apply(x, x @ p["wk"], lora.get("k") if lora else None, sc)
-    v = lora_lib.apply(x, x @ p["wv"], lora.get("v") if lora else None, sc)
+    q = lora_lib.project(x, p["wq"], lora.get("q") if lora else None, sc)
+    k = lora_lib.project(x, p["wk"], lora.get("k") if lora else None, sc)
+    v = lora_lib.project(x, p["wv"], lora.get("v") if lora else None, sc)
     if "bq" in p:                      # bias after the LoRA bypass
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     b, s = x.shape[0], x.shape[1]
@@ -93,8 +95,8 @@ def _proj_qkv(p, x, cfg: ModelConfig, lora):
 
 
 def _out_proj(p, o, cfg: ModelConfig, lora):
-    return lora_lib.apply(o, o @ p["wo"], lora.get("o") if lora else None,
-                          cfg.lora.scaling)
+    return lora_lib.project(o, p["wo"], lora.get("o") if lora else None,
+                            cfg.lora.scaling)
 
 
 def use_dense_prefill(cfg: ModelConfig, s: int) -> bool:
@@ -178,13 +180,12 @@ def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
 def _mlp_out(bp, h, cfg: ModelConfig, lora):
     sc = cfg.lora.scaling
     mlp = bp["mlp"]
-    g = lora_lib.apply(h, h @ mlp["wg"], lora.get("gate") if lora else None,
-                       sc)
-    u = lora_lib.apply(h, h @ mlp["wu"], lora.get("up") if lora else None,
-                       sc)
+    g = lora_lib.project(h, mlp["wg"], lora.get("gate") if lora else None,
+                         sc)
+    u = lora_lib.project(h, mlp["wu"], lora.get("up") if lora else None, sc)
     hidden = F.silu(g) * u
-    return lora_lib.apply(hidden, hidden @ mlp["wd"],
-                          lora.get("down") if lora else None, sc)
+    return lora_lib.project(hidden, mlp["wd"],
+                            lora.get("down") if lora else None, sc)
 
 
 def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None):

@@ -20,16 +20,23 @@ positions, and evicts finished requests so the next ones are admitted
 mid-flight.  Both decode layouts run the paged-decode-attention kernel
 in every layer.  The host reads back one argmax per wave.
 
+Co-serving: passing a training batch to ``step`` runs the engine's
+``combined_step[_paged]`` — the decode wave reads the published adapter
+``self.lora`` while the optimizer steps the train tree (``train_lora``
+when a train session staged a shadow, else ``self.lora`` itself, which
+is replaced by the trained tree after the tick).  A tick with no active
+slot trains alone.  The host pulls the train metrics once per tick.
+
 Not ported yet (the constructor raises ``NotImplementedError``): prefix
-caching, multi-LoRA adapters, chunked prefill, the TPOT token budget,
-oversubscription, and co-training ticks (``step(train_batch=...)``).
+caching, multi-LoRA adapters, chunked prefill, the TPOT token budget
+and oversubscription.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Any, Deque, List, Optional, Sequence
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,7 +104,11 @@ class ServeStats:
     prefill_tokens: int = 0
     generated_tokens: int = 0
     decode_steps: int = 0
+    train_steps: int = 0
     wall_time: float = 0.0
+    # latest train CE loss of a combined or plain train tick (NaN until
+    # the batcher has trained)
+    train_loss: float = float("nan")
 
     def throughput(self) -> float:
         return self.generated_tokens / max(self.wall_time, 1e-9)
@@ -113,10 +124,13 @@ class ContinuousBatcher:
     """Fixed-slot continuous batching over one model replica (see the
     module docstring).  ``params`` and ``lora`` are the port's tensor
     trees on the model's device; every prefill and decode reads ``lora``.
+    ``opt_state`` (the engine optimizer's state of the train tree) is
+    needed for co-training ticks.
     """
 
     def __init__(self, engine, params, lora, *, n_slots: int = 8,
                  max_seq: int = 128, prompt_pad: int = 32,
+                 opt_state: Any = None,
                  eos_id: Optional[int] = None, paged: bool = False,
                  block_size: int = 16, n_blocks: Optional[int] = None,
                  prefix_cache: bool = False, adapters: Any = None,
@@ -144,6 +158,7 @@ class ContinuousBatcher:
         self.cfg = cfg
         self.params = params
         self.lora = lora
+        self.opt_state = opt_state
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.prompt_pad = min(prompt_pad, max_seq)
@@ -183,6 +198,15 @@ class ContinuousBatcher:
         self.slot_pos = np.zeros(n_slots, np.int32)   # next write position
         self.slot_tok = np.zeros(n_slots, np.int32)   # next token to feed
         self.stats = ServeStats()
+        self.prefill_waves = 0
+        # co-training: CE loss per train tick, the shadow tree a train
+        # session trains instead of self.lora (None: train self.lora in
+        # place), microbatches per train step, and host copies of the
+        # latest step's scalar metrics
+        self.train_losses: List[float] = []
+        self.train_lora: Optional[Any] = None
+        self.train_grad_accum: int = 1
+        self.last_train_metrics: Dict[str, float] = {}
 
     # ------------------------------------------------------------ ingestion -
     def submit(self, req: GenRequest) -> None:
@@ -223,9 +247,11 @@ class ContinuousBatcher:
         for j, r in enumerate(reqs):
             padded[j, :lens[j]] = r.prompt
         tokens = torch.tensor(padded, dtype=torch.long, device=self.device)
-        logits, pre = self.model.prefill_ragged(
-            self.params, self.lora, {"tokens": tokens},
-            torch.tensor(lens, device=self.device))
+        with torch.no_grad():
+            logits, pre = self.model.prefill_ragged(
+                self.params, self.lora, {"tokens": tokens},
+                torch.tensor(lens, device=self.device))
+        self.prefill_waves += 1
         last = logits[:, -1]
         firsts = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per prefill wave
         return firsts, pre, last
@@ -327,17 +353,23 @@ class ContinuousBatcher:
         width = need if need <= 2 else 2 * (-(-need // 2))
         return min(width, self.blocks_per_slot)
 
-    def step(self, train_batch: Any = None,
+    def step(self, train_batch: Optional[Dict[str, Any]] = None,
              now: float = 0.0) -> List[GenRequest]:
         """One runtime tick: admit, then advance every active slot one
-        token.  Returns the requests that finished this tick."""
+        token — fused with a LoRA train step on ``train_batch`` when one
+        is given (a tick with no active slot trains alone).  Returns the
+        requests that finished this tick."""
+        if train_batch is not None and self.opt_state is None:
+            raise ValueError(
+                "step(train_batch=...) requires opt_state (pass it to "
+                "the ContinuousBatcher constructor)")
         if train_batch is not None:
-            raise NotImplementedError(
-                "co-training ticks (step(train_batch=...)) come with the "
-                "training slice of repro_torch; see ROADMAP.md")
+            train_batch = self._device_batch(train_batch)
         finished = self.admit(now)
         active = self.active_slots()
         if not active:
+            if train_batch is not None:
+                self._plain_train(train_batch)
             return finished
         toks = _host_ids(self.slot_tok[:, None], self.device)
         pos = _host_ids(self.slot_pos, self.device)
@@ -346,6 +378,23 @@ class ContinuousBatcher:
             if self._dev_tables is None:
                 self._dev_tables = _host_ids(self.block_tables, self.device)
             tables = self._dev_tables[:, :self._table_width(active)]
+        if train_batch is not None:
+            if self.paged:
+                (new_tl, self.opt_state, logits, self.caches,
+                 metrics) = self.engine.combined_step_paged(
+                    self.params, self._train_adapter(), self.opt_state,
+                    train_batch, self.caches, toks, pos, tables,
+                    ring_len=self.ring_len, serve_lora=self.lora,
+                    grad_accum=self.train_grad_accum)
+            else:
+                (new_tl, self.opt_state, logits, self.caches,
+                 metrics) = self.engine.combined_step(
+                    self.params, self._train_adapter(), self.opt_state,
+                    train_batch, self.caches, toks, pos,
+                    serve_lora=self.lora, grad_accum=self.train_grad_accum)
+            self._store_trained(new_tl)
+            self._record_train(metrics)
+        elif self.paged:
             logits, self.caches = self.model.decode_step_paged(
                 self.params, self.lora, self.caches, toks, pos, tables,
                 ring_len=self.ring_len)
@@ -407,14 +456,58 @@ class ContinuousBatcher:
             r.rng = None
         return out
 
+    # ------------------------------------------------------------- train -
+    def _device_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A train batch (numpy arrays or tensors) on the model's device."""
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in batch.items()}
+
+    def _train_adapter(self) -> Any:
+        """The tree the optimizer steps: the staged shadow during a
+        train session, the published adapter otherwise (in-place
+        continuous adaptation); prefill and decode ALWAYS read
+        ``self.lora``."""
+        return self.train_lora if self.train_lora is not None \
+            else self.lora
+
+    def _store_trained(self, new_tl: Any) -> None:
+        if self.train_lora is not None:
+            self.train_lora = new_tl
+        else:
+            self.lora = new_tl
+
+    def _plain_train(self, train_batch: Dict[str, Any]) -> None:
+        """A train step alone (a tick with no active slot)."""
+        new_tl, self.opt_state, metrics = self.engine.train_step(
+            self.params, self._train_adapter(), self.opt_state,
+            train_batch, grad_accum=self.train_grad_accum)
+        self._store_trained(new_tl)
+        self._record_train(metrics)
+
+    def _record_train(self, metrics: Dict[str, Any]) -> None:
+        """One host pull per train tick: the loss history and the scalar
+        gradient stats the noise-scale estimator consumes."""
+        names = ("ce_loss", "micro_grad_sqnorm", "grad_sqnorm")
+        vals = torch.stack([metrics[k].float() for k in names])
+        host = vals.cpu().tolist()  # lint: host-sync-ok one batched metrics pull per train tick
+        self.last_train_metrics = dict(zip(names, host))
+        loss = self.last_train_metrics["ce_loss"]
+        self.train_losses.append(loss)
+        self.stats.train_loss = loss
+        self.stats.train_steps += 1
+
     # ------------------------------------------------------------------ run -
-    def run(self, requests: Sequence[GenRequest]) -> ServeStats:
-        """Drain ``requests`` to completion."""
+    def run(self, requests: Sequence[GenRequest],
+            train_data_fn: Optional[Callable[[], Dict[str, Any]]] = None
+            ) -> ServeStats:
+        """Drain ``requests`` to completion; with ``train_data_fn``, every
+        tick co-runs a LoRA train step on the batch it returns."""
         for r in requests:
             self.submit(r)
         t0 = time.perf_counter()
         while not self.idle():
-            self.step(now=time.perf_counter() - t0)
+            tb = train_data_fn() if train_data_fn is not None else None
+            self.step(train_batch=tb, now=time.perf_counter() - t0)
         # every tick ended in its argmax pull, so the device is done
         self.stats.wall_time += time.perf_counter() - t0
         return self.stats

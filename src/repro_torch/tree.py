@@ -1,0 +1,19 @@
+"""Nested-dict trees of tensors (params, LoRA adapters, optimizer
+moments): the two helpers the port needs in place of ``jax.tree``."""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts (parallel trees in rest)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
