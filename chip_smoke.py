@@ -2,54 +2,74 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one
 NVIDIA Hopper card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py             every phase, then the result lines
+  python3 chip_smoke.py PHASE ...   bring-up: the named phases alone
+                                    (after device and build), no result
 
 Phases, each printing JSON lines:
   device      the card (``nvidia-smi`` name and power limit), TF32 off;
   build       nvcc builds every kernel under ``src/repro_torch/csrc``,
               one process per source, all started together;
-  kernel      each kernel against its plain PyTorch version on the card,
-              float32 and bfloat16: paged_decode_attention at the serving
-              shape and four more (long context, GQA, pool blocks of 128
-              and 256 rows); lora_matmul at the decode, train, prefill,
-              long train and long prefill shapes of qwen1.5-0.5b and two
-              ragged shapes (M 1000 and 5), plus its backward (dX, dA, dB
-              of LoRAMatmulFn against autograd of the plain version) at
-              the train shapes and the decode shape.  Worst error, kernel / plain / library time
-              (CUDA events, median of REPS, L2 flushed before each), and
-              the least time the card could take (bytes over 3.35 TB/s,
-              operations over the dtype's peak rate, whichever is
-              larger);
+  kernel      paged_decode_attention against its plain PyTorch version,
+              float32 and bfloat16, at the serving shape and four more
+              (long context, GQA, pool blocks of 128 and 256 rows);
+  kernel_lora lora_matmul at the decode, train, prefill, long train and
+              long prefill shapes of qwen1.5-0.5b and two ragged shapes
+              (M 1000 and 5), plus its backward (dX, dA, dB of
+              LoRAMatmulFn against autograd of the plain version) at the
+              train shapes and the decode shape;
+  kernel_flash flash_attention forward and backward against the plain
+              version (dense f32 softmax, autograd of it) at the prefill
+              waves of qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and
+              llama3-8b (8 x 2,048, GQA 4:1 with head_dim 128), the
+              train batches (qwen 4 x 2,048, llama3-8b 1 x 2,048), ragged
+              lengths 1,000 and 2,049 and a 512-token window.
+              Every kernel phase reports the worst error, kernel / plain
+              / library time (CUDA events, median of REPS or FLASH_REPS,
+              L2 flushed before each) and the least time the card could
+              take (bytes over 3.35 TB/s, operations over the dtype's
+              peak rate, whichever is larger);
   reference   the port on the card against the port on the CPU (plain
               versions) at a reduced float32 config: decode logits, one
               train step's loss, LoRA gradients and updated adapter;
               full-width logits finite and of the right shape, and a
               full-width combined_step_paged whose logits equal a
               decode_step_paged with the pre-update adapter;
+  reference_blockwise  the same at a reduced float32 config forced onto
+              the blockwise path (prefill logits and caches, one train
+              step, the flash launches they make), and at full width in
+              bf16 on 992 tokens each of the 24 layers' attention on the
+              blockwise against the dense path, same input;
   serve       qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
-              random weights from a seed) through ``run_serving``: paged
-              and contiguous with 32-token prompts, then with 992-token
-              prompts paged (blocks of 16 and of 128) and contiguous (a
-              1024-row cache, viewed as 256-row blocks); every request
-              finishes, the kernel ran 24 times per decode step, the
+              random weights from a seed) through ``run_serving``, 16
+              requests on 8 slots: paged and contiguous with 32-token
+              prompts, 992-token prompts paged (blocks of 16 and of 128)
+              and contiguous, 2,048-token prompts paged and contiguous,
+              4,096-token prompts paged; then llama3-8b at full width,
+              paged, 2,048-token prompts.  Every request finishes, the
               allocator drains, all layouts of one traffic emit the same
-              tokens, lora_matmul ran 96 times per prefill wave and per
-              decode step;
-  combined    the same server co-training its adapter on every tick
+              tokens, and the launches are exactly as derived: the decode
+              kernel once per layer per decode step, lora_matmul once per
+              adapter projection per prefill wave and decode step,
+              flash_attention once per layer per prefill wave past 1,024
+              tokens and never below;
+  combined    the same servers co-training the adapter on every tick
               (``run_serving(combined=True)``, train batch 4 x prompt
-              length): paged and contiguous 32+16, paged 992+32; every
-              request finishes, one train step per tick with finite
-              losses, the allocator drains, and lora_matmul ran exactly
-              96 per prefill wave, 96 per decode tick and 96 + 93 per
-              train step (forward, then dX of every projection but layer
-              0's q/k/v, whose input is the frozen embedding);
+              length; llama3-8b 1 x prompt length): qwen paged and
+              contiguous 32+16, paged 992+32 and 2,048+32, llama3-8b paged
+              2,048+32; one train step per tick with finite losses, and
+              launches exactly as derived (lora_matmul: forward, then dX
+              of every projection but layer 0's q/k/v; flash_attention:
+              one forward per layer per prefill wave and train step, three
+              backward launches per layer per train step, past 1,024
+              tokens only);
   train       ten full-width train steps on one fixed 4 x 256 batch: the
               loss falls, 189 lora_matmul launches per step;
-  tick        where a full-width tick's time goes (serve ticks at 32- and
-              992-token prompts, and a combined tick with a 4 x 32 train
-              batch): host wall per tick, and under torch.profiler the
-              device time, each kernel's share and the kernels launched
-              per tick;
+  tick        where a full-width tick's time goes (serve ticks at 32-,
+              992- and 2,048-token prompts, combined ticks with a 4 x 32
+              and a 4 x 2,048 train batch): host wall per tick, and under
+              torch.profiler the device time, each kernel's share and the
+              kernels launched per tick;
   kernels     one line over all ported kernels.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
@@ -77,7 +97,6 @@ PEAK_OPS_S = {torch.float32: 67e12,    # f32 outside the tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REPS = 60
 ARCH = "qwen1.5-0.5b"
-N_LAYERS = 24
 N_LORA = 96         # adapter projections per forward: 24 layers x q/k/v/o
 N_LORA_BWD = 93     # their dX in the backward, but layer 0's q/k/v
 LORA_SCALING = 2.0  # alpha / r = 32 / 16
@@ -95,6 +114,21 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("prefill_long", 7936, 1024, 1024, 16), # 8 x 992
                ("ragged", 1000, 1000, 2816, 16),       # no tile multiple
                ("ragged_decode", 5, 1000, 2816, 16)]   # the same, M <= 16
+# flash_attention, causal: (name, B, H, Hkv, D, S, window) -- every
+# shape the serve and combined phases give it: the prefill waves of
+# qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and llama3-8b (GQA 4:1,
+# head_dim 128), the co-training train batches (qwen 4 x 2,048, llama
+# 1 x 2,048); then two ragged lengths and a sliding window
+FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0),
+                ("qwen_prefill_4096", 8, 16, 16, 64, 4096, 0),
+                ("llama_prefill", 8, 32, 8, 128, 2048, 0),
+                ("qwen_train", 4, 16, 16, 64, 2048, 0),
+                ("llama_train", 1, 32, 8, 128, 2048, 0),
+                ("ragged_1000", 8, 16, 16, 64, 1000, 0),
+                ("ragged_2049", 4, 16, 16, 64, 2049, 0),
+                ("window", 4, 16, 16, 64, 2048, 512)]
+FLASH_REPS = 10
+FLASH_BWD = 3       # backward launches: delta, dK/dV, dQ
 
 
 def emit(phase, **kw):
@@ -112,10 +146,11 @@ def smi():
 _FLUSH = None
 
 
-def device_ms(fn):
-    """Median device time of ``fn`` over REPS runs: each run starts with
-    a cold L2 (a 64 MB write) and behind a device spin long enough that
-    the host enqueues the whole of ``fn`` before the start event fires."""
+def device_ms(fn, reps=REPS):
+    """Median device time of ``fn`` over ``reps`` runs: each run starts
+    with a cold L2 (a 64 MB write) and behind a device spin long enough
+    that the host enqueues the whole of ``fn`` before the start event
+    fires."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
@@ -123,7 +158,7 @@ def device_ms(fn):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         _FLUSH.zero_()
         torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
@@ -325,6 +360,122 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
     return rows
 
 
+# ------------------------------------------------------- flash attention --
+def causal_pairs(s, window):
+    """Allowed (query, key) pairs of one causal head of length s."""
+    if window <= 0 or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def flash_bound(b, h, hkv, d, s, window, dtype, backward):
+    """Least time for one call.  Forward: q, k, v read, o and the f32 lse
+    written; 4 FLOP per allowed (query, key) pair and channel (q k^T and
+    P V).  Backward: q, k, v, o, dO and lse read, dq, dk, dv written;
+    10 FLOP per pair and channel (q k^T again, dP, dV, dQ, dK)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    q_elems, kv_elems = b * h * s * d, b * hkv * s * d
+    if backward:
+        nbytes = (3 * q_elems + 2 * kv_elems) * elt + 4 * b * h * s \
+            + (q_elems + 2 * kv_elems) * elt
+        ops = 10 * d * causal_pairs(s, window) * b * h
+    else:
+        nbytes = (2 * q_elems + 2 * kv_elems) * elt + 4 * b * h * s
+        ops = 4 * d * causal_pairs(s, window) * b * h
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_OPS_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernel_flash(fa):
+    """flash_attention forward and backward against their plain versions
+    (the dense f32 softmax and autograd of it) at the main path's
+    shapes, inputs in the model's [B, S, H, D] layout passed as
+    [B, H, S, D] views as the model passes them.  Errors relative to the
+    largest output or gradient.  Times: kernel, plain version, and
+    scaled_dot_product_attention (forward; for the backward, autograd of
+    its output) as the library yardstick, never called by the port."""
+    rows = {}
+    for si, (name, b, h, hkv, d, s, w) in enumerate(FLASH_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device="cuda").manual_seed(400 + si)
+
+            def draw(heads):
+                return torch.randn((b, s, heads, d), generator=g,
+                                   device="cuda").to(dtype).transpose(1, 2)
+
+            q, k, v, do = draw(h), draw(hkv), draw(hkv), draw(h)
+            kw = dict(causal=True, window=w)
+            o, lse = fa.flash_attention_fwd(q, k, v, **kw)
+            out = o
+            ref = fa.flash_attention_ref(q, k, v, **kw)
+            got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            want = fa.flash_attention_grad_ref(q, k, v, do, **kw)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            err = _rel_err(out, ref)
+            gerr = {n: _rel_err(x, y)
+                    for n, x, y in zip(("dq", "dk", "dv"), got, want)}
+            # the library yardstick: SDPA on the same views
+            if w:
+                qpos = torch.arange(s, device="cuda")
+                mask = (qpos[None, :] <= qpos[:, None]) \
+                    & (qpos[:, None] - qpos[None, :] < w)
+                lib_kw = dict(attn_mask=mask)
+            else:
+                lib_kw = dict(is_causal=True)
+
+            def lib(q_, k_, v_):
+                return F.scaled_dot_product_attention(
+                    q_, k_, v_, enable_gqa=h != hkv, **lib_kw)
+
+            lib_err = _rel_err(lib(q, k, v), ref)
+            qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_out = lib(qs, ks, vs)
+            row = {
+                "shape": name, "B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
+                "window": w, "dtype": str(dtype).split(".")[-1],
+                "rel_err": err, "rel_tol": tol,
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                **{f"{n}_rel_err": e for n, e in gerr.items()},
+                "bwd_max_abs_err": max(float((x.float() - y.float()).abs()
+                                             .max())
+                                       for x, y in zip(got, want)),
+                "library_rel_err": lib_err,
+                "ms": device_ms(lambda: fa.flash_attention_fwd(q, k, v, **kw),
+                                FLASH_REPS),
+                "plain_ms": device_ms(
+                    lambda: fa.flash_attention_ref(q, k, v, **kw),
+                    FLASH_REPS),
+                "library_ms": device_ms(lambda: lib(q, k, v), FLASH_REPS),
+                "bwd_ms": device_ms(
+                    lambda: fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                        **kw), FLASH_REPS),
+                # the plain backward recomputes its forward under autograd
+                "bwd_plain_ms": device_ms(
+                    lambda: fa.flash_attention_grad_ref(q, k, v, do, **kw),
+                    FLASH_REPS),
+                "bwd_library_ms": device_ms(
+                    lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                retain_graph=True),
+                    FLASH_REPS),
+            }
+            row["bound_ms"], row["bound_by"] = flash_bound(
+                b, h, hkv, d, s, w, dtype, backward=False)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bound(
+                b, h, hkv, d, s, w, dtype, backward=True)
+            emit("kernel", kernel="flash_attention", **row)
+            if not (err <= tol and max(gerr.values()) <= tol):
+                raise AssertionError(
+                    f"flash_attention {name} {dtype}: forward {err}, "
+                    f"backward {gerr} of the largest value, beyond {tol}")
+            rows[(name, dtype)] = row
+            del q, k, v, do, out, ref, o, lse, got, want, qs, ks, vs, lib_out
+            torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------- reference -----
 def phase_reference(get_config, build, make_engine, lm):
     """The port on the card against the port on the CPU on the same
@@ -479,27 +630,197 @@ def phase_reference(get_config, build, make_engine, lm):
     torch.cuda.empty_cache()
 
 
+def phase_reference_blockwise(get_config, build, make_engine, fa):
+    """The blockwise path: the port on the card against the port on the
+    CPU at a reduced float32 config with ``attn_impl="blockwise"``
+    (head_dim 64, GQA 2:1): prefill logits and caches, then one train
+    step; and at full width in bf16 the blockwise and dense paths on the
+    same 992-token inputs, where both can run."""
+    import dataclasses
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(ARCH).scaled(attn_impl="blockwise", d_model=256,
+                                  n_heads=4, n_kv_heads=2)
+    cpu = build(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    lora = cpu.init_lora(torch.Generator().manual_seed(1))
+    for pair in lora.values():              # a live bypass: b != 0
+        pair["b"].normal_(0.0, 0.1, generator=torch.Generator()
+                          .manual_seed(2))
+    lens = torch.tensor([40, 70, 33], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (3, 80),
+                         generator=torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(4)
+    tt = rng.integers(0, cfg.vocab_size, (4, 97))
+    batch = {"tokens": torch.tensor(tt[:, :-1]),
+             "labels": torch.tensor(tt[:, 1:]), "mask": torch.ones((4, 96))}
+    res = {}
+    fa.flash_attention_fwd.launches = fa.flash_attention_backward.launches = 0
+    for dev in ("cpu", "cuda"):
+        eng = make_engine(cfg, lr=1e-3, device=dev)
+        p, lo, bt = (tree_map(lambda t: t.to(dev), tree)
+                     for tree in (params, lora, batch))
+        logits, pre = eng.model.prefill_ragged(
+            p, lo, {"tokens": toks.to(dev)}, lens.to(dev))
+        loss, _, grads = eng.loss_and_grads(p, lo, bt)
+        new, _, _ = eng.train_step(p, lo, eng.optimizer.init(lo), bt)
+        res[dev] = (logits.cpu(), [c.cpu() for c in pre["kv"]], loss.cpu(),
+                    [g.cpu() for g in tree_leaves(grads)],
+                    [t.cpu() for t in tree_leaves(new)])
+    launches = (fa.flash_attention_fwd.launches,
+                fa.flash_attention_backward.launches)
+    c, g = res["cpu"], res["cuda"]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+    logit_err = rel(g[0], c[0])
+    cache_err = max(rel(a, b) for a, b in zip(g[1], c[1]))
+    loss_err = rel(g[2], c[2])
+    grad_err = max(rel(a, b) for a, b in zip(g[3], c[3]))
+    # Adam's first step moves each element by lr * g / (|g| + eps): about
+    # lr * sign(g), so an element whose gradient lies inside the gradient
+    # tolerance (1e-4 of its leaf's largest) may move either way; every
+    # other element must agree to rtol 1e-5, atol 1e-6
+    lora_ok, loose, lora_err = True, 0, 0.0
+    for a, b, gc in zip(g[4], c[4], c[3]):
+        firm = gc.abs() >= 1e-4 * gc.abs().max()
+        loose += int((~firm).sum())
+        lora_err = max(lora_err, float((a - b).abs().max()))
+        lora_ok &= torch.allclose(a[firm], b[firm], rtol=1e-5, atol=1e-6)
+    emit("reference_blockwise", reduced_config=cfg.name, dtype="float32",
+         head_dim=cfg.head_dim, n_kv_heads=cfg.n_kv_heads,
+         prefill_logits_rel_err=logit_err, logits_tol=5e-5,
+         cache_rel_err=cache_err, cache_tol=1e-5, loss_rel_err=loss_err,
+         loss_tol=1e-5, grad_rel_err=grad_err, grad_tol=1e-4,
+         updated_lora_ok=lora_ok, updated_lora_max_abs_err=lora_err,
+         lora_elements_inside_grad_tol=loose,
+         flash_attention_launches=launches[0],
+         flash_attention_backward_launches=launches[1])
+    if not (logit_err < 5e-5 and cache_err < 1e-5 and loss_err < 1e-5
+            and grad_err < 1e-4 and lora_ok):
+        raise AssertionError("blockwise path: card vs CPU beyond tolerance")
+    # prefill, loss_and_grads and train_step: 2 layers forward each, and
+    # FLASH_BWD launches per layer in the two backwards
+    if launches != (3 * cfg.n_layers, 2 * FLASH_BWD * cfg.n_layers):
+        raise AssertionError(f"blockwise reference: launches {launches}")
+
+    # Full width, bf16, 2 x 992 tokens: every layer's attention, the
+    # blockwise and the dense path on the same input (the dense model's
+    # hidden state at that layer), within 2e-2 of the largest output (a
+    # bf16 ulp is 2^-8..2^-7 of it).  The 24-layer logits, where bf16
+    # rounding differences grow layer by layer, are read out beside a
+    # float32 run of the same weights, not checked
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import rms_norm, rope_tables
+    full = get_config(ARCH)
+    dense = build(dataclasses.replace(full, attn_impl="dense"), "cuda")
+    blockwise = build(dataclasses.replace(full, attn_impl="blockwise"),
+                      "cuda")
+    f32 = build(dataclasses.replace(full, attn_impl="dense", dtype="float32",
+                                    param_dtype="float32"), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = dense.init(gen)
+    lora = dense.init_lora(gen)
+    for leaf in tree_leaves(lora):                # a live bypass: b != 0
+        if leaf.shape[1] == full.lora.rank:
+            leaf.normal_(0.0, 0.02, generator=gen)
+    toks = torch.randint(0, full.vocab_size, (2, 992), device="cuda",
+                         generator=gen)
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    with torch.no_grad():
+        rope = rope_tables(torch.arange(992, device="cuda"), full.head_dim,
+                           full.rope_theta)
+        x = params["embed"][toks]
+        layer_errs = []
+        for i in range(full.n_layers):
+            bp = tree_map(lambda t: t[i], params["blocks"])
+            lo = tree_map(lambda t: t[i], lora)
+            h = rms_norm(x, bp["ln1"])
+            out = {m.cfg.attn_impl: tfm.attn_full(bp["attn"], h, m.cfg,
+                                                  rope, lora=lo)[0]
+                   for m in (dense, blockwise)}
+            layer_errs.append(rel(out["blockwise"], out["dense"]))
+            x, _ = tfm.block_full(bp, x, dense.cfg, rope, lora=lo)
+        ld = dense.logits(params, lora, {"tokens": toks}).float()
+        lb = blockwise.logits(params, lora, {"tokens": toks}).float()
+        lt = f32.logits(tree_map(lambda t: t.float(), params), lora,
+                        {"tokens": toks})
+    emit("reference_blockwise_vs_dense", config=full.name, dtype="bfloat16",
+         tokens=[2, 992], attention_rel_err_per_layer=layer_errs,
+         attention_rel_err_max=max(layer_errs), layer_tol=2e-2,
+         logits_blockwise_vs_dense_rel_err=rel(lb, ld),
+         logits_dense_vs_f32_rel_err=rel(ld, lt),
+         logits_blockwise_vs_f32_rel_err=rel(lb, lt))
+    if max(layer_errs) >= 2e-2:
+        raise AssertionError(
+            f"blockwise vs dense attention beyond 2e-2 of the largest "
+            f"output: per layer {layer_errs}")
+    del params, lora, ld, lb, lt, out, h, x, dense, blockwise, f32
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------- serving ----
-def phase_serve(run_serving, pda, lm):
-    n_layers = N_LAYERS
-    runs = [("paged", dict(paged=True, prompt_len=32, gen_tokens=16)),
-            ("contiguous", dict(paged=False, prompt_len=32, gen_tokens=16)),
-            ("paged_long", dict(paged=True, prompt_len=992, gen_tokens=32)),
-            ("paged_long_bs128", dict(paged=True, block_size=128,
-                                      prompt_len=992, gen_tokens=32)),
-            ("contiguous_long", dict(paged=False, prompt_len=992,
-                                     gen_tokens=32))]
+def arch_counts(get_config, arch):
+    """(layers, adapter projections per forward, their dX launches per
+    backward) of ``arch``: 4 targets a layer, layer 0's q/k/v get no dX
+    (their input is the frozen embedding)."""
+    n = get_config(arch).n_layers
+    return n, 4 * n, 4 * n - 3
+
+
+def long_prompt(plen):
+    """Whether prefill at ``plen`` tokens takes the blockwise path."""
+    return plen * plen > 1024 * 1024
+
+
+SERVE_RUNS = [
+    ("paged", ARCH, dict(paged=True, prompt_len=32, gen_tokens=16)),
+    ("contiguous", ARCH, dict(paged=False, prompt_len=32, gen_tokens=16)),
+    ("paged_992", ARCH, dict(paged=True, prompt_len=992, gen_tokens=32)),
+    ("paged_992_bs128", ARCH, dict(paged=True, block_size=128,
+                                   prompt_len=992, gen_tokens=32)),
+    ("contiguous_992", ARCH, dict(paged=False, prompt_len=992,
+                                  gen_tokens=32)),
+    ("paged_2048", ARCH, dict(paged=True, prompt_len=2048, gen_tokens=32)),
+    ("contiguous_2048", ARCH, dict(paged=False, prompt_len=2048,
+                                   gen_tokens=32)),
+    ("paged_4096", ARCH, dict(paged=True, prompt_len=4096, gen_tokens=32)),
+    ("llama_paged_2048", "llama3-8b", dict(paged=True, prompt_len=2048,
+                                           gen_tokens=32)),
+]
+
+
+def _reset(*counters):
+    for c in counters:
+        c.launches = 0
+
+
+def phase_serve(run_serving, get_config, pda, lm, fa):
+    """Serving at full width, every launch count checked: the decode
+    kernel once per layer per decode step, lora_matmul once per adapter
+    projection per prefill wave and decode step, flash_attention once
+    per layer per prefill wave past the dense limit and never below."""
     results = {}
-    for name, kw in runs:
+    fwd = fa.flash_attention_fwd
+    for name, arch, kw in SERVE_RUNS:
+        n_layers, n_lora, _ = arch_counts(get_config, arch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pda.launches = lm.launches = 0                    # main path starts
-        out = run_serving(ARCH, smoke=False, n_requests=16, batch_size=8,
+        _reset(pda, lm, fwd)                              # main path starts
+        out = run_serving(arch, smoke=False, n_requests=16, batch_size=8,
                           seed=0, device="cuda", verbose=False, **kw)
-        launches, lora_launches = pda.launches, lm.launches  # path ends
+        launches, lora_launches, flash = pda.launches, lm.launches, \
+            fwd.launches                                  # path ends
         gen = kw["gen_tokens"]
+        flash_want = n_layers * out["prefill_waves"] \
+            if long_prompt(kw["prompt_len"]) else 0
         row = {
-            "run": name, "prompt_len": kw["prompt_len"], "gen_tokens": gen,
+            "run": name, "arch": arch, "prompt_len": kw["prompt_len"],
+            "gen_tokens": gen,
             "block_size": kw.get("block_size", 16) if kw["paged"] else None,
             "finished": out["finished"],
             "tokens_generated": out["tokens_generated"],
@@ -507,6 +828,8 @@ def phase_serve(run_serving, pda, lm):
             "prefill_waves": out["prefill_waves"],
             "kernel_launches": launches,
             "lora_matmul_launches": lora_launches,
+            "flash_attention_launches": flash,
+            "flash_attention_launches_derived": flash_want,
             "throughput_tok_s": out["throughput_tok_s"],
             "wall_s": out["wall_s"],
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -525,50 +848,75 @@ def phase_serve(run_serving, pda, lm):
             raise AssertionError(
                 f"{name}: {launches} kernel launches for "
                 f"{out['decode_steps']} decode steps of {n_layers} layers")
-        if lora_launches != N_LORA * (out["decode_steps"]
+        if lora_launches != n_lora * (out["decode_steps"]
                                       + out["prefill_waves"]):
             raise AssertionError(
                 f"{name}: {lora_launches} lora_matmul launches for "
                 f"{out['decode_steps']} decode steps and "
                 f"{out['prefill_waves']} prefill waves")
+        if flash != flash_want:
+            raise AssertionError(f"{name}: {flash} flash_attention "
+                                 f"launches, derived {flash_want}")
         if kw["paged"] and (out["blocks_used_at_end"]
                             or out["blocks_reserved_at_end"]):
             raise AssertionError(f"{name}: allocator did not drain")
         results[name] = (row, out["tokens"])
+        del out
+        torch.cuda.empty_cache()
     # the kernel walks logical rows whatever the pool's block size, so
     # every layout of one traffic computes the same logits
     short = results["paged"][1] == results["contiguous"][1]
-    long_ = all(results[n][1] == results["paged_long"][1]
-                for n in ("paged_long_bs128", "contiguous_long"))
+    long_ = all(results[n][1] == results["paged_992"][1]
+                for n in ("paged_992_bs128", "contiguous_992"))
+    long2k = results["paged_2048"][1] == results["contiguous_2048"][1]
     emit("serve_check", short_paged_equals_contiguous_tokens=short,
-         long_all_layouts_equal_tokens=long_)
-    if not (short and long_):
+         long_all_layouts_equal_tokens=long_,
+         paged_2048_equals_contiguous_tokens=long2k)
+    if not (short and long_ and long2k):
         raise AssertionError("layouts of one traffic emitted different "
                              "tokens")
     return results
 
 
 # ------------------------------------------------------------ combined ----
-def phase_combined(run_serving, pda, lm):
-    """Serving while co-training the adapter on every tick."""
-    runs = [("paged", dict(paged=True, prompt_len=32, gen_tokens=16)),
-            ("contiguous", dict(paged=False, prompt_len=32, gen_tokens=16)),
-            ("paged_long", dict(paged=True, prompt_len=992, gen_tokens=32))]
+COMBINED_RUNS = [
+    ("paged", ARCH, 4, dict(paged=True, prompt_len=32, gen_tokens=16)),
+    ("contiguous", ARCH, 4, dict(paged=False, prompt_len=32,
+                                 gen_tokens=16)),
+    ("paged_992", ARCH, 4, dict(paged=True, prompt_len=992, gen_tokens=32)),
+    ("paged_2048", ARCH, 4, dict(paged=True, prompt_len=2048,
+                                 gen_tokens=32)),
+    ("llama_paged_2048", "llama3-8b", 1, dict(paged=True, prompt_len=2048,
+                                              gen_tokens=32)),
+]
+
+
+def phase_combined(run_serving, get_config, pda, lm, fa):
+    """Serving while co-training the adapter on every tick (a fresh
+    train batch of ``train_batch`` x prompt length rows)."""
     results = {}
-    for name, kw in runs:
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_backward
+    for name, arch, tbatch, kw in COMBINED_RUNS:
+        n_layers, n_lora, n_lora_bwd = arch_counts(get_config, arch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pda.launches = lm.launches = 0                    # main path starts
-        out = run_serving(ARCH, smoke=False, n_requests=16, batch_size=8,
-                          combined=True, train_batch=4, seed=0,
+        _reset(pda, lm, fwd, bwd)                         # main path starts
+        out = run_serving(arch, smoke=False, n_requests=16, batch_size=8,
+                          combined=True, train_batch=tbatch, seed=0,
                           device="cuda", verbose=False, **kw)
-        launches, lora_launches = pda.launches, lm.launches  # path ends
+        launches, lora_launches = pda.launches, lm.launches
+        flash, flash_bwd = fwd.launches, bwd.launches     # path ends
         gen, losses = kw["gen_tokens"], out["train_losses"]
-        want = (N_LORA * out["prefill_waves"] + N_LORA * out["decode_steps"]
-                + (N_LORA + N_LORA_BWD) * out["train_steps"])
+        want = (n_lora * out["prefill_waves"] + n_lora * out["decode_steps"]
+                + (n_lora + n_lora_bwd) * out["train_steps"])
+        long = long_prompt(kw["prompt_len"])
+        flash_want = n_layers * (out["prefill_waves"] + out["train_steps"]) \
+            if long else 0
+        flash_bwd_want = FLASH_BWD * n_layers * out["train_steps"] \
+            if long else 0
         row = {
-            "run": name, "prompt_len": kw["prompt_len"], "gen_tokens": gen,
-            "train_batch": [4, kw["prompt_len"]],
+            "run": name, "arch": arch, "prompt_len": kw["prompt_len"],
+            "gen_tokens": gen, "train_batch": [tbatch, kw["prompt_len"]],
             "finished": out["finished"],
             "tokens_generated": out["tokens_generated"],
             "decode_steps": out["decode_steps"],
@@ -577,6 +925,10 @@ def phase_combined(run_serving, pda, lm):
             "lora_matmul_launches": lora_launches,
             "lora_matmul_launches_derived": want,
             "attention_launches": launches,
+            "flash_attention_launches": flash,
+            "flash_attention_launches_derived": flash_want,
+            "flash_attention_backward_launches": flash_bwd,
+            "flash_attention_backward_launches_derived": flash_bwd_want,
             "throughput_tok_s": out["throughput_tok_s"],
             "wall_s": out["wall_s"],
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -605,10 +957,16 @@ def phase_combined(run_serving, pda, lm):
         if lora_launches != want:
             raise AssertionError(f"combined {name}: {lora_launches} "
                                  f"lora_matmul launches, derived {want}")
-        if launches != N_LAYERS * out["decode_steps"]:
+        if launches != n_layers * out["decode_steps"]:
             raise AssertionError(f"combined {name}: {launches} attention "
                                  "launches")
+        if (flash, flash_bwd) != (flash_want, flash_bwd_want):
+            raise AssertionError(
+                f"combined {name}: flash_attention launches {flash} / "
+                f"{flash_bwd}, derived {flash_want} / {flash_bwd_want}")
         results[name] = row
+        del out
+        torch.cuda.empty_cache()
     return results
 
 
@@ -654,12 +1012,21 @@ def _is_lora(key):
     return "lora_mma_kernel" in key or "lora_fma_kernel" in key
 
 
+def _is_flash(key):
+    return "fa_fwd_" in key or "fa_dkdv_" in key or "fa_dq_" in key \
+        or "fa_delta" in key
+
+
+TICKS = [("serve", 32, False), ("long", 992, False), ("combined", 32, True),
+         ("serve_2048", 2048, False), ("combined_2048", 2048, True)]
+
+
 def phase_tick(make_engine, get_config, n=5):
     """Where a full-width tick's time goes (paged, 8 busy slots): serve
-    ticks at two prompt lengths and a combined tick (train batch 4 x 32,
-    built before timing).  Host wall per tick, then under torch.profiler
-    the device time its kernels take, each ported kernel's part, and
-    kernels per tick."""
+    ticks at 32-, 992- and 2,048-token prompts and combined ticks whose
+    train batch is 4 x the prompt length (built before timing).  Host
+    wall per tick, then under torch.profiler the device time its kernels
+    take, each ported kernel's part, and kernels per tick."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
@@ -669,10 +1036,9 @@ def phase_tick(make_engine, get_config, n=5):
     params = engine.model.init(gen)
     lora = engine.model.init_lora(gen)
     rng = np.random.default_rng(0)
-    data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size, seq_len=32,
-                            seed=0)
-    for name, plen, train in (("serve", 32, False), ("long", 992, False),
-                              ("combined", 32, True)):
+    for name, plen, train in TICKS:
+        data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
+                                seq_len=plen, seed=0)
         b = ContinuousBatcher(engine, params, lora, n_slots=8,
                               max_seq=plen + 16, prompt_pad=plen, paged=True,
                               opt_state=engine.optimizer.init(lora))
@@ -705,14 +1071,17 @@ def phase_tick(make_engine, get_config, n=5):
         assert b.stats.train_steps == (3 + 2 * n if train else 0)
         kern = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(_device_us(e) for e in kern) / 1e3 / n
-        attn_ms = sum(_device_us(e) for e in kern
-                      if "paged_decode_kernel" in e.key) / 1e3 / n
-        lora_ms = sum(_device_us(e) for e in kern
-                      if _is_lora(e.key)) / 1e3 / n
+
+        def part(pred):
+            return sum(_device_us(e) for e in kern if pred(e.key)) / 1e3 / n
+
+        dev_ms = part(lambda key: True)
+        attn_ms = part(lambda key: "paged_decode_kernel" in key)
+        lora_ms = part(_is_lora)
+        flash_ms = part(_is_flash)
         top = sorted(kern, key=_device_us, reverse=True)[:6]
         emit("tick", context=name, prompt_len=plen, slots=8,
-             train_batch=[4, 32] if train else None,
+             train_batch=[4, plen] if train else None,
              host_ms_per_tick=host_ms, profiled_wall_ms_per_tick=prof_ms,
              device_busy_ms_per_tick=dev_ms,
              device_busy_share=dev_ms / prof_ms if prof_ms else None,
@@ -720,11 +1089,18 @@ def phase_tick(make_engine, get_config, n=5):
              attention_share_of_device=attn_ms / dev_ms if dev_ms else None,
              lora_matmul_ms_per_tick=lora_ms,
              lora_matmul_share_of_device=lora_ms / dev_ms if dev_ms else None,
+             flash_attention_ms_per_tick=flash_ms,
+             flash_attention_share_of_device=flash_ms / dev_ms
+             if dev_ms else None,
              lora_matmul_launches_per_tick=sum(
                  e.count for e in kern if _is_lora(e.key)) / n,
+             flash_attention_launches_per_tick=sum(
+                 e.count for e in kern if _is_flash(e.key)) / n,
              kernels_per_tick=sum(e.count for e in kern) / n,
              top_kernels_ms_per_tick=[[e.key[:60], _device_us(e) / 1e3 / n]
                                       for e in top])
+        del b, batches
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -734,6 +1110,7 @@ def main():
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention as pda, paged_decode_attention_ref as pda_ref)
     from repro_torch.kernels.lora_matmul import (
@@ -760,17 +1137,43 @@ def main():
         list(pool.map(_build.library, built))
     emit("build", seconds=time.perf_counter() - t0, built=built)
 
-    rows = phase_kernel(pda, pda_ref)
-    lrows = phase_kernel_lora(lm, lm_ref, LoRAMatmulFn)
-    phase_reference(get_config, build, make_engine, lm)
-    serve = phase_serve(run_serving, pda, lm)
-    combined = phase_combined(run_serving, pda, lm)
-    phase_train(make_engine, get_config, lm)
-    phase_tick(make_engine, get_config)
+    phases = {
+        "kernel": lambda: phase_kernel(pda, pda_ref),
+        "kernel_lora": lambda: phase_kernel_lora(lm, lm_ref, LoRAMatmulFn),
+        "kernel_flash": lambda: phase_kernel_flash(fa),
+        "reference": lambda: phase_reference(get_config, build, make_engine,
+                                             lm),
+        "reference_blockwise": lambda: phase_reference_blockwise(
+            get_config, build, make_engine, fa),
+        "serve": lambda: phase_serve(run_serving, get_config, pda, lm, fa),
+        "combined": lambda: phase_combined(run_serving, get_config, pda, lm,
+                                           fa),
+        "train": lambda: phase_train(make_engine, get_config, lm),
+        "tick": lambda: phase_tick(make_engine, get_config),
+    }
+    only = sys.argv[1:]
+    if only:
+        # bring-up: the named phases alone, and no result lines
+        for name in only:
+            phases[name]()
+        return
+    out = {name: fn() for name, fn in phases.items()}
+    rows, lrows, frows = out["kernel"], out["kernel_lora"], \
+        out["kernel_flash"]
+    serve, combined = out["serve"], out["combined"]
 
     main_row = rows[("serve", torch.bfloat16)]
     worst = max(r["max_abs_err"] for (n, dt), r in rows.items()
                 if dt == torch.bfloat16)
+    # flash_attention's main shapes: the qwen prefill wave (forward) and
+    # the co-training train batch (backward); its launches: the
+    # co-training server at 2,048-token prompts
+    f_fwd = frows[("qwen_prefill", torch.bfloat16)]
+    f_bwd = frows[("qwen_train", torch.bfloat16)]
+    flash_shapes = {n: {k: r[k] for k in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bwd_ms",
+        "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by")}
+        for (n, dt), r in frows.items() if dt == torch.bfloat16}
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -804,6 +1207,36 @@ def main():
                                                 "library_ms")}
                         for (n, dt), r in lrows.items()
                         if dt == torch.bfloat16},
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:86",
+        "launches": combined["paged_2048"]["flash_attention_launches"],
+        "shape": "prefill wave B=8 H=Hkv=16 D=64 S=2048 causal bf16",
+        "max_abs_err": f_fwd["max_abs_err"],
+        "worst_bf16_rel_err_all_shapes": max(
+            r["rel_err"] for (n, dt), r in frows.items()
+            if dt == torch.bfloat16),
+        **{k: f_fwd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "bf16_shapes": flash_shapes,
+    }, {
+        "name": "flash_attention_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        # no TPU kernel: JAX differentiates the blockwise scan
+        "replaces": "src/repro/models/layers.py:105",
+        "launches": combined["paged_2048"][
+            "flash_attention_backward_launches"],
+        "shape": "train batch B=4 H=Hkv=16 D=64 S=2048 causal bf16",
+        "max_abs_err": f_bwd["bwd_max_abs_err"],
+        "max_rel_err": max(f_bwd[f"{g}_rel_err"] for g in ("dq", "dk", "dv")),
+        "ms": f_bwd["bwd_ms"],
+        "plain_ms": f_bwd["bwd_plain_ms"],
+        "bound_ms": f_bwd["bwd_bound_ms"],
+        "bound_by": f_bwd["bwd_bound_by"],
+        "library_ms": f_bwd["bwd_library_ms"],
     }]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,30 +1,31 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-The ids are the JAX package's; only qwen1.5-0.5b is ported so far.  The
-others raise ``NotImplementedError`` naming the ROADMAP item that ports
-them (dense decoders need no new model code, only their config files
-and a parity test; the other families need their mixers).
+The ids are the JAX package's; the four dense decoders are ported
+(their config files are copies of the JAX ones).  The other families
+raise ``NotImplementedError`` naming the ROADMAP item that ports them
+(they need their mixers).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import qwen1_5_0_5b
+from repro_torch.configs import (
+    internlm2_1_8b, llama3_8b, qwen1_5_0_5b, qwen3_14b,
+)
 from repro_torch.configs.base import ModelConfig
 
 _REGISTRY: Dict[str, ModelConfig] = {
     "qwen1.5-0.5b": qwen1_5_0_5b.CONFIG,
+    "qwen3-14b": qwen3_14b.CONFIG,
+    "internlm2-1.8b": internlm2_1_8b.CONFIG,
+    "llama3-8b": llama3_8b.CONFIG,
 }
 
 # arch id -> the ROADMAP item ("Modules to port") that brings it over
-_DENSE = "'Other dense configs + decode parity'"
 _FAMILIES = "'Other families'"
 _PENDING: Dict[str, str] = {
     "mamba2-780m": f"{_FAMILIES} (SSM)",
     "hubert-xlarge": f"{_FAMILIES} (encoder-only serve step)",
-    "qwen3-14b": _DENSE,
-    "internlm2-1.8b": _DENSE,
-    "llama3-8b": _DENSE,
     "hymba-1.5b": f"{_FAMILIES} (hybrid, sliding-window rings)",
     "moonshot-v1-16b-a3b": f"{_FAMILIES} (MoE)",
     "grok-1-314b": f"{_FAMILIES} (MoE)",

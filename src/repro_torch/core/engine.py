@@ -35,15 +35,16 @@ class Engine:
 
     # ----------------------------------------------------------- training --
     def loss_and_grads(self, params: Any, lora: Any, batch: Dict, *,
-                       ce_chunk: int = 512
+                       ce_chunk: int = 512, skip_masked_blocks: bool = False
                        ) -> Tuple[torch.Tensor, Dict, Any]:
         """Forward loss and its gradient in the LoRA leaves only (the base
         weights are frozen: PEFT).  Returns (loss, metrics, grads) with
         grads a tree like ``lora``, detached."""
         leaves = tree_map(lambda t: t.detach().requires_grad_(True), lora)
         with torch.enable_grad():
-            loss, metrics = self.model.forward_loss(params, leaves, batch,
-                                                    ce_chunk=ce_chunk)
+            loss, metrics = self.model.forward_loss(
+                params, leaves, batch, ce_chunk=ce_chunk,
+                skip_masked_blocks=skip_masked_blocks)
             flat = tree_leaves(leaves)
             gflat = torch.autograd.grad(loss, flat)
         it = iter(gflat)
@@ -52,7 +53,8 @@ class Engine:
         return loss.detach(), metrics, grads
 
     def train_step(self, params: Any, lora: Any, opt_state: AdamWState,
-                   batch: Dict, *, ce_chunk: int = 512, grad_accum: int = 1,
+                   batch: Dict, *, skip_masked_blocks: bool = False,
+                   ce_chunk: int = 512, grad_accum: int = 1,
                    train_tokens: int = 0
                    ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
         """LoRA-only gradient step.  ``grad_accum`` > 1 splits the batch
@@ -61,7 +63,9 @@ class Engine:
         noise-scale estimator.  ``train_tokens`` > 0 caps the step at
         about that many tokens by keeping whole leading rows.  Returns
         (new lora, new optimizer state, metrics ``loss``, ``ce_loss``,
-        ``grad_norm``, ``lr``, ``micro_grad_sqnorm``, ``grad_sqnorm``)."""
+        ``grad_norm``, ``lr``, ``micro_grad_sqnorm``, ``grad_sqnorm``).
+        ``skip_masked_blocks`` reaches the blockwise attention of
+        sequences past the dense limit."""
         if train_tokens > 0:
             b, s = batch["tokens"].shape[:2]
             rows = max(1, min(b, train_tokens // max(s, 1)))
@@ -71,7 +75,8 @@ class Engine:
                     grad_accum = 1
         if grad_accum <= 1:
             loss, metrics, grads = self.loss_and_grads(
-                params, lora, batch, ce_chunk=ce_chunk)
+                params, lora, batch, ce_chunk=ce_chunk,
+                skip_masked_blocks=skip_masked_blocks)
             micro_sqnorm = global_norm(grads) ** 2
         else:
             n = batch["tokens"].shape[0] // grad_accum
@@ -82,8 +87,9 @@ class Engine:
             micro_sqnorm = torch.zeros_like(loss)
             for i in range(grad_accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
-                l_, _, g = self.loss_and_grads(params, lora, mb,
-                                               ce_chunk=ce_chunk)
+                l_, _, g = self.loss_and_grads(
+                    params, lora, mb, ce_chunk=ce_chunk,
+                    skip_masked_blocks=skip_masked_blocks)
                 grads = tree_map(lambda acc, gi: acc + gi.float() / grad_accum,
                                  grads, g)
                 loss = loss + l_ / grad_accum

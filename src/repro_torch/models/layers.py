@@ -1,13 +1,15 @@
 """Core layers of the port: norms, RoPE, GQA attention (dense prefill,
-single-token decode over contiguous and paged caches) and the weight
-initializer — the PyTorch counterparts of ``repro.models.layers``.
+blockwise online-softmax prefill, single-token decode over contiguous
+and paged caches) and the weight initializer — the PyTorch counterparts
+of ``repro.models.layers``.
 
 Plain functions on tensors.  Weight matrices use the ``[in, out]``
 convention; stacked-layer params carry a leading ``L`` dim.  Norms and
 RoPE compute in float32 and cast back, like the JAX layers.  Both decode
 layouts run through ``kernels.decode_attention.paged_decode_attention``:
 the paged pool directly, the contiguous cache through identity block
-tables.
+tables.  Blockwise attention on the card runs the ``flash_attention``
+kernels (``kernels.flash_attention.FlashAttentionFn``).
 """
 from __future__ import annotations
 
@@ -15,8 +17,10 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.flash_attention import FlashAttentionFn
 
 
 # ---------------------------------------------------------------- norms ----
@@ -91,6 +95,90 @@ def attention_dense(q, k, v, *, causal: bool = True, window: int = 0,
     probs = torch.nan_to_num(probs, nan=0.0)          # fully-masked rows
     out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
     return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _online_block(carry, qi, kj, vj, qpos, kpos, skv, causal, window,
+                  scale):
+    """One (query block, key block) step of the online softmax with the
+    JAX numerics: q k^T from the input dtype with float32 accumulation,
+    p rounded to v's dtype for the PV product.  carry = (m, l, acc) of
+    the query block, [B,bq,H] / [B,bq,H] / [B,bq,H,D] float32."""
+    m, l, acc = carry
+    s = torch.einsum("bqhd,bkhd->bqhk", qi.float(), kj.float()) * scale
+    mask = kpos[None, :] < skv
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
+    s = s.masked_fill(~mask[None, :, None, :], float("-inf"))
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    dead = torch.isinf(m_new)           # rows with nothing allowed so far
+    m_safe = torch.where(dead, torch.zeros_like(m_new), m_new)
+    p = torch.exp(s - m_safe[..., None])
+    p = torch.where(dead[..., None], torch.zeros_like(p), p)
+    corr = torch.where(torch.isinf(m), torch.zeros_like(m),
+                       torch.exp(m - m_safe))
+    l_new = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bqhk,bkhd->bqhd", p.to(vj.dtype).float(), vj.float())
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def attention_blockwise(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0, block_kv: int = 512,
+                        scale: Optional[float] = None,
+                        skip_masked_blocks: bool = False):
+    """Flash-equivalent attention with an online softmax over key blocks
+    (``repro.models.layers.attention_blockwise``): memory O(Sq * block)
+    instead of O(Sq * Skv).  q: [B,Sq,Hq,D]; k, v: [B,Skv,Hkv,D].
+
+    CPU tensors run the plain block loop: queries and keys in blocks of
+    ``block_kv``, every (query block, key block) pair in order, or with
+    ``skip_masked_blocks`` (causal self-attention prefill only) just the
+    pairs on or below the diagonal and inside the window.  A skipped
+    pair would have added exact zeros with correction 1, so the two
+    variants give bitwise the same result.  CUDA tensors go to the
+    ``flash_attention`` kernels through ``FlashAttentionFn`` (forward
+    and gradient); the kernels always skip fully masked tiles and pick
+    their own tile sizes, so ``block_kv`` does not reach them, and they
+    take no ``q_offset``."""
+    if skip_masked_blocks:
+        assert causal and q_offset == 0 and q.shape[1] == k.shape[1], \
+            "block skipping is for causal self-attention prefill"
+    b, sq, hq, d = q.shape
+    skv = k.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if not all(t.device.type == "cpu" for t in (q, k, v)):
+        if q_offset:
+            raise ValueError("attention_blockwise: the flash_attention "
+                             "kernel takes no q_offset")
+        o = FlashAttentionFn.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), causal, window, scale)
+        return o.transpose(1, 2)
+    k = _gqa_repeat(k, hq)
+    v = _gqa_repeat(v, hq)
+    bk = block_kv
+    nq, nk = -(-sq // bk), -(-skv // bk)
+    q = F.pad(q, (0, 0, 0, 0, 0, nq * bk - sq))
+    k = F.pad(k, (0, 0, 0, 0, 0, nk * bk - skv))
+    v = F.pad(v, (0, 0, 0, 0, 0, nk * bk - skv))
+    wblocks = -(-window // bk) + 1 if window > 0 else nq
+    outs = []
+    for i in range(nq):
+        qpos = q_offset + i * bk + torch.arange(bk, device=q.device)
+        carry = (torch.full((b, bk, hq), float("-inf"), device=q.device),
+                 torch.zeros((b, bk, hq), device=q.device),
+                 torch.zeros((b, bk, hq, d), device=q.device))
+        for j in range(nk):
+            if skip_masked_blocks and not (j <= i and i - j < wblocks):
+                continue
+            kpos = j * bk + torch.arange(bk, device=q.device)
+            sl = slice(j * bk, (j + 1) * bk)
+            carry = _online_block(carry, q[:, i * bk:(i + 1) * bk], k[:, sl],
+                                  v[:, sl], qpos, kpos, skv, causal, window,
+                                  scale)
+        _, l, acc = carry
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
 
 
 def attention_decode(q, k_cache, v_cache, kv_len,

@@ -119,9 +119,12 @@ class Model:
         return params["embed"][batch["tokens"]]
 
     def hidden_states(self, params, lora, batch, *,
-                      collect_caches: bool = False):
+                      collect_caches: bool = False, block_kv: int = 512,
+                      skip_masked_blocks: bool = False):
         """Full-sequence forward.  Returns (hidden, caches | None) with
-        caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``."""
+        caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``.
+        ``block_kv`` and ``skip_masked_blocks`` reach the blockwise
+        attention of sequences past the dense limit."""
         cfg = self.cfg
         x = self._embed(params, batch)
         s = x.shape[1]
@@ -129,8 +132,10 @@ class Model:
                               cfg.head_dim, cfg.rope_theta)
         ks, vs = [], []
         for i in range(cfg.n_layers):
-            x, (k, v) = tfm.block_full(_layer(params["blocks"], i), x, cfg,
-                                       rope_cs, lora=_layer(lora, i))
+            x, (k, v) = tfm.block_full(
+                _layer(params["blocks"], i), x, cfg, rope_cs,
+                lora=_layer(lora, i), block_kv=block_kv,
+                skip_masked_blocks=skip_masked_blocks)
             if collect_caches:
                 ks.append(k)
                 vs.append(v)
@@ -139,11 +144,14 @@ class Model:
         return rms_norm(x, params["final_norm"]), caches
 
     # --------------------------------------------------------------- loss --
-    def forward_loss(self, params, lora, batch, *, ce_chunk: int = 512):
+    def forward_loss(self, params, lora, batch, *, ce_chunk: int = 512,
+                     block_kv: int = 512, skip_masked_blocks: bool = False):
         """Training objective: chunked next-token CE plus 0.01 x the
         auxiliary loss (zero for the dense family).  Returns (total,
         metrics ``ce_loss``, ``aux_loss``, ``loss_sum``, ``token_count``)."""
-        hidden, _ = self.hidden_states(params, lora, batch)
+        hidden, _ = self.hidden_states(
+            params, lora, batch, block_kv=block_kv,
+            skip_masked_blocks=skip_masked_blocks)
         loss, metrics = chunked_ce_loss(
             hidden, params["lm_head"], batch["labels"],
             batch["mask"].float(), chunk=ce_chunk)
@@ -152,9 +160,12 @@ class Model:
         metrics["ce_loss"] = loss
         return loss + 0.01 * aux, metrics
 
-    def logits(self, params, lora, batch) -> torch.Tensor:
+    def logits(self, params, lora, batch, *, block_kv: int = 512,
+               skip_masked_blocks: bool = False) -> torch.Tensor:
         """Full-vocab logits for the whole sequence (small inputs only)."""
-        hidden, _ = self.hidden_states(params, lora, batch)
+        hidden, _ = self.hidden_states(
+            params, lora, batch, block_kv=block_kv,
+            skip_masked_blocks=skip_masked_blocks)
         return hidden @ params["lm_head"]
 
     # ------------------------------------------------------------- caches --
@@ -185,13 +196,16 @@ class Model:
                        torch.zeros(shape, dtype=dt, device=self.device))}
 
     # -------------------------------------------------------------- prefill -
-    def prefill_ragged(self, params, lora, batch, prompt_lens):
+    def prefill_ragged(self, params, lora, batch, prompt_lens, *,
+                       block_kv: int = 512,
+                       skip_masked_blocks: bool = False):
         """Prefill right-padded ragged prompts in one batch.  Returns
         (logits at each row's last real token [B,1,V], {"kv": (k, v)}
         with k, v ``[L, B, P, Hkv, Dh]``).  Causal masking keeps pad
         tokens out of every real position's K/V."""
-        hidden, caches = self.hidden_states(params, lora, batch,
-                                            collect_caches=True)
+        hidden, caches = self.hidden_states(
+            params, lora, batch, collect_caches=True, block_kv=block_kv,
+            skip_masked_blocks=skip_masked_blocks)
         lens = torch.as_tensor(prompt_lens, device=hidden.device).long()
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last = hidden[rows, lens - 1][:, None]

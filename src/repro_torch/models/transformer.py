@@ -21,8 +21,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.models import lora as lora_lib
 from repro_torch.models.layers import (
-    apply_rope, attention_decode, attention_decode_paged, attention_dense,
-    dense_init, rms_norm,
+    apply_rope, attention_blockwise, attention_decode, attention_decode_paged,
+    attention_dense, dense_init, rms_norm,
 )
 
 
@@ -107,22 +107,28 @@ def use_dense_prefill(cfg: ModelConfig, s: int) -> bool:
         and not cfg.unroll_attn_blocks)
 
 
-def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None
+def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None,
+              block_kv: int = 512, skip_masked_blocks: bool = False
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence attention (prefill).  Returns (out, (k, v)) so
-    prefill can stash the KV cache."""
-    s = x.shape[1]
-    if not use_dense_prefill(cfg, s):
-        raise NotImplementedError(
-            f"prefill length {s}: s*s > 1M takes the blockwise "
-            "(flash) attention path, which is not ported yet; see "
-            "ROADMAP.md (kernels/flash_attention.py::flash_attention)")
+    """Full-sequence attention (training / prefill): the dense path up
+    to ``s*s <= 1M`` (``use_dense_prefill``), the blockwise online
+    softmax past it (on the card, the ``flash_attention`` kernels).
+    Returns (out, (k, v)) so prefill can stash the KV cache."""
     q, k, v = _proj_qkv(p, x, cfg, lora)
     if rope_cs is not None:
         cos, sin = rope_cs
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    o = attention_dense(q, k, v, causal=not cfg.encoder_only,
-                        window=cfg.sliding_window)
+    causal = not cfg.encoder_only
+    s = x.shape[1]
+    if use_dense_prefill(cfg, s):
+        o = attention_dense(q, k, v, causal=causal,
+                            window=cfg.sliding_window)
+    else:
+        o = attention_blockwise(q, k, v, causal=causal,
+                                window=cfg.sliding_window,
+                                block_kv=block_kv,
+                                skip_masked_blocks=skip_masked_blocks
+                                and causal)
     o = o.reshape(x.shape[0], s, cfg.n_heads * cfg.head_dim)
     return _out_proj(p, o, cfg, lora), (k, v)
 
@@ -188,10 +194,12 @@ def _mlp_out(bp, h, cfg: ModelConfig, lora):
                             lora.get("down") if lora else None, sc)
 
 
-def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None):
-    """Full-sequence block (prefill).  Returns (x, (k, v))."""
+def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
+               block_kv: int = 512, skip_masked_blocks: bool = False):
+    """Full-sequence block (prefill, training).  Returns (x, (k, v))."""
     attn_out, kv = attn_full(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
-                             rope_cs, lora=lora)
+                             rope_cs, lora=lora, block_kv=block_kv,
+                             skip_masked_blocks=skip_masked_blocks)
     x = x + attn_out
     if cfg.d_ff > 0:
         x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora)

@@ -27,9 +27,12 @@ when a train session staged a shadow, else ``self.lora`` itself, which
 is replaced by the trained tree after the tick).  A tick with no active
 slot trains alone.  The host pulls the train metrics once per tick.
 
-Not ported yet (the constructor raises ``NotImplementedError``): prefix
-caching, multi-LoRA adapters, chunked prefill, the TPOT token budget
-and oversubscription.
+Prompts past the dense limit (``prompt_pad``^2 > 1M) prefill blockwise,
+on the card through the flash_attention kernels.  Not ported yet (the
+constructor raises ``NotImplementedError``): prefix caching, multi-LoRA
+adapters, chunked prefill, the TPOT token budget and oversubscription;
+the first, third and last also keep the reference's gate, which refuses
+them past the dense limit.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models.transformer import use_dense_prefill
 from repro_torch.runtime.paging import BlockAllocator, blocks_for
 
 
@@ -139,6 +143,27 @@ class ContinuousBatcher:
         cfg = engine.model.cfg
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        # the reference's own gates, checked before whether a feature is
+        # ported at all: these replay prefill through programs that mirror
+        # the DENSE softmax bit for bit, so they refuse a prompt_pad past
+        # the dense limit (blockwise prefill)
+        dense = use_dense_prefill(cfg, min(prompt_pad, max_seq))
+        for name, val, why in (
+                ("prefix_cache", prefix_cache, "suffix prefill mirrors "
+                 "its softmax formulation bit-for-bit, while blockwise "
+                 "prefill accumulates online and would break cache-on/off "
+                 "greedy identity"),
+                ("prefill_chunk", prefill_chunk, "the continuation "
+                 "programs mirror its softmax formulation bit-for-bit, "
+                 "while blockwise prefill accumulates online and would "
+                 "break chunked-vs-monolithic greedy identity"),
+                ("oversubscribe", oversubscribe, "drop-restore re-prefill "
+                 "rides the suffix-continuation programs, which mirror "
+                 "the dense prefill path bit-for-bit")):
+            if val and not dense:
+                raise NotImplementedError(
+                    f"{cfg.name}: {name} needs the dense prefill path — "
+                    f"{why}")
         unported = {"prefix_cache": prefix_cache, "adapters": adapters,
                     "prefill_chunk": prefill_chunk,
                     "tpot_target": tpot_target,
