@@ -23,7 +23,12 @@ Phases, each printing JSON lines:
               waves of qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and
               llama3-8b (8 x 2,048, GQA 4:1 with head_dim 128), the
               train batches (qwen 4 x 2,048, llama3-8b 1 x 2,048), ragged
-              lengths 1,000 and 2,049 and a 512-token window.
+              lengths 1,000 and 2,049 and a 512-token window;
+  kernel_seg  segmented_lora_matmul against its plain version at the
+              multi-tenant decode (1, 4 and 8 slots) and prefill waves of
+              qwen1.5-0.5b, a ragged shape and llama3-8b's decode; in bf16
+              each row bitwise lora_matmul of its own slot (B = 0 for -1
+              rows) and no leak from 1e6 in an unused slot.
               Every kernel phase reports the worst error, kernel / plain
               / library time (CUDA events, median of REPS or FLASH_REPS,
               L2 flushed before each) and the least time the card could
@@ -63,11 +68,24 @@ Phases, each printing JSON lines:
               one forward per layer per prefill wave and train step, three
               backward launches per layer per train step, past 1,024
               tokens only);
+  serve_adapters  multi-tenant serving at full width (4 tenants tagged
+              round-robin; qwen paged and contiguous 32+16, paged 992+32 and
+              2,048+32, 6 tenants on 4 device slots, co-training paged
+              32+16, llama3-8b paged 32+16): every request finishes, refs
+              and blocks return, launches exactly as derived
+              (segmented_lora_matmul once per adapter projection per wave
+              and step, lora_matmul only in the train step), tenant 0
+              (b = 0) emits the single-adapter run's tokens;
+  mixed_solo  one wave of base and three tenants against each of them
+              served alone as the single adapter on the same prompts: the
+              same greedy tokens (each request in a wave of its own is
+              read out beside it);
   train       ten full-width train steps on one fixed 4 x 256 batch: the
               loss falls, 189 lora_matmul launches per step;
   tick        where a full-width tick's time goes (serve ticks at 32-,
               992- and 2,048-token prompts, combined ticks with a 4 x 32
-              and a 4 x 2,048 train batch): host wall per tick, and under
+              and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
+              tokens): host wall per tick, and under
               torch.profiler the device time, each kernel's share and the
               kernels launched per tick;
   kernels     one line over all ported kernels.
@@ -358,6 +376,125 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
                 raise AssertionError(
                     f"LoRAMatmulFn {name} {dtype}: {errs} beyond {tol}")
     return rows
+
+
+# --------------------------------------------------- segmented lora ------
+# (name, M, K, N, r, slots, rows per sequence): qwen1.5-0.5b's q/k/v/o at
+# decode (8 slots, one row each) with 1, 4 and 8 adapter slots, its
+# prefill waves (8 sequences of 32, 992 and 2,048 tokens, a slot per
+# sequence), a ragged shape with a slot per row, and llama3-8b's decode
+# projections (k/v: N 1024; q/o: N 4096)
+SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
+              ("decode_a1", 8, 1024, 1024, 16, 1, 1),
+              ("decode_a8", 8, 1024, 1024, 16, 8, 1),
+              ("prefill", 256, 1024, 1024, 16, 4, 32),
+              ("prefill_992", 7936, 1024, 1024, 16, 4, 992),
+              ("prefill_2048", 16384, 1024, 1024, 16, 4, 2048),
+              ("ragged", 1000, 1000, 2816, 16, 4, 1),
+              ("llama_decode_kv", 8, 4096, 1024, 16, 4, 1),
+              ("llama_decode", 8, 4096, 4096, 16, 4, 1)]
+SEG_REPS = 30
+
+
+def seg_case(m, k, n, r, na, seq, dtype, seed):
+    """Inputs as the registry and the model give them: stacks [NA, K, r]
+    / [NA, r, N]; one slot per sequence of ``seq`` rows, drawn over every
+    slot and -1, each present where the sequences allow."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device="cuda")
+    w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
+    a = torch.randn((na, k, r), generator=g, device="cuda") / k ** 0.5
+    b = torch.randn((na, r, n), generator=g, device="cuda") * 0.1
+    ns = m // seq
+    idx = np.random.default_rng(seed).integers(-1, na, ns).astype(np.int32)
+    idx[:min(ns, na + 1)] = np.arange(-1, na)[:ns]
+    return tuple(t.to(dtype) for t in (x, w, a, b)) + (
+        torch.tensor(np.repeat(idx, seq), device="cuda"),)
+
+
+def seg_bound(m, k, n, r, idx, dtype):
+    """Least time for one call: x, W, the stacks of the slots the rows
+    use, the row index read once, the output written once; 2 FLOP per
+    multiply-add of x @ W and of each adapter row's own x @ A and
+    (x @ A) @ B."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    used = int(torch.unique(idx[idx >= 0]).numel())
+    rows = int((idx >= 0).sum())
+    nbytes = (m * k + k * n + used * (k * r + r * n) + m * n) * elt + 4 * m
+    ops = 2 * m * k * n + 2 * rows * (k * r + r * n)
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_OPS_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernel_seg(seg, seg_ref, lm):
+    """segmented_lora_matmul against its plain version at the main path's
+    shapes, rows mixing every slot and -1 (error relative to the largest
+    output).  In bf16 also: each row bitwise equal to lora_matmul with
+    its own slot's A and B at the same M, each -1 row to lora_matmul with
+    B = 0, and an output that does not move when a slot no row uses
+    holds 1e6.  Times: kernel, plain version, lora_matmul of one adapter
+    at the same M, and the base product alone (``torch.matmul``: no
+    PyTorch call computes per-row adapters; the fused kernel cannot beat
+    it)."""
+    rows_out = {}
+    for si, (name, m, k, n, r, na, seq) in enumerate(SEG_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, a, b, idx = seg_case(m, k, n, r, na, seq, dtype, 500 + si)
+            out = seg(x, w, a, b, idx, LORA_SCALING)
+            ref = seg_ref(x, w, a, b, idx, LORA_SCALING)
+            torch.cuda.synchronize()
+            rel = _rel_err(out, ref)
+            row = {
+                "shape": name, "M": m, "K": k, "N": n, "r": r, "slots": na,
+                "rows_per_sequence": seq, "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                "rel_err": rel, "rel_tol": LORA_TOL[dtype],
+            }
+            ok = rel <= LORA_TOL[dtype]
+            if dtype == torch.bfloat16:
+                # every row against lora_matmul of its own slot, same M
+                same = True
+                for sl in range(-1, na):
+                    bs = b[sl] if sl >= 0 else torch.zeros_like(b[0])
+                    one = lm(x, w, a[max(sl, 0)], bs, LORA_SCALING)
+                    mask = idx == sl
+                    same &= bool(torch.equal(out[mask], one[mask]))
+                # a slot no row reads may hold anything finite
+                idx2 = torch.where(idx == na - 1, -1, idx)
+                clean = seg(x, w, a, b, idx2, LORA_SCALING)
+                a2, b2 = a.clone(), b.clone()
+                a2[na - 1], b2[na - 1] = 1e6, 1e6
+                poisoned = seg(x, w, a2, b2, idx2, LORA_SCALING)
+                no_leak = bool(torch.equal(poisoned, clean)
+                               and torch.isfinite(poisoned).all())
+                row.update(rows_bitwise_lora_matmul=same,
+                           poison_1e6_no_leak=no_leak)
+                ok = ok and same and no_leak
+                del clean, poisoned, a2, b2
+            row.update(
+                ms=device_ms(lambda: seg(x, w, a, b, idx, LORA_SCALING),
+                             SEG_REPS),
+                plain_ms=device_ms(
+                    lambda: seg_ref(x, w, a, b, idx, LORA_SCALING), SEG_REPS),
+                lora_matmul_ms=device_ms(
+                    lambda: lm(x, w, a[0], b[0], LORA_SCALING), SEG_REPS),
+                library_ms=device_ms(lambda: x @ w, SEG_REPS),
+                library="base-only torch.matmul")
+            row["bound_ms"], row["bound_by"] = seg_bound(m, k, n, r, idx,
+                                                         dtype)
+            emit("kernel", kernel="segmented_lora_matmul", **row)
+            if not ok:
+                raise AssertionError(
+                    f"segmented_lora_matmul {name} {dtype}: error {rel} of "
+                    f"the largest output (tolerance {LORA_TOL[dtype]}), "
+                    f"bitwise rows {row.get('rows_bitwise_lora_matmul')}, "
+                    f"poison {row.get('poison_1e6_no_leak')}")
+            rows_out[(name, dtype)] = row
+            del x, w, a, b, idx, out, ref
+            torch.cuda.empty_cache()
+    return rows_out
 
 
 # ------------------------------------------------------- flash attention --
@@ -799,22 +936,26 @@ def _reset(*counters):
         c.launches = 0
 
 
-def phase_serve(run_serving, get_config, pda, lm, fa):
+def phase_serve(run_serving, get_config, pda, lm, fa, seg):
     """Serving at full width, every launch count checked: the decode
     kernel once per layer per decode step, lora_matmul once per adapter
     projection per prefill wave and decode step, flash_attention once
-    per layer per prefill wave past the dense limit and never below."""
+    per layer per prefill wave past the dense limit and never below,
+    segmented_lora_matmul never (one adapter)."""
     results = {}
     fwd = fa.flash_attention_fwd
     for name, arch, kw in SERVE_RUNS:
         n_layers, n_lora, _ = arch_counts(get_config, arch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset(pda, lm, fwd)                              # main path starts
+        _reset(pda, lm, fwd, seg)                         # main path starts
         out = run_serving(arch, smoke=False, n_requests=16, batch_size=8,
                           seed=0, device="cuda", verbose=False, **kw)
         launches, lora_launches, flash = pda.launches, lm.launches, \
             fwd.launches                                  # path ends
+        if seg.launches:
+            raise AssertionError(f"{name}: {seg.launches} segmented "
+                                 "launches with one adapter")
         gen = kw["gen_tokens"]
         flash_want = n_layers * out["prefill_waves"] \
             if long_prompt(kw["prompt_len"]) else 0
@@ -891,7 +1032,7 @@ COMBINED_RUNS = [
 ]
 
 
-def phase_combined(run_serving, get_config, pda, lm, fa):
+def phase_combined(run_serving, get_config, pda, lm, fa, seg):
     """Serving while co-training the adapter on every tick (a fresh
     train batch of ``train_batch`` x prompt length rows)."""
     results = {}
@@ -900,10 +1041,13 @@ def phase_combined(run_serving, get_config, pda, lm, fa):
         n_layers, n_lora, n_lora_bwd = arch_counts(get_config, arch)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset(pda, lm, fwd, bwd)                         # main path starts
+        _reset(pda, lm, fwd, bwd, seg)                    # main path starts
         out = run_serving(arch, smoke=False, n_requests=16, batch_size=8,
                           combined=True, train_batch=tbatch, seed=0,
                           device="cuda", verbose=False, **kw)
+        if seg.launches:
+            raise AssertionError(f"combined {name}: {seg.launches} "
+                                 "segmented launches with one adapter")
         launches, lora_launches = pda.launches, lm.launches
         flash, flash_bwd = fwd.launches, bwd.launches     # path ends
         gen, losses = kw["gen_tokens"], out["train_losses"]
@@ -970,6 +1114,191 @@ def phase_combined(run_serving, get_config, pda, lm, fa):
     return results
 
 
+# ------------------------------------------------------ multi-tenant ----
+# (name, arch, run_serving kwargs, phase_serve run of the same traffic
+# with one adapter): 4 tenants on 4 device slots unless named, tagged
+# round-robin over 16 requests on 8 slots
+ADAPTER_RUNS = [
+    ("paged", ARCH, dict(paged=True, prompt_len=32, gen_tokens=16), "paged"),
+    ("contiguous", ARCH, dict(paged=False, prompt_len=32, gen_tokens=16),
+     "contiguous"),
+    ("paged_992", ARCH, dict(paged=True, prompt_len=992, gen_tokens=32),
+     "paged_992"),
+    ("paged_2048", ARCH, dict(paged=True, prompt_len=2048, gen_tokens=32),
+     "paged_2048"),
+    ("paged_6_on_4", ARCH, dict(paged=True, prompt_len=32, gen_tokens=16,
+                                n_adapters=6, adapter_slots=4), None),
+    ("combined_paged", ARCH, dict(paged=True, prompt_len=32, gen_tokens=16,
+                                  combined=True, train_batch=4), "paged"),
+    ("llama_paged", "llama3-8b", dict(paged=True, prompt_len=32,
+                                      gen_tokens=16), None),
+]
+
+
+def phase_serve_adapters(run_serving, get_config, pda, lm, fa, seg,
+                         serve=None):
+    """Multi-tenant serving at full width (``run_serving(n_adapters=...)``,
+    random tenants from ``make_tenant_adapters``): every request finishes,
+    the allocator drains, every adapter ref returns, the tenants' streams
+    differ, and the launches are exactly as derived: segmented_lora_matmul
+    once per adapter projection per prefill wave and decode step,
+    lora_matmul never when serving and forward plus dX per train step
+    when co-training.  Against the serve phase's run of the same traffic
+    (one adapter with b = 0, same weights and prompts, admitted in the
+    same waves): tenant 0 (b = 0 too) emits its tokens exactly and every
+    other tenant differs on some request; with co-training too, since
+    decode reads the registry's copies, which training leaves alone."""
+    results = {}
+    fwd = fa.flash_attention_fwd
+    for name, arch, kw, ref_name in ADAPTER_RUNS:
+        kw = {"n_adapters": 4, **kw}
+        n_layers, n_lora, n_lora_bwd = arch_counts(get_config, arch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(pda, lm, fwd, seg)                         # main path starts
+        out = run_serving(arch, smoke=False, n_requests=16, batch_size=8,
+                          seed=0, device="cuda", verbose=False, **kw)
+        launches, lora_launches, flash, seg_launches = \
+            pda.launches, lm.launches, fwd.launches, seg.launches  # ends
+        gen, steps = kw["gen_tokens"], out["decode_steps"]
+        seg_want = n_lora * (out["prefill_waves"] + steps)
+        lora_want = (n_lora + n_lora_bwd) * out["train_steps"]
+        flash_want = n_layers * out["prefill_waves"] \
+            if long_prompt(kw["prompt_len"]) else 0
+        aids = out["adapter_ids"]
+        row = {
+            "run": name, "arch": arch, "prompt_len": kw["prompt_len"],
+            "gen_tokens": gen, "tenants": kw["n_adapters"],
+            "adapter_slots": kw.get("adapter_slots") or kw["n_adapters"],
+            "combined": bool(kw.get("combined")),
+            "finished": out["finished"],
+            "tokens_generated": out["tokens_generated"],
+            "decode_steps": steps, "prefill_waves": out["prefill_waves"],
+            "train_steps": out["train_steps"],
+            "segmented_lora_matmul_launches": seg_launches,
+            "segmented_lora_matmul_launches_derived": seg_want,
+            "lora_matmul_launches": lora_launches,
+            "lora_matmul_launches_derived": lora_want,
+            "kernel_launches": launches,
+            "flash_attention_launches": flash,
+            "adapter_requests": out["adapter_requests"],
+            "adapter_hits": out["adapter_hits"],
+            "adapter_loads": out["adapter_loads"],
+            "adapter_evictions": out["adapter_evictions"],
+            "adapter_refs_at_end": out["adapter_refs_at_end"],
+            "throughput_tok_s": out["throughput_tok_s"],
+            "wall_s": out["wall_s"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "train_losses_first_last": out["train_losses"][:1]
+            + out["train_losses"][-1:],
+        }
+        if kw["paged"]:
+            row.update(blocks_used_at_end=out["blocks_used_at_end"],
+                       blocks_reserved_at_end=out["blocks_reserved_at_end"])
+        failed = []
+        if out["finished"] != 16 or any(len(t) != gen for t in out["tokens"]):
+            failed.append("not every request finished")
+        if kw["paged"] and (out["blocks_used_at_end"]
+                            or out["blocks_reserved_at_end"]):
+            failed.append("allocator did not drain")
+        if set(out["adapter_refs_at_end"].values()) != {0}:
+            failed.append("adapter refs left pinned")
+        if (seg_launches, lora_launches, flash, launches) != (
+                seg_want, lora_want, flash_want, n_layers * steps):
+            failed.append("launch counts differ from the derived ones")
+        if name == "paged_6_on_4" and out["adapter_evictions"] < 1:
+            failed.append("6 tenants on 4 slots evicted none")
+        if kw.get("combined") and (out["train_steps"] != steps or not
+                                   np.isfinite(out["train_losses"]).all()):
+            failed.append("not one finite train step per tick")
+        if serve is not None and ref_name is not None:
+            ref_tokens = serve[ref_name][1]
+            same = {t: [out["tokens"][i] == ref_tokens[i]
+                        for i in range(16) if aids[i] == t]
+                    for t in sorted(set(aids))}
+            row["tokens_equal_single_adapter_run"] = same
+            if not all(same["tenant0"]) or any(
+                    all(v) for t, v in same.items() if t != "tenant0"):
+                failed.append("tenant 0 drifted from the single-adapter "
+                              "run, or another tenant emitted its tokens")
+        # each tenant's first request against every other tenant's
+        firsts = {}
+        for i, t in enumerate(aids):
+            firsts.setdefault(t, out["tokens"][i])
+        row["tenants_with_distinct_streams"] = len(
+            {tuple(v) for v in firsts.values()})
+        if row["tenants_with_distinct_streams"] != len(firsts):
+            failed.append("two tenants emitted the same stream")
+        emit("serve_adapters", **row)
+        if failed:
+            raise AssertionError(f"serve_adapters {name}: {failed}")
+        results[name] = row
+        del out
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_mixed_solo(get_config, make_engine, seg, lm):
+    """One paged wave of base, tenant 0, tenant 1 and tenant 2 at full
+    width (4 slots, 32-token prompts, 16 new tokens), then each of them
+    served alone as the server's single adapter (base: an adapter with
+    b = 0) on the same four prompts: each row's greedy tokens must be
+    identical, since the kernel makes every row bitwise lora_matmul's with
+    its own adapter.  Read out beside it, not checked: each request served
+    in a wave of its own, against the mixed wave and, as the control,
+    against the same single-adapter server in the wave of four.  cuBLAS
+    picks its kernel for the frozen products (MLP, logits head) by M, so
+    a wave of one rounds otherwise, and random full-width weights leave
+    near-tied logits that such last bits flip."""
+    from repro_torch.runtime.fabric import make_tenant_adapters
+    from repro_torch.runtime.serving_loop import (
+        AdapterRegistry, ContinuousBatcher, GenRequest)
+    cfg = get_config(ARCH)
+    engine = make_engine(cfg, device="cuda")
+    model = engine.model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen)
+    base = model.init_lora(gen)
+    tenants = make_tenant_adapters(model, 3, seed=1)
+    reg = AdapterRegistry(model, capacity=3)
+    for t, tree in enumerate(tenants):
+        reg.register(f"tenant{t}", tree)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 32))
+    aids = [None, "tenant0", "tenant1", "tenant2"]
+    trees = [base] + tenants
+
+    def serve(lora, rows, registry=None):
+        b = ContinuousBatcher(engine, params, lora, n_slots=4, max_seq=48,
+                              prompt_pad=32, paged=True, adapters=registry)
+        reqs = [GenRequest(request_id=i, prompt=prompts[i],
+                           max_new_tokens=16,
+                           adapter_id=aids[i] if registry else None)
+                for i in rows]
+        b.run(reqs)
+        return [r.tokens for r in reqs]
+
+    _reset(seg, lm)
+    mixed = serve(tenants[0], range(4), reg)
+    mixed_launches = (seg.launches, lm.launches)
+    solo = [serve(tree, range(4))[i] for i, tree in enumerate(trees)]
+    alone = [serve(tree, [i])[0] for i, tree in enumerate(trees)]
+    same = [m == o for m, o in zip(mixed, solo)]
+    emit("mixed_solo", config=cfg.name, dtype=cfg.dtype, slots=4,
+         prompt_len=32, gen_tokens=16, rows=["base"] + aids[1:],
+         tokens_equal=same,
+         distinct_streams=len({tuple(t) for t in mixed}),
+         mixed_segmented_launches=mixed_launches[0],
+         mixed_lora_matmul_launches=mixed_launches[1],
+         wave_of_one_equal_mixed=[m == a for m, a in zip(mixed, alone)],
+         wave_of_one_equal_single_adapter_wave=[
+             o == a for o, a in zip(solo, alone)])
+    if not all(same) or len({tuple(t) for t in mixed}) != 4 \
+            or mixed_launches[1] != 0 or mixed_launches[0] == 0:
+        raise AssertionError(f"mixed wave vs solo: tokens equal {same}")
+    del engine, params, base, tenants, reg, trees
+    torch.cuda.empty_cache()
+
+
 def phase_train(make_engine, get_config, lm, steps=10):
     """Full-width train steps on one fixed batch: the loss must fall."""
     from repro_torch.data.synthetic import SyntheticDataset
@@ -1012,13 +1341,19 @@ def _is_lora(key):
     return "lora_mma_kernel" in key or "lora_fma_kernel" in key
 
 
+def _is_seg(key):
+    return "segmented_mma_kernel" in key or "segmented_fma_kernel" in key
+
+
 def _is_flash(key):
     return "fa_fwd_" in key or "fa_dkdv_" in key or "fa_dq_" in key \
         or "fa_delta" in key
 
 
-TICKS = [("serve", 32, False), ("long", 992, False), ("combined", 32, True),
-         ("serve_2048", 2048, False), ("combined_2048", 2048, True)]
+# (context, prompt length, co-training, tenants: 0 = one adapter)
+TICKS = [("serve", 32, False, 0), ("long", 992, False, 0),
+         ("combined", 32, True, 0), ("serve_2048", 2048, False, 0),
+         ("combined_2048", 2048, True, 0), ("serve_4_tenants", 32, False, 4)]
 
 
 def phase_tick(make_engine, get_config, n=5):
@@ -1026,25 +1361,37 @@ def phase_tick(make_engine, get_config, n=5):
     ticks at 32-, 992- and 2,048-token prompts and combined ticks whose
     train batch is 4 x the prompt length (built before timing).  Host
     wall per tick, then under torch.profiler the device time its kernels
-    take, each ported kernel's part, and kernels per tick."""
+    take, each ported kernel's part, and kernels per tick.  The last tick
+    serves 4 tenants, round-robin over the 8 slots."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import SyntheticDataset
-    from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+    from repro_torch.runtime.fabric import make_tenant_adapters
+    from repro_torch.runtime.serving_loop import (
+        AdapterRegistry, ContinuousBatcher, GenRequest)
     cfg = get_config(ARCH)
     engine = make_engine(cfg, lr=3e-3, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = engine.model.init(gen)
     lora = engine.model.init_lora(gen)
     rng = np.random.default_rng(0)
-    for name, plen, train in TICKS:
+    for name, plen, train, n_tenants in TICKS:
         data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
                                 seq_len=plen, seed=0)
+        reg = None
+        if n_tenants:
+            reg = AdapterRegistry(engine.model, capacity=n_tenants)
+            for t, tree in enumerate(make_tenant_adapters(
+                    engine.model, n_tenants, seed=1)):
+                reg.register(f"tenant{t}", tree)
         b = ContinuousBatcher(engine, params, lora, n_slots=8,
                               max_seq=plen + 16, prompt_pad=plen, paged=True,
-                              opt_state=engine.optimizer.init(lora))
+                              opt_state=engine.optimizer.init(lora),
+                              adapters=reg)
         for i in range(8):
             b.submit(GenRequest(request_id=i, max_new_tokens=16,
-                                prompt=rng.integers(0, cfg.vocab_size, plen)))
+                                prompt=rng.integers(0, cfg.vocab_size, plen),
+                                adapter_id=f"tenant{i % n_tenants}"
+                                if n_tenants else None))
         # train batches on the card before any timing
         batches = iter([{k: torch.as_tensor(v, device="cuda")
                          for k, v in data.batch(4).items()}
@@ -1079,9 +1426,10 @@ def phase_tick(make_engine, get_config, n=5):
         attn_ms = part(lambda key: "paged_decode_kernel" in key)
         lora_ms = part(_is_lora)
         flash_ms = part(_is_flash)
+        seg_ms = part(_is_seg)
         top = sorted(kern, key=_device_us, reverse=True)[:6]
         emit("tick", context=name, prompt_len=plen, slots=8,
-             train_batch=[4, plen] if train else None,
+             tenants=n_tenants, train_batch=[4, plen] if train else None,
              host_ms_per_tick=host_ms, profiled_wall_ms_per_tick=prof_ms,
              device_busy_ms_per_tick=dev_ms,
              device_busy_share=dev_ms / prof_ms if prof_ms else None,
@@ -1092,6 +1440,11 @@ def phase_tick(make_engine, get_config, n=5):
              flash_attention_ms_per_tick=flash_ms,
              flash_attention_share_of_device=flash_ms / dev_ms
              if dev_ms else None,
+             segmented_lora_matmul_ms_per_tick=seg_ms,
+             segmented_lora_matmul_share_of_device=seg_ms / dev_ms
+             if dev_ms else None,
+             segmented_lora_matmul_launches_per_tick=sum(
+                 e.count for e in kern if _is_seg(e.key)) / n,
              lora_matmul_launches_per_tick=sum(
                  e.count for e in kern if _is_lora(e.key)) / n,
              flash_attention_launches_per_tick=sum(
@@ -1099,7 +1452,7 @@ def phase_tick(make_engine, get_config, n=5):
              kernels_per_tick=sum(e.count for e in kern) / n,
              top_kernels_ms_per_tick=[[e.key[:60], _device_us(e) / 1e3 / n]
                                       for e in top])
-        del b, batches
+        del b, batches, reg
         torch.cuda.empty_cache()
 
 
@@ -1114,7 +1467,8 @@ def main():
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention as pda, paged_decode_attention_ref as pda_ref)
     from repro_torch.kernels.lora_matmul import (
-        LoRAMatmulFn, lora_matmul as lm, lora_matmul_ref as lm_ref)
+        LoRAMatmulFn, lora_matmul as lm, lora_matmul_ref as lm_ref,
+        segmented_lora_matmul as seg, segmented_lora_matmul_ref as seg_ref)
     from repro_torch.launch.serve import run_serving
     from repro_torch.models.model import build
 
@@ -1141,26 +1495,36 @@ def main():
         "kernel": lambda: phase_kernel(pda, pda_ref),
         "kernel_lora": lambda: phase_kernel_lora(lm, lm_ref, LoRAMatmulFn),
         "kernel_flash": lambda: phase_kernel_flash(fa),
+        "kernel_seg": lambda: phase_kernel_seg(seg, seg_ref, lm),
         "reference": lambda: phase_reference(get_config, build, make_engine,
                                              lm),
         "reference_blockwise": lambda: phase_reference_blockwise(
             get_config, build, make_engine, fa),
-        "serve": lambda: phase_serve(run_serving, get_config, pda, lm, fa),
+        "serve": lambda: phase_serve(run_serving, get_config, pda, lm, fa,
+                                     seg),
         "combined": lambda: phase_combined(run_serving, get_config, pda, lm,
-                                           fa),
+                                           fa, seg),
+        "serve_adapters": lambda: phase_serve_adapters(
+            run_serving, get_config, pda, lm, fa, seg, out.get("serve")),
+        "mixed_solo": lambda: phase_mixed_solo(get_config, make_engine, seg,
+                                               lm),
         "train": lambda: phase_train(make_engine, get_config, lm),
         "tick": lambda: phase_tick(make_engine, get_config),
     }
     only = sys.argv[1:]
+    out = {}      # each phase's results, as later phases read them
     if only:
         # bring-up: the named phases alone, and no result lines
         for name in only:
-            phases[name]()
+            out[name] = phases[name]()
         return
-    out = {name: fn() for name, fn in phases.items()}
+    for name, fn in phases.items():
+        out[name] = fn()
     rows, lrows, frows = out["kernel"], out["kernel_lora"], \
         out["kernel_flash"]
     serve, combined = out["serve"], out["combined"]
+    srows, adapters = out["kernel_seg"], out["serve_adapters"]
+    s_main = srows[("decode", torch.bfloat16)]
 
     main_row = rows[("serve", torch.bfloat16)]
     worst = max(r["max_abs_err"] for (n, dt), r in rows.items()
@@ -1174,6 +1538,10 @@ def main():
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bwd_ms",
         "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by")}
         for (n, dt), r in frows.items() if dt == torch.bfloat16}
+    seg_shapes = {n: {k: r[k] for k in (
+        "M", "K", "N", "slots", "ms", "plain_ms", "lora_matmul_ms",
+        "library_ms", "bound_ms", "bound_by", "rel_err")}
+        for (n, dt), r in srows.items() if dt == torch.bfloat16}
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -1237,6 +1605,25 @@ def main():
         "bound_ms": f_bwd["bwd_bound_ms"],
         "bound_by": f_bwd["bwd_bound_by"],
         "library_ms": f_bwd["bwd_library_ms"],
+    }, {
+        "name": "segmented_lora_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/segmented_lora_matmul.cu",
+        "replaces": "src/repro/kernels/lora_matmul.py:132",
+        # the 4-tenant server, paged 32+16: prefill and decode
+        "launches": adapters["paged"]["segmented_lora_matmul_launches"],
+        "shape": "decode M=8 K=N=1024 r=16, 4 slots, bf16",
+        "max_abs_err": s_main["max_abs_err"],
+        "worst_bf16_rel_err_all_shapes": max(
+            r["rel_err"] for (n, dt), r in srows.items()
+            if dt == torch.bfloat16),
+        "rows_bitwise_lora_matmul_all_shapes": all(
+            r["rows_bitwise_lora_matmul"] for (n, dt), r in srows.items()
+            if dt == torch.bfloat16),
+        **{k: s_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "lora_matmul_ms")},
+        "library": "base-only torch.matmul (x @ W, no adapter term)",
+        "bf16_shapes": seg_shapes,
     }]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

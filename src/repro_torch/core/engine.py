@@ -106,33 +106,40 @@ class Engine:
 
     # ------------------------------------------------------------ serving --
     @torch.no_grad()
-    def prefill_step(self, params: Any, lora: Any,
-                     batch: Any) -> Tuple[torch.Tensor, Any]:
-        """Prefill full-length prompts: (last-token logits, caches)."""
+    def prefill_step(self, params: Any, lora: Any, batch: Any,
+                     adapter_idx: Any = None) -> Tuple[torch.Tensor, Any]:
+        """Prefill full-length prompts: (last-token logits, caches).
+        ``adapter_idx`` [B] selects each row's slot of a stacked
+        ``lora``."""
         tokens = batch["tokens"]
         lens = torch.full((tokens.shape[0],), tokens.shape[1],
                           device=tokens.device)
-        return self.model.prefill_ragged(params, lora, batch, lens)
+        return self.model.prefill_ragged(params, lora, batch, lens,
+                                         adapter_idx=adapter_idx)
 
     @torch.no_grad()
     def decode_step(self, params: Any, lora: Any, caches: Any,
-                    token: torch.Tensor,
-                    pos: torch.Tensor) -> Tuple[torch.Tensor, Any]:
-        return self.model.decode_step(params, lora, caches, token, pos)
+                    token: torch.Tensor, pos: torch.Tensor,
+                    adapter_idx: Any = None) -> Tuple[torch.Tensor, Any]:
+        return self.model.decode_step(params, lora, caches, token, pos,
+                                      adapter_idx=adapter_idx)
 
     # ------------------------------------------------- the paper's fusion --
     def combined_step(self, params: Any, lora: Any, opt_state: AdamWState,
                       train_batch: Dict, caches: Any, token: torch.Tensor,
                       pos: torch.Tensor, *, serve_lora: Any = None,
-                      grad_accum: int = 1, train_tokens: int = 0):
+                      grad_accum: int = 1, train_tokens: int = 0,
+                      serve_adapter_idx: Any = None):
         """LoRA train step + decode batch over the same base weights.  The
         logits come from the pre-update adapter; with ``serve_lora`` given
         decode reads it and only ``lora`` (the shadow tree) is trained.
+        ``serve_adapter_idx`` [B] makes ``serve_lora`` a stacked
+        multi-tenant tree read per row (the registry's decode wave).
         Returns (new lora, new state, logits, caches, metrics)."""
         with torch.no_grad():
             logits, caches = self.model.decode_step(
                 params, lora if serve_lora is None else serve_lora, caches,
-                token, pos)
+                token, pos, adapter_idx=serve_adapter_idx)
         new_lora, new_opt, metrics = self.train_step(
             params, lora, opt_state, train_batch, grad_accum=grad_accum,
             train_tokens=train_tokens)
@@ -143,13 +150,16 @@ class Engine:
                             caches: Any, token: torch.Tensor,
                             pos: torch.Tensor, block_tables: torch.Tensor,
                             *, ring_len: int = 0, serve_lora: Any = None,
-                            grad_accum: int = 1, train_tokens: int = 0):
+                            grad_accum: int = 1, train_tokens: int = 0,
+                            serve_adapter_idx: Any = None):
         """``combined_step`` over the paged KV pool (same snapshot
-        semantics and ``serve_lora`` shadow split)."""
+        semantics, ``serve_lora`` shadow split and ``serve_adapter_idx``
+        multi-tenant rows)."""
         with torch.no_grad():
             logits, caches = self.model.decode_step_paged(
                 params, lora if serve_lora is None else serve_lora, caches,
-                token, pos, block_tables, ring_len=ring_len)
+                token, pos, block_tables, ring_len=ring_len,
+                adapter_idx=serve_adapter_idx)
         new_lora, new_opt, metrics = self.train_step(
             params, lora, opt_state, train_batch, grad_accum=grad_accum,
             train_tokens=train_tokens)

@@ -4,8 +4,9 @@
 into its own shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
 libraries land in ``build/repro_torch/`` at the root of the checkout,
-named after a hash of their source, so an edited kernel is rebuilt and a
-stale library is never loaded.  A failed build raises with nvcc's
+named after a hash of their source and of the shared headers
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale library is
+never loaded.  A failed build raises with nvcc's
 output; nothing falls back.
 """
 from __future__ import annotations
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> pathlib.Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _compile(name: str, target: pathlib.Path) -> None:

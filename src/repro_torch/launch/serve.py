@@ -6,15 +6,19 @@ evicted and new requests admitted mid-flight, and every decode tick runs
 the paged-decode-attention kernel in every layer, over either cache
 layout; every LoRA projection runs the fused lora_matmul kernel.
 ``--combined`` co-trains the LoRA adapter on every tick (one fused train
-step per decode tick, over the same base weights).  Weights are random,
-drawn from ``--seed``.  The multi-replica fabric and the batcher's
-optional features are not ported yet (see ROADMAP.md).
+step per decode tick, over the same base weights).  ``--adapters N``
+serves N tenants from one registry: requests are tagged ``tenant{i % N}``
+round-robin and every wave mixes them through the segmented_lora_matmul
+kernel.  Weights are random, drawn from ``--seed``.  The multi-replica
+fabric and the batcher's other optional features are not ported yet
+(see ROADMAP.md).
 
 Usage (on a machine with an NVIDIA Hopper card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --requests 16 --prompt-len 32 --gen 16
   ... --paged --block-size 16 --n-blocks 64   # paged KV cache
   ... --combined --train-batch 4              # co-train the adapter
+  ... --adapters 3 [--combined]               # multi-tenant LoRA serving
   ... --smoke --device cpu [--combined]       # reduced config on the CPU
                                               # (plain PyTorch versions)
 """
@@ -28,7 +32,10 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.engine import make_engine
 from repro_torch.data.synthetic import SyntheticDataset
-from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+from repro_torch.runtime.fabric import make_tenant_adapters
+from repro_torch.runtime.serving_loop import (
+    AdapterRegistry, ContinuousBatcher, GenRequest,
+)
 
 
 def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
@@ -37,13 +44,21 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
                 train_batch: int = 4, seed: int = 0, paged: bool = False,
                 block_size: int = 16, n_blocks: int = 0,
                 temperature: float = 0.0, top_k: int = 0,
-                top_p: float = 1.0, device="cuda",
+                top_p: float = 1.0, n_adapters: int = 0,
+                adapter_slots: int = 0, device="cuda",
                 verbose: bool = True) -> dict:
     """Serve ``n_requests`` synthetic prompts on a ``batch_size``-slot
     continuous batcher on ``device``; returns throughput and counts,
     each request's tokens, (paged) the allocator's end state, and
     (``combined``) the loss of the train step each tick co-ran on a
-    fresh ``train_batch`` x ``prompt_len`` synthetic batch."""
+    fresh ``train_batch`` x ``prompt_len`` synthetic batch.
+
+    ``n_adapters > 0`` registers that many tenants (``make_tenant_adapters``)
+    on an ``AdapterRegistry`` of ``adapter_slots`` device slots (default:
+    one per tenant) and tags requests round-robin; the output then
+    carries the registry's counters and each request's tenant.  In
+    combined mode training steps tenant 0's tree in place while decode
+    reads the registry's copies."""
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.scaled()
@@ -51,17 +66,29 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
     model = engine.model
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = model.init(gen)
-    lora = model.init_lora(gen)
+    registry = None
+    if n_adapters > 0:
+        tenants = make_tenant_adapters(model, n_adapters, seed=seed + 1)
+        registry = AdapterRegistry(model,
+                                   capacity=adapter_slots or n_adapters)
+        for t, tree in enumerate(tenants):
+            registry.register(f"tenant{t}", tree)
+        lora = tenants[0]
+    else:
+        lora = model.init_lora(gen)
     data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
                             seq_len=prompt_len, seed=seed)
     batcher = ContinuousBatcher(
         engine, params, lora, n_slots=batch_size,
         max_seq=prompt_len + gen_tokens, prompt_pad=prompt_len,
         opt_state=engine.optimizer.init(lora), paged=paged,
-        block_size=block_size, n_blocks=n_blocks or None)
+        block_size=block_size, n_blocks=n_blocks or None,
+        adapters=registry)
     prompts = data.sample_tokens(n_requests)[:, :prompt_len]
     requests = [GenRequest(request_id=i, prompt=prompts[i],
                            max_new_tokens=gen_tokens,
+                           adapter_id=f"tenant{i % n_adapters}"
+                           if n_adapters > 0 else None,
                            temperature=temperature, top_k=top_k,
                            top_p=top_p, seed=seed + i)
                 for i in range(n_requests)]
@@ -92,6 +119,14 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         out["pool_blocks"] = batcher.allocator.capacity
         out["blocks_used_at_end"] = batcher.allocator.n_used
         out["blocks_reserved_at_end"] = batcher.allocator.reserved
+    if registry is not None:
+        out["adapter_ids"] = [r.adapter_id for r in requests]
+        out["adapter_requests"] = dict(stats.adapter_requests)
+        out["adapter_hits"] = registry.hits
+        out["adapter_loads"] = registry.loads
+        out["adapter_evictions"] = registry.evictions
+        out["adapter_refs_at_end"] = {
+            a: registry.refcount(a) for a in registry.registered()}
     if verbose:
         print(f"served {stats.finished}/{n_requests} requests, "
               f"{stats.generated_tokens} tokens in {stats.decode_steps} "
@@ -102,7 +137,10 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
               + (f"; co-trained {stats.train_steps} fused steps "
                  f"(loss {batcher.train_losses[0]:.3f} -> "
                  f"{batcher.train_losses[-1]:.3f})"
-                 if batcher.train_losses else ""))
+                 if batcher.train_losses else "")
+              + (f"; {n_adapters} tenants "
+                 f"{dict(sorted(stats.adapter_requests.items()))}"
+                 if registry is not None else ""))
     return out
 
 
@@ -130,6 +168,9 @@ def main() -> None:
                     help="keep only the k highest logits (0 = all)")
     ap.add_argument("--top-p", type=float, default=1.0,
                     help="nucleus sampling mass (1.0 = no filter)")
+    ap.add_argument("--adapters", type=int, default=0,
+                    help="multi-tenant LoRA: register N tenants and tag "
+                         "requests round-robin (0 = one adapter)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
@@ -141,7 +182,8 @@ def main() -> None:
                 train_batch=args.train_batch, paged=args.paged,
                 block_size=args.block_size, n_blocks=args.n_blocks,
                 temperature=args.temperature, top_k=args.top_k,
-                top_p=args.top_p, seed=args.seed, device=args.device)
+                top_p=args.top_p, n_adapters=args.adapters, seed=args.seed,
+                device=args.device)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,12 @@ frozen, shared base weights.  The model's projections go through
 ``project``, which computes the base product and the bypass in one
 ``kernels.lora_matmul`` call; ``apply`` is the unfused form, kept as the
 plain version of the same function.
+
+Multi-tenant serving stacks several tenants' trees into one
+(``stack_adapters``: leaves ``[L, A, din, r]``, slot axis 1) and tags
+each sequence with its slot (``adapter_idx`` [B] int32, < 0 for the
+base model alone): ``project`` then runs ``segmented_lora_matmul`` over
+the rows, ``apply_segmented`` is its unfused form.
 """
 from __future__ import annotations
 
@@ -15,7 +21,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.lora_matmul import LoRAMatmulFn, lora_matmul
+from repro_torch.kernels.lora_matmul import (
+    LoRAMatmulFn, lora_matmul, segmented_lora_matmul,
+)
+from repro_torch.tree import tree_map
 
 
 def target_dims(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
@@ -38,21 +47,25 @@ def target_dims(cfg: ModelConfig) -> Dict[str, Tuple[int, int]]:
     return dims
 
 
+def lora_shapes(cfg: ModelConfig, stacked: int) -> Dict:
+    """The shapes of ``init_lora``'s tree: ``{target: {"a": (stacked,
+    din, r), "b": (stacked, r, dout)}}``."""
+    dims = target_dims(cfg)
+    r = cfg.lora.rank
+    return {t: {"a": (stacked, dims[t][0], r), "b": (stacked, r, dims[t][1])}
+            for t in cfg.lora.targets if t in dims}
+
+
 def init_lora(generator: torch.Generator, cfg: ModelConfig,
               stacked: int) -> Dict:
     """One (a, b) pair per target, stacked over ``stacked`` layers:
-    a ~ N(0, 1/din), b = 0 (the adapter starts as a no-op)."""
-    dims = target_dims(cfg)
-    r = cfg.lora.rank
+    a ~ N(0, 1/din), b = 0 (the adapter starts as a no-op), float32."""
     dev = generator.device
     out = {}
-    for t in cfg.lora.targets:
-        if t not in dims:
-            continue
-        din, dout = dims[t]
-        a = torch.randn((stacked, din, r), generator=generator,
-                        dtype=torch.float32, device=dev) / math.sqrt(din)
-        b = torch.zeros((stacked, r, dout), dtype=torch.float32, device=dev)
+    for t, shp in lora_shapes(cfg, stacked).items():
+        a = torch.randn(shp["a"], generator=generator, dtype=torch.float32,
+                        device=dev) / math.sqrt(shp["a"][1])
+        b = torch.zeros(shp["b"], dtype=torch.float32, device=dev)
         out[t] = {"a": a, "b": b}
     return out
 
@@ -60,29 +73,67 @@ def init_lora(generator: torch.Generator, cfg: ModelConfig,
 def apply(x: torch.Tensor, base_out: torch.Tensor, pair: Optional[Dict],
           scaling: float, adapter_idx=None) -> torch.Tensor:
     """base_out + scaling * (x @ A) @ B, with A and B cast to x's dtype
-    first (as the JAX bypass does)."""
+    first (as the JAX bypass does).  With ``adapter_idx`` set, ``pair``
+    holds one layer's slot stack and each row applies its own slot
+    (``apply_segmented``)."""
     if pair is None:
         return base_out
     if adapter_idx is not None:
-        raise NotImplementedError(
-            "per-row adapter selection (multi-LoRA serving) is not ported "
-            "yet; see ROADMAP.md")
+        return apply_segmented(x, base_out, pair, adapter_idx, scaling)
     a = pair["a"].to(x.dtype)
     b = pair["b"].to(x.dtype)
     return base_out + ((x @ a) @ b) * scaling
 
 
+def apply_segmented(x: torch.Tensor, base_out: torch.Tensor, pair: Dict,
+                    adapter_idx: torch.Tensor,
+                    scaling: float) -> torch.Tensor:
+    """Per-row adapter selection over one layer's slot stack: x [B, S,
+    din]; pair ``{"a": [A, din, r], "b": [A, r, dout]}``; adapter_idx [B]
+    int, the row's slot (clamped to the last), < 0 for the base output
+    bitwise: the select comes after the products, so a stale or NaN slot
+    never reaches those rows."""
+    a = pair["a"].to(x.dtype)
+    b = pair["b"].to(x.dtype)
+    idx = adapter_idx.long()
+    sel = idx.clamp(0, a.shape[0] - 1)
+    xa = torch.einsum("bsk,bkr->bsr", x, a[sel])
+    low = torch.einsum("bsr,brn->bsn", xa, b[sel])
+    y = base_out + low * scaling
+    return torch.where((idx >= 0)[:, None, None], y, base_out)
+
+
+def stack_adapters(trees: "list[Dict]") -> Dict:
+    """Stack same-structure adapter trees into one multi-slot tree:
+    leaves go from ``[L, din, r]`` to ``[L, k, din, r]`` (slot axis 1, so
+    the layer loop still slices axis 0)."""
+    return tree_map(lambda *leaves: torch.stack(leaves, dim=1), *trees)
+
+
 def project(x: torch.Tensor, w: torch.Tensor, pair: Optional[Dict],
-            scaling: float) -> torch.Tensor:
+            scaling: float, adapter_idx=None) -> torch.Tensor:
     """x @ w + scaling * (x @ A) @ B in one fused ``lora_matmul`` over
     x's rows, with A and B cast to x's dtype first (as the JAX bypass
     does); through ``LoRAMatmulFn`` when autograd has to see it.  Without
-    an adapter it is the plain product ``x @ w``."""
+    an adapter it is the plain product ``x @ w``.  With ``adapter_idx``
+    [B] (per sequence of x [B, ...]), ``pair`` is one layer's slot stack
+    and one ``segmented_lora_matmul`` runs every row of x against its
+    sequence's slot; that path has no gradient."""
     if pair is None:
         return x @ w
     a = pair["a"].to(x.dtype)
     b = pair["b"].to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
+    if adapter_idx is not None:
+        if torch.is_grad_enabled() and (x2.requires_grad or a.requires_grad
+                                        or b.requires_grad):
+            raise ValueError("segmented_lora_matmul has no gradient; train "
+                             "one adapter tree without adapter_idx")
+        rows = adapter_idx.to(device=x.device, dtype=torch.int32)
+        if x2.shape[0] != rows.numel():     # one slot per sequence
+            rows = rows.repeat_interleave(x2.shape[0] // rows.numel())
+        y = segmented_lora_matmul(x2, w, a, b, rows, scaling)
+        return y.reshape(*x.shape[:-1], w.shape[1])
     if torch.is_grad_enabled() and (x2.requires_grad or a.requires_grad
                                     or b.requires_grad):
         y = LoRAMatmulFn.apply(x2, w, a, b, scaling)

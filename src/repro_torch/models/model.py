@@ -5,6 +5,10 @@ serving surface of ``repro.models.model.Model`` for the dense family:
   forward_loss(params, lora, batch)      (training objective), logits
   prefill_ragged(params, lora, batch, prompt_lens) -> (logits, caches)
   decode_step / decode_step_paged        (one token per sequence)
+
+The serving methods take ``adapter_idx`` [B] int32: ``lora`` is then a
+stacked multi-tenant tree (leaves ``[L, A, din, r]``) and each sequence
+applies its own slot (< 0: the base model alone).
   init_caches / init_paged_caches        write_prefill_slots / _blocks
 
 Params are nested dicts of tensors in the JAX layout (stacked ``[L, ...]``
@@ -120,11 +124,12 @@ class Model:
 
     def hidden_states(self, params, lora, batch, *,
                       collect_caches: bool = False, block_kv: int = 512,
-                      skip_masked_blocks: bool = False):
+                      skip_masked_blocks: bool = False, adapter_idx=None):
         """Full-sequence forward.  Returns (hidden, caches | None) with
         caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``.
         ``block_kv`` and ``skip_masked_blocks`` reach the blockwise
-        attention of sequences past the dense limit."""
+        attention of sequences past the dense limit; ``adapter_idx`` [B]
+        selects each row's slot of a stacked ``lora`` tree."""
         cfg = self.cfg
         x = self._embed(params, batch)
         s = x.shape[1]
@@ -135,7 +140,8 @@ class Model:
             x, (k, v) = tfm.block_full(
                 _layer(params["blocks"], i), x, cfg, rope_cs,
                 lora=_layer(lora, i), block_kv=block_kv,
-                skip_masked_blocks=skip_masked_blocks)
+                skip_masked_blocks=skip_masked_blocks,
+                adapter_idx=adapter_idx)
             if collect_caches:
                 ks.append(k)
                 vs.append(v)
@@ -198,14 +204,14 @@ class Model:
     # -------------------------------------------------------------- prefill -
     def prefill_ragged(self, params, lora, batch, prompt_lens, *,
                        block_kv: int = 512,
-                       skip_masked_blocks: bool = False):
+                       skip_masked_blocks: bool = False, adapter_idx=None):
         """Prefill right-padded ragged prompts in one batch.  Returns
         (logits at each row's last real token [B,1,V], {"kv": (k, v)}
         with k, v ``[L, B, P, Hkv, Dh]``).  Causal masking keeps pad
         tokens out of every real position's K/V."""
         hidden, caches = self.hidden_states(
             params, lora, batch, collect_caches=True, block_kv=block_kv,
-            skip_masked_blocks=skip_masked_blocks)
+            skip_masked_blocks=skip_masked_blocks, adapter_idx=adapter_idx)
         lens = torch.as_tensor(prompt_lens, device=hidden.device).long()
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last = hidden[rows, lens - 1][:, None]
@@ -268,7 +274,8 @@ class Model:
     def _logits(self, params, x):
         return rms_norm(x, params["final_norm"]) @ params["lm_head"]
 
-    def decode_step(self, params, lora, caches, token, pos):
+    def decode_step(self, params, lora, caches, token, pos,
+                    adapter_idx=None):
         """One decode step over contiguous caches.  token: [B,1] int;
         pos: [B] (or scalar) int positions of the new tokens.  Returns
         (logits [B,1,V], caches updated in place)."""
@@ -280,11 +287,13 @@ class Model:
         for i in range(cfg.n_layers):
             x, _ = tfm.block_decode(_layer(params["blocks"], i), x, cfg,
                                     {"kv": (k_all[i], v_all[i])}, pos,
-                                    rope_cs, lora=_layer(lora, i))
+                                    rope_cs, lora=_layer(lora, i),
+                                    adapter_idx=adapter_idx)
         return self._logits(params, x), caches
 
     def decode_step_paged(self, params, lora, caches, token, pos,
-                          block_tables, *, ring_len: int = 0):
+                          block_tables, *, ring_len: int = 0,
+                          adapter_idx=None):
         """One decode step over the paged KV pool.  token: [B,1] int;
         pos: [B] int absolute positions; block_tables: [B, NB] int32 on
         the model's device (entries past a sequence's live blocks point
@@ -310,7 +319,7 @@ class Model:
             x, _ = tfm.block_decode_paged(
                 _layer(params["blocks"], i), x, cfg, (k_all[i], v_all[i]),
                 rope_cs, block_tables, write_block, write_off, kv_len,
-                lora=_layer(lora, i))
+                lora=_layer(lora, i), adapter_idx=adapter_idx)
         return self._logits(params, x), caches
 
 

@@ -6,6 +6,9 @@
 Block params are one layer's slice of the stacked ``[L, ...]`` tree.
 Every projection goes through ``lora.project``: an adapter-bearing one
 is one fused ``lora_matmul`` kernel call, the others a plain product.
+With ``adapter_idx`` [B] (multi-tenant serving), ``lora`` is one layer's
+slot stack and each adapter projection is one ``segmented_lora_matmul``
+call over every sequence's own slot.
 Decode writes the new token's K/V into the caller's cache tensors IN
 PLACE (the JAX blocks return new caches); the returned caches are the
 same tensors.
@@ -77,11 +80,14 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 # ------------------------------------------------------------- attention ---
-def _proj_qkv(p, x, cfg: ModelConfig, lora):
+def _proj_qkv(p, x, cfg: ModelConfig, lora, adapter_idx=None):
     sc = cfg.lora.scaling
-    q = lora_lib.project(x, p["wq"], lora.get("q") if lora else None, sc)
-    k = lora_lib.project(x, p["wk"], lora.get("k") if lora else None, sc)
-    v = lora_lib.project(x, p["wv"], lora.get("v") if lora else None, sc)
+    q = lora_lib.project(x, p["wq"], lora.get("q") if lora else None, sc,
+                         adapter_idx)
+    k = lora_lib.project(x, p["wk"], lora.get("k") if lora else None, sc,
+                         adapter_idx)
+    v = lora_lib.project(x, p["wv"], lora.get("v") if lora else None, sc,
+                         adapter_idx)
     if "bq" in p:                      # bias after the LoRA bypass
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     b, s = x.shape[0], x.shape[1]
@@ -94,9 +100,9 @@ def _proj_qkv(p, x, cfg: ModelConfig, lora):
     return q, k, v
 
 
-def _out_proj(p, o, cfg: ModelConfig, lora):
+def _out_proj(p, o, cfg: ModelConfig, lora, adapter_idx=None):
     return lora_lib.project(o, p["wo"], lora.get("o") if lora else None,
-                            cfg.lora.scaling)
+                            cfg.lora.scaling, adapter_idx)
 
 
 def use_dense_prefill(cfg: ModelConfig, s: int) -> bool:
@@ -108,13 +114,14 @@ def use_dense_prefill(cfg: ModelConfig, s: int) -> bool:
 
 
 def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None,
-              block_kv: int = 512, skip_masked_blocks: bool = False
+              block_kv: int = 512, skip_masked_blocks: bool = False,
+              adapter_idx=None
               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full-sequence attention (training / prefill): the dense path up
     to ``s*s <= 1M`` (``use_dense_prefill``), the blockwise online
     softmax past it (on the card, the ``flash_attention`` kernels).
     Returns (out, (k, v)) so prefill can stash the KV cache."""
-    q, k, v = _proj_qkv(p, x, cfg, lora)
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
     if rope_cs is not None:
         cos, sin = rope_cs
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -130,10 +137,11 @@ def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None,
                                 skip_masked_blocks=skip_masked_blocks
                                 and causal)
     o = o.reshape(x.shape[0], s, cfg.n_heads * cfg.head_dim)
-    return _out_proj(p, o, cfg, lora), (k, v)
+    return _out_proj(p, o, cfg, lora, adapter_idx), (k, v)
 
 
-def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None):
+def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None,
+                adapter_idx=None):
     """One-token attention against a contiguous KV cache, ragged slots.
 
     cache_kv: (k_cache, v_cache) [B,S,Hkv,Dh]; pos: [B] int per-sequence
@@ -142,7 +150,7 @@ def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None):
     caches in place.  Returns (out, caches)."""
     k_cache, v_cache = cache_kv
     cache_len = k_cache.shape[1]
-    q, k, v = _proj_qkv(p, x, cfg, lora)
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
     if rope_cs is not None:
         cos, sin = rope_cs  # [B, 1, Dh/2]
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -155,12 +163,12 @@ def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None):
     kv_len = torch.clamp(pos + 1, max=cache_len)
     o = attention_decode(q, k_cache, v_cache, kv_len)
     o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
-    return _out_proj(p, o, cfg, lora), (k_cache, v_cache)
+    return _out_proj(p, o, cfg, lora, adapter_idx), (k_cache, v_cache)
 
 
 def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
                       block_tables, write_block, write_off, kv_len,
-                      lora=None):
+                      lora=None, adapter_idx=None):
     """One-token attention against one layer's paged KV block pool.
 
     pool_kv: (k_pool, v_pool) [n_blocks, block_size, Hkv, Dh];
@@ -171,7 +179,7 @@ def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
     scratch block 0, where the duplicate writes are harmless).  Returns
     (out, pools)."""
     k_pool, v_pool = pool_kv
-    q, k, v = _proj_qkv(p, x, cfg, lora)
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
     if rope_cs is not None:
         cos, sin = rope_cs
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -179,53 +187,60 @@ def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
     v_pool[write_block, write_off] = v[:, 0].to(v_pool.dtype)
     o = attention_decode_paged(q, k_pool, v_pool, block_tables, kv_len)
     o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
-    return _out_proj(p, o, cfg, lora), (k_pool, v_pool)
+    return _out_proj(p, o, cfg, lora, adapter_idx), (k_pool, v_pool)
 
 
 # ----------------------------------------------------------------- blocks --
-def _mlp_out(bp, h, cfg: ModelConfig, lora):
+def _mlp_out(bp, h, cfg: ModelConfig, lora, adapter_idx=None):
     sc = cfg.lora.scaling
     mlp = bp["mlp"]
     g = lora_lib.project(h, mlp["wg"], lora.get("gate") if lora else None,
-                         sc)
-    u = lora_lib.project(h, mlp["wu"], lora.get("up") if lora else None, sc)
+                         sc, adapter_idx)
+    u = lora_lib.project(h, mlp["wu"], lora.get("up") if lora else None, sc,
+                         adapter_idx)
     hidden = F.silu(g) * u
     return lora_lib.project(hidden, mlp["wd"],
-                            lora.get("down") if lora else None, sc)
+                            lora.get("down") if lora else None, sc,
+                            adapter_idx)
 
 
 def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
-               block_kv: int = 512, skip_masked_blocks: bool = False):
+               block_kv: int = 512, skip_masked_blocks: bool = False,
+               adapter_idx=None):
     """Full-sequence block (prefill, training).  Returns (x, (k, v))."""
     attn_out, kv = attn_full(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
                              rope_cs, lora=lora, block_kv=block_kv,
-                             skip_masked_blocks=skip_masked_blocks)
+                             skip_masked_blocks=skip_masked_blocks,
+                             adapter_idx=adapter_idx)
     x = x + attn_out
     if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora)
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
     return x, kv
 
 
-def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None):
+def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None,
+                 adapter_idx=None):
     """One-token block.  caches: {"kv": (k, v)} of this layer (updated in
     place).  Returns (x, caches)."""
     attn_out, _ = attn_decode(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
-                              caches["kv"], pos, rope_cs, lora=lora)
+                              caches["kv"], pos, rope_cs, lora=lora,
+                              adapter_idx=adapter_idx)
     x = x + attn_out
     if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora)
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
     return x, caches
 
 
 def block_decode_paged(bp, x, cfg: ModelConfig, pool_kv, rope_cs,
                        block_tables, write_block, write_off, kv_len,
-                       lora=None):
+                       lora=None, adapter_idx=None):
     """One-token block against one layer's paged KV pool (updated in
     place).  Returns (x, pools)."""
     attn_out, pool_kv = attn_decode_paged(
         bp["attn"], rms_norm(x, bp["ln1"]), cfg, pool_kv, rope_cs,
-        block_tables, write_block, write_off, kv_len, lora=lora)
+        block_tables, write_block, write_off, kv_len, lora=lora,
+        adapter_idx=adapter_idx)
     x = x + attn_out
     if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora)
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
     return x, pool_kv

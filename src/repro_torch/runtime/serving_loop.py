@@ -27,12 +27,24 @@ when a train session staged a shadow, else ``self.lora`` itself, which
 is replaced by the trained tree after the tick).  A tick with no active
 slot trains alone.  The host pulls the train metrics once per tick.
 
+Multi-tenant serving: pass an ``AdapterRegistry`` as ``adapters`` and
+tag requests with ``GenRequest.adapter_id``.  Every prefill and decode
+then reads the registry's stacked device tree with one slot index per
+row (the segmented_lora_matmul kernel on the card), so one wave mixes
+tenants; admission pins each request's adapter (loading it on a miss,
+waiting while every slot is pinned) and eviction unpins it.  Requests
+without an ``adapter_id`` serve the bare base model.  Co-training still
+steps ``self.lora`` (the co-train tenant's tree) in place, while decode
+reads the registry's copies.
+
 Prompts past the dense limit (``prompt_pad``^2 > 1M) prefill blockwise,
 on the card through the flash_attention kernels.  Not ported yet (the
-constructor raises ``NotImplementedError``): prefix caching, multi-LoRA
-adapters, chunked prefill, the TPOT token budget and oversubscription;
-the first, third and last also keep the reference's gate, which refuses
-them past the dense limit.
+constructor raises ``NotImplementedError``): prefix caching, chunked
+prefill, the TPOT token budget and oversubscription; the first, second
+and last also keep the reference's gate, which refuses them past the
+dense limit.  Nor are the registry's sanitizer hook, per-tenant
+prefix-cache namespaces and adapter pins kept across preemption, which
+come with those features.
 """
 from __future__ import annotations
 
@@ -44,8 +56,10 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models.lora import lora_shapes
 from repro_torch.models.transformer import use_dense_prefill
 from repro_torch.runtime.paging import BlockAllocator, blocks_for
+from repro_torch.tree import tree_finite, tree_map
 
 
 @dataclasses.dataclass
@@ -55,6 +69,9 @@ class GenRequest:
     request_id: int
     prompt: np.ndarray                  # [P] int32 token ids
     max_new_tokens: int = 16
+    # multi-tenant serving: the registered adapter this request's tokens
+    # flow through (None: the base model, or the single-adapter mode)
+    adapter_id: Optional[str] = None
     # sampling: temperature <= 0 is exact greedy; top_k/top_p filter
     # before the softmax; ``seed`` (default request_id) seeds ``rng``
     temperature: float = 0.0
@@ -113,6 +130,12 @@ class ServeStats:
     # latest train CE loss of a combined or plain train tick (NaN until
     # the batcher has trained)
     train_loss: float = float("nan")
+    # multi-tenant: finished requests per adapter, and the version each
+    # tenant's adapter served at its last finish
+    adapter_requests: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
+    adapter_versions: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
 
     def throughput(self) -> float:
         return self.generated_tokens / max(self.wall_time, 1e-9)
@@ -124,12 +147,177 @@ def _host_ids(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.tensor(arr, dtype=torch.int32, device=device)
 
 
+class AdapterError(RuntimeError):
+    """Misuse of the AdapterRegistry (unknown id, double free, ...)."""
+
+
+class OutOfAdapterSlots(AdapterError):
+    """Every device slot is pinned by in-flight requests."""
+
+
+def _write_adapter_slot(stack, tree, slot: int) -> None:
+    """Overwrite device slot ``slot`` of a stacked multi-adapter tree
+    (leaves ``[L, A, din, r]``) with one tenant's tree, in place."""
+    with torch.no_grad():
+        tree_map(lambda stk, leaf: stk[:, slot].copy_(leaf), stack, tree)
+
+
+class AdapterRegistry:
+    """Multi-tenant adapter residency of one replica: every registered
+    tenant keeps its own LoRA tree (wherever the caller made it); up to
+    ``capacity`` of them are resident in one stacked tree on the model's
+    device (leaves ``[L, capacity, din, r]``, float32) that prefill and
+    decode index per row.
+
+    Residency is refcounted like the paged pool's ``BlockAllocator``:
+    ``acquire`` pins a tenant's slot for a request's lifetime (copying
+    its tree into a free slot on a miss), ``release`` unpins it, and
+    refcount-0 residents wait in an LRU list, still servable at no cost,
+    until a miss needs their slot (cold-adapter eviction).  ``update``
+    rewrites a resident tenant's slot in place, so in-flight rows read
+    the new weights on their next tick (the atomic publish).  Slots start
+    zero-filled and are overwritten on load, so the stacks stay finite.
+    """
+
+    def __init__(self, model, capacity: int):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        cfg = model.cfg
+        self._stack = tree_map(
+            lambda shp: torch.zeros((shp[0], capacity) + shp[1:],
+                                    dtype=torch.float32,
+                                    device=model.device),
+            lora_shapes(cfg, cfg.n_layers))
+        self._trees: Dict[str, Any] = {}
+        self._version: Dict[str, int] = {}
+        self._slot: Dict[str, int] = {}        # resident tenants only
+        self._refs: Dict[str, int] = {}        # resident tenants only
+        self._free: List[int] = list(range(capacity))
+        # refcount-0 residents, oldest first (the LRU retained pool)
+        self._lru: "collections.OrderedDict[str, int]" = \
+            collections.OrderedDict()
+        self.hits = 0
+        self.loads = 0
+        self.evictions = 0
+
+    # ---------------------------------------------------------- tenants --
+    def register(self, adapter_id: str, tree: Any,
+                 version: int = 0) -> None:
+        """Add (or overwrite) a tenant's adapter tree."""
+        if adapter_id in self._slot:
+            raise AdapterError(
+                f"{adapter_id}: already registered and resident; use "
+                "update() to change a live tenant's weights")
+        self._trees[adapter_id] = tree
+        self._version[adapter_id] = version
+
+    def unregister(self, adapter_id: str) -> None:
+        if self.refcount(adapter_id) > 0:
+            raise AdapterError(
+                f"{adapter_id}: unregister with {self.refcount(adapter_id)} "
+                "in-flight refs")
+        if adapter_id in self._slot:
+            self._free.append(self._slot.pop(adapter_id))
+            self._refs.pop(adapter_id, None)
+            self._lru.pop(adapter_id, None)
+        self._trees.pop(adapter_id, None)
+        self._version.pop(adapter_id, None)
+
+    def is_registered(self, adapter_id: str) -> bool:
+        return adapter_id in self._trees
+
+    def registered(self) -> List[str]:
+        return sorted(self._trees)
+
+    def version(self, adapter_id: str) -> int:
+        return self._version.get(adapter_id, 0)
+
+    # -------------------------------------------------------- residency --
+    def refcount(self, adapter_id: str) -> int:
+        return self._refs.get(adapter_id, 0)
+
+    def slot_index(self, adapter_id: str) -> int:
+        """Device slot of a resident tenant, -1 otherwise."""
+        return self._slot.get(adapter_id, -1)
+
+    def resident_ids(self) -> tuple:
+        return tuple(sorted(self._slot))
+
+    def can_acquire(self, adapter_id: str) -> bool:
+        if not self.is_registered(adapter_id):
+            return False
+        return adapter_id in self._slot or bool(self._free) \
+            or bool(self._lru)
+
+    def acquire(self, adapter_id: str) -> int:
+        """Pin ``adapter_id``'s device slot (+1 ref), loading it on a
+        miss and evicting the coldest unpinned tenant when no slot is
+        free.  Raises ``OutOfAdapterSlots`` when every slot is pinned."""
+        if not self.is_registered(adapter_id):
+            raise AdapterError(f"{adapter_id}: not registered")
+        slot = self._slot.get(adapter_id)
+        if slot is not None:
+            self.hits += 1
+            self._lru.pop(adapter_id, None)
+            self._refs[adapter_id] = self._refs.get(adapter_id, 0) + 1
+            return slot
+        if self._free:
+            slot = self._free.pop()
+        elif self._lru:
+            cold, slot = self._lru.popitem(last=False)
+            del self._slot[cold]
+            self._refs.pop(cold, None)
+            self.evictions += 1
+        else:
+            raise OutOfAdapterSlots(
+                f"{adapter_id}: all {self.capacity} adapter slots are "
+                "pinned by in-flight requests")
+        _write_adapter_slot(self._stack, self._trees[adapter_id], slot)
+        self.loads += 1
+        self._slot[adapter_id] = slot
+        self._refs[adapter_id] = 1
+        return slot
+
+    def release(self, adapter_id: str) -> None:
+        refs = self._refs.get(adapter_id, 0)
+        if refs <= 0:
+            raise AdapterError(f"{adapter_id}: release without acquire")
+        refs -= 1
+        self._refs[adapter_id] = refs
+        if refs == 0:
+            # stays resident (warm) until a miss needs the slot
+            self._lru[adapter_id] = self._slot[adapter_id]
+
+    def update(self, adapter_id: str, tree: Any,
+               version: Optional[int] = None) -> None:
+        """Swap a tenant's weights: its own tree always, its device slot
+        in place when resident.  A non-finite tree is refused, so every
+        resident slot stays servable."""
+        if not self.is_registered(adapter_id):
+            raise AdapterError(f"{adapter_id}: not registered")
+        if not tree_finite(tree):
+            raise AdapterError(
+                f"{adapter_id}: refusing non-finite adapter publish")
+        self._trees[adapter_id] = tree
+        if version is not None:
+            self._version[adapter_id] = version
+        slot = self._slot.get(adapter_id)
+        if slot is not None:
+            _write_adapter_slot(self._stack, tree, slot)
+
+    def device_lora(self) -> Any:
+        """The stacked device tree the multi-tenant paths read."""
+        return self._stack
+
+
 class ContinuousBatcher:
     """Fixed-slot continuous batching over one model replica (see the
     module docstring).  ``params`` and ``lora`` are the port's tensor
-    trees on the model's device; every prefill and decode reads ``lora``.
-    ``opt_state`` (the engine optimizer's state of the train tree) is
-    needed for co-training ticks.
+    trees on the model's device; every prefill and decode reads ``lora``,
+    or with ``adapters`` (an ``AdapterRegistry``) the registry's stacked
+    tree.  ``opt_state`` (the engine optimizer's state of the train tree)
+    is needed for co-training ticks.
     """
 
     def __init__(self, engine, params, lora, *, n_slots: int = 8,
@@ -137,7 +325,8 @@ class ContinuousBatcher:
                  opt_state: Any = None,
                  eos_id: Optional[int] = None, paged: bool = False,
                  block_size: int = 16, n_blocks: Optional[int] = None,
-                 prefix_cache: bool = False, adapters: Any = None,
+                 prefix_cache: bool = False,
+                 adapters: Optional[AdapterRegistry] = None,
                  prefill_chunk: int = 0, tpot_target: float = 0.0,
                  oversubscribe: float = 0.0):
         cfg = engine.model.cfg
@@ -164,7 +353,7 @@ class ContinuousBatcher:
                 raise NotImplementedError(
                     f"{cfg.name}: {name} needs the dense prefill path — "
                     f"{why}")
-        unported = {"prefix_cache": prefix_cache, "adapters": adapters,
+        unported = {"prefix_cache": prefix_cache,
                     "prefill_chunk": prefill_chunk,
                     "tpot_target": tpot_target,
                     "oversubscribe": oversubscribe}
@@ -184,6 +373,7 @@ class ContinuousBatcher:
         self.params = params
         self.lora = lora
         self.opt_state = opt_state
+        self.adapters = adapters
         self.n_slots = n_slots
         self.max_seq = max_seq
         self.prompt_pad = min(prompt_pad, max_seq)
@@ -222,6 +412,8 @@ class ContinuousBatcher:
         self.slot_req: List[Optional[GenRequest]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)   # next write position
         self.slot_tok = np.zeros(n_slots, np.int32)   # next token to feed
+        # registry mode: the adapter id each slot's request pinned
+        self.slot_aid: List[Optional[str]] = [None] * n_slots
         self.stats = ServeStats()
         self.prefill_waves = 0
         # co-training: CE loss per train tick, the shadow tree a train
@@ -239,6 +431,16 @@ class ContinuousBatcher:
         if len(req.prompt) > self.prompt_pad:
             raise ValueError(f"prompt len {len(req.prompt)} > prompt_pad "
                              f"{self.prompt_pad}")
+        if req.adapter_id is not None:
+            if self.adapters is None:
+                raise AdapterError(
+                    f"request {req.request_id} names adapter "
+                    f"{req.adapter_id!r} but this batcher has no "
+                    "AdapterRegistry")
+            if not self.adapters.is_registered(req.adapter_id):
+                raise AdapterError(
+                    f"request {req.request_id}: adapter "
+                    f"{req.adapter_id!r} is not registered")
         # a slot holds prompt + generation; clamp so writes stay in-cache
         budget = self.max_seq - len(req.prompt)
         req.max_new_tokens = max(1, min(req.max_new_tokens, budget))
@@ -259,9 +461,31 @@ class ContinuousBatcher:
                      self.ring_len)
         return blocks_for(tokens, self.block_size)
 
+    # ---------------------------------------------------- adapter routing --
+    def _serve_lora(self) -> Any:
+        """The tree every prefill and decode reads: the registry's stacked
+        device tree in multi-tenant mode, else the published adapter."""
+        return self.adapters.device_lora() if self.adapters is not None \
+            else self.lora
+
+    def _wave_adapter_idx(self, reqs: List[GenRequest]):
+        """Per-row registry slots of a prefill wave (pinned at admission,
+        so stable), on the device; None without a registry."""
+        if self.adapters is None:
+            return None
+        return _host_ids(np.array(
+            [self.adapters.slot_index(r.adapter_id)
+             if r.adapter_id is not None else -1 for r in reqs], np.int32),
+            self.device)
+
     def _record_finish(self, req: GenRequest, now: float) -> None:
         req.finished_at = now
         self.stats.finished += 1
+        if req.adapter_id is not None:
+            self.stats.adapter_requests[req.adapter_id] = \
+                self.stats.adapter_requests.get(req.adapter_id, 0) + 1
+            self.stats.adapter_versions[req.adapter_id] = \
+                self.adapters.version(req.adapter_id)
 
     def _prefill_wave(self, reqs: List[GenRequest]):
         """ONE ragged (right-padded) prefill for the whole wave and ONE
@@ -274,8 +498,9 @@ class ContinuousBatcher:
         tokens = torch.tensor(padded, dtype=torch.long, device=self.device)
         with torch.no_grad():
             logits, pre = self.model.prefill_ragged(
-                self.params, self.lora, {"tokens": tokens},
-                torch.tensor(lens, device=self.device))
+                self.params, self._serve_lora(), {"tokens": tokens},
+                torch.tensor(lens, device=self.device),
+                adapter_idx=self._wave_adapter_idx(reqs))
         self.prefill_waves += 1
         last = logits[:, -1]
         firsts = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per prefill wave
@@ -285,19 +510,35 @@ class ContinuousBatcher:
         """Fill free slots from the queue, FCFS; returns requests that
         finished at admission (max_new_tokens == 1 / instant EOS).  Paged
         mode admits only while the allocator can cover the head request's
-        worst case — otherwise the queue waits for an eviction."""
+        worst case — otherwise the queue waits for an eviction.  With a
+        registry, a request whose adapter cannot get a device slot (every
+        slot pinned) is skipped for this wave and keeps its place; its
+        adapter is pinned at admission."""
         finished: List[GenRequest] = []
         free = [i for i in range(self.n_slots) if self.slot_req[i] is None]
         reqs: List[GenRequest] = []
         reserved: List[int] = []
-        while len(reqs) < len(free) and self.queue:
+        picked: List[int] = []      # queue indices claimed this wave
+        qi = 0
+        while len(reqs) < len(free) and qi < len(self.queue):
+            head = self.queue[qi]
+            if head.adapter_id is not None \
+                    and not self.adapters.can_acquire(head.adapter_id):
+                qi += 1
+                continue
             if self.paged:
-                need = self._worst_blocks(self.queue[0])
+                need = self._worst_blocks(head)
                 if not self.allocator.can_reserve(need):
                     break           # strict FCFS backpressure
                 self.allocator.reserve(need)
                 reserved.append(need)
-            reqs.append(self.queue.popleft())
+            if head.adapter_id is not None:
+                self.adapters.acquire(head.adapter_id)
+            reqs.append(head)
+            picked.append(qi)
+            qi += 1
+        for j in reversed(picked):
+            del self.queue[j]
         if not reqs:
             return finished
         firsts, wave_pre, last_logits = self._prefill_wave(reqs)
@@ -326,6 +567,8 @@ class ContinuousBatcher:
                     or first == self.eos_id:
                 # done at admission: never occupies the slot
                 self._record_finish(req, now)
+                if req.adapter_id is not None:
+                    self.adapters.release(req.adapter_id)
                 if self.paged:
                     self.allocator.release(reserved[k])
                 finished.append(req)
@@ -343,6 +586,7 @@ class ContinuousBatcher:
                 wave_slots[k] = slot
             admitted_rows += 1
             self.slot_req[slot] = req
+            self.slot_aid[slot] = req.adapter_id
             self.slot_pos[slot] = len(req.prompt)
             self.slot_tok[slot] = first
         if admitted_rows and self.paged:
@@ -403,29 +647,42 @@ class ContinuousBatcher:
             if self._dev_tables is None:
                 self._dev_tables = _host_ids(self.block_tables, self.device)
             tables = self._dev_tables[:, :self._table_width(active)]
+        # registry mode: each slot's device adapter slot, -1 for inactive
+        # and base-only slots (their rows take the base product bitwise)
+        serve_idx = None
+        if self.adapters is not None:
+            idx = np.full(self.n_slots, -1, np.int32)
+            for i in active:
+                if self.slot_aid[i] is not None:
+                    idx[i] = self.adapters.slot_index(self.slot_aid[i])
+            serve_idx = _host_ids(idx, self.device)
         if train_batch is not None:
             if self.paged:
                 (new_tl, self.opt_state, logits, self.caches,
                  metrics) = self.engine.combined_step_paged(
                     self.params, self._train_adapter(), self.opt_state,
                     train_batch, self.caches, toks, pos, tables,
-                    ring_len=self.ring_len, serve_lora=self.lora,
-                    grad_accum=self.train_grad_accum)
+                    ring_len=self.ring_len, serve_lora=self._serve_lora(),
+                    grad_accum=self.train_grad_accum,
+                    serve_adapter_idx=serve_idx)
             else:
                 (new_tl, self.opt_state, logits, self.caches,
                  metrics) = self.engine.combined_step(
                     self.params, self._train_adapter(), self.opt_state,
                     train_batch, self.caches, toks, pos,
-                    serve_lora=self.lora, grad_accum=self.train_grad_accum)
+                    serve_lora=self._serve_lora(),
+                    grad_accum=self.train_grad_accum,
+                    serve_adapter_idx=serve_idx)
             self._store_trained(new_tl)
             self._record_train(metrics)
         elif self.paged:
             logits, self.caches = self.model.decode_step_paged(
-                self.params, self.lora, self.caches, toks, pos, tables,
-                ring_len=self.ring_len)
+                self.params, self._serve_lora(), self.caches, toks, pos,
+                tables, ring_len=self.ring_len, adapter_idx=serve_idx)
         else:
             logits, self.caches = self.model.decode_step(
-                self.params, self.lora, self.caches, toks, pos)
+                self.params, self._serve_lora(), self.caches, toks, pos,
+                adapter_idx=serve_idx)
         self.stats.decode_steps += 1
         last = logits[:, -1]
         nxt = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per decode wave
@@ -454,10 +711,16 @@ class ContinuousBatcher:
 
     def _evict(self, i: int) -> None:
         """Free slot ``i`` completely: request, position AND feed token,
-        plus its blocks and unused reservation in paged mode."""
+        its adapter pin, plus its blocks and unused reservation in paged
+        mode."""
         self.slot_req[i] = None
         self.slot_pos[i] = 0
         self.slot_tok[i] = 0
+        if self.slot_aid[i] is not None:
+            # unpin the request's adapter: a leaked ref would pin the slot
+            # forever and eventually stall admission
+            self.adapters.release(self.slot_aid[i])
+            self.slot_aid[i] = None
         if self.paged:
             self.allocator.free(self.slot_blocks[i])
             self.slot_blocks[i] = []
@@ -469,7 +732,8 @@ class ContinuousBatcher:
     def drain_all(self) -> List[GenRequest]:
         """Evict every active slot, clear the queue, and return all
         unfinished requests with their partial tokens discarded.  In paged
-        mode every block and reservation returns to the allocator."""
+        mode every block and reservation returns to the allocator, and
+        every adapter pin to the registry (queued requests hold none)."""
         out: List[GenRequest] = list(self.queue)
         self.queue.clear()
         for i in self.active_slots():
@@ -490,8 +754,8 @@ class ContinuousBatcher:
     def _train_adapter(self) -> Any:
         """The tree the optimizer steps: the staged shadow during a
         train session, the published adapter otherwise (in-place
-        continuous adaptation); prefill and decode ALWAYS read
-        ``self.lora``."""
+        continuous adaptation); prefill and decode read ``self.lora``
+        (or, with a registry, the registry's stacked tree)."""
         return self.train_lora if self.train_lora is not None \
             else self.lora
 

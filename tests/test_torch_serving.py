@@ -133,8 +133,7 @@ def test_allocator_invariants():
 def test_unported_features_raise(setup):
     engine, params, lora, _, _ = setup
     for kw in ({"prefix_cache": True}, {"prefill_chunk": 8},
-               {"tpot_target": 0.01}, {"oversubscribe": 0.9},
-               {"adapters": object()}):
+               {"tpot_target": 0.01}, {"oversubscribe": 0.9}):
         with pytest.raises(NotImplementedError):
             ContinuousBatcher(engine, params, lora, paged=True, **kw)
     b = ContinuousBatcher(engine, params, lora)
