@@ -14,8 +14,9 @@ Phases, each printing JSON lines:
               float32 and bfloat16, at the serving shape and four more
               (long context, GQA, pool blocks of 128 and 256 rows);
   kernel_lora lora_matmul at the decode, train, prefill, long train and
-              long prefill shapes of qwen1.5-0.5b and two ragged shapes
-              (M 1000 and 5), plus its backward (dX, dA, dB of
+              long prefill shapes of qwen1.5-0.5b, two ragged shapes
+              (M 1000 and 5) and mamba2-780m's ssm_in / ssm_out at
+              decode and a 2,048-token prefill, plus its backward (dX, dA, dB of
               LoRAMatmulFn against autograd of the plain version) at the
               train shapes and the decode shape;
   kernel_flash flash_attention forward and backward against the plain
@@ -28,7 +29,16 @@ Phases, each printing JSON lines:
               multi-tenant decode (1, 4 and 8 slots) and prefill waves of
               qwen1.5-0.5b, a ragged shape and llama3-8b's decode; in bf16
               each row bitwise lora_matmul of its own slot (B = 0 for -1
-              rows) and no leak from 1e6 in an unused slot.
+              rows) and no leak from 1e6 in an unused slot;
+  kernel_ssd  ssd_scan against its plain version (the reference's chunked
+              SSD at chunk 256) at mamba2-780m's prefill (H 48, P 64,
+              N 128) of 32, 992, 1,000, 2,048 and 4,096 tokens, two
+              requests of 512 from a random state and hymba-1.5b's heads
+              (H 50, N 16), x float32 and bfloat16 as a strided view like
+              the mixer's; 2,048 tokens and the two requests again with
+              dt and a as the mixer makes them, so that the state
+              carried from one chunk to the next shows in y; a CUDA
+              input that requires grad must raise.
               Every kernel phase reports the worst error, kernel / plain
               / library time (CUDA events, median of REPS or FLASH_REPS,
               L2 flushed before each) and the least time the card could
@@ -39,7 +49,9 @@ Phases, each printing JSON lines:
               train step's loss, LoRA gradients and updated adapter;
               full-width logits finite and of the right shape, and a
               full-width combined_step_paged whose logits equal a
-              decode_step_paged with the pre-update adapter;
+              decode_step_paged with the pre-update adapter; mamba2 at
+              its reduced float32 size: prefill logits and SSM caches,
+              five decode steps' logits;
   reference_blockwise  the same at a reduced float32 config forced onto
               the blockwise path (prefill logits and caches, one train
               step, the flash launches they make), and at full width in
@@ -58,6 +70,11 @@ Phases, each printing JSON lines:
               adapter projection per prefill wave and decode step,
               flash_attention once per layer per prefill wave past 1,024
               tokens and never below;
+  serve_ssm   mamba2-780m at full width (48 layers, d_model 1536, bf16),
+              16 requests on 8 contiguous slots at 32+16, 992+32 and
+              2,048+32 tokens: every request finishes, ssd_scan once per
+              layer per request, lora_matmul once per adapter projection
+              per prefill call and decode step, no attention kernel;
   combined    the same servers co-training the adapter on every tick
               (``run_serving(combined=True)``, train batch 4 x prompt
               length; llama3-8b 1 x prompt length): qwen paged and
@@ -85,7 +102,8 @@ Phases, each printing JSON lines:
   tick        where a full-width tick's time goes (serve ticks at 32-,
               992- and 2,048-token prompts, combined ticks with a 4 x 32
               and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
-              tokens): host wall per tick, and under
+              tokens, mamba2-780m decode ticks after 32- and 2,048-token
+              prompts): host wall per tick, and under
               torch.profiler the device time, each kernel's share and the
               kernels launched per tick;
   kernels     one line over all ported kernels.
@@ -95,6 +113,7 @@ that.  Without a CUDA device, or without the rest of the repository, it
 exits non-zero and prints no result.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -123,7 +142,9 @@ LORA_SCALING = 2.0  # alpha / r = 32 / 16
 # x @ A and the output to bf16, at most one ulp apart (2^-8..2^-7)
 LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (name, M, K, N, r): qwen1.5-0.5b's q/k/v/o at each caller's M; between
-# them they take each of the bf16 kernel's four tile shapes
+# them they take each of the bf16 kernel's four tile shapes; then
+# mamba2-780m's ssm_in (N = 6448: no multiple of 64) and ssm_out at decode
+# (8 slots) and at a 2,048-token prefill (forward only)
 LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
                ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
@@ -131,7 +152,11 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train_long", 3968, 1024, 1024, 16),   # 4 x 992
                ("prefill_long", 7936, 1024, 1024, 16), # 8 x 992
                ("ragged", 1000, 1000, 2816, 16),       # no tile multiple
-               ("ragged_decode", 5, 1000, 2816, 16)]   # the same, M <= 16
+               ("ragged_decode", 5, 1000, 2816, 16),   # the same, M <= 16
+               ("ssm_in_decode", 8, 1536, 6448, 16),
+               ("ssm_in_prefill", 2048, 1536, 6448, 16),
+               ("ssm_out_decode", 8, 3072, 1536, 16),
+               ("ssm_out_prefill", 2048, 3072, 1536, 16)]
 # flash_attention, causal: (name, B, H, Hkv, D, S, window) -- every
 # shape the serve and combined phases give it: the prefill waves of
 # qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and llama3-8b (GQA 4:1,
@@ -343,6 +368,7 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
                 "plain_ms": device_ms(
                     lambda: lm_ref(x, w, a, b, LORA_SCALING)),
                 "library_ms": device_ms(lambda: x @ merged),
+                "base_only_ms": device_ms(lambda: x @ w),
             }
             row["bound_ms"], row["bound_by"] = lora_bound(m, k, n, r, dtype)
             emit("kernel", kernel="lora_matmul", **row)
@@ -613,12 +639,146 @@ def phase_kernel_flash(fa):
     return rows
 
 
+# ------------------------------------------------------------- ssd scan ---
+# (name, B, S, H, P, N, random init_state, inputs): mamba2-780m's prefill
+# (one request, 48 heads of P = 64, N = 128) at the serve runs' prompt
+# lengths and 4,096, a length that is no multiple of any chunk, two
+# requests continuing from a state, and hymba-1.5b's heads (H = 50,
+# N = 16), with ``tests/test_kernels.py``'s distributions; then two of
+# them with dt and a as the mixer makes them, where a chunk's decay
+# leaves the state carried into the next one visible (with the test
+# distributions it decays by about e^-50 over one 64-row chunk)
+SSD_SHAPES = [("mamba_32", 1, 32, 48, 64, 128, False, "test"),
+              ("mamba_992", 1, 992, 48, 64, 128, False, "test"),
+              ("mamba_2048", 1, 2048, 48, 64, 128, False, "test"),
+              ("mamba_4096", 1, 4096, 48, 64, 128, False, "test"),
+              ("ragged_1000", 1, 1000, 48, 64, 128, False, "test"),
+              ("init_b2_512", 2, 512, 48, 64, 128, True, "test"),
+              ("hymba_2048", 1, 2048, 50, 64, 16, False, "test"),
+              ("mixer_2048", 1, 2048, 48, 64, 128, False, "mixer"),
+              ("mixer_init_b2_512", 2, 512, 48, 64, 128, True, "mixer")]
+SSD_CHUNK = 256     # the plain version's chunk (mamba2-780m's ssm_chunk)
+SSD_TOL_Y = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_TOL_STATE = 1e-4
+SSD_REPS = 10
+
+
+def ssd_case(b, s, h, p, n, init, dtype, seed, inputs="test"):
+    """Inputs as the mixer gives them: x and B/C slices of one conv output
+    ``[B, S, H*P + 2N]`` in x's dtype (x a strided view, B and C cast to
+    float32: a copy in bf16, the view itself in float32).  ``"test"``:
+    dt = softplus of a normal, a = -exp(0.3 * normal), the distributions
+    of ``tests/test_kernels.py::test_ssd_scan``; ``"mixer"``: dt =
+    softplus(normal + dt_bias) and a = -exp(A_log) as ``mamba2.init_ssm``
+    sets them (dt_bias = log(expm1(0.01)), A_log = log(linspace(1, 16)))."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    di = h * p
+    conv = torch.randn((b, s, di + 2 * n), generator=g, device="cuda")
+    conv[..., di:] *= 0.3
+    conv = conv.to(dtype)
+    x = conv[..., :di].reshape(b, s, h, p)
+    bm = conv[..., di:di + n].float()
+    cm = conv[..., di + n:].float()
+    z = torch.randn((b, s, h), generator=g, device="cuda")
+    if inputs == "mixer":
+        dt = F.softplus(z + math.log(math.expm1(0.01)))
+        a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    else:
+        dt = F.softplus(z)
+        a = -torch.exp(torch.randn((h,), generator=g, device="cuda") * 0.3)
+    st = torch.randn((b, h, p, n), generator=g, device="cuda") if init \
+        else None
+    return x, dt, a, bm, cm, st
+
+
+def ssd_bound(b, s, h, p, n, init, dtype, chunk=SSD_CHUNK):
+    """Least time for one call: x, dt, a, B, C (and the initial state)
+    read once, y and the final state written once; the float32 operations
+    of the chunked form at the reference's chunk (2 FLOP per multiply-add):
+    C B^T over each chunk's causal (i >= j) pairs once per (batch, chunk),
+    as the single B/C group shares it across heads, and per head the
+    scores' product with x over those pairs, C state^T and the state
+    update in full."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2 * b * s * h * p * elt + 4 * (b * s * h + h + 2 * b * s * n) \
+        + 4 * b * h * p * n * (2 if init else 1)
+    shared = per_head = 0
+    for lo in range(0, s, chunk):
+        r = min(chunk, s - lo)
+        pairs = r * (r + 1) // 2
+        shared += 2 * pairs * n
+        per_head += 2 * pairs * p + 4 * r * p * n
+    ops = b * shared + b * h * per_head
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_OPS_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernel_ssd(ssd):
+    """ssd_scan against its plain version (``ssd_chunked``'s arithmetic at
+    the reference's chunk of 256) at the prefill shapes, x in float32 and
+    bfloat16: y and the final state relative to their largest values.
+    Times: kernel, plain version; no PyTorch call computes an SSD scan.
+    A CUDA call with an input that requires grad must raise."""
+    rows = {}
+    for si, (name, b, s, h, p, n, init, inputs) in enumerate(SSD_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, bm, cm, st = ssd_case(b, s, h, p, n, init, dtype,
+                                            600 + si, inputs)
+            y, fin = ssd.ssd_scan(x, dt, a, bm, cm, init_state=st)
+            yr, finr = ssd.ssd_scan_ref(x, dt, a, bm, cm, chunk=SSD_CHUNK,
+                                        init_state=st)
+            torch.cuda.synchronize()
+            ey, es = _rel_err(y, yr), _rel_err(fin, finr)
+            finite = bool(torch.isfinite(y).all() and torch.isfinite(fin).all())
+            row = {
+                "shape": name, "B": b, "S": s, "H": h, "P": p, "N": n,
+                "init_state": init, "inputs": inputs,
+                "dtype": str(dtype).split(".")[-1],
+                "x_strides": list(x.stride()),
+                "y_rel_err": ey, "y_rel_tol": SSD_TOL_Y[dtype],
+                "state_rel_err": es, "state_rel_tol": SSD_TOL_STATE,
+                "max_abs_err": float((y.float() - yr.float()).abs().max()),
+                "state_max_abs_err": float((fin - finr).abs().max()),
+                "finite": finite,
+                "ms": device_ms(lambda: ssd.ssd_scan(x, dt, a, bm, cm,
+                                                     init_state=st),
+                                SSD_REPS),
+                "plain_ms": device_ms(
+                    lambda: ssd.ssd_scan_ref(x, dt, a, bm, cm,
+                                             chunk=SSD_CHUNK, init_state=st),
+                    SSD_REPS),
+                "library_ms": None,
+            }
+            row["bound_ms"], row["bound_by"] = ssd_bound(b, s, h, p, n, init,
+                                                         dtype)
+            emit("kernel", kernel="ssd_scan", **row)
+            if not (finite and ey <= SSD_TOL_Y[dtype] and es <= SSD_TOL_STATE):
+                raise AssertionError(
+                    f"ssd_scan {name} {dtype}: y {ey}, state {es} of the "
+                    "largest value, beyond tolerance (or not finite)")
+            rows[(name, dtype)] = row
+            del x, dt, a, bm, cm, st, y, fin, yr, finr
+            torch.cuda.empty_cache()
+    x, dt, a, bm, cm, _ = ssd_case(1, 64, 48, 64, 128, False, torch.float32,
+                                   700)
+    try:
+        ssd.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm)
+    except NotImplementedError as e:
+        emit("kernel_grad_check", kernel="ssd_scan", raised=str(e))
+    else:
+        raise AssertionError("ssd_scan: a CUDA input that requires grad did "
+                             "not raise")
+    return rows
+
+
 # --------------------------------------------------------- reference -----
-def phase_reference(get_config, build, make_engine, lm):
+def phase_reference(get_config, build, make_engine, lm, scan):
     """The port on the card against the port on the CPU on the same
     float32 weights (reduced config): decode logits, then one train
     step; full-width logits sanity; a full-width combined step against
-    a decode with the pre-update adapter."""
+    a decode with the pre-update adapter; then mamba2 (``_reference_ssm``)."""
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.paging import blocks_for
     from repro_torch.tree import tree_leaves, tree_map
@@ -765,6 +925,68 @@ def phase_reference(get_config, build, make_engine, lm):
     del full, eng, params, lora, new_lora, caches, pool, snap, pre, logits
     del dec, comb, ref, tb
     torch.cuda.empty_cache()
+    _reference_ssm(get_config, build, scan)
+
+
+def _reference_ssm(get_config, build, scan, steps=5):
+    """mamba2 at its reduced float32 size (2 layers, 8 SSM heads of 32,
+    state 16), the card against the CPU on the same weights: one
+    exact-length prefill of two 100-token prompts (the kernel takes the
+    mixer's strided views, and 100 is no multiple of its chunk): logits,
+    conv tails and states; then both requests written into slots 2 and 0
+    of a 3-slot pool and ``steps`` decode steps' logits.  The card's
+    prefill launches ssd_scan once per layer."""
+    from repro_torch.tree import tree_map
+    cfg = get_config(SSM_ARCH).scaled()
+    cpu, gpu = build(cfg, "cpu"), build(cfg, "cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    lora = cpu.init_lora(torch.Generator().manual_seed(1))
+    for pair in lora.values():              # a live bypass: b != 0
+        pair["b"].normal_(0.0, 0.1, generator=torch.Generator()
+                          .manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), generator=gen)
+    feed = torch.randint(0, cfg.vocab_size, (steps, 3, 1), generator=gen)
+    res = {}
+    scan.launches = 0
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        dev = m.device
+        p, lo = (tree_map(lambda t: t.to(dev), tree)
+                 for tree in (params, lora))
+        with torch.no_grad():
+            logits, pre = m.prefill(p, lo, {"tokens": toks.to(dev)})
+            pool = m.init_caches(3, 128)
+            for src, slot in ((0, 2), (1, 0)):
+                m.write_prefill_slot(pool, pre, slot, src)
+            seq = [logits.cpu()]
+            for s in range(steps):
+                logits, pool = m.decode_step(
+                    p, lo, pool, feed[s].to(dev),
+                    torch.full((3,), 100 + s, device=dev))
+                seq.append(logits.cpu())
+        res[name] = (seq, {k: v.cpu() for k, v in pre["ssm"].items()})
+    launches = scan.launches
+
+    def rel(a, b):
+        return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+    (sc, cc), (sg, cg) = res["cpu"], res["cuda"]
+    prefill_err = rel(sg[0], sc[0])
+    decode_err = max(rel(a, b) for a, b in zip(sg[1:], sc[1:]))
+    cache_err = {k: rel(cg[k], cc[k]) for k in ("conv", "state")}
+    emit("reference_ssm", reduced_config=cfg.name, dtype="float32",
+         prompts=[2, 100], decode_steps=steps,
+         prefill_logits_rel_err=prefill_err, decode_logits_rel_err=decode_err,
+         logits_tol=5e-5, conv_rel_err=cache_err["conv"],
+         state_rel_err=cache_err["state"], cache_tol=5e-5,
+         ssd_scan_launches=launches)
+    if not (prefill_err < 5e-5 and decode_err < 5e-5
+            and max(cache_err.values()) < 5e-5):
+        raise AssertionError("mamba2: card vs CPU beyond tolerance")
+    if launches != cfg.n_layers:
+        raise AssertionError(f"mamba2 reference: {launches} ssd_scan "
+                             f"launches for one prefill of {cfg.n_layers} "
+                             "layers")
 
 
 def phase_reference_blockwise(get_config, build, make_engine, fa):
@@ -1016,6 +1238,66 @@ def phase_serve(run_serving, get_config, pda, lm, fa, seg):
     if not (short and long_ and long2k):
         raise AssertionError("layouts of one traffic emitted different "
                              "tokens")
+    return results
+
+
+# ------------------------------------------------------------ SSM serving -
+SSM_ARCH = "mamba2-780m"
+SSM_RUNS = [("ssm_32", dict(prompt_len=32, gen_tokens=16)),
+            ("ssm_992", dict(prompt_len=992, gen_tokens=32)),
+            ("ssm_2048", dict(prompt_len=2048, gen_tokens=32))]
+
+
+def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
+    """mamba2-780m at full width (48 layers, d_model 1536, 48 SSM heads
+    of 64, state 128, bf16, random weights from a seed), 16 requests on
+    8 contiguous slots: every request finishes, and the launches are
+    exactly as derived: ssd_scan once per layer per request (each prompt
+    prefills alone, at its exact length), lora_matmul once per adapter
+    projection (ssm_in, ssm_out) per layer per prefill call and decode
+    step, and no attention or segmented kernel at all."""
+    cfg = get_config(SSM_ARCH)
+    n_lora = 2 * cfg.n_layers
+    fwd = fa.flash_attention_fwd
+    results = {}
+    for name, kw in SSM_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(pda, lm, fwd, seg, scan)                   # main path starts
+        out = run_serving(SSM_ARCH, smoke=False, n_requests=16,
+                          batch_size=8, seed=0, device="cuda",
+                          verbose=False, **kw)
+        launches = {"ssd_scan": scan.launches, "lora_matmul": lm.launches,
+                    "paged_decode_attention": pda.launches,
+                    "flash_attention": fwd.launches,
+                    "segmented_lora_matmul": seg.launches}   # path ends
+        gen, steps = kw["gen_tokens"], out["decode_steps"]
+        want = {"ssd_scan": cfg.n_layers * 16,
+                "lora_matmul": n_lora * (16 + steps),
+                "paged_decode_attention": 0, "flash_attention": 0,
+                "segmented_lora_matmul": 0}
+        row = {
+            "run": name, "arch": SSM_ARCH, "prompt_len": kw["prompt_len"],
+            "gen_tokens": gen, "finished": out["finished"],
+            "tokens_generated": out["tokens_generated"],
+            "decode_steps": steps, "prefill_waves": out["prefill_waves"],
+            "launches": launches, "launches_derived": want,
+            "throughput_tok_s": out["throughput_tok_s"],
+            "wall_s": out["wall_s"],
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "cache_bytes": out["cache_bytes"],
+        }
+        emit("serve_ssm", **row)
+        if out["finished"] != 16 or out["tokens_generated"] != 16 * gen \
+                or any(len(t) != gen for t in out["tokens"]):
+            raise AssertionError(f"serve_ssm {name}: not every request "
+                                 "finished")
+        if launches != want:
+            raise AssertionError(f"serve_ssm {name}: launches {launches}, "
+                                 f"derived {want}")
+        results[name] = row
+        del out
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1350,31 +1632,44 @@ def _is_flash(key):
         or "fa_delta" in key
 
 
-# (context, prompt length, co-training, tenants: 0 = one adapter)
-TICKS = [("serve", 32, False, 0), ("long", 992, False, 0),
-         ("combined", 32, True, 0), ("serve_2048", 2048, False, 0),
-         ("combined_2048", 2048, True, 0), ("serve_4_tenants", 32, False, 4)]
+def _is_ssd(key):
+    return "ssd_scan_kernel" in key
+
+
+# (context, prompt length, co-training, tenants: 0 = one adapter, arch)
+TICKS = [("serve", 32, False, 0, ARCH), ("long", 992, False, 0, ARCH),
+         ("combined", 32, True, 0, ARCH), ("serve_2048", 2048, False, 0, ARCH),
+         ("combined_2048", 2048, True, 0, ARCH),
+         ("serve_4_tenants", 32, False, 4, ARCH),
+         ("ssm_serve", 32, False, 0, SSM_ARCH),
+         ("ssm_serve_2048", 2048, False, 0, SSM_ARCH)]
 
 
 def phase_tick(make_engine, get_config, n=5):
-    """Where a full-width tick's time goes (paged, 8 busy slots): serve
-    ticks at 32-, 992- and 2,048-token prompts and combined ticks whose
-    train batch is 4 x the prompt length (built before timing).  Host
-    wall per tick, then under torch.profiler the device time its kernels
-    take, each ported kernel's part, and kernels per tick.  The last tick
-    serves 4 tenants, round-robin over the 8 slots."""
+    """Where a full-width tick's time goes (8 busy slots; paged, and
+    contiguous for mamba2): serve ticks at 32-, 992- and 2,048-token
+    prompts and combined ticks whose train batch is 4 x the prompt length
+    (built before timing).  Host wall per tick, then under torch.profiler
+    the device time its kernels take, each ported kernel's part, and
+    kernels per tick.  One tick serves 4 tenants, round-robin over the 8
+    slots; the last two are mamba2-780m decode ticks (no attention: the
+    O(1) state recurrence and the adapter projections)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.fabric import make_tenant_adapters
     from repro_torch.runtime.serving_loop import (
         AdapterRegistry, ContinuousBatcher, GenRequest)
-    cfg = get_config(ARCH)
-    engine = make_engine(cfg, lr=3e-3, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = engine.model.init(gen)
-    lora = engine.model.init_lora(gen)
     rng = np.random.default_rng(0)
-    for name, plen, train, n_tenants in TICKS:
+    arch_now = None
+    for name, plen, train, n_tenants, arch in TICKS:
+        if arch != arch_now:                 # one model at a time
+            arch_now, cfg = arch, get_config(arch)
+            engine = params = lora = None
+            torch.cuda.empty_cache()
+            engine = make_engine(cfg, lr=3e-3, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            params = engine.model.init(gen)
+            lora = engine.model.init_lora(gen)
         data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
                                 seq_len=plen, seed=0)
         reg = None
@@ -1384,7 +1679,8 @@ def phase_tick(make_engine, get_config, n=5):
                     engine.model, n_tenants, seed=1)):
                 reg.register(f"tenant{t}", tree)
         b = ContinuousBatcher(engine, params, lora, n_slots=8,
-                              max_seq=plen + 16, prompt_pad=plen, paged=True,
+                              max_seq=plen + 16, prompt_pad=plen,
+                              paged=not cfg.has_ssm,
                               opt_state=engine.optimizer.init(lora),
                               adapters=reg)
         for i in range(8):
@@ -1428,7 +1724,8 @@ def phase_tick(make_engine, get_config, n=5):
         flash_ms = part(_is_flash)
         seg_ms = part(_is_seg)
         top = sorted(kern, key=_device_us, reverse=True)[:6]
-        emit("tick", context=name, prompt_len=plen, slots=8,
+        emit("tick", context=name, arch=arch, paged=not cfg.has_ssm,
+             prompt_len=plen, slots=8,
              tenants=n_tenants, train_batch=[4, plen] if train else None,
              host_ms_per_tick=host_ms, profiled_wall_ms_per_tick=prof_ms,
              device_busy_ms_per_tick=dev_ms,
@@ -1449,6 +1746,8 @@ def phase_tick(make_engine, get_config, n=5):
                  e.count for e in kern if _is_lora(e.key)) / n,
              flash_attention_launches_per_tick=sum(
                  e.count for e in kern if _is_flash(e.key)) / n,
+             ssd_scan_launches_per_tick=sum(
+                 e.count for e in kern if _is_ssd(e.key)) / n,
              kernels_per_tick=sum(e.count for e in kern) / n,
              top_kernels_ms_per_tick=[[e.key[:60], _device_us(e) / 1e3 / n]
                                       for e in top])
@@ -1464,6 +1763,7 @@ def main():
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.decode_attention import (
         paged_decode_attention as pda, paged_decode_attention_ref as pda_ref)
     from repro_torch.kernels.lora_matmul import (
@@ -1496,12 +1796,15 @@ def main():
         "kernel_lora": lambda: phase_kernel_lora(lm, lm_ref, LoRAMatmulFn),
         "kernel_flash": lambda: phase_kernel_flash(fa),
         "kernel_seg": lambda: phase_kernel_seg(seg, seg_ref, lm),
+        "kernel_ssd": lambda: phase_kernel_ssd(ssd),
         "reference": lambda: phase_reference(get_config, build, make_engine,
-                                             lm),
+                                             lm, ssd.ssd_scan),
         "reference_blockwise": lambda: phase_reference_blockwise(
             get_config, build, make_engine, fa),
         "serve": lambda: phase_serve(run_serving, get_config, pda, lm, fa,
                                      seg),
+        "serve_ssm": lambda: phase_serve_ssm(run_serving, get_config, pda,
+                                             lm, fa, seg, ssd.ssd_scan),
         "combined": lambda: phase_combined(run_serving, get_config, pda, lm,
                                            fa, seg),
         "serve_adapters": lambda: phase_serve_adapters(
@@ -1525,6 +1828,8 @@ def main():
     serve, combined = out["serve"], out["combined"]
     srows, adapters = out["kernel_seg"], out["serve_adapters"]
     s_main = srows[("decode", torch.bfloat16)]
+    drows, ssm = out["kernel_ssd"], out["serve_ssm"]
+    d_main = drows[("mamba_2048", torch.bfloat16)]
 
     main_row = rows[("serve", torch.bfloat16)]
     worst = max(r["max_abs_err"] for (n, dt), r in rows.items()
@@ -1570,9 +1875,10 @@ def main():
         **{k: lrows[("decode", torch.bfloat16)][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                      "library_ms")},
-        "bf16_shapes": {n: {k: r[k] for k in ("M", "ms", "plain_ms",
-                                                "bound_ms", "bound_by",
-                                                "library_ms")}
+        "bf16_shapes": {n: {k: r[k] for k in ("M", "K", "N", "ms",
+                                                "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms",
+                                                "base_only_ms")}
                         for (n, dt), r in lrows.items()
                         if dt == torch.bfloat16},
     }, {
@@ -1624,6 +1930,27 @@ def main():
                                   "library_ms", "lora_matmul_ms")},
         "library": "base-only torch.matmul (x @ W, no adapter term)",
         "bf16_shapes": seg_shapes,
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:78",
+        # the mamba2 server at 2,048-token prompts: one per layer per
+        # request's prefill
+        "launches": ssm["ssm_2048"]["launches"]["ssd_scan"],
+        "shape": "prefill B=1 S=2048 H=48 P=64 N=128, x bf16",
+        "max_abs_err": d_main["max_abs_err"],
+        "y_rel_err": d_main["y_rel_err"],
+        "state_rel_err": d_main["state_rel_err"],
+        "worst_y_rel_err_all_shapes": max(
+            r["y_rel_err"] for (n, dt), r in drows.items()
+            if dt == torch.bfloat16),
+        **{k: d_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")},
+        "bf16_shapes": {n: {k: r[k] for k in ("S", "H", "N", "ms",
+                                                "plain_ms", "bound_ms")}
+                        for (n, dt), r in drows.items()
+                        if dt == torch.bfloat16},
     }]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,16 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-The ids are the JAX package's; the four dense decoders are ported
-(their config files are copies of the JAX ones).  The other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them
-(they need their mixers).
+The ids are the JAX package's; the four dense decoders and the Mamba2
+SSM are ported (their config files are copies of the JAX ones).  The
+other families raise ``NotImplementedError`` naming the ROADMAP item
+that ports them (they need their mixers).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (
-    internlm2_1_8b, llama3_8b, qwen1_5_0_5b, qwen3_14b,
+    internlm2_1_8b, llama3_8b, mamba2_780m, qwen1_5_0_5b, qwen3_14b,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -19,12 +19,12 @@ _REGISTRY: Dict[str, ModelConfig] = {
     "qwen3-14b": qwen3_14b.CONFIG,
     "internlm2-1.8b": internlm2_1_8b.CONFIG,
     "llama3-8b": llama3_8b.CONFIG,
+    "mamba2-780m": mamba2_780m.CONFIG,
 }
 
 # arch id -> the ROADMAP item ("Modules to port") that brings it over
 _FAMILIES = "'Other families'"
 _PENDING: Dict[str, str] = {
-    "mamba2-780m": f"{_FAMILIES} (SSM)",
     "hubert-xlarge": f"{_FAMILIES} (encoder-only serve step)",
     "hymba-1.5b": f"{_FAMILIES} (hybrid, sliding-window rings)",
     "moonshot-v1-16b-a3b": f"{_FAMILIES} (MoE)",

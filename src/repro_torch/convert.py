@@ -4,8 +4,10 @@ The JAX ``Model.init`` / ``init_lora`` trees, turned into numpy leaf for
 leaf by the caller, have exactly the port's layout (nested dicts,
 stacked ``[L, ...]`` block leaves, ``[in, out]`` matrices), so loading
 is a per-leaf conversion that keeps dtypes: params in
-``cfg.param_dtype``, LoRA pairs in float32.  An AdamW state (step, m, v)
-converts the same way, so a test can carry a JAX optimizer state across.
+``cfg.param_dtype`` except the SSM leaves the JAX init keeps in float32
+(``A_log``, ``D_skip``, ``dt_bias``), LoRA pairs in float32.  An AdamW
+state (step, m, v) converts the same way, so a test can carry a JAX
+optimizer state across.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.mamba2 import FLOAT32_LEAVES
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -26,16 +29,20 @@ def _tensor(arr: Any, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(a, dtype=dtype, device=device)
 
 
-def _tree(tree: Any, dtype: torch.dtype, device) -> Any:
+def _tree(tree: Any, dtype: torch.dtype, device, keep=()) -> Any:
+    """Leaves to ``dtype``, but leaves named in ``keep`` to float32."""
     if isinstance(tree, dict):
-        return {k: _tree(v, dtype, device) for k, v in tree.items()}
+        return {k: _tensor(v, torch.float32, device) if k in keep
+                else _tree(v, dtype, device, keep) for k, v in tree.items()}
     return _tensor(tree, dtype, device)
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict, device="cuda") -> Dict:
     """A JAX params tree (numpy leaves) -> the port's params, in
-    ``cfg.param_dtype`` on ``device``."""
-    return _tree(tree, getattr(torch, cfg.param_dtype), torch.device(device))
+    ``cfg.param_dtype`` on ``device`` (the SSM's float32 leaves stay
+    float32)."""
+    return _tree(tree, getattr(torch, cfg.param_dtype), torch.device(device),
+                 keep=FLOAT32_LEAVES)
 
 
 def lora_from_numpy(tree: Dict, device="cuda") -> Dict:

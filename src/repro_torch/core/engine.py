@@ -110,7 +110,14 @@ class Engine:
                      adapter_idx: Any = None) -> Tuple[torch.Tensor, Any]:
         """Prefill full-length prompts: (last-token logits, caches).
         ``adapter_idx`` [B] selects each row's slot of a stacked
-        ``lora``."""
+        ``lora``.  SSM stacks take the exact-length ``Model.prefill``
+        (one adapter)."""
+        if self.model.cfg.has_ssm:
+            if adapter_idx is not None:
+                raise NotImplementedError(
+                    f"{self.model.cfg.name}: per-row adapters need the "
+                    "ragged attention prefill")
+            return self.model.prefill(params, lora, batch)
         tokens = batch["tokens"]
         lens = torch.full((tokens.shape[0],), tokens.shape[1],
                           device=tokens.device)

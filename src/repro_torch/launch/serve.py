@@ -9,7 +9,11 @@ layout; every LoRA projection runs the fused lora_matmul kernel.
 step per decode tick, over the same base weights).  ``--adapters N``
 serves N tenants from one registry: requests are tagged ``tenant{i % N}``
 round-robin and every wave mixes them through the segmented_lora_matmul
-kernel.  Weights are random, drawn from ``--seed``.  The multi-replica
+kernel.  ``--arch mamba2-780m`` serves the attention-free Mamba2 stack
+(contiguous caches: a conv tail and an SSD state per slot): each prompt
+prefills at its exact length through the ssd_scan kernel in every layer,
+and ``--paged`` and ``--adapters`` raise for it, as in the reference.
+Weights are random, drawn from ``--seed``.  The multi-replica
 fabric and the batcher's other optional features are not ported yet
 (see ROADMAP.md).
 
@@ -19,6 +23,7 @@ Usage (on a machine with an NVIDIA Hopper card):
   ... --paged --block-size 16 --n-blocks 64   # paged KV cache
   ... --combined --train-batch 4              # co-train the adapter
   ... --adapters 3 [--combined]               # multi-tenant LoRA serving
+  ... --arch mamba2-780m                      # Mamba2 (SSM), contiguous
   ... --smoke --device cpu [--combined]       # reduced config on the CPU
                                               # (plain PyTorch versions)
 """

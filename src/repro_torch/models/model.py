@@ -1,15 +1,22 @@
 """The port's model: one ``Model`` per (ModelConfig, device) with the
-serving surface of ``repro.models.model.Model`` for the dense family:
+serving surface of ``repro.models.model.Model`` for the dense family and
+the attention-free SSM family (Mamba2):
 
   init(generator) -> params              init_lora(generator) -> adapters
   forward_loss(params, lora, batch)      (training objective), logits
   prefill_ragged(params, lora, batch, prompt_lens) -> (logits, caches)
+  prefill(params, lora, batch)           exact length (SSM stacks)
   decode_step / decode_step_paged        (one token per sequence)
 
 The serving methods take ``adapter_idx`` [B] int32: ``lora`` is then a
 stacked multi-tenant tree (leaves ``[L, A, din, r]``) and each sequence
 applies its own slot (< 0: the base model alone).
   init_caches / init_paged_caches        write_prefill_slots / _blocks
+  write_prefill_slot                     one request's row (SSM waves)
+
+An SSM stack's caches are ``{"ssm": {"conv", "state"}}`` per slot (the
+conv tail and the SSD state, fixed size whatever the prompt); the ragged
+prefill and the paged layout are attention-only, as in JAX.
 
 Params are nested dicts of tensors in the JAX layout (stacked ``[L, ...]``
 block leaves, ``[in, out]`` matrices), so ``convert.py`` loads a JAX tree
@@ -30,8 +37,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lora as lora_lib
+from repro_torch.models import mamba2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dense_init, rms_norm, rope_tables
+from repro_torch.tree import tree_leaves, tree_map
 
 
 # ------------------------------------------------------------------ loss ---
@@ -90,6 +99,13 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _cache_leaves(caches) -> list:
+    """A cache tree's tensors in order: K/V as its ``(k, v)`` pair, an
+    SSM stack's ``{"conv", "state"}``."""
+    return [t for v in caches.values()
+            for t in (v if isinstance(v, tuple) else tree_leaves(v))]
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
@@ -126,7 +142,9 @@ class Model:
                       collect_caches: bool = False, block_kv: int = 512,
                       skip_masked_blocks: bool = False, adapter_idx=None):
         """Full-sequence forward.  Returns (hidden, caches | None) with
-        caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``.
+        caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``, or for an
+        SSM stack ``{"ssm": {"conv": [L, B, W-1, C], "state": [L, B, H,
+        P, N]}}``.
         ``block_kv`` and ``skip_masked_blocks`` reach the blockwise
         attention of sequences past the dense limit; ``adapter_idx`` [B]
         selects each row's slot of a stacked ``lora`` tree."""
@@ -134,19 +152,22 @@ class Model:
         x = self._embed(params, batch)
         s = x.shape[1]
         rope_cs = rope_tables(torch.arange(s, device=x.device),
-                              cfg.head_dim, cfg.rope_theta)
-        ks, vs = [], []
+                              cfg.head_dim, cfg.rope_theta) \
+            if cfg.has_attention else None
+        per_layer = []
         for i in range(cfg.n_layers):
-            x, (k, v) = tfm.block_full(
+            x, cache = tfm.block_full(
                 _layer(params["blocks"], i), x, cfg, rope_cs,
                 lora=_layer(lora, i), block_kv=block_kv,
                 skip_masked_blocks=skip_masked_blocks,
                 adapter_idx=adapter_idx)
             if collect_caches:
-                ks.append(k)
-                vs.append(v)
-        caches = {"kv": (torch.stack(ks), torch.stack(vs))} \
-            if collect_caches else None
+                per_layer.append(cache)
+        caches = None
+        if collect_caches and cfg.has_ssm:
+            caches = {"ssm": _stack(per_layer)}
+        elif collect_caches:
+            caches = {"kv": tuple(torch.stack(t) for t in zip(*per_layer))}
         return rms_norm(x, params["final_norm"]), caches
 
     # --------------------------------------------------------------- loss --
@@ -181,8 +202,14 @@ class Model:
 
     def init_caches(self, batch: int, seq: int, dtype=None) -> Dict:
         """Contiguous KV caches ``[L, batch, S, Hkv, Dh]`` per K/V
-        (sliding-window archs keep a ring of window size)."""
+        (sliding-window archs keep a ring of window size); an SSM stack's
+        ``{"ssm": {"conv", "state"}}`` instead (conv tail in the cache
+        dtype, state float32, whatever ``seq``)."""
         cfg = self.cfg
+        if cfg.has_ssm:
+            return {"ssm": mamba2.init_ssm_cache(
+                cfg, batch, self._cache_dtype(dtype), self.device,
+                stacked=cfg.n_layers)}
         kv_seq = seq if cfg.sliding_window == 0 \
             else min(seq, cfg.sliding_window)
         shape = (cfg.n_layers, batch, kv_seq, cfg.n_kv_heads, cfg.head_dim)
@@ -195,13 +222,29 @@ class Model:
         """Global paged KV pool ``[L, n_blocks, block_size, Hkv, Dh]``
         per K/V; block 0 is the runtime's scratch block."""
         cfg = self.cfg
+        self._attention_only("paged KV caches")
         shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
                  cfg.head_dim)
         dt = self._cache_dtype(dtype)
         return {"kv": (torch.zeros(shape, dtype=dt, device=self.device),
                        torch.zeros(shape, dtype=dt, device=self.device))}
 
+    def _attention_only(self, what: str) -> None:
+        if self.cfg.has_ssm:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} need an attention-only stack (SSM "
+                "state threads through pads and is per slot, not per "
+                "block)")
+
     # -------------------------------------------------------------- prefill -
+    def prefill(self, params, lora, batch):
+        """Prefill full (exact-length) prompts: (logits at the last
+        position [B,1,V], caches as ``hidden_states`` collects them) —
+        the SSM stacks' prefill, one request at a time in the batcher."""
+        hidden, caches = self.hidden_states(params, lora, batch,
+                                            collect_caches=True)
+        return hidden[:, -1:] @ params["lm_head"], caches
+
     def prefill_ragged(self, params, lora, batch, prompt_lens, *,
                        block_kv: int = 512,
                        skip_masked_blocks: bool = False, adapter_idx=None):
@@ -209,6 +252,7 @@ class Model:
         (logits at each row's last real token [B,1,V], {"kv": (k, v)}
         with k, v ``[L, B, P, Hkv, Dh]``).  Causal masking keeps pad
         tokens out of every real position's K/V."""
+        self._attention_only("ragged (padded) prefills")
         hidden, caches = self.hidden_states(
             params, lora, batch, collect_caches=True, block_kv=block_kv,
             skip_masked_blocks=skip_masked_blocks, adapter_idx=adapter_idx)
@@ -218,24 +262,40 @@ class Model:
         return last @ params["lm_head"], caches
 
     # ---------------------------------------------------------- slot ops ---
+    def write_prefill_slot(self, pool_caches, prefill_caches, slot: int,
+                           src: int = 0):
+        """Copy sequence ``src`` of an SSM prefill's caches (conv tail and
+        SSD state, ``[L, B, ...]``, the same shape whatever the prompt)
+        into row ``slot`` of ``pool_caches``, in place: the batcher
+        gathers a wave's exact-length prefills with it."""
+        def write(pool, pre):
+            rows = tuple(slice(0, d) for d in pre.shape[2:])
+            pool[(slice(None), slot) + rows].copy_(pre[:, src])
+        tree_map(write, pool_caches, prefill_caches)
+        return pool_caches
+
     def write_prefill_slots(self, pool_caches, prefill_caches,
                             slots: Sequence[int]):
         """Scatter a whole prefill wave into its contiguous decode slots
-        in one indexed write per K/V leaf.  ``slots`` [W] holds host-side
-        slot ids; rows with an id outside ``[0, n_slots)`` are dropped
-        (requests that finished at admission) — filtered on the host, as
-        an out-of-range index on the card is a device assert.  Cache rows
-        past the prompt are zeroed, as the JAX scatter pads them."""
+        in one indexed write per cache leaf (K/V, or an SSM stack's conv
+        tail and state).  ``slots`` [W] holds host-side slot ids; rows
+        with an id outside ``[0, n_slots)`` are dropped (requests that
+        finished at admission) — filtered on the host, as an out-of-range
+        index on the card is a device assert.  K/V rows past the prompt
+        are zeroed, as the JAX scatter pads them."""
         slots = np.asarray(slots, np.int64)
-        n_slots = pool_caches["kv"][0].shape[1]
-        keep = np.nonzero((slots >= 0) & (slots < n_slots))[0]
-        if keep.size:
-            for pool, pre in zip(pool_caches["kv"], prefill_caches["kv"]):
-                dst = torch.as_tensor(slots[keep], device=pool.device)
-                src = torch.as_tensor(keep, device=pool.device)
-                p = pre.shape[2]
-                pool[:, dst, :p] = pre[:, src].to(pool.dtype)
-                pool[:, dst, p:] = 0
+        pools, pres = _cache_leaves(pool_caches), _cache_leaves(prefill_caches)
+        keep = np.nonzero((slots >= 0) & (slots < pools[0].shape[1]))[0]
+        if not keep.size:
+            return pool_caches
+        dst = torch.as_tensor(slots[keep], device=self.device)
+        src = torch.as_tensor(keep, device=self.device)
+        for pool, pre in zip(pools, pres):
+            p = pre.shape[2]
+            # every row kept (in order): no gathered copy of the wave
+            rows = pre if keep.size == pre.shape[1] else pre[:, src]
+            pool[:, dst, :p] = rows.to(pool.dtype)
+            pool[:, dst, p:] = 0
         return pool_caches
 
     def write_prefill_blocks(self, pool_caches, prefill_caches,
@@ -278,16 +338,19 @@ class Model:
                     adapter_idx=None):
         """One decode step over contiguous caches.  token: [B,1] int;
         pos: [B] (or scalar) int positions of the new tokens.  Returns
-        (logits [B,1,V], caches updated in place)."""
+        (logits [B,1,V], caches updated in place).  An SSM stack ignores
+        ``pos``: its state carries the position."""
         cfg = self.cfg
         pos = self._positions(pos, token.shape[0])
         x = params["embed"][token]
-        rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-        k_all, v_all = caches["kv"]
+        rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta) \
+            if cfg.has_attention else None
         for i in range(cfg.n_layers):
+            layer = {"ssm": _layer(caches["ssm"], i)} if cfg.has_ssm \
+                else {"kv": (caches["kv"][0][i], caches["kv"][1][i])}
             x, _ = tfm.block_decode(_layer(params["blocks"], i), x, cfg,
-                                    {"kv": (k_all[i], v_all[i])}, pos,
-                                    rope_cs, lora=_layer(lora, i),
+                                    layer, pos, rope_cs,
+                                    lora=_layer(lora, i),
                                     adapter_idx=adapter_idx)
         return self._logits(params, x), caches
 
@@ -303,6 +366,7 @@ class Model:
         offset and kv_len are computed on the device.  Returns
         (logits [B,1,V], caches updated in place)."""
         cfg = self.cfg
+        self._attention_only("paged decode steps")
         k_all, v_all = caches["kv"]
         bs = k_all.shape[2]
         pos = self._positions(pos, token.shape[0])

@@ -1,7 +1,9 @@
-"""Dense decoder blocks of the port — the counterparts of
-``repro.models.transformer`` for the attention-only dense family:
+"""Decoder blocks of the port — the counterparts of
+``repro.models.transformer`` for the dense family and the attention-free
+SSM family (Mamba2):
 
-  x += attn(norm1(x)); x += mlp(norm2(x))
+  dense:  x += attn(norm1(x)); x += mlp(norm2(x))
+  SSM:    x += ssm_mixer(norm1(x))
 
 Block params are one layer's slice of the stacked ``[L, ...]`` tree.
 Every projection goes through ``lora.project``: an adapter-bearing one
@@ -9,9 +11,10 @@ is one fused ``lora_matmul`` kernel call, the others a plain product.
 With ``adapter_idx`` [B] (multi-tenant serving), ``lora`` is one layer's
 slot stack and each adapter projection is one ``segmented_lora_matmul``
 call over every sequence's own slot.
-Decode writes the new token's K/V into the caller's cache tensors IN
-PLACE (the JAX blocks return new caches); the returned caches are the
-same tensors.
+Decode writes the new token's K/V (an SSM layer: its conv tail and
+state) into the caller's cache tensors IN PLACE (the JAX blocks return
+new caches); the returned caches are the same tensors.  The hybrid, MoE,
+encoder and VLM families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.models import lora as lora_lib
+from repro_torch.models import mamba2
 from repro_torch.models.layers import (
     apply_rope, attention_blockwise, attention_decode, attention_decode_paged,
     attention_dense, dense_init, rms_norm,
@@ -64,14 +68,17 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    if cfg.family is not Family.DENSE:
+    if cfg.family not in (Family.DENSE, Family.SSM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family is not ported to "
-            "repro_torch yet; see ROADMAP.md")
+            "repro_torch yet; see ROADMAP.md, 'Other families'")
     dtype = _dtype(cfg.param_dtype)
     dev = gen.device
     p: Dict[str, Any] = {"ln1": torch.ones((cfg.d_model,), dtype=dtype,
                                            device=dev)}
+    if cfg.family is Family.SSM:
+        p["ssm"] = mamba2.init_ssm(gen, cfg)
+        return p
     p["attn"] = init_attn(gen, cfg)
     if cfg.d_ff > 0:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
@@ -207,7 +214,13 @@ def _mlp_out(bp, h, cfg: ModelConfig, lora, adapter_idx=None):
 def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
                block_kv: int = 512, skip_masked_blocks: bool = False,
                adapter_idx=None):
-    """Full-sequence block (prefill, training).  Returns (x, (k, v))."""
+    """Full-sequence block (prefill, training).  Returns (x, (k, v)), or
+    for an SSM layer (x, {"conv", "state"}): the conv tail and final
+    state prefill hands to decode."""
+    if cfg.family is Family.SSM:
+        y, ssm_cache = mamba2.ssm_mixer(bp["ssm"], rms_norm(x, bp["ln1"]),
+                                        cfg, lora=lora)
+        return x + y, ssm_cache
     attn_out, kv = attn_full(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
                              rope_cs, lora=lora, block_kv=block_kv,
                              skip_masked_blocks=skip_masked_blocks,
@@ -220,8 +233,16 @@ def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
 
 def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None,
                  adapter_idx=None):
-    """One-token block.  caches: {"kv": (k, v)} of this layer (updated in
-    place).  Returns (x, caches)."""
+    """One-token block.  caches: {"kv": (k, v)} of this layer, or an SSM
+    layer's {"ssm": {"conv", "state"}} (updated in place).  Returns (x,
+    caches)."""
+    if cfg.family is Family.SSM:
+        ssm = caches["ssm"]
+        y, new = mamba2.ssm_mixer(bp["ssm"], rms_norm(x, bp["ln1"]), cfg,
+                                  cache=ssm, lora=lora)
+        ssm["conv"].copy_(new["conv"])
+        ssm["state"].copy_(new["state"])
+        return x + y, caches
     attn_out, _ = attn_decode(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
                               caches["kv"], pos, rope_cs, lora=lora,
                               adapter_idx=adapter_idx)

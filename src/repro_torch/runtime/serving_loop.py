@@ -20,6 +20,16 @@ positions, and evicts finished requests so the next ones are admitted
 mid-flight.  Both decode layouts run the paged-decode-attention kernel
 in every layer.  The host reads back one argmax per wave.
 
+SSM stacks (Mamba2) keep a conv tail and an SSD state per slot in the
+contiguous layout only: their recurrence threads state through pads, so
+each request of a wave prefills at its exact length (``model.prefill``,
+the ssd_scan kernel in every layer on the card), the wave's last-position
+logits are stacked on the device for ONE argmax pull, and the wave's
+caches, gathered row by row (``write_prefill_slot``), land in their
+slots with the same batched write.  Decode then runs the O(1)
+recurrence.  Paged caches and multi-tenant adapters refuse SSM
+stacks, as in the reference.
+
 Co-serving: passing a training batch to ``step`` runs the engine's
 ``combined_step[_paged]`` — the decode wave reads the published adapter
 ``self.lora`` while the optimizer steps the train tree (``train_lora``
@@ -59,7 +69,7 @@ import torch
 from repro_torch.models.lora import lora_shapes
 from repro_torch.models.transformer import use_dense_prefill
 from repro_torch.runtime.paging import BlockAllocator, blocks_for
-from repro_torch.tree import tree_finite, tree_map
+from repro_torch.tree import tree_finite, tree_leaves, tree_map
 
 
 @dataclasses.dataclass
@@ -366,6 +376,16 @@ class ContinuousBatcher:
             raise ValueError(
                 f"{cfg.name}: prompt_pad {prompt_pad} exceeds the "
                 f"attention window {cfg.sliding_window}")
+        if adapters is not None and cfg.has_ssm:
+            raise NotImplementedError(
+                f"{cfg.name}: multi-tenant adapter serving needs the "
+                "ragged attention paths (SSM prefill is exact-length "
+                "per request)")
+        if paged and cfg.has_ssm:
+            raise NotImplementedError(
+                f"{cfg.name}: paged KV serving needs an "
+                "attention-only stack (SSM/conv state is per-slot, "
+                "not per-block)")
         self.engine = engine
         self.model = engine.model
         self.device = engine.model.device
@@ -490,7 +510,28 @@ class ContinuousBatcher:
     def _prefill_wave(self, reqs: List[GenRequest]):
         """ONE ragged (right-padded) prefill for the whole wave and ONE
         batched argmax pull for its first tokens.  Returns (first tokens
-        [W] np, prefill caches, last-position logits [W, V])."""
+        [W] np, prefill caches [.., W, ..], last-position logits [W, V]).
+        SSM stacks prefill each request at its exact length (state threads
+        through pads) and gather its caches into row j of the wave's
+        (fixed-size) caches; their last-position logits are stacked on the
+        device, still ONE argmax pull."""
+        if self.cfg.has_ssm:
+            pre = self.model.init_caches(len(reqs), 0)
+            lasts = []
+            with torch.no_grad():
+                for j, r in enumerate(reqs):
+                    logits, one = self.model.prefill(
+                        self.params, self._serve_lora(),
+                        {"tokens": torch.tensor(r.prompt[None],
+                                                dtype=torch.long,
+                                                device=self.device)})
+                    self.model.write_prefill_slot(pre, one, j)
+                    lasts.append(logits[0, -1])
+                    del one     # gathered: not alive through the next one
+            self.prefill_waves += 1
+            last = torch.stack(lasts)
+            firsts = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per prefill wave
+            return firsts, pre, last
         lens = np.array([len(r.prompt) for r in reqs], np.int32)
         padded = np.zeros((len(reqs), self.prompt_pad), np.int32)
         for j, r in enumerate(reqs):
@@ -803,9 +844,11 @@ class ContinuousBatcher:
 
     # ---------------------------------------------------------- telemetry --
     def cache_bytes(self) -> int:
-        """Allocated KV cache bytes (pool + tables)."""
-        total = sum(t.numel() * t.element_size()
-                    for t in self.caches["kv"])
+        """Allocated cache bytes: KV (pool + tables), or an SSM stack's
+        conv tails and states."""
+        leaves = tree_leaves(self.caches["ssm"]) if self.cfg.has_ssm \
+            else self.caches["kv"]
+        total = sum(t.numel() * t.element_size() for t in leaves)
         if self.paged:
             total += self.block_tables.nbytes
         return total

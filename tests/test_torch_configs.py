@@ -3,7 +3,8 @@
 their ``.scaled()`` size:
 
 * ``get_config`` resolves each id, and every field equals the JAX
-  config's (the port's files are copies);
+  config's (the port's files are copies; ``mamba2-780m`` too, whose
+  model is tested in ``test_torch_mamba2.py``);
 * a torch twin of ``tests/test_decode_parity.py``: incremental decode
   over the contiguous cache reproduces the full-sequence forward within
   5e-5 of the largest logit;
@@ -36,7 +37,7 @@ def _fields(cfg):
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-780m"])
 def test_config_is_the_jax_config(arch):
     assert arch in ARCH_IDS
     assert _fields(get_config(arch)) == _fields(jax_config(arch))

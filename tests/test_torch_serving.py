@@ -172,7 +172,7 @@ def test_default_device_raises_without_a_card():
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("mamba2-780m")
+        get_config("hymba-1.5b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

@@ -1,0 +1,172 @@
+"""The port's SSD scan (``repro_torch.kernels.ssd_scan``) against the JAX
+package on the CPU, float32, inputs drawn with numpy from a seed:
+
+* the plain version ``ssd_scan_ref`` against the Pallas kernel in
+  interpret mode and the sequential oracle ``repro.kernels.ref.ssd_scan``
+  at ``tests/test_kernels.py::test_ssd_scan``'s three shapes and a
+  scaled mamba2 one, within that test's 1e-4 (the Pallas layout is
+  head-major, so x and dt go in transposed);
+* ``init_state`` against ``repro.models.mamba2.ssd_chunked`` given the
+  same state, and two halves chained through the state against the
+  whole (``tests/test_lora_moe_ssd.py``'s check);
+* the wrapper on CPU tensors with chunks of 16, 32 and 256 against the
+  oracle within 1e-4: the recurrence does not depend on the chunk;
+* the dispatch contract: CPU calls count no launch, tensors off the CPU
+  never take the plain version, and an input that requires grad off the
+  CPU raises ``NotImplementedError`` (the kernel has no backward).
+The CUDA kernel itself is held against ``ssd_scan_ref`` on the card by
+``chip_smoke.py``'s ``kernel_ssd`` phase."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
+from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+from repro_torch.kernels import ssd_scan as ssd_mod
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+
+TOL = 1e-4
+
+
+def _inputs(b, s, h, p, n, seed=3):
+    """x [B,S,H,P], dt [B,S,H], a [H], B/C [B,S,N] with the distributions
+    of ``tests/test_kernels.py::test_ssd_scan``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    bm = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    cm = (rng.standard_normal((b, s, n)) * 0.3).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+# test_kernels.py's three (b, h, s, p, n, chunk), then mamba2-780m at its
+# .scaled() size (H = 8 heads of P = 32, N = 16, chunk 32), ragged S
+SHAPES = [(2, 4, 256, 32, 16, 64), (1, 2, 300, 64, 32, 128),
+          (2, 3, 128, 16, 8, 32), (2, 8, 100, 32, 16, 32)]
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk", SHAPES)
+def test_plain_version_matches_pallas_and_oracle(b, h, s, p, n, chunk):
+    x, dt, a, bm, cm = _inputs(b, s, h, p, n)
+    y, fin = ssd_scan_ref(*_t(x, dt, a, bm, cm), chunk=chunk)
+    yk, fk = pallas_ssd_scan(jnp.asarray(x.transpose(0, 2, 1, 3)),
+                             jnp.asarray(dt.transpose(0, 2, 1)),
+                             jnp.asarray(a), jnp.asarray(bm), jnp.asarray(cm),
+                             chunk=chunk, interpret=True)
+    yr, fr = ref.ssd_scan(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)))
+    _close(y, np.asarray(yk).transpose(0, 2, 1, 3))
+    _close(fin, fk)
+    _close(y, yr)
+    _close(fin, fr)
+
+
+def test_init_state_matches_jax_ssd_chunked():
+    x, dt, a, bm, cm = _inputs(2, 70, 3, 16, 8, seed=9)
+    st = np.random.default_rng(10).standard_normal(
+        (2, 3, 16, 8)).astype(np.float32)
+    y, fin = ssd_scan_ref(*_t(x, dt, a, bm, cm), chunk=32,
+                          init_state=torch.from_numpy(st))
+    yj, fj = jax_ssd_chunked(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)),
+                             32, init_state=jnp.asarray(st))
+    _close(y, yj)
+    _close(fin, fj)
+
+
+def test_two_halves_chain_to_the_whole():
+    x, dt, a, bm, cm = _t(*_inputs(2, 64, 2, 16, 4, seed=9))
+    y_full, fin_full = ssd_scan(x, dt, a, bm, cm, chunk=16)
+    half = 32
+    y1, st1 = ssd_scan(x[:, :half], dt[:, :half], a, bm[:, :half],
+                       cm[:, :half], chunk=16)
+    y2, st2 = ssd_scan(x[:, half:], dt[:, half:], a, bm[:, half:],
+                       cm[:, half:], chunk=16, init_state=st1)
+    _close(torch.cat([y1, y2], 1), y_full)
+    _close(st2, fin_full)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 256])
+def test_wrapper_on_cpu_matches_oracle_at_any_chunk(chunk):
+    x, dt, a, bm, cm = _inputs(1, 100, 4, 32, 16, seed=5)
+    before = ssd_scan.launches
+    y, fin = ssd_scan(*_t(x, dt, a, bm, cm), chunk=chunk)
+    assert ssd_scan.launches == before
+    yr, fr = ref.ssd_scan(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)))
+    assert y.dtype == torch.float32 and fin.dtype == torch.float32
+    _close(y, yr)
+    _close(fin, fr)
+
+
+@pytest.mark.parametrize("where", ["all", "bmat_only"])
+def test_non_cpu_tensors_never_take_plain_version(where, monkeypatch):
+    """Tensors off the CPU go to the kernel path, whose checks raise for
+    a device it has no kernel for (meta) or for mixed devices."""
+    def fail(*_a, **_k):
+        raise AssertionError("plain version reached")
+
+    monkeypatch.setattr(ssd_mod, "ssd_scan_ref", fail)
+    args = _t(*_inputs(1, 8, 2, 16, 4))
+    if where == "all":
+        args = [t.to("meta") for t in args]
+    else:
+        args[3] = args[3].to("meta")
+    before = ssd_scan.launches
+    with pytest.raises(ValueError):
+        ssd_scan(*args)
+    assert ssd_scan.launches == before
+
+
+def test_input_that_requires_grad_raises_off_the_cpu():
+    """No backward on the card: the call raises and names the ROADMAP
+    item, rather than running the plain version under autograd."""
+    x, dt, a, bm, cm = (t.to("meta") for t in _t(*_inputs(1, 8, 2, 16, 4)))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_scan(x.requires_grad_(), dt, a, bm, cm)
+
+
+def _mixer_inputs(b, s, h, p, n, seed=7):
+    """x and B/C as ``_inputs``; dt and a as ``mamba2.init_ssm`` and the
+    mixer make them: dt = softplus(normal + dt_bias) with dt_bias =
+    log(expm1(0.01)), a = -exp(A_log) = -linspace(1, 16, H)."""
+    x, _, _, bm, cm = _inputs(b, s, h, p, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h))
+                         + np.log(np.expm1(0.01)))).astype(np.float32)
+    a = -np.linspace(1.0, 16.0, h).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def test_carry_between_64_row_chunks_shows_at_mixer_inputs():
+    """mamba2-780m's heads (H = 48, P = 64, N = 128) with dt and a as the
+    mixer makes them, the inputs ``chip_smoke.py``'s ``mixer_*`` shapes
+    hold the kernel at: the plain version at the kernel's own chunk (64)
+    matches chunk 256 and the oracle within 1e-4, and scanning each
+    64-row chunk from a zero state (a kernel that dropped the carried
+    state) moves y and the final state by more than 1e-2 of their
+    largest values, so the card's 1e-4 check sees a lost carry."""
+    arrs = _mixer_inputs(1, 512, 48, 64, 128)
+    x, dt, a, bm, cm = _t(*arrs)
+    y, fin = ssd_scan_ref(x, dt, a, bm, cm, chunk=64)
+    y256, fin256 = ssd_scan_ref(x, dt, a, bm, cm, chunk=256)
+    _close(y, y256)
+    _close(fin, fin256)
+    yr, fr = ref.ssd_scan(*(jnp.asarray(t) for t in arrs))
+    _close(y, yr)
+    _close(fin, fr)
+    parts = [ssd_scan_ref(x[:, lo:lo + 64], dt[:, lo:lo + 64], a,
+                          bm[:, lo:lo + 64], cm[:, lo:lo + 64], chunk=64)
+             for lo in range(0, 512, 64)]
+    y_cut = torch.cat([yp for yp, _ in parts], 1)
+    assert float((y_cut - y).abs().max() / y.abs().max()) > 1e-2
+    assert float((parts[-1][1] - fin).abs().max() / fin.abs().max()) > 1e-2
