@@ -38,7 +38,13 @@ Phases, each printing JSON lines:
               the mixer's; 2,048 tokens and the two requests again with
               dt and a as the mixer makes them, so that the state
               carried from one chunk to the next shows in y; a CUDA
-              input that requires grad must raise.
+              input that requires grad must raise;
+  kernel_decode decode_attention against its plain version at the VLM's
+              cross-attention decode (8 slots, 64 heads / 8 KV, head_dim
+              128, 1,601 vision tokens, K/V the transposed view of the
+              [B, T, Hkv, D] projection), the same with ragged lengths and
+              an empty row (exactly zero), and tests/test_kernels.py's
+              three shapes; SDPA is the library time.
               Every kernel phase reports the worst error, kernel / plain
               / library time (CUDA events, median of REPS or FLASH_REPS,
               L2 flushed before each) and the least time the card could
@@ -51,7 +57,10 @@ Phases, each printing JSON lines:
               full-width combined_step_paged whose logits equal a
               decode_step_paged with the pre-update adapter; mamba2 at
               its reduced float32 size: prefill logits and SSM caches,
-              five decode steps' logits;
+              five decode steps' logits; the VLM at a reduced float32
+              size (2 units, 37 vision tokens, gates at 0.5): prefill
+              logits, cross_kv, five decode steps' logits and
+              decode_attention once per unit per step;
   reference_blockwise  the same at a reduced float32 config forced onto
               the blockwise path (prefill logits and caches, one train
               step, the flash launches they make), and at full width in
@@ -75,6 +84,15 @@ Phases, each printing JSON lines:
               2,048+32 tokens: every request finishes, ssd_scan once per
               layer per request, lora_matmul once per adapter projection
               per prefill call and decode step, no attention kernel;
+  serve_vlm   llama-3.2-vision-90b at published width (d_model 8192, 64
+              heads / 8 KV, d_ff 28672, bf16), depth cut to 4 whole units
+              (20 of 100 layers), gates at 0.5, through Engine.prefill_step
+              and decode_step (the batcher refuses VLM stacks, as in the
+              reference): 16 requests on 8 slots in two waves of 32-token
+              prompts with their own random vision inputs, 16 tokens each;
+              launches exactly as derived, and one unit's cross-attention
+              at decode through the kernel against the dense path (bf16,
+              2e-2);
   combined    the same servers co-training the adapter on every tick
               (``run_serving(combined=True)``, train batch 4 x prompt
               length; llama3-8b 1 x prompt length): qwen paged and
@@ -103,7 +121,7 @@ Phases, each printing JSON lines:
               992- and 2,048-token prompts, combined ticks with a 4 x 32
               and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
               tokens, mamba2-780m decode ticks after 32- and 2,048-token
-              prompts): host wall per tick, and under
+              prompts, a VLM decode tick): host wall per tick, and under
               torch.profiler the device time, each kernel's share and the
               kernels launched per tick;
   kernels     one line over all ported kernels.
@@ -773,12 +791,130 @@ def phase_kernel_ssd(ssd):
     return rows
 
 
+# ------------------------------------------- contiguous decode attention --
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 20     # 4 whole units of 4 dense blocks and a cross block
+# decode_attention: (name, B, H, Hkv, D, S, layout, lengths) -- the VLM's
+# cross-attention at decode (8 slots over 1,601 vision tokens, K/V the
+# [B, T, Hkv, D] projection's transposed view), the same with ragged
+# lengths and an empty row, then tests/test_kernels.py's three shapes
+# (head-major contiguous caches, lengths from 1 to S)
+DECODE_SHAPES = [("cross", 8, 64, 8, 128, 1601, "view", "full"),
+                 ("cross_ragged", 8, 64, 8, 128, 1601, "view", "ragged"),
+                 ("test_512", 2, 8, 2, 64, 512, "contiguous", "ragged"),
+                 ("test_300", 3, 4, 4, 128, 300, "contiguous", "ragged"),
+                 ("test_1024", 1, 16, 2, 64, 1024, "contiguous", "ragged")]
+
+
+def decode_case(b, h, hkv, d, s, layout, lengths, dtype, seed):
+    """q [B, H, D]; K/V [B, Hkv, S, D] as the model passes them (the
+    transposed view of [B, S, Hkv, D]) or contiguous; kv_len all S, or
+    ragged from 1 to S with the last row S (``cross_ragged``: the first
+    row 0)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
+    shape = (b, s, hkv, d) if layout == "view" else (b, hkv, s, d)
+    k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    if layout == "view":
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+    rng = np.random.default_rng(seed)
+    kv_len = np.full(b, s, np.int32)
+    if lengths == "ragged":
+        kv_len[:-1] = rng.integers(1, s + 1, size=b - 1)
+        if layout == "view":
+            kv_len[0] = 0
+    return q, k, v, torch.tensor(kv_len, device="cuda")
+
+
+def decode_bound(q, k, kv_len):
+    """Least time for one call: K/V rows up to kv_len read once, q read
+    and out written once, kv_len read once; 4 FLOP per (query head, live
+    row, channel)."""
+    b, h, d = q.shape
+    hkv, elt = k.shape[1], q.element_size()
+    live = int(kv_len.long().sum())
+    nbytes = 2 * q.numel() * elt + 2 * live * hkv * d * elt + 4 * b
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = 4 * live * h * d / PEAK_OPS_S[q.dtype]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernel_decode(dattn, dattn_ref):
+    """decode_attention against its plain version, float32 and bfloat16,
+    at DECODE_SHAPES: the worst error (a kv_len == 0 row must be exactly
+    zero), kernel / plain / SDPA time, the bound."""
+    gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+    rows = {}
+    for si, (name, b, h, hkv, d, s, layout, lengths) in \
+            enumerate(DECODE_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, kv_len = decode_case(b, h, hkv, d, s, layout, lengths,
+                                          dtype, 800 + si)
+            out = dattn(q, k, v, kv_len)
+            ref = dattn_ref(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = TOL[dtype]
+            ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+            empty = kv_len == 0
+            zero_rows_exact = bool((out[empty] == 0).all())
+            # the library yardstick: SDPA over the same K/V, masked at
+            # kv_len (GQA natively where this PyTorch has it, else K/V
+            # repeated to H heads outside the timed call)
+            q4 = q[:, :, None, :]
+            mask = (torch.arange(s, device="cuda")[None, :]
+                    < kv_len[:, None])[:, None, None, :]
+            if gqa:
+                kl, vl, extra = k, v, {"enable_gqa": True}
+            else:
+                kl = k.repeat_interleave(h // hkv, dim=1)
+                vl = v.repeat_interleave(h // hkv, dim=1)
+                extra = {}
+
+            def lib():
+                return F.scaled_dot_product_attention(
+                    q4, kl, vl, attn_mask=mask, **extra)
+
+            live = ~empty            # SDPA gives NaN on an all-masked row
+            lib_err = float((lib()[live, :, 0].float()
+                             - ref[live].float()).abs().max())
+            row = {
+                "shape": name, "B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
+                "layout": layout, "lengths": lengths,
+                "k_strides": list(k.stride()),
+                "dtype": str(dtype).split(".")[-1],
+                "max_abs_err": err, "tol": tol, "ok": bool(ok),
+                "empty_rows": int(empty.sum()),
+                "empty_rows_exactly_zero": zero_rows_exact,
+                "ms": device_ms(lambda: dattn(q, k, v, kv_len)),
+                "plain_ms": device_ms(lambda: dattn_ref(q, k, v, kv_len)),
+                "library_ms": device_ms(lib),
+                "library": "SDPA" + (" enable_gqa" if gqa else
+                                     " over K/V repeated to H heads"),
+                "library_max_abs_err": lib_err,
+            }
+            row["bound_ms"], row["bound_by"] = decode_bound(q, k, kv_len)
+            row["bound_us"] = row["bound_ms"] * 1e3
+            emit("kernel", kernel="decode_attention", **row)
+            if not (ok and zero_rows_exact):
+                raise AssertionError(
+                    f"decode_attention {name} {dtype}: kernel vs plain max "
+                    f"abs err {err} beyond {tol}, or an empty row not zero")
+            rows[(name, dtype)] = row
+            del q, k, v, kv_len, out, ref, kl, vl, mask
+            torch.cuda.empty_cache()
+    return rows
+
+
 # --------------------------------------------------------- reference -----
-def phase_reference(get_config, build, make_engine, lm, scan):
+def phase_reference(get_config, build, make_engine, lm, scan, dattn):
     """The port on the card against the port on the CPU on the same
     float32 weights (reduced config): decode logits, then one train
     step; full-width logits sanity; a full-width combined step against
-    a decode with the pre-update adapter; then mamba2 (``_reference_ssm``)."""
+    a decode with the pre-update adapter; then mamba2 (``_reference_ssm``)
+    and the VLM (``_reference_vlm``)."""
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.paging import blocks_for
     from repro_torch.tree import tree_leaves, tree_map
@@ -926,6 +1062,7 @@ def phase_reference(get_config, build, make_engine, lm, scan):
     del dec, comb, ref, tb
     torch.cuda.empty_cache()
     _reference_ssm(get_config, build, scan)
+    _reference_vlm(get_config, build, dattn)
 
 
 def _reference_ssm(get_config, build, scan, steps=5):
@@ -987,6 +1124,93 @@ def _reference_ssm(get_config, build, scan, steps=5):
         raise AssertionError(f"mamba2 reference: {launches} ssd_scan "
                              f"launches for one prefill of {cfg.n_layers} "
                              "layers")
+
+
+def _open_gates(params, gate=0.5):
+    """Both gates of every cross block at ``gate``: the init's zeros make
+    each cross block the identity, and a wrong cross-attention would not
+    move one logit."""
+    for key in ("gate_attn", "gate_mlp"):
+        params["cross"][key].fill_(gate)
+
+
+def _vlm_decode_caches(model, pre, b, s):
+    """Decode caches of length ``s`` holding a prefill's K/V in their
+    first rows and its vision K/V, by slice copy (a VLM stack has no
+    cache-slot writes, as in the reference)."""
+    caches = model.init_caches(b, s)
+    p = pre["kv"][0].shape[3]
+    for dst, src in zip(caches["kv"], pre["kv"]):
+        dst[:, :, :, :p] = src
+    for dst, src in zip(caches["cross_kv"], pre["cross_kv"]):
+        dst.copy_(src)
+    return caches
+
+
+def _reference_vlm(get_config, build, dattn, steps=5):
+    """The VLM at a reduced float32 size (2 units of 2 dense blocks and a
+    cross block, d_model 128, 37 vision tokens so the decode kernel's
+    walk is split and ragged), gates at 0.5, the card against the CPU on
+    the same weights: prefill logits and cross_kv of two 9-token prompts,
+    then ``steps`` decode steps' logits.  The card's decode launches
+    decode_attention once per unit per step."""
+    from repro_torch.tree import tree_map
+    cfg = get_config(VLM_ARCH).scaled(n_layers=6, cross_attn_every=3,
+                                      vision_tokens=37)
+    units = cfg.n_layers // cfg.cross_attn_every
+    cpu, gpu = build(cfg, "cpu"), build(cfg, "cuda")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    _open_gates(params)
+    lora = cpu.init_lora(torch.Generator().manual_seed(1))
+    for pair in lora.values():              # a live bypass: b != 0
+        pair["b"].normal_(0.0, 0.1, generator=torch.Generator()
+                          .manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=gen)
+    vis = torch.randn((2, cfg.vision_tokens, cfg.d_model), generator=gen)
+    res, feed, launches = {}, None, None
+    for name, m in (("cpu", cpu), ("cuda", gpu)):
+        dev = m.device
+        p, lo = (tree_map(lambda t: t.to(dev), tree)
+                 for tree in (params, lora))
+        with torch.no_grad():
+            logits, pre = m.prefill(p, lo, {"tokens": toks.to(dev),
+                                            "vision": vis.to(dev)})
+            caches = _vlm_decode_caches(m, pre, 2, 9 + steps)
+            seq, fed = [logits.cpu()], []
+            dattn.launches = 0
+            for s in range(steps):
+                # both devices decode the CPU run's greedy tokens
+                tok = feed[s] if feed is not None \
+                    else logits[:, -1].argmax(-1).cpu()
+                fed.append(tok)
+                logits, caches = m.decode_step(p, lo, caches,
+                                               tok[:, None].to(dev),
+                                               torch.tensor(9 + s))
+                seq.append(logits.cpu())
+            if name == "cuda":
+                launches = dattn.launches
+        res[name], feed = (seq, [t.cpu() for t in pre["cross_kv"]]), fed
+
+    def rel(a, b):
+        return float((a - b).abs().max() / (b.abs().max() + 1e-30))
+
+    (sc, cc), (sg, cg) = res["cpu"], res["cuda"]
+    prefill_err = rel(sg[0], sc[0])
+    decode_err = max(rel(a, b) for a, b in zip(sg[1:], sc[1:]))
+    cross_err = max(rel(a, b) for a, b in zip(cg, cc))
+    emit("reference_vlm", reduced_config=cfg.name, dtype="float32",
+         units=units, vision_tokens=cfg.vision_tokens, gates=0.5,
+         prompts=[2, 9], decode_steps=steps,
+         prefill_logits_rel_err=prefill_err, decode_logits_rel_err=decode_err,
+         cross_kv_rel_err=cross_err, tol=5e-5,
+         decode_attention_launches=launches,
+         decode_attention_launches_derived=units * steps)
+    if not (prefill_err < 5e-5 and decode_err < 5e-5 and cross_err < 5e-5):
+        raise AssertionError("VLM: card vs CPU beyond tolerance")
+    if launches != units * steps:
+        raise AssertionError(f"VLM reference: {launches} decode_attention "
+                             f"launches for {steps} steps of {units} units")
 
 
 def phase_reference_blockwise(get_config, build, make_engine, fa):
@@ -1299,6 +1523,134 @@ def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
         del out
         torch.cuda.empty_cache()
     return results
+
+
+# ------------------------------------------------------------ VLM serving -
+def _vlm_full(make_engine, get_config):
+    """llama-3.2-vision-90b at published width, depth cut to VLM_LAYERS
+    (whole units), bf16 random weights from a seed, gates at 0.5."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    engine = make_engine(cfg, lr=3e-3, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = engine.model.init(gen)
+    _open_gates(params)
+    return engine, params, engine.model.init_lora(gen), gen
+
+
+def phase_serve_vlm(make_engine, get_config, pda, lm, fa, seg, scan, dattn):
+    """VLM serving through the engine API (the batcher refuses VLM stacks,
+    as in the reference): 16 requests on 8 slots in two waves, each an
+    ``Engine.prefill_step`` of 8 32-token prompts with their own vision
+    inputs (random patch embeddings [8, 1,601, 8,192] from a seed, the
+    stub frontend's), the caches copied into decode caches, then 15
+    greedy ``Engine.decode_step``s.  Launches exactly as derived:
+    decode_attention once per unit per decode step, the paged kernel
+    once per dense block per decode step, lora_matmul once per adapter
+    projection per prefill wave and decode step.  Then one unit's
+    cross-attention at decode through the kernel against the dense
+    non-causal attention on the same q/K/V (bf16, 2e-2)."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import attention_dense
+    n_requests, slots, plen, gen_tokens = 16, 8, 32, 16
+    torch.cuda.empty_cache()
+    engine, params, lora, gen = _vlm_full(make_engine, get_config)
+    model, cfg = engine.model, engine.model.cfg
+    units, per = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+    data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
+                            seq_len=plen, seed=0)
+    prompts = torch.as_tensor(data.sample_tokens(n_requests)[:, :plen],
+                              device="cuda")
+    visions = [torch.randn((slots, cfg.vision_tokens, cfg.d_model),
+                           generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+               for _ in range(n_requests // slots)]
+    steps = gen_tokens - 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(pda, lm, fa.flash_attention_fwd, seg, scan, dattn)  # path starts
+    t_start = time.perf_counter()
+    tokens, ttft_ms, tick_ms = [], [], []
+    for w, vis in enumerate(visions):
+        t0 = time.perf_counter()
+        logits, pre = engine.prefill_step(
+            params, lora, {"tokens": prompts[w * slots:(w + 1) * slots],
+                           "vision": vis})
+        tok = logits[:, -1].argmax(-1)
+        caches = _vlm_decode_caches(model, pre, slots, plen + steps)
+        del pre, logits
+        torch.cuda.synchronize()
+        ttft_ms.append((time.perf_counter() - t0) * 1e3)
+        wave = [tok]
+        t0 = time.perf_counter()
+        for s in range(steps):
+            pos = torch.full((slots,), plen + s, dtype=torch.int32,
+                             device="cuda")
+            logits, caches = engine.decode_step(params, lora, caches,
+                                                tok[:, None], pos)
+            tok = logits[:, -1].argmax(-1)
+            wave.append(tok)
+        finite = bool(torch.isfinite(logits).all())
+        tick_ms.append((time.perf_counter() - t0) / steps * 1e3)
+        tokens += torch.stack(wave, 1).tolist()
+        if not finite:
+            raise AssertionError(f"serve_vlm wave {w}: logits not finite")
+    wall = time.perf_counter() - t_start
+    launches = {"decode_attention": dattn.launches,
+                "paged_decode_attention": pda.launches,
+                "lora_matmul": lm.launches,
+                "flash_attention": fa.flash_attention_fwd.launches,
+                "segmented_lora_matmul": seg.launches,
+                "ssd_scan": scan.launches}                    # path ends
+    waves = len(visions)
+    want = {"decode_attention": units * steps * waves,
+            "paged_decode_attention": units * per * steps * waves,
+            "lora_matmul": 4 * units * per * (steps + 1) * waves,
+            "flash_attention": 0, "segmented_lora_matmul": 0, "ssd_scan": 0}
+    peak = torch.cuda.max_memory_allocated()
+
+    # one unit's cross-attention at decode: the kernel against the dense
+    # non-causal attention on the same q/K/V
+    cp = {k: v[0] for k, v in params["cross"]["attn"].items()}
+    vkv = (caches["cross_kv"][0][0], caches["cross_kv"][1][0])
+    x = torch.randn((slots, 1, cfg.d_model), generator=gen, device="cuda",
+                    dtype=cp["wq"].dtype)
+    with torch.no_grad():
+        got = tfm.cross_attn(cp, x, vkv, cfg)
+        q = (x @ cp["wq"]).reshape(slots, 1, cfg.n_heads, cfg.head_dim)
+        o = attention_dense(q, *vkv, causal=False)
+        want_o = o.reshape(slots, 1, -1) @ cp["wo"]
+    cross_err = float((got.float() - want_o.float()).abs().max()
+                      / want_o.float().abs().max())
+    row = {
+        "arch": VLM_ARCH, "n_layers": cfg.n_layers, "units": units,
+        "dense_blocks_per_unit": per, "vision_tokens": cfg.vision_tokens,
+        "gates": 0.5, "requests": n_requests, "slots": slots,
+        "prompt_len": plen, "gen_tokens": gen_tokens, "prefill_waves": waves,
+        "decode_steps": steps * waves,
+        "finished": sum(len(t) == gen_tokens for t in tokens),
+        "tokens_generated": sum(len(t) for t in tokens),
+        "throughput_tok_s": sum(len(t) for t in tokens) / wall,
+        "wall_s": wall, "prefill_wave_ms": ttft_ms,
+        "host_ms_per_decode_tick": tick_ms,
+        "max_memory_allocated_bytes": peak,
+        "launches": launches, "launches_derived": want,
+        "cross_attn_kernel_vs_dense_rel_err": cross_err,
+        "cross_attn_tol": 2e-2,
+    }
+    emit("serve_vlm", **row)
+    if row["finished"] != n_requests:
+        raise AssertionError("serve_vlm: not every request finished")
+    if launches != want:
+        raise AssertionError(f"serve_vlm: launches {launches}, derived "
+                             f"{want}")
+    if not cross_err < 2e-2:
+        raise AssertionError(f"serve_vlm: cross-attention through the "
+                             f"kernel {cross_err} from the dense path")
+    del engine, params, lora, caches, visions, vkv, x, got, o
+    torch.cuda.empty_cache()
+    return row
 
 
 # ------------------------------------------------------------ combined ----
@@ -1753,6 +2105,83 @@ def phase_tick(make_engine, get_config, n=5):
                                       for e in top])
         del b, batches, reg
         torch.cuda.empty_cache()
+    del engine, params, lora
+    torch.cuda.empty_cache()
+    _tick_vlm(make_engine, get_config, n)
+
+
+def _is_decode(key):
+    return "decode_attn_split_kernel" in key \
+        or "decode_attn_combine_kernel" in key
+
+
+def _tick_vlm(make_engine, get_config, n):
+    """A VLM decode tick at 8 busy slots (``Engine.decode_step`` after a
+    32-token prefill wave): host wall per tick, then under torch.profiler
+    device time, decode_attention's and the other kernels' parts, and
+    kernels per tick."""
+    from torch.profiler import ProfilerActivity, profile
+    slots, plen = 8, 32
+    engine, params, lora, gen = _vlm_full(make_engine, get_config)
+    model, cfg = engine.model, engine.model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (slots, plen), device="cuda",
+                         generator=gen)
+    vis = torch.randn((slots, cfg.vision_tokens, cfg.d_model), generator=gen,
+                      device="cuda", dtype=torch.bfloat16)
+    logits, pre = engine.prefill_step(params, lora, {"tokens": toks,
+                                                     "vision": vis})
+    caches = _vlm_decode_caches(model, pre, slots, plen + 3 + 2 * n)
+    del pre
+    state = {"tok": logits[:, -1].argmax(-1), "pos": plen}
+
+    def tick():
+        pos = torch.full((slots,), state["pos"], dtype=torch.int32,
+                         device="cuda")
+        lg, _ = engine.decode_step(params, lora, caches,
+                                   state["tok"][:, None], pos)
+        state["tok"] = lg[:, -1].argmax(-1)
+        state["pos"] += 1
+
+    for _ in range(3):                       # warm ticks
+        tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        tick()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / n * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tick()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) / n * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def part(pred):
+        return sum(_device_us(e) for e in kern if pred(e.key)) / 1e3 / n
+
+    dev_ms = part(lambda key: True)
+    dec_ms = part(_is_decode)
+    top = sorted(kern, key=_device_us, reverse=True)[:6]
+    emit("tick", context="vlm_decode", arch=VLM_ARCH, n_layers=cfg.n_layers,
+         paged=False, prompt_len=plen, slots=slots, tenants=0,
+         train_batch=None, host_ms_per_tick=host_ms,
+         profiled_wall_ms_per_tick=prof_ms, device_busy_ms_per_tick=dev_ms,
+         device_busy_share=dev_ms / prof_ms if prof_ms else None,
+         decode_attention_ms_per_tick=dec_ms,
+         decode_attention_share_of_device=dec_ms / dev_ms if dev_ms else None,
+         decode_attention_launches_per_tick=sum(
+             e.count for e in kern if _is_decode(e.key)) / n,
+         attention_ms_per_tick=part(lambda key: "paged_decode_kernel" in key),
+         lora_matmul_ms_per_tick=part(_is_lora),
+         kernels_per_tick=sum(e.count for e in kern) / n,
+         top_kernels_ms_per_tick=[[e.key[:60], _device_us(e) / 1e3 / n]
+                                  for e in top])
+    del engine, params, lora, caches, logits, vis, state
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1765,6 +2194,7 @@ def main():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.decode_attention import (
+        decode_attention as dattn, decode_attention_ref as dattn_ref,
         paged_decode_attention as pda, paged_decode_attention_ref as pda_ref)
     from repro_torch.kernels.lora_matmul import (
         LoRAMatmulFn, lora_matmul as lm, lora_matmul_ref as lm_ref,
@@ -1797,14 +2227,17 @@ def main():
         "kernel_flash": lambda: phase_kernel_flash(fa),
         "kernel_seg": lambda: phase_kernel_seg(seg, seg_ref, lm),
         "kernel_ssd": lambda: phase_kernel_ssd(ssd),
+        "kernel_decode": lambda: phase_kernel_decode(dattn, dattn_ref),
         "reference": lambda: phase_reference(get_config, build, make_engine,
-                                             lm, ssd.ssd_scan),
+                                             lm, ssd.ssd_scan, dattn),
         "reference_blockwise": lambda: phase_reference_blockwise(
             get_config, build, make_engine, fa),
         "serve": lambda: phase_serve(run_serving, get_config, pda, lm, fa,
                                      seg),
         "serve_ssm": lambda: phase_serve_ssm(run_serving, get_config, pda,
                                              lm, fa, seg, ssd.ssd_scan),
+        "serve_vlm": lambda: phase_serve_vlm(make_engine, get_config, pda, lm,
+                                             fa, seg, ssd.ssd_scan, dattn),
         "combined": lambda: phase_combined(run_serving, get_config, pda, lm,
                                            fa, seg),
         "serve_adapters": lambda: phase_serve_adapters(
@@ -1830,6 +2263,8 @@ def main():
     s_main = srows[("decode", torch.bfloat16)]
     drows, ssm = out["kernel_ssd"], out["serve_ssm"]
     d_main = drows[("mamba_2048", torch.bfloat16)]
+    crows, vlm = out["kernel_decode"], out["serve_vlm"]
+    c_main = crows[("cross", torch.bfloat16)]
 
     main_row = rows[("serve", torch.bfloat16)]
     worst = max(r["max_abs_err"] for (n, dt), r in rows.items()
@@ -1950,6 +2385,29 @@ def main():
         "bf16_shapes": {n: {k: r[k] for k in ("S", "H", "N", "ms",
                                                 "plain_ms", "bound_ms")}
                         for (n, dt), r in drows.items()
+                        if dt == torch.bfloat16},
+    }, {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:80",
+        # the VLM server: one per unit per decode step
+        "launches": vlm["launches"]["decode_attention"],
+        "shape": "cross-attention decode B=8 H=64 Hkv=8 D=128 T=1601, "
+                 "K/V a transposed view, bf16",
+        "max_abs_err": c_main["max_abs_err"],
+        "worst_bf16_err_all_shapes": max(
+            r["max_abs_err"] for (n, dt), r in crows.items()
+            if dt == torch.bfloat16),
+        "worst_f32_err_all_shapes": max(
+            r["max_abs_err"] for (n, dt), r in crows.items()
+            if dt == torch.float32),
+        **{k: c_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "library")},
+        "bf16_shapes": {n: {k: r[k] for k in ("S", "lengths", "ms",
+                                                "plain_ms", "library_ms",
+                                                "bound_ms")}
+                        for (n, dt), r in crows.items()
                         if dt == torch.bfloat16},
     }]}), flush=True)
     print(smi(), flush=True)

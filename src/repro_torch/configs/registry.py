@@ -1,16 +1,17 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-The ids are the JAX package's; the four dense decoders and the Mamba2
-SSM are ported (their config files are copies of the JAX ones).  The
-other families raise ``NotImplementedError`` naming the ROADMAP item
-that ports them (they need their mixers).
+The ids are the JAX package's; the four dense decoders, the Mamba2 SSM
+and the llama-3.2-vision VLM are ported (their config files are copies
+of the JAX ones).  The other families raise ``NotImplementedError``
+naming the ROADMAP item that ports them (they need their mixers).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (
-    internlm2_1_8b, llama3_8b, mamba2_780m, qwen1_5_0_5b, qwen3_14b,
+    internlm2_1_8b, llama3_2_vision_90b, llama3_8b, mamba2_780m,
+    qwen1_5_0_5b, qwen3_14b,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -20,6 +21,7 @@ _REGISTRY: Dict[str, ModelConfig] = {
     "internlm2-1.8b": internlm2_1_8b.CONFIG,
     "llama3-8b": llama3_8b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
+    "llama-3.2-vision-90b": llama3_2_vision_90b.CONFIG,
 }
 
 # arch id -> the ROADMAP item ("Modules to port") that brings it over
@@ -29,7 +31,6 @@ _PENDING: Dict[str, str] = {
     "hymba-1.5b": f"{_FAMILIES} (hybrid, sliding-window rings)",
     "moonshot-v1-16b-a3b": f"{_FAMILIES} (MoE)",
     "grok-1-314b": f"{_FAMILIES} (MoE)",
-    "llama-3.2-vision-90b": f"{_FAMILIES} (VLM cross-attention)",
 }
 
 ARCH_IDS = tuple(_REGISTRY) + tuple(_PENDING)

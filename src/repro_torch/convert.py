@@ -4,8 +4,11 @@ The JAX ``Model.init`` / ``init_lora`` trees, turned into numpy leaf for
 leaf by the caller, have exactly the port's layout (nested dicts,
 stacked ``[L, ...]`` block leaves, ``[in, out]`` matrices), so loading
 is a per-leaf conversion that keeps dtypes: params in
-``cfg.param_dtype`` except the SSM leaves the JAX init keeps in float32
-(``A_log``, ``D_skip``, ``dt_bias``), LoRA pairs in float32.  An AdamW
+``cfg.param_dtype`` except the leaves the JAX init keeps in float32 (the
+SSM's ``A_log``, ``D_skip``, ``dt_bias``; a VLM cross block's
+``gate_attn``, ``gate_mlp``), LoRA pairs in float32.  A VLM's
+``[units, per, ...]`` blocks and ``[units, ...]`` cross blocks convert
+leaf for leaf like any other stack.  An AdamW
 state (step, m, v) converts the same way, so a test can carry a JAX
 optimizer state across.
 """
@@ -18,6 +21,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba2 import FLOAT32_LEAVES
+from repro_torch.models.transformer import CROSS_FLOAT32_LEAVES
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -39,10 +43,10 @@ def _tree(tree: Any, dtype: torch.dtype, device, keep=()) -> Any:
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict, device="cuda") -> Dict:
     """A JAX params tree (numpy leaves) -> the port's params, in
-    ``cfg.param_dtype`` on ``device`` (the SSM's float32 leaves stay
-    float32)."""
+    ``cfg.param_dtype`` on ``device`` (the SSM's and the cross blocks'
+    float32 leaves stay float32)."""
     return _tree(tree, getattr(torch, cfg.param_dtype), torch.device(device),
-                 keep=FLOAT32_LEAVES)
+                 keep=FLOAT32_LEAVES + CROSS_FLOAT32_LEAVES)
 
 
 def lora_from_numpy(tree: Dict, device="cuda") -> Dict:

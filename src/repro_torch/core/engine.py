@@ -111,7 +111,8 @@ class Engine:
         """Prefill full-length prompts: (last-token logits, caches).
         ``adapter_idx`` [B] selects each row's slot of a stacked
         ``lora``.  SSM stacks take the exact-length ``Model.prefill``
-        (one adapter)."""
+        (one adapter); a VLM batch carries ``batch["vision"]`` and its
+        caches ``cross_kv``."""
         if self.model.cfg.has_ssm:
             if adapter_idx is not None:
                 raise NotImplementedError(

@@ -1,28 +1,39 @@
-"""Paged decode attention: one query token per sequence against a KV
-cache that lives in a global block pool, walked through per-sequence
-block tables.
+"""Decode attention: one query token per sequence against its K/V.
 
-Replaces the TPU kernel ``repro.kernels.decode_attention.
-paged_decode_attention`` (``src/repro/kernels/decode_attention.py:172``,
-its ``pallas_call`` at ``:215``) with a CUDA kernel written for Hopper,
-``csrc/paged_decode_attention.cu``, built by ``kernels/_build.py`` and
-bound with ``ctypes``.  The kernel is memory-bound: each call must read
-``sum_b kv_len_b * Hkv * D * 2 * sizeof(T)`` bytes of K/V and does about
-two FLOP per element read.  Its design notes are in the source.
+Two kernels, each replacing a TPU kernel of ``repro.kernels.
+decode_attention`` with a CUDA kernel written for Hopper, built by
+``kernels/_build.py`` and bound with ``ctypes``:
 
-``paged_decode_attention`` dispatches on where its tensors lie: CPU
-tensors take the plain PyTorch version ``paged_decode_attention_ref``
-(gather the logical cache, then the contiguous decode math); CUDA
+``paged_decode_attention``  K/V in a global block pool walked through
+    per-sequence block tables; replaces ``paged_decode_attention``
+    (``src/repro/kernels/decode_attention.py:172``, its ``pallas_call``
+    at ``:215``) with ``csrc/paged_decode_attention.cu``.  The self
+    attention of every decoder block runs it, the contiguous cache
+    through identity block tables.
+``decode_attention``        head-major caches ``[B, Hkv, S, D]`` of any
+    strides with a unit last axis; replaces ``decode_attention``
+    (``:80``, its ``pallas_call`` at ``:101``) with
+    ``csrc/decode_attention.cu``.  The VLM's cross-attention decode runs
+    it over each request's static vision K/V, passed as the transposed
+    view of its ``[B, T, Hkv, D]`` projection (no copy).
+
+Both are memory-bound: a call must read ``sum_b kv_len_b * Hkv * D * 2 *
+sizeof(T)`` bytes of K/V and does about two FLOP per element read.  The
+design notes are in the sources.
+
+Each wrapper dispatches on where its tensors lie: CPU tensors take the
+plain PyTorch version (``paged_decode_attention_ref``,
+``decode_attention_ref``: the contiguous decode math in float32); CUDA
 tensors launch the kernel, or raise on a dtype, shape, layout or device
-it does not take.  Nothing falls back from one to the other.
-``paged_decode_attention.launches`` counts kernel launches.
+it does not take.  Nothing falls back from one to the other.  Each
+wrapper's ``launches`` counts its kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,6 +41,7 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _P = ctypes.c_void_p
 
 
@@ -164,3 +176,147 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
 
 
 paged_decode_attention.launches = 0
+
+
+# ------------------------------------------------------ contiguous caches --
+def decode_attention_ref(q, k_cache, v_cache, kv_len,
+                         scale: Optional[float] = None):
+    """Plain PyTorch version: the contiguous math on the ``[B, S, Hkv,
+    D]`` views of the head-major caches."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return decode_attention_math(q, k_cache.transpose(1, 2),
+                                 v_cache.transpose(1, 2), kv_len, scale)
+
+
+# splits of one (sequence, KV head)'s cache walk, at most
+_MAX_SPLITS = 64
+# the split kernel's 256 threads keep two PV columns (4 query heads, one
+# channel) each: ceil(G / 4) * D <= 512
+_MAX_COLS = 512
+
+
+def _check_contiguous(q, k_cache, v_cache, kv_len) -> None:
+    dev = q.device
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache),
+                    ("kv_len", kv_len)):
+        if t.device != dev:
+            raise ValueError(f"decode_attention: {name} is on {t.device}, "
+                             f"q on {dev}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"decode_attention: dtype {q.dtype} not supported "
+                        "(float32, bfloat16)")
+    if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise TypeError("decode_attention: q, k_cache and v_cache must "
+                        f"share a dtype, got {q.dtype}, {k_cache.dtype}, "
+                        f"{v_cache.dtype}")
+    if kv_len.dtype != torch.int32:
+        raise TypeError("decode_attention: kv_len must be int32")
+    if q.dim() != 3 or k_cache.dim() != 4 or kv_len.dim() != 1:
+        raise ValueError("decode_attention: expected q [B,H,D], caches "
+                         "[B,Hkv,S,D], kv_len [B]")
+    b, h, d = q.shape
+    bk, hkv, s, dk = k_cache.shape
+    if v_cache.shape != k_cache.shape or bk != b or dk != d or h % hkv \
+            or kv_len.shape[0] != b or s < 1:
+        raise ValueError(
+            f"decode_attention: shapes q {tuple(q.shape)}, caches "
+            f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, kv_len "
+            f"{tuple(kv_len.shape)} do not agree")
+    if -(-(h // hkv) // 4) * d > _MAX_COLS:
+        raise ValueError(f"decode_attention: {h // hkv} query heads per KV "
+                         f"head at head_dim {d} exceeds the kernel's "
+                         f"{_MAX_COLS} columns of 4 heads")
+    # K/V rows are read 16 bytes at a time: unit last axis, and every
+    # other stride and the base address on a 16-byte boundary
+    elt = q.element_size()
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+                (st * elt) % 16 for st in t.stride()[:-1]):
+            raise ValueError(
+                f"decode_attention: {name} needs a unit stride on its last "
+                f"axis, 16-byte aligned rows and base (strides "
+                f"{tuple(t.stride())}, {elt}-byte elements)")
+    if q.stride(-1) != 1:
+        raise ValueError("decode_attention: q needs a unit stride on its "
+                         "last axis")
+    if (d * elt) % 16 or not kv_len.is_contiguous():
+        raise ValueError(f"decode_attention: head_dim {d} x {elt} bytes must "
+                         "be a multiple of 16 and kv_len contiguous")
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for device {dev} "
+                         "(CPU tensors take the plain version)")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_plan(b: int, hkv: int, s: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, rows per split) of the cache axis: enough blocks of
+    (sequence, KV head, split) for about eight on every SM, each split a
+    whole number of the kernel's 32-row tiles, at most ``_MAX_SPLITS``.
+    At the VLM's cross shape (64 pairs, 1,601 rows) that is 17 splits of
+    96 rows: the fastest of 4 to 51 splits on an NVIDIA H100 80GB HBM3
+    (81 us against 90 at 9 splits, bf16; PERF.md)."""
+    def cdiv(a, c):
+        return -(-a // c)
+
+    splits = max(1, min(cdiv(8 * n_sm, b * hkv), _MAX_SPLITS, cdiv(s, 32)))
+    chunk = cdiv(cdiv(s, splits), 32) * 32
+    return cdiv(s, chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _contiguous_entry():
+    fn = _build.library("decode_attention").decode_attention_launch
+    fn.restype = _I
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, ctypes.c_float,
+                   _P]
+    return fn
+
+
+def _launch_contiguous(q, k_cache, v_cache, kv_len, scale: float):
+    _check_contiguous(q, k_cache, v_cache, kv_len)
+    fn = _contiguous_entry()
+    b, h, d = q.shape
+    hkv, s = k_cache.shape[1], k_cache.shape[2]
+    splits, chunk = split_plan(b, hkv, s, _sm_count(q.device.index or 0))
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    # per (b, query head, split): the partial acc [D] and (m, l)
+    part_acc = torch.empty((b, h, splits, d) if splits > 1 else (1,),
+                           dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((b, h, splits, 2) if splits > 1 else (1,),
+                          dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+                 v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                 part_acc.data_ptr(), part_ml.data_ptr(), b, h, hkv, d, s,
+                 q.stride(0), q.stride(1), *k_cache.stride()[:3],
+                 *v_cache.stride()[:3], splits, chunk, scale, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"decode_attention: launch failed with CUDA error {err} "
+            f"(q {tuple(q.shape)}, caches {tuple(k_cache.shape)}, "
+            f"{splits} splits of {chunk} rows)")
+    decode_attention.launches += 1
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, kv_len,
+                     scale: Optional[float] = None):
+    """q [B,H,D]; caches [B,Hkv,S,D] (any strides with a unit last
+    axis); kv_len [B] int32 -> [B,H,D] in q's dtype.
+
+    Positions at or past ``kv_len`` are masked; a row with ``kv_len ==
+    0`` gives zeros.  CPU tensors take ``decode_attention_ref``; CUDA
+    tensors launch the kernel (see the module docstring)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    if all(t.device.type == "cpu" for t in (q, k_cache, v_cache, kv_len)):
+        return decode_attention_ref(q, k_cache, v_cache, kv_len, scale)
+    return _launch_contiguous(q, k_cache, v_cache, kv_len, scale)
+
+
+decode_attention.launches = 0

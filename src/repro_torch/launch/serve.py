@@ -39,7 +39,7 @@ from repro_torch.core.engine import make_engine
 from repro_torch.data.synthetic import SyntheticDataset
 from repro_torch.runtime.fabric import make_tenant_adapters
 from repro_torch.runtime.serving_loop import (
-    AdapterRegistry, ContinuousBatcher, GenRequest,
+    AdapterRegistry, ContinuousBatcher, GenRequest, refuse_vlm,
 )
 
 
@@ -65,6 +65,7 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
     combined mode training steps tenant 0's tree in place while decode
     reads the registry's copies."""
     cfg = get_config(arch)
+    refuse_vlm(cfg)                    # before building a model for it
     if smoke:
         cfg = cfg.scaled()
     engine = make_engine(cfg, lr=3e-3, device=device)

@@ -1,6 +1,6 @@
 """The port's model: one ``Model`` per (ModelConfig, device) with the
-serving surface of ``repro.models.model.Model`` for the dense family and
-the attention-free SSM family (Mamba2):
+serving surface of ``repro.models.model.Model`` for the dense family,
+the attention-free SSM family (Mamba2) and the VLM (llama-3.2-vision):
 
   init(generator) -> params              init_lora(generator) -> adapters
   forward_loss(params, lora, batch)      (training objective), logits
@@ -17,6 +17,16 @@ applies its own slot (< 0: the base model alone).
 An SSM stack's caches are ``{"ssm": {"conv", "state"}}`` per slot (the
 conv tail and the SSD state, fixed size whatever the prompt); the ragged
 prefill and the paged layout are attention-only, as in JAX.
+
+A VLM stack is ``units`` of ``per`` dense blocks and one cross block
+(``cross_attn_every = per + 1``): ``params["blocks"]`` ``[units, per,
+...]``, ``params["cross"]`` ``[units, ...]``, the LoRA tree ``[units,
+per, ...]``; its batches carry ``batch["vision"]`` [B, T, d_model] (the
+stub frontend's patch embeddings) and its caches add ``cross_kv``, the
+vision K/V of each unit ``[units, B, T, Hkv, Dh]``, made at prefill and
+read by every decode step.  As in JAX, a VLM stack has no paged caches
+and no cache-slot writes (the caller copies a prefill's caches into its
+decode caches), and its decode serves one adapter.
 
 Params are nested dicts of tensors in the JAX layout (stacked ``[L, ...]``
 block leaves, ``[in, out]`` matrices), so ``convert.py`` loads a JAX tree
@@ -35,7 +45,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import mamba2
 from repro_torch.models import transformer as tfm
@@ -93,6 +103,19 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _draw_stacked(draw, lead: Tuple[int, ...]):
+    """``prod(lead)`` trees from ``draw()``, in order, written into stacks
+    of leading dims ``lead`` allocated once: the stacks and one layer's
+    draw are alive together, never every layer's draw beside them."""
+    first = draw()
+    out = tree_map(lambda t: torch.empty(lead + t.shape, dtype=t.dtype,
+                                         device=t.device), first)
+    for i, idx in enumerate(np.ndindex(*lead)):
+        tree = first if i == 0 else draw()
+        tree_map(lambda dst, src: dst[idx].copy_(src), out, tree)
+    return out
+
+
 def _stack(trees):
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
@@ -123,8 +146,15 @@ class Model:
         params: Dict[str, Any] = {}
         params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model,
                                      dtype, scale=1.0)
-        params["blocks"] = _stack([tfm.init_block(generator, cfg)
-                                   for _ in range(cfg.n_layers)])
+        if cfg.family is Family.VLM:
+            units, per = self._vlm_shape()
+            params["blocks"] = _draw_stacked(
+                lambda: tfm.init_block(generator, cfg), (units, per))
+            params["cross"] = _draw_stacked(
+                lambda: tfm.init_cross_block(generator, cfg), (units,))
+        else:
+            params["blocks"] = _draw_stacked(
+                lambda: tfm.init_block(generator, cfg), (cfg.n_layers,))
         params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
                                           device=generator.device)
         params["lm_head"] = dense_init(generator, cfg.d_model,
@@ -132,7 +162,19 @@ class Model:
         return params
 
     def init_lora(self, generator: torch.Generator) -> Dict:
+        """One adapter, stacked ``[L, ...]`` (a VLM: ``[units, per, ...]``
+        over its dense blocks; cross blocks take none)."""
+        if self.cfg.family is Family.VLM:
+            units, per = self._vlm_shape()
+            tree = lora_lib.init_lora(generator, self.cfg, units * per)
+            return tree_map(lambda t: t.reshape((units, per) + t.shape[1:]),
+                            tree)
         return lora_lib.init_lora(generator, self.cfg, self.cfg.n_layers)
+
+    def _vlm_shape(self) -> Tuple[int, int]:
+        """(units, dense blocks per unit) of a VLM stack."""
+        cfg = self.cfg
+        return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
 
     # ------------------------------------------------------------ forward --
     def _embed(self, params, batch) -> torch.Tensor:
@@ -154,6 +196,12 @@ class Model:
         rope_cs = rope_tables(torch.arange(s, device=x.device),
                               cfg.head_dim, cfg.rope_theta) \
             if cfg.has_attention else None
+        if cfg.family is Family.VLM:
+            return self._vlm_hidden_states(
+                params, lora, batch, x, rope_cs,
+                collect_caches=collect_caches, block_kv=block_kv,
+                skip_masked_blocks=skip_masked_blocks,
+                adapter_idx=adapter_idx)
         per_layer = []
         for i in range(cfg.n_layers):
             x, cache = tfm.block_full(
@@ -168,6 +216,40 @@ class Model:
             caches = {"ssm": _stack(per_layer)}
         elif collect_caches:
             caches = {"kv": tuple(torch.stack(t) for t in zip(*per_layer))}
+        return rms_norm(x, params["final_norm"]), caches
+
+    def _vlm_hidden_states(self, params, lora, batch, x, rope_cs, *,
+                           collect_caches, block_kv, skip_masked_blocks,
+                           adapter_idx):
+        """The VLM's forward: each unit's dense blocks, then its cross
+        block over the unit's projection of ``batch["vision"]`` (cast to
+        the carry dtype).  Caches: ``kv`` ``[units, per, B, S, Hkv, Dh]``
+        and ``cross_kv`` ``[units, B, T, Hkv, Dh]`` per K/V."""
+        cfg = self.cfg
+        vis = batch["vision"].to(x.dtype)
+        units, per = self._vlm_shape()
+        kvs, cross_kv = [], []
+        for u in range(units):
+            blocks, ulora = _layer(params["blocks"], u), _layer(lora, u)
+            for j in range(per):
+                x, kv = tfm.block_full(
+                    _layer(blocks, j), x, cfg, rope_cs,
+                    lora=_layer(ulora, j), block_kv=block_kv,
+                    skip_masked_blocks=skip_masked_blocks,
+                    adapter_idx=adapter_idx)
+                if collect_caches:
+                    kvs.append(kv)
+            cp = _layer(params["cross"], u)
+            vkv = tfm.vision_kv(cp["attn"], vis, cfg)
+            x = tfm.cross_block(cp, x, vkv, cfg)
+            if collect_caches:
+                cross_kv.append(vkv)
+        caches = None
+        if collect_caches:
+            caches = {
+                "kv": tuple(torch.stack(t).unflatten(0, (units, per))
+                            for t in zip(*kvs)),
+                "cross_kv": tuple(torch.stack(t) for t in zip(*cross_kv))}
         return rms_norm(x, params["final_norm"]), caches
 
     # --------------------------------------------------------------- loss --
@@ -204,8 +286,21 @@ class Model:
         """Contiguous KV caches ``[L, batch, S, Hkv, Dh]`` per K/V
         (sliding-window archs keep a ring of window size); an SSM stack's
         ``{"ssm": {"conv", "state"}}`` instead (conv tail in the cache
-        dtype, state float32, whatever ``seq``)."""
+        dtype, state float32, whatever ``seq``); a VLM's ``kv`` ``[units,
+        per, batch, S, Hkv, Dh]`` and ``cross_kv`` ``[units, batch, T,
+        Hkv, Dh]``."""
         cfg = self.cfg
+        if cfg.family is Family.VLM:
+            units, per = self._vlm_shape()
+            dt = self._cache_dtype(dtype)
+            kv = (units, per, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+            cross = (units, batch, cfg.vision_tokens, cfg.n_kv_heads,
+                     cfg.head_dim)
+            return {"kv": tuple(torch.zeros(kv, dtype=dt, device=self.device)
+                                for _ in range(2)),
+                    "cross_kv": tuple(torch.zeros(cross, dtype=dt,
+                                                  device=self.device)
+                                      for _ in range(2))}
         if cfg.has_ssm:
             return {"ssm": mamba2.init_ssm_cache(
                 cfg, batch, self._cache_dtype(dtype), self.device,
@@ -223,11 +318,19 @@ class Model:
         per K/V; block 0 is the runtime's scratch block."""
         cfg = self.cfg
         self._attention_only("paged KV caches")
+        self._no_vlm("paged KV caches")
         shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
                  cfg.head_dim)
         dt = self._cache_dtype(dtype)
         return {"kv": (torch.zeros(shape, dtype=dt, device=self.device),
                        torch.zeros(shape, dtype=dt, device=self.device))}
+
+    def _no_vlm(self, what: str) -> None:
+        if self.cfg.family is Family.VLM:
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} are not defined for a VLM stack "
+                "(units-leading cache layout, per-request vision K/V), as "
+                "in the reference; use prefill and decode_step")
 
     def _attention_only(self, what: str) -> None:
         if self.cfg.has_ssm:
@@ -240,7 +343,8 @@ class Model:
     def prefill(self, params, lora, batch):
         """Prefill full (exact-length) prompts: (logits at the last
         position [B,1,V], caches as ``hidden_states`` collects them) —
-        the SSM stacks' prefill, one request at a time in the batcher."""
+        the SSM stacks' prefill, one request at a time in the batcher; a
+        VLM's caches include ``cross_kv``."""
         hidden, caches = self.hidden_states(params, lora, batch,
                                             collect_caches=True)
         return hidden[:, -1:] @ params["lm_head"], caches
@@ -250,7 +354,8 @@ class Model:
                        skip_masked_blocks: bool = False, adapter_idx=None):
         """Prefill right-padded ragged prompts in one batch.  Returns
         (logits at each row's last real token [B,1,V], {"kv": (k, v)}
-        with k, v ``[L, B, P, Hkv, Dh]``).  Causal masking keeps pad
+        with k, v ``[L, B, P, Hkv, Dh]``; a VLM's ``kv`` and ``cross_kv``
+        as ``hidden_states`` collects them).  Causal masking keeps pad
         tokens out of every real position's K/V."""
         self._attention_only("ragged (padded) prefills")
         hidden, caches = self.hidden_states(
@@ -268,6 +373,8 @@ class Model:
         SSD state, ``[L, B, ...]``, the same shape whatever the prompt)
         into row ``slot`` of ``pool_caches``, in place: the batcher
         gathers a wave's exact-length prefills with it."""
+        self._no_vlm("cache-slot writes")
+
         def write(pool, pre):
             rows = tuple(slice(0, d) for d in pre.shape[2:])
             pool[(slice(None), slot) + rows].copy_(pre[:, src])
@@ -283,6 +390,7 @@ class Model:
         finished at admission) — filtered on the host, as an out-of-range
         index on the card is a device assert.  K/V rows past the prompt
         are zeroed, as the JAX scatter pads them."""
+        self._no_vlm("cache-slot writes")
         slots = np.asarray(slots, np.int64)
         pools, pres = _cache_leaves(pool_caches), _cache_leaves(prefill_caches)
         keep = np.nonzero((slots >= 0) & (slots < pools[0].shape[1]))[0]
@@ -339,12 +447,20 @@ class Model:
         """One decode step over contiguous caches.  token: [B,1] int;
         pos: [B] (or scalar) int positions of the new tokens.  Returns
         (logits [B,1,V], caches updated in place).  An SSM stack ignores
-        ``pos``: its state carries the position."""
+        ``pos``: its state carries the position.  A VLM stack reads each
+        unit's ``cross_kv`` and serves one adapter (``adapter_idx``
+        raises)."""
         cfg = self.cfg
         pos = self._positions(pos, token.shape[0])
         x = params["embed"][token]
         rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta) \
             if cfg.has_attention else None
+        if cfg.family is Family.VLM:
+            if adapter_idx is not None:
+                raise NotImplementedError(
+                    f"{cfg.name}: per-row adapters in VLM decode (the "
+                    "reference's VLM decode serves one adapter)")
+            return self._vlm_decode(params, lora, caches, x, pos, rope_cs)
         for i in range(cfg.n_layers):
             layer = {"ssm": _layer(caches["ssm"], i)} if cfg.has_ssm \
                 else {"kv": (caches["kv"][0][i], caches["kv"][1][i])}
@@ -352,6 +468,28 @@ class Model:
                                     layer, pos, rope_cs,
                                     lora=_layer(lora, i),
                                     adapter_idx=adapter_idx)
+        return self._logits(params, x), caches
+
+    def _vlm_decode(self, params, lora, caches, x, pos, rope_cs):
+        """The VLM's decode: each unit's dense blocks over their
+        contiguous caches (the paged kernel through identity tables),
+        then its cross block over the unit's ``cross_kv`` through
+        ``decode_attention``, every vision row valid."""
+        cfg = self.cfg
+        units, per = self._vlm_shape()
+        k_all, v_all = caches["kv"]
+        ck, cv = caches["cross_kv"]
+        cross_len = torch.full((x.shape[0],), ck.shape[2], dtype=torch.int32,
+                               device=x.device)
+        for u in range(units):
+            blocks, ulora = _layer(params["blocks"], u), _layer(lora, u)
+            for j in range(per):
+                x, _ = tfm.block_decode(
+                    _layer(blocks, j), x, cfg, {"kv": (k_all[u, j],
+                                                       v_all[u, j])},
+                    pos, rope_cs, lora=_layer(ulora, j))
+            x = tfm.cross_block(_layer(params["cross"], u), x,
+                                (ck[u], cv[u]), cfg, kv_len=cross_len)
         return self._logits(params, x), caches
 
     def decode_step_paged(self, params, lora, caches, token, pos,
@@ -367,6 +505,7 @@ class Model:
         (logits [B,1,V], caches updated in place)."""
         cfg = self.cfg
         self._attention_only("paged decode steps")
+        self._no_vlm("paged decode steps")
         k_all, v_all = caches["kv"]
         bs = k_all.shape[2]
         pos = self._positions(pos, token.shape[0])

@@ -1,20 +1,28 @@
 """Decoder blocks of the port — the counterparts of
-``repro.models.transformer`` for the dense family and the attention-free
-SSM family (Mamba2):
+``repro.models.transformer`` for the dense family, the attention-free
+SSM family (Mamba2) and the VLM (llama-3.2-vision):
 
   dense:  x += attn(norm1(x)); x += mlp(norm2(x))
   SSM:    x += ssm_mixer(norm1(x))
+  VLM:    units of (cross_attn_every - 1) dense blocks and one
+          cross-attention block over the request's vision tokens:
+          x += tanh(gate_attn) * cross_attn(norm1(x));
+          x += tanh(gate_mlp) * mlp(norm2(x))
 
 Block params are one layer's slice of the stacked ``[L, ...]`` tree.
-Every projection goes through ``lora.project``: an adapter-bearing one
-is one fused ``lora_matmul`` kernel call, the others a plain product.
+Every projection of a dense or SSM block goes through ``lora.project``:
+an adapter-bearing one is one fused ``lora_matmul`` kernel call, the
+others a plain product.  Cross blocks carry no adapter and no RoPE;
+their gates are float32 scalars, zero at init (every cross block starts
+as the identity, as in JAX).  A one-token cross-attention (decode) runs
+the ``decode_attention`` kernel over the vision K/V.
 With ``adapter_idx`` [B] (multi-tenant serving), ``lora`` is one layer's
 slot stack and each adapter projection is one ``segmented_lora_matmul``
 call over every sequence's own slot.
 Decode writes the new token's K/V (an SSM layer: its conv tail and
 state) into the caller's cache tensors IN PLACE (the JAX blocks return
-new caches); the returned caches are the same tensors.  The hybrid, MoE,
-encoder and VLM families raise ``NotImplementedError``.
+new caches); the returned caches are the same tensors.  The hybrid, MoE
+and encoder families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
@@ -33,12 +42,20 @@ from repro_torch.models.layers import (
 )
 
 
+# a cross block's leaves the JAX init makes float32 whatever the params'
+# dtype (``convert.py`` keeps them so)
+CROSS_FLOAT32_LEAVES = ("gate_attn", "gate_mlp")
+
+
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
 # --------------------------------------------------------------- params ----
-def init_attn(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+def init_attn(gen: torch.Generator, cfg: ModelConfig,
+              cross: bool = False) -> Dict:
+    """q/k/v/o projections (plus the config's QKV bias and q/k norms,
+    which a cross-attention block does not take)."""
     d, h = cfg.d_model, cfg.head_dim
     dtype = _dtype(cfg.param_dtype)
     p = {
@@ -49,11 +66,11 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig) -> Dict:
                          scale=1.0 / math.sqrt(cfg.n_heads * h)),
     }
     dev = gen.device
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = torch.zeros((cfg.n_heads * h,), dtype=dtype, device=dev)
         p["bk"] = torch.zeros((cfg.n_kv_heads * h,), dtype=dtype, device=dev)
         p["bv"] = torch.zeros((cfg.n_kv_heads * h,), dtype=dtype, device=dev)
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = torch.ones((h,), dtype=dtype, device=dev)
         p["k_norm"] = torch.ones((h,), dtype=dtype, device=dev)
     return p
@@ -68,7 +85,7 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    if cfg.family not in (Family.DENSE, Family.SSM):
+    if cfg.family not in (Family.DENSE, Family.SSM, Family.VLM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family is not ported to "
             "repro_torch yet; see ROADMAP.md, 'Other families'")
@@ -84,6 +101,22 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
         p["mlp"] = init_mlp(gen, cfg)
     return p
+
+
+def init_cross_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
+    """Cross-attention block (VLM): gated cross-attention + MLP, both
+    gates float32 zeros."""
+    dtype = _dtype(cfg.param_dtype)
+    dev = gen.device
+    ones = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
+    return {
+        "ln1": ones,
+        "attn": init_attn(gen, cfg, cross=True),
+        "gate_attn": torch.zeros((), dtype=torch.float32, device=dev),
+        "ln2": ones.clone(),
+        "mlp": init_mlp(gen, cfg),
+        "gate_mlp": torch.zeros((), dtype=torch.float32, device=dev),
+    }
 
 
 # ------------------------------------------------------------- attention ---
@@ -197,6 +230,36 @@ def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
     return _out_proj(p, o, cfg, lora, adapter_idx), (k_pool, v_pool)
 
 
+def vision_kv(p, vis: torch.Tensor, cfg: ModelConfig):
+    """Project vision embeddings [B, T, d_model] to the cross K/V, each
+    [B, T, Hkv, Dh]: once per request at prefill, cached for decode."""
+    b, t = vis.shape[0], vis.shape[1]
+    k = (vis @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = (vis @ p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attn(p, x, vkv, cfg: ModelConfig, kv_len=None):
+    """Cross-attention over the vision K/V ``vkv`` (no RoPE, no cache
+    write: vision tokens are static per request).  One query per
+    sequence (decode) runs ``decode_attention`` over the head-major
+    views of the K/V, with ``kv_len`` [B] int32 (default: all T valid);
+    longer queries (prefill) the dense non-causal attention, as JAX runs
+    every length."""
+    b, s = x.shape[0], x.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k, v = vkv
+    if s == 1:
+        if kv_len is None:
+            kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
+                                device=k.device)
+        o = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                             kv_len)[:, None]
+    else:
+        o = attention_dense(q, k, v, causal=False)
+    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
 # ----------------------------------------------------------------- blocks --
 def _mlp_out(bp, h, cfg: ModelConfig, lora, adapter_idx=None):
     sc = cfg.lora.scaling
@@ -265,3 +328,13 @@ def block_decode_paged(bp, x, cfg: ModelConfig, pool_kv, rope_cs,
     if cfg.d_ff > 0:
         x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
     return x, pool_kv
+
+
+def cross_block(cp, x, vkv, cfg: ModelConfig, kv_len=None):
+    """The VLM's gated cross-attention block; ``kv_len`` reaches the
+    decode kernel (``cross_attn``)."""
+    ga = torch.tanh(cp["gate_attn"]).to(x.dtype)   # f32 gate, carry dtype
+    x = x + ga * cross_attn(cp["attn"], rms_norm(x, cp["ln1"]), vkv, cfg,
+                            kv_len)
+    y = _mlp_out(cp, rms_norm(x, cp["ln2"]), cfg, None)
+    return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * y

@@ -54,7 +54,8 @@ prefill, the TPOT token budget and oversubscription; the first, second
 and last also keep the reference's gate, which refuses them past the
 dense limit.  Nor are the registry's sanitizer hook, per-tenant
 prefix-cache namespaces and adapter pins kept across preemption, which
-come with those features.
+come with those features.  VLM stacks are refused, as in the reference:
+they serve through ``Engine.prefill_step``/``decode_step``.
 """
 from __future__ import annotations
 
@@ -66,6 +67,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.configs.base import Family
 from repro_torch.models.lora import lora_shapes
 from repro_torch.models.transformer import use_dense_prefill
 from repro_torch.runtime.paging import BlockAllocator, blocks_for
@@ -321,6 +323,16 @@ class AdapterRegistry:
         return self._stack
 
 
+def refuse_vlm(cfg) -> None:
+    """The reference's refusal of VLM stacks, which serve through the
+    engine's prefill and decode steps instead."""
+    if cfg.family is Family.VLM:
+        raise NotImplementedError(
+            f"{cfg.name}: VLM cross-KV slot plumbing (units-leading "
+            "cache layout + per-request vision inputs) is a ROADMAP "
+            "item; use the prefill/decode API directly")
+
+
 class ContinuousBatcher:
     """Fixed-slot continuous batching over one model replica (see the
     module docstring).  ``params`` and ``lora`` are the port's tensor
@@ -342,6 +354,7 @@ class ContinuousBatcher:
         cfg = engine.model.cfg
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        refuse_vlm(cfg)
         # the reference's own gates, checked before whether a feature is
         # ported at all: these replay prefill through programs that mirror
         # the DENSE softmax bit for bit, so they refuse a prompt_pad past
