@@ -24,7 +24,9 @@ Phases, each printing JSON lines:
               waves of qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and
               llama3-8b (8 x 2,048, GQA 4:1 with head_dim 128), the
               train batches (qwen 4 x 2,048, llama3-8b 1 x 2,048), ragged
-              lengths 1,000 and 2,049 and a 512-token window;
+              lengths 1,000 and 2,049 and a 512-token window; the
+              backward twice (dK, dV bitwise, dQ within one bf16 ulp);
+              achieved TFLOP/s;
   kernel_seg  segmented_lora_matmul against its plain version at the
               multi-tenant decode (1, 4 and 8 slots) and prefill waves of
               qwen1.5-0.5b, a ragged shape and llama3-8b's decode; in bf16
@@ -78,7 +80,7 @@ Phases, each printing JSON lines:
               kernel once per layer per decode step, lora_matmul once per
               adapter projection per prefill wave and decode step,
               flash_attention once per layer per prefill wave past 1,024
-              tokens and never below;
+              tokens and never below; TTFT and TPOT p50 / p99 per run;
   serve_ssm   mamba2-780m at full width (48 layers, d_model 1536, bf16),
               16 requests on 8 contiguous slots at 32+16, 992+32 and
               2,048+32 tokens: every request finishes, ssd_scan once per
@@ -189,7 +191,16 @@ FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0),
                 ("ragged_2049", 4, 16, 16, 64, 2049, 0),
                 ("window", 4, 16, 16, 64, 2048, 512)]
 FLASH_REPS = 10
-FLASH_BWD = 3       # backward launches: delta, dK/dV, dQ
+# backward launches: bf16 prep (delta, lse, zeroed dQ accumulator), the
+# single pass, finish (dQ rounded; dK, dV slices summed); f32 delta,
+# dK/dV, dQ
+FLASH_BWD = 3
+# dQ of two bf16 backwards on the same inputs, relative to its largest
+# value: the single pass adds each KV tile's part into f32 in whatever
+# order the blocks finish, so dQ may differ by f32 rounding, which can
+# move a bf16 rounding by one ulp (2^-8 of the value) at most; dK and dV
+# are summed in a fixed order and must be bitwise equal
+FLASH_DQ_REPEAT_TOL = 2 ** -8
 
 
 def emit(phase, **kw):
@@ -574,9 +585,12 @@ def phase_kernel_flash(fa):
     (the dense f32 softmax and autograd of it) at the main path's
     shapes, inputs in the model's [B, S, H, D] layout passed as
     [B, H, S, D] views as the model passes them.  Errors relative to the
-    largest output or gradient.  Times: kernel, plain version, and
-    scaled_dot_product_attention (forward; for the backward, autograd of
-    its output) as the library yardstick, never called by the port."""
+    largest output or gradient.  The backward runs twice on the same
+    inputs: dK and dV bitwise equal, dQ within FLASH_DQ_REPEAT_TOL.
+    Times: kernel, plain version, and scaled_dot_product_attention
+    (forward; for the backward, autograd of its output) as the library
+    yardstick, never called by the port; achieved TFLOP/s (the bound's
+    operations over the time) of kernel and library."""
     rows = {}
     for si, (name, b, h, hkv, d, s, w) in enumerate(FLASH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -592,8 +606,13 @@ def phase_kernel_flash(fa):
             out = o
             ref = fa.flash_attention_ref(q, k, v, **kw)
             got = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
+            again = fa.flash_attention_backward(q, k, v, o, lse, do, **kw)
             want = fa.flash_attention_grad_ref(q, k, v, do, **kw)
             torch.cuda.synchronize()
+            repeat = {"dk_bitwise": bool(torch.equal(got[1], again[1])),
+                      "dv_bitwise": bool(torch.equal(got[2], again[2])),
+                      "dq_rel_diff": _rel_err(again[0], got[0])}
+            del again
             tol = TOL[dtype]
             err = _rel_err(out, ref)
             gerr = {n: _rel_err(x, y)
@@ -646,11 +665,25 @@ def phase_kernel_flash(fa):
                 b, h, hkv, d, s, w, dtype, backward=False)
             row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bound(
                 b, h, hkv, d, s, w, dtype, backward=True)
+            # achieved rate: the bound's operations over the kernel time
+            ops = 4 * d * causal_pairs(s, w) * b * h
+            row["tflops"] = ops / row["ms"] * 1e-9
+            row["bwd_tflops"] = 2.5 * ops / row["bwd_ms"] * 1e-9
+            row["library_tflops"] = ops / row["library_ms"] * 1e-9
+            row["bwd_library_tflops"] = 2.5 * ops / row["bwd_library_ms"] \
+                * 1e-9
+            row.update(backward_twice=repeat,
+                       dq_repeat_tol=FLASH_DQ_REPEAT_TOL)
             emit("kernel", kernel="flash_attention", **row)
             if not (err <= tol and max(gerr.values()) <= tol):
                 raise AssertionError(
                     f"flash_attention {name} {dtype}: forward {err}, "
                     f"backward {gerr} of the largest value, beyond {tol}")
+            if not (repeat["dk_bitwise"] and repeat["dv_bitwise"]
+                    and repeat["dq_rel_diff"] <= FLASH_DQ_REPEAT_TOL):
+                raise AssertionError(
+                    f"flash_attention {name} {dtype}: two backwards on the "
+                    f"same inputs differ: {repeat}")
             rows[(name, dtype)] = row
             del q, k, v, do, out, ref, o, lse, got, want, qs, ks, vs, lib_out
             torch.cuda.empty_cache()
@@ -1382,6 +1415,18 @@ def _reset(*counters):
         c.launches = 0
 
 
+def latency_percentiles(out):
+    """TTFT and TPOT p50 / p99 (ms) of a run from ``ServeStats.ttft`` /
+    ``tpot``: arrival (all at the run's start) to the tick that admitted
+    the request, and the seconds per later token, as the reference's
+    batcher stamps them."""
+    res = {}
+    for key, vals in (("ttft", out["ttft_s"]), ("tpot", out["tpot_s"])):
+        for pct in (50, 99):
+            res[f"{key}_p{pct}_ms"] = float(np.percentile(vals, pct)) * 1e3
+    return res
+
+
 def phase_serve(run_serving, get_config, pda, lm, fa, seg):
     """Serving at full width, every launch count checked: the decode
     kernel once per layer per decode step, lora_matmul once per adapter
@@ -1419,6 +1464,7 @@ def phase_serve(run_serving, get_config, pda, lm, fa, seg):
             "flash_attention_launches_derived": flash_want,
             "throughput_tok_s": out["throughput_tok_s"],
             "wall_s": out["wall_s"],
+            **latency_percentiles(out),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "cache_bytes": out["cache_bytes"],
         }
@@ -1980,8 +2026,8 @@ def _is_seg(key):
 
 
 def _is_flash(key):
-    return "fa_fwd_" in key or "fa_dkdv_" in key or "fa_dq_" in key \
-        or "fa_delta" in key
+    return "fa_fwd_" in key or "fa_bwd_" in key or "fa_dkdv_" in key \
+        or "fa_dq_" in key or "fa_delta" in key
 
 
 def _is_ssd(key):

@@ -4,10 +4,12 @@
 into its own shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  The
 libraries land in ``build/repro_torch/`` at the root of the checkout,
-named after a hash of their source and of the shared headers
-(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale library is
-never loaded.  A failed build raises with nvcc's
-output; nothing falls back.
+named after a hash of their source, of the shared headers
+(``csrc/*.cuh``) and of the nvcc command's flags, so an edited kernel or
+a changed flag rebuilds and a stale library is never loaded.  Every
+library links the driver API (``-lcuda``) for ``cuTensorMapEncodeTiled``,
+which encodes the TMA descriptors on the host.  A failed build raises
+with nvcc's output; nothing falls back.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# after the source, so that a linker that drops unused libraries keeps it
+LINK_FLAGS = ["-lcuda"]
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
@@ -46,6 +50,7 @@ def _target(name: str) -> pathlib.Path:
     h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
+    h.update("\0".join(NVCC_FLAGS + ["--"] + LINK_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -57,7 +62,8 @@ def _compile(name: str, target: pathlib.Path) -> None:
     # attribute name, and every ``run`` method of the repo would then
     # count as reachable from the jitted decode path
     proc = subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
+         *LINK_FLAGS],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     log, _ = proc.communicate()
     if proc.returncode != 0:

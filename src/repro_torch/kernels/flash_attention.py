@@ -37,8 +37,13 @@ gradient).  CPU tensors take the plain PyTorch versions
 a dtype (float32, bfloat16), head_dim (64, 128), layout or device they
 do not take.  Nothing falls back.  ``flash_attention_fwd.launches``
 counts forward launches (one per call), ``flash_attention_backward.
-launches`` backward launches: three per backward (the row sums
-``delta = rowsum(dO * O)``, then dK/dV, then dQ).
+launches`` backward launches: three per backward.  In bfloat16 (wgmma
+and TMA, ``csrc/flash_attention.cu``): a prep kernel (``delta =
+rowsum(dO * O)``, lse in log2 units, the float32 dQ accumulator zeroed),
+the single pass that forms dK, dV and adds dQ into the accumulator, and
+dQ's rounding into the model layout.  In float32: delta, then dK/dV,
+then dQ.  The bfloat16 dQ sums its key tiles with atomic adds, so it
+differs from run to run at float32 rounding; dK and dV do not.
 """
 from __future__ import annotations
 
@@ -172,9 +177,17 @@ def _entries():
     dq = lib.flash_attention_bwd_dq_launch
     dq.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P] + dims + [_L] * 15 \
         + mask + [_P]
-    for fn in (fwd, delta, dkdv, dq):
+    prep = lib.flash_attention_bwd_bf16_prep_launch
+    prep.argtypes = [_P] * 6 + [_I] * 5 + [_L] * 6 + [_P]
+    single = lib.flash_attention_bwd_bf16_launch
+    single.argtypes = [_P] * 9 + dims + [_I] + [_L] * 18 + mask \
+        + [_I, _P, _I, _P]
+    finish = lib.flash_attention_bwd_bf16_finish_launch
+    finish.argtypes = [_P] * 5 + dims + [_I] * 3 + [_L] * 9 \
+        + [ctypes.c_float, _P]
+    for fn in (fwd, delta, dkdv, dq, prep, single, finish):
         fn.restype = _I
-    return fwd, delta, dkdv, dq
+    return fwd, delta, dkdv, dq, prep, single, finish
 
 
 def _raise_on(err: int, what: str, q, k) -> None:
@@ -186,6 +199,26 @@ def _raise_on(err: int, what: str, q, k) -> None:
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def backward_split(b: int, hkv: int, group: int, skv: int,
+                   n_sms: int) -> int:
+    """How many blocks share each (128-key tile, KV head, batch) of the
+    bfloat16 backward, each taking an equal slice of the group's
+    ``group`` query heads: doubled while it divides the group and the
+    grid is smaller than the card (``n_sms`` SMs).  A causal grid of one
+    wave runs as long as its longest block, the first KV tile's, which
+    walks every query tile of every head of its group; slices above 1
+    add f32 partial dK and dV that the last launch sums."""
+    split, blocks = 1, -(-skv // 128) * hkv * b
+    while group % (2 * split) == 0 and blocks * split < n_sms:
+        split *= 2
+    return split
 
 
 # ----------------------------------------------------------- forward ------
@@ -216,11 +249,14 @@ flash_attention_fwd.launches = 0
 # ---------------------------------------------------------- backward ------
 def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
                              window: int = 0, scale: Optional[float] = None):
-    """The backward kernels: (dq, dk, dv) like q, k, v.  Three launches:
-    delta = rowsum(dO * O) in float32; one block per (batch, KV head, KV
-    tile) that walks its query tiles and the group's heads for dK and dV;
-    one block per (batch, head, query tile) for dQ.  Both recompute P
-    from ``lse``."""
+    """The backward kernels: (dq, dk, dv) like q, k, v.  Three launches.
+    bfloat16: the prep (delta, lse in log2 units and a zeroed float32 dQ
+    accumulator, rows padded to 128), then one block per (128-key tile,
+    KV head, batch) that walks the query tiles of the group's heads,
+    recomputes P once from ``lse`` and forms dK, dV and its adds into
+    dQ, then dQ rounded into place.  float32: delta = rowsum(dO * O);
+    one block per (batch, KV head, KV tile) for dK and dV; one block per
+    (batch, head, query tile) for dQ, both recomputing P."""
     _check(q, k, v, (("o", o), ("do", do), ("lse", lse)))
     if lse.dtype != torch.float32 or not lse.is_contiguous() \
             or tuple(lse.shape) != tuple(q.shape[:3]) \
@@ -229,17 +265,51 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
         raise ValueError("flash_attention_backward: o and dO must be "
                          "shaped like q, lse a contiguous float32 "
                          "[B,H,Sq]")
-    _, delta_fn, dkdv_fn, dq_fn = _entries()
+    _, delta_fn, dkdv_fn, dq_fn, prep_fn, single_fn, finish_fn = _entries()
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     code = _DTYPE_CODE[q.dtype]
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     dq = _alloc_like_model(b, h, sq, d, q.dtype, q.device)
     dk = _alloc_like_model(b, hkv, skv, d, k.dtype, k.device)
     dv = _alloc_like_model(b, hkv, skv, d, v.dtype, v.device)
     mask = (int(causal), int(window), float(scale))
     dims = (b, h, hkv, sq, skv, d)
+    if q.dtype == torch.bfloat16:
+        sqp, skvp = -(-sq // 128) * 128, -(-skv // 128) * 128
+        split = backward_split(b, hkv, h // hkv, skv, _n_sms(q.device))
+        lse2 = torch.empty((b, h, sqp), dtype=torch.float32, device=q.device)
+        delta = torch.empty_like(lse2)
+        acc = torch.empty((b * h * sqp * d,), dtype=torch.float32,
+                          device=q.device)
+        part = torch.empty((2 * split * b * hkv * skvp * d,),
+                           dtype=torch.float32, device=q.device) \
+            if split > 1 else None
+        with torch.cuda.device(q.device):
+            stream = _stream(q)
+            err = prep_fn(o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                          lse2.data_ptr(), delta.data_ptr(), acc.data_ptr(),
+                          b, h, sq, d, sqp, *_bhs(o), *_bhs(do), stream)
+            _raise_on(err, "backward prep", q, k)
+            flash_attention_backward.launches += 1
+            err = single_fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                            do.data_ptr(), lse2.data_ptr(), delta.data_ptr(),
+                            acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                            *dims, sqp, *_bhs(q), *_bhs(k), *_bhs(v),
+                            *_bhs(do), *_bhs(dk), *_bhs(dv), *mask, split,
+                            part.data_ptr() if split > 1 else None, skvp,
+                            stream)
+            _raise_on(err, "backward", q, k)
+            flash_attention_backward.launches += 1
+            err = finish_fn(acc.data_ptr(), dq.data_ptr(),
+                            part.data_ptr() if split > 1 else None,
+                            dk.data_ptr(), dv.data_ptr(), *dims, sqp, split,
+                            skvp, *_bhs(dq), *_bhs(dk), *_bhs(dv),
+                            float(scale), stream)
+            _raise_on(err, "backward finish", q, k)
+            flash_attention_backward.launches += 1
+        return dq, dk, dv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = _stream(q)
         err = delta_fn(code, o.data_ptr(), do.data_ptr(), delta.data_ptr(),
@@ -268,7 +338,7 @@ flash_attention_backward.launches = 0
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention with its gradient in q, k and v: q [B,H,Sq,D];
     k, v [B,Hkv,Skv,D] -> [B,H,Sq,D].  CUDA tensors run the forward
-    kernel and the three backward kernels; CPU tensors run
+    kernel and the three backward launches; CPU tensors run
     ``flash_attention_ref`` and autograd of it."""
 
     @staticmethod

@@ -117,6 +117,9 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         "wall_s": stats.wall_time,
         "mean_completion_s": float(np.mean(per_req)) if per_req else 0.0,
         "throughput_tok_s": stats.throughput(),
+        # per request, seconds on the run's clock (the batcher's stamps)
+        "ttft_s": list(stats.ttft),
+        "tpot_s": list(stats.tpot),
         "cache_bytes": batcher.cache_bytes(),
         "tokens": [list(r.tokens) for r in requests],
     }

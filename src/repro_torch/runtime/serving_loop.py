@@ -81,6 +81,7 @@ class GenRequest:
     request_id: int
     prompt: np.ndarray                  # [P] int32 token ids
     max_new_tokens: int = 16
+    arrival: float = 0.0                # on the caller's ``now`` clock
     # multi-tenant serving: the registered adapter this request's tokens
     # flow through (None: the base model, or the single-adapter mode)
     adapter_id: Optional[str] = None
@@ -92,6 +93,11 @@ class GenRequest:
     seed: Optional[int] = None
     # filled by the runtime
     tokens: List[int] = dataclasses.field(default_factory=list)
+    prefill_at: Optional[float] = None
+    # when the first generated token landed (the TTFT stamp): the tick
+    # that admitted the request, as ``prefill_at`` under monolithic
+    # prefill
+    first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     rng: Any = None                     # per-request sampling stream
 
@@ -148,6 +154,11 @@ class ServeStats:
         default_factory=dict)
     adapter_versions: Dict[str, int] = dataclasses.field(
         default_factory=dict)
+    # per finished request, on the caller's ``now`` clock: time to first
+    # token (arrival -> the admitting tick) and seconds per later output
+    # token (first token -> the finishing tick, over the tokens after it)
+    ttft: List[float] = dataclasses.field(default_factory=list)
+    tpot: List[float] = dataclasses.field(default_factory=list)
 
     def throughput(self) -> float:
         return self.generated_tokens / max(self.wall_time, 1e-9)
@@ -514,6 +525,12 @@ class ContinuousBatcher:
     def _record_finish(self, req: GenRequest, now: float) -> None:
         req.finished_at = now
         self.stats.finished += 1
+        first = req.first_token_at
+        if first is not None:
+            self.stats.ttft.append(max(first - req.arrival, 0.0))
+            if len(req.tokens) > 1:
+                self.stats.tpot.append(
+                    max(now - first, 0.0) / (len(req.tokens) - 1))
         if req.adapter_id is not None:
             self.stats.adapter_requests[req.adapter_id] = \
                 self.stats.adapter_requests.get(req.adapter_id, 0) + 1
@@ -614,6 +631,7 @@ class ContinuousBatcher:
                     temperature=req.temperature, top_k=req.top_k,
                     top_p=req.top_p, rng=req.rng)
             req.tokens.append(first)
+            req.prefill_at = req.first_token_at = now
             self.stats.admitted += 1
             self.stats.prefill_tokens += len(req.prompt)
             self.stats.generated_tokens += 1

@@ -28,8 +28,8 @@ import torch
 from repro.kernels.flash_attention import flash_attention as pallas_flash
 from repro.models.layers import attention_blockwise as jax_blockwise
 from repro_torch.kernels.flash_attention import (
-    FlashAttentionFn, flash_attention_backward, flash_attention_fwd,
-    flash_attention_grad_ref, flash_attention_ref,
+    FlashAttentionFn, backward_split, flash_attention_backward,
+    flash_attention_fwd, flash_attention_grad_ref, flash_attention_ref,
 )
 from repro_torch.models.layers import attention_blockwise
 
@@ -215,3 +215,24 @@ def test_non_cpu_tensors_never_take_plain_version(where):
         flash_attention_backward(q, k, v, q, lse, q)
     assert flash_attention_fwd.launches == 0
     assert flash_attention_backward.launches == 0
+
+
+@pytest.mark.parametrize("b,hkv,group,skv,n_sms,want", [
+    (4, 16, 1, 2048, 132, 1),     # qwen train batch: no group to slice
+    (8, 8, 4, 2048, 132, 1),      # llama wave: 1,024 blocks fill the card
+    (1, 8, 4, 2048, 132, 2),      # llama train batch: 128 blocks
+    (1, 8, 4, 1000, 132, 4),      # ragged: 64 blocks
+    (1, 2, 8, 300, 132, 8),       # slices never exceed the group
+    (1, 1, 6, 128, 132, 2),       # a group of 6: halves, not quarters
+])
+def test_backward_split_slices_each_group_once(b, hkv, group, skv, n_sms,
+                                               want):
+    """The bfloat16 backward's host-side plan: slices divide each KV
+    head's group of query heads evenly (the kernel gives each slice
+    ``group // split`` heads), and only a grid smaller than the card is
+    sliced."""
+    split = backward_split(b, hkv, group, skv, n_sms)
+    assert split == want
+    assert group % split == 0
+    blocks = -(-skv // 128) * hkv * b
+    assert split == 1 or blocks * split // 2 < n_sms

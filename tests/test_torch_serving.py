@@ -299,3 +299,57 @@ def test_run_serving_combined_on_cpu(paged):
     assert out["train_steps"] == out["decode_steps"]
     assert len(out["train_losses"]) == out["train_steps"]
     assert np.isfinite(out["train_losses"]).all()
+
+
+def _serve_on_clock(batcher, make_req, arrive_tick, dt=0.25):
+    """Tick ``batcher`` on a caller clock (tick k at k * dt), submitting
+    request i just before tick ``arrive_tick[i]`` (arrival 0.1 s
+    earlier), until every request has finished."""
+    pending = sorted(range(len(arrive_tick)), key=lambda i: arrive_tick[i])
+    reqs, k = [], 0
+    while pending or not batcher.idle():
+        while pending and arrive_tick[pending[0]] <= k:
+            i = pending.pop(0)
+            reqs.append(make_req(i, arrival=k * dt - 0.1))
+            batcher.submit(reqs[-1])
+        batcher.step(now=k * dt)
+        k += 1
+        assert k < 200
+    return reqs
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_ttft_tpot_match_jax(paged):
+    """Both batchers serve one trace on one caller clock, requests
+    arriving between ticks and queueing for the two slots: the same
+    per-request time to first token (arrival -> the admitting tick) and
+    time per output token, in finish order, and the same tokens."""
+    jcfg = jax_config("qwen1.5-0.5b").scaled()
+    cfg = get_config("qwen1.5-0.5b").scaled()
+    jeng = jax_make_engine(jcfg)
+    jp = jeng.model.init(jax.random.key(0))
+    jlora = jeng.model.init_lora(jax.random.key(1))
+    eng = make_engine(cfg, device="cpu")
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jp), "cpu")
+    lora = lora_from_numpy(jax.tree.map(np.asarray, jlora), "cpu")
+    prompts = sample_prompts(jcfg, len(LENS), LENS)
+    arrive = [0, 0, 1, 3, 3]
+    kw = dict(n_slots=2, max_seq=16, prompt_pad=10, paged=paged,
+              block_size=4)
+    jb = JaxBatcher(jeng, jp, jlora, **kw)
+    jreqs = _serve_on_clock(
+        jb, lambda i, arrival: JaxRequest(
+            request_id=i, prompt=prompts[i].copy(), max_new_tokens=GENS[i],
+            arrival=arrival), arrive)
+    tb = ContinuousBatcher(eng, params, lora, **kw)
+    treqs = _serve_on_clock(
+        tb, lambda i, arrival: GenRequest(
+            request_id=i, prompt=prompts[i].copy(), max_new_tokens=GENS[i],
+            arrival=arrival), arrive)
+    assert [r.tokens for r in treqs] == [r.tokens for r in jreqs]
+    assert [r.first_token_at for r in treqs] \
+        == [r.first_token_at for r in jreqs]
+    assert tb.stats.ttft == jb.stats.ttft
+    assert tb.stats.tpot == jb.stats.tpot
+    assert len(tb.stats.ttft) == len(tb.stats.tpot) == len(LENS)
+    assert max(tb.stats.ttft) > 0.1      # someone queued behind a slot
