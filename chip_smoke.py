@@ -5,6 +5,12 @@ NVIDIA Hopper card.
   python3 chip_smoke.py             every phase, then the result lines
   python3 chip_smoke.py PHASE ...   bring-up: the named phases alone
                                     (after device and build), no result
+  python3 chip_smoke.py --ab DIR    A/B of the decode-sized kernels: the
+                                    package of the checkout at DIR (the
+                                    parent commit, unpacked) and this one
+                                    in turn, parent, change, change,
+                                    parent, each in a process of its own
+                                    (``--time-kernels SRC`` is one turn)
 
 Phases, each printing JSON lines:
   device      the card (``nvidia-smi`` name and power limit), TF32 off;
@@ -15,8 +21,10 @@ Phases, each printing JSON lines:
               (long context, GQA, pool blocks of 128 and 256 rows);
   kernel_lora lora_matmul at the decode, train, prefill, long train and
               long prefill shapes of qwen1.5-0.5b, two ragged shapes
-              (M 1000 and 5) and mamba2-780m's ssm_in / ssm_out at
-              decode and a 2,048-token prefill, plus its backward (dX, dA, dB of
+              (M 1000 and 5), mamba2-780m's ssm_in / ssm_out at
+              decode and a 2,048-token prefill, and the decode q/o and
+              k/v projections of llama-3.2-vision-90b and llama3-8b,
+              plus its backward (dX, dA, dB of
               LoRAMatmulFn against autograd of the plain version) at the
               train shapes and the decode shape;
   kernel_flash flash_attention forward and backward against the plain
@@ -47,6 +55,10 @@ Phases, each printing JSON lines:
               [B, T, Hkv, D] projection), the same with ragged lengths and
               an empty row (exactly zero), and tests/test_kernels.py's
               three shapes; SDPA is the library time.
+              The lora, segmented and decode phases also call each
+              kernel twice on the same inputs (bitwise equal, or the
+              phase fails) and time the wrapper's host microseconds per
+              call (``host_us``: checks, allocation, launch).
               Every kernel phase reports the worst error, kernel / plain
               / library time (CUDA events, median of REPS or FLASH_REPS,
               L2 flushed before each) and the least time the card could
@@ -127,6 +139,9 @@ Phases, each printing JSON lines:
               torch.profiler the device time, each kernel's share and the
               kernels launched per tick;
   kernels     one line over all ported kernels.
+Bring-up only, when named: ``splits`` times decode_attention and the
+lora_matmul decode path over a range of split counts (what their split
+plans rest on), beside a streaming-read yardstick.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that.  Without a CUDA device, or without the rest of the repository, it
@@ -145,8 +160,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                "src"))
+# ``--time-kernels SRC`` (a child of ``--ab``) times the package under SRC
+SRC = (sys.argv[2] if sys.argv[1:2] == ["--time-kernels"]
+       else os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+sys.path.insert(0, SRC)
 
 HBM_BYTES_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_S = {torch.float32: 67e12,    # f32 outside the tensor cores
@@ -162,9 +179,12 @@ LORA_SCALING = 2.0  # alpha / r = 32 / 16
 # x @ A and the output to bf16, at most one ulp apart (2^-8..2^-7)
 LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (name, M, K, N, r): qwen1.5-0.5b's q/k/v/o at each caller's M; between
-# them they take each of the bf16 kernel's four tile shapes; then
-# mamba2-780m's ssm_in (N = 6448: no multiple of 64) and ssm_out at decode
-# (8 slots) and at a 2,048-token prefill (forward only)
+# them they take the bf16 decode path and each of the three M > 16 tile
+# shapes; then mamba2-780m's ssm_in (N = 6448: no multiple of 64) and
+# ssm_out at decode (8 slots) and at a 2,048-token prefill (forward only);
+# then the decode projections of llama-3.2-vision-90b's dense blocks and of
+# llama3-8b (q/o: N = K; k/v: N = 8 KV heads x 128), and qwen's at 16
+# slots (the decode path's second fragment of 8 rows)
 LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
                ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
@@ -176,7 +196,12 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("ssm_in_decode", 8, 1536, 6448, 16),
                ("ssm_in_prefill", 2048, 1536, 6448, 16),
                ("ssm_out_decode", 8, 3072, 1536, 16),
-               ("ssm_out_prefill", 2048, 3072, 1536, 16)]
+               ("ssm_out_prefill", 2048, 3072, 1536, 16),
+               ("vlm_decode_qo", 8, 8192, 8192, 16),
+               ("vlm_decode_kv", 8, 8192, 1024, 16),
+               ("llama_decode_qo", 8, 4096, 4096, 16),
+               ("llama_decode_kv", 8, 4096, 1024, 16),
+               ("decode_m16", 16, 1024, 1024, 16)]
 # flash_attention, causal: (name, B, H, Hkv, D, S, window) -- every
 # shape the serve and combined phases give it: the prefill waves of
 # qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and llama3-8b (GQA 4:1,
@@ -241,6 +266,32 @@ def device_ms(fn, reps=REPS):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, n=100, batches=5):
+    """Host microseconds per call of ``fn`` (the wrapper's checks, its
+    allocations and the launch), the device left to run behind: ``n``
+    calls enqueued back to back after a synchronize, the host clock
+    around them; the least of ``batches`` such runs, as the host's cores
+    are shared and a run's mean moves with its neighbours."""
+    fn()
+    best = math.inf
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return best / n * 1e6
+
+
+def bitwise_repeat(fn, first):
+    """A second call of ``fn`` on the same inputs equals ``first`` bit for
+    bit (the split kernels sum their partials in a fixed order)."""
+    again = fn()
+    torch.cuda.synchronize()
+    return bool(torch.equal(again, first))
 
 
 # ------------------------------------------------- paged decode attention -
@@ -398,6 +449,9 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
                     lambda: lm_ref(x, w, a, b, LORA_SCALING)),
                 "library_ms": device_ms(lambda: x @ merged),
                 "base_only_ms": device_ms(lambda: x @ w),
+                "host_us": host_us(lambda: lm(x, w, a, b, LORA_SCALING)),
+                "repeat_bitwise": bitwise_repeat(
+                    lambda: lm(x, w, a, b, LORA_SCALING), out),
             }
             row["bound_ms"], row["bound_by"] = lora_bound(m, k, n, r, dtype)
             emit("kernel", kernel="lora_matmul", **row)
@@ -405,9 +459,12 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
                 raise AssertionError(
                     f"lora_matmul {name} {dtype}: kernel vs plain error "
                     f"{rel} of the largest output, beyond {LORA_TOL[dtype]}")
+            if not row["repeat_bitwise"]:
+                raise AssertionError(f"lora_matmul {name} {dtype}: two calls "
+                                     "on the same inputs differ")
             rows[(name, dtype)] = row
     for name, m, k, n, r in LORA_SHAPES:
-        if not (name.startswith("train") or name == "decode"):
+        if not (name.startswith("train") or name in ("decode", "decode_m16")):
             continue
         for dtype in (torch.float32, torch.bfloat16):
             x, w, a, b = lora_case(m, k, n, r, dtype, 300)
@@ -437,8 +494,8 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
 # (name, M, K, N, r, slots, rows per sequence): qwen1.5-0.5b's q/k/v/o at
 # decode (8 slots, one row each) with 1, 4 and 8 adapter slots, its
 # prefill waves (8 sequences of 32, 992 and 2,048 tokens, a slot per
-# sequence), a ragged shape with a slot per row, and llama3-8b's decode
-# projections (k/v: N 1024; q/o: N 4096)
+# sequence), a ragged shape with a slot per row, llama3-8b's decode
+# projections (k/v: N 1024; q/o: N 4096), and qwen's decode at 16 slots
 SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
               ("decode_a1", 8, 1024, 1024, 16, 1, 1),
               ("decode_a8", 8, 1024, 1024, 16, 8, 1),
@@ -447,7 +504,8 @@ SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
               ("prefill_2048", 16384, 1024, 1024, 16, 4, 2048),
               ("ragged", 1000, 1000, 2816, 16, 4, 1),
               ("llama_decode_kv", 8, 4096, 1024, 16, 4, 1),
-              ("llama_decode", 8, 4096, 4096, 16, 4, 1)]
+              ("llama_decode", 8, 4096, 4096, 16, 4, 1),
+              ("decode_m16", 16, 1024, 1024, 16, 4, 1)]
 SEG_REPS = 30
 
 
@@ -536,7 +594,12 @@ def phase_kernel_seg(seg, seg_ref, lm):
                 lora_matmul_ms=device_ms(
                     lambda: lm(x, w, a[0], b[0], LORA_SCALING), SEG_REPS),
                 library_ms=device_ms(lambda: x @ w, SEG_REPS),
-                library="base-only torch.matmul")
+                library="base-only torch.matmul (a floor: no PyTorch call "
+                        "computes the per-row adapters)",
+                host_us=host_us(lambda: seg(x, w, a, b, idx, LORA_SCALING)),
+                repeat_bitwise=bitwise_repeat(
+                    lambda: seg(x, w, a, b, idx, LORA_SCALING), out))
+            ok = ok and row["repeat_bitwise"]
             row["bound_ms"], row["bound_by"] = seg_bound(m, k, n, r, idx,
                                                          dtype)
             emit("kernel", kernel="segmented_lora_matmul", **row)
@@ -545,7 +608,8 @@ def phase_kernel_seg(seg, seg_ref, lm):
                     f"segmented_lora_matmul {name} {dtype}: error {rel} of "
                     f"the largest output (tolerance {LORA_TOL[dtype]}), "
                     f"bitwise rows {row.get('rows_bitwise_lora_matmul')}, "
-                    f"poison {row.get('poison_1e6_no_leak')}")
+                    f"poison {row.get('poison_1e6_no_leak')}, repeat "
+                    f"bitwise {row['repeat_bitwise']}")
             rows_out[(name, dtype)] = row
             del x, w, a, b, idx, out, ref
             torch.cuda.empty_cache()
@@ -924,6 +988,9 @@ def phase_kernel_decode(dattn, dattn_ref):
                 "ms": device_ms(lambda: dattn(q, k, v, kv_len)),
                 "plain_ms": device_ms(lambda: dattn_ref(q, k, v, kv_len)),
                 "library_ms": device_ms(lib),
+                "host_us": host_us(lambda: dattn(q, k, v, kv_len)),
+                "repeat_bitwise": bitwise_repeat(
+                    lambda: dattn(q, k, v, kv_len), out),
                 "library": "SDPA" + (" enable_gqa" if gqa else
                                      " over K/V repeated to H heads"),
                 "library_max_abs_err": lib_err,
@@ -931,14 +998,195 @@ def phase_kernel_decode(dattn, dattn_ref):
             row["bound_ms"], row["bound_by"] = decode_bound(q, k, kv_len)
             row["bound_us"] = row["bound_ms"] * 1e3
             emit("kernel", kernel="decode_attention", **row)
-            if not (ok and zero_rows_exact):
+            if not (ok and zero_rows_exact and row["repeat_bitwise"]):
                 raise AssertionError(
                     f"decode_attention {name} {dtype}: kernel vs plain max "
-                    f"abs err {err} beyond {tol}, or an empty row not zero")
+                    f"abs err {err} beyond {tol}, an empty row not zero, or "
+                    "two calls on the same inputs differ")
             rows[(name, dtype)] = row
             del q, k, v, kv_len, out, ref, kl, vl, mask
             torch.cuda.empty_cache()
     return rows
+
+
+# --------------------------------------------------------- split sweeps --
+SWEEP_SPLITS = (1, 2, 4, 8, 13, 26)
+SWEEP_LORA_SPLITS = (4, 8, 11, 16, 22, 32)
+
+
+def phase_splits():
+    """Bring-up: what the split plans rest on.  decode_attention (bf16)
+    at the cross shape over SWEEP_SPLITS splits, with K/V as the model's
+    transposed view and as a contiguous copy; lora_matmul and
+    segmented_lora_matmul (bf16, one plan for both) at every decode shape
+    over SWEEP_LORA_SPLITS splits and the plan's own; as
+    yardsticks a torch sum over 128 MB of bf16 (a streaming read) and a
+    device spin of one cycle (the timing's floor).  Device ms as the
+    kernel phases time them."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import lora_matmul as lmm
+    big = torch.ones(64 << 20, dtype=torch.bfloat16, device="cuda")
+    emit("splits", yardstick="sum of 128 MB bf16",
+         ms=device_ms(lambda: big.sum()), bytes=big.numel() * 2)
+    del big
+    emit("splits", yardstick="torch.cuda._sleep(1)",
+         ms=device_ms(lambda: torch.cuda._sleep(1)))
+    b, h, hkv, d, s, layout, lengths = DECODE_SHAPES[0][1:]
+    q, k, v, kv_len = decode_case(b, h, hkv, d, s, layout, lengths,
+                                  torch.bfloat16, 800)
+    kc, vc = k.contiguous(), v.contiguous()
+    plan = da.split_plan_bf16
+    tiles = -(-s // da.BF16_TILE_ROWS)
+    try:
+        for want in SWEEP_SPLITS:
+            per = -(-tiles // want)
+            da.split_plan_bf16 = \
+                lambda *_, per=per: (-(-tiles // per), per * da.BF16_TILE_ROWS)
+            emit("splits", kernel="decode_attention", shape="cross",
+                 splits=-(-tiles // per),
+                 view_ms=device_ms(lambda: da.decode_attention(q, k, v,
+                                                               kv_len)),
+                 contiguous_ms=device_ms(lambda: da.decode_attention(
+                     q, kc, vc, kv_len)))
+    finally:
+        da.split_plan_bf16 = plan
+    del q, k, v, kc, vc
+    plan = lmm.decode_split_plan
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [("lora_matmul", name, m, k, n, 200 + si, None)
+             for si, (name, m, k, n, r) in enumerate(LORA_SHAPES)]
+    cases += [("segmented_lora_matmul", name, m, k, n, 500 + si, (na, seq))
+              for si, (name, m, k, n, r, na, seq) in enumerate(SEG_SHAPES)]
+    for kernel, name, m, k, n, seed, slots in cases:
+        if m > lmm.DECODE_MAX_M:
+            continue
+        if slots is None:
+            x, w, a, b = lora_case(m, k, n, 16, torch.bfloat16, seed)
+
+            def call():
+                return lmm.lora_matmul(x, w, a, b, LORA_SCALING)
+        else:
+            x, w, a, b, idx = seg_case(m, k, n, 16, *slots, torch.bfloat16,
+                                       seed)
+
+            def call():
+                return lmm.segmented_lora_matmul(x, w, a, b, idx,
+                                                 LORA_SCALING)
+        steps = -(-k // lmm.DECODE_STEP)
+        own = plan(k, n, n_sm)[0]
+        times = {}
+        try:
+            for want in sorted(set(SWEEP_LORA_SPLITS + (own,))):
+                per = -(-steps // min(want, steps))
+                lmm.decode_split_plan = lambda *_, per=per: (
+                    -(-steps // per), per * lmm.DECODE_STEP)
+                lmm.decode_workspace.cache_clear()   # it caches the plan
+                times[-(-steps // per)] = device_ms(call)
+        finally:
+            lmm.decode_split_plan = plan
+            lmm.decode_workspace.cache_clear()
+        emit("splits", kernel=kernel, shape=name, M=m, K=k, N=n,
+             slots=slots[0] if slots else 1, plan_splits=own,
+             ms_by_splits=times)
+    return None
+
+
+# ------------------------------------------------------------ A / B -----
+def time_kernels():
+    """``--time-kernels SRC``: the decode-sized calls of lora_matmul,
+    segmented_lora_matmul (M <= 16) and decode_attention of the package
+    under SRC, float32 and bfloat16, and flash_attention's bf16 forward
+    and backward at their main shapes, on the kernel phases' inputs (same
+    seeds): device ms (as the kernel phases time them), host us per call,
+    max abs error against the plain version.  One JSON line."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_matmul as lmm
+
+    built = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(len(built)) as pool:
+        list(pool.map(_build.library, built))
+    rows = {}
+
+    def add(key, fn, ref):
+        out = fn()
+        rows[key] = {"ms": device_ms(fn), "host_us": host_us(fn),
+                     "max_abs_err": float((out.float() - ref.float())
+                                          .abs().max())}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).split(".")[-1]
+        for si, (name, m, k, n, r) in enumerate(LORA_SHAPES):
+            if m <= 16:
+                x, w, a, b = lora_case(m, k, n, r, dtype, 200 + si)
+                add(f"lora_matmul/{name}/{dt}",
+                    lambda: lmm.lora_matmul(x, w, a, b, LORA_SCALING),
+                    lmm.lora_matmul_ref(x, w, a, b, LORA_SCALING))
+        for si, (name, m, k, n, r, na, seq) in enumerate(SEG_SHAPES):
+            if m <= 16:
+                x, w, a, b, idx = seg_case(m, k, n, r, na, seq, dtype,
+                                           500 + si)
+                add(f"segmented_lora_matmul/{name}/{dt}",
+                    lambda: lmm.segmented_lora_matmul(x, w, a, b, idx,
+                                                      LORA_SCALING),
+                    lmm.segmented_lora_matmul_ref(x, w, a, b, idx,
+                                                  LORA_SCALING))
+        for si, (name, b, h, hkv, d, s, layout, lengths) in \
+                enumerate(DECODE_SHAPES):
+            q, k, v, kv_len = decode_case(b, h, hkv, d, s, layout, lengths,
+                                          dtype, 800 + si)
+            add(f"decode_attention/{name}/{dt}",
+                lambda: da.decode_attention(q, k, v, kv_len),
+                da.decode_attention_ref(q, k, v, kv_len))
+    # flash_attention shares csrc/hopper.cuh with them: its bf16 forward
+    # at the qwen wave and backward at the qwen train batch
+    for name, backward in (("qwen_prefill", False), ("qwen_train", True)):
+        si = [f[0] for f in FLASH_SHAPES].index(name)
+        _, b, h, hkv, d, s, w = FLASH_SHAPES[si]
+        g = torch.Generator(device="cuda").manual_seed(400 + si)
+        q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda")
+                       .to(torch.bfloat16).transpose(1, 2)
+                       for n in (h, hkv, hkv, h))
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+
+        def fn():
+            if backward:   # dQ
+                return fa.flash_attention_backward(q, k, v, o, lse, do,
+                                                   causal=True)[0]
+            return fa.flash_attention_fwd(q, k, v, causal=True)[0]
+
+        ref = (fa.flash_attention_grad_ref(q, k, v, do, causal=True)[0]
+               if backward else fa.flash_attention_ref(q, k, v, causal=True))
+        rows[f"flash_attention{'_backward' if backward else ''}/{name}/"
+             "bfloat16"] = {"ms": device_ms(fn, FLASH_REPS),
+                            "host_us": host_us(fn, 20),
+                            "max_abs_err": float((fn().float() - ref.float())
+                                                 .abs().max())}
+    print(json.dumps({"time_kernels": SRC, "rows": rows}), flush=True)
+
+
+def run_ab(parent):
+    """``--ab DIR``: ``time_kernels`` on the package of the checkout at
+    DIR (the parent commit, unpacked) and on this one in turn: parent,
+    change, change, parent, each in a process of its own on this card.
+    One line per run, then one per call with the four times."""
+    trees = [os.path.join(os.path.abspath(parent), "src"), SRC, SRC,
+             os.path.join(os.path.abspath(parent), "src")]
+    runs = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--time-kernels",
+             tree], capture_output=True, text=True, timeout=1500)
+        if proc.returncode != 0:
+            raise RuntimeError(f"--time-kernels {tree} failed:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1])["rows"])
+        emit("ab_run", tree=tree, rows=runs[-1])
+    for key in runs[0]:
+        emit("ab", call=key,
+             **{f"{f}_parent_change_change_parent": [r[key][f] for r in runs]
+                for f in ("ms", "host_us", "max_abs_err")})
 
 
 # --------------------------------------------------------- reference -----
@@ -2018,11 +2266,13 @@ def _device_us(evt):
 
 
 def _is_lora(key):
-    return "lora_mma_kernel" in key or "lora_fma_kernel" in key
+    return "lora_mma_kernel" in key or "lora_fma_kernel" in key \
+        or "lora_dec_kernel" in key
 
 
 def _is_seg(key):
-    return "segmented_mma_kernel" in key or "segmented_fma_kernel" in key
+    return "segmented_mma_kernel" in key or "segmented_fma_kernel" in key \
+        or "segmented_dec_kernel" in key
 
 
 def _is_flash(key):
@@ -2158,7 +2408,7 @@ def phase_tick(make_engine, get_config, n=5):
 
 def _is_decode(key):
     return "decode_attn_split_kernel" in key \
-        or "decode_attn_combine_kernel" in key
+        or "decode_attn_combine_kernel" in key or "decode_attn_bf16" in key
 
 
 def _tick_vlm(make_engine, get_config, n):
@@ -2234,6 +2484,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == ["--time-kernels"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        return time_kernels()
+    if sys.argv[1:2] == ["--ab"]:
+        print(smi(), flush=True)
+        return run_ab(sys.argv[2])
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import _build
@@ -2293,12 +2549,14 @@ def main():
         "train": lambda: phase_train(make_engine, get_config, lm),
         "tick": lambda: phase_tick(make_engine, get_config),
     }
+    # bring-up only: named on the command line, never in the full run
+    bring_up = {"splits": phase_splits}
     only = sys.argv[1:]
     out = {}      # each phase's results, as later phases read them
     if only:
         # bring-up: the named phases alone, and no result lines
         for name in only:
-            out[name] = phases[name]()
+            out[name] = {**phases, **bring_up}[name]()
         return
     for name, fn in phases.items():
         out[name] = fn()
@@ -2326,7 +2584,7 @@ def main():
         for (n, dt), r in frows.items() if dt == torch.bfloat16}
     seg_shapes = {n: {k: r[k] for k in (
         "M", "K", "N", "slots", "ms", "plain_ms", "lora_matmul_ms",
-        "library_ms", "bound_ms", "bound_by", "rel_err")}
+        "library_ms", "bound_ms", "bound_by", "rel_err", "host_us")}
         for (n, dt), r in srows.items() if dt == torch.bfloat16}
     print(json.dumps({"kernels": [{
         "name": "paged_decode_attention",
@@ -2355,11 +2613,13 @@ def main():
             if dt == torch.bfloat16),
         **{k: lrows[("decode", torch.bfloat16)][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                     "library_ms")},
+                     "library_ms", "host_us")},
+        "repeat_bitwise_all_shapes": all(
+            r["repeat_bitwise"] for r in lrows.values()),
         "bf16_shapes": {n: {k: r[k] for k in ("M", "K", "N", "ms",
                                                 "plain_ms", "bound_ms",
                                                 "bound_by", "library_ms",
-                                                "base_only_ms")}
+                                                "base_only_ms", "host_us")}
                         for (n, dt), r in lrows.items()
                         if dt == torch.bfloat16},
     }, {
@@ -2408,8 +2668,11 @@ def main():
             r["rows_bitwise_lora_matmul"] for (n, dt), r in srows.items()
             if dt == torch.bfloat16),
         **{k: s_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "lora_matmul_ms")},
-        "library": "base-only torch.matmul (x @ W, no adapter term)",
+                                  "library_ms", "lora_matmul_ms", "host_us")},
+        "repeat_bitwise_all_shapes": all(
+            r["repeat_bitwise"] for r in srows.values()),
+        "library": "base-only torch.matmul (x @ W, no adapter term): a "
+                   "floor, no PyTorch call computes the segmented product",
         "bf16_shapes": seg_shapes,
     }, {
         "name": "ssd_scan",
@@ -2449,10 +2712,12 @@ def main():
             r["max_abs_err"] for (n, dt), r in crows.items()
             if dt == torch.float32),
         **{k: c_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "library")},
+                                  "library_ms", "library", "host_us")},
+        "repeat_bitwise_all_shapes": all(
+            r["repeat_bitwise"] for r in crows.values()),
         "bf16_shapes": {n: {k: r[k] for k in ("S", "lengths", "ms",
                                                 "plain_ms", "library_ms",
-                                                "bound_ms")}
+                                                "bound_ms", "host_us")}
                         for (n, dt), r in crows.items()
                         if dt == torch.bfloat16},
     }]}), flush=True)

@@ -1,7 +1,7 @@
 // Decode attention over contiguous head-major caches for Hopper
 // (sm_90a): one query token per sequence attends over its K/V, with the
-// cache axis split across thread blocks and a second pass that combines
-// the partial softmaxes.
+// cache axis split across thread blocks whose partial softmaxes are then
+// combined.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py
 // ::decode_attention (its pallas_call at :101, kernel body _kernel at
@@ -13,6 +13,7 @@
 //   out       [B, H, D]            T, contiguous
 //   part_acc  [B, H, splits, D]    float, the splits' unnormalised outputs
 //   part_ml   [B, H, splits, 2]    float, the splits' (m, l)
+//   tickets   [B, Hkv] int32       bfloat16 only: zero between launches
 //
 // It computes what the Pallas kernel computes: the G = H / Hkv query
 // heads of KV head hk share every K/V row read; scores are masked at
@@ -26,46 +27,59 @@
 //
 // What bounds it: nothing but memory.  Each live K/V row is read once
 // (sum_b kv_len_b * Hkv * D * 2 * sizeof(T) bytes per call) for ~2 FLOP
-// per K/V element read, far below the card's ~295 FLOP/byte bf16 ridge.
+// per K/V element read, far below the card's ~295 FLOP/byte bf16 ridge:
+// 52.5 MB and 15.7 us at the VLM's cross-attention (B 8, H 64 / Hkv 8,
+// D 128, T 1,601) in bf16.
 //
-// Design:
-//   * split-KV.  The TPU grid (B, Hkv, S/bk) walks the cache in order on
-//     one core and carries m, l and acc in VMEM.  Hopper blocks run in
-//     no order, and one block per (sequence, KV head) would be 64 blocks
-//     on 132 SMs at the VLM's cross-attention shape (B 8, Hkv 8), each
-//     paying its whole chain of loads and reductions in turn (the paged
-//     kernel, one block per pair, is latency-bound that way).  Here the
-//     grid is (splits, Hkv, B): each block walks `chunk` rows of one
-//     (sequence, KV head) and writes its partial (m, l, acc); a combine
-//     kernel per
-//     (sequence, query head) rescales the partials to their common max
-//     and sums them.  The wrapper picks the split (kernels/
-//     decode_attention.py::split_plan) for about eight blocks per SM.
-//     With one split the block writes the output itself and the
-//     combine is not launched.
-//   * a tile of kTileRows rows at a time, staged in shared memory as
-//     float: each thread loads its share of the next tile into registers
-//     (16-byte loads) before the math on this one, and widens it into
-//     shared memory after.  Every shared-memory read is a float4 or a
-//     broadcast: scores by one thread per (row, head) pair, the G heads
-//     of a row in neighbouring lanes (each K float4 a broadcast, q and K
-//     rows padded onto distinct banks); one warp per head updates m and
-//     l and turns scores into probabilities; PV by one thread per (4
-//     heads, channel) column, one V read and one float4 broadcast of 4
-//     probabilities per row.  At G 8, D 128 a block takes 38.6 KB of
-//     shared memory.  On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md) the
-//     first version (scalar reads, one output per thread, 4 lanes per
-//     score) took 122 us at the cross shape in bf16, this one 81 us,
-//     SDPA 46 and the bytes 15.7; what bounds it is not yet known.
-//   * p stays float32 for the PV product; the TPU kernel rounds it to
-//     the cache dtype first.  For bf16 caches that is the only
-//     numerical difference, well inside bf16 tolerance.
-// Left for later: cp.async/TMA staging, K/V kept in bf16 in shared
-// memory, tensor cores (mma.sync) for q k^T and PV in bf16.
+// Design, bfloat16 (the serving dtype; D 64 or 128, G <= 8):
+//   * K and V stay bf16 in shared memory.  A producer warp issues TMA
+//     loads of 64-row tiles (4-D tensor maps over (D, S, Hkv, B) with
+//     the caches' byte strides, 128-byte swizzle, a D = 128 row as two
+//     64-column regions) into a ring of three stages tracked by full and
+//     empty mbarriers: 96 KB a block at D 128 (two blocks fit an SM).
+//   * tensor cores for both products.  Four consumer warps take 16 rows
+//     of each tile: S^T = K q^T on mma.sync m16n8k16 with the K rows as
+//     M and the G query heads as N (padded to 8; q^T's fragments stay in
+//     registers for the whole walk), the online softmax in f32 on the
+//     [rows, G] scores (log2 units), then O^T += V^T P^T with D as M, the
+//     heads as N and the rows as K, P^T taken from the scores'
+//     accumulator by movmatrix.  p is rounded to bf16 for PV, as the
+//     Pallas kernel rounds p to the cache dtype (l sums the unrounded p,
+//     as there); the earlier CUDA-core kernel kept p in f32.  Each warp
+//     keeps its own (m, l, O) and the four merge in shared memory at the
+//     end.  V rows past the split's end in its last tile are zeroed in
+//     shared memory, so rows the walk must not read add 0, never NaN.
+//   * splits (kernels/decode_attention.py::split_plan_bf16): whole 64-row
+//     tiles, as many as keep the blocks within half the SMs; the last
+//     block of each (sequence, KV head) to finish, found by a ticket
+//     counter that it resets, sums the splits' partials in split order
+//     (deterministic, one launch), the loads of eight splits in flight at
+//     a time.
+//   Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md,
+//   cold L2): the cross shape takes 33.2 us (the earlier kernel, f32
+//   staging through registers, CUDA-core FMAs and a combine launch: 80.2;
+//   SDPA 46.3; bound 15.7), 1.58 TB/s of the bound's bytes, where a torch
+//   sum over 128 MB holds 2.12 in the same timing.  More splits did not
+//   raise the rate, they only added the combine (chip_smoke.py splits: 1
+//   split 32.7 us, 2 36.3, 4 36.5, 26 63.9; a contiguous copy of K/V the
+//   same as the transposed view), and deeper rings tried in bring-up
+//   builds were no faster.
+//
+// Design, float32 (the reduced reference configs), unchanged since it was
+// written: grid (splits, Hkv, B) of 256 threads, 32-row tiles staged in
+// shared memory as float (each thread loads its share of the next tile
+// into registers before the math on this one); scores by one thread per
+// (row, head) pair from float4 reads; one warp per head updates m and l;
+// PV by one thread per (4 heads, channel) column; p stays f32; a combine
+// kernel per (sequence, query head) sums the splits
+// (kernels/decode_attention.py::split_plan: about eight blocks per SM).
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -79,18 +93,10 @@ constexpr int kMaxSmemBytes = 96 * 1024;  // at least two blocks per SM
 constexpr int kPad = 4;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 // 16 bytes of T: loaded from global memory into a register, then widened
 // to float in shared memory (both pointers 16-byte aligned).  A thread
 // keeps at most `in_flight` of them (a 32-row tile at D 128).
@@ -106,22 +112,6 @@ template <> struct Vec16<float> {
     *reinterpret_cast<float4*>(dst) = raw;
   }
 };
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int n = 8;
-  static constexpr int in_flight = 4;
-  using Raw = uint4;
-  __device__ __forceinline__ static Raw load(const __nv_bfloat16* src) {
-    return __ldg(reinterpret_cast<const uint4*>(src));
-  }
-  __device__ __forceinline__ static void widen(const Raw& raw, float* dst) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
-  }
-};
-
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
@@ -410,21 +400,366 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- bfloat16 -------
+// One block per (split, KV head, sequence): a producer warp streams
+// 64-row K and V tiles with TMA into a ring of kStages stages (full and
+// empty mbarriers); four consumer warps own 16 rows of every tile each and
+// keep their own online softmax over them: S^T = K q^T and O^T += V^T P^T
+// on mma.sync m16n8k16 (rows as M, the G <= 8 query heads as N), P^T from
+// the scores' accumulator by movmatrix.  After the walk the four warps'
+// states merge in shared memory; the block writes its split's (m, l, acc)
+// and the last block of the (sequence, KV head), by a self-resetting
+// ticket, sums the splits in split order and writes the output.
+typedef unsigned short u16;
+
+constexpr int kRows = 64;      // K/V rows per tile
+constexpr int kStages = 3;     // tiles in the ring
+constexpr int kCons = 4;       // consumer warps, 16 rows of a tile each
+constexpr int kBfThreads = (kCons + 1) * 32;
+constexpr int kRegion = kRows * 128;  // one 64-column swizzle region, bytes
+constexpr int kMaxSplits = 64;        // splits of one cache walk, at most
+
+template <int D>
+struct Bf {
+  static constexpr int TILE = kRegion * (D / 64);  // K or V tile, bytes
+  static constexpr int STAGE = 2 * TILE;
+  // the ring, 1 KB of slack to align it to the swizzle's 1 KB atoms, and
+  // the barriers; the merge of the warps reuses the ring
+  static constexpr int SMEM = kStages * STAGE + 1024 + 2 * kStages * 8 + 16;
+  // the warps' merge, then the combine's weights of up to kMaxSplits
+  static_assert(kCons * 8 * (D + 2) * 4 + 8 * kMaxSplits * 12 <=
+                    kStages * STAGE,
+                "merge and combine fit the ring");
+};
+
+// the 8 x 8 b16 matrix held a row pair a lane (row lane / 4), transposed
+__device__ __forceinline__ uint32_t transpose8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
+// byte offset of (row, channel d) in a TMA tile of 64-column regions,
+// 128-byte swizzle (16-byte chunk c of row r lands at c ^ (r % 8)); d is
+// a multiple of 8
+__device__ __forceinline__ uint32_t swz(int row, int d) {
+  return (d >> 6) * kRegion + row * 128 +
+         ((((d & 63) >> 3) ^ (row & 7)) << 4);
+}
+
+// the max (or sum) over the 8 lanes holding one head's rows (lane / 4)
+__device__ __forceinline__ float rows_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 8));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 16));
+}
+__device__ __forceinline__ float rows_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 4);
+  x += __shfl_xor_sync(0xffffffffu, x, 8);
+  return x + __shfl_xor_sync(0xffffffffu, x, 16);
+}
+
+// grid (splits, Hkv, B).  Scores are kept in log2 units (scale * log2 e
+// folded into one multiply), m and l per (split, query head) likewise.
+template <int D>
+__global__ void __launch_bounds__(kBfThreads)
+    decode_attn_bf16(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const u16* __restrict__ q, const int* __restrict__ kv_len,
+                     u16* __restrict__ out, float* __restrict__ part_acc,
+                     float* __restrict__ part_ml, int* __restrict__ tickets,
+                     int H, int Hkv, int S, i64 qsb, i64 qsh, int splits,
+                     int chunk, float scale_log2) {
+  typedef Bf<D> C;
+  const float NEG_INF = -CUDART_INF_F;
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int G = H / Hkv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t full = ring + kStages * C::STAGE, empty = full + 8 * kStages;
+  int* last_flag = reinterpret_cast<int*>(smem + kStages * C::STAGE +
+                                          16 * kStages);
+
+  const int len = min(kv_len[b], S);
+  const int lo = split * chunk, hi = min(lo + chunk, len);
+  const int ntiles = hi > lo ? (hi - lo + kRows - 1) / kRows : 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kCons);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kCons) {  // producer: one lane keeps the ring full
+    if (lane == 0)
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % kStages;
+        mbar_spin(empty + 8 * s, ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(full + 8 * s, C::STAGE);
+        const uint32_t dst = ring + s * C::STAGE;
+#pragma unroll
+        for (int r = 0; r < D / 64; ++r) {
+          tma_load(dst + r * kRegion, &kmap, full + 8 * s, r * 64,
+                   lo + i * kRows, hk, b);
+          tma_load(dst + C::TILE + r * kRegion, &vmap, full + 8 * s, r * 64,
+                   lo + i * kRows, hk, b);
+        }
+      }
+    return;
+  }
+
+  // q^T as the B operand of S^T = K q^T: head g's channels 16ks + 2t (+1)
+  // and 16ks + 8 + 2t (+1); heads past G are zero
+  uint32_t qf[D / 16][2];
+  {
+    const u16* qh = q + (i64)b * qsb + (i64)(hk * G + g) * qsh;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t lo2 = 0, hi2 = 0;
+      if (g < G) {
+        const int d = 16 * ks + 2 * t;
+        lo2 = (uint32_t)qh[d] | ((uint32_t)qh[d + 1] << 16);
+        hi2 = (uint32_t)qh[d + 8] | ((uint32_t)qh[d + 9] << 16);
+      }
+      qf[ks][0] = lo2;
+      qf[ks][1] = hi2;
+    }
+  }
+
+  // this thread's heads 2t and 2t + 1: running max, partial sum over its
+  // rows, and O^T's columns (channels 16mt + g, + 8)
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[D / 16][4];
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt) o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.f;
+
+  const int r0 = 16 * warp;  // the warp's rows in every tile
+  const int j = lane >> 3;   // the ldmatrix matrix this lane addresses
+  for (int i = 0; i < ntiles; ++i) {
+    const int s = i % kStages;
+    mbar_wait(full + 8 * s, (i / kStages) & 1);
+    const uint32_t kt = ring + s * C::STAGE, vt = kt + C::TILE;
+    const int row0 = lo + i * kRows + r0;  // cache row of the warp's row 0
+
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t a[4];
+      ldsm4<false>(a, kt + swz(r0 + (lane & 7) + 8 * (j & 1),
+                                16 * ks + 8 * (j >> 1)));
+      mma_bf16(c, a, qf[ks][0], qf[ks][1]);
+    }
+    // c: rows g (c0, c1) and g + 8 (c2, c3), heads 2t and 2t + 1
+    const bool live0 = row0 + g < hi, live1 = row0 + g + 8 < hi;
+    const float s0 = live0 ? c[0] * scale_log2 : NEG_INF;
+    const float s1 = live0 ? c[1] * scale_log2 : NEG_INF;
+    const float s2 = live1 ? c[2] * scale_log2 : NEG_INF;
+    const float s3 = live1 ? c[3] * scale_log2 : NEG_INF;
+    const float mn0 = fmaxf(m[0], rows_max(fmaxf(s0, s2)));
+    const float mn1 = fmaxf(m[1], rows_max(fmaxf(s1, s3)));
+    // no live row yet: exponentiate against 0, so every p is 0, not NaN
+    const float ref0 = mn0 == NEG_INF ? 0.f : mn0;
+    const float ref1 = mn1 == NEG_INF ? 0.f : mn1;
+    const float p0 = ex2(s0 - ref0), p1 = ex2(s1 - ref1);
+    const float p2 = ex2(s2 - ref0), p3 = ex2(s3 - ref1);
+    const float corr0 = ex2(m[0] - ref0), corr1 = ex2(m[1] - ref1);
+    l[0] = fmaf(l[0], corr0, p0 + p2);
+    l[1] = fmaf(l[1], corr1, p1 + p3);
+    m[0] = mn0;
+    m[1] = mn1;
+    // rows past hi in the last tile: V zeroed, so 0 * (whatever lies in
+    // the cache there) stays 0
+    if (row0 + 16 > hi) {
+      for (int e = lane; e < 16 * (D / 8); e += 32) {
+        const int r = e / (D / 8);
+        if (row0 + r >= hi)
+          asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" ::"r"(
+                           vt + swz(r0 + r, 8 * (e % (D / 8)))),
+                       "r"(0)
+                       : "memory");
+      }
+      __syncwarp();
+    }
+    // P^T as the B operand of O^T += V^T P^T: rows 2t, 2t + 1 (and + 8)
+    // of head g, rounded to bf16 as the Pallas kernel rounds p
+    const uint32_t pb0 = transpose8(pack_bf16(p0, p1));
+    const uint32_t pb1 = transpose8(pack_bf16(p2, p3));
+#pragma unroll
+    for (int mt = 0; mt < D / 16; ++mt) {
+      o[mt][0] *= corr0;
+      o[mt][1] *= corr1;
+      o[mt][2] *= corr0;
+      o[mt][3] *= corr1;
+      uint32_t a[4];
+      ldsm4<true>(a, vt + swz(r0 + (lane & 7) + 8 * (j >> 1),
+                               16 * mt + 8 * (j & 1)));
+      mma_bf16(o[mt], a, pb0, pb1);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);
+  }
+  l[0] = rows_sum(l[0]);
+  l[1] = rows_sum(l[1]);
+
+  // merge the four warps' states through the (drained) ring: per warp and
+  // head, D channels of acc then (m, l)
+  named_sync(1, kCons * 32);
+  float* ms = reinterpret_cast<float*>(smem);
+  auto at = [&](int w, int h) { return ms + (w * 8 + h) * (D + 2); };
+#pragma unroll
+  for (int mt = 0; mt < D / 16; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      at(warp, 2 * t + (e & 1))[16 * mt + g + (e >= 2 ? 8 : 0)] = o[mt][e];
+  if (g == 0)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      at(warp, 2 * t + e)[D] = m[e];
+      at(warp, 2 * t + e)[D + 1] = l[e];
+    }
+  named_sync(1, kCons * 32);
+
+  const size_t bh0 = (size_t)b * H + (size_t)hk * G;  // row of head 0
+  for (int i = tid; i < G * D; i += kCons * 32) {
+    const int h = i / D, d = i - h * D;
+    float mx = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < kCons; ++w) mx = fmaxf(mx, at(w, h)[D]);
+    float acc = 0.f, sum = 0.f;
+    if (mx > NEG_INF)
+#pragma unroll
+      for (int w = 0; w < kCons; ++w) {
+        const float wt = ex2(at(w, h)[D] - mx);
+        acc = fmaf(wt, at(w, h)[d], acc);
+        sum = fmaf(wt, at(w, h)[D + 1], sum);
+      }
+    if (splits == 1) {
+      out[(bh0 + h) * D + d] =
+          __bfloat16_as_ushort(__float2bfloat16(acc / fmaxf(sum, 1e-30f)));
+    } else {
+      part_acc[((bh0 + h) * splits + split) * D + d] = acc;
+      if (d == 0) {
+        float* ml = part_ml + ((bh0 + h) * splits + split) * 2;
+        ml[0] = mx;
+        ml[1] = sum;
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  // the last split of this (sequence, KV head) to finish combines them all
+  __threadfence();
+  named_sync(1, kCons * 32);
+  if (tid == 0) {
+    int* ticket = tickets + (size_t)b * Hkv + hk;
+    const int done = atomicAdd(ticket, 1) == splits - 1;
+    if (done) *ticket = 0;  // ready for the next launch
+    *last_flag = done;
+  }
+  named_sync(1, kCons * 32);
+  if (!*last_flag) return;
+  __threadfence();
+  // each head's splits: (m, l) into shared memory past the merge area,
+  // then one thread per head turns m into the split's weight and sums l;
+  // the outputs sum acc in split order, the loads of eight splits in
+  // flight before their adds
+  float2* wl = reinterpret_cast<float2*>(ms + kCons * 8 * (D + 2));
+  float* lsum = reinterpret_cast<float*>(wl + 8 * splits);
+  for (int i = tid; i < G * splits; i += kCons * 32)
+    wl[i] = __ldcg(reinterpret_cast<const float2*>(part_ml) +
+                   (bh0 + i / splits) * splits + i % splits);
+  named_sync(1, kCons * 32);
+  for (int h = tid; h < G; h += kCons * 32) {
+    float mx = NEG_INF, sum = 0.f;
+    for (int sp = 0; sp < splits; ++sp) mx = fmaxf(mx, wl[h * splits + sp].x);
+    for (int sp = 0; sp < splits; ++sp) {
+      const float wt = mx > NEG_INF ? ex2(wl[h * splits + sp].x - mx) : 0.f;
+      sum = fmaf(wt, wl[h * splits + sp].y, sum);
+      wl[h * splits + sp].x = wt;
+    }
+    lsum[h] = fmaxf(sum, 1e-30f);
+  }
+  named_sync(1, kCons * 32);
+  for (int i = tid; i < G * D; i += kCons * 32) {
+    const int h = i / D, d = i - h * D;
+    const float* pa = part_acc + (bh0 + h) * splits * D + d;
+    float acc = 0.f;
+    for (int sp0 = 0; sp0 < splits; sp0 += 8) {
+      float u[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (sp0 + q < splits) u[q] = __ldcg(pa + (size_t)(sp0 + q) * D);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (sp0 + q < splits) acc = fmaf(wl[h * splits + sp0 + q].x, u[q], acc);
+    }
+    out[(bh0 + h) * D + d] =
+        __bfloat16_as_ushort(__float2bfloat16(acc / lsum[h]));
+  }
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* kv_len, void* out, void* part_acc, void* part_ml,
+                void* tickets, int B, int H, int Hkv, int S, i64 qsb, i64 qsh,
+                i64 ksb, i64 ksh, i64 kss, i64 vsb, i64 vsh, i64 vss,
+                int splits, int chunk, float scale, cudaStream_t stream) {
+  const int G = H / Hkv;
+  // N = 8 query heads per MMA; whole 64-row tiles per split; TMA reads
+  // 16-byte aligned bases and strides
+  if (G > 8 || chunk % kRows != 0 || splits > kMaxSplits || B > 65535 ||
+      Hkv > 65535 ||
+      (splits > 1 && tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  // 4-D maps (D, S, Hkv, B) over the caches' strides, 64-row boxes
+  CUtensorMap km, vm;
+  const i64 ks[3] = {ksb, ksh, kss}, vs[3] = {vsb, vsh, vss};
+  if (!tensor_map(&km, k, D, S, Hkv, B, ks, kRows) ||
+      !tensor_map(&vm, v, D, S, Hkv, B, vs, kRows))
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_attn_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Bf<D>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  dim3 grid(splits, Hkv, B);
+  decode_attn_bf16<D><<<grid, kBfThreads, Bf<D>::SMEM, stream>>>(
+      km, vm, static_cast<const u16*>(q), static_cast<const int*>(kv_len),
+      static_cast<u16*>(out), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), static_cast<int*>(tickets), H, Hkv, S, qsb,
+      qsh, splits, chunk, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after
 // the launches (a refused launch never runs, and a later synchronize
 // would not report it).  The caller checks shapes and strides and
 // allocates the partials ([B, H, splits, D] and [B, H, splits, 2] float
-// when splits > 1); this entry checks only what would make a launch
-// itself invalid.
+// when splits > 1) and, for bfloat16 with splits > 1, B * Hkv int32
+// tickets that are zero before the first call (each launch leaves them
+// zero); this entry checks only what would make a launch itself invalid.
 extern "C" int decode_attention_launch(
     int dtype, const void* q, const void* k, const void* v,
-    const void* kv_len, void* out, void* part_acc, void* part_ml, int B,
-    int H, int Hkv, int D, int S, long long qsb, long long qsh,
-    long long ksb, long long ksh, long long kss, long long vsb,
-    long long vsh, long long vss, int splits, int chunk, float scale,
-    void* stream) {
+    const void* kv_len, void* out, void* part_acc, void* part_ml,
+    void* tickets, int B, int H, int Hkv, int D, int S, long long qsb,
+    long long qsh, long long ksb, long long ksh, long long kss,
+    long long vsb, long long vsh, long long vss, int splits, int chunk,
+    float scale, void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || S <= 0 ||
       splits <= 0 || chunk <= 0 || (long long)splits * chunk < S)
     return (int)cudaErrorInvalidValue;
@@ -433,9 +768,13 @@ extern "C" int decode_attention_launch(
     return launch<float>(q, k, v, kv_len, out, part_acc, part_ml, B, H, Hkv,
                          D, S, qsb, qsh, ksb, ksh, kss, vsb, vsh, vss,
                          splits, chunk, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, kv_len, out, part_acc, part_ml, B,
-                                 H, Hkv, D, S, qsb, qsh, ksb, ksh, kss, vsb,
-                                 vsh, vss, splits, chunk, scale, s);
+  if (dtype == 1 && D == 64)
+    return launch_bf16<64>(q, k, v, kv_len, out, part_acc, part_ml, tickets,
+                           B, H, Hkv, S, qsb, qsh, ksb, ksh, kss, vsb, vsh,
+                           vss, splits, chunk, scale, s);
+  if (dtype == 1 && D == 128)
+    return launch_bf16<128>(q, k, v, kv_len, out, part_acc, part_ml, tickets,
+                            B, H, Hkv, S, qsb, qsh, ksb, ksh, kss, vsb, vsh,
+                            vss, splits, chunk, scale, s);
   return (int)cudaErrorInvalidValue;
 }

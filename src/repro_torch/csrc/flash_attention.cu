@@ -91,6 +91,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 typedef long long i64;
@@ -141,12 +143,6 @@ __device__ __forceinline__ void q_range(const Args& a, int k0, int BK,
   if (a.window > 0) ie = min(ie, (k_hi + a.window - 1) / BQ + 1);
 }
 
-// two floats as a bf16 pair, the first in the low half (lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -165,65 +161,6 @@ __device__ __forceinline__ float oct_sum(float x) {
 }
 
 // ---------------------------------------------- Hopper building blocks ---
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also announces `bytes` of TMA traffic
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(
-          bar)
-      : "memory");
-}
-
-// until the phase of the given parity has completed
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-  __syncwarp();
-}
-
-// one box of a 4-D tensor map (coordinates innermost first) into shared
-// memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // one box from shared memory into a 4-D tensor map (out-of-range rows are
 // not written)
 __device__ __forceinline__ void tma_store(const CUtensorMap* map,
@@ -272,10 +209,6 @@ __device__ __forceinline__ void bulk_wait() {
 // generic-proxy shared stores made visible to wgmma and TMA
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 __device__ __forceinline__ void st_u32(uint32_t addr, uint32_t v) {
@@ -1455,25 +1388,6 @@ Args make_args(int B, int H, int Hkv, int Sq, int Skv, int causal,
 bool bad_dims(int dtype, int B, int H, int Hkv, int Sq, int Skv, int D) {
   return (dtype != 0 && dtype != 1) || (D != 64 && D != 128) || B <= 0 ||
          Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0;
-}
-
-// The TMA map of a bf16 [B, N, S, D] view with element strides (b, n, s)
-// and unit stride along D: 4-D (D, S, N, B), boxes of 64 columns by
-// `rows` rows, 128-byte swizzle, out-of-range rows read as zero
-bool tensor_map(CUtensorMap* m, const void* p, int D, int S, int N, int B,
-                const i64* st, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)N,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2,
-                                 (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return cuTensorMapEncodeTiled(
-             m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

@@ -24,14 +24,19 @@
 // K; W, A and B all with unit stride along their columns or all along
 // their rows; the other strides multiples of 8 elements, pointers 16-byte
 // aligned).  Strides are in elements; out is a contiguous [M, N] tensor
-// of the same dtype.  Returns cudaGetLastError() after the launch (0 when
-// it was accepted), cudaErrorInvalidValue for operands it does not take.
+// of the same dtype.  bfloat16 at M <= 16 splits K into `splits` chunks
+// of `chunk` rows (a multiple of 16) and needs the f32 workspace `ws`
+// (DecCfg::record floats per 64-column tile and split) and one int32
+// ticket per tile, zero before the first call; other calls ignore them.
+// Returns cudaGetLastError() after the launch (0 when it was accepted),
+// cudaErrorInvalidValue for operands it does not take.
 extern "C" int lora_matmul_launch(int dtype, const void* x, const void* w,
                                   const void* a, const void* b, void* out,
                                   int M, int N, int K, int r, i64 sxm,
                                   i64 sxk, i64 swk, i64 swn, i64 sak,
                                   i64 sar, i64 sbr, i64 sbn, float scaling,
-                                  void* stream) {
+                                  int splits, int chunk, void* ws,
+                                  void* tickets, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || r <= 0 || r > 64 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -55,12 +60,18 @@ extern "C" int lora_matmul_launch(int dtype, const void* x, const void* w,
         op16(B, b, sbr, sbn, r, N, kn)))
     return (int)cudaErrorInvalidValue;
   if (kn)
-    return r <= 16 ? launch_bf16<16, true, 1>(X, W, A, B, 0, 0, nullptr, 1,
-                                              out, M, N, K, scaling, s)
-                   : launch_bf16<64, true, 1>(X, W, A, B, 0, 0, nullptr, 1,
-                                              out, M, N, K, scaling, s);
-  return r <= 16 ? launch_bf16<16, false, 1>(X, W, A, B, 0, 0, nullptr, 1,
-                                             out, M, N, K, scaling, s)
-                 : launch_bf16<64, false, 1>(X, W, A, B, 0, 0, nullptr, 1,
-                                             out, M, N, K, scaling, s);
+    return r <= 16
+               ? launch_bf16<16, true, 1>(X, W, A, B, 0, 0, nullptr, 1, out,
+                                          M, N, K, scaling, splits, chunk, ws,
+                                          tickets, s)
+               : launch_bf16<64, true, 1>(X, W, A, B, 0, 0, nullptr, 1, out,
+                                          M, N, K, scaling, splits, chunk, ws,
+                                          tickets, s);
+  return r <= 16
+             ? launch_bf16<16, false, 1>(X, W, A, B, 0, 0, nullptr, 1, out, M,
+                                         N, K, scaling, splits, chunk, ws,
+                                         tickets, s)
+             : launch_bf16<64, false, 1>(X, W, A, B, 0, 0, nullptr, 1, out, M,
+                                         N, K, scaling, splits, chunk, ws,
+                                         tickets, s);
 }

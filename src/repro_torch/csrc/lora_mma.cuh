@@ -12,13 +12,48 @@
 // own slot's (x @ A) @ B, so other slots' values, even NaN, never reach it.
 //
 // What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16):
-//   * decode (M = 8, K = N = 1024): bytes.  W alone is 2 MB, 0.63 us at
-//     the memory rate; the low-rank slots add 2 * 32 KB each at r = 16.
+//   * decode (M <= 16): bytes.  At qwen1.5-0.5b's q/k/v/o (M 8, K = N =
+//     1,024) W alone is 2 MB, 0.63 us at the memory rate, and the
+//     low-rank slots add 2 * 32 KB each at r = 16; at the VLM's q/o (K =
+//     N = 8,192) W is 128 MB, 40 us.
 //   * train and prefill (M >= ~300): operations.  M = 3968 is 8.6 GFLOP
 //     of base product, 8.7 us at the bf16 tensor-core rate.
 //
-// Design (see PERF.md for its times against those bounds):
-//   * bfloat16: one thread block per [BM, BN] output tile, mma.sync
+// Design, bfloat16, M <= 16 (dec_body; PERF.md has its times against
+// those bounds): the transposed product out^T = W^T x^T, so 64 columns of
+// W are the MMA's M (each staged K row of W is 128 contiguous bytes) and
+// the <= 16 rows of x its N (one fragment of 8 when M <= 8).  K is split
+// across blocks, about two blocks per SM at every decode shape of the
+// port (kernels/lora_matmul.py::decode_split_plan, a function of K and N
+// alone, splits on 16-row steps); a block streams its chunk of W, x and A
+// through a four-stage cp.async ring (64-row stages with one slot at
+// r <= 16, 32-row where several slots' A tiles share a stage; the
+// grouping of the copies does not change the order of the MMAs), and
+// writes f32 partials of x @ W and of x @ A to a workspace.  The last
+// block of each 64-column tile to finish (a ticket counter, reset by that
+// block, so no memset per call) sums the partials in split order
+// (deterministic: no float atomics), sixteen splits' loads in flight at a
+// time, rounds x @ A over the whole of K to bf16 once, and adds
+// s * (x @ A) @ B from the B slice every block prefetched at its start.
+// Adapter slots run the same path with the same split: each slot the rows
+// use gets its own x @ A partial and (x @ A_s) @ B_s product, kept for
+// the rows of slot s, so a row is bitwise lora_matmul of its own slot.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py; PERF.md,
+// cold L2): the VLM's q/o (M 8, K = N = 8,192) 144 -> 75 us (bound 40.3,
+// cuBLAS's merged-weight product 58); qwen1.5-0.5b's q/k/v/o 12.3 ->
+// 12.8 us (merged 9.0): at 2 MB of W the time is the chain of round
+// trips (the loads, the partials' writes and ticket, the last block's
+// reads), not the bytes, and more splits lengthen it (chip_smoke.py
+// splits: 8 splits 11.7 us, 16 12.8, 32 17.9).  Tried in bring-up builds
+// and dropped: deeper rings (fewer blocks fit an SM, and the memory
+// system gave no more), 128-column tiles (faster at the VLM's q/o only),
+// all of a tile's splits' loads in flight at once (more registers than
+// four blocks an SM allow).  Before this design (one block of 8 warps per
+// 16 output columns, the warps splitting each staged K tile; 64 blocks
+// at N = 1,024) half the SMs sat idle.
+//
+// Design, bfloat16, M > 16 (mma_body; not yet redesigned for Hopper):
+//   * one thread block per [BM, BN] output tile, mma.sync
 //     m16n8k16 on the tensor cores with f32 accumulators.  The K loop
 //     keeps STAGES - 1 tiles of x, W and A in flight with cp.async
 //     (16-byte chunks, zero-filled past the edges) while it multiplies
@@ -33,11 +68,7 @@
 //     slice is staged beside it, and each warp adds s * (xa @ B) to its
 //     accumulators with r/16 more MMAs per fragment.  The tile is the
 //     largest that still gives every SM a block: 128 x 128 (8 warps),
-//     64 x 64 (4 warps), 32 x 32 (2 warps).  M <= 16 (decode) takes
-//     16 x 16 tiles, so N / 16 blocks stream W, each with eight warps
-//     that split every staged tile's K depth between them (KS below) and
-//     sum their accumulators through shared memory before the epilogue:
-//     one warp alone could not keep enough of W in flight.
+//     64 x 64 (4 warps), 32 x 32 (2 warps).
 //   * Adapter slots (NA > 1): each slot's A and B tiles are staged as a
 //     sub-tile of their own, read through the slot strides (the stacks
 //     are never concatenated).  A block stages only the slots its rows
@@ -53,25 +84,26 @@
 //     slots.  With one slot (lora_matmul) the row select compiles away
 //     and the stage stride stays a compile-time constant: a runtime
 //     stride alone cost the 128 x 128 tile 30% (PERF.md).
-//   * float32: plain f32 FMAs (no TF32, so the card agrees with the CPU
-//     to f32 rounding), 64 x 64 tiles, 4 x 4 outputs per thread, any
-//     strides; the next K step's tiles are loaded into registers while
-//     the current one is multiplied.  A thread sums x @ A for its row's
-//     own slot only; the epilogue stages one slot's B at a time.  It
-//     serves the reduced float32 reference config only.
-// Not yet: split-K across blocks (at M = 8, N / 16 blocks leave half the
-// SMs idle), TMA and wgmma, a persistent schedule, an epilogue that
-// stores 16 bytes a lane, a per-row gather of the slots (the low-rank
-// work grows with the number of slots a tile's rows use).
+//   * Not yet: wgmma fed by TMA with the low-rank product fused into its
+//     epilogue (2-5x cuBLAS's base-only product at mamba2's ssm_in),
+//     a persistent schedule, 16-byte epilogue stores, a per-row gather of
+//     the slots (the low-rank work grows with the number of slots a
+//     tile's rows use).
+// Design, float32: plain f32 FMAs (no TF32, so the card agrees with the
+// CPU to f32 rounding), 64 x 64 tiles, 4 x 4 outputs per thread, any
+// strides; the next K step's tiles are loaded into registers while the
+// current one is multiplied.  A thread sums x @ A for its row's own slot
+// only; the epilogue stages one slot's B at a time.  It serves the
+// reduced float32 reference config only.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-namespace {
+#include "hopper.cuh"
 
-typedef long long i64;
+namespace {
 
 // bit of a row's slot in a mask of slots (0 for a base-only row)
 __device__ __forceinline__ unsigned slot_bit(int s) {
@@ -95,16 +127,12 @@ __device__ __forceinline__ unsigned short bf16_bits(float x) {
   return __bfloat16_as_ushort(__float2bfloat16(x));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared without a register; bytes < 16 zero-fills
 // the rest (0 for a chunk wholly outside the operand)
 __device__ __forceinline__ void cp_async16(u16* dst, const u16* src,
                                            int bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
+                   smem_u32(dst)),
                "l"(src), "r"(bytes));
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -115,33 +143,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// four 8 x 8 b16 matrices from shared memory (lane i gives row i % 8 of
-// matrix i / 8); TRANS hands each thread a column pair instead of a row
-// pair
+// ldsm4 at a shared-memory pointer
 template <bool TRANS>
 __device__ __forceinline__ void ldsm4(uint32_t* r, const u16* p) {
-  if (TRANS)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-        "[%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-  else
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-        : "r"(smem_addr(p)));
-}
-
-// d += a @ b for one m16n8k16 bf16 fragment, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  ldsm4<TRANS>(r, smem_u32(p));
 }
 
 // one bf16 operand: unit stride along one dimension, `ld` elements along
@@ -208,19 +213,16 @@ __device__ __forceinline__ void frag_b2(uint32_t* b, const u16* s, int n,
 
 // Tile shape of one bf16 kernel.  KN: W, A and B have unit stride along
 // their columns (the forward's row-major W [K,N], A [K,r], B [r,N]);
-// otherwise along their rows (the backward's W^T, B^T, A^T views).  KS > 1
-// (one 16-row warp tile only): KS warps each multiply BK / KS of every
-// staged tile's depth, and warp 0 sums their accumulators at the end.
+// otherwise along their rows (the backward's W^T, B^T, A^T views).
 // NA: adapter slots, each with A and B sub-tiles of RP columns / rows.
 template <int BM_, int BN_, int BK_, int WARPS_M_, int WARPS_N_,
-          int STAGES_, int RP_, bool KN_, int KS_ = 1, int NA_ = 1>
+          int STAGES_, int RP_, bool KN_, int NA_ = 1>
 struct Cfg {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, RP = RP_, NA = NA_;
   static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
   static constexpr int STAGES = STAGES_;
   static constexpr bool KN = KN_;
-  static constexpr int KS = KS_, KW = BK / KS;
-  static constexpr int NT = WARPS_M * WARPS_N * KS * 32;
+  static constexpr int NT = WARPS_M * WARPS_N * 32;
   static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
   static constexpr int MF = WM / 16, NF = WN / 8;
   // pitches: x [BM][BK]; W [BK][BN] or [BN][BK]; each slot's A [BK][RP]
@@ -237,8 +239,7 @@ struct Cfg {
   static constexpr int SB1 = (KN ? RP : BN) * PB;
   // shared memory for na <= NA slots (a launch sizes it for the slots
   // the call has, so fewer slots leave room for more blocks per SM): a
-  // stage of x, W and na A tiles; the epilogue's xa and na B tiles; with
-  // KS > 1, one f32 per lane for each accumulator of warps 1..KS-1
+  // stage of x, W and na A tiles; the epilogue's xa and na B tiles
   __host__ __device__ static constexpr int stage_elems(int na) {
     return SX + SW + na * SA1;
   }
@@ -247,15 +248,11 @@ struct Cfg {
   __host__ __device__ static constexpr int smem_bytes(int na) {
     const int loop = STAGES * stage_elems(na);
     const int epi = BM * PXA + na * SB1;
-    const int red = 2 * (KS - 1) * 32 * (MF * NF * 4 + na * RP / 8 * 4);
-    const int m = loop > epi ? loop : epi;
-    return 2 * (ROWS + (m > red ? m : red));
+    return 2 * (ROWS + (loop > epi ? loop : epi));
   }
   static_assert(BM == 16 * WARPS_M * WARPS_N, "x @ A: 16 rows per warp");
-  static_assert(KS == 1 || (WARPS_M == 1 && WARPS_N == 1),
-                "K split across the warps of a one-warp tile only");
-  static_assert(WM % 16 == 0 && WN % 16 == 0 && KW % 16 == 0 &&
-                    KW * KS == BK && RP % 16 == 0 && STAGES >= 2,
+  static_assert(WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0 &&
+                    RP % 16 == 0 && STAGES >= 2,
                 "fragment multiples");
   static_assert(NA >= 1 && NA <= 32, "slot masks are 32 bits");
 };
@@ -282,9 +279,7 @@ __device__ __forceinline__ void mma_body(Op16 X, Op16 W, Op16 A, Op16 B,
   const int g = lane >> 2, t = lane & 3;
   // one slot: a compile-time stride, so the tile addresses fold
   const int STAGE = C::stage_elems(SEG ? na : 1);
-  // KS > 1: every warp owns the whole tile and the depth slice kw0
-  const int wq = C::KS > 1 ? 0 : warp, kw0 = C::KS > 1 ? warp * C::KW : 0;
-  const int wm = wq / C::WARPS_N, wn = wq % C::WARPS_N;
+  const int wm = warp / C::WARPS_N, wn = warp % C::WARPS_N;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int KT = (K + BK - 1) / BK;
 
@@ -298,7 +293,7 @@ __device__ __forceinline__ void mma_body(Op16 X, Op16 W, Op16 A, Op16 B,
     for (int i = lane; i < BM; i += 32) bits |= slot_bit(rslot[i]);
     bmask = __reduce_or_sync(FULL, bits);
     wmask = __reduce_or_sync(
-        FULL, lane < 16 ? slot_bit(rslot[wq * 16 + lane]) : 0u);
+        FULL, lane < 16 ? slot_bit(rslot[warp * 16 + lane]) : 0u);
   }
 
   float acc[MF][NF][4];
@@ -343,8 +338,7 @@ __device__ __forceinline__ void mma_body(Op16 X, Op16 W, Op16 A, Op16 B,
     const u16* Ws = Xs + C::SX;
     const u16* As = Ws + C::SW;
 #pragma unroll
-    for (int k16 = 0; k16 < C::KW; k16 += 16) {
-      const int kk = kw0 + k16;
+    for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[MF][4];
 #pragma unroll
       for (int i = 0; i < MF; ++i)
@@ -361,7 +355,7 @@ __device__ __forceinline__ void mma_body(Op16 X, Op16 W, Op16 A, Op16 B,
       }
       if (wmask) {
         uint32_t xf[4];
-        frag_a<C::PX>(xf, Xs, wq * 16, kk, lane);
+        frag_a<C::PX>(xf, Xs, warp * 16, kk, lane);
 #pragma unroll
         for (int s = 0; s < NA; ++s) {
           if (!(wmask >> s & 1u)) continue;
@@ -379,74 +373,21 @@ __device__ __forceinline__ void mma_body(Op16 X, Op16 W, Op16 A, Op16 B,
   cp_async_wait<0>();
   __syncthreads();  // every warp is done with the staged tiles
 
-  if constexpr (C::KS > 1) {
-    // warp 0 sums the other warps' depth slices, [accumulator][warp][lane]
-    float* red = reinterpret_cast<float*>(smem);
-    auto slot = [&](int e, int w) {
-      return (e * (C::KS - 1) + w) * 32 + lane;
-    };
-    // (x @ A of the slots the rows use only: the buffer holds na slots)
-    if (warp > 0) {
-#pragma unroll
-      for (int i = 0; i < MF; ++i)
-#pragma unroll
-        for (int j = 0; j < NF; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            red[slot((i * NF + j) * 4 + e, warp - 1)] = acc[i][j][e];
-#pragma unroll
-      for (int s = 0; s < NA; ++s) {
-        if (!(wmask >> s & 1u)) continue;
-#pragma unroll
-        for (int j = 0; j < RP / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            red[slot(MF * NF * 4 + (s * RP / 8 + j) * 4 + e, warp - 1)] =
-                xacc[s][j][e];
-      }
-    }
-    __syncthreads();
-    if (warp == 0) {
-      for (int w = 0; w < C::KS - 1; ++w) {
-#pragma unroll
-        for (int i = 0; i < MF; ++i)
-#pragma unroll
-          for (int j = 0; j < NF; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[i][j][e] += red[slot((i * NF + j) * 4 + e, w)];
-#pragma unroll
-        for (int s = 0; s < NA; ++s) {
-          if (!(wmask >> s & 1u)) continue;
-#pragma unroll
-          for (int j = 0; j < RP / 8; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              xacc[s][j][e] += red[slot(MF * NF * 4 + (s * RP / 8 + j) * 4 + e,
-                                        w)];
-        }
-      }
-    }
-    __syncthreads();  // the sums are read before the epilogue reuses smem
-  }
-
   // epilogue, over the staged tiles: this warp's 16 rows of x @ A for
   // each slot they use, rounded to bf16, and each used slot's [r, BN]
   // slice of B
   u16* XAs = smem;
   u16* Bs = smem + BM * C::PXA;
-  if (warp == wq) {  // with KS > 1, warp 0 holds the sums
 #pragma unroll
-    for (int s = 0; s < NA; ++s) {
-      if (!(wmask >> s & 1u)) continue;
+  for (int s = 0; s < NA; ++s) {
+    if (!(wmask >> s & 1u)) continue;
 #pragma unroll
-      for (int j = 0; j < RP / 8; ++j) {
-        u16* p = XAs + (wq * 16 + g) * C::PXA + s * RP + j * 8 + 2 * t;
-        p[0] = bf16_bits(xacc[s][j][0]);
-        p[1] = bf16_bits(xacc[s][j][1]);
-        p[8 * C::PXA] = bf16_bits(xacc[s][j][2]);
-        p[8 * C::PXA + 1] = bf16_bits(xacc[s][j][3]);
-      }
+    for (int j = 0; j < RP / 8; ++j) {
+      u16* p = XAs + (warp * 16 + g) * C::PXA + s * RP + j * 8 + 2 * t;
+      p[0] = bf16_bits(xacc[s][j][0]);
+      p[1] = bf16_bits(xacc[s][j][1]);
+      p[8 * C::PXA] = bf16_bits(xacc[s][j][2]);
+      p[8 * C::PXA + 1] = bf16_bits(xacc[s][j][3]);
     }
   }
 #pragma unroll
@@ -456,7 +397,6 @@ __device__ __forceinline__ void mma_body(Op16 X, Op16 W, Op16 A, Op16 B,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if (warp != wq) return;
 
 #pragma unroll
   for (int i = 0; i < MF; ++i) {
@@ -534,6 +474,307 @@ __global__ void __launch_bounds__(C::NT) segmented_mma_kernel(MMA_ARGS) {
   mma_body<C>(X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling);
 }
 #undef MMA_ARGS
+
+// ------------------------------------------- bfloat16, M <= 16 (decode) ---
+// The transposed product out^T = W^T x^T per 64-column tile of W: the
+// tile's columns are the MMA's M (four warps, 16 columns each), the
+// M <= 16 rows of x its N (one or two fragments of 8), K its depth.  K is
+// split across blocks (grid: N tiles x splits, the plan from the wrapper,
+// a function of K and N alone); each block streams its chunk of K through
+// a cp.async ring and writes f32 partials of x @ W and of x @ A (for every
+// slot its rows use) to a workspace.  The last block of each N tile,
+// found by a ticket counter it resets, sums the partials in split order,
+// rounds x @ A once, and adds s * (x @ A) @ B from the B slice every
+// block prefetched at its start.
+struct Dec {
+  static constexpr int BN = 64, NT = 128, MAX_SPLITS = 32;
+};
+
+template <int RP_, bool KN_, int NA_>
+struct DecCfg {
+  static constexpr int RP = RP_, NA = NA_, BN = Dec::BN;
+  static constexpr bool KN = KN_;
+  static constexpr int NT = Dec::NT;
+  // rows of K a stage and stages of the ring: how the copies are grouped
+  // and how far they run ahead, not the order of the MMAs, so one slot
+  // (64-row stages) and many (32, where na A tiles share the stage) sum
+  // alike
+  static constexpr int BK = NA * RP <= 32 ? 64 : 32;
+  static constexpr int STAGES = 4;
+  // pitches (elements): x [16][BK]; W [BK][BN] or [BN][BK]; A per slot
+  // [BK][RP] or [RP][BK]; B per slot [RP][BN] or [BN][RP]; xa [16][NA RP]
+  static constexpr int PX = BK + 8;
+  static constexpr int PW = KN ? BN + 8 : BK + 8;
+  static constexpr int PA = KN ? RP + 8 : BK + 8;
+  static constexpr int PB = KN ? BN + 8 : RP + 8;
+  static constexpr int PXA = NA * RP + 8;
+  static constexpr int SX = 16 * PX;
+  static constexpr int SW = (KN ? BK : BN) * PW;
+  static constexpr int SA1 = (KN ? BK : RP) * PA;
+  static constexpr int SB1 = (KN ? RP : BN) * PB;
+  // (slot, 16 rows of r) pairs of x @ A, dealt round the four warps
+  static constexpr int PAIRS = NA * RP / 16, PPW = (PAIRS + 3) / 4;
+  __host__ __device__ static constexpr int stage_elems(int na) {
+    return SX + SW + na * SA1;
+  }
+  // rows' slots (32 u16), the B slices, then the ring (which the
+  // epilogue's sums and xa reuse)
+  __host__ __device__ static constexpr int smem_bytes(int na) {
+    const int ring = STAGES * stage_elems(na);
+    const int epi = 2 * BN * 16 + 16 * PXA;  // f32 sums, then xa
+    return 2 * (32 + na * SB1 + (ring > epi ? ring : epi));
+  }
+  // f32 workspace record of one (N tile, split): x @ W [BN][16], then
+  // x @ A [na][RP][16]
+  __host__ __device__ static constexpr int record(int na) {
+    return BN * 16 + na * RP * 16;
+  }
+};
+
+// A fragment (16 x 16) of op^T at (c0, k0), from a shared tile of op
+// stored [k][c] (KN) or [c][k], pitch P
+template <bool KN, int P>
+__device__ __forceinline__ void frag_t(uint32_t* a, const u16* s, int c0,
+                                       int k0, int lane) {
+  const int j = lane / 8, i = lane % 8;
+  if (KN)
+    ldsm4<true>(a, s + (k0 + i + 8 * (j / 2)) * P + c0 + 8 * (j % 2));
+  else
+    ldsm4<false>(a, s + (c0 + i + 8 * (j % 2)) * P + k0 + 8 * (j / 2));
+}
+
+template <class C>
+__device__ __forceinline__ void dec_body(Op16 X, Op16 W, Op16 A, Op16 B,
+                                         i64 sa, i64 sb,
+                                         const int* __restrict__ idx, int na,
+                                         u16* __restrict__ out, int M, int N,
+                                         int K, float scaling, int splits,
+                                         int chunk, float* __restrict__ ws,
+                                         int* __restrict__ tickets) {
+  constexpr int BN = C::BN, BK = C::BK, RP = C::RP, NA = C::NA, NT = C::NT;
+  constexpr bool KN = C::KN, SEG = NA > 1;
+  extern __shared__ __align__(16) u16 smem_all[];
+  int* rslot = reinterpret_cast<int*>(smem_all);       // [16]
+  u16* Bs = smem_all + 32;                             // na x SB1
+  u16* ring = Bs + na * C::SB1;
+  __shared__ int last_flag;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int tile = blockIdx.x, split = blockIdx.y;
+  const int n0 = tile * BN, k_lo = split * chunk;
+  const int k_hi = min(K, k_lo + chunk);
+  const int KT = (k_hi - k_lo + BK - 1) / BK;
+  // a split ends on a 16-row step, not always on a stage: its last stage
+  // reads zeros past k_hi
+  X.cols = k_hi;
+  W.rows = k_hi;
+  A.rows = k_hi;
+  const bool two = M > 8;  // a second fragment of 8 rows
+  // one slot: a compile-time stride, so the tile addresses fold
+  const int STAGE = C::stage_elems(SEG ? na : 1);
+
+  if (tid < 16) rslot[tid] = row_slot(idx, tid, M, na);
+  __syncthreads();
+  unsigned bmask = 1u;
+  if constexpr (SEG) {
+    bmask = 0u;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) bmask |= slot_bit(rslot[i]);
+  }
+
+  // the B slices of the slots the rows use, for whichever block finishes
+  // the tile last
+#pragma unroll
+  for (int s = 0; s < NA; ++s)
+    if (bmask >> s & 1u)
+      stage<RP, BN, KN, NT>(Bs + s * C::SB1, shifted(B, s * sb), 0, n0, tid);
+  auto load = [&](int kt) {
+    u16* st = ring + (kt % C::STAGES) * STAGE;
+    const int k0 = k_lo + kt * BK;
+    stage<16, BK, true, NT>(st, X, 0, k0, tid);
+    stage<BK, BN, KN, NT>(st + C::SX, W, k0, n0, tid);
+#pragma unroll
+    for (int s = 0; s < NA; ++s)
+      if (bmask >> s & 1u)
+        stage<BK, RP, KN, NT>(st + C::SX + C::SW + s * C::SA1,
+                              shifted(A, s * sa), k0, 0, tid);
+  };
+#pragma unroll
+  for (int st = 0; st < C::STAGES - 1; ++st) {
+    if (st < KT) load(st);
+    cp_async_commit();  // the B slices ride in the first group
+  }
+
+  float acc[2][4] = {};           // x @ W: columns 16 warp + g (+8), rows
+  float xacc[C::PPW][2][4] = {};  // x @ A: the warp's (slot, r) pairs
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<C::STAGES - 2>();
+    __syncthreads();  // tile kt landed; tile kt - 1's buffer is free
+    if (kt + C::STAGES - 1 < KT) load(kt + C::STAGES - 1);
+    cp_async_commit();
+    const u16* Xs = ring + (kt % C::STAGES) * STAGE;
+    const u16* Ws = Xs + C::SX;
+    const u16* As = Ws + C::SW;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t xb[4];  // x^T: rows 0-7 in xb[0..1], rows 8-15 in xb[2..3]
+      frag_b2<false, C::PX>(xb, Xs, 0, kk, lane);
+      uint32_t a[4];
+      frag_t<KN, C::PW>(a, Ws, 16 * warp, kk, lane);
+      mma_bf16(acc[0], a, xb[0], xb[1]);
+      if (two) mma_bf16(acc[1], a, xb[2], xb[3]);
+#pragma unroll
+      for (int q = 0; q < C::PPW; ++q) {
+        const int p = warp + 4 * q, s = p / (RP / 16);
+        if (p < C::PAIRS && (bmask >> s & 1u)) {
+          frag_t<KN, C::PA>(a, As + s * C::SA1, 16 * (p % (RP / 16)), kk,
+                            lane);
+          mma_bf16(xacc[q][0], a, xb[0], xb[1]);
+          if (two) mma_bf16(xacc[q][1], a, xb[2], xb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the B slices landed; every warp is done with the ring
+
+  // this split's partials: C fragments (column or r = 16m + g (+8), row
+  // 8f + 2t (+1)) as float2 at [column][row]
+  const int R = C::record(SEG ? na : 1);
+  float* rec = ws + ((size_t)tile * splits + split) * R;
+  auto put = [&](float* base, int c, const float (&f)[2][4]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (h == 1 && !two) break;
+      *reinterpret_cast<float2*>(base + (c + g) * 16 + 8 * h + 2 * t) =
+          make_float2(f[h][0], f[h][1]);
+      *reinterpret_cast<float2*>(base + (c + g + 8) * 16 + 8 * h + 2 * t) =
+          make_float2(f[h][2], f[h][3]);
+    }
+  };
+  put(rec, 16 * warp, acc);
+#pragma unroll
+  for (int q = 0; q < C::PPW; ++q) {
+    const int p = warp + 4 * q, s = p / (RP / 16);
+    if (p < C::PAIRS && (bmask >> s & 1u))
+      put(rec + BN * 16 + s * RP * 16, 16 * (p % (RP / 16)), xacc[q]);
+  }
+
+  // the last of the tile's splits to finish sums them all (the barrier
+  // orders the block's writes before thread 0's fence, which is
+  // cumulative)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const int done = atomicAdd(tickets + tile, 1) == splits - 1;
+    if (done) tickets[tile] = 0;  // ready for the next launch
+    last_flag = done;
+  }
+  __syncthreads();
+  if (!last_flag) return;
+  __threadfence();
+
+  // Sums over the splits in split order, four floats an item, the loads
+  // of sixteen splits of an item in flight before their adds.  Items: x @ W's
+  // [BN][16] (rows 0-7 only when M <= 8) into shared f32 sums, then
+  // x @ A's [slot][RP][16] of the slots the rows use, rounded to bf16 once
+  // into XAs [row][slot * RP + r] for the low-rank product.
+  const float* rec0 = ws + (size_t)tile * splits * R;
+  float* sums = reinterpret_cast<float*>(ring);
+  u16* XAs = ring + 2 * BN * 16;
+  const int quads = two ? 4 : 2;  // float4s of a column's rows
+  const int n_base = BN * quads;
+  for (int i = tid; i < n_base + na * RP * quads; i += NT) {
+    const int col = i / quads, q4 = i % quads;  // col: BN + slot * RP + r
+    const int s = col < BN ? -1 : (col - BN) / RP;
+    if (s >= 0 && !(bmask >> s & 1u)) continue;
+    const float* src = rec0 + col * 16 + 4 * q4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int sp0 = 0; sp0 < splits; sp0 += 16) {
+      float4 u[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        if (sp0 + q < splits)
+          u[q] = __ldcg(reinterpret_cast<const float4*>(
+              src + (size_t)(sp0 + q) * R));
+#pragma unroll
+      for (int q = 0; q < 16; ++q)
+        if (sp0 + q < splits) {
+          v.x += u[q].x;
+          v.y += u[q].y;
+          v.z += u[q].z;
+          v.w += u[q].w;
+        }
+    }
+    if (s < 0) {
+      *reinterpret_cast<float4*>(sums + col * 16 + 4 * q4) = v;
+    } else {
+      u16* x = XAs + (4 * q4) * C::PXA + s * RP + (col - BN) % RP;
+      x[0] = bf16_bits(v.x);
+      x[C::PXA] = bf16_bits(v.y);
+      x[2 * C::PXA] = bf16_bits(v.z);
+      x[3 * C::PXA] = bf16_bits(v.w);
+    }
+  }
+  __syncthreads();
+  // this warp's columns of x @ W, as the accumulator fragments
+  float sum[2][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sum[h][e] = sums[(16 * warp + g + (e >= 2 ? 8 : 0)) * 16 + 8 * h +
+                       2 * t + (e & 1)];
+
+  // s * (x @ A_s) @ B_s for each slot s the rows use, kept for the rows
+  // of slot s alone; out = round(x @ W + s * low)
+  float low[2][4] = {};
+#pragma unroll
+  for (int s = 0; s < NA; ++s) {
+    if (!(bmask >> s & 1u)) continue;
+    float part[2][4] = {};
+#pragma unroll
+    for (int kr = 0; kr < RP; kr += 16) {
+      uint32_t xb[4], a[4];
+      frag_b2<false, C::PXA>(xb, XAs, 0, s * RP + kr, lane);
+      frag_t<KN, C::PB>(a, Bs + s * C::SB1, 16 * warp, kr, lane);
+      mma_bf16(part[0], a, xb[0], xb[1]);
+      if (two) mma_bf16(part[1], a, xb[2], xb[3]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!SEG || rslot[8 * h + 2 * t + (e & 1)] == s) low[h][e] = part[h][e];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = 8 * h + 2 * t + (e & 1);
+      const int col = n0 + 16 * warp + g + (e >= 2 ? 8 : 0);
+      if (row < M && col < N)
+        out[(i64)row * N + col] = bf16_bits(sum[h][e] + scaling * low[h][e]);
+    }
+}
+
+#define DEC_ARGS                                                            \
+  Op16 X, Op16 W, Op16 A, Op16 B, i64 sa, i64 sb,                           \
+      const int *__restrict__ idx, int na, u16 *__restrict__ out, int M,    \
+      int N, int K, float scaling, int splits, int chunk,                   \
+      float *__restrict__ ws, int *__restrict__ tickets
+template <class C>
+__global__ void __launch_bounds__(Dec::NT) lora_dec_kernel(DEC_ARGS) {
+  dec_body<C>(X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, splits,
+              chunk, ws, tickets);
+}
+template <class C>
+__global__ void __launch_bounds__(Dec::NT) segmented_dec_kernel(DEC_ARGS) {
+  dec_body<C>(X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, splits,
+              chunk, ws, tickets);
+}
+#undef DEC_ARGS
 
 // -------------------------------------------------------- float32 -------
 // one float32 operand: base pointer, logical [rows, cols] bounds and element
@@ -749,6 +990,13 @@ auto mma_kernel() {
   else
     return lora_mma_kernel<C>;
 }
+template <class C>
+auto dec_kernel() {
+  if constexpr (C::NA > 1)
+    return segmented_dec_kernel<C>;
+  else
+    return lora_dec_kernel<C>;
+}
 template <int RP, int NA>
 auto fma_kernel() {
   if constexpr (NA > 1)
@@ -780,28 +1028,61 @@ int launch_mma(const Op16& X, const Op16& W, const Op16& A, const Op16& B,
   return (int)cudaGetLastError();
 }
 
-// the tile that still gives the card a block per SM, largest first:
-// 128 x 128 (8 warps), 64 x 64 (4 warps), 32 x 32 (2 warps); decode-sized
-// M takes 16 x 16 tiles so N / 16 blocks stream W, 8 warps splitting K.
-// The choice depends on M and N alone, so a row sums in the same order
-// whatever the number of slots; STAGES (only how far the copies run
-// ahead) drops to 3 where NA slots' A tiles would not fit four deep.
-// NA: the most slots the call may have (na <= NA).
+// The decode path (M <= 16): a grid of (N / 64 tiles, splits) blocks, the
+// split of K from the caller (a multiple of 16 rows a split, every split
+// non-empty), an f32 workspace of record(na) floats per (tile,
+// split) and one int32 ticket per tile, zero before the first launch
+// (each launch leaves them zero).
+template <int RP, bool KN, int NA>
+int launch_dec(const Op16& X, const Op16& W, const Op16& A, const Op16& B,
+               i64 sa, i64 sb, const int* idx, int na, void* out, int M,
+               int N, int K, float scaling, int splits, int chunk, void* ws,
+               void* tickets, cudaStream_t s) {
+  typedef DecCfg<RP, KN, NA> C;
+  if (ws == nullptr || tickets == nullptr || splits < 1 ||
+      splits > Dec::MAX_SPLITS ||
+      chunk < 1 || chunk % 16 != 0 || (i64)(splits - 1) * chunk >= K ||
+      (i64)splits * chunk < K)
+    return (int)cudaErrorInvalidValue;
+  constexpr int max_bytes = C::smem_bytes(C::NA);
+  static_assert(max_bytes <= 232448, "shared memory per block");
+  const auto kernel = dec_kernel<C>();
+  static bool opted_in = false;  // shared memory above 48 KB
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  dim3 grid(cdiv(N, C::BN), splits);
+  kernel<<<grid, Dec::NT, C::smem_bytes(na), s>>>(
+      X, W, A, B, sa, sb, idx, na, static_cast<u16*>(out), M, N, K, scaling,
+      splits, chunk, static_cast<float*>(ws), static_cast<int*>(tickets));
+  return (int)cudaGetLastError();
+}
+
+// M <= 16 (decode) takes the split-K decode path; larger M the tile that
+// still gives the card a block per SM, largest first: 128 x 128 (8
+// warps), 64 x 64 (4 warps), 32 x 32 (2 warps).  The choice depends on M,
+// K and N alone, so a row sums in the same order whatever the number of
+// slots; STAGES (only how far the copies run ahead) drops to 3 where NA
+// slots' A tiles would not fit four deep.  NA: the most slots the call may
+// have (na <= NA).
 template <int RP, bool KN, int NA>
 int launch_bf16(const Op16& X, const Op16& W, const Op16& A, const Op16& B,
                 i64 sa, i64 sb, const int* idx, int na, void* out, int M,
-                int N, int K, float scaling, cudaStream_t s) {
+                int N, int K, float scaling, int splits, int chunk, void* ws,
+                void* tickets, cudaStream_t s) {
   if (M <= 16)
-    return launch_mma<Cfg<16, 16, 128, 1, 1, NA * RP <= 64 ? 4 : 3, RP, KN,
-                          8, NA>>(
-        X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, s);
+    return launch_dec<RP, KN, NA>(X, W, A, B, sa, sb, idx, na, out, M, N, K,
+                                  scaling, splits, chunk, ws, tickets, s);
   if ((i64)cdiv(M, 128) * cdiv(N, 128) >= 132)
-    return launch_mma<Cfg<128, 128, 32, 4, 2, 3, RP, KN, 1, NA>>(
+    return launch_mma<Cfg<128, 128, 32, 4, 2, 3, RP, KN, NA>>(
         X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, s);
   if ((i64)cdiv(M, 64) * cdiv(N, 64) >= 132)
-    return launch_mma<Cfg<64, 64, 64, 2, 2, 3, RP, KN, 1, NA>>(
+    return launch_mma<Cfg<64, 64, 64, 2, 2, 3, RP, KN, NA>>(
         X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, s);
-  return launch_mma<Cfg<32, 32, 64, 1, 2, 4, RP, KN, 1, NA>>(
+  return launch_mma<Cfg<32, 32, 64, 1, 2, 4, RP, KN, NA>>(
       X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, s);
 }
 

@@ -26,14 +26,18 @@
 #include "lora_mma.cuh"
 
 // Strides are in elements (slot, then row, then column of each stack);
-// out is a contiguous [M, N] tensor of x's dtype.  Returns
-// cudaGetLastError() after the launch (0 when it was accepted),
-// cudaErrorInvalidValue for operands it does not take.
+// out is a contiguous [M, N] tensor of x's dtype.  bfloat16 at M <= 16
+// takes lora_matmul's decode path with the same split of K (splits,
+// chunk: the same plan, which depends on K and N alone), workspace and
+// tickets as lora_matmul_launch describes (the workspace record holds na
+// slots' x @ A).  Returns cudaGetLastError() after the launch (0 when it
+// was accepted), cudaErrorInvalidValue for operands it does not take.
 extern "C" int segmented_lora_matmul_launch(
     int dtype, const void* x, const void* w, const void* a, const void* b,
     const int* idx, void* out, int M, int N, int K, int r, int na, i64 sxm,
     i64 sxk, i64 swk, i64 swn, i64 sas, i64 sak, i64 sar, i64 sbs, i64 sbr,
-    i64 sbn, float scaling, void* stream) {
+    i64 sbn, float scaling, int splits, int chunk, void* ws, void* tickets,
+    void* stream) {
   const int rp = r <= 16 ? 16 : 64;
   if (M <= 0 || N <= 0 || K <= 0 || r <= 0 || r > 64 || na <= 0 ||
       na * rp > 128 || idx == nullptr || (dtype != 0 && dtype != 1))
@@ -56,10 +60,10 @@ extern "C" int segmented_lora_matmul_launch(
   // register arrays and shared memory sized for at most 4 or 8 slots
   if (rp == 16 && na <= 4)
     return launch_bf16<16, true, 4>(X, W, A, B, sas, sbs, idx, na, out, M, N,
-                                    K, scaling, s);
+                                    K, scaling, splits, chunk, ws, tickets, s);
   if (rp == 16)
     return launch_bf16<16, true, 8>(X, W, A, B, sas, sbs, idx, na, out, M, N,
-                                    K, scaling, s);
+                                    K, scaling, splits, chunk, ws, tickets, s);
   return launch_bf16<64, true, 2>(X, W, A, B, sas, sbs, idx, na, out, M, N, K,
-                                  scaling, s);
+                                  scaling, splits, chunk, ws, tickets, s);
 }

@@ -19,7 +19,10 @@ decode_attention`` with a CUDA kernel written for Hopper, built by
 
 Both are memory-bound: a call must read ``sum_b kv_len_b * Hkv * D * 2 *
 sizeof(T)`` bytes of K/V and does about two FLOP per element read.  The
-design notes are in the sources.
+design notes are in the sources.  ``decode_attention`` splits the cache
+walk (``split_plan`` in float32, ``split_plan_bf16`` in bfloat16); its
+partials and the bf16 kernel's ticket counters live in the scratch of
+``kernels/_scratch.py``.
 
 Each wrapper dispatches on where its tensors lie: CPU tensors take the
 plain PyTorch version (``paged_decode_attention_ref``,
@@ -37,7 +40,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _scratch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _I = ctypes.c_int
@@ -190,9 +193,14 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len,
 
 # splits of one (sequence, KV head)'s cache walk, at most
 _MAX_SPLITS = 64
-# the split kernel's 256 threads keep two PV columns (4 query heads, one
-# channel) each: ceil(G / 4) * D <= 512
+# float32: the split kernel's 256 threads keep two PV columns (4 query
+# heads, one channel) each: ceil(G / 4) * D <= 512
 _MAX_COLS = 512
+# bfloat16: the G query heads of a KV head are the MMA's N (8), and the
+# tiles are TMA boxes of 64-column swizzle regions
+BF16_MAX_G = 8
+BF16_HEAD_DIMS = (64, 128)
+BF16_TILE_ROWS = 64
 
 
 def _check_contiguous(q, k_cache, v_cache, kv_len) -> None:
@@ -222,20 +230,31 @@ def _check_contiguous(q, k_cache, v_cache, kv_len) -> None:
             f"decode_attention: shapes q {tuple(q.shape)}, caches "
             f"{tuple(k_cache.shape)}/{tuple(v_cache.shape)}, kv_len "
             f"{tuple(kv_len.shape)} do not agree")
-    if -(-(h // hkv) // 4) * d > _MAX_COLS:
-        raise ValueError(f"decode_attention: {h // hkv} query heads per KV "
+    g = h // hkv
+    if q.dtype == torch.bfloat16 and (g > BF16_MAX_G
+                                      or d not in BF16_HEAD_DIMS):
+        raise ValueError(f"decode_attention: bf16 takes at most "
+                         f"{BF16_MAX_G} query heads per KV head and head_dim "
+                         f"in {BF16_HEAD_DIMS}, got {g} and {d}")
+    if q.dtype == torch.float32 and -(-g // 4) * d > _MAX_COLS:
+        raise ValueError(f"decode_attention: {g} query heads per KV "
                          f"head at head_dim {d} exceeds the kernel's "
                          f"{_MAX_COLS} columns of 4 heads")
-    # K/V rows are read 16 bytes at a time: unit last axis, and every
-    # other stride and the base address on a 16-byte boundary
+    # K/V are read 16 bytes at a time (float32) or by TMA (bfloat16): a
+    # unit last axis, a 16-byte aligned base, every other stride a
+    # multiple of 16 bytes
     elt = q.element_size()
     for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
-                (st * elt) % 16 for st in t.stride()[:-1]):
+        if t.stride(-1) != 1:
+            raise ValueError(f"decode_attention: {name} needs a unit stride "
+                             f"on its last axis (strides {tuple(t.stride())})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name}'s base address is "
+                             "not 16-byte aligned")
+        if any((st * elt) % 16 for st in t.stride()[:-1]):
             raise ValueError(
-                f"decode_attention: {name} needs a unit stride on its last "
-                f"axis, 16-byte aligned rows and base (strides "
-                f"{tuple(t.stride())}, {elt}-byte elements)")
+                f"decode_attention: {name}'s strides {tuple(t.stride())} "
+                f"of {elt}-byte elements are not multiples of 16 bytes")
     if q.stride(-1) != 1:
         raise ValueError("decode_attention: q needs a unit stride on its "
                          "last axis")
@@ -247,31 +266,43 @@ def _check_contiguous(q, k_cache, v_cache, kv_len) -> None:
                          "(CPU tensors take the plain version)")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def _cdiv(a: int, c: int) -> int:
+    return -(-a // c)
 
 
 def split_plan(b: int, hkv: int, s: int, n_sm: int) -> Tuple[int, int]:
-    """(splits, rows per split) of the cache axis: enough blocks of
-    (sequence, KV head, split) for about eight on every SM, each split a
-    whole number of the kernel's 32-row tiles, at most ``_MAX_SPLITS``.
+    """float32: (splits, rows per split) of the cache axis: enough blocks
+    of (sequence, KV head, split) for about eight on every SM, each split
+    a whole number of the kernel's 32-row tiles, at most ``_MAX_SPLITS``.
     At the VLM's cross shape (64 pairs, 1,601 rows) that is 17 splits of
-    96 rows: the fastest of 4 to 51 splits on an NVIDIA H100 80GB HBM3
-    (81 us against 90 at 9 splits, bf16; PERF.md)."""
-    def cdiv(a, c):
-        return -(-a // c)
+    96 rows."""
+    splits = max(1, min(_cdiv(8 * n_sm, b * hkv), _MAX_SPLITS,
+                        _cdiv(s, 32)))
+    chunk = _cdiv(_cdiv(s, splits), 32) * 32
+    return _cdiv(s, chunk), chunk
 
-    splits = max(1, min(cdiv(8 * n_sm, b * hkv), _MAX_SPLITS, cdiv(s, 32)))
-    chunk = cdiv(cdiv(s, splits), 32) * 32
-    return cdiv(s, chunk), chunk
+
+def split_plan_bf16(b: int, hkv: int, s: int, n_sm: int) -> Tuple[int, int]:
+    """bfloat16: (splits, rows per split) of the cache axis, each split a
+    whole number of 64-row tiles, balanced: as many splits as keep the
+    blocks of (sequence, KV head, split) within half the SMs, where each
+    block's ring keeps three tiles in flight.  At the VLM's cross shape
+    (64 pairs, 1,601 rows) 64 blocks already held the walk at the rate
+    more blocks reached, and each further split only added the combine
+    (``chip_smoke.py splits``, NVIDIA H100 80GB HBM3, 700 W; PERF.md: 1
+    split 32.7 us, 2 36.3, 4 36.5, 26 63.9).  So that shape takes 1
+    split, and a single sequence's 8 KV heads take 7."""
+    tiles = _cdiv(s, BF16_TILE_ROWS)
+    splits = max(1, min(tiles, _MAX_SPLITS, (n_sm // 2) // (b * hkv)))
+    per = _cdiv(tiles, splits)
+    return _cdiv(tiles, per), per * BF16_TILE_ROWS
 
 
 @functools.lru_cache(maxsize=None)
 def _contiguous_entry():
     fn = _build.library("decode_attention").decode_attention_launch
     fn.restype = _I
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _I, _I, ctypes.c_float,
                    _P]
     return fn
@@ -282,18 +313,22 @@ def _launch_contiguous(q, k_cache, v_cache, kv_len, scale: float):
     fn = _contiguous_entry()
     b, h, d = q.shape
     hkv, s = k_cache.shape[1], k_cache.shape[2]
-    splits, chunk = split_plan(b, hkv, s, _sm_count(q.device.index or 0))
+    n_sm = _scratch.sm_count(q.device.index or 0)
+    splits, chunk = (split_plan_bf16(b, hkv, s, n_sm)
+                     if q.dtype == torch.bfloat16
+                     else split_plan(b, hkv, s, n_sm))
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    # per (b, query head, split): the partial acc [D] and (m, l)
-    part_acc = torch.empty((b, h, splits, d) if splits > 1 else (1,),
-                           dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((b, h, splits, 2) if splits > 1 else (1,),
-                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = _scratch.stream(q.device)
+        # per (b, query head, split): the partial acc [D], then (m, l);
+        # one ticket per (b, KV head)
+        n_acc = b * h * splits * d
+        ws, tickets = _scratch.buffers(q.device, stream,
+                                       n_acc + b * h * splits * 2, b * hkv)
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_cache.data_ptr(),
                  v_cache.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-                 part_acc.data_ptr(), part_ml.data_ptr(), b, h, hkv, d, s,
+                 ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
+                 tickets.data_ptr(), b, h, hkv, d, s,
                  q.stride(0), q.stride(1), *k_cache.stride()[:3],
                  *v_cache.stride()[:3], splits, chunk, scale, stream)
     if err != 0:

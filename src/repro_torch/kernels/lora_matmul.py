@@ -11,6 +11,11 @@ output is in x's dtype, as in the Pallas kernel.  What bounds it: bytes
 at decode (M = 8: the 2 MB of W at qwen1.5-0.5b's width, 0.63 us at
 3.35 TB/s), operations from M of a few hundred on (M = 3968: 8.6 GFLOP,
 8.7 us at 989 TFLOP/s bf16).  Its design notes are in the source.
+In bf16, M <= 16 (decode) takes a path of its own: K split across
+blocks by ``decode_split_plan``, f32 partials summed in split order by
+the last block of each tile, with a workspace and ticket counters kept
+per (device, stream) by ``kernels/_scratch.py`` (no allocation or memset
+per call).
 
 ``lora_matmul`` dispatches on where its tensors lie: CPU tensors take the
 plain PyTorch version ``lora_matmul_ref``; CUDA tensors launch the
@@ -46,16 +51,71 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _scratch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_RANK = 64
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _P = ctypes.c_void_p
+
+# the bf16 decode path (M <= 16, csrc/lora_mma.cuh::dec_body): 64-column
+# tiles of W, K split across blocks on 16-row MMA steps, about
+# DECODE_BLOCKS_PER_SM blocks per SM, at least DECODE_MIN_ROWS rows of K
+# a split, at most DECODE_MAX_SPLITS splits
+DECODE_MAX_M = 16
+DECODE_BN = 64
+DECODE_STEP = 16
+DECODE_MIN_ROWS = 64
+DECODE_MAX_SPLITS = 32
+DECODE_BLOCKS_PER_SM = 2
+
+
+def _cdiv(a: int, c: int) -> int:
+    return -(-a // c)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(k: int, n: int, n_sm: int) -> Tuple[int, int]:
+    """(splits, rows of K per split) of the bf16 decode path: balanced
+    splits of whole 16-row steps, as many as give the card
+    ``DECODE_BLOCKS_PER_SM`` blocks of (64-column tile, split) per SM
+    (rounded down to a balanced split), but none shorter than
+    ``DECODE_MIN_ROWS`` rows and at most ``DECODE_MAX_SPLITS``.  A
+    function of K and N alone, so ``lora_matmul`` and
+    ``segmented_lora_matmul`` sum every row in the same order, whatever
+    the slots.  ``chip_smoke.py splits`` times 4 to 32 splits at every
+    decode shape of the port (NVIDIA H100 80GB HBM3, 700 W; PERF.md):
+    two blocks per SM are fastest or within 10% of it, and short splits
+    cost more in the last block's reduction than their bytes save
+    (qwen1.5-0.5b's q/k/v/o, K = 1,024: 8 splits 11.7 us, 16 12.8, 32
+    17.9).  The floor is 64 rows, not 128, because the slots share the
+    plan: at 8 splits four slots took 20.0 us and eight 35.7, at 16
+    splits 15.5 and 21.6."""
+    tiles, steps = _cdiv(n, DECODE_BN), _cdiv(k, DECODE_STEP)
+    want = max(1, min(steps * DECODE_STEP // DECODE_MIN_ROWS,
+                      DECODE_MAX_SPLITS,
+                      _cdiv(DECODE_BLOCKS_PER_SM * n_sm, tiles)))
+    per = _cdiv(steps, want)
+    return _cdiv(steps, per), per * DECODE_STEP
+
+
+@functools.lru_cache(maxsize=None)
+def decode_workspace(k: int, n: int, r: int, na: int,
+                     n_sm: int) -> Tuple[int, int, int, int]:
+    """(splits, chunk, f32 workspace floats, tickets) of one bf16 decode
+    call with ``na`` adapter slots of rank ``r``: a record per (tile,
+    split) of x @ W [64, 16] and each slot's x @ A [rp, 16] (rp = 16 for
+    r <= 16, else 64, as the kernel pads r), and a ticket per tile."""
+    splits, chunk = decode_split_plan(k, n, n_sm)
+    tiles = _cdiv(n, DECODE_BN)
+    rp = 16 if r <= 16 else 64
+    record = DECODE_BN * 16 + na * rp * 16
+    return splits, chunk, tiles * splits * record, tiles
 
 
 def lora_matmul_ref(x, w, a, b, scaling: float):
@@ -139,8 +199,20 @@ def _entry():
     fn = _build.library("lora_matmul").lora_matmul_launch
     fn.restype = _I
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float, _P]
+                   _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float,
+                   _I, _I, _P, _P, _P]
     return fn
+
+
+def _decode_args(x, stream: int, k: int, n: int, r: int, na: int):
+    """(splits, chunk, workspace pointer, tickets pointer) for the C
+    entry: the bf16 decode path's split and scratch, zeros elsewhere."""
+    if x.dtype != torch.bfloat16 or x.shape[0] > DECODE_MAX_M:
+        return 0, 0, None, None
+    splits, chunk, n_ws, n_tk = decode_workspace(
+        k, n, r, na, _scratch.sm_count(x.device.index or 0))
+    ws, tickets = _scratch.buffers(x.device, stream, n_ws, n_tk)
+    return splits, chunk, ws.data_ptr(), tickets.data_ptr()
 
 
 def _launch(x, w, a, b, scaling: float):
@@ -150,11 +222,12 @@ def _launch(x, w, a, b, scaling: float):
     n, r = w.shape[1], a.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = _scratch.stream(x.device)
         err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
                  a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, r,
                  *x.stride(), *w.stride(), *a.stride(), *b.stride(),
-                 float(scaling), stream)
+                 float(scaling), *_decode_args(x, stream, k, n, r, 1),
+                 stream)
     if err != 0:
         raise RuntimeError(
             f"lora_matmul: launch failed with CUDA error {err} (x "
@@ -245,7 +318,8 @@ def _seg_entry():
     fn = _build.library("segmented_lora_matmul").segmented_lora_matmul_launch
     fn.restype = _I
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float, _P]
+                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float,
+                   _I, _I, _P, _P, _P]
     return fn
 
 
@@ -266,12 +340,13 @@ def segmented_lora_matmul(x, w, a_stack, b_stack, adapter_idx,
     na, r = a_stack.shape[0], a_stack.shape[2]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = _scratch.stream(x.device)
         err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
                  a_stack.data_ptr(), b_stack.data_ptr(),
                  adapter_idx.data_ptr(), out.data_ptr(), m, n, k, r, na,
                  *x.stride(), *w.stride(), *a_stack.stride(),
-                 *b_stack.stride(), float(scaling), stream)
+                 *b_stack.stride(), float(scaling),
+                 *_decode_args(x, stream, k, n, r, na), stream)
     if err != 0:
         raise RuntimeError(
             f"segmented_lora_matmul: launch failed with CUDA error {err} "

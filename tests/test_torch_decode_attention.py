@@ -14,9 +14,12 @@ same numpy-seeded float32 inputs, tolerance 2e-5 abs/rel as in
   transposed view gives the output of a contiguous head-major copy;
 * the dispatch contract: a CPU call counts no launch; tensors off the
   CPU go to the kernel path and raise where it has no kernel; the
-  kernel path's checks refuse strides it cannot read;
+  kernel path's checks refuse strides it cannot read, and what the bf16
+  kernel's TMA loads cannot read (a base off a 16-byte boundary, a stride
+  that is no multiple of 16 bytes) or its MMAs do not take (more than 8
+  query heads per KV head, a head_dim other than 64 or 128);
 * the split of the cache walk the wrapper hands the kernel covers the
-  cache in whole 32-row tiles.
+  cache in whole tiles: 32 rows in float32, 64 in bfloat16.
 The CUDA kernel itself is held against the plain version on the card by
 ``chip_smoke.py`` (``kernel_decode``)."""
 import jax.numpy as jnp
@@ -27,7 +30,7 @@ import torch
 from repro.kernels.decode_attention import decode_attention as jax_decode
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels.decode_attention import (
-    decode_attention, decode_attention_ref, split_plan,
+    decode_attention, decode_attention_ref, split_plan, split_plan_bf16,
 )
 
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -137,11 +140,60 @@ def test_kernel_path_checks_refuse_what_it_cannot_read():
     assert "unit stride" in check(q, strided, strided, kl)
 
 
+def _tma_case(case):
+    """bf16 inputs whose K/V the TMA loads cannot read (``base``: a view
+    starting one element past a 16-byte boundary; ``stride``: rows 65
+    elements apart), or whose heads the kernel's MMAs do not take."""
+    b, hkv, s, d = 2, 2, 64, 64
+    q = torch.zeros((b, 2 * hkv, d), dtype=torch.bfloat16)
+    kc = torch.zeros((b, hkv, s, d), dtype=torch.bfloat16)
+    if case == "base":
+        kc = torch.zeros(b * hkv * s * d + 1,
+                         dtype=torch.bfloat16)[1:].view(b, hkv, s, d)
+    elif case == "stride":
+        kc = torch.zeros((b, hkv, s, d + 1), dtype=torch.bfloat16)[..., :d]
+    elif case == "heads":
+        q = torch.zeros((b, 9 * hkv, d), dtype=torch.bfloat16)
+    elif case == "head_dim":
+        q = torch.zeros((b, 2 * hkv, 32), dtype=torch.bfloat16)
+        kc = torch.zeros((b, hkv, s, 32), dtype=torch.bfloat16)
+    return q, kc, kc.clone() if case == "stride" else kc, \
+        torch.full((b,), s, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case,message", [
+    ("base", "16-byte aligned"),
+    ("stride", "multiples of 16 bytes"),
+    ("heads", "at most 8 query heads"),
+    ("head_dim", "head_dim in"),
+])
+def test_kernel_path_refuses_what_tma_cannot_read(case, message):
+    """The checks run before any build or launch, so CPU tensors reach
+    them; each refusal names its reason."""
+    q, kc, vc, kl = _tma_case(case)
+    if case == "base":
+        assert kc.data_ptr() % 16 and kc.stride(-1) == 1
+    if case == "stride":
+        assert (kc.stride(2) * 2) % 16 and kc.stride(-1) == 1
+    with pytest.raises(ValueError) as err:
+        da._check_contiguous(q, kc, vc, kl)
+    assert message in str(err.value)
+
+
 @pytest.mark.parametrize("b,hkv,s", [(8, 8, 1601), (2, 2, 512), (1, 1, 37),
-                                     (64, 8, 1601), (8, 8, 16)])
+                                     (64, 8, 1601), (8, 8, 16), (3, 4, 300),
+                                     (1, 8, 1601), (1, 2, 1024)])
 def test_split_plan_covers_the_cache_in_whole_tiles(b, hkv, s):
     splits, chunk = split_plan(b, hkv, s, n_sm=132)
     assert chunk % 32 == 0 and 1 <= splits <= da._MAX_SPLITS
     assert (splits - 1) * chunk < s <= splits * chunk
     if b * hkv < 132 and s > 32:
         assert splits > 1              # the VLM's 64 pairs do not fill the card
+    # bfloat16: whole 64-row tiles, every split non-empty, the blocks
+    # within half the SMs unless the pairs alone are more
+    splits, chunk = split_plan_bf16(b, hkv, s, n_sm=132)
+    assert chunk % da.BF16_TILE_ROWS == 0 and 1 <= splits <= da._MAX_SPLITS
+    assert (splits - 1) * chunk < s <= splits * chunk
+    assert splits == 1 or b * hkv * splits <= 132 // 2
+    if b * hkv * 2 <= 132 // 2 and s > 2 * da.BF16_TILE_ROWS:
+        assert splits > 1              # one sequence's heads are split

@@ -11,6 +11,12 @@ the CPU, where the wrapper takes its plain PyTorch version:
   ``repro.models.lora.apply(x, x @ w, pair, s)`` (float32, 1e-5 of each
   gradient's largest magnitude), and ``torch.autograd.gradcheck`` in
   float64;
+* the bf16 decode path's split of K (M <= 16): whole 16-row steps that
+  cover K exactly, about two blocks per SM at every decode shape of the
+  port where K has the rows for it (64 a split), the same split for one
+  adapter slot and for many (the bitwise
+  identity of ``segmented_lora_matmul`` with ``lora_matmul`` rests on
+  it), and the scratch the wrappers keep between calls;
 * the dispatch contract (CPU tensors never count a launch; meta or mixed
   devices never reach the plain version), and the model's use of it:
   every adapter projection is one kernel call, and a train step's
@@ -27,6 +33,7 @@ from repro.kernels.lora_matmul import lora_matmul as jax_lora_kernel
 from repro.kernels.ops import lora_matmul as jax_ops_lora
 from repro.models.lora import apply as jax_apply
 from repro_torch.configs.registry import get_config
+from repro_torch.kernels import _scratch
 from repro_torch.kernels import lora_matmul as lm_mod
 from repro_torch.kernels.lora_matmul import (
     LoRAMatmulFn, lora_matmul, lora_matmul_ref,
@@ -192,3 +199,62 @@ def test_model_calls_per_forward_and_backward(monkeypatch):
     n_layers, n_targets = cfg.n_layers, len(cfg.lora.targets)
     assert n_fwd == n_layers * n_targets
     assert len(calls) - n_fwd == n_layers * n_targets - 3
+
+
+# (M, K, N): the decode projections of the port's configs: qwen1.5-0.5b's
+# q/k/v/o, mamba2-780m's ssm_in / ssm_out, llama3-8b's and
+# llama-3.2-vision-90b's q/o and k/v, and a ragged shape
+DECODE_SHAPES = [(8, 1024, 1024), (8, 1536, 6448), (8, 3072, 1536),
+                 (8, 4096, 4096), (8, 4096, 1024), (8, 8192, 8192),
+                 (8, 8192, 1024), (5, 1000, 2816)]
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_SHAPES)
+def test_decode_split_plan_covers_k_in_whole_steps(m, k, n):
+    """Every split holds whole 16-row steps and at least one row of K,
+    the splits cover K exactly, none is shorter than DECODE_MIN_ROWS
+    (bar a K shorter than that), and the grid of (64-column tile, split)
+    blocks gives the card two blocks per SM to within one split of its
+    tiles wherever K has the rows for it; where it has not, K is cut into
+    as many DECODE_MIN_ROWS-row splits as it holds."""
+    n_sm = 132
+    splits, chunk = lm_mod.decode_split_plan(k, n, n_sm)
+    tiles = -(-n // lm_mod.DECODE_BN)
+    assert m <= lm_mod.DECODE_MAX_M
+    assert chunk % lm_mod.DECODE_STEP == 0
+    assert 1 <= splits <= lm_mod.DECODE_MAX_SPLITS
+    assert (splits - 1) * chunk < k <= splits * chunk
+    assert splits == 1 or chunk >= lm_mod.DECODE_MIN_ROWS
+    two_per_sm = tiles * splits >= lm_mod.DECODE_BLOCKS_PER_SM * n_sm - tiles
+    assert two_per_sm or splits == k // lm_mod.DECODE_MIN_ROWS
+
+
+@pytest.mark.parametrize("r", [16, 64])
+def test_decode_plan_is_the_same_for_one_slot_and_many(r):
+    """``segmented_lora_matmul`` rows are bitwise ``lora_matmul`` of their
+    slot only if both split K alike: the plan ignores the slots, and only
+    the workspace grows with them (one x @ A record per slot)."""
+    k, n = 1024, 1024
+    one = lm_mod.decode_workspace(k, n, r, 1, 132)
+    rp = 16 if r <= 16 else 64
+    for na in (2, 4, 8):
+        many = lm_mod.decode_workspace(k, n, r, na, 132)
+        assert many[:2] == one[:2] == lm_mod.decode_split_plan(k, n, 132)
+        assert many[3] == one[3] == -(-n // lm_mod.DECODE_BN)
+        assert many[2] - one[2] == (na - 1) * rp * 16 * one[0] * one[3]
+
+
+def test_scratch_is_kept_per_stream_and_grows():
+    """The split kernels' workspace and tickets: reused while they fit,
+    replaced by larger ones when a call needs more, tickets zero, one pair
+    per (device, stream)."""
+    dev = torch.device("cpu")
+    ws, tk = _scratch.buffers(dev, 11, 10, 4)
+    assert ws.dtype == torch.float32 and tk.dtype == torch.int32
+    assert not tk.any()
+    again = _scratch.buffers(dev, 11, 100, 4)
+    assert again[0] is ws and again[1] is tk
+    bigger = _scratch.buffers(dev, 11, ws.numel() + 1, 4)
+    assert bigger[0].numel() > ws.numel() and bigger[1] is tk
+    other = _scratch.buffers(dev, 12, 10, 4)
+    assert other[0] is not bigger[0] and other[1] is not tk
