@@ -179,12 +179,16 @@ LORA_SCALING = 2.0  # alpha / r = 32 / 16
 # x @ A and the output to bf16, at most one ulp apart (2^-8..2^-7)
 LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (name, M, K, N, r): qwen1.5-0.5b's q/k/v/o at each caller's M; between
-# them they take the bf16 decode path and each of the three M > 16 tile
-# shapes; then mamba2-780m's ssm_in (N = 6448: no multiple of 64) and
+# them they take the bf16 decode path and both tile widths of the M > 16
+# path; then mamba2-780m's ssm_in (N = 6448: no multiple of 64) and
 # ssm_out at decode (8 slots) and at a 2,048-token prefill (forward only);
 # then the decode projections of llama-3.2-vision-90b's dense blocks and of
 # llama3-8b (q/o: N = K; k/v: N = 8 KV heads x 128), and qwen's at 16
-# slots (the decode path's second fragment of 8 rows)
+# slots (the decode path's second fragment of 8 rows); then, bf16 only
+# (LORA_BF16_ONLY), the M > 16 calls of the serve and combined runs the
+# rows above lack: qwen's 4 x 2,048 train batch and 8 x 2,048 prefill
+# wave, llama3-8b's 2,048-row train batch and prefill (q/o and k/v), and
+# the VLM's 8 x 32 prefill wave at its q/o
 LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
                ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
@@ -201,7 +205,23 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("vlm_decode_kv", 8, 8192, 1024, 16),
                ("llama_decode_qo", 8, 4096, 4096, 16),
                ("llama_decode_kv", 8, 4096, 1024, 16),
-               ("decode_m16", 16, 1024, 1024, 16)]
+               ("decode_m16", 16, 1024, 1024, 16),
+               ("train_2048", 8192, 1024, 1024, 16),
+               ("prefill_2048", 16384, 1024, 1024, 16),
+               ("train_llama_qo", 2048, 4096, 4096, 16),
+               ("train_llama_kv", 2048, 4096, 1024, 16),
+               ("vlm_prefill_qo", 256, 8192, 8192, 16)]
+LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
+                  "train_llama_kv", "vlm_prefill_qo"}
+
+
+def lora_dtypes(name):
+    """The dtypes a LORA_SHAPES row runs in: float32 serves the reduced
+    configs only, so the full-width M > 16 rows are bf16 alone."""
+    return ((torch.bfloat16,) if name in LORA_BF16_ONLY
+            else (torch.float32, torch.bfloat16))
+
+
 # flash_attention, causal: (name, B, H, Hkv, D, S, window) -- every
 # shape the serve and combined phases give it: the prefill waves of
 # qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and llama3-8b (GQA 4:1,
@@ -424,13 +444,37 @@ def _rel_err(out, ref):
                  / ref.float().abs().max())
 
 
+def check_views(lm, lm_ref):
+    """bf16 operands as views the wrapper takes but a contiguous tensor
+    never gives: x a K slice of a wider buffer, W and B column slices
+    (N = 1,020, no multiple of 8: the M > 16 kernel stores those rows
+    itself, the row stride being no whole 16 bytes for a TMA store),
+    forward and the backward's transposed views, at M 8 and 300."""
+    for m in (8, 300):
+        x, w, a, b = lora_case(m, 520, 1024, 16, torch.bfloat16, 290 + m)
+        xv, wv, av, bv = x[:, :516], w[:516, :1020], a[:516], b[:, :1020]
+        dy = torch.randn((m, 1024), device="cuda").to(torch.bfloat16)
+        dyv = dy[:, :1020]
+        errs = {
+            "forward": _rel_err(lm(xv, wv, av, bv, LORA_SCALING),
+                                lm_ref(xv, wv, av, bv, LORA_SCALING)),
+            "dx": _rel_err(lm(dyv, wv.t(), bv.t(), av.t(), LORA_SCALING),
+                           lm_ref(dyv, wv.t(), bv.t(), av.t(),
+                                  LORA_SCALING))}
+        emit("kernel_views", kernel="lora_matmul", M=m, K=516, N=1020,
+             rel_tol=LORA_TOL[torch.bfloat16],
+             **{f"{k}_rel_err": e for k, e in errs.items()})
+        if max(errs.values()) > LORA_TOL[torch.bfloat16]:
+            raise AssertionError(f"lora_matmul views at M {m}: {errs}")
+
+
 def phase_kernel_lora(lm, lm_ref, fn_cls):
     """lora_matmul against its plain version at the main path's shapes,
     then its backward at the train shapes and at the decode shape (the
     transposed operands on the M <= 16 tile)."""
     rows = {}
     for si, (name, m, k, n, r) in enumerate(LORA_SHAPES):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in lora_dtypes(name):
             x, w, a, b = lora_case(m, k, n, r, dtype, 200 + si)
             out = lm(x, w, a, b, LORA_SCALING)
             ref = lm_ref(x, w, a, b, LORA_SCALING)
@@ -463,10 +507,11 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
                 raise AssertionError(f"lora_matmul {name} {dtype}: two calls "
                                      "on the same inputs differ")
             rows[(name, dtype)] = row
+    check_views(lm, lm_ref)
     for name, m, k, n, r in LORA_SHAPES:
         if not (name.startswith("train") or name in ("decode", "decode_m16")):
             continue
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in lora_dtypes(name):
             x, w, a, b = lora_case(m, k, n, r, dtype, 300)
             dy = torch.randn((m, n), device="cuda").to(dtype)
             xk, ak, bk = (t.clone().requires_grad_() for t in (x, a, b))
@@ -1093,10 +1138,12 @@ def phase_splits():
 
 # ------------------------------------------------------------ A / B -----
 def time_kernels():
-    """``--time-kernels SRC``: the decode-sized calls of lora_matmul,
-    segmented_lora_matmul (M <= 16) and decode_attention of the package
-    under SRC, float32 and bfloat16, and flash_attention's bf16 forward
-    and backward at their main shapes, on the kernel phases' inputs (same
+    """``--time-kernels SRC``: of the package under SRC, lora_matmul and
+    segmented_lora_matmul at every shape of LORA_SHAPES and SEG_SHAPES in
+    bfloat16 (and float32 at M <= 16), lora_matmul's dX (the transposed
+    operands) at its train shapes, decode_attention at DECODE_SHAPES
+    (float32 and bfloat16), and flash_attention's bf16 forward and
+    backward at their main shapes, on the kernel phases' inputs (same
     seeds): device ms (as the kernel phases time them), host us per call,
     max abs error against the plain version.  One JSON line."""
     from repro_torch.kernels import _build
@@ -1118,13 +1165,23 @@ def time_kernels():
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).split(".")[-1]
         for si, (name, m, k, n, r) in enumerate(LORA_SHAPES):
-            if m <= 16:
+            if m <= 16 or dtype == torch.bfloat16:
                 x, w, a, b = lora_case(m, k, n, r, dtype, 200 + si)
                 add(f"lora_matmul/{name}/{dt}",
                     lambda: lmm.lora_matmul(x, w, a, b, LORA_SCALING),
                     lmm.lora_matmul_ref(x, w, a, b, LORA_SCALING))
+                if name.startswith("train") and dtype == torch.bfloat16:
+                    dy = torch.randn((m, n), generator=torch.Generator(
+                        device="cuda").manual_seed(300), device="cuda").to(
+                            dtype)
+                    add(f"lora_matmul_dx/{name}/{dt}",
+                        lambda: lmm.lora_matmul(dy, w.t(), b.t(), a.t(),
+                                                LORA_SCALING),
+                        lmm.lora_matmul_ref(dy, w.t(), b.t(), a.t(),
+                                            LORA_SCALING))
+                del x, w, a, b
         for si, (name, m, k, n, r, na, seq) in enumerate(SEG_SHAPES):
-            if m <= 16:
+            if m <= 16 or dtype == torch.bfloat16:
                 x, w, a, b, idx = seg_case(m, k, n, r, na, seq, dtype,
                                            500 + si)
                 add(f"segmented_lora_matmul/{name}/{dt}",
@@ -2266,12 +2323,12 @@ def _device_us(evt):
 
 
 def _is_lora(key):
-    return "lora_mma_kernel" in key or "lora_fma_kernel" in key \
+    return "lora_wg_kernel" in key or "lora_fma_kernel" in key \
         or "lora_dec_kernel" in key
 
 
 def _is_seg(key):
-    return "segmented_mma_kernel" in key or "segmented_fma_kernel" in key \
+    return "segmented_wg_kernel" in key or "segmented_fma_kernel" in key \
         or "segmented_dec_kernel" in key
 
 
@@ -2622,6 +2679,17 @@ def main():
                                                 "base_only_ms", "host_us")}
                         for (n, dt), r in lrows.items()
                         if dt == torch.bfloat16},
+        # the M > 16 path at its most launched shape: the combined 4 x
+        # 2,048 run's train batch; its M > 16 launches (prefill waves and
+        # train steps, forward and dX) as derived from the run's counts
+        "m_gt_16": {
+            "shape": "train_2048 M=8192 K=N=1024 r=16 bf16",
+            "launches_derived": N_LORA * combined["paged_2048"][
+                "prefill_waves"] + (N_LORA + N_LORA_BWD) * combined[
+                    "paged_2048"]["train_steps"],
+            **{k: lrows[("train_2048", torch.bfloat16)][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "base_only_ms", "host_us")}},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -2674,6 +2742,16 @@ def main():
         "library": "base-only torch.matmul (x @ W, no adapter term): a "
                    "floor, no PyTorch call computes the segmented product",
         "bf16_shapes": seg_shapes,
+        # the M > 16 path at the 4-tenant prefill wave of 8 x 2,048 rows;
+        # its launches: one per adapter projection per prefill wave of
+        # the 4-tenant server at 2,048-token prompts
+        "m_gt_16": {
+            "shape": "prefill_2048 M=16384 K=N=1024 r=16, 4 slots, bf16",
+            "launches_derived": N_LORA * adapters["paged_2048"][
+                "prefill_waves"],
+            **{k: srows[("prefill_2048", torch.bfloat16)][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "lora_matmul_ms", "host_us")}},
     }, {
         "name": "ssd_scan",
         "route": "cuda",

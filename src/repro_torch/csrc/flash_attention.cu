@@ -194,183 +194,6 @@ __device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
       : "memory");
 }
 
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// this thread's bulk groups have read their shared memory
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-// this thread's bulk groups are complete
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// generic-proxy shared stores made visible to wgmma and TMA
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void st_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ void st_f4(uint32_t addr, float x, float y,
-                                      float z, float w) {
-  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
-               "f"(x), "f"(y), "f"(z), "f"(w)
-               : "memory");
-}
-
-template <int R>
-__device__ __forceinline__ void regs_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void regs_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-
-__device__ __forceinline__ void wg_arrive() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// until at most N of this warpgroup's wgmma groups are in flight
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers that an asynchronous wgmma reads or writes: the compiler
-// keeps them in place and orders other uses of them around this point.
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets.  K-major (contiguous along
-// the contraction): rows of 128 bytes, 8-row groups 1024 bytes apart
-// (stride), a k16 step is +32 bytes inside the atom.  MN-major
-// (contiguous along M or N): 128-byte rows along the contraction, 8-row
-// groups 1024 bytes apart (stride), the next 64 columns one region
-// further (leading), a k16 step is +2048 bytes.
-__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo,
-                                          uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-#define WG_F8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_F32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-#define WG_F64 WG_F32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
-#define WG_D32                                                 \
-  "{"                                                          \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "         \
-  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31"                     \
-  "}"
-#define WG_D64                                                 \
-  "{"                                                          \
-  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "         \
-  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
-  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
-  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
-  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
-  "%60, %61, %62, %63"                                         \
-  "}"
-
-// d (+)= A B for one m64nNk16 step, bf16 operands, f32 accumulators; A
-// and B from shared memory; acc = 0 overwrites d.  TA / TB: operand
-// MN-major (1) or K-major (0).
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
-                                             uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
-      : WG_F32
-      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
-      : WG_F64
-      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
-}
-
-// the same with A from registers: four bf16 pairs per thread, laid out
-// as the accumulator of an m64n16 product (rows g, g + 8 of each warp's
-// 16, columns 2t, 2t + 1 and 2t + 8, 2t + 9)
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t* a, uint64_t b,
-                                             int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : WG_F32
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
-        "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                              const uint32_t* a, uint64_t b,
-                                              int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : WG_F64
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
-        "n"(TB));
-}
-
-template <int N, int TA, int TB>
-__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
-                                       uint64_t b, int acc) {
-  if constexpr (N == 64)
-    wgmma_ss_n64<TA, TB>(d, a, b, acc);
-  else
-    wgmma_ss_n128<TA, TB>(d, a, b, acc);
-}
-
-template <int N, int TB>
-__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t* a,
-                                       uint64_t b, int acc) {
-  if constexpr (N == 64)
-    wgmma_rs_n64<TB>(d, a, b, acc);
-  else
-    wgmma_rs_n128<TB>(d, a, b, acc);
-}
-
-// an m64nN accumulator rounded to bf16 A fragments: a[4 kk .. 4 kk + 3]
-// is the k16 step kk over its columns
-template <int N>
-__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 4],
-                                         const float (&c)[N / 2]) {
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) a[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
-}
 
 // Set the elements of this thread's part of a 64 x N accumulator whose
 // column (0 .. N - 1 within the tile) lies outside [lo[r], hi[r]] to v:

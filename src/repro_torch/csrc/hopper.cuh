@@ -2,7 +2,9 @@
 // flash_attention.cu, decode_attention.cu and lora_mma.cuh (lora_matmul.cu,
 // segmented_lora_matmul.cu).  Each is one PTX instruction or a short fixed
 // sequence of them: mbarriers, TMA loads and their host-side tensor maps,
-// named barriers, ldmatrix and the m16n8k16 bf16 MMA.
+// named barriers, ldmatrix and the m16n8k16 bf16 MMA, wgmma (m64n16 to
+// m64n256 from shared memory, m64n32 to m64n128 with A in registers) and
+// its shared-memory descriptors, setmaxnreg.
 #pragma once
 
 #include <cuda.h>
@@ -134,6 +136,330 @@ inline bool tensor_map(CUtensorMap* m, const void* p, int D, int S, int N,
              m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ------------------------------------------------ wgmma and descriptors ---
+// generic-proxy shared stores made visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_f4(uint32_t addr, float x, float y,
+                                      float z, float w) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "f"(x), "f"(y), "f"(z), "f"(w)
+               : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+__device__ __forceinline__ void wg_arrive() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N of this warpgroup's wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers that an asynchronous wgmma reads or writes: the compiler
+// keeps them in place and orders other uses of them around this point.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading and stride byte
+// offsets, swizzle (1: 128 bytes, 3: 32 bytes).  With a swizzle of S
+// bytes, a K-major operand (contiguous along the contraction) has rows
+// of S bytes, 8-row groups `sbo` bytes apart, and a k16 step is +32
+// bytes inside the atom (the whole row at S = 32).  An MN-major operand
+// (contiguous along M or N) has S-byte rows along the contraction, 8-row
+// groups `sbo` apart, the next S / 2 columns one region further (`lbo`),
+// and a k16 step is +16 S bytes.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo, uint32_t swz) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (static_cast<uint64_t>(swz) << 62);
+}
+// 128-byte swizzle: K-major 128-byte rows, 8-row groups 1024 bytes apart;
+// MN-major 64-column regions `lbo` bytes apart, a k16 step +2048 bytes
+__device__ __forceinline__ uint64_t sw128(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return wg_desc(addr, lbo, sbo, 1);
+}
+// 32-byte swizzle: 16-column (K-major: k16) rows of 32 bytes, 8-row
+// groups 256 bytes apart; MN-major a k16 step +512 bytes
+__device__ __forceinline__ uint64_t sw32(uint32_t addr) {
+  return wg_desc(addr, 256, 256, 3);
+}
+
+#define WG_F8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_F32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+#define WG_F64 WG_F32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+#define WG_F96 \
+  WG_F64, WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88)
+#define WG_F128                                                           \
+  WG_F64, WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88), WG_F8(96), WG_F8(104), \
+      WG_F8(112), WG_F8(120)
+#define WG_D8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
+#define WG_D32                                                 \
+  "{"                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "         \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31"                     \
+  "}"
+#define WG_D64                                                 \
+  "{"                                                          \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "         \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63"                                         \
+  "}"
+#define WG_D96                                                           \
+  "{"                                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95"                     \
+  "}"
+#define WG_D128                                                          \
+  "{"                                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "     \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, "     \
+  "%122, %123, %124, %125, %126, %127"                                   \
+  "}"
+
+// d (+)= A B for one m64nNk16 step, bf16 operands, f32 accumulators; A
+// and B from shared memory; acc = 0 overwrites d.  TA / TB: operand
+// MN-major (1) or K-major (0).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " WG_D8
+      ", %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : WG_F8(0)
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : WG_F32
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : WG_F64
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n192(float (&d)[96], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " WG_D96
+      ", %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : WG_F96
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a,
+                                              uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_D128
+      ", %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : WG_F128
+      : "l"(a), "l"(b), "r"(acc), "n"(TA), "n"(TB));
+}
+
+// the same with A from registers: four bf16 pairs per thread, laid out
+// as the accumulator of an m64n16 product (rows g, g + 8 of each warp's
+// 16, columns 2t, 2t + 1 and 2t + 8, 2t + 9)
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : WG_F8(0), WG_F8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t b,
+                                             int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : WG_F32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+        "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                              const uint32_t* a, uint64_t b,
+                                              int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : WG_F64
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+        "n"(TB));
+}
+
+template <int N, int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int acc) {
+  static_assert(N == 16 || N == 64 || N == 128 || N == 192 || N == 256,
+                "wgmma widths wrapped");
+  if constexpr (N == 16)
+    wgmma_ss_n16<TA, TB>(d, a, b, acc);
+  else if constexpr (N == 64)
+    wgmma_ss_n64<TA, TB>(d, a, b, acc);
+  else if constexpr (N == 128)
+    wgmma_ss_n128<TA, TB>(d, a, b, acc);
+  else if constexpr (N == 192)
+    wgmma_ss_n192<TA, TB>(d, a, b, acc);
+  else
+    wgmma_ss_n256<TA, TB>(d, a, b, acc);
+}
+
+template <int N, int TB>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2], const uint32_t* a,
+                                       uint64_t b, int acc) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma widths wrapped");
+  if constexpr (N == 32)
+    wgmma_rs_n32<TB>(d, a, b, acc);
+  else if constexpr (N == 64)
+    wgmma_rs_n64<TB>(d, a, b, acc);
+  else
+    wgmma_rs_n128<TB>(d, a, b, acc);
+}
+
+// an m64nN accumulator rounded to bf16 A fragments: a[4 kk .. 4 kk + 3]
+// is the k16 step kk over its columns
+template <int N>
+__device__ __forceinline__ void to_frags(uint32_t (&a)[N / 4],
+                                         const float (&c)[N / 2]) {
+#pragma unroll
+  for (int i = 0; i < N / 4; ++i) a[i] = pack_bf16(c[2 * i], c[2 * i + 1]);
+}
+
+// --------------------------------------------------- 3-D TMA tensor maps --
+// one box of a 3-D tensor map (coordinates innermost first) into shared
+// memory, completing on `bar`
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// one box from shared memory into a 3-D tensor map (out-of-range elements
+// are not written), in this thread's current bulk group
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map,
+                                           uint32_t src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// this thread's bulk groups are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The TMA map of a bf16 [n2, n1, n0] tensor with unit stride along n0 and
+// element strides s1, s2 (multiples of 8) along n1, n2: boxes of b0 x b1
+// x 1 elements with the given swizzle (b0 * 2 bytes at most the swizzle's
+// span), out-of-range elements read as zero
+inline bool tensor_map3(CUtensorMap* m, const void* p, i64 n0, i64 n1,
+                        i64 n2, i64 s1, i64 s2, int b0, int b1,
+                        CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1,
+                              (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)s1 * 2, (cuuint64_t)s2 * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return cuTensorMapEncodeTiled(
+             m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -27,7 +27,10 @@
 // of the same dtype.  bfloat16 at M <= 16 splits K into `splits` chunks
 // of `chunk` rows (a multiple of 16) and needs the f32 workspace `ws`
 // (DecCfg::record floats per 64-column tile and split) and one int32
-// ticket per tile, zero before the first call; other calls ignore them.
+// ticket per tile, zero before the first call; bfloat16 at M > 16 runs
+// the wgmma kernel on `blocks` persistent blocks over 128 x `tile_n`
+// output tiles (64, 128, 192 or 256) walked in groups of `group` M tiles
+// (kernels/lora_matmul.py::mma_tile_plan); other calls ignore them.
 // Returns cudaGetLastError() after the launch (0 when it was accepted),
 // cudaErrorInvalidValue for operands it does not take.
 extern "C" int lora_matmul_launch(int dtype, const void* x, const void* w,
@@ -36,7 +39,8 @@ extern "C" int lora_matmul_launch(int dtype, const void* x, const void* w,
                                   i64 sxk, i64 swk, i64 swn, i64 sak,
                                   i64 sar, i64 sbr, i64 sbn, float scaling,
                                   int splits, int chunk, void* ws,
-                                  void* tickets, void* stream) {
+                                  void* tickets, int tile_n,
+                                  int blocks, int group, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || r <= 0 || r > 64 ||
       (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
@@ -59,19 +63,10 @@ extern "C" int lora_matmul_launch(int dtype, const void* x, const void* w,
   if (!(op16(W, w, swk, swn, K, N, kn) && op16(A, a, sak, sar, K, r, kn) &&
         op16(B, b, sbr, sbn, r, N, kn)))
     return (int)cudaErrorInvalidValue;
-  if (kn)
-    return r <= 16
-               ? launch_bf16<16, true, 1>(X, W, A, B, 0, 0, nullptr, 1, out,
-                                          M, N, K, scaling, splits, chunk, ws,
-                                          tickets, s)
-               : launch_bf16<64, true, 1>(X, W, A, B, 0, 0, nullptr, 1, out,
-                                          M, N, K, scaling, splits, chunk, ws,
-                                          tickets, s);
-  return r <= 16
-             ? launch_bf16<16, false, 1>(X, W, A, B, 0, 0, nullptr, 1, out, M,
-                                         N, K, scaling, splits, chunk, ws,
-                                         tickets, s)
-             : launch_bf16<64, false, 1>(X, W, A, B, 0, 0, nullptr, 1, out, M,
-                                         N, K, scaling, splits, chunk, ws,
-                                         tickets, s);
+  const auto launch = r <= 16 ? (kn ? launch_bf16<16, true, 1>
+                                    : launch_bf16<16, false, 1>)
+                              : (kn ? launch_bf16<64, true, 1>
+                                    : launch_bf16<64, false, 1>);
+  return launch(X, W, A, B, 0, 0, nullptr, 1, out, M, N, K, scaling, splits,
+                chunk, ws, tickets, tile_n, blocks, group, s);
 }

@@ -16,8 +16,8 @@
 //     1,024) W alone is 2 MB, 0.63 us at the memory rate, and the
 //     low-rank slots add 2 * 32 KB each at r = 16; at the VLM's q/o (K =
 //     N = 8,192) W is 128 MB, 40 us.
-//   * train and prefill (M >= ~300): operations.  M = 3968 is 8.6 GFLOP
-//     of base product, 8.7 us at the bf16 tensor-core rate.
+//   * train and prefill (M >= ~300): operations.  M = 3968 is 8.3 GFLOP
+//     of base product, 8.4 us at the bf16 tensor-core rate.
 //
 // Design, bfloat16, M <= 16 (dec_body; PERF.md has its times against
 // those bounds): the transposed product out^T = W^T x^T, so 64 columns of
@@ -52,43 +52,57 @@
 // 16 output columns, the warps splitting each staged K tile; 64 blocks
 // at N = 1,024) half the SMs sat idle.
 //
-// Design, bfloat16, M > 16 (mma_body; not yet redesigned for Hopper):
-//   * one thread block per [BM, BN] output tile, mma.sync
-//     m16n8k16 on the tensor cores with f32 accumulators.  The K loop
-//     keeps STAGES - 1 tiles of x, W and A in flight with cp.async
-//     (16-byte chunks, zero-filled past the edges) while it multiplies
-//     the tile that landed.  Shared tiles are laid out along each
-//     operand's unit stride, padded by 8 elements, and read with
-//     ldmatrix (.trans where that stride runs along N or r), so the
-//     forward's row-major W, A, B and the backward's transposed views
-//     both load coalesced and conflict-free.  Warps tile the block
-//     WARPS_M x WARPS_N for x @ W; x @ A is split by rows, warp w owning
-//     rows [16w, 16w + 16), so it is computed once per block.  Epilogue:
-//     x @ A goes through shared memory rounded to bf16, B's [r, BN]
-//     slice is staged beside it, and each warp adds s * (xa @ B) to its
-//     accumulators with r/16 more MMAs per fragment.  The tile is the
-//     largest that still gives every SM a block: 128 x 128 (8 warps),
-//     64 x 64 (4 warps), 32 x 32 (2 warps).
-//   * Adapter slots (NA > 1): each slot's A and B tiles are staged as a
-//     sub-tile of their own, read through the slot strides (the stacks
-//     are never concatenated).  A block stages only the slots its rows
-//     use, a warp multiplies x @ A only for the slots its 16 rows use,
-//     and each epilogue fragment runs (x @ A_s) @ B_s from a zero
-//     accumulator for every slot s among its rows, then keeps it for the
-//     rows of slot s alone.  So a row's low-rank term is the same
-//     sequence of MMAs as lora_matmul's with that slot's A and B, and its
-//     base product the same tile and K order at the same M: the output
-//     is bitwise lora_matmul's, and a row of idx < 0 bitwise
-//     lora_matmul's with B = 0.  A tile whose rows are all < 0 does no
-//     low-rank work.  Shared memory is sized at launch for the call's
-//     slots.  With one slot (lora_matmul) the row select compiles away
-//     and the stage stride stays a compile-time constant: a runtime
-//     stride alone cost the 128 x 128 tile 30% (PERF.md).
-//   * Not yet: wgmma fed by TMA with the low-rank product fused into its
-//     epilogue (2-5x cuBLAS's base-only product at mamba2's ssm_in),
-//     a persistent schedule, 16-byte epilogue stores, a per-row gather of
-//     the slots (the low-rank work grows with the number of slots a
-//     tile's rows use).
+// Design, bfloat16, M > 16 (wg_body): a persistent, warp-specialised
+// wgmma GEMM with the low-rank product in its epilogue.
+//   * One block per SM (the tile plan, kernels/lora_matmul.py::
+//     mma_tile_plan, a function of M, K and N alone) walks 128 x BN output
+//     tiles, BN 256, 192, 128 or 64 (the fewest rounds of the widest
+//     tiles, by a cost model of shared-memory traffic), in groups of 8 M
+//     tiles so the blocks in flight share W and x in L2.
+//   * A producer warp keeps a ring of 2-8 stages (as many as shared memory
+//     holds) in flight with TMA (3-D tensor maps over the operands' own
+//     strides, 128-byte swizzle; A's 16-column tile at r <= 16 with a
+//     32-byte swizzle): x [128][64], W [64][BN] in 64-column regions
+//     (MN-major: the forward's row-major W) or [BN][64] (K-major: the
+//     backward's W^T view, never copied), and the A tile of each slot the
+//     tile's rows use.  Ragged M, N and K read as zeros from the maps;
+//     nothing is padded by the caller.
+//   * Two consumer warpgroups of 64 rows: per stage four m64nBNk16 wgmma
+//     for x @ W and four m64nRPk16 (RP = 16 or 64: r padded) for x @ A_s
+//     from the same staged x, one commit group in flight behind the one
+//     being issued; stages go back to the producer by mbarrier.
+//   * Epilogue, 32 columns at a time: x @ A_s rounded to bf16 once (in
+//     registers, the A operand) times B_s's slice (TMA-loaded per tile,
+//     after the tile's stages) by RP/16 more wgmma into a fragment of its
+//     own; out = round(x @ W + s * low), with s applied to the f32
+//     product (never folded into x @ A: s need not be a power of two).
+//     The tile's accumulator is only read there: writing it between
+//     wgmma would serialize every wgmma of the kernel (ptxas C7515).
+//     The bf16 tile is staged swizzled in shared memory and leaves by TMA
+//     stores (by 16-bit stores where N is no multiple of 8), overlapping
+//     the next tile's main loop.
+//   * Adapter slots (NA > 1): the same code with a row select.  A tile
+//     stages the A and B tiles of the slots its rows use (read in place
+//     through the stacks' slot strides), a warpgroup multiplies x @ A_s
+//     for the slots of its 64 rows, and each row keeps its own slot's
+//     low-rank product; rows of idx < 0 take round(x @ W).  lora_matmul
+//     is the NA = 1 instance: the same tile plan, K order and wgmma
+//     sequence, so a segmented row is bitwise lora_matmul of its slot.
+//     Shared memory and the ring depth are sized for NA at compile time.
+//   * Bring-up runs on an NVIDIA H100 80GB HBM3 at 700 W (cold L2; PERF.md
+//     has the A/B against the parent): qwen1.5-0.5b's q/k/v/o at M 3,968
+//     22.6 us (parent 66.9, merged-weight cuBLAS 19.1), M 16,384 67.8
+//     (54.3); llama3-8b's q/o at 2,048 rows 116 (95); mamba2's ssm_in at
+//     2,048 rows 99 (parent 278, base-only 65).  What holds it back:
+//     shared-memory bandwidth (x @ A reads the staged x a second time,
+//     11-17% of the time in builds without it), wave quantization (ssm_in:
+//     416 tiles on 132 SMs), an epilogue that does not overlap the tensor
+//     cores, and at most 168 registers a thread (384 threads a block; the
+//     segmented kernel spills at 8 slots or r > 16 with BN 192-256, C7512).
+//     Tried and dropped: each M tile's first N tile handing its x @ A to
+//     the others (the waiting and the injected fences cost more than the
+//     reads saved, but at ssm_in), blocks walking contiguous tile ranges
+//     to reuse x @ A (x re-read from HBM: L2 does not keep the panels).
 // Design, float32: plain f32 FMAs (no TF32, so the card agrees with the
 // CPU to f32 rounding), 64 x 64 tiles, 4 x 4 outputs per thread, any
 // strides; the next K step's tiles are loaded into registers while the
@@ -100,6 +114,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "hopper.cuh"
 
@@ -190,14 +205,6 @@ __device__ __forceinline__ void stage(u16* s, const Op16& op, int r0,
   }
 }
 
-// A fragment (16 x 16) at (row, k) of a [rows][k] tile of pitch P
-template <int P>
-__device__ __forceinline__ void frag_a(uint32_t* a, const u16* s, int row,
-                                       int k, int lane) {
-  const int j = lane / 8;
-  ldsm4<false>(a, s + (row + lane % 8 + 8 * (j % 2)) * P + k + 8 * (j / 2));
-}
-
 // B fragments of the column pairs n and n + 8 (16 x 8 each) at depth k:
 // b[0..1] for n, b[2..3] for n + 8.  KN: the tile is stored [k][n];
 // otherwise [n][k].
@@ -211,269 +218,379 @@ __device__ __forceinline__ void frag_b2(uint32_t* b, const u16* s, int n,
     ldsm4<false>(b, s + (n + i + 8 * (j / 2)) * P + k + 8 * (j % 2));
 }
 
-// Tile shape of one bf16 kernel.  KN: W, A and B have unit stride along
-// their columns (the forward's row-major W [K,N], A [K,r], B [r,N]);
-// otherwise along their rows (the backward's W^T, B^T, A^T views).
-// NA: adapter slots, each with A and B sub-tiles of RP columns / rows.
-template <int BM_, int BN_, int BK_, int WARPS_M_, int WARPS_N_,
-          int STAGES_, int RP_, bool KN_, int NA_ = 1>
-struct Cfg {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, RP = RP_, NA = NA_;
-  static constexpr int WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
-  static constexpr int STAGES = STAGES_;
-  static constexpr bool KN = KN_;
-  static constexpr int NT = WARPS_M * WARPS_N * 32;
-  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
-  static constexpr int MF = WM / 16, NF = WN / 8;
-  // pitches: x [BM][BK]; W [BK][BN] or [BN][BK]; each slot's A [BK][RP]
-  // or [RP][BK]; epilogue xa [BM][NA * RP], each slot's B [RP][BN] or
-  // [BN][RP]
-  static constexpr int PX = BK + 8;
-  static constexpr int PW = KN ? BN + 8 : BK + 8;
-  static constexpr int PA = KN ? RP + 8 : BK + 8;
-  static constexpr int PXA = NA * RP + 8;
-  static constexpr int PB = KN ? BN + 8 : RP + 8;
-  static constexpr int SX = BM * PX;
-  static constexpr int SW = (KN ? BK : BN) * PW;
-  static constexpr int SA1 = (KN ? BK : RP) * PA;
-  static constexpr int SB1 = (KN ? RP : BN) * PB;
-  // shared memory for na <= NA slots (a launch sizes it for the slots
-  // the call has, so fewer slots leave room for more blocks per SM): a
-  // stage of x, W and na A tiles; the epilogue's xa and na B tiles
-  __host__ __device__ static constexpr int stage_elems(int na) {
-    return SX + SW + na * SA1;
+// ------------------------------------------- bfloat16, M > 16 (wgmma) ---
+// A persistent, warp-specialised GEMM: two consumer warpgroups of 64 rows
+// each own a 128 x BN output tile; a producer warp keeps a ring of ST
+// stages (x [128][64], W [64][BN], each used slot's A [64][RP]) in
+// flight with TMA.  Per stage each consumer issues x @ W as four
+// m64nBNk16 wgmma and, for each slot its rows use, x @ A_s as four
+// m64nRPk16, all into f32 registers.  Epilogue: x @ A_s rounded to bf16
+// in registers is the A operand of RP/16 more wgmma against B_s [RP][BN]
+// (double- or single-buffered per tile), kept for the rows of slot s
+// alone and added as out = x @ W + s * low; the bf16 tile then leaves
+// through shared memory in 16-byte stores.
+template <int BN_, int RP_, bool KN_, int NA_>
+struct WgCfg {
+  static constexpr int BM = 128, BK = 64, BN = BN_, RP = RP_, NA = NA_;
+  static constexpr bool KN = KN_, SEG = NA > 1;
+  static constexpr int TB = KN ? 1 : 0;  // B operands MN-major (forward)
+  // bytes: x [BM][64] K-major; W [64][BN] in 64-column regions (KN) or
+  // [BN][64]; each slot's A [64][RP] (KN) or [RP][64]; each slot's B
+  // [RP][BN] in 64-column regions (KN) or [BN][RP]
+  static constexpr int X_BYTES = BM * 128, W_BYTES = BN * 128;
+  static constexpr int A_BYTES = RP * 128, B_BYTES = RP * BN * 2;
+  static constexpr int STAGE = X_BYTES + W_BYTES + NA * A_BYTES;
+  static constexpr int BBUF = NA * B_BYTES;
+  __host__ __device__ static constexpr int bytes(int st, int nb, int oc) {
+    return st * STAGE + nb * BBUF + BM * oc * 2 + 8 * (2 * st + 2 * nb) + 1024;
   }
-  // with slots, the rows' slots (BM ints) lie ahead of the tiles
-  static constexpr int ROWS = NA > 1 ? 2 * BM : 0;
-  __host__ __device__ static constexpr int smem_bytes(int na) {
-    const int loop = STAGES * stage_elems(na);
-    const int epi = BM * PXA + na * SB1;
-    return 2 * (ROWS + (loop > epi ? loop : epi));
+  static constexpr int CAP = 232448;  // shared memory a block may have
+  __host__ __device__ static constexpr bool fits(int st, int oc) {
+    return bytes(st, 1, oc) <= CAP;
   }
-  static_assert(BM == 16 * WARPS_M * WARPS_N, "x @ A: 16 rows per warp");
-  static_assert(WM % 16 == 0 && WN % 16 == 0 && BK % 16 == 0 &&
-                    RP % 16 == 0 && STAGES >= 2,
-                "fragment multiples");
+  // the deepest ring that fits (how far the copies run ahead, never the
+  // order of the products), the output leaving through shared memory OC
+  // columns at a time (64-column regions of 128-byte rows, 128-byte
+  // swizzle, as a TMA store reads them), 128 if that still fits, then a
+  // second B buffer if it still fits
+  static constexpr int ST = fits(8, 64)   ? 8
+                            : fits(7, 64) ? 7
+                            : fits(6, 64) ? 6
+                            : fits(5, 64) ? 5
+                            : fits(4, 64) ? 4
+                            : fits(3, 64) ? 3
+                                          : 2;
+  static constexpr int OC = BN != 256 && fits(ST, BN)   ? BN
+                            : BN == 256 && fits(ST, 128) ? 128
+                                                         : 64;
+  static constexpr int OUT_BYTES = BM * OC * 2;
+  static constexpr int NB = bytes(ST, 2, OC) <= CAP ? 2 : 1;
+  static constexpr int SMEM = bytes(ST, NB, OC);
+  static constexpr int OFF_B = ST * STAGE, OFF_OUT = OFF_B + NB * BBUF,
+                       OFF_BAR = OFF_OUT + OUT_BYTES;
+  static_assert(SMEM <= CAP, "shared memory per block");
+  static_assert(BN == 64 || BN == 128 || BN == 192 || BN == 256,
+                "tile widths");
+  static_assert(RP == 16 || RP == 64, "padded ranks");
   static_assert(NA >= 1 && NA <= 32, "slot masks are 32 bits");
 };
 
-// A and B are slot 0's operands; slot s lies sa (sb) elements further on.
-// idx: [M] int32 row slots on the device, or nullptr (every row slot 0).
+constexpr int WG_NT = 384;  // two consumer warpgroups and a producer
+
+// Output tile t of a walk that takes the M tiles in groups of `group` and,
+// inside a group, every N tile of the group's first M tile, then of the
+// next: the blocks in flight share W's columns and x's rows in L2.  Block
+// b takes tiles b, b + G, b + 2 G, ... of the G blocks; the wrapper's
+// kernels/lora_matmul.py::mma_tile mirrors it
+__device__ __forceinline__ void tile_mn(int t, int tiles_m, int tiles_n,
+                                        int group, int& tm, int& tn) {
+  const int per = group * tiles_n, first = (t / per) * group;
+  const int size = min(group, tiles_m - first), j = t % per;
+  tm = first + j % size;
+  tn = j / size;
+}
+
 template <class C>
-__device__ __forceinline__ void mma_body(Op16 X, Op16 W, Op16 A, Op16 B,
-                                         i64 sa, i64 sb,
-                                         const int* __restrict__ idx, int na,
-                                         u16* __restrict__ out, int M, int N,
-                                         int K, float scaling) {
-  constexpr int BM = C::BM, BN = C::BN, BK = C::BK, RP = C::RP;
-  constexpr int MF = C::MF, NF = C::NF, NT = C::NT, NA = C::NA;
-  constexpr bool KN = C::KN;
-  constexpr bool SEG = NA > 1;  // one slot: every row takes slot 0
+__device__ __forceinline__ void wg_body(
+    const CUtensorMap* xm, const CUtensorMap* wm, const CUtensorMap* am,
+    const CUtensorMap* bm, const CUtensorMap* om, const int* __restrict__ idx,
+    int na, u16* __restrict__ out, int M, int N, int K, float scaling,
+    int group) {
+  constexpr int BM = C::BM, BN = C::BN, RP = C::RP, NA = C::NA, ST = C::ST,
+                NB = C::NB, TB = C::TB;
+  constexpr bool KN = C::KN, SEG = C::SEG;
   constexpr unsigned FULL = 0xffffffffu;
-  extern __shared__ __align__(16) u16 smem_all[];
-  int* rslot = reinterpret_cast<int*>(smem_all);
-  u16* smem = smem_all + C::ROWS;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sB = base + C::OFF_B;
+  const uint32_t full = base + C::OFF_BAR, empty = full + 8 * ST,
+                 bfull = empty + 8 * ST, bempty = bfull + 8 * NB;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int n_tiles = tiles_m * tiles_n, KT = (K + C::BK - 1) / C::BK;
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  // one slot: a compile-time stride, so the tile addresses fold
-  const int STAGE = C::stage_elems(SEG ? na : 1);
-  const int wm = warp / C::WARPS_N, wn = warp % C::WARPS_N;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int KT = (K + BK - 1) / BK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one arrival per consumer warpgroup
+    }
+    for (int b = 0; b < NB; ++b) {
+      mbar_init(bfull + 8 * b, 1);
+      mbar_init(bempty + 8 * b, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  // the slots of the block's rows (staged) and of this warp's x @ A rows
-  unsigned bmask = 1u, wmask = 1u;
-  if constexpr (SEG) {
-    for (int i = tid; i < BM; i += NT)
-      rslot[i] = row_slot(idx, m0 + i, M, na);
-    __syncthreads();
-    unsigned bits = 0;
-    for (int i = lane; i < BM; i += 32) bits |= slot_bit(rslot[i]);
-    bmask = __reduce_or_sync(FULL, bits);
-    wmask = __reduce_or_sync(
-        FULL, lane < 16 ? slot_bit(rslot[warp * 16 + lane]) : 0u);
+  if (threadIdx.x >= 256) {  // the producer warpgroup: warp 8 loads
+    regs_dec<40>();
+    if (threadIdx.x >= 288) return;
+    const int lane = threadIdx.x % 32;
+    int it = 0;  // stages loaded so far
+    for (int lt = 0;; ++lt) {
+      const int t = blockIdx.x + lt * gridDim.x;
+      if (t >= n_tiles) break;
+      int tm, tn;
+      tile_mn(t, tiles_m, tiles_n, group, tm, tn);
+      const int m0 = tm * BM, n0 = tn * BN;
+      unsigned bmask = 1u;  // the slots of the tile's rows
+      if constexpr (SEG) {
+        unsigned bits = 0;
+#pragma unroll
+        for (int q = 0; q < BM / 32; ++q)
+          bits |= slot_bit(row_slot(idx, m0 + lane + 32 * q, M, na));
+        bmask = __reduce_or_sync(FULL, bits);
+      }
+      const uint32_t a_tx = __popc(bmask) * C::A_BYTES;
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int st = it % ST, k0 = kt * C::BK;
+        mbar_wait(empty + 8 * st, ((it / ST) & 1) ^ 1);
+        if (lane == 0) {
+          const uint32_t bar = full + 8 * st, dst = base + st * C::STAGE;
+          mbar_expect_tx(bar, C::X_BYTES + C::W_BYTES + a_tx);
+          tma_load3(dst, xm, bar, k0, m0, 0);
+          const uint32_t dw = dst + C::X_BYTES, da = dw + C::W_BYTES;
+          if (KN) {
+#pragma unroll
+            for (int j = 0; j < BN / 64; ++j)
+              tma_load3(dw + j * 8192, wm, bar, n0 + 64 * j, k0, 0);
+          } else {
+            tma_load3(dw, wm, bar, k0, n0, 0);
+          }
+#pragma unroll
+          for (int s = 0; s < NA; ++s)
+            if (bmask >> s & 1u) {
+              if (KN)
+                tma_load3(da + s * C::A_BYTES, am, bar, 0, k0, s);
+              else
+                tma_load3(da + s * C::A_BYTES, am, bar, k0, 0, s);
+            }
+        }
+        __syncwarp();
+      }
+      // the tile's B slices, for its epilogue, after its stages: by then
+      // the consumers are done with the buffer's previous tile
+      const int bb = lt % NB;
+      mbar_wait(bempty + 8 * bb, ((lt / NB) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t bar = bfull + 8 * bb, dst = sB + bb * C::BBUF;
+        if (bmask == 0u) {
+          mbar_arrive(bar);
+        } else {
+          mbar_expect_tx(bar, __popc(bmask) * C::B_BYTES);
+#pragma unroll
+          for (int s = 0; s < NA; ++s)
+            if (bmask >> s & 1u) {
+              if (KN) {
+#pragma unroll
+                for (int j = 0; j < BN / 64; ++j)
+                  tma_load3(dst + s * C::B_BYTES + j * RP * 128, bm, bar,
+                            n0 + 64 * j, 0, s);
+              } else {
+                tma_load3(dst + s * C::B_BYTES, bm, bar, 0, n0, s);
+              }
+            }
+        }
+      }
+      __syncwarp();
+    }
+    return;
   }
 
-  float acc[MF][NF][4];
-  float xacc[NA][RP / 8][4];
+  // two consumer warpgroups, 64 rows each
+  regs_inc<232>();
+  const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t4 = lane & 3;
+  // this warpgroup's 64 rows of staged output, and whether they leave by
+  // TMA (N a multiple of 8: the map's row stride is whole 16 bytes) or
+  // by stores clipped here
+  const uint32_t so = base + C::OFF_OUT + w * 64 * C::OC * 2;
+  const bool tma_out = N % 8 == 0;
+  float acc[BN / 2], part[16], xacc[NA][RP / 2];
 #pragma unroll
-  for (int i = 0; i < MF; ++i)
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NF; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  for (int i = 0; i < 16; ++i) part[i] = 0.f;
 #pragma unroll
   for (int s = 0; s < NA; ++s)
 #pragma unroll
-    for (int j = 0; j < RP / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xacc[s][j][e] = 0.f;
+    for (int i = 0; i < RP / 2; ++i) xacc[s][i] = 0.f;
 
-  auto load = [&](int kt) {
-    u16* st = smem + (kt % C::STAGES) * STAGE;
-    const int k0 = kt * BK;
-    stage<BM, BK, true, NT>(st, X, m0, k0, tid);
-    stage<BK, BN, KN, NT>(st + C::SX, W, k0, n0, tid);
+  int it = 0;  // stages consumed so far
+  for (int lt = 0;; ++lt) {
+    const int t = blockIdx.x + lt * gridDim.x;
+    if (t >= n_tiles) break;
+    int tm, tn;
+    tile_mn(t, tiles_m, tiles_n, group, tm, tn);
+    const int m0 = tm * BM, n0 = tn * BN, r_lo = m0 + 64 * w;
+    // the slots of this warpgroup's rows, and of this thread's two rows
+    unsigned wmask = 1u;
+    int s0 = 0, s1 = 0;
+    if constexpr (SEG) {
+      wmask = __reduce_or_sync(
+          FULL, slot_bit(row_slot(idx, r_lo + lane, M, na)) |
+                    slot_bit(row_slot(idx, r_lo + lane + 32, M, na)));
+      s0 = row_slot(idx, r_lo + warp * 16 + g, M, na);
+      s1 = row_slot(idx, r_lo + warp * 16 + g + 8, M, na);
+    }
+    for (int kt = 0; kt < KT; ++kt, ++it) {
+      const int st = it % ST;
+      mbar_wait(full + 8 * st, (it / ST) & 1);
+      const uint32_t sx = base + st * C::STAGE + w * 64 * 128;
+      const uint32_t sw = base + st * C::STAGE + C::X_BYTES;
+      const uint32_t sa = sw + C::W_BYTES;
+      keep(acc);
 #pragma unroll
-    for (int s = 0; s < NA; ++s)
-      if (bmask >> s & 1u)
-        stage<BK, RP, KN, NT>(st + C::SX + C::SW + s * C::SA1,
-                              shifted(A, s * sa), k0, 0, tid);
-  };
-
-  // STAGES - 1 tiles in flight ahead of the one being multiplied
+      for (int s = 0; s < NA; ++s) keep(xacc[s]);
+      wg_arrive();
 #pragma unroll
-  for (int st = 0; st < C::STAGES - 1; ++st) {
-    if (st < KT) load(st);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();  // tile kt landed; tile kt - 1's buffer is free
-    if (kt + C::STAGES - 1 < KT) load(kt + C::STAGES - 1);
-    cp_async_commit();
-    const u16* Xs = smem + (kt % C::STAGES) * STAGE;
-    const u16* Ws = Xs + C::SX;
-    const u16* As = Ws + C::SW;
+      for (int kk = 0; kk < 4; ++kk)
+        mma_ss<BN, 0, TB>(acc, sw128(sx + kk * 32, 16, 1024),
+                          KN ? sw128(sw + kk * 2048, 8192, 1024)
+                             : sw128(sw + kk * 32, 16, 1024),
+                          (kt | kk) != 0);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MF][4];
+      for (int s = 0; s < NA; ++s) {
+        if (!(wmask >> s & 1u)) continue;
+        const uint32_t a = sa + s * C::A_BYTES;
 #pragma unroll
-      for (int i = 0; i < MF; ++i)
-        frag_a<C::PX>(af[i], Xs, wm * C::WM + i * 16, kk, lane);
-#pragma unroll
-      for (int j = 0; j < NF; j += 2) {
-        uint32_t b[4];
-        frag_b2<KN, C::PW>(b, Ws, wn * C::WN + j * 8, kk, lane);
-#pragma unroll
-        for (int i = 0; i < MF; ++i) {
-          mma_bf16(acc[i][j], af[i], b[0], b[1]);
-          mma_bf16(acc[i][j + 1], af[i], b[2], b[3]);
-        }
+        for (int kk = 0; kk < 4; ++kk)
+          mma_ss<RP, 0, TB>(xacc[s], sw128(sx + kk * 32, 16, 1024),
+                            !KN        ? sw128(a + kk * 32, 16, 1024)
+                            : RP == 16 ? sw32(a + kk * 512)
+                                       : sw128(a + kk * 2048, 8192, 1024),
+                            (kt | kk) != 0);
       }
-      if (wmask) {
-        uint32_t xf[4];
-        frag_a<C::PX>(xf, Xs, warp * 16, kk, lane);
+      wg_commit();
+      if (kt > 0) {  // the previous stage's products are done
+        wg_wait<1>();
+        if (tid == 0) mbar_arrive(empty + 8 * ((it - 1) % ST));
+      }
+    }
+    wg_wait<0>();
+    keep(acc);
+#pragma unroll
+    for (int s = 0; s < NA; ++s) keep(xacc[s]);
+    if (tid == 0) mbar_arrive(empty + 8 * ((it - 1) % ST));
+
+    // Epilogue, OC columns at a time through shared memory (the
+    // warpgroup's last pass has left it): for each 32 columns and each
+    // slot s of the warpgroup's rows, low = round(x @ A_s) @ B_s (RP/16
+    // wgmma, A from registers), and the rows of slot s take
+    // round(x @ W + s * low); rows of no slot take round(x @ W).  The
+    // tile's accumulator is only read here (a register a later wgmma
+    // accumulates into, written between wgmma, would serialize them all).
+    // Then TMA stores (or, N no multiple of 8, stores clipped here).
+    const int bb = lt % NB;
+    mbar_wait(bfull + 8 * bb, (lt / NB) & 1);
+    const uint32_t sb = sB + bb * C::BBUF;
+    constexpr int OC = C::OC, CH = OC / 8;  // 16-byte chunks per row
+    // the staged pair (e, e + 1) at column 8 j + 2 t4 of row warp * 16 + g
+    // + 8 r: 64-column regions, the 16-byte chunks of row q XORed with q % 8
+    auto put = [&](int j, int r, float lo, float hi) {
+      const int q = warp * 16 + g + 8 * r;
+      st_u32(so + (j / 8) * 8192 + q * 128 + (((j % 8) ^ (q & 7)) << 4) +
+                 4 * t4,
+             pack_bf16(lo, hi));
+    };
+    // x @ A_s rounded to bf16 once: the A operand of the low-rank wgmma
+    uint32_t f[NA][RP / 4];
+#pragma unroll
+    for (int s = 0; s < NA; ++s) to_frags<RP>(f[s], xacc[s]);
+#pragma unroll
+    for (int hc = 0; hc < BN / OC; ++hc) {
+      if (tma_out && tid == 0) bulk_wait_read();  // the last store read it
+      named_sync(1 + w, 128);
+#pragma unroll
+      for (int h = 0; h < OC / 32; ++h) {
+        const int c32 = hc * OC / 32 + h;  // the tile's 32-column chunk
+        if constexpr (SEG) {
+#pragma unroll
+          for (int i = 0; i < 16; i += 2)
+            if (((i >> 1) & 1 ? s1 : s0) < 0)
+              put(4 * h + i / 4, (i >> 1) & 1, acc[16 * c32 + i],
+                  acc[16 * c32 + i + 1]);
+        }
 #pragma unroll
         for (int s = 0; s < NA; ++s) {
           if (!(wmask >> s & 1u)) continue;
+          // B_s's columns 32 c32 on: half c32 % 2 of region c32 / 2 (KN)
+          // or rows 32 c32 on
+          const uint32_t b =
+              sb + s * C::B_BYTES +
+              (KN ? (c32 / 2) * RP * 128 + (c32 % 2) * 64 : c32 * RP * 64);
+          keep(part);
+          keep(f[s]);
+          wg_arrive();
 #pragma unroll
-          for (int j = 0; j < RP / 8; j += 2) {
-            uint32_t b[4];
-            frag_b2<KN, C::PA>(b, As + s * C::SA1, j * 8, kk, lane);
-            mma_bf16(xacc[s][j], xf, b[0], b[1]);
-            mma_bf16(xacc[s][j + 1], xf, b[2], b[3]);
-          }
+          for (int kr = 0; kr < RP / 16; ++kr)
+            mma_rs<32, TB>(part, &f[s][4 * kr],
+                           KN         ? sw128(b + kr * 2048, RP * 128, 1024)
+                           : RP == 16 ? sw32(b)
+                                      : sw128(b + kr * 32, 16, 1024),
+                           kr > 0);
+          wg_commit();
+          wg_wait<0>();
+          keep(part);
+          keep(f[s]);
+#pragma unroll
+          for (int i = 0; i < 16; i += 2)
+            if (!SEG || ((i >> 1) & 1 ? s1 : s0) == s)
+              put(4 * h + i / 4, (i >> 1) & 1,
+                  fmaf(scaling, part[i], acc[16 * c32 + i]),
+                  fmaf(scaling, part[i + 1], acc[16 * c32 + i + 1]));
+        }
+      }
+      const int c0 = n0 + hc * OC;
+      if (tma_out) {
+        fence_async_smem();
+        named_sync(1 + w, 128);
+        if (tid == 0) {
+#pragma unroll
+          for (int j = 0; j < OC / 64; ++j)
+            tma_store3(om, so + j * 8192, c0 + 64 * j, r_lo, 0);
+          bulk_commit();
+        }
+      } else {
+        named_sync(1 + w, 128);
+#pragma unroll 4
+        for (int c = tid; c < 64 * CH; c += 128) {
+          const int q = c / CH, j = c % CH, row = r_lo + q, col = c0 + 8 * j;
+          if (row >= M || col >= N) continue;
+          uint4 v;
+          asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                       : "r"(so + (j / 8) * 8192 + q * 128 +
+                             (((j % 8) ^ (q & 7)) << 4)));
+          const u16* src = reinterpret_cast<const u16*>(&v);
+          u16* dst = out + (i64)row * N + col;
+          for (int e = 0; e < 8 && col + e < N; ++e) dst[e] = src[e];
         }
       }
     }
+    if (tid == 0) mbar_arrive(bempty + 8 * bb);
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the staged tiles
-
-  // epilogue, over the staged tiles: this warp's 16 rows of x @ A for
-  // each slot they use, rounded to bf16, and each used slot's [r, BN]
-  // slice of B
-  u16* XAs = smem;
-  u16* Bs = smem + BM * C::PXA;
-#pragma unroll
-  for (int s = 0; s < NA; ++s) {
-    if (!(wmask >> s & 1u)) continue;
-#pragma unroll
-    for (int j = 0; j < RP / 8; ++j) {
-      u16* p = XAs + (warp * 16 + g) * C::PXA + s * RP + j * 8 + 2 * t;
-      p[0] = bf16_bits(xacc[s][j][0]);
-      p[1] = bf16_bits(xacc[s][j][1]);
-      p[8 * C::PXA] = bf16_bits(xacc[s][j][2]);
-      p[8 * C::PXA + 1] = bf16_bits(xacc[s][j][3]);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < NA; ++s)
-    if (bmask >> s & 1u)
-      stage<RP, BN, KN, NT>(Bs + s * C::SB1, shifted(B, s * sb), 0, n0, tid);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < MF; ++i) {
-    const int rl = wm * C::WM + i * 16 + g;
-    const int s0 = SEG ? rslot[rl] : 0, s1 = SEG ? rslot[rl + 8] : 0;
-    const unsigned fmask =
-        SEG ? __reduce_or_sync(FULL, slot_bit(s0) | slot_bit(s1)) : 1u;
-    uint32_t xf[NA][RP / 16][4];
-#pragma unroll
-    for (int s = 0; s < NA; ++s) {
-      if (!(fmask >> s & 1u)) continue;
-#pragma unroll
-      for (int kr = 0; kr < RP / 16; ++kr)
-        frag_a<C::PXA>(xf[s][kr], XAs, wm * C::WM + i * 16, s * RP + kr * 16,
-                       lane);
-    }
-    const int row = m0 + rl;
-#pragma unroll
-    for (int j = 0; j < NF; j += 2) {
-      float low[2][4] = {};
-#pragma unroll
-      for (int s = 0; s < NA; ++s) {
-        if (!(fmask >> s & 1u)) continue;
-        // d += (x @ A_s) @ B_s for the column pairs j and j + 1
-        auto product = [&](float (&d)[2][4]) {
-#pragma unroll
-          for (int kr = 0; kr < RP / 16; ++kr) {
-            uint32_t b[4];
-            frag_b2<KN, C::PB>(b, Bs + s * C::SB1, wn * C::WN + j * 8,
-                               kr * 16, lane);
-            mma_bf16(d[0], xf[s][kr], b[0], b[1]);
-            mma_bf16(d[1], xf[s][kr], b[2], b[3]);
-          }
-        };
-        if constexpr (SEG) {
-          float part[2][4] = {};
-          product(part);
-          // keep slot s's product for the rows of slot s alone
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            if (s0 == s) low[h][0] = part[h][0], low[h][1] = part[h][1];
-            if (s1 == s) low[h][2] = part[h][2], low[h][3] = part[h][3];
-          }
-        } else {
-          product(low);  // one slot: every row's
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = n0 + wn * C::WN + (j + h) * 8 + 2 * t;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = row + (e >= 2 ? 8 : 0), c = col + (e & 1);
-          if (r < M && c < N)
-            out[(i64)r * N + c] =
-                bf16_bits(acc[i][j + h][e] + scaling * low[h][e]);
-        }
-      }
-    }
-  }
+  if (tma_out && tid == 0) bulk_wait();  // the last stores are done
 }
 
 // one body, two names, so a profile tells lora_matmul's launches (one
 // slot) from segmented_lora_matmul's
-#define MMA_ARGS                                                            \
-  Op16 X, Op16 W, Op16 A, Op16 B, i64 sa, i64 sb,                           \
-      const int *__restrict__ idx, int na, u16 *__restrict__ out, int M,    \
-      int N, int K, float scaling
+#define WG_ARGS                                                            \
+  const __grid_constant__ CUtensorMap xm,                                  \
+      const __grid_constant__ CUtensorMap wm,                              \
+      const __grid_constant__ CUtensorMap am,                              \
+      const __grid_constant__ CUtensorMap bm,                              \
+      const __grid_constant__ CUtensorMap om, const int *__restrict__ idx, \
+      int na, u16 *__restrict__ out, int M, int N, int K, float scaling,   \
+      int group
 template <class C>
-__global__ void __launch_bounds__(C::NT) lora_mma_kernel(MMA_ARGS) {
-  mma_body<C>(X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling);
+__global__ void __launch_bounds__(WG_NT, 1) lora_wg_kernel(WG_ARGS) {
+  wg_body<C>(&xm, &wm, &am, &bm, &om, idx, na, out, M, N, K, scaling, group);
 }
 template <class C>
-__global__ void __launch_bounds__(C::NT) segmented_mma_kernel(MMA_ARGS) {
-  mma_body<C>(X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling);
+__global__ void __launch_bounds__(WG_NT, 1) segmented_wg_kernel(WG_ARGS) {
+  wg_body<C>(&xm, &wm, &am, &bm, &om, idx, na, out, M, N, K, scaling, group);
 }
-#undef MMA_ARGS
+#undef WG_ARGS
 
 // ------------------------------------------- bfloat16, M <= 16 (decode) ---
 // The transposed product out^T = W^T x^T per 64-column tile of W: the
@@ -847,9 +964,9 @@ struct Tile {
   }
 };
 
-// A and B are slot 0's operands, slot s sa (sb) elements further on; idx
-// as for mma_body.  The loop's tiles and the epilogue's share one shared
-// buffer.
+// A and B are slot 0's operands, slot s sa (sb) elements further on; idx:
+// [M] int32 row slots on the device, or nullptr (every row slot 0).  The
+// loop's tiles and the epilogue's share one shared buffer.
 template <int RP, int NA>
 __device__ __forceinline__ void fma_body(Mat X, Mat W, Mat A, Mat B, i64 sa,
                                          i64 sb, const int* __restrict__ idx,
@@ -982,13 +1099,13 @@ __global__ void __launch_bounds__(256) segmented_fma_kernel(FMA_ARGS) {
 }
 #undef FMA_ARGS
 
-// the kernel of a tile shape: segmented_* for more than one slot
+// the kernel of a configuration: segmented_* for more than one slot
 template <class C>
-auto mma_kernel() {
+auto wg_kernel() {
   if constexpr (C::NA > 1)
-    return segmented_mma_kernel<C>;
+    return segmented_wg_kernel<C>;
   else
-    return lora_mma_kernel<C>;
+    return lora_wg_kernel<C>;
 }
 template <class C>
 auto dec_kernel() {
@@ -1007,24 +1124,55 @@ auto fma_kernel() {
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-template <class C>
-int launch_mma(const Op16& X, const Op16& W, const Op16& A, const Op16& B,
-               i64 sa, i64 sb, const int* idx, int na, void* out, int M,
-               int N, int K, float scaling, cudaStream_t s) {
-  constexpr int max_bytes = C::smem_bytes(C::NA);
-  static_assert(max_bytes <= 232448, "shared memory per block");
-  const auto kernel = mma_kernel<C>();
+// The TMA map of bf16 operand `op` (slot stacks: `na` slots `slot`
+// elements apart) in boxes of `bf` elements along its unit stride by
+// `bs` along its other dimension, with the swizzle of a `bf`-element row
+inline bool op_map(CUtensorMap* m, const Op16& op, bool kn, int na, i64 slot,
+                   int bf, int bs) {
+  const i64 fast = kn ? op.cols : op.rows, slow = kn ? op.rows : op.cols;
+  return tensor_map3(m, op.p, fast, slow, na, op.ld,
+                     na > 1 ? slot : op.ld * slow, bf, bs,
+                     bf == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                              : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// M > 16: the persistent wgmma kernel on `blocks` blocks walking the 128 x
+// BN output tiles in groups of `group` M tiles (the plan from the caller)
+template <int BN, int RP, bool KN, int NA>
+int launch_wg(const Op16& X, const Op16& W, const Op16& A, const Op16& B,
+              i64 sa, i64 sb, const int* idx, int na, void* out, int M,
+              int N, int K, float scaling, int blocks, int group,
+              cudaStream_t s) {
+  typedef WgCfg<BN, RP, KN, NA> C;
+  if (blocks < 1 || group < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, wm, am, bm, om;
+  // x [M][K] in 64 x 128 boxes; W, A and B as the kernel stages them
+  if (!(op_map(&xm, X, true, 1, 0, 64, C::BM) &&
+        (KN ? op_map(&wm, W, true, 1, 0, 64, 64)
+            : op_map(&wm, W, false, 1, 0, 64, BN)) &&
+        (KN ? op_map(&am, A, true, na, sa, RP, 64)
+            : op_map(&am, A, false, 1, 0, 64, RP)) &&
+        (KN ? op_map(&bm, B, true, na, sb, 64, RP)
+            : op_map(&bm, B, false, 1, 0, RP, BN))))
+    return (int)cudaErrorInvalidValue;
+  // out [M][N] in boxes of 64 x 64 for the TMA stores, where its row
+  // stride is whole 16 bytes (else the kernel stores by thread)
+  memset(&om, 0, sizeof(om));
+  if (N % 8 == 0 &&
+      !tensor_map3(&om, out, N, M, 1, N, (i64)N * M, 64, 64,
+                   CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = wg_kernel<C>();
   static bool opted_in = false;  // shared memory above 48 KB
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  dim3 grid(cdiv(M, C::BM), cdiv(N, C::BN));
-  kernel<<<grid, C::NT, C::smem_bytes(na), s>>>(
-      X, W, A, B, sa, sb, idx, na, static_cast<u16*>(out), M, N, K,
-      scaling);
+  kernel<<<blocks, WG_NT, C::SMEM, s>>>(xm, wm, am, bm, om, idx, na,
+                                        static_cast<u16*>(out), M, N, K,
+                                        scaling, group);
   return (int)cudaGetLastError();
 }
 
@@ -1061,29 +1209,28 @@ int launch_dec(const Op16& X, const Op16& W, const Op16& A, const Op16& B,
   return (int)cudaGetLastError();
 }
 
-// M <= 16 (decode) takes the split-K decode path; larger M the tile that
-// still gives the card a block per SM, largest first: 128 x 128 (8
-// warps), 64 x 64 (4 warps), 32 x 32 (2 warps).  The choice depends on M,
-// K and N alone, so a row sums in the same order whatever the number of
-// slots; STAGES (only how far the copies run ahead) drops to 3 where NA
-// slots' A tiles would not fit four deep.  NA: the most slots the call may
-// have (na <= NA).
+// M <= 16 (decode) takes the split-K decode path (splits, chunk, ws,
+// tickets as launch_dec says), larger M the wgmma kernel with the
+// caller's tile plan (tile_n 64, 128, 192 or 256, blocks, group), which
+// depends on M, K and N alone, so a row sums in the same order whatever
+// the number of slots.  NA: the most slots the call may have (na <= NA).
 template <int RP, bool KN, int NA>
 int launch_bf16(const Op16& X, const Op16& W, const Op16& A, const Op16& B,
                 i64 sa, i64 sb, const int* idx, int na, void* out, int M,
                 int N, int K, float scaling, int splits, int chunk, void* ws,
-                void* tickets, cudaStream_t s) {
+                void* tickets, int tile_n, int blocks, int group,
+                cudaStream_t s) {
   if (M <= 16)
     return launch_dec<RP, KN, NA>(X, W, A, B, sa, sb, idx, na, out, M, N, K,
                                   scaling, splits, chunk, ws, tickets, s);
-  if ((i64)cdiv(M, 128) * cdiv(N, 128) >= 132)
-    return launch_mma<Cfg<128, 128, 32, 4, 2, 3, RP, KN, NA>>(
-        X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, s);
-  if ((i64)cdiv(M, 64) * cdiv(N, 64) >= 132)
-    return launch_mma<Cfg<64, 64, 64, 2, 2, 3, RP, KN, NA>>(
-        X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, s);
-  return launch_mma<Cfg<32, 32, 64, 1, 2, 4, RP, KN, NA>>(
-      X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, s);
+  const auto launch = tile_n == 256   ? launch_wg<256, RP, KN, NA>
+                      : tile_n == 192 ? launch_wg<192, RP, KN, NA>
+                      : tile_n == 128 ? launch_wg<128, RP, KN, NA>
+                      : tile_n == 64  ? launch_wg<64, RP, KN, NA>
+                                      : nullptr;
+  if (launch == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(X, W, A, B, sa, sb, idx, na, out, M, N, K, scaling, blocks,
+                group, s);
 }
 
 template <int RP, int NA>

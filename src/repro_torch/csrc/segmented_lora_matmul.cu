@@ -30,14 +30,16 @@
 // takes lora_matmul's decode path with the same split of K (splits,
 // chunk: the same plan, which depends on K and N alone), workspace and
 // tickets as lora_matmul_launch describes (the workspace record holds na
-// slots' x @ A).  Returns cudaGetLastError() after the launch (0 when it
-// was accepted), cudaErrorInvalidValue for operands it does not take.
+// slots' x @ A); at M > 16 lora_matmul's wgmma kernel with the same tile
+// plan (tile_n, blocks, group: a function of M, K and N alone).  Returns
+// cudaGetLastError() after the launch (0 when it was accepted),
+// cudaErrorInvalidValue for operands it does not take.
 extern "C" int segmented_lora_matmul_launch(
     int dtype, const void* x, const void* w, const void* a, const void* b,
     const int* idx, void* out, int M, int N, int K, int r, int na, i64 sxm,
     i64 sxk, i64 swk, i64 swn, i64 sas, i64 sak, i64 sar, i64 sbs, i64 sbr,
     i64 sbn, float scaling, int splits, int chunk, void* ws, void* tickets,
-    void* stream) {
+    int tile_n, int blocks, int group, void* stream) {
   const int rp = r <= 16 ? 16 : 64;
   if (M <= 0 || N <= 0 || K <= 0 || r <= 0 || r > 64 || na <= 0 ||
       na * rp > 128 || idx == nullptr || (dtype != 0 && dtype != 1))
@@ -58,12 +60,9 @@ extern "C" int segmented_lora_matmul_launch(
         sas % 8 == 0 && sbs % 8 == 0))
     return (int)cudaErrorInvalidValue;
   // register arrays and shared memory sized for at most 4 or 8 slots
-  if (rp == 16 && na <= 4)
-    return launch_bf16<16, true, 4>(X, W, A, B, sas, sbs, idx, na, out, M, N,
-                                    K, scaling, splits, chunk, ws, tickets, s);
-  if (rp == 16)
-    return launch_bf16<16, true, 8>(X, W, A, B, sas, sbs, idx, na, out, M, N,
-                                    K, scaling, splits, chunk, ws, tickets, s);
-  return launch_bf16<64, true, 2>(X, W, A, B, sas, sbs, idx, na, out, M, N, K,
-                                  scaling, splits, chunk, ws, tickets, s);
+  const auto launch = rp == 64  ? launch_bf16<64, true, 2>
+                      : na <= 4 ? launch_bf16<16, true, 4>
+                                : launch_bf16<16, true, 8>;
+  return launch(X, W, A, B, sas, sbs, idx, na, out, M, N, K, scaling, splits,
+                chunk, ws, tickets, tile_n, blocks, group, s);
 }

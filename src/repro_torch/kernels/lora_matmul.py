@@ -9,13 +9,15 @@ with a CUDA kernel written for Hopper, ``csrc/lora_matmul.cu``, built by
 summed in float32, ``x @ A`` is rounded to B's dtype once, and the
 output is in x's dtype, as in the Pallas kernel.  What bounds it: bytes
 at decode (M = 8: the 2 MB of W at qwen1.5-0.5b's width, 0.63 us at
-3.35 TB/s), operations from M of a few hundred on (M = 3968: 8.6 GFLOP,
-8.7 us at 989 TFLOP/s bf16).  Its design notes are in the source.
+3.35 TB/s), operations from M of a few hundred on (M = 3968: 8.3 GFLOP,
+8.4 us at 989 TFLOP/s bf16).  Its design notes are in the source.
 In bf16, M <= 16 (decode) takes a path of its own: K split across
 blocks by ``decode_split_plan``, f32 partials summed in split order by
 the last block of each tile, with a workspace and ticket counters kept
 per (device, stream) by ``kernels/_scratch.py`` (no allocation or memset
-per call).
+per call).  Above it a persistent wgmma kernel fed by TMA walks the
+output tiles of ``mma_tile_plan`` with the low-rank product in its
+epilogue.
 
 ``lora_matmul`` dispatches on where its tensors lie: CPU tensors take the
 plain PyTorch version ``lora_matmul_ref``; CUDA tensors launch the
@@ -73,10 +75,57 @@ DECODE_STEP = 16
 DECODE_MIN_ROWS = 64
 DECODE_MAX_SPLITS = 32
 DECODE_BLOCKS_PER_SM = 2
+# the bf16 path above it (csrc/lora_mma.cuh::wg_body): output tiles of
+# MMA_BM rows by one of MMA_WIDTHS columns, walked by a persistent grid in
+# groups of MMA_GROUP_M tiles of M.  A 64-row K step of a tile BN wide
+# costs the card about BN + MMA_STEP_COST columns' worth of shared-memory
+# traffic (TMA writes of x, W and A; wgmma reads of x twice, for x @ W
+# and x @ A, and of W): the x side is a fixed cost per tile, which makes
+# wide tiles cheaper per column.
+MMA_BM = 128
+MMA_WIDTHS = (256, 192, 128, 64)
+MMA_STEP_COST = 144
+MMA_GROUP_M = 8
 
 
 def _cdiv(a: int, c: int) -> int:
     return -(-a // c)
+
+
+@functools.lru_cache(maxsize=None)
+def mma_tile_plan(m: int, k: int, n: int, n_sm: int) -> Tuple[int, int, int]:
+    """(tile_n, blocks, group) of the bf16 path at M > 16: the tile
+    width of MMA_WIDTHS that minimises rounds x (width + MMA_STEP_COST),
+    rounds being the tiles each SM walks at most (the widest on a tie);
+    one persistent block per SM at most, walking the tiles in groups of
+    ``MMA_GROUP_M`` M tiles (``mma_tile``).  Every tile runs the same K
+    steps, so K does not move the choice.  A function of M, K and N
+    alone, never of the slots, so ``lora_matmul`` and
+    ``segmented_lora_matmul`` sum every row in the same order.  The
+    widths it picks at the port's shapes were the fastest of the four in
+    ``chip_smoke.py`` bring-up sweeps (NVIDIA H100 80GB HBM3, 700 W)."""
+    del k
+    tiles_m = _cdiv(m, MMA_BM)
+
+    def cost(bn: int) -> int:
+        return _cdiv(tiles_m * _cdiv(n, bn), n_sm) * (bn + MMA_STEP_COST)
+
+    bn = min(MMA_WIDTHS, key=cost)
+    return bn, min(tiles_m * _cdiv(n, bn), n_sm), MMA_GROUP_M
+
+
+def mma_tile(t: int, m: int, n: int, bn: int,
+             group: int) -> Tuple[int, int]:
+    """(M tile, N tile) of the ``t``-th output tile of the walk, as
+    ``csrc/lora_mma.cuh::tile_mn`` computes it: the M tiles in groups of
+    ``group``, inside a group every N tile of the group's rows, one M
+    tile after another; block b of G takes tiles b, b + G, ..."""
+    tiles_m, tiles_n = _cdiv(m, MMA_BM), _cdiv(n, bn)
+    per = group * tiles_n
+    first = (t // per) * group
+    size = min(group, tiles_m - first)
+    j = t % per
+    return first + j % size, j // size
 
 
 @functools.lru_cache(maxsize=None)
@@ -171,10 +220,11 @@ def _check(x, w, a, b) -> None:
 
 
 def _check_bf16_layout(x, w, a, b) -> None:
-    """The bf16 kernel stages 16-byte chunks along each operand's unit
-    stride: x [M,K] row-major; W, A, B all row-major (the forward) or all
-    column-major (the backward's transposed views); every other stride a
-    multiple of 8 elements and every pointer 16-byte aligned."""
+    """The bf16 kernels load 16-byte chunks (TMA boxes at M > 16) along
+    each operand's unit stride: x [M,K] row-major; W, A, B all row-major
+    (the forward) or all column-major (the backward's transposed views);
+    every other stride a multiple of 8 elements and every pointer 16-byte
+    aligned."""
     if x.stride(1) != 1:
         raise ValueError("lora_matmul: bf16 x must have unit stride along K")
     if all(t.stride(1) == 1 for t in (w, a, b)):
@@ -200,19 +250,23 @@ def _entry():
     fn.restype = _I
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float,
-                   _I, _I, _P, _P, _P]
+                   _I, _I, _P, _P, _I, _I, _I, _P]
     return fn
 
 
-def _decode_args(x, stream: int, k: int, n: int, r: int, na: int):
-    """(splits, chunk, workspace pointer, tickets pointer) for the C
-    entry: the bf16 decode path's split and scratch, zeros elsewhere."""
-    if x.dtype != torch.bfloat16 or x.shape[0] > DECODE_MAX_M:
-        return 0, 0, None, None
-    splits, chunk, n_ws, n_tk = decode_workspace(
-        k, n, r, na, _scratch.sm_count(x.device.index or 0))
+def _plan_args(x, stream: int, k: int, n: int, r: int, na: int):
+    """(splits, chunk, workspace pointer, tickets pointer, tile_n, blocks,
+    group) for the C entry: in bf16 the decode path's split and scratch
+    (M <= 16) or the tile plan (M > 16), zeros elsewhere."""
+    m = x.shape[0]
+    if x.dtype != torch.bfloat16:
+        return 0, 0, None, None, 0, 0, 0
+    n_sm = _scratch.sm_count(x.device.index or 0)
+    if m > DECODE_MAX_M:
+        return (0, 0, None, None, *mma_tile_plan(m, k, n, n_sm))
+    splits, chunk, n_ws, n_tk = decode_workspace(k, n, r, na, n_sm)
     ws, tickets = _scratch.buffers(x.device, stream, n_ws, n_tk)
-    return splits, chunk, ws.data_ptr(), tickets.data_ptr()
+    return splits, chunk, ws.data_ptr(), tickets.data_ptr(), 0, 0, 0
 
 
 def _launch(x, w, a, b, scaling: float):
@@ -226,7 +280,7 @@ def _launch(x, w, a, b, scaling: float):
         err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), w.data_ptr(),
                  a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, r,
                  *x.stride(), *w.stride(), *a.stride(), *b.stride(),
-                 float(scaling), *_decode_args(x, stream, k, n, r, 1),
+                 float(scaling), *_plan_args(x, stream, k, n, r, 1),
                  stream)
     if err != 0:
         raise RuntimeError(
@@ -302,14 +356,21 @@ def _check_seg(x, w, a, b, idx) -> None:
     if any(s < 0 for t in (x, w, a, b) for s in t.stride()):
         raise ValueError(f"{op}: negative strides are not supported")
     if x.dtype == torch.bfloat16:
-        units = (x.stride(1), w.stride(1), a.stride(2), b.stride(2))
-        lds = (x.stride(0), w.stride(0), *a.stride()[:2], *b.stride()[:2])
-        if units != (1, 1, 1, 1) or any(ld % 8 for ld in lds) \
-                or any(t.data_ptr() % 16 for t in (x, w, a, b)):
-            raise ValueError(
-                f"{op}: bf16 operands need unit stride along their last "
-                "axis, other strides multiples of 8 elements and 16-byte "
-                f"alignment; got unit strides {units}, others {lds}")
+        _check_seg_bf16_layout(x, w, a, b)
+
+
+def _check_seg_bf16_layout(x, w, a, b) -> None:
+    """The bf16 kernels load 16-byte chunks (TMA boxes at M > 16) along
+    each operand's last axis: unit stride there, every other stride a
+    multiple of 8 elements, every pointer 16-byte aligned."""
+    units = (x.stride(1), w.stride(1), a.stride(2), b.stride(2))
+    lds = (x.stride(0), w.stride(0), *a.stride()[:2], *b.stride()[:2])
+    if units != (1, 1, 1, 1) or any(ld % 8 for ld in lds) \
+            or any(t.data_ptr() % 16 for t in (x, w, a, b)):
+        raise ValueError(
+            "segmented_lora_matmul: bf16 operands need unit stride along "
+            "their last axis, other strides multiples of 8 elements and "
+            f"16-byte alignment; got unit strides {units}, others {lds}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -319,7 +380,7 @@ def _seg_entry():
     fn.restype = _I
     fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, ctypes.c_float,
-                   _I, _I, _P, _P, _P]
+                   _I, _I, _P, _P, _I, _I, _I, _P]
     return fn
 
 
@@ -346,7 +407,7 @@ def segmented_lora_matmul(x, w, a_stack, b_stack, adapter_idx,
                  adapter_idx.data_ptr(), out.data_ptr(), m, n, k, r, na,
                  *x.stride(), *w.stride(), *a_stack.stride(),
                  *b_stack.stride(), float(scaling),
-                 *_decode_args(x, stream, k, n, r, na), stream)
+                 *_plan_args(x, stream, k, n, r, na), stream)
     if err != 0:
         raise RuntimeError(
             f"segmented_lora_matmul: launch failed with CUDA error {err} "

@@ -258,3 +258,112 @@ def test_scratch_is_kept_per_stream_and_grows():
     assert bigger[0].numel() > ws.numel() and bigger[1] is tk
     other = _scratch.buffers(dev, 12, 10, 4)
     assert other[0] is not bigger[0] and other[1] is not tk
+
+
+# (M, K, N) of the bf16 path above M = 16: every M > 16 call of the
+# port's serve and combined runs (qwen1.5-0.5b's q/k/v/o from the 4 x 32
+# train step to the 8 x 2,048 prefill wave, mamba2-780m's ssm_in / ssm_out
+# at a 2,048-token prefill, llama3-8b's q/o and k/v at 2,048 rows, the
+# VLM's q/o at its 256-row wave), the dX of the train shapes (K and N
+# swapped), ragged shapes and the smallest M the path takes
+MMA_SHAPES = [(17, 64, 64), (128, 1024, 1024), (256, 1024, 1024),
+              (1024, 1024, 1024), (3968, 1024, 1024), (7936, 1024, 1024),
+              (8192, 1024, 1024), (16384, 1024, 1024), (1000, 1000, 2816),
+              (1000, 2816, 1000), (2048, 1536, 6448), (2048, 6448, 1536),
+              (2048, 3072, 1536), (2048, 4096, 4096), (2048, 4096, 1024),
+              (2048, 1024, 4096), (256, 8192, 8192), (300, 512, 520)]
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("m,k,n", MMA_SHAPES)
+def test_mma_tile_plan_covers_every_tile_once(m, k, n, n_sm):
+    """The persistent grid's walk (``mma_tile``, the kernel's
+    ``tile_mn``; block b of G takes tiles b, b + G, ...) visits every
+    128-row output tile exactly once, no block idle; the width is the
+    cheapest of MMA_WIDTHS by rounds x (width + MMA_STEP_COST), the widest
+    on a tie; at most one block per SM."""
+    bn, blocks, group = lm_mod.mma_tile_plan(m, k, n, n_sm)
+    tiles_m, tiles_n = -(-m // lm_mod.MMA_BM), -(-n // bn)
+    tiles = tiles_m * tiles_n
+
+    def cost(w):
+        return (-(-tiles_m * -(-n // w) // n_sm)
+                * (w + lm_mod.MMA_STEP_COST))
+
+    assert bn in lm_mod.MMA_WIDTHS
+    assert all(cost(bn) < cost(w) for w in lm_mod.MMA_WIDTHS if w > bn)
+    assert all(cost(bn) <= cost(w) for w in lm_mod.MMA_WIDTHS)
+    assert blocks == min(tiles, n_sm) and group >= 1
+    walks = [[lm_mod.mma_tile(t, m, n, bn, group)
+              for t in range(b, tiles, blocks)] for b in range(blocks)]
+    seen = [tile for walk in walks for tile in walk]
+    assert min(map(len, walks)) >= 1 and len(seen) == tiles
+    assert set(seen) == {(i, j) for i in range(tiles_m)
+                         for j in range(tiles_n)}
+
+
+@pytest.mark.parametrize("r", [16, 64])
+@pytest.mark.parametrize("m,k,n", [(256, 1024, 1024), (7936, 1024, 1024),
+                                   (16384, 1024, 1024), (1000, 1000, 2816)])
+def test_mma_plan_is_the_same_for_one_slot_and_many(m, k, n, r, monkeypatch):
+    """``segmented_lora_matmul`` rows are bitwise ``lora_matmul`` of their
+    slot only if both walk the same tiles: the arguments the wrappers
+    hand the C entry at M > 16 hold the plan of (M, K, N, SM count)
+    alone, whatever the slots, and no decode split or scratch."""
+    monkeypatch.setattr(_scratch, "sm_count", lambda index: 132)
+    x = torch.zeros((m, k), dtype=torch.bfloat16)
+    one = lm_mod._plan_args(x, 0, k, n, r, 1)
+    assert one == (0, 0, None, None, *lm_mod.mma_tile_plan(m, k, n, 132))
+    for na in (2, 4, 8):
+        assert lm_mod._plan_args(x, 0, k, n, r, na) == one
+
+
+def _bf16_views(layout):
+    """(x, w, a, b) bf16 CPU views in a layout the wrappers took before
+    the M > 16 path moved to TMA: the forward's row-major operands, the
+    backward's transposed views (dX = dY @ W^T + ...), slices of wider
+    buffers (row strides past the width, N no multiple of 8)."""
+    def t(*shape):
+        return torch.zeros(shape, dtype=torch.bfloat16)
+    m, k, n, r = 40, 72, 96, 16
+    if layout == "forward":
+        return t(m, k), t(k, n), t(k, r), t(r, n)
+    if layout == "backward_views":
+        return t(m, n), t(k, n).t(), t(r, n).t(), t(k, r).t()
+    if layout == "wide_rows":
+        return t(m, k + 24)[:, :k], t(k, n + 8)[:, :n], t(k, 24)[:, :r], \
+            t(r, n + 8)[:, :n]
+    if layout == "ragged_n":
+        return t(m, k), t(k, 104)[:, :100], t(k, r), t(r, 104)[:, :100]
+    if layout == "backward_ragged_n":     # dX of a width-100 view
+        return t(m, 104)[:, :100], t(k, 104)[:, :100].t(), \
+            t(r, 104)[:, :100].t(), t(k, r).t()
+    raise AssertionError(layout)
+
+
+@pytest.mark.parametrize("layout", ["forward", "backward_views", "wide_rows",
+                                    "ragged_n", "backward_ragged_n"])
+def test_bf16_layouts_are_still_taken(layout):
+    """Every bf16 operand layout the wrapper took before is taken still;
+    a mix of row- and column-major W, A and B is refused, as before."""
+    x, w, a, b = _bf16_views(layout)
+    lm_mod._check_bf16_layout(x, w, a, b)
+    with pytest.raises(ValueError, match="all be row-major"):
+        lm_mod._check_bf16_layout(x, w, a.t().contiguous().t()
+                                  if a.stride(1) == 1 else a.contiguous(),
+                                  b)
+
+
+@pytest.mark.parametrize("slots", [1, 4, 8])
+def test_segmented_bf16_layouts_are_still_taken(slots):
+    """The stacks as the adapter registry keeps them (contiguous
+    [NA, K, r] / [NA, r, N]), a slice of a wider x, and N no multiple of
+    8; a column-major W is refused, as before."""
+    m, k, n, r = 40, 72, 100, 16
+    x = torch.zeros((m, k + 8), dtype=torch.bfloat16)[:, :k]
+    w = torch.zeros((k, 104), dtype=torch.bfloat16)[:, :n]
+    a = torch.zeros((slots, k, r), dtype=torch.bfloat16)
+    b = torch.zeros((slots, r, 104), dtype=torch.bfloat16)[:, :, :n]
+    lm_mod._check_seg_bf16_layout(x, w, a, b)
+    with pytest.raises(ValueError, match="unit stride"):
+        lm_mod._check_seg_bf16_layout(x, w.t().contiguous().t(), a, b)
