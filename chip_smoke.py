@@ -5,7 +5,7 @@ NVIDIA Hopper card.
   python3 chip_smoke.py             every phase, then the result lines
   python3 chip_smoke.py PHASE ...   bring-up: the named phases alone
                                     (after device and build), no result
-  python3 chip_smoke.py --ab DIR    A/B of the decode-sized kernels: the
+  python3 chip_smoke.py --ab DIR    A/B of the kernels' times: the
                                     package of the checkout at DIR (the
                                     parent commit, unpacked) and this one
                                     in turn, parent, change, change,
@@ -17,8 +17,11 @@ Phases, each printing JSON lines:
   build       nvcc builds every kernel under ``src/repro_torch/csrc``,
               one process per source, all started together;
   kernel      paged_decode_attention against its plain PyTorch version,
-              float32 and bfloat16, at the serving shape and four more
-              (long context, GQA, pool blocks of 128 and 256 rows);
+              float32 and bfloat16, at the serving shape and nine more
+              (long context, GQA, pool blocks of 128 and 256 rows, the
+              serve tick after 2,048-token prompts paged in blocks of 16
+              and contiguous as identity-table blocks of 32, identity-
+              table blocks of 1, 2 and 8 rows);
   kernel_lora lora_matmul at the decode, train, prefill, long train and
               long prefill shapes of qwen1.5-0.5b, two ragged shapes
               (M 1000 and 5), mamba2-780m's ssm_in / ssm_out at
@@ -55,9 +58,9 @@ Phases, each printing JSON lines:
               [B, T, Hkv, D] projection), the same with ragged lengths and
               an empty row (exactly zero), and tests/test_kernels.py's
               three shapes; SDPA is the library time.
-              The lora, segmented and decode phases also call each
+              Every kernel phase but the flash one also calls each
               kernel twice on the same inputs (bitwise equal, or the
-              phase fails) and time the wrapper's host microseconds per
+              phase fails) and times the wrapper's host microseconds per
               call (``host_us``: checks, allocation, launch).
               Every kernel phase reports the worst error, kernel / plain
               / library time (CUDA events, median of REPS or FLASH_REPS,
@@ -96,7 +99,8 @@ Phases, each printing JSON lines:
   serve_ssm   mamba2-780m at full width (48 layers, d_model 1536, bf16),
               16 requests on 8 contiguous slots at 32+16, 992+32 and
               2,048+32 tokens: every request finishes, ssd_scan once per
-              layer per request, lora_matmul once per adapter projection
+              layer per request (SSD_LAUNCHES launches a call),
+              lora_matmul once per adapter projection
               per prefill call and decode step, no attention kernel;
   serve_vlm   llama-3.2-vision-90b at published width (d_model 8192, 64
               heads / 8 KV, d_ff 28672, bf16), depth cut to 4 whole units
@@ -315,10 +319,12 @@ def bitwise_repeat(fn, first):
 
 
 # ------------------------------------------------- paged decode attention -
-def attention_case(b, h, hkv, d, bs, nb, dtype, seed):
+def attention_case(b, h, hkv, d, bs, nb, dtype, seed, lengths="ragged"):
     """Inputs as the runtime builds them: shuffled non-scratch blocks for
-    each sequence's live range, scratch block 0 past it, ragged kv_len
-    holding 1 and a full table."""
+    each sequence's live range, scratch block 0 past it; kv_len ragged,
+    holding 1 and a full table, or (``"tick"``) as a decode tick finds them
+    in the last 32 rows of the table (2,049 to 2,080 after 2,048-token
+    prompts)."""
     n_blocks = 1 + b * nb
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
@@ -327,8 +333,12 @@ def attention_case(b, h, hkv, d, bs, nb, dtype, seed):
     vp = torch.randn((n_blocks, bs, hkv, d), generator=g,
                      device="cuda").to(dtype)
     rng = np.random.default_rng(seed)
-    kv_len = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
-    kv_len[0], kv_len[1] = 1, nb * bs
+    if lengths == "tick":
+        kv_len = rng.integers(nb * bs - 31, nb * bs + 1,
+                              size=b).astype(np.int32)
+    else:
+        kv_len = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
+        kv_len[0], kv_len[1] = 1, nb * bs
     perm = rng.permutation(np.arange(1, n_blocks)).astype(np.int32)
     tables = np.zeros((b, nb), np.int32)
     used = 0
@@ -358,17 +368,35 @@ def attention_bound(q, kp, tables, kv_len):
         ("bytes" if t_bytes >= t_ops else "operations")
 
 
+# paged_decode_attention: the serve tick after 32-token prompts (3 pool
+# blocks of 16), 1k context, llama3-8b's GQA 4:1 at head_dim 128, pool
+# blocks of 128 and 256 rows, the serve tick after 2,048-token prompts
+# (2,048 + 32 rows paged in blocks of 16) and its contiguous layout (2,080
+# rows as identity-table blocks of 32: two TMA loads a 64-row tile), both
+# with a decode tick's lengths; then the identity-table blocks of 1, 2 and
+# 8 rows that contiguous caches of other lengths give (TMA boxes of fewer
+# than 8 rows; the VLM's self-attention, 8 query heads per KV head)
+PAGED_SHAPES = [
+    ("serve", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=3)),
+    ("long", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=64)),
+    ("gqa", dict(b=4, h=32, hkv=8, d=128, bs=16, nb=64)),
+    ("bs128", dict(b=8, h=16, hkv=16, d=64, bs=128, nb=8)),
+    ("bs256", dict(b=8, h=16, hkv=16, d=64, bs=256, nb=4)),
+    ("serve_2048", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=130,
+                        lengths="tick")),
+    ("bs32", dict(b=8, h=16, hkv=16, d=64, bs=32, nb=65, lengths="tick")),
+    ("bs1_g4", dict(b=2, h=16, hkv=4, d=128, bs=1, nb=301)),
+    ("bs2", dict(b=4, h=16, hkv=16, d=64, bs=2, nb=150)),
+    ("bs8_g8", dict(b=2, h=64, hkv=8, d=128, bs=8, nb=40)),
+]
+
+
 def phase_kernel(pda, pda_ref):
-    """paged_decode_attention against its plain version."""
-    shapes = [
-        ("serve", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=3)),
-        ("long", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=64)),
-        ("gqa", dict(b=4, h=32, hkv=8, d=128, bs=16, nb=64)),
-        ("bs128", dict(b=8, h=16, hkv=16, d=64, bs=128, nb=8)),
-        ("bs256", dict(b=8, h=16, hkv=16, d=64, bs=256, nb=4)),
-    ]
+    """paged_decode_attention against its plain version at PAGED_SHAPES,
+    float32 and bfloat16: the worst error, two calls bitwise equal, the
+    wrapper's host us per call, kernel / plain / SDPA time, the bound."""
     rows = {}
-    for si, (name, shp) in enumerate(shapes):
+    for si, (name, shp) in enumerate(PAGED_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             q, kp, vp, tables, kv_len = attention_case(
                 **shp, dtype=dtype, seed=100 + si)
@@ -404,15 +432,19 @@ def phase_kernel(pda, pda_ref):
                     lambda: pda_ref(q, kp, vp, tables, kv_len)),
                 "library_ms": device_ms(lib),
                 "library_max_abs_err": lib_err,
+                "host_us": host_us(lambda: pda(q, kp, vp, tables, kv_len)),
+                "repeat_bitwise": bitwise_repeat(
+                    lambda: pda(q, kp, vp, tables, kv_len), out),
             }
             row["bound_ms"], row["bound_by"] = attention_bound(
                 q, kp, tables, kv_len)
             row["bound_us"] = row["bound_ms"] * 1e3
             emit("kernel", kernel="paged_decode_attention", **row)
-            if not ok:
+            if not (ok and row["repeat_bitwise"]):
                 raise AssertionError(
                     f"paged_decode_attention {name} {dtype}: kernel vs "
-                    f"plain max abs err {err} beyond {tol}")
+                    f"plain max abs err {err} beyond {tol}, or two calls on "
+                    "the same inputs differ")
             rows[(name, dtype)] = row
     return rows
 
@@ -821,6 +853,9 @@ SSD_CHUNK = 256     # the plain version's chunk (mamba2-780m's ssm_chunk)
 SSD_TOL_Y = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 SSD_TOL_STATE = 1e-4
 SSD_REPS = 10
+# ssd_scan launches per call: the prep pass (C B^T once per chunk), then
+# the chunk-parallel scan
+SSD_LAUNCHES = 2
 
 
 def ssd_case(b, s, h, p, n, init, dtype, seed, inputs="test"):
@@ -910,16 +945,24 @@ def phase_kernel_ssd(ssd):
                                              chunk=SSD_CHUNK, init_state=st),
                     SSD_REPS),
                 "library_ms": None,
+                "host_us": host_us(lambda: ssd.ssd_scan(
+                    x, dt, a, bm, cm, init_state=st), 20),
             }
+            y2, fin2 = ssd.ssd_scan(x, dt, a, bm, cm, init_state=st)
+            torch.cuda.synchronize()
+            row["repeat_bitwise"] = bool(torch.equal(y2, y)
+                                         and torch.equal(fin2, fin))
             row["bound_ms"], row["bound_by"] = ssd_bound(b, s, h, p, n, init,
                                                          dtype)
             emit("kernel", kernel="ssd_scan", **row)
-            if not (finite and ey <= SSD_TOL_Y[dtype] and es <= SSD_TOL_STATE):
+            if not (finite and ey <= SSD_TOL_Y[dtype] and es <= SSD_TOL_STATE
+                    and row["repeat_bitwise"]):
                 raise AssertionError(
                     f"ssd_scan {name} {dtype}: y {ey}, state {es} of the "
-                    "largest value, beyond tolerance (or not finite)")
+                    "largest value, beyond tolerance (or not finite), or two "
+                    "calls on the same inputs differ")
             rows[(name, dtype)] = row
-            del x, dt, a, bm, cm, st, y, fin, yr, finr
+            del x, dt, a, bm, cm, st, y, fin, yr, finr, y2, fin2
             torch.cuda.empty_cache()
     x, dt, a, bm, cm, _ = ssd_case(1, 64, 48, 64, 128, False, torch.float32,
                                    700)
@@ -1055,6 +1098,25 @@ def phase_kernel_decode(dattn, dattn_ref):
 
 
 # --------------------------------------------------------- split sweeps --
+def _kernel_us(fn, n=5):
+    """Device us per call of each kernel ``fn`` launches (torch.profiler
+    over ``n`` calls, L2 warm)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0]
+            out[name] = out.get(name, 0.0) + _device_us(e) / n
+    return out
+
+
 SWEEP_SPLITS = (1, 2, 4, 8, 13, 26)
 SWEEP_LORA_SPLITS = (4, 8, 11, 16, 22, 32)
 
@@ -1062,7 +1124,9 @@ SWEEP_LORA_SPLITS = (4, 8, 11, 16, 22, 32)
 def phase_splits():
     """Bring-up: what the split plans rest on.  decode_attention (bf16)
     at the cross shape over SWEEP_SPLITS splits, with K/V as the model's
-    transposed view and as a contiguous copy; lora_matmul and
+    transposed view and as a contiguous copy; ssd_scan (x bf16) at every
+    SSD_SHAPES entry, with the errors the kernel phase checks and each
+    of its kernels' device us (torch.profiler); lora_matmul and
     segmented_lora_matmul (bf16, one plan for both) at every decode shape
     over SWEEP_LORA_SPLITS splits and the plan's own; as
     yardsticks a torch sum over 128 MB of bf16 (a streaming read) and a
@@ -1096,6 +1160,22 @@ def phase_splits():
     finally:
         da.split_plan_bf16 = plan
     del q, k, v, kc, vc
+    # ssd_scan: each of its two launches, checked against the plain
+    # version as the kernel phase checks it
+    from repro_torch.kernels import ssd_scan as ssd
+    for si, (name, b, s, h, p, n, init, inputs) in enumerate(SSD_SHAPES):
+        x, dts, a, bm, cm, st = ssd_case(b, s, h, p, n, init,
+                                         torch.bfloat16, 600 + si, inputs)
+        yr, finr = ssd.ssd_scan_ref(x, dts, a, bm, cm, chunk=SSD_CHUNK,
+                                    init_state=st)
+
+        def call():
+            return ssd.ssd_scan(x, dts, a, bm, cm, init_state=st)
+
+        y, fin = call()
+        emit("splits", kernel="ssd_scan", shape=name,
+             y_rel_err=_rel_err(y, yr), state_rel_err=_rel_err(fin, finr),
+             ms=device_ms(call, SSD_REPS), us_by_kernel=_kernel_us(call))
     plan = lmm.decode_split_plan
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     cases = [("lora_matmul", name, m, k, n, 200 + si, None)
@@ -1141,24 +1221,26 @@ def time_kernels():
     """``--time-kernels SRC``: of the package under SRC, lora_matmul and
     segmented_lora_matmul at every shape of LORA_SHAPES and SEG_SHAPES in
     bfloat16 (and float32 at M <= 16), lora_matmul's dX (the transposed
-    operands) at its train shapes, decode_attention at DECODE_SHAPES
-    (float32 and bfloat16), and flash_attention's bf16 forward and
-    backward at their main shapes, on the kernel phases' inputs (same
+    operands) at its train shapes, decode_attention at DECODE_SHAPES,
+    paged_decode_attention at PAGED_SHAPES and ssd_scan (y) at
+    SSD_SHAPES (float32 and bfloat16), and flash_attention's bf16
+    forward and backward at their main shapes, on the kernel phases' inputs (same
     seeds): device ms (as the kernel phases time them), host us per call,
     max abs error against the plain version.  One JSON line."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_matmul as lmm
+    from repro_torch.kernels import ssd_scan as ssd
 
     built = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     with ThreadPoolExecutor(len(built)) as pool:
         list(pool.map(_build.library, built))
     rows = {}
 
-    def add(key, fn, ref):
+    def add(key, fn, ref, reps=REPS, calls=100):
         out = fn()
-        rows[key] = {"ms": device_ms(fn), "host_us": host_us(fn),
+        rows[key] = {"ms": device_ms(fn, reps), "host_us": host_us(fn, calls),
                      "max_abs_err": float((out.float() - ref.float())
                                           .abs().max())}
 
@@ -1196,6 +1278,19 @@ def time_kernels():
             add(f"decode_attention/{name}/{dt}",
                 lambda: da.decode_attention(q, k, v, kv_len),
                 da.decode_attention_ref(q, k, v, kv_len))
+        for si, (name, shp) in enumerate(PAGED_SHAPES):
+            q, kp, vp, tables, kv_len = attention_case(**shp, dtype=dtype,
+                                                       seed=100 + si)
+            add(f"paged_decode_attention/{name}/{dt}",
+                lambda: da.paged_decode_attention(q, kp, vp, tables, kv_len),
+                da.paged_decode_attention_ref(q, kp, vp, tables, kv_len))
+        for si, (name, b, s, h, p, n, init, inputs) in enumerate(SSD_SHAPES):
+            x, dts, a, bm, cm, st = ssd_case(b, s, h, p, n, init, dtype,
+                                             600 + si, inputs)
+            add(f"ssd_scan/{name}/{dt}",
+                lambda: ssd.ssd_scan(x, dts, a, bm, cm, init_state=st)[0],
+                ssd.ssd_scan_ref(x, dts, a, bm, cm, chunk=SSD_CHUNK,
+                                 init_state=st)[0], SSD_REPS, 20)
     # flash_attention shares csrc/hopper.cuh with them: its bf16 forward
     # at the qwen wave and backward at the qwen train batch
     for name, backward in (("qwen_prefill", False), ("qwen_train", True)):
@@ -1410,7 +1505,7 @@ def _reference_ssm(get_config, build, scan, steps=5):
     mixer's strided views, and 100 is no multiple of its chunk): logits,
     conv tails and states; then both requests written into slots 2 and 0
     of a 3-slot pool and ``steps`` decode steps' logits.  The card's
-    prefill launches ssd_scan once per layer."""
+    prefill calls ssd_scan once per layer (SSD_LAUNCHES launches)."""
     from repro_torch.tree import tree_map
     cfg = get_config(SSM_ARCH).scaled()
     cpu, gpu = build(cfg, "cpu"), build(cfg, "cuda")
@@ -1458,10 +1553,10 @@ def _reference_ssm(get_config, build, scan, steps=5):
     if not (prefill_err < 5e-5 and decode_err < 5e-5
             and max(cache_err.values()) < 5e-5):
         raise AssertionError("mamba2: card vs CPU beyond tolerance")
-    if launches != cfg.n_layers:
+    if launches != cfg.n_layers * SSD_LAUNCHES:
         raise AssertionError(f"mamba2 reference: {launches} ssd_scan "
                              f"launches for one prefill of {cfg.n_layers} "
-                             "layers")
+                             f"layers ({SSD_LAUNCHES} a call)")
 
 
 def _open_gates(params, gate=0.5):
@@ -1828,9 +1923,10 @@ def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
     of 64, state 128, bf16, random weights from a seed), 16 requests on
     8 contiguous slots: every request finishes, and the launches are
     exactly as derived: ssd_scan once per layer per request (each prompt
-    prefills alone, at its exact length), lora_matmul once per adapter
-    projection (ssm_in, ssm_out) per layer per prefill call and decode
-    step, and no attention or segmented kernel at all."""
+    prefills alone, at its exact length; SSD_LAUNCHES launches a call),
+    lora_matmul once per adapter projection (ssm_in, ssm_out) per layer
+    per prefill call and decode step, and no attention or segmented
+    kernel at all."""
     cfg = get_config(SSM_ARCH)
     n_lora = 2 * cfg.n_layers
     fwd = fa.flash_attention_fwd
@@ -1847,7 +1943,7 @@ def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
                     "flash_attention": fwd.launches,
                     "segmented_lora_matmul": seg.launches}   # path ends
         gen, steps = kw["gen_tokens"], out["decode_steps"]
-        want = {"ssd_scan": cfg.n_layers * 16,
+        want = {"ssd_scan": cfg.n_layers * 16 * SSD_LAUNCHES,
                 "lora_matmul": n_lora * (16 + steps),
                 "paged_decode_attention": 0, "flash_attention": 0,
                 "segmented_lora_matmul": 0}
@@ -2656,6 +2752,13 @@ def main():
         "bound_ms": main_row["bound_ms"],
         "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "host_us": main_row["host_us"],
+        "repeat_bitwise_all_shapes": all(
+            r["repeat_bitwise"] for r in rows.values()),
+        "bf16_shapes": {n: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                                "bound_ms", "host_us")}
+                        for (n, dt), r in rows.items()
+                        if dt == torch.bfloat16},
     }, {
         "name": "lora_matmul",
         "route": "cuda",

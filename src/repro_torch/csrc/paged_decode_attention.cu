@@ -20,14 +20,30 @@
 //
 // What bounds it: nothing but memory.  Each live K/V row is read once
 // (sum_b kv_len_b * Hkv * D * 2 * sizeof(T) bytes per call) for ~2 FLOP
-// per K/V element read, far below the card's ~295 FLOP/byte bf16 ridge.
+// per K/V element read, far below the card's ~295 FLOP/byte bf16 ridge:
+// at the serve tick after 2,048-token prompts (B 8, 16 KV heads of 64,
+// 2,080 rows) ~68 MB, ~20 us at 3.35 TB/s.
 //
-// Design:
+// Design, bfloat16 (the serving dtype; D 64 or 128, G <= 8): the body of
+// decode_attention.cu's bf16 kernel (decode_bf16.cuh), walked through
+// the block table.  A producer warp TMA-loads 64-row K/V tiles, each as
+// 64 / gcd(bs, 64) boxes of gcd(bs, 64) rows of a 4-D map over the pool
+// viewed as [n_blocks, Hkv, bs, D] (its own strides), into a ring of
+// kPagedStages<D> stages; four consumer warps run S^T = K q^T and O^T += V^T P^T
+// on mma.sync m16n8k16, p rounded to bf16 as the Pallas kernel rounds
+// it; the walk splits across blocks as the contiguous kernel's does
+// (kernels/decode_attention.py::split_plan_bf16 over NB * bs rows) and
+// the last block of each (sequence, KV head) combines the splits in one
+// launch.  Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py;
+// PERF.md, cold L2): the serve tick after 2,048-token prompts 39.3 us,
+// 1.9x its bound, where PR 11's kernel (f32 staging, CUDA-core products,
+// one block per (sequence, KV head) and no pipelining) took 86.2.
+//
+// Design, float32 (the reduced reference configs), PR 11's kernel:
 //   * grid (B, Hkv): the TPU grid (B, NB) carries the online-softmax
 //     state across grid steps in VMEM; Hopper blocks run in no order, so
 //     the walk over a sequence's cache is a loop inside one thread
-//     block, and each (sequence, KV head) is one block.  At the serving
-//     shape (B=8, Hkv=16) that is 128 blocks for 132 SMs.
+//     block, and each (sequence, KV head) is one block.
 //   * the walk goes over LOGICAL rows, `rows` at a time (at most 128,
 //     fewer when the tile would not fit 160 KB of shared memory): each
 //     row finds its pool block through the table, so a sub-tile may
@@ -38,9 +54,7 @@
 //   * the block is latency-bound: one (sequence, KV head) per block
 //     leaves one or two blocks per SM, so each sub-tile's chain of
 //     gather, scores, softmax and PV is paid in full.  Large sub-tiles
-//     and >= 512 threads cut the number and length of those chains
-//     (on an NVIDIA H100 80GB HBM3 at 700 W, 64-row tiles and 128
-//     threads took 3.4x the time at 1k context, see PERF.md).
+//     and >= 512 threads cut the number and length of those chains.
 //   * scores: kLanes lanes per (head, row) pair, D split over them and
 //     summed with shuffles.  Softmax: one warp per head updates the
 //     running max m and sum l (kept in shared memory, f32) and turns the
@@ -48,14 +62,13 @@
 //     `splits`-th row into its own f32 accumulator; the splits keep
 //     small heads at >= 512 threads and are added up at the end.
 //   * the probabilities stay in f32 for the PV product; the TPU kernel
-//     rounds them to v.dtype first.  For bf16 pools that is the only
-//     numerical difference, well inside bf16 tolerance.
-// Split-KV, cp.async/TMA pipelining and one block for all heads of a
-// sequence are left for later.
+//     rounds them to v.dtype first (for float32 pools a no-op).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "decode_bf16.cuh"
 
 namespace {
 
@@ -71,16 +84,9 @@ constexpr int kPad = kLanes;
 static_assert(32 % kLanes == 0 && kPad % 4 == 0, "kLanes: 4, 8, 16 or 32");
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
   return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
 }
 
 // 16 bytes of T from global memory, widened to float in shared memory
@@ -91,18 +97,6 @@ template <> struct Vec16<float> {
   __device__ __forceinline__ static void load(const float* src, float* dst) {
     *reinterpret_cast<float4*>(dst) =
         __ldg(reinterpret_cast<const float4*>(src));
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int n = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* src,
-                                              float* dst) {
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(src));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-    reinterpret_cast<float4*>(dst)[0] = make_float4(a.x, a.y, b.x, b.y);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(c.x, c.y, d.x, d.y);
   }
 };
 
@@ -283,12 +277,73 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------- bfloat16 -------
+// Tiles in the TMA ring, per head_dim: at 64 six stages (96 KB) beat three
+// by 2-4% at the 2,048-token serve tick; at 128 three (96 KB) already
+// hold the walk (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
+template <int D>
+constexpr int kPagedStages = D == 64 ? 6 : 3;
+
+// The shared body (decode_bf16.cuh) with the paged producer.
+template <int D>
+__global__ void __launch_bounds__(kBfThreads)
+    paged_decode_kernel_bf16(const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const u16* __restrict__ q,
+                             const int* __restrict__ kv_len,
+                             u16* __restrict__ out,
+                             float* __restrict__ part_acc,
+                             float* __restrict__ part_ml,
+                             int* __restrict__ tickets, int H, int Hkv,
+                             int S, i64 qsb, i64 qsh, int splits, int chunk,
+                             float scale_log2, const PagedRows pg) {
+  decode_bf16_body<D, kPagedStages<D>, true>(&kmap, &vmap, q, kv_len, out, part_acc,
+                                    part_ml, tickets, H, Hkv, S, qsb, qsh,
+                                    splits, chunk, scale_log2, pg);
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
+                const void* tables, const void* kv_len, void* out,
+                void* part_acc, void* part_ml, void* tickets, int B, int H,
+                int Hkv, int n_blocks, int bs, int NB, i64 table_stride,
+                i64 qsb, i64 qsh, const i64* ks, const i64* vs, int splits,
+                int chunk, int box, float scale, cudaStream_t stream) {
+  // 4-D maps over the pools as [n_blocks, Hkv, bs, D]: element strides
+  // (block, head, row), boxes of `box` rows
+  CUtensorMap km, vm;
+  const i64 kst[3] = {ks[0], ks[2], ks[1]}, vst[3] = {vs[0], vs[2], vs[1]};
+  if (!tensor_map(&km, k_pool, D, bs, Hkv, n_blocks, kst, box) ||
+      !tensor_map(&vm, v_pool, D, bs, Hkv, n_blocks, vst, box))
+    return (int)cudaErrorInvalidValue;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        paged_decode_kernel_bf16<D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        Bf<D, kPagedStages<D>>::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  const PagedRows pg{static_cast<const int*>(tables), table_stride, bs, box};
+  dim3 grid(splits, Hkv, B);
+  paged_decode_kernel_bf16<D>
+      <<<grid, kBfThreads, Bf<D, kPagedStages<D>>::SMEM, stream>>>(
+          km, vm, static_cast<const u16*>(q),
+          static_cast<const int*>(kv_len), static_cast<u16*>(out),
+          static_cast<float*>(part_acc), static_cast<float*>(part_ml),
+          static_cast<int*>(tickets), H, Hkv, NB * bs, qsb, qsh, splits,
+          chunk, scale * 1.4426950408889634f, pg);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after
-// the launch (a refused launch never runs, and a later synchronize
-// would not report it).  The caller checks shapes; this entry checks
-// only what would make the launch itself invalid.
+// float32 only (dtype 0; bfloat16 takes paged_decode_attention_bf16_launch).
+// Returns cudaGetLastError() after the launch (a refused launch never
+// runs, and a later synchronize would not report it).  The caller checks
+// shapes; this entry checks only what would make the launch itself
+// invalid.
 extern "C" int paged_decode_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
     const void* tables, const void* kv_len, void* out, int B, int H,
@@ -300,8 +355,42 @@ extern "C" int paged_decode_attention_launch(
   if (dtype == 0)
     return launch<float>(q, k_pool, v_pool, tables, kv_len, out, B, H, Hkv,
                          D, bs, NB, table_stride, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, kv_len, out, B,
-                                 H, Hkv, D, bs, NB, table_stride, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bfloat16: q [B, H, D] with strides (qsb, qsh, 1); pools [n_blocks, bs,
+// Hkv, D] with element strides ks / vs = (block, row, head) and a unit
+// last axis; splits of `chunk` logical rows (a multiple of 64) over the
+// table's NB * bs; `box` = gcd(bs, 64) rows per TMA load; D 64 or 128.
+// The caller allocates the partials ([B, H,
+// splits, D] and [B, H, splits, 2] float) and B * Hkv int32 tickets that
+// are zero before the first call (each launch leaves them zero) when
+// splits > 1.  Returns cudaGetLastError() after the launch.
+extern "C" int paged_decode_attention_bf16_launch(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* tables, const void* kv_len, void* out, void* part_acc,
+    void* part_ml, void* tickets, int B, int H, int Hkv, int D,
+    int n_blocks, int bs, int NB, long long table_stride, long long qsb,
+    long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, int splits, int chunk,
+    int box, float scale, void* stream) {
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > 8 || n_blocks <= 0 ||
+      bs <= 0 || NB <= 0 || splits <= 0 || splits > kMaxSplits ||
+      chunk <= 0 || chunk % kRows != 0 || (long long)splits * chunk <
+      (long long)NB * bs || box <= 0 || kRows % box != 0 || bs % box != 0 ||
+      B > 65535 || Hkv > 65535 || (splits > 1 && tickets == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const i64 ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
+  if (D == 64)
+    return launch_bf16<64>(q, k_pool, v_pool, tables, kv_len, out, part_acc,
+                           part_ml, tickets, B, H, Hkv, n_blocks, bs, NB,
+                           table_stride, qsb, qsh, ks, vs, splits, chunk, box,
+                           scale, s);
+  if (D == 128)
+    return launch_bf16<128>(q, k_pool, v_pool, tables, kv_len, out, part_acc,
+                            part_ml, tickets, B, H, Hkv, n_blocks, bs, NB,
+                            table_stride, qsb, qsh, ks, vs, splits, chunk,
+                            box, scale, s);
   return (int)cudaErrorInvalidValue;
 }

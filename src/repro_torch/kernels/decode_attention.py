@@ -19,9 +19,12 @@ decode_attention`` with a CUDA kernel written for Hopper, built by
 
 Both are memory-bound: a call must read ``sum_b kv_len_b * Hkv * D * 2 *
 sizeof(T)`` bytes of K/V and does about two FLOP per element read.  The
-design notes are in the sources.  ``decode_attention`` splits the cache
-walk (``split_plan`` in float32, ``split_plan_bf16`` in bfloat16); its
-partials and the bf16 kernel's ticket counters live in the scratch of
+design notes are in the sources.  In bfloat16 both run one kernel body,
+``csrc/decode_bf16.cuh`` (TMA-fed K/V tiles, tensor-core products, the
+walk split by ``split_plan_bf16`` and combined by its last block), the
+paged one loading each 64-row tile through the block table
+(``paged_plan_bf16``); ``decode_attention`` in float32 splits by
+``split_plan``.  The partials and ticket counters live in the scratch of
 ``kernels/_scratch.py``.
 
 Each wrapper dispatches on where its tensors lie: CPU tensors take the
@@ -81,15 +84,15 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len,
 
 
 def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
+    """What both kernels refuse, each with its own message, before any
+    build or launch (so CPU tensors reach every refusal but the last,
+    which names the device)."""
     dev = q.device
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool),
                     ("block_tables", block_tables), ("kv_len", kv_len)):
         if t.device != dev:
             raise ValueError(f"paged_decode_attention: {name} is on "
                              f"{t.device}, q on {dev}")
-    if dev.type != "cuda":
-        raise ValueError(f"paged_decode_attention: no kernel for device "
-                         f"{dev} (CPU tensors take the plain version)")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"paged_decode_attention: dtype {q.dtype} not "
                         "supported (float32, bfloat16)")
@@ -114,22 +117,67 @@ def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
             f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, tables "
             f"{tuple(block_tables.shape)}, kv_len {tuple(kv_len.shape)} "
             "do not agree")
-    if not (q.is_contiguous() and k_pool.is_contiguous()
-            and v_pool.is_contiguous() and kv_len.is_contiguous()
-            and block_tables.stride(1) == 1):
-        raise ValueError("paged_decode_attention: q, pools and kv_len "
-                         "must be contiguous and table rows unit-stride")
-    # the kernel gathers K/V rows 16 bytes at a time
-    if (d * q.element_size()) % 16 or k_pool.data_ptr() % 16 \
-            or v_pool.data_ptr() % 16:
-        raise ValueError(
-            f"paged_decode_attention: head_dim {d} x {q.element_size()} "
-            "bytes must be a multiple of 16 and the pools 16-byte aligned")
+    if not (kv_len.is_contiguous() and block_tables.stride(1) == 1):
+        raise ValueError("paged_decode_attention: kv_len must be contiguous "
+                         "and table rows unit-stride")
+    if q.dtype == torch.bfloat16:
+        # the MMAs take the G query heads of a KV head as N (8) and 64- or
+        # 128-channel rows; TMA reads 16-byte aligned bases and strides
+        if d not in BF16_HEAD_DIMS:
+            raise ValueError(f"paged_decode_attention: bf16 takes head_dim "
+                             f"in {BF16_HEAD_DIMS}, got {d}")
+        if h // hkv > BF16_MAX_G:
+            raise ValueError(f"paged_decode_attention: bf16 takes at most "
+                             f"{BF16_MAX_G} query heads per KV head, got "
+                             f"{h // hkv}")
+        for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+            if t.stride(-1) != 1:
+                raise ValueError(f"paged_decode_attention: {name} needs a "
+                                 "unit stride on its last axis (strides "
+                                 f"{tuple(t.stride())})")
+            if t.data_ptr() % 16:
+                raise ValueError(f"paged_decode_attention: {name}'s base "
+                                 "address is not 16-byte aligned")
+            if any((st * 2) % 16 for st in t.stride()[:-1]):
+                raise ValueError(
+                    f"paged_decode_attention: {name}'s strides "
+                    f"{tuple(t.stride())} of 2-byte elements are not "
+                    "multiples of 16 bytes")
+        if q.stride(-1) != 1:
+            raise ValueError("paged_decode_attention: q needs a unit stride "
+                             "on its last axis")
+    else:
+        if not (q.is_contiguous() and k_pool.is_contiguous()
+                and v_pool.is_contiguous()):
+            raise ValueError("paged_decode_attention: float32 q and pools "
+                             "must be contiguous")
+        # the float32 kernel gathers K/V rows 16 bytes at a time
+        if (d * q.element_size()) % 16 or k_pool.data_ptr() % 16 \
+                or v_pool.data_ptr() % 16:
+            raise ValueError(
+                f"paged_decode_attention: head_dim {d} x {q.element_size()} "
+                "bytes must be a multiple of 16 and the pools 16-byte "
+                "aligned")
+    if dev.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device "
+                         f"{dev} (CPU tensors take the plain version)")
+
+
+def paged_plan_bf16(b: int, hkv: int, bs: int, nb: int,
+                    n_sm: int) -> Tuple[int, int, int]:
+    """bfloat16: (splits, rows per split, rows per TMA box).  The walk
+    splits as the contiguous kernel's does over the table's ``nb * bs``
+    rows (``split_plan_bf16``: 1 split at the serve tick's 8 sequences
+    of 16 KV heads, 2 at llama3-8b's 4 of 8); a 64-row tile is ``64 /
+    box`` loads of ``box = gcd(bs, 64)`` rows, which never cross a pool
+    block."""
+    splits, chunk = split_plan_bf16(b, hkv, nb * bs, n_sm)
+    return splits, chunk, math.gcd(bs, BF16_TILE_ROWS)
 
 
 @functools.lru_cache(maxsize=None)
 def _entry():
-    """The C entry point, built and loaded on first use."""
+    """The float32 C entry point, built and loaded on first use."""
     fn = _build.library("paged_decode_attention") \
         .paged_decode_attention_launch
     fn.restype = _I
@@ -138,24 +186,54 @@ def _entry():
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _entry_bf16():
+    """The bfloat16 C entry point, built and loaded on first use."""
+    fn = _build.library("paged_decode_attention") \
+        .paged_decode_attention_bf16_launch
+    fn.restype = _I
+    fn.argtypes = [_P] * 9 + [_I] * 7 + [_L] * 9 + [_I] * 3 \
+        + [ctypes.c_float, _P]
+    return fn
+
+
 def _launch(q, k_pool, v_pool, block_tables, kv_len, scale: float):
     _check(q, k_pool, v_pool, block_tables, kv_len)
-    fn = _entry()
     b, h, d = q.shape
-    bs, hkv = k_pool.shape[1], k_pool.shape[2]
-    out = torch.empty_like(q)
+    n_blocks, bs, hkv = k_pool.shape[:3]
+    nb = block_tables.shape[1]
+    out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
-                 v_pool.data_ptr(), block_tables.data_ptr(),
-                 kv_len.data_ptr(), out.data_ptr(), b, h, hkv, d, bs,
-                 block_tables.shape[1], block_tables.stride(0), scale,
-                 stream)
+        if q.dtype == torch.bfloat16:
+            fn = _entry_bf16()
+            splits, chunk, box = paged_plan_bf16(
+                b, hkv, bs, nb, _scratch.sm_count(q.device.index or 0))
+            stream = _scratch.stream(q.device)
+            # per (b, query head, split): the partial acc [D], then (m, l);
+            # one ticket per (b, KV head)
+            n_acc = b * h * splits * d
+            ws, tickets = _scratch.buffers(q.device, stream,
+                                           n_acc + b * h * splits * 2,
+                                           b * hkv)
+            err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                     block_tables.data_ptr(), kv_len.data_ptr(),
+                     out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
+                     tickets.data_ptr(), b, h, hkv, d, n_blocks, bs, nb,
+                     block_tables.stride(0), q.stride(0), q.stride(1),
+                     *k_pool.stride()[:3], *v_pool.stride()[:3], splits,
+                     chunk, box, scale, stream)
+        else:
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = _entry()(_DTYPE_CODE[q.dtype], q.data_ptr(),
+                           k_pool.data_ptr(), v_pool.data_ptr(),
+                           block_tables.data_ptr(), kv_len.data_ptr(),
+                           out.data_ptr(), b, h, hkv, d, bs, nb,
+                           block_tables.stride(0), scale, stream)
     if err != 0:
         raise RuntimeError(
             f"paged_decode_attention: launch failed with CUDA error {err} "
             f"(q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
-            f"tables {tuple(block_tables.shape)})")
+            f"tables {tuple(block_tables.shape)}, {q.dtype})")
     paged_decode_attention.launches += 1
     return out
 
@@ -168,7 +246,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
     Table entries past a sequence's live blocks must be valid pool
     indices (the runtime points them at scratch block 0); they are never
     read.  CPU tensors take ``paged_decode_attention_ref``; CUDA tensors
-    launch the kernel (see the module docstring)."""
+    launch the kernel (see the module docstring).  The bfloat16 kernel
+    takes head_dim 64 or 128, at most 8 query heads per KV head, pools of
+    any strides with a unit last axis that are multiples of 16 bytes and
+    16-byte aligned bases, and raises otherwise; every shipped config
+    qualifies (qwen1.5-0.5b G 1 / D 64, internlm2-1.8b G 2 / D 128,
+    llama3-8b G 4 / D 128, qwen3-14b G 5 / D 128, the VLM's self-attention
+    G 8 / D 128, contiguous caches through identity tables of blocks of 1
+    to 256 rows).  The float32 kernel takes contiguous q and pools."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu" and all(
             t.device.type == "cpu"

@@ -14,9 +14,15 @@ the recurrence is the same for any chunk length, so ``chunk`` reaches
 only the plain version.  What bounds it: float32 operations (at 2,048
 tokens, 48 heads of P = 64, N = 128: about 4.9 GFLOP counting the causal
 half of each 256-wide chunk and C B^T once per chunk, as the heads share
-the single B/C group; 0.073 ms at 67 TFLOP/s).  The kernel forms C B^T
-again in every block, once per head and half of P, work the bound does
-not count.
+the single B/C group; 0.073 ms at 67 TFLOP/s).
+
+A call is two launches (``LAUNCHES``): a prep pass forms C B^T once per
+(batch, chunk), then one block per (batch, chunk, head) forms its
+chunk's own state and output and takes the state entering its chunk
+from the block of the previous chunk through scratch in L2
+(``kernel_plan``, ``scratch_sizes``; the design notes are in the
+source).  The workspace and the self-resetting counters are the
+(device, stream) scratch of ``kernels/_scratch.py``.
 
 Layout, as ``ssd_chunked`` takes it: ``x [B, S, H, P]`` (any strides
 with unit stride along P, so the mixer's view of its ``in_proj`` output
@@ -29,7 +35,7 @@ Dispatch: CPU tensors take the plain PyTorch version ``ssd_scan_ref``;
 CUDA tensors launch the kernel, or raise on a dtype, rank, shape, stride
 or device it does not take, and raise ``NotImplementedError`` when an
 input requires grad (the kernel has no backward yet).  Nothing falls
-back.  ``ssd_scan.launches`` counts kernel launches.
+back.  ``ssd_scan.launches`` counts kernel launches, ``LAUNCHES`` a call.
 """
 from __future__ import annotations
 
@@ -40,10 +46,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _scratch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-MAX_STATE = 128          # N: the kernel keeps 4 columns of 32 per lane
+MAX_STATE = 128          # N: padded to 64 or 128 state columns
 MAX_ROWS = 64            # P: rows of the state (one block's worth)
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -156,11 +162,28 @@ def _check(x, dt, a, bmat, cmat, init_state) -> None:
         raise ValueError("ssd_scan: negative strides are not supported")
 
 
-def _p_split(b: int, h: int, p: int, device) -> int:
-    """Blocks per (batch, head): two when each takes whole 16-row tiles
-    and the doubled grid still fits one wave on the card's SMs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return 2 if (p // 2) % 16 == 0 and 2 * b * h <= sms else 1
+CHUNK = 64               # the kernel's own chunk length
+HANDOFF_WARPS = 8        # warps of a main block, each hands on its own part
+LAUNCHES = 2             # a call: prep, then the main launch
+
+
+def kernel_plan(b: int, s: int, h: int, n: int) -> Tuple[int, int, int]:
+    """The kernel's work for one call: (chunks, blocks of the main launch
+    (one per (batch, chunk, head), in the kernel's chunk-major ticket
+    order), state columns kept in shared memory (``n`` padded to 64 or
+    128))."""
+    nc = -(-s // CHUNK)
+    return nc, b * nc * h, 64 if n <= 64 else 128
+
+
+def scratch_sizes(b: int, s: int, h: int, n: int) -> Tuple[int, int]:
+    """(float32 workspace, int32 counters) of one call: C B^T and C^T per
+    (batch, chunk), then two state slots per (batch, head); the ticket and
+    a progress counter per (batch, head) for each of the main block's
+    ``HANDOFF_WARPS`` warps."""
+    nc, _, npad = kernel_plan(b, s, h, n)
+    states = b * h * 2 * npad * MAX_ROWS
+    return b * nc * CHUNK * (CHUNK + npad) + states, 1 + b * h * HANDOFF_WARPS
 
 
 @functools.lru_cache(maxsize=None)
@@ -168,9 +191,16 @@ def _entry():
     """The C entry point, built and loaded on first use."""
     fn = _build.library("ssd_scan").ssd_scan_launch
     fn.restype = _I
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I] \
-        + [_L] * 13 + [_I, _P]
+    fn.argtypes = [_I] + [_P] * 10 + [_I] * 5 + [_L] * 13 + [_I, _P]
     return fn
+
+
+def _aligned(t, base_strides) -> bool:
+    """16-byte copies reach every row: a 16-byte aligned base and strides
+    that are multiples of 16 bytes."""
+    elt = t.element_size()
+    return t.data_ptr() % 16 == 0 and all((st * elt) % 16 == 0
+                                          for st in base_strides)
 
 
 def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 256,
@@ -197,19 +227,24 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 256,
     init_ptr, init_strides = None, (0, 0, 0)
     if init_state is not None:
         init_ptr, init_strides = init_state.data_ptr(), init_state.stride()[:3]
+    vec = int(_aligned(x, x.stride()[:3])) \
+        | 2 * int(n % 4 == 0 and _aligned(bmat, bmat.stride()[:2])) \
+        | 4 * int(n % 4 == 0 and _aligned(cmat, cmat.stride()[:2]))
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = _scratch.stream(x.device)
+        ws, sync = _scratch.buffers(x.device, stream,
+                                    *scratch_sizes(b, s, h, n))
         err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(),
                  a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), init_ptr,
-                 y.data_ptr(), fin.data_ptr(), b, s, h, p, n,
-                 *x.stride()[:3], *dt.stride(), bmat.stride(0),
+                 y.data_ptr(), fin.data_ptr(), ws.data_ptr(), sync.data_ptr(),
+                 b, s, h, p, n, *x.stride()[:3], *dt.stride(), bmat.stride(0),
                  bmat.stride(1), cmat.stride(0), cmat.stride(1),
-                 *init_strides, _p_split(b, h, p, x.device), stream)
+                 *init_strides, vec, stream)
     if err != 0:
         raise RuntimeError(
             f"ssd_scan: launch failed with CUDA error {err} (x "
             f"{tuple(x.shape)}, state {n}, {x.dtype})")
-    ssd_scan.launches += 1
+    ssd_scan.launches += LAUNCHES
     return y, fin
 
 

@@ -13,7 +13,9 @@ package on the CPU, float32, inputs drawn with numpy from a seed:
   oracle within 1e-4: the recurrence does not depend on the chunk;
 * the dispatch contract: CPU calls count no launch, tensors off the CPU
   never take the plain version, and an input that requires grad off the
-  CPU raises ``NotImplementedError`` (the kernel has no backward).
+  CPU raises ``NotImplementedError`` (the kernel has no backward);
+* the kernel's host-side plan (chunks, the main launch's blocks in ticket
+  order, scratch sizes) covers every chunk and head once.
 The CUDA kernel itself is held against ``ssd_scan_ref`` on the card by
 ``chip_smoke.py``'s ``kernel_ssd`` phase."""
 import jax.numpy as jnp
@@ -170,3 +172,41 @@ def test_carry_between_64_row_chunks_shows_at_mixer_inputs():
     y_cut = torch.cat([yp for yp, _ in parts], 1)
     assert float((y_cut - y).abs().max() / y.abs().max()) > 1e-2
     assert float((parts[-1][1] - fin).abs().max() / fin.abs().max()) > 1e-2
+
+
+def _block_work(ticket, b, h):
+    """(batch, chunk, head) of the main launch's block that takes
+    ``ticket``: mirrors the ticket decode of ``csrc/ssd_scan.cu``
+    (``ssd_scan_kernel``, lines 294-295), which only the card runs."""
+    c, r = divmod(ticket, b * h)
+    return r // h, c, r % h
+
+
+@pytest.mark.parametrize("b,s,h,n", [(1, 32, 48, 128), (1, 1000, 48, 128),
+                                     (1, 2048, 48, 128), (2, 512, 48, 128),
+                                     (1, 2048, 50, 16), (2, 100, 8, 16),
+                                     (3, 65, 5, 64), (1, 4096, 48, 65)])
+def test_kernel_plan_covers_every_chunk_and_head_once(b, s, h, n):
+    """The kernel's host-side plan: 64-row chunks that cover S, one main
+    block per (batch, chunk, head), each taken once by its ticket in
+    chunk-major order (so the block a waiter waits on, the same head's
+    previous chunk, has an earlier ticket), state columns padded to 64 or
+    128, and scratch for C B^T and C^T per chunk plus two state slots and
+    a progress counter per warp per (batch, head), and the ticket."""
+    nc, blocks, npad = ssd_mod.kernel_plan(b, s, h, n)
+    assert ssd_mod.CHUNK == 64 and (nc - 1) * 64 < s <= nc * 64
+    assert blocks == b * nc * h and npad in (64, 128) and n <= npad
+    assert npad == 64 or n > 64
+    seen = {}
+    for ticket in range(blocks):
+        bi, c, hi = _block_work(ticket, b, h)
+        assert 0 <= bi < b and 0 <= c < nc and 0 <= hi < h
+        assert (bi, c, hi) not in seen
+        seen[(bi, c, hi)] = ticket
+        if c:
+            assert seen[(bi, c - 1, hi)] < ticket
+    assert len(seen) == b * nc * h
+    floats, counters = ssd_mod.scratch_sizes(b, s, h, n)
+    assert floats == b * nc * 64 * (64 + npad) + b * h * 2 * npad * 64
+    assert counters == 1 + b * h * ssd_mod.HANDOFF_WARPS
+    assert ssd_mod.LAUNCHES == 2
