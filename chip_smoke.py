@@ -17,17 +17,21 @@ Phases, each printing JSON lines:
   build       nvcc builds every kernel under ``src/repro_torch/csrc``,
               one process per source, all started together;
   kernel      paged_decode_attention against its plain PyTorch version,
-              float32 and bfloat16, at the serving shape and nine more
+              float32 and bfloat16, at the serving shape and ten more
               (long context, GQA, pool blocks of 128 and 256 rows, the
               serve tick after 2,048-token prompts paged in blocks of 16
               and contiguous as identity-table blocks of 32, identity-
-              table blocks of 1, 2 and 8 rows);
+              table blocks of 1, 2 and 8 rows, and tables that alias the
+              same 48 prefix blocks, as the prefix cache makes them);
   kernel_lora lora_matmul at the decode, train, prefill, long train and
               long prefill shapes of qwen1.5-0.5b, two ragged shapes
               (M 1000 and 5), mamba2-780m's ssm_in / ssm_out at
               decode and a 2,048-token prefill, and the decode q/o and
               k/v projections of llama-3.2-vision-90b and llama3-8b,
-              plus its backward (dX, dA, dB of
+              and (bf16) the rows of every M > 16 wave the serve, prefix,
+              chunked and budget runs give it (qwen's suffix wave 8 x 224
+              and chunk wave 8 x 256, llama3-8b's 8 x 992 and 8 x 224
+              waves), plus its backward (dX, dA, dB of
               LoRAMatmulFn against autograd of the plain version) at the
               train shapes and the decode shape;
   kernel_flash flash_attention forward and backward against the plain
@@ -40,7 +44,8 @@ Phases, each printing JSON lines:
               achieved TFLOP/s;
   kernel_seg  segmented_lora_matmul against its plain version at the
               multi-tenant decode (1, 4 and 8 slots) and prefill waves of
-              qwen1.5-0.5b, a ragged shape and llama3-8b's decode; in bf16
+              qwen1.5-0.5b, its 4-tenant suffix wave (8 x 224), a ragged
+              shape and llama3-8b's decode; in bf16
               each row bitwise lora_matmul of its own slot (B = 0 for -1
               rows) and no leak from 1e6 in an unused slot;
   kernel_ssd  ssd_scan against its plain version (the reference's chunked
@@ -77,7 +82,12 @@ Phases, each printing JSON lines:
               five decode steps' logits; the VLM at a reduced float32
               size (2 units, 37 vision tokens, gates at 0.5): prefill
               logits, cross_kv, five decode steps' logits and
-              decode_attention once per unit per step;
+              decode_attention once per unit per step; the batcher's
+              greedy tokens on the card and the CPU (reduced float32):
+              a repeated-prefix trace with the prefix cache off, on and
+              on chunked, six prompts chunked (paged 8 and 12, contiguous
+              8 and 10) and monolithic, and a 16-token window whose ring
+              wrap copies shared blocks, every run of a trace equal;
   reference_blockwise  the same at a reduced float32 config forced onto
               the blockwise path (prefill logits and caches, one train
               step, the flash launches they make), and at full width in
@@ -96,6 +106,19 @@ Phases, each printing JSON lines:
               adapter projection per prefill wave and decode step,
               flash_attention once per layer per prefill wave past 1,024
               tokens and never below; TTFT and TPOT p50 / p99 per run;
+  serve_prefix  prefix caching at full width: qwen1.5-0.5b paged, 16
+              requests on 8 slots, two families sharing a 768-token prefix
+              with tails of 32 to 224 tokens, 32 tokens each, cache off,
+              on, and on with 4 tenants (identical prompts to different
+              tenants); llama3-8b (GQA 4:1) cache off and on.  Every
+              request finishes, the allocator drains, the cache hits,
+              launches as derived, first logits on vs off within 2e-2
+              (bf16, qwen and llama3-8b), no block aliased across
+              tenants; prefill tokens computed and cached, wave times,
+              TTFT / TPOT p50 / p99;
+  serve_chunked  the 992 + 32 traffic paged and contiguous, prefill_chunk
+              256 against monolithic: final-chunk logits within 2e-2 of the
+              monolithic prefill's, launches as derived, TTFT / TPOT;
   serve_ssm   mamba2-780m at full width (48 layers, d_model 1536, bf16),
               16 requests on 8 contiguous slots at 32+16, 992+32 and
               2,048+32 tokens: every request finishes, ssd_scan once per
@@ -129,6 +152,14 @@ Phases, each printing JSON lines:
               (segmented_lora_matmul once per adapter projection per wave
               and step, lora_matmul only in the train step), tenant 0
               (b = 0) emits the single-adapter run's tokens;
+  budget      co-training under a 0.1 s TPOT target, paged, 32 + 16 (4 x
+              32 train rows) and 992 + 32 in chunks of 256 (4 x 992),
+              through run_serving; the host ms of drawing one train
+              batch (run_serving draws one every tick); train steps,
+              rows per trained tick,
+              skipped ticks, spend over target, TPOT, beside the combined
+              phase's unbudgeted runs; every request finishes, every loss
+              finite;
   mixed_solo  one wave of base and three tenants against each of them
               served alone as the single adapter on the same prompts: the
               same greedy tokens (each request in a wave of its own is
@@ -139,13 +170,18 @@ Phases, each printing JSON lines:
               992- and 2,048-token prompts, combined ticks with a 4 x 32
               and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
               tokens, mamba2-780m decode ticks after 32- and 2,048-token
-              prompts, a VLM decode tick): host wall per tick, and under
-              torch.profiler the device time, each kernel's share and the
-              kernels launched per tick;
+              prompts, a VLM decode tick; one full, one suffix and one
+              chunk prefill wave at serve_prefix's shapes): host wall per
+              tick or wave, and under torch.profiler the device time,
+              each kernel's share and the kernels launched;
+  seconds     each phase's wall seconds and the total since the build
+              began (the run must end within 1,200 s);
   kernels     one line over all ported kernels.
 Bring-up only, when named: ``splits`` times decode_attention and the
 lora_matmul decode path over a range of split counts (what their split
-plans rest on), beside a streaming-read yardstick.
+plans rest on), beside a streaming-read yardstick; ``budget_seeded`` runs
+the budget phase's traffic with the train cost priced first by a warm
+idle train tick (a policy the runtime does not have).
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that.  Without a CUDA device, or without the rest of the repository, it
@@ -192,7 +228,10 @@ LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (LORA_BF16_ONLY), the M > 16 calls of the serve and combined runs the
 # rows above lack: qwen's 4 x 2,048 train batch and 8 x 2,048 prefill
 # wave, llama3-8b's 2,048-row train batch and prefill (q/o and k/v), and
-# the VLM's 8 x 32 prefill wave at its q/o
+# the VLM's 8 x 32 prefill wave at its q/o; then the suffix programs'
+# waves (serve_prefix, serve_chunked, budget): qwen's suffix wave (8 x
+# 224 over the cached prefix) and chunk wave (8 x 256), llama3-8b's full
+# wave (8 x 992) and suffix wave (q/o and k/v each)
 LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
                ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
@@ -214,9 +253,17 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("prefill_2048", 16384, 1024, 1024, 16),
                ("train_llama_qo", 2048, 4096, 4096, 16),
                ("train_llama_kv", 2048, 4096, 1024, 16),
-               ("vlm_prefill_qo", 256, 8192, 8192, 16)]
+               ("vlm_prefill_qo", 256, 8192, 8192, 16),
+               ("suffix_1792", 1792, 1024, 1024, 16),
+               ("chunk_2048", 2048, 1024, 1024, 16),
+               ("llama_prefill_qo", 7936, 4096, 4096, 16),
+               ("llama_prefill_kv", 7936, 4096, 1024, 16),
+               ("llama_suffix_qo", 1792, 4096, 4096, 16),
+               ("llama_suffix_kv", 1792, 4096, 1024, 16)]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
-                  "train_llama_kv", "vlm_prefill_qo"}
+                  "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
+                  "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
+                  "llama_suffix_qo", "llama_suffix_kv"}
 
 
 def lora_dtypes(name):
@@ -319,13 +366,16 @@ def bitwise_repeat(fn, first):
 
 
 # ------------------------------------------------- paged decode attention -
-def attention_case(b, h, hkv, d, bs, nb, dtype, seed, lengths="ragged"):
+def attention_case(b, h, hkv, d, bs, nb, dtype, seed, lengths="ragged",
+                   shared=0):
     """Inputs as the runtime builds them: shuffled non-scratch blocks for
     each sequence's live range, scratch block 0 past it; kv_len ragged,
     holding 1 and a full table, or (``"tick"``) as a decode tick finds them
     in the last 32 rows of the table (2,049 to 2,080 after 2,048-token
-    prompts)."""
-    n_blocks = 1 + b * nb
+    prompts).  With ``shared`` > 0 every table starts with the same
+    ``shared`` blocks (a prefix-cache hit's aliasing) and kv_len is ragged
+    past them (one row past the prefix, and a full table, among them)."""
+    n_blocks = 1 + shared + b * (nb - shared)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn((b, h, d), generator=g, device="cuda").to(dtype)
     kp = torch.randn((n_blocks, bs, hkv, d), generator=g,
@@ -337,29 +387,37 @@ def attention_case(b, h, hkv, d, bs, nb, dtype, seed, lengths="ragged"):
         kv_len = rng.integers(nb * bs - 31, nb * bs + 1,
                               size=b).astype(np.int32)
     else:
-        kv_len = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
-        kv_len[0], kv_len[1] = 1, nb * bs
+        lo = shared * bs + 1
+        kv_len = rng.integers(lo, nb * bs + 1, size=b).astype(np.int32)
+        kv_len[0], kv_len[1] = lo, nb * bs
     perm = rng.permutation(np.arange(1, n_blocks)).astype(np.int32)
     tables = np.zeros((b, nb), np.int32)
-    used = 0
+    tables[:, :shared] = perm[:shared]
+    used = shared
     for i in range(b):
         live = -(-int(kv_len[i]) // bs)
-        tables[i, :live] = perm[used:used + live]
-        used += live
+        tables[i, shared:live] = perm[used:used + live - shared]
+        used += live - shared
     return (q, kp, vp, torch.tensor(tables, device="cuda"),
             torch.tensor(kv_len, device="cuda"))
 
 
 def attention_bound(q, kp, tables, kv_len):
-    """Least time for one call: K/V rows up to kv_len read once, q read
-    and out written once, live table entries and kv_len read once;
-    4 FLOP per (query head, live row, channel)."""
+    """Least time for one call: each distinct pool row that some sequence
+    reads below its kv_len read once (a block several tables name, once),
+    q read and out written once, live table entries and kv_len read once;
+    4 FLOP per (query head, live row, channel) of every sequence."""
     b, h, d = q.shape
     bs, hkv = kp.shape[1], kp.shape[2]
     lens = kv_len.long()
     elt = q.element_size()
     live_blocks = int(((lens + bs - 1) // bs).sum())
-    nbytes = (2 * q.numel() * elt + 2 * int(lens.sum()) * hkv * d * elt
+    rows_of = {}        # pool block -> rows some sequence reads
+    for tbl, n in zip(tables.cpu().tolist(), lens.cpu().tolist()):
+        for j in range(-(-n // bs)):
+            rows_of[tbl[j]] = max(rows_of.get(tbl[j], 0),
+                                  min(bs, n - j * bs))
+    nbytes = (2 * q.numel() * elt + 2 * sum(rows_of.values()) * hkv * d * elt
               + 4 * live_blocks + 4 * b)
     ops = 4 * int(lens.sum()) * h * d
     t_bytes = nbytes / HBM_BYTES_S
@@ -375,7 +433,9 @@ def attention_bound(q, kp, tables, kv_len):
 # rows as identity-table blocks of 32: two TMA loads a 64-row tile), both
 # with a decode tick's lengths; then the identity-table blocks of 1, 2 and
 # 8 rows that contiguous caches of other lengths give (TMA boxes of fewer
-# than 8 rows; the VLM's self-attention, 8 query heads per KV head)
+# than 8 rows; the VLM's self-attention, 8 query heads per KV head); last
+# the prefix cache's aliasing: every table names the same 48 prefix blocks
+# (768 rows), then 14 private blocks each, lengths ragged past the prefix
 PAGED_SHAPES = [
     ("serve", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=3)),
     ("long", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=64)),
@@ -388,6 +448,7 @@ PAGED_SHAPES = [
     ("bs1_g4", dict(b=2, h=16, hkv=4, d=128, bs=1, nb=301)),
     ("bs2", dict(b=4, h=16, hkv=16, d=64, bs=2, nb=150)),
     ("bs8_g8", dict(b=2, h=64, hkv=8, d=128, bs=8, nb=40)),
+    ("shared", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=62, shared=48)),
 ]
 
 
@@ -572,7 +633,8 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
 # decode (8 slots, one row each) with 1, 4 and 8 adapter slots, its
 # prefill waves (8 sequences of 32, 992 and 2,048 tokens, a slot per
 # sequence), a ragged shape with a slot per row, llama3-8b's decode
-# projections (k/v: N 1024; q/o: N 4096), and qwen's decode at 16 slots
+# projections (k/v: N 1024; q/o: N 4096), qwen's decode at 16 slots, and
+# the 4-tenant suffix wave (8 x 224 over the cached prefix)
 SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
               ("decode_a1", 8, 1024, 1024, 16, 1, 1),
               ("decode_a8", 8, 1024, 1024, 16, 8, 1),
@@ -582,7 +644,8 @@ SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
               ("ragged", 1000, 1000, 2816, 16, 4, 1),
               ("llama_decode_kv", 8, 4096, 1024, 16, 4, 1),
               ("llama_decode", 8, 4096, 4096, 16, 4, 1),
-              ("decode_m16", 16, 1024, 1024, 16, 4, 1)]
+              ("decode_m16", 16, 1024, 1024, 16, 4, 1),
+              ("suffix_224", 1792, 1024, 1024, 16, 4, 224)]
 SEG_REPS = 30
 
 
@@ -1496,6 +1559,7 @@ def phase_reference(get_config, build, make_engine, lm, scan, dattn):
     torch.cuda.empty_cache()
     _reference_ssm(get_config, build, scan)
     _reference_vlm(get_config, build, dattn)
+    _reference_serving(get_config, make_engine)
 
 
 def _reference_ssm(get_config, build, scan, steps=5):
@@ -1644,6 +1708,124 @@ def _reference_vlm(get_config, build, dattn, steps=5):
     if launches != units * steps:
         raise AssertionError(f"VLM reference: {launches} decode_attention "
                              f"launches for {steps} steps of {units} units")
+
+
+def _reference_serving(get_config, make_engine):
+    """The batcher's prefix cache, chunked prefill and copy-on-write, the
+    port on the card against the port on the CPU, reduced float32 config,
+    the same weights (a live bypass): a repeated-prefix trace, cache off,
+    on, and on with 8-token chunks; six prompts chunked (paged blocks of
+    8: chunks of 8 and 12; contiguous: 8 and 10) and monolithic; a
+    16-token sliding window whose ring wrap re-enters aliased blocks,
+    cache off and on.  Within each trace every run emits the same greedy
+    tokens, the card's equal the CPU's, every paged allocator drains, and
+    the windowed run copies at least one block (``Model.copy_blocks``)."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+    from repro_torch.tree import tree_map
+
+    def prompts(cfg, lens, seed):
+        data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
+                                seq_len=max(lens), seed=seed)
+        toks = data.sample_tokens(len(lens))
+        return [toks[i, :n].astype(np.int32) for i, n in enumerate(lens)]
+
+    def traces(cfg, wcfg):
+        (head,) = prompts(cfg, [24], 3)
+        rep = [np.concatenate([head, t]) for t in
+               prompts(cfg, [4, 7, 2, 8, 5], 11)]
+        rep_kw = dict(n_slots=2, max_seq=48, prompt_pad=32, paged=True,
+                      block_size=8)
+        six = prompts(cfg, [7, 24, 13, 24, 6, 19], 3)
+        six_kw = dict(n_slots=3, max_seq=32, prompt_pad=24)
+        (wh,) = prompts(wcfg, [12], 3)
+        win = [wh] + [np.concatenate([wh, t])
+                      for t in prompts(wcfg, [2, 2], 5)]
+        win_kw = dict(n_slots=2, max_seq=40, prompt_pad=16, paged=True,
+                      block_size=4, n_blocks=13)
+        return {
+            "repeated_prefix": (False, rep, [5, 3, 6, 2, 4], [
+                ("cache_off", rep_kw), ("cache_on", {**rep_kw,
+                                                     "prefix_cache": True}),
+                ("cache_on_chunk8", {**rep_kw, "prefix_cache": True,
+                                     "prefill_chunk": 8})]),
+            "chunked": (False, six, [6] * 6, [
+                ("paged_monolithic", {**six_kw, "paged": True,
+                                      "block_size": 8}),
+                ("paged_chunk8", {**six_kw, "paged": True, "block_size": 8,
+                                  "prefill_chunk": 8}),
+                ("paged_chunk12", {**six_kw, "paged": True, "block_size": 8,
+                                   "prefill_chunk": 12}),
+                ("contiguous_monolithic", six_kw),
+                ("contiguous_chunk8", {**six_kw, "prefill_chunk": 8}),
+                ("contiguous_chunk10", {**six_kw, "prefill_chunk": 10})]),
+            "window_cow": (True, win, [4, 10, 10], [
+                ("cache_off", win_kw),
+                ("cache_on", {**win_kw, "prefix_cache": True})]),
+        }
+
+    cfg = get_config(ARCH).scaled()
+    wcfg = get_config(ARCH).scaled(sliding_window=16)
+    weights = {}
+    for name, c in (("full", cfg), ("window", wcfg)):
+        cpu = make_engine(c, device="cpu").model
+        p = cpu.init(torch.Generator().manual_seed(0))
+        lo = cpu.init_lora(torch.Generator().manual_seed(1))
+        for pair in lo.values():            # a live bypass: b != 0
+            pair["b"].normal_(0.0, 0.1, generator=torch.Generator()
+                              .manual_seed(2))
+        weights[name] = (c, p, lo)
+    copies = []
+    orig = Model.copy_blocks
+
+    def spy(self, caches, src, dst):
+        copies.append((self.device.type, len(src)))
+        return orig(self, caches, src, dst)
+
+    Model.copy_blocks = spy
+    tokens, drained = {}, True
+    try:
+        for dev in ("cpu", "cuda"):
+            for key, (windowed, ps, gens, runs) in traces(cfg, wcfg).items():
+                c, p, lo = weights["window" if windowed else "full"]
+                eng = make_engine(c, device=dev)
+                p, lo = (tree_map(lambda t: t.to(dev), tree)
+                         for tree in (p, lo))
+                for run, kw in runs:
+                    b = ContinuousBatcher(eng, p, lo, **kw)
+                    reqs = [GenRequest(request_id=i, prompt=q.copy(),
+                                       max_new_tokens=g)
+                            for i, (q, g) in enumerate(zip(ps, gens))]
+                    if key == "window_cow":
+                        # a short request registers the prefix, then the
+                        # two sharers decode past the window
+                        b.run(reqs[:1])
+                        b.run(reqs[1:])
+                    else:
+                        b.run(reqs)
+                    tokens[(dev, key, run)] = [r.tokens for r in reqs]
+                    if b.paged:
+                        drained &= b.allocator.n_used == 0 \
+                            and b.allocator.reserved == 0
+    finally:
+        Model.copy_blocks = orig
+    same = {key: all(tokens[(dev, key, run)] == tokens[("cpu", key,
+                                                        runs[0][0])]
+                     for dev in ("cpu", "cuda") for run, _ in runs)
+            for key, (_, _, _, runs) in traces(cfg, wcfg).items()}
+    cuda_copies = sum(n for dev, n in copies if dev == "cuda")
+    emit("reference_serving", reduced_config=cfg.name, dtype="float32",
+         runs={key: [run for run, _ in runs]
+               for key, (_, _, _, runs) in traces(cfg, wcfg).items()},
+         all_runs_and_card_equal_cpu_tokens=same, allocators_drained=drained,
+         copy_blocks_calls={dev: sum(1 for d, _ in copies if d == dev)
+                            for dev in ("cpu", "cuda")},
+         blocks_copied_cuda=cuda_copies)
+    if not (all(same.values()) and drained and cuda_copies > 0):
+        raise AssertionError(
+            f"reference serving: tokens {same}, drained {drained}, "
+            f"blocks copied on the card {cuda_copies}")
 
 
 def phase_reference_blockwise(get_config, build, make_engine, fa):
@@ -2156,6 +2338,7 @@ def phase_combined(run_serving, get_config, pda, lm, fa, seg):
             "flash_attention_backward_launches_derived": flash_bwd_want,
             "throughput_tok_s": out["throughput_tok_s"],
             "wall_s": out["wall_s"],
+            **latency_percentiles(out),
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
@@ -2189,6 +2372,449 @@ def phase_combined(run_serving, get_config, pda, lm, fa, seg):
             raise AssertionError(
                 f"combined {name}: flash_attention launches {flash} / "
                 f"{flash_bwd}, derived {flash_want} / {flash_bwd_want}")
+        results[name] = row
+        del out
+        torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------- prefix cache, chunks, budget -
+PREFIX_HEAD, PREFIX_GEN, CHUNK = 768, 32, 256
+
+
+def prefix_trace(vocab, paired=False, seed=7):
+    """16 prompts of two families sharing a 768-token prefix (48 blocks of
+    16), each with a tail of 32 to 224 tokens (prompts of 800 to 992).
+    Request i takes family i % 2 and tail i; ``paired``: requests 2k and
+    2k + 1 take tail k and family k % 2 (identical prompts)."""
+    rng = np.random.default_rng(seed)
+    heads = rng.integers(0, vocab, (2, PREFIX_HEAD))
+    lens = rng.permutation(np.linspace(32, 224, 16).astype(int))
+    tails = [rng.integers(0, vocab, n) for n in lens]
+    out = []
+    for i in range(16):
+        k = i // 2 if paired else i
+        out.append(np.concatenate([heads[k % 2], tails[k]]).astype(np.int32))
+    return out
+
+
+def full_engine(make_engine, get_config, arch, seed=0):
+    """A full-width engine and its random weights from ``seed``, drawn as
+    ``run_serving`` draws them (params, then the adapter: b = 0)."""
+    eng = make_engine(get_config(arch), lr=3e-3, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = eng.model.init(gen)
+    return eng, params, eng.model.init_lora(gen)
+
+
+def _rel(a, b):
+    """max |a - b| over the largest |b| (float32)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def serve_tapped(eng, params, lora, prompts, gen, *, registry=None,
+                 aids=None, **kw):
+    """``ContinuousBatcher.run`` over ``prompts`` on 8 slots, with taps on
+    its prefill programs and admissions: each request's first-token
+    logits (the row its monolithic or suffix wave, or its final chunk,
+    computed), each wave's time between CUDA events around its program
+    (the host runs ahead of the card, so the later of its host and device
+    work), and each admission's blocks and matched-block count.  Returns
+    (batcher, requests, stats, first logits by request id, {wave kind:
+    [ms]}, admissions)."""
+    from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+    pad = max(len(p) for p in prompts)
+    b = ContinuousBatcher(eng, params, lora, n_slots=8, max_seq=pad + gen,
+                          prompt_pad=pad, adapters=registry, **kw)
+    first, events, admitted = {}, [], []
+    wave, chunk, admit = b._prefill_wave, b._chunk_wave, b.admit
+
+    def timed(kind, fn, *args):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = fn(*args)
+        e.record()
+        events.append((kind, s, e))
+        return out
+
+    def tap_wave(reqs, matched=None):
+        kind = "suffix" if matched is not None and any(matched) else "full"
+        firsts, pre, last = timed(kind, wave, reqs, matched)
+        for r, row in zip(reqs, last):
+            first[r.request_id] = row.float()
+        return firsts, pre, last
+
+    def tap_chunk(rows, pre_lens):
+        logits = timed("chunk", chunk, rows, pre_lens)
+        for j, (i, _) in enumerate(rows):   # the final chunk's row stays
+            first[b.slot_req[i].request_id] = logits[j, -1].float()
+        return logits
+
+    def tap_admit(now=0.0):
+        held = set(b.active_slots())
+        out = admit(now)
+        for i in b.active_slots():
+            if i not in held and b.paged:
+                admitted.append((b.slot_req[i], list(b.slot_blocks[i]),
+                                 int(b.slot_cached[i]) // b.block_size))
+        return out
+
+    b._prefill_wave, b._chunk_wave, b.admit = tap_wave, tap_chunk, tap_admit
+    reqs = [GenRequest(request_id=i, prompt=p, max_new_tokens=gen,
+                       adapter_id=aids[i] if aids else None)
+            for i, p in enumerate(prompts)]
+    stats = b.run(reqs)
+    # the taps close over the batcher: drop them, so the batcher (and the
+    # weights and pool it holds) dies with the caller's last reference
+    del b._prefill_wave, b._chunk_wave, b.admit
+    torch.cuda.synchronize()
+    times = {}
+    for kind, s, e in events:
+        times.setdefault(kind, []).append(s.elapsed_time(e))
+    return b, reqs, stats, first, times, admitted
+
+
+def cross_tenant_hits(admitted):
+    """Aliased blocks that a request of another tenant wrote, replaying
+    the admissions in order: each request's fresh blocks belong to its
+    tenant from then on, and each of its matched blocks must already
+    belong to it."""
+    owner, crossed = {}, 0
+    for req, blocks, matched in admitted:
+        crossed += sum(owner.get(blk) != req.adapter_id
+                       for blk in blocks[:matched])
+        owner.update((blk, req.adapter_id) for blk in blocks[matched:])
+    return crossed
+
+
+def serve_row(name, arch, b, reqs, stats, times, gen, launches):
+    """One result line of a tapped run and its checks: every request
+    finished, the allocator drained (no block used or reserved, free and
+    retained blocks the whole pool)."""
+    row = {"run": name, "arch": arch, "finished": stats.finished,
+           "decode_steps": stats.decode_steps,
+           "prefill_waves": b.prefill_waves,
+           "prefill_tokens_computed": stats.prefill_tokens,
+           "cached_prefix_tokens": stats.cached_prefix_tokens,
+           "throughput_tok_s": stats.throughput(), "wall_s": stats.wall_time,
+           **latency_percentiles({"ttft_s": stats.ttft,
+                                  "tpot_s": stats.tpot}),
+           "wave_ms_mean": {k: statistics.mean(v) for k, v in times.items()},
+           "waves": {k: len(v) for k, v in times.items()},
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches}
+    if b.paged:
+        a = b.allocator
+        row.update(peak_used_blocks=a.peak_used, pool_blocks=a.capacity,
+                   blocks_used_at_end=a.n_used,
+                   blocks_reserved_at_end=a.reserved,
+                   blocks_free_at_end=a.n_free,
+                   blocks_retained_at_end=a.n_retained)
+    if b.prefix_cache is not None:
+        row.update(prefix_cache_hits=b.prefix_cache.hits,
+                   prefix_cache_misses=b.prefix_cache.misses,
+                   prefix_cache_reclaimed=b.prefix_cache.reclaimed)
+    if stats.finished != 16 or any(len(r.tokens) != gen for r in reqs):
+        raise AssertionError(f"{name}: not every request finished")
+    if b.paged and (b.allocator.n_used or b.allocator.reserved
+                    or b.allocator.n_free + b.allocator.n_retained
+                    != b.allocator.capacity):
+        raise AssertionError(f"{name}: allocator did not drain")
+    return row
+
+
+def serve_launches(pda, lm, seg, fwd):
+    return {"paged_decode_attention": pda.launches, "lora_matmul":
+            lm.launches, "segmented_lora_matmul": seg.launches,
+            "flash_attention": fwd.launches}
+
+
+def check_launches(name, got, want):
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, derived {want}")
+
+
+def phase_serve_prefix(make_engine, get_config, pda, lm, fa, seg):
+    """Prefix caching at full width: qwen1.5-0.5b paged (blocks of 16),
+    16 requests on 8 slots, two families sharing a 768-token prefix,
+    tails of 32 to 224 tokens (prompt_pad 992: dense prefill), 32 tokens
+    each, with the cache off and on; the same trace off and on for
+    llama3-8b (GQA 4:1, head_dim 128); and with 4 tenants tagged
+    round-robin, each pair of identical prompts to two tenants.  Every
+    request finishes, the
+    allocator drains, the cache hits, launches exactly as derived
+    (lora_matmul, or with tenants segmented_lora_matmul, once per adapter
+    projection per prefill wave and decode step; the decode kernel once
+    per layer per step; flash_attention never), each request's first-token
+    logits with the cache on within 2e-2 of the largest with it off
+    (bf16), and no request aliases a block another tenant wrote."""
+    from repro_torch.runtime.fabric import make_tenant_adapters
+    from repro_torch.runtime.serving_loop import AdapterRegistry
+    fwd = fa.flash_attention_fwd
+    results = {}
+    for arch, runs in ((ARCH, ("off", "on", "tenants")),
+                       ("llama3-8b", ("off", "on"))):
+        n_layers, n_lora, _ = arch_counts(get_config, arch)
+        eng, params, lora = full_engine(make_engine, get_config, arch)
+        for run in runs:
+            tenants = run == "tenants"
+            registry = aids = None
+            if tenants:
+                registry = AdapterRegistry(eng.model, capacity=4)
+                for t, tree in enumerate(make_tenant_adapters(
+                        eng.model, 4, seed=1)):
+                    registry.register(f"tenant{t}", tree)
+                aids = [f"tenant{i % 4}" for i in range(16)]
+            prompts = prefix_trace(eng.model.cfg.vocab_size, paired=tenants)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(pda, lm, fwd, seg)                     # main path starts
+            b, reqs, stats, first, times, admitted = serve_tapped(
+                eng, params, lora, prompts, PREFIX_GEN, registry=registry,
+                aids=aids, paged=True, block_size=16,
+                prefix_cache=run != "off")
+            got = serve_launches(pda, lm, seg, fwd)       # path ends
+            name = run if arch == ARCH else f"llama_{run}"
+            per = n_lora * (b.prefill_waves + stats.decode_steps)
+            check_launches(f"serve_prefix {name}", got, {
+                "paged_decode_attention": n_layers * stats.decode_steps,
+                "lora_matmul": 0 if tenants else per,
+                "segmented_lora_matmul": per if tenants else 0,
+                "flash_attention": 0})
+            row = serve_row(name, arch, b, reqs, stats, times, PREFIX_GEN,
+                            got)
+            results[name] = (row, [r.tokens for r in reqs], first)
+            if run != "off" and not b.prefix_cache.hits:
+                raise AssertionError(f"serve_prefix {name}: no cache hit")
+            if tenants:
+                row["cross_tenant_aliased_blocks"] = \
+                    cross_tenant_hits(admitted)
+                row["adapter_refs_at_end"] = sum(
+                    registry.refcount(a) for a in registry.registered())
+                if row["cross_tenant_aliased_blocks"] \
+                        or row["adapter_refs_at_end"]:
+                    raise AssertionError(
+                        "serve_prefix tenants: a request aliased another "
+                        "tenant's blocks, or an adapter ref leaked")
+            if run == "on":
+                off_row, off_tok, off_first = results[
+                    name.replace("on", "off")]
+                errs = [_rel(first[i], off_first[i]) for i in range(16)]
+                row.update(
+                    first_logits_rel_err_vs_off=max(errs), tol=2e-2,
+                    identical_token_streams_vs_off=sum(
+                        t == o for t, o in zip(results[name][1], off_tok)),
+                    prefill_tokens_computed_off=off_row[
+                        "prefill_tokens_computed"])
+                if max(errs) >= 2e-2:
+                    raise AssertionError(
+                        f"serve_prefix {name}: first-token logits with the "
+                        f"cache on {max(errs)} from off, beyond 2e-2")
+            emit("serve_prefix", **row)
+            del b, first, registry
+            torch.cuda.empty_cache()
+        del eng, params, lora
+        torch.cuda.empty_cache()
+    return {k: v[0] for k, v in results.items()}
+
+
+def phase_serve_chunked(make_engine, get_config, pda, lm, fa, seg):
+    """Chunked prefill at full width: qwen1.5-0.5b, the serve phase's
+    992 + 32 traffic (16 synthetic prompts on 8 slots), paged (blocks of
+    16) and contiguous, prefill_chunk 256 against monolithic.  Every
+    request finishes, the allocator drains, launches exactly as derived
+    (a chunk wave is a prefill wave), and each request's final-chunk
+    logits within 2e-2 of the largest of its monolithic prefill's."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    fwd = fa.flash_attention_fwd
+    n_layers, n_lora, _ = arch_counts(get_config, ARCH)
+    eng, params, lora = full_engine(make_engine, get_config, ARCH)
+    data = SyntheticDataset("alpaca", vocab_size=eng.model.cfg.vocab_size,
+                            seq_len=992, seed=0)
+    prompts = list(data.sample_tokens(16)[:, :992].astype(np.int32))
+    results = {}
+    for paged in (True, False):
+        for chunk in (0, CHUNK):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(pda, lm, fwd, seg)                     # main path starts
+            b, reqs, stats, first, times, _ = serve_tapped(
+                eng, params, lora, prompts, 32, paged=paged,
+                prefill_chunk=chunk)
+            got = serve_launches(pda, lm, seg, fwd)       # path ends
+            name = f"{'paged' if paged else 'contiguous'}_" \
+                f"{'chunk256' if chunk else 'monolithic'}"
+            check_launches(f"serve_chunked {name}", got, {
+                "paged_decode_attention": n_layers * stats.decode_steps,
+                "lora_matmul": n_lora * (b.prefill_waves
+                                         + stats.decode_steps),
+                "segmented_lora_matmul": 0, "flash_attention": 0})
+            row = serve_row(name, ARCH, b, reqs, stats, times, 32, got)
+            results[(paged, chunk)] = (row, [r.tokens for r in reqs], first)
+            if chunk:
+                mono_tok, mono_first = results[(paged, 0)][1:]
+                errs = [_rel(first[i], mono_first[i]) for i in range(16)]
+                row.update(final_chunk_logits_rel_err_vs_monolithic=max(
+                    errs), tol=2e-2, identical_token_streams_vs_monolithic=sum(
+                        t == o for t, o in zip(results[(paged, chunk)][1],
+                                               mono_tok)))
+                if max(errs) >= 2e-2:
+                    raise AssertionError(
+                        f"serve_chunked {name}: final-chunk logits "
+                        f"{max(errs)} from monolithic, beyond 2e-2")
+            emit("serve_chunked", **row)
+            del b, first
+            torch.cuda.empty_cache()
+    return {k: v[0] for k, v in results.items()}
+
+
+BUDGET_RUNS = [("paged", "paged", dict(prompt_len=32, gen_tokens=16)),
+               ("paged_992_chunk256", "paged_992",
+                dict(prompt_len=992, gen_tokens=32, prefill_chunk=CHUNK))]
+TPOT_TARGET = 0.1
+
+
+def budget_seeded(make_engine, get_config, kw):
+    """Bring-up (the ``budget_seeded`` phase, never in the full run): a
+    policy the runtime does not have.  The budget run of ``kw`` with its
+    train cost priced first: one
+    idle tick before the trace trains alone (``step`` on an empty
+    batcher), which ``_TickBudget`` measures (after one unpriced warm-up
+    step outside the batcher); then the trace as ``run_serving`` serves
+    it (same weights, prompts and train data).  Returns the
+    ``run_serving``-like counters."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+    eng, params, lora = full_engine(make_engine, get_config, ARCH)
+    plen, gen = kw["prompt_len"], kw["gen_tokens"]
+    data = SyntheticDataset("alpaca", vocab_size=eng.model.cfg.vocab_size,
+                            seq_len=plen, seed=0)
+    b = ContinuousBatcher(eng, params, lora, n_slots=8, max_seq=plen + gen,
+                          prompt_pad=plen, opt_state=eng.optimizer.init(lora),
+                          paged=True, prefill_chunk=kw.get("prefill_chunk", 0),
+                          tpot_target=TPOT_TARGET)
+    prompts = data.sample_tokens(16)[:, :plen]
+    # one unpriced step first (its result dropped), so that the priced
+    # idle tick is warm: the budget never re-prices a skipped train step
+    warm = {k: torch.as_tensor(v, device="cuda")
+            for k, v in data.batch(4).items()}
+    eng.train_step(params, lora, eng.optimizer.init(lora), warm)
+    b.step(train_batch=data.batch(4))       # the idle tick: priced
+    seeded_s = b.budget.train_tok_s
+    rows = []
+
+    def train_fn():
+        if b.last_tick_trained:
+            rows.append(b.last_tick_train_rows)
+        return data.batch(4)
+
+    stats = b.run([GenRequest(request_id=i, prompt=prompts[i],
+                              max_new_tokens=gen) for i in range(16)],
+                  train_data_fn=train_fn)
+    if b.last_tick_trained:
+        rows.append(b.last_tick_train_rows)
+    # the counters without the idle tick (its rows, step and budget tick)
+    return {"finished": stats.finished, "decode_steps": stats.decode_steps,
+            "prefill_waves": b.prefill_waves,
+            "train_steps": stats.train_steps - 1, "train_rows": rows[1:],
+            "train_losses": b.train_losses[1:],
+            "train_skipped_ticks": stats.train_skipped_ticks,
+            "budget_ticks": stats.budget_ticks - 1,
+            "budget_spent_s": stats.budget_spent_s,
+            "budget_target_s": stats.budget_target_s - TPOT_TARGET,
+            "throughput_tok_s": stats.throughput(),
+            "ttft_s": stats.ttft, "tpot_s": stats.tpot,
+            "train_tok_s_seeded": seeded_s,
+            "train_tok_s_end": b.budget.train_tok_s,
+            "decode_tick_s_end": b.budget.decode_tick_s,
+            "blocks_used_at_end": b.allocator.n_used,
+            "blocks_reserved_at_end": b.allocator.reserved}
+
+
+def phase_budget(run_serving, make_engine, get_config, pda, lm, fa, seg,
+                 combined=None, seeded=False):
+    """Co-training under a decode TPOT target of 0.1 s (``run_serving(
+    combined=True, tpot_target=0.1)``, paged, train batch 4 x prompt
+    length): 32 + 16, and 992 + 32 with 256-token chunks.  ``seeded``
+    (the ``budget_seeded`` bring-up phase): each run instead with the
+    train cost priced first by an idle train tick (``budget_seeded``: the
+    reference prices training only on a tick without serving work, which
+    a saturated trace never has).  Reports what the budget trained
+    (steps, rows per trained tick, skipped ticks), its spend against its
+    target and TPOT, beside the combined phase's unbudgeted run of the
+    same traffic, and the host ms of drawing one train batch as
+    ``run_serving``'s train_fn draws it before every tick, trained or
+    skipped (outside ``step``, so outside the budget's own clock).
+    Checks: every request finishes, every loss finite, the allocator
+    drains, launches as derived; no outcome of the plan is asserted."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_backward
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, ARCH)
+    results = {}
+    for name, ref, kw in BUDGET_RUNS:
+        torch.cuda.synchronize()
+        _reset(pda, lm, fwd, bwd, seg)                    # main path starts
+        if seeded:
+            out = budget_seeded(make_engine, get_config, kw)
+        else:
+            out = run_serving(ARCH, smoke=False, n_requests=16, batch_size=8,
+                              combined=True, train_batch=4, seed=0,
+                              device="cuda", verbose=False, paged=True,
+                              tpot_target=TPOT_TARGET, **kw)
+        got = {**serve_launches(pda, lm, seg, fwd),
+               "flash_attention_backward": bwd.launches}  # path ends
+        name = f"{name}_seeded" if seeded else name
+        steps = out["train_steps"] + 2 * seeded   # warm-up and idle tick
+        check_launches(f"budget {name}", got, {
+            "paged_decode_attention": n_layers * out["decode_steps"],
+            "lora_matmul": n_lora * (out["prefill_waves"]
+                                     + out["decode_steps"])
+            + (n_lora + n_lora_bwd) * steps,
+            "segmented_lora_matmul": 0, "flash_attention": 0,
+            "flash_attention_backward": 0})
+        rows = out["train_rows"]
+        steps = out["train_steps"]
+        row = {"run": name, "tpot_target_s": TPOT_TARGET,
+               "prompt_len": kw["prompt_len"], "gen_tokens": kw["gen_tokens"],
+               "prefill_chunk": kw.get("prefill_chunk", 0),
+               "train_batch": [4, kw["prompt_len"]],
+               "finished": out["finished"],
+               "decode_steps": out["decode_steps"],
+               "budget_ticks": out["budget_ticks"], "train_steps": steps,
+               "train_rows_per_trained_tick": rows,
+               "train_skipped_ticks": out["train_skipped_ticks"],
+               "budget_spent_s": out["budget_spent_s"],
+               "budget_target_s": out["budget_target_s"],
+               "budget_spent_over_target":
+                   out["budget_spent_s"] / out["budget_target_s"],
+               "throughput_tok_s": out["throughput_tok_s"],
+               **latency_percentiles(out), "launches": got,
+               "losses_finite": bool(np.isfinite(out["train_losses"]).all())}
+        if seeded:
+            row.update({k: out[k] for k in (
+                "train_tok_s_seeded", "train_tok_s_end", "decode_tick_s_end")})
+        data = SyntheticDataset("alpaca",
+                                vocab_size=get_config(ARCH).vocab_size,
+                                seq_len=kw["prompt_len"], seed=0)
+        draws = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            data.batch(4)
+            draws.append((time.perf_counter() - t0) * 1e3)
+        row["train_batch_draw_host_ms"] = statistics.median(draws)
+        if combined is not None and ref in combined:
+            c = combined[ref]
+            row["unbudgeted"] = {k: c[k] for k in (
+                "train_steps", "decode_steps", "throughput_tok_s",
+                "tpot_p50_ms", "tpot_p99_ms", "ttft_p50_ms", "ttft_p99_ms")}
+        emit("budget", **row)
+        if out["finished"] != 16 or not row["losses_finite"] \
+                or len(rows) != steps:
+            raise AssertionError(f"budget {name}: a request unfinished, a "
+                                 "loss not finite, or rows miscounted")
+        if out["blocks_used_at_end"] or out["blocks_reserved_at_end"]:
+            raise AssertionError(f"budget {name}: allocator did not drain")
         results[name] = row
         del out
         torch.cuda.empty_cache()
@@ -2556,7 +3182,87 @@ def phase_tick(make_engine, get_config, n=5):
         torch.cuda.empty_cache()
     del engine, params, lora
     torch.cuda.empty_cache()
+    _tick_waves(make_engine, get_config, n)
     _tick_vlm(make_engine, get_config, n)
+
+
+def _tick_waves(make_engine, get_config, n):
+    """Where a prefill wave's time goes at full width (qwen1.5-0.5b,
+    paged blocks of 16, 8 rows), the programs the batcher runs: a full
+    wave of the prefix trace's first 8 prompts (``prefill_ragged``, 992
+    padded), the suffix wave of the next 8 over their cached 768-token
+    prefix (``prefill_ragged_suffix``, 48 blocks, suffix padded to 224),
+    and a 256-token chunk wave at offset 512 over the first 8's blocks.
+    Host wall per wave, then under torch.profiler device ms, lora_matmul's
+    part and kernels per wave."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.paging import blocks_for
+    eng, params, lora = full_engine(make_engine, get_config, ARCH)
+    m = eng.model
+    prompts = prefix_trace(m.cfg.vocab_size)
+    bs, pad = 16, 992
+    nb = blocks_for(pad, bs)
+    pool = m.init_paged_caches(1 + 8 * nb, bs)
+    tables = np.arange(1, 1 + 8 * nb, dtype=np.int32).reshape(8, nb)
+    full = np.zeros((8, pad), np.int64)
+    for j, p in enumerate(prompts[:8]):
+        full[j, :len(p)] = p
+    lens = torch.tensor([len(p) for p in prompts[:8]], device="cuda")
+    toks = torch.tensor(full, device="cuda")
+    with torch.no_grad():
+        _, pre = m.prefill_ragged(params, lora, {"tokens": toks}, lens)
+    m.write_prefill_blocks(pool, pre, tables)
+    del pre
+    # rows j of the next 8 prompts share family j % 2 with row j's prefix
+    tails = [p[PREFIX_HEAD:] for p in prompts[8:]]
+    suf = np.zeros((8, 224), np.int64)
+    for j, t in enumerate(tails):
+        suf[j, :len(t)] = t
+    chunk = full[:, 512:768]
+    waves = {
+        "full_8x992": lambda: m.prefill_ragged(
+            params, lora, {"tokens": toks}, lens),
+        "suffix_8x224_over_768": lambda: m.prefill_ragged_suffix(
+            params, lora, {"tokens": torch.tensor(suf, device="cuda")},
+            np.array([len(t) for t in tails]), np.full(8, PREFIX_HEAD),
+            pool, tables),
+        "chunk_8x256_at_512": lambda: m.prefill_ragged_suffix(
+            params, lora, {"tokens": torch.tensor(chunk, device="cuda")},
+            np.full(8, 256), np.full(8, 512), pool, tables[:, :32]),
+    }
+    for name, fn in waves.items():
+        with torch.no_grad():
+            fn()                                   # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) / n * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof_ms = (time.perf_counter() - t0) / n * 1e3
+        kern = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(_device_us(e) for e in kern) / 1e3 / n
+        lora_ms = sum(_device_us(e) for e in kern if _is_lora(e.key)) \
+            / 1e3 / n
+        top = sorted(kern, key=_device_us, reverse=True)[:6]
+        emit("tick", context=name, arch=ARCH, paged=True, block_size=bs,
+             host_ms_per_wave=host_ms, profiled_wall_ms_per_wave=prof_ms,
+             device_busy_ms_per_wave=dev_ms,
+             device_busy_share=dev_ms / prof_ms if prof_ms else None,
+             lora_matmul_ms_per_wave=lora_ms,
+             lora_matmul_share_of_device=lora_ms / dev_ms if dev_ms else None,
+             kernels_per_wave=sum(e.count for e in kern) / n,
+             top_kernels_ms_per_wave=[[e.key[:60], _device_us(e) / 1e3 / n]
+                                      for e in top])
+    del eng, params, lora, pool
+    torch.cuda.empty_cache()
 
 
 def _is_decode(key):
@@ -2689,12 +3395,18 @@ def main():
             get_config, build, make_engine, fa),
         "serve": lambda: phase_serve(run_serving, get_config, pda, lm, fa,
                                      seg),
+        "serve_prefix": lambda: phase_serve_prefix(make_engine, get_config,
+                                                   pda, lm, fa, seg),
+        "serve_chunked": lambda: phase_serve_chunked(make_engine, get_config,
+                                                     pda, lm, fa, seg),
         "serve_ssm": lambda: phase_serve_ssm(run_serving, get_config, pda,
                                              lm, fa, seg, ssd.ssd_scan),
         "serve_vlm": lambda: phase_serve_vlm(make_engine, get_config, pda, lm,
                                              fa, seg, ssd.ssd_scan, dattn),
         "combined": lambda: phase_combined(run_serving, get_config, pda, lm,
                                            fa, seg),
+        "budget": lambda: phase_budget(run_serving, make_engine, get_config,
+                                       pda, lm, fa, seg, out.get("combined")),
         "serve_adapters": lambda: phase_serve_adapters(
             run_serving, get_config, pda, lm, fa, seg, out.get("serve")),
         "mixed_solo": lambda: phase_mixed_solo(get_config, make_engine, seg,
@@ -2703,7 +3415,10 @@ def main():
         "tick": lambda: phase_tick(make_engine, get_config),
     }
     # bring-up only: named on the command line, never in the full run
-    bring_up = {"splits": phase_splits}
+    bring_up = {"splits": phase_splits,
+                "budget_seeded": lambda: phase_budget(
+                    run_serving, make_engine, get_config, pda, lm, fa, seg,
+                    seeded=True)}
     only = sys.argv[1:]
     out = {}      # each phase's results, as later phases read them
     if only:
@@ -2711,8 +3426,12 @@ def main():
         for name in only:
             out[name] = {**phases, **bring_up}[name]()
         return
+    seconds = {}
     for name, fn in phases.items():
+        t1 = time.perf_counter()
         out[name] = fn()
+        seconds[name] = time.perf_counter() - t1
+    emit("seconds", phases=seconds, total=time.perf_counter() - t0)
     rows, lrows, frows = out["kernel"], out["kernel_lora"], \
         out["kernel_flash"]
     serve, combined = out["serve"], out["combined"]

@@ -9,18 +9,25 @@ layout; every LoRA projection runs the fused lora_matmul kernel.
 step per decode tick, over the same base weights).  ``--adapters N``
 serves N tenants from one registry: requests are tagged ``tenant{i % N}``
 round-robin and every wave mixes them through the segmented_lora_matmul
-kernel.  ``--arch mamba2-780m`` serves the attention-free Mamba2 stack
+kernel.  ``--prefix-cache`` (with ``--paged``) shares identical prompt
+prefixes copy-on-write across requests, per tenant; ``--chunked-prefill
+N`` prefills prompts N tokens a tick beside the decode wave; ``--tpot-
+target S`` budgets each tick for a decode TPOT of S seconds (decode
+first, then prefill chunks, then a full, half or skipped train step).
+``--arch mamba2-780m`` serves the attention-free Mamba2 stack
 (contiguous caches: a conv tail and an SSD state per slot): each prompt
 prefills at its exact length through the ssd_scan kernel in every layer,
-and ``--paged`` and ``--adapters`` raise for it, as in the reference.
-Weights are random, drawn from ``--seed``.  The multi-replica
-fabric and the batcher's other optional features are not ported yet
-(see ROADMAP.md).
+and ``--paged``, ``--adapters`` and ``--chunked-prefill`` raise for it,
+as in the reference.  Weights are random, drawn from ``--seed``.  The
+multi-replica fabric and oversubscription (``--oversubscribe``) are not
+ported yet (see ROADMAP.md).
 
 Usage (on a machine with an NVIDIA Hopper card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
       --requests 16 --prompt-len 32 --gen 16
   ... --paged --block-size 16 --n-blocks 64   # paged KV cache
+  ... --paged --prefix-cache                  # copy-on-write prefix sharing
+  ... --chunked-prefill 256 [--tpot-target 0.1]   # chunks, tick budget
   ... --combined --train-batch 4              # co-train the adapter
   ... --adapters 3 [--combined]               # multi-tenant LoRA serving
   ... --arch mamba2-780m                      # Mamba2 (SSM), contiguous
@@ -48,6 +55,8 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
                 batch_size: int = 8, combined: bool = False,
                 train_batch: int = 4, seed: int = 0, paged: bool = False,
                 block_size: int = 16, n_blocks: int = 0,
+                prefix_cache: bool = False, prefill_chunk: int = 0,
+                tpot_target: float = 0.0,
                 temperature: float = 0.0, top_k: int = 0,
                 top_p: float = 1.0, n_adapters: int = 0,
                 adapter_slots: int = 0, device="cuda",
@@ -56,7 +65,11 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
     continuous batcher on ``device``; returns throughput and counts,
     each request's tokens, (paged) the allocator's end state, and
     (``combined``) the loss of the train step each tick co-ran on a
-    fresh ``train_batch`` x ``prompt_len`` synthetic batch.
+    fresh ``train_batch`` x ``prompt_len`` synthetic batch, with the rows
+    each trained tick took (``tpot_target`` may halve or skip a step).
+    ``prefix_cache``, ``prefill_chunk`` and ``tpot_target`` reach the
+    batcher; the output then carries the cache's and the budget's
+    counters.
 
     ``n_adapters > 0`` registers that many tenants (``make_tenant_adapters``)
     on an ``AdapterRegistry`` of ``adapter_slots`` device slots (default:
@@ -89,7 +102,8 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         max_seq=prompt_len + gen_tokens, prompt_pad=prompt_len,
         opt_state=engine.optimizer.init(lora), paged=paged,
         block_size=block_size, n_blocks=n_blocks or None,
-        adapters=registry)
+        prefix_cache=prefix_cache, adapters=registry,
+        prefill_chunk=prefill_chunk, tpot_target=tpot_target)
     prompts = data.sample_tokens(n_requests)[:, :prompt_len]
     requests = [GenRequest(request_id=i, prompt=prompts[i],
                            max_new_tokens=gen_tokens,
@@ -99,11 +113,19 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
                            top_p=top_p, seed=seed + i)
                 for i in range(n_requests)]
 
+    train_rows = []     # rows of each trained tick
+
+    def note_trained():
+        if batcher.last_tick_trained:
+            train_rows.append(batcher.last_tick_train_rows)
+
     def train_fn():
+        note_trained()  # the tick before this one
         return data.batch(train_batch)
 
     stats = batcher.run(requests, train_data_fn=train_fn if combined
                         else None)
+    note_trained()
     per_req = [r.finished_at for r in requests
                if r.finished_at is not None]
     out = {
@@ -114,6 +136,7 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         "prefill_waves": batcher.prefill_waves,
         "train_steps": stats.train_steps,
         "train_losses": batcher.train_losses,
+        "train_rows": train_rows,
         "wall_s": stats.wall_time,
         "mean_completion_s": float(np.mean(per_req)) if per_req else 0.0,
         "throughput_tok_s": stats.throughput(),
@@ -128,6 +151,14 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         out["pool_blocks"] = batcher.allocator.capacity
         out["blocks_used_at_end"] = batcher.allocator.n_used
         out["blocks_reserved_at_end"] = batcher.allocator.reserved
+    if prefix_cache:
+        out["cached_prefix_tokens"] = stats.cached_prefix_tokens
+        out["prefix_cache_hits"] = batcher.prefix_cache.hits
+    if tpot_target > 0:
+        out.update(budget_ticks=stats.budget_ticks,
+                   budget_spent_s=stats.budget_spent_s,
+                   budget_target_s=stats.budget_target_s,
+                   train_skipped_ticks=stats.train_skipped_ticks)
     if registry is not None:
         out["adapter_ids"] = [r.adapter_id for r in requests]
         out["adapter_requests"] = dict(stats.adapter_requests)
@@ -143,6 +174,12 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
               f"{model.device}"
               + (f" (sampled, T={temperature:g})" if temperature > 0
                  else "")
+              + (f"; {stats.cached_prefix_tokens} prompt tokens served "
+                 "from the prefix cache" if prefix_cache else "")
+              + (f"; budget {stats.budget_spent_s:.3f} of "
+                 f"{stats.budget_target_s:.3f} s, "
+                 f"{stats.train_skipped_ticks} train steps skipped"
+                 if tpot_target > 0 else "")
               + (f"; co-trained {stats.train_steps} fused steps "
                  f"(loss {batcher.train_losses[0]:.3f} -> "
                  f"{batcher.train_losses[-1]:.3f})"
@@ -171,6 +208,19 @@ def main() -> None:
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=0,
                     help="paged pool size (0 = full worst case)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share identical prompt prefixes copy-on-write "
+                         "over the paged pool (requires --paged)")
+    ap.add_argument("--chunked-prefill", type=int, default=0,
+                    help="prefill chunk in tokens (0 = monolithic "
+                         "prefill); > 0 prefills each prompt in chunks "
+                         "beside the decode ticks (paged mode rounds it "
+                         "up to a block multiple)")
+    ap.add_argument("--tpot-target", type=float, default=0.0,
+                    help="decode TPOT target in seconds per token (0 = "
+                         "no tick budget); > 0 budgets each tick: decode "
+                         "first, then prefill chunks in deadline-slack "
+                         "order, then a full, half or skipped train step")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy, the default)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -185,12 +235,17 @@ def main() -> None:
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args()
+    if args.prefix_cache and not args.paged:
+        ap.error("--prefix-cache requires --paged (sharing rides on "
+                 "pool block aliasing)")
     run_serving(args.arch, smoke=args.smoke, n_requests=args.requests,
                 prompt_len=args.prompt_len, gen_tokens=args.gen,
                 batch_size=args.batch, combined=args.combined,
                 train_batch=args.train_batch, paged=args.paged,
                 block_size=args.block_size, n_blocks=args.n_blocks,
-                temperature=args.temperature, top_k=args.top_k,
+                prefix_cache=args.prefix_cache,
+                prefill_chunk=args.chunked_prefill,
+                tpot_target=args.tpot_target, temperature=args.temperature, top_k=args.top_k,
                 top_p=args.top_p, n_adapters=args.adapters, seed=args.seed,
                 device=args.device)
 

@@ -1,7 +1,7 @@
 """Core layers of the port: norms, RoPE, GQA attention (dense prefill,
-blockwise online-softmax prefill, single-token decode over contiguous
-and paged caches) and the weight initializer — the PyTorch counterparts
-of ``repro.models.layers``.
+blockwise online-softmax prefill, suffix prefill over a cached prefix,
+single-token decode over contiguous and paged caches) and the weight
+initializer — the PyTorch counterparts of ``repro.models.layers``.
 
 Plain functions on tensors.  Weight matrices use the ``[in, out]``
 convention; stacked-layer params carry a leading ``L`` dim.  Norms and
@@ -70,12 +70,7 @@ def attention_dense(q, k, v, *, causal: bool = True, window: int = 0,
     q: [B,Sq,Hq,D]; k,v: [B,Skv,Hkv,D].  ``q_offset`` is the absolute
     position of q[0].  ``kv_len`` ([B] tensor or int) masks positions
     >= kv_len.  Fully masked rows give zeros."""
-    b, sq, hq, d = q.shape
-    skv = k.shape[1]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    k = _gqa_repeat(k, hq)
-    v = _gqa_repeat(v, hq)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    sq, skv = q.shape[1], k.shape[1]
     qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(skv, device=q.device)
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
@@ -90,6 +85,19 @@ def attention_dense(q, k, v, *, causal: bool = True, window: int = 0,
             mask = mask[:, None]                                   # [B,1,..]
         else:
             mask = mask & (kpos[None, :] < klen)
+    return _masked_attention(q, k, v, mask, scale)
+
+
+def _masked_attention(q, k, v, mask, scale: Optional[float]):
+    """The dense formulation both prefill attentions share: GQA repeat,
+    float32 scores, masked lanes at -inf, softmax, fully masked rows
+    zeroed, so masked lanes contribute exact zeros.  ``mask`` [Sq, Skv]
+    or [B, 1, Sq, Skv], True where a query may read a key."""
+    b, sq, hq, d = q.shape
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    k = _gqa_repeat(k, hq)
+    v = _gqa_repeat(v, hq)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     probs = torch.nan_to_num(probs, nan=0.0)          # fully-masked rows
@@ -179,6 +187,37 @@ def attention_blockwise(q, k, v, *, causal: bool = True, window: int = 0,
         _, l, acc = carry
         outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
     return torch.cat(outs, dim=1)[:, :sq].to(q.dtype)
+
+
+def attention_prefix_suffix(q, k_pre, v_pre, k_suf, v_suf, prefix_len, *,
+                            window: int = 0,
+                            scale: Optional[float] = None):
+    """Suffix-prefill attention: suffix queries attend over a cached
+    prefix's K/V (gathered from the cache) plus the suffix's own causal
+    K/V (``repro.models.layers.attention_prefix_suffix``).
+
+    q, k_suf, v_suf: [B, Sq, H*, D], row ``i`` of sequence ``b`` at
+    absolute position ``prefix_len[b] + i``; k_pre, v_pre: [B, Pp, Hkv,
+    D] at positions ``0 .. Pp-1``, valid below ``prefix_len[b]`` (rows
+    past it are other blocks' content and are masked).  The same
+    formulation as ``attention_dense`` (``_masked_attention``)."""
+    b, sq = q.shape[:2]
+    pp = k_pre.shape[1]
+    k = torch.cat([k_pre.to(q.dtype), k_suf], dim=1)
+    v = torch.cat([v_pre.to(q.dtype), v_suf], dim=1)
+    plen = torch.as_tensor(prefix_len, device=q.device).long()
+    ar_q = torch.arange(sq, device=q.device)
+    ar_p = torch.arange(pp, device=q.device)
+    qpos = plen[:, None] + ar_q                                 # [B, Sq]
+    kpos = torch.cat([ar_p.expand(b, pp), qpos], dim=1)         # [B, Pp+Sq]
+    mask = kpos[:, None, :] <= qpos[:, :, None]                 # causal
+    real = torch.cat([ar_p[None, :] < plen[:, None],            # prefix
+                      torch.ones((b, sq), dtype=torch.bool,
+                                 device=q.device)], dim=1)
+    mask = mask & real[:, None, :]
+    if window > 0:
+        mask = mask & ((qpos[:, :, None] - kpos[:, None, :]) < window)
+    return _masked_attention(q, k, v, mask[:, None], scale)
 
 
 def attention_decode(q, k_cache, v_cache, kv_len,

@@ -13,6 +13,9 @@ stacked multi-tenant tree (leaves ``[L, A, din, r]``) and each sequence
 applies its own slot (< 0: the base model alone).
   init_caches / init_paged_caches        write_prefill_slots / _blocks
   write_prefill_slot                     one request's row (SSM waves)
+  prefill_ragged_suffix / _continue      a suffix (or chunk) over a cached
+                                         prefix: paged / contiguous
+  write_prefill_rows, copy_blocks        a chunk's rows; copy-on-write
 
 An SSM stack's caches are ``{"ssm": {"conv", "state"}}`` per slot (the
 conv tail and the SSD state, fixed size whatever the prompt); the ragged
@@ -433,6 +436,135 @@ class Model:
             src = torch.as_tensor(keep, device=pool.device)
             pool[:, dst] = vals[:, src].to(pool.dtype)
         return pool_caches
+
+    def write_prefill_rows(self, pool_caches, prefill_caches, slots,
+                           offsets, lens):
+        """Scatter one chunk wave's K/V into contiguous slot caches at
+        each row's resume offset, one indexed write per K/V leaf.
+        ``slots``/``offsets``/``lens`` [W] (host-side): row j's chunk
+        K/V ``[L, W, C, Hkv, Dh]`` lands at cache rows ``offsets[j] ..
+        offsets[j] + lens[j] - 1`` of slot ``slots[j]``.  Pad positions
+        past ``lens[j]``, rows past the cache and slot ids outside
+        ``[0, n_slots)`` are dropped on the host (the JAX scatter drops
+        them by index; on the card an out-of-range index is a device
+        assert)."""
+        self._no_vlm("cache-slot writes")
+        slots = np.asarray(slots, np.int64)
+        offsets = np.asarray(offsets, np.int64)
+        lens = np.asarray(lens, np.int64)
+        pools, pres = pool_caches["kv"], prefill_caches["kv"]
+        n_slots, s = pools[0].shape[1], pools[0].shape[2]
+        c = pres[0].shape[2]
+        rows, cols = np.nonzero(np.arange(c)[None, :] < lens[:, None])
+        pos = offsets[rows] + cols
+        keep = (slots[rows] >= 0) & (slots[rows] < n_slots) & (pos < s)
+        if not keep.any():
+            return pool_caches
+        dev = pools[0].device
+        dst_slot = torch.as_tensor(slots[rows[keep]], device=dev)
+        dst_pos = torch.as_tensor(pos[keep], device=dev)
+        src_row = torch.as_tensor(rows[keep], device=dev)
+        src_col = torch.as_tensor(cols[keep], device=dev)
+        for pool, pre in zip(pools, pres):
+            pool[:, dst_slot, dst_pos] = \
+                pre[:, src_row, src_col].to(pool.dtype)
+        return pool_caches
+
+    def copy_blocks(self, paged_caches, src_ids, dst_ids):
+        """Copy-on-write: pool blocks ``dst := src`` (host-side ids), one
+        gather and one indexed write per K/V leaf.  The runtime batches a
+        tick's copies into one call."""
+        src = np.asarray(src_ids, np.int64)
+        dst = np.asarray(dst_ids, np.int64)
+        n_blocks = paged_caches["kv"][0].shape[1]
+        if src.shape != dst.shape or ((src < 0) | (src >= n_blocks)
+                                      | (dst < 0) | (dst >= n_blocks)).any():
+            raise ValueError(f"copy_blocks: ids {src.tolist()} -> "
+                             f"{dst.tolist()} outside the pool of "
+                             f"{n_blocks} blocks")
+        if not src.size:
+            return paged_caches
+        for pool in paged_caches["kv"]:
+            src_t = torch.as_tensor(src, device=pool.device)
+            dst_t = torch.as_tensor(dst, device=pool.device)
+            pool[:, dst_t] = pool[:, src_t]   # gathered before the write
+        return paged_caches
+
+    # ------------------------------------------------------- suffix prefill -
+    def _suffix_prefill(self, params, lora, batch, suffix_lens, prefix_lens,
+                        gather, adapter_idx):
+        """The loop of ``prefill_ragged_suffix`` / ``_continue``: each
+        layer attends its suffix rows over ``gather(layer)``, that
+        layer's prefix K/V (gathered inside the loop, so a wave never
+        holds every layer's copy of the prefixes)."""
+        cfg = self.cfg
+        self._attention_only("suffix prefills")
+        self._no_vlm("suffix prefills")
+        tokens = batch["tokens"]
+        dev = tokens.device
+        x = params["embed"][tokens]
+        plen = torch.as_tensor(prefix_lens, device=dev).long()
+        positions = plen[:, None] + torch.arange(tokens.shape[1], device=dev)
+        rope_cs = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+        kvs = []
+        for i in range(cfg.n_layers):
+            x, kv = tfm.block_prefill_suffix(
+                _layer(params["blocks"], i), x, cfg, gather(i), plen,
+                rope_cs, lora=_layer(lora, i), adapter_idx=adapter_idx)
+            kvs.append(kv)
+        hidden = rms_norm(x, params["final_norm"])
+        lens = torch.as_tensor(suffix_lens, device=dev).long()
+        rows = torch.arange(hidden.shape[0], device=dev)
+        last = hidden[rows, lens - 1][:, None]
+        return last @ params["lm_head"], \
+            {"kv": tuple(torch.stack(t) for t in zip(*kvs))}
+
+    def prefill_ragged_suffix(self, params, lora, batch, suffix_lens,
+                              prefix_lens, caches, prefix_tables,
+                              adapter_idx=None):
+        """Prefill only the uncached suffix of each prompt over the paged
+        pool (prefix caching; chunked prefill, paged).
+
+        ``batch["tokens"]`` [W, SufPad] holds each row's right-padded
+        suffix (absolute positions ``prefix_lens[w] + i``);
+        ``prefix_tables`` [W, NBpre] names the pool blocks holding each
+        row's block-aligned prefix (scratch block 0 past it: those lanes
+        are masked).  The prefix K/V are gathered from ``caches`` layer
+        by layer.  Returns (logits at each row's last real suffix token
+        [W,1,V], {"kv": suffix K/V [L, W, SufPad, Hkv, Dh]}) for
+        ``write_prefill_blocks``."""
+        k_all, v_all = caches["kv"]
+        tables = torch.as_tensor(prefix_tables, dtype=torch.long,
+                                 device=k_all.device)
+        w, nbpre = tables.shape
+        bs = k_all.shape[2]
+
+        def gather(i):
+            return tuple(pool[i][tables].reshape(w, nbpre * bs,
+                                                 *pool.shape[3:])
+                         for pool in (k_all, v_all))
+
+        return self._suffix_prefill(params, lora, batch, suffix_lens,
+                                    prefix_lens, gather, adapter_idx)
+
+    def prefill_ragged_continue(self, params, lora, batch, suffix_lens,
+                                prefix_lens, caches, slot_ids,
+                                adapter_idx=None):
+        """Chunked prefill over CONTIGUOUS slot caches: one chunk per row,
+        attending over the K/V the slot's earlier chunks wrote (cache rows
+        ``0 .. prefix_lens[w] - 1`` of slot ``slot_ids[w]``; later rows are
+        stale and masked).  Returns (logits at each row's last real chunk
+        token [W,1,V], {"kv": chunk K/V [L, W, CPad, Hkv, Dh]}) for
+        ``write_prefill_rows``."""
+        k_all, v_all = caches["kv"]
+        slots = torch.as_tensor(slot_ids, dtype=torch.long,
+                                device=k_all.device)
+
+        def gather(i):
+            return k_all[i][slots], v_all[i][slots]
+
+        return self._suffix_prefill(params, lora, batch, suffix_lens,
+                                    prefix_lens, gather, adapter_idx)
 
     # --------------------------------------------------------------- decode -
     def _positions(self, pos, batch: int) -> torch.Tensor:

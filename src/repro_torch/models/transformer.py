@@ -38,7 +38,7 @@ from repro_torch.models import lora as lora_lib
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
     apply_rope, attention_blockwise, attention_decode, attention_decode_paged,
-    attention_dense, dense_init, rms_norm,
+    attention_dense, attention_prefix_suffix, dense_init, rms_norm,
 )
 
 
@@ -180,6 +180,26 @@ def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None,
     return _out_proj(p, o, cfg, lora, adapter_idx), (k, v)
 
 
+def attn_prefill_suffix(p, x, cfg: ModelConfig, prefix_kv, prefix_len,
+                        rope_cs, lora=None, adapter_idx=None):
+    """Ragged suffix-prefill attention for one layer: the queries are the
+    uncached suffix tokens (absolute positions ``prefix_len + i``, RoPE
+    tables per row), the keys the cached prefix K/V ``prefix_kv`` (each
+    ``[B, Pp, Hkv, Dh]``, gathered from the cache) plus the suffix's
+    own.  Always the dense formulation (``use_dense_prefill`` gates the
+    features that call it).  Returns (out, (k_suf, v_suf)) for the
+    runtime to write into the suffix's cache rows."""
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    k_pre, v_pre = prefix_kv
+    o = attention_prefix_suffix(q, k_pre, v_pre, k, v, prefix_len,
+                                window=cfg.sliding_window)
+    o = o.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
+    return _out_proj(p, o, cfg, lora, adapter_idx), (k, v)
+
+
 def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None,
                 adapter_idx=None):
     """One-token attention against a contiguous KV cache, ragged slots.
@@ -288,6 +308,19 @@ def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
                              rope_cs, lora=lora, block_kv=block_kv,
                              skip_masked_blocks=skip_masked_blocks,
                              adapter_idx=adapter_idx)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
+    return x, kv
+
+
+def block_prefill_suffix(bp, x, cfg: ModelConfig, prefix_kv, prefix_len,
+                         rope_cs, lora=None, adapter_idx=None):
+    """Suffix-prefill block (attention-only stacks): the prefix caching
+    and chunked prefill programs.  Returns (x, (k_suf, v_suf))."""
+    attn_out, kv = attn_prefill_suffix(bp["attn"], rms_norm(x, bp["ln1"]),
+                                       cfg, prefix_kv, prefix_len, rope_cs,
+                                       lora=lora, adapter_idx=adapter_idx)
     x = x + attn_out
     if cfg.d_ff > 0:
         x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)

@@ -47,15 +47,38 @@ without an ``adapter_id`` serve the bare base model.  Co-training still
 steps ``self.lora`` (the co-train tenant's tree) in place, while decode
 reads the registry's copies.
 
-Prompts past the dense limit (``prompt_pad``^2 > 1M) prefill blockwise,
-on the card through the flash_attention kernels.  Not ported yet (the
-constructor raises ``NotImplementedError``): prefix caching, chunked
-prefill, the TPOT token budget and oversubscription; the first, second
-and last also keep the reference's gate, which refuses them past the
-dense limit.  Nor are the registry's sanitizer hook, per-tenant
-prefix-cache namespaces and adapter pins kept across preemption, which
-come with those features.  VLM stacks are refused, as in the reference:
-they serve through ``Engine.prefill_step``/``decode_step``.
+Prefix caching (``prefix_cache=True``, paged only): full, immutable
+prompt blocks are registered in a hash-indexed ``PrefixCache``
+(runtime/paging.py), namespaced per tenant; a request whose prompt
+starts with a cached block chain aliases those pool blocks at
+refcount+1 and prefills only the uncached suffix
+(``model.prefill_ragged_suffix``: the suffix attends over the prefix K/V
+gathered from the pool, layer by layer).  A decode write that would land
+in a shared block (a sliding-window ring wrap) copies the block first
+(``model.copy_blocks``, one call a tick).  Blocks whose last reference
+is freed stay cached in an LRU retained pool until the allocator needs
+them.
+
+Chunked prefill (``prefill_chunk > 0``): admission only binds a request
+to a slot; each tick then prefills one chunk of the most urgent
+prefilling slots (deadline-slack order) in ONE wave program, attending
+over the K/V the slot's earlier chunks (or its matched prefix) wrote:
+``prefill_ragged_suffix`` over the paged pool (chunks rounded up to
+whole blocks), ``prefill_ragged_continue`` + ``write_prefill_rows`` over
+contiguous caches.  A slot joins the decode wave on the tick its final
+chunk lands; until then its decode lane is parked (scratch block 0 when
+paged).  With ``tpot_target > 0`` a ``_TickBudget`` plans each tick from
+measured costs: decode first, prefill chunks in the slack, then a train
+microbatch in what is left (full, half or skipped).
+
+These features, like the reference's, refuse a ``prompt_pad`` past the
+dense limit (``prompt_pad``^2 > 1M, where prefill runs blockwise, on the
+card through the flash_attention kernels): the suffix programs mirror
+the dense softmax.  Chunked prefill refuses SSM stacks.
+Oversubscription (swap and drop-restore) and the shadow sanitizer are
+not ported yet (``oversubscribe`` raises ``NotImplementedError``, naming
+ROADMAP item 1).  VLM stacks are refused, as in the reference: they
+serve through ``Engine.prefill_step``/``decode_step``.
 """
 from __future__ import annotations
 
@@ -68,9 +91,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import Family
+from repro_torch.core.interfaces import slack_order
 from repro_torch.models.lora import lora_shapes
 from repro_torch.models.transformer import use_dense_prefill
-from repro_torch.runtime.paging import BlockAllocator, blocks_for
+from repro_torch.runtime.paging import BlockAllocator, PrefixCache, blocks_for
 from repro_torch.tree import tree_finite, tree_leaves, tree_map
 
 
@@ -82,6 +106,9 @@ class GenRequest:
     prompt: np.ndarray                  # [P] int32 token ids
     max_new_tokens: int = 16
     arrival: float = 0.0                # on the caller's ``now`` clock
+    # SLO deadline (same clock as ``arrival``): chunked prefill spends a
+    # tick's prefill budget in deadline-slack order
+    deadline: float = float("inf")
     # multi-tenant serving: the registered adapter this request's tokens
     # flow through (None: the base model, or the single-adapter mode)
     adapter_id: Optional[str] = None
@@ -95,8 +122,8 @@ class GenRequest:
     tokens: List[int] = dataclasses.field(default_factory=list)
     prefill_at: Optional[float] = None
     # when the first generated token landed (the TTFT stamp): the tick
-    # that admitted the request, as ``prefill_at`` under monolithic
-    # prefill
+    # that admitted the request under monolithic prefill, the tick of
+    # its final chunk under chunked prefill
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     rng: Any = None                     # per-request sampling stream
@@ -140,7 +167,10 @@ def sample_token(logits: np.ndarray, *, temperature: float = 0.0,
 class ServeStats:
     admitted: int = 0
     finished: int = 0
+    # prompt tokens a prefill program computed; prefix-cache hits are
+    # skipped and counted apart
     prefill_tokens: int = 0
+    cached_prefix_tokens: int = 0
     generated_tokens: int = 0
     decode_steps: int = 0
     train_steps: int = 0
@@ -154,6 +184,13 @@ class ServeStats:
         default_factory=dict)
     adapter_versions: Dict[str, int] = dataclasses.field(
         default_factory=dict)
+    # token budget (tpot_target > 0): ticks planned under it, measured
+    # seconds of work against the summed per-tick target, and ticks whose
+    # train microbatch was skipped to protect the decode TPOT
+    budget_ticks: int = 0
+    budget_spent_s: float = 0.0
+    budget_target_s: float = 0.0
+    train_skipped_ticks: int = 0
     # per finished request, on the caller's ``now`` clock: time to first
     # token (arrival -> the admitting tick) and seconds per later output
     # token (first token -> the finishing tick, over the tokens after it)
@@ -162,6 +199,71 @@ class ServeStats:
 
     def throughput(self) -> float:
         return self.generated_tokens / max(self.wall_time, 1e-9)
+
+
+class _TickBudget:
+    """Per-tick token budget for a decode TPOT target.
+
+    Keeps EMA cost estimates of the three kinds of work a tick can carry
+    (the decode wave, prefill-chunk tokens, train tokens) from measured
+    wall times, and plans each tick: decode first, leftover budget to
+    prefill chunks (the caller picks rows in deadline-slack order), and
+    whatever slack remains to train tokens.  An unknown prefill cost
+    plans optimistically, so it is measured once before it is
+    regulated; an unknown train cost never rides a tick with serving
+    work."""
+
+    def __init__(self, target_s: float):
+        self.target_s = target_s
+        self.decode_tick_s: Optional[float] = None
+        self.prefill_tok_s: Optional[float] = None
+        self.train_tok_s: Optional[float] = None
+
+    @staticmethod
+    def _ema(old: Optional[float], new: float) -> float:
+        return new if old is None else 0.75 * old + 0.25 * new
+
+    def observe_decode(self, dt: float) -> None:
+        self.decode_tick_s = self._ema(self.decode_tick_s, dt)
+
+    def observe_prefill(self, tokens: int, dt: float) -> None:
+        if tokens > 0:
+            self.prefill_tok_s = self._ema(self.prefill_tok_s,
+                                           dt / tokens)
+
+    def observe_train(self, tokens: int, dt: float) -> None:
+        if tokens > 0 and dt > 0:
+            self.train_tok_s = self._ema(self.train_tok_s, dt / tokens)
+
+    def prefill_allowance(self, n_decoding: int) -> float:
+        """Prefill tokens this tick may spend after decode's share; with
+        nothing decoding, prefill owns the tick (no TPOT to protect)."""
+        if n_decoding == 0:
+            return float("inf")
+        rem = self.target_s - (self.decode_tick_s or 0.0)
+        if rem <= 0:
+            return 0.0
+        if self.prefill_tok_s is None:
+            return float("inf")
+        return rem / self.prefill_tok_s
+
+    def train_tokens(self, b: int, s: int,
+                     prefill_spent_s: float) -> Optional[int]:
+        """Token cap for a [B, S] train microbatch in this tick's slack:
+        0 runs the full batch, a positive cap halves it, None skips the
+        step.  Before the train cost is known it skips: ticks with no
+        serving work train unconditionally (the caller), which measures
+        it."""
+        rem = self.target_s - (self.decode_tick_s or 0.0) \
+            - prefill_spent_s
+        if self.train_tok_s is None:
+            return None
+        if rem >= b * s * self.train_tok_s:
+            return 0
+        half = (b // 2) * s
+        if b >= 2 and rem >= half * self.train_tok_s:
+            return half
+        return None
 
 
 def _host_ids(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -366,10 +468,31 @@ class ContinuousBatcher:
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         refuse_vlm(cfg)
-        # the reference's own gates, checked before whether a feature is
-        # ported at all: these replay prefill through programs that mirror
-        # the DENSE softmax bit for bit, so they refuse a prompt_pad past
-        # the dense limit (blockwise prefill)
+        if cfg.sliding_window > 0 and prompt_pad > cfg.sliding_window:
+            raise ValueError(
+                f"{cfg.name}: prompt_pad {prompt_pad} exceeds the "
+                f"attention window {cfg.sliding_window}")
+        if adapters is not None and cfg.has_ssm:
+            raise NotImplementedError(
+                f"{cfg.name}: multi-tenant adapter serving needs the "
+                "ragged attention paths (SSM prefill is exact-length "
+                "per request)")
+        if paged and cfg.has_ssm:
+            raise NotImplementedError(
+                f"{cfg.name}: paged KV serving needs an "
+                "attention-only stack (SSM/conv state is per-slot, "
+                "not per-block)")
+        if prefix_cache and not paged:
+            raise ValueError(
+                "prefix_cache requires paged=True (sharing rides on "
+                "pool block aliasing)")
+        if prefill_chunk > 0 and cfg.has_ssm:
+            raise NotImplementedError(
+                f"{cfg.name}: chunked prefill needs an attention-only "
+                "stack (SSM state threads through every token in order)")
+        # these replay prefill through programs that mirror the DENSE
+        # softmax bit for bit, so they refuse a prompt_pad past the dense
+        # limit (blockwise prefill)
         dense = use_dense_prefill(cfg, min(prompt_pad, max_seq))
         for name, val, why in (
                 ("prefix_cache", prefix_cache, "suffix prefill mirrors "
@@ -387,29 +510,10 @@ class ContinuousBatcher:
                 raise NotImplementedError(
                     f"{cfg.name}: {name} needs the dense prefill path — "
                     f"{why}")
-        unported = {"prefix_cache": prefix_cache,
-                    "prefill_chunk": prefill_chunk,
-                    "tpot_target": tpot_target,
-                    "oversubscribe": oversubscribe}
-        for name, val in unported.items():
-            if val:
-                raise NotImplementedError(
-                    f"ContinuousBatcher({name}=...) is not ported to "
-                    "repro_torch yet; see ROADMAP.md")
-        if cfg.sliding_window > 0 and prompt_pad > cfg.sliding_window:
-            raise ValueError(
-                f"{cfg.name}: prompt_pad {prompt_pad} exceeds the "
-                f"attention window {cfg.sliding_window}")
-        if adapters is not None and cfg.has_ssm:
+        if oversubscribe:
             raise NotImplementedError(
-                f"{cfg.name}: multi-tenant adapter serving needs the "
-                "ragged attention paths (SSM prefill is exact-length "
-                "per request)")
-        if paged and cfg.has_ssm:
-            raise NotImplementedError(
-                f"{cfg.name}: paged KV serving needs an "
-                "attention-only stack (SSM/conv state is per-slot, "
-                "not per-block)")
+                "ContinuousBatcher(oversubscribe=...) is not ported to "
+                "repro_torch yet; see ROADMAP.md item 1")
         self.engine = engine
         self.model = engine.model
         self.device = engine.model.device
@@ -427,6 +531,7 @@ class ContinuousBatcher:
         self.ring_len = min(max_seq, cfg.sliding_window) \
             if cfg.sliding_window > 0 else max_seq
         self.paged = paged
+        self.prefix_cache: Optional[PrefixCache] = None
         if paged:
             self.block_size = block_size
             self.blocks_per_slot = blocks_for(self.ring_len, block_size)
@@ -440,6 +545,8 @@ class ContinuousBatcher:
                     "admission would deadlock")
             self.n_blocks = n_blocks
             self.allocator = BlockAllocator(n_blocks, block_size)
+            if prefix_cache:
+                self.prefix_cache = PrefixCache(self.allocator)
             self.caches = self.model.init_paged_caches(n_blocks, block_size)
             # all-zero rows park inactive slots on scratch block 0
             self.block_tables = np.zeros((n_slots, self.blocks_per_slot),
@@ -447,11 +554,32 @@ class ContinuousBatcher:
             self.slot_blocks: List[List[int]] = [[] for _ in range(n_slots)]
             # worst-case blocks still reserved (not yet taken) per slot
             self.slot_reserved = np.zeros(n_slots, np.int32)
-            # device copy of the full table, re-uploaded only when the
-            # host table changed; each tick passes a [:, :width] view
+            # device copy of the full table (mid-prefill rows parked on
+            # scratch block 0), re-uploaded only when the host table
+            # changed; each tick passes a [:, :width] view
             self._dev_tables: Optional[torch.Tensor] = None
         else:
             self.caches = self.model.init_caches(n_slots, max_seq)
+        # chunked prefill: a paged chunk is rounded up to whole blocks
+        # (write_prefill_blocks writes whole blocks; only a prompt's
+        # final chunk may be ragged); a chunk wave is this wide
+        self.prefill_chunk = int(prefill_chunk)
+        if self.prefill_chunk > 0 and paged:
+            self.prefill_chunk = self.block_size * blocks_for(
+                self.prefill_chunk, self.block_size)
+        self.tpot_target = float(tpot_target)
+        self.budget = _TickBudget(self.tpot_target) \
+            if self.tpot_target > 0 else None
+        # per-slot prefill progress: prompt tokens in cache (== the prompt
+        # length once decoding), how many of them were prefix-cache hits,
+        # and the goal (the prompt length)
+        self.slot_prefilled = np.zeros(n_slots, np.int32)
+        self.slot_cached = np.zeros(n_slots, np.int32)
+        self.slot_goal = np.zeros(n_slots, np.int32)
+        # what the latest step() trained: the budget may halve or skip
+        # a tick's microbatch
+        self.last_tick_trained = False
+        self.last_tick_train_rows = 0
         self.queue: Deque[GenRequest] = collections.deque()
         self.slot_req: List[Optional[GenRequest]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int32)   # next write position
@@ -459,6 +587,7 @@ class ContinuousBatcher:
         # registry mode: the adapter id each slot's request pinned
         self.slot_aid: List[Optional[str]] = [None] * n_slots
         self.stats = ServeStats()
+        # prefill programs run: monolithic, suffix and chunk waves
         self.prefill_waves = 0
         # co-training: CE loss per train tick, the shadow tree a train
         # session trains instead of self.lora (None: train self.lora in
@@ -494,6 +623,19 @@ class ContinuousBatcher:
         return [i for i in range(self.n_slots)
                 if self.slot_req[i] is not None]
 
+    def _is_prefilling(self, i: int) -> bool:
+        """Slot ``i`` holds a request whose prompt is not all in cache
+        yet: parked out of the decode wave."""
+        return self.slot_req[i] is not None \
+            and int(self.slot_prefilled[i]) < int(self.slot_goal[i])
+
+    def decoding_slots(self) -> List[int]:
+        return [i for i in self.active_slots()
+                if not self._is_prefilling(i)]
+
+    def prefilling_slots(self) -> List[int]:
+        return [i for i in self.active_slots() if self._is_prefilling(i)]
+
     def idle(self) -> bool:
         return not self.queue and not self.active_slots()
 
@@ -504,6 +646,15 @@ class ContinuousBatcher:
         tokens = min(len(req.prompt) + req.max_new_tokens - 1,
                      self.ring_len)
         return blocks_for(tokens, self.block_size)
+
+    def _need_blocks(self, req: GenRequest, matched: List[int]) -> int:
+        """Blocks to reserve for ``req`` with ``matched`` blocks aliased:
+        full attention never writes an aliased block, so the match comes
+        off the worst case; a sliding window may copy every aliased block
+        on a ring wrap, so it reserves the whole worst case."""
+        worst = self._worst_blocks(req)
+        return worst if self.cfg.sliding_window > 0 \
+            else worst - len(matched)
 
     # ---------------------------------------------------- adapter routing --
     def _serve_lora(self) -> Any:
@@ -537,14 +688,32 @@ class ContinuousBatcher:
             self.stats.adapter_versions[req.adapter_id] = \
                 self.adapters.version(req.adapter_id)
 
-    def _prefill_wave(self, reqs: List[GenRequest]):
-        """ONE ragged (right-padded) prefill for the whole wave and ONE
-        batched argmax pull for its first tokens.  Returns (first tokens
-        [W] np, prefill caches [.., W, ..], last-position logits [W, V]).
-        SSM stacks prefill each request at its exact length (state threads
-        through pads) and gather its caches into row j of the wave's
-        (fixed-size) caches; their last-position logits are stacked on the
-        device, still ONE argmax pull."""
+    def _sample_first(self, req: GenRequest, first: int, rows, k: int):
+        """The first token of ``req``: ``first`` (the wave's argmax) when
+        greedy, else drawn from the k-th logits row of ``rows`` (one host
+        pull of the wave's rows, made once by the caller) on a fresh
+        per-request stream."""
+        if not req.samples:
+            return first
+        req.rng = np.random.default_rng(
+            req.seed if req.seed is not None else req.request_id)
+        return sample_token(rows[k], temperature=req.temperature,
+                            top_k=req.top_k, top_p=req.top_p, rng=req.rng)
+
+    def _prefill_wave(self, reqs: List[GenRequest],
+                      matched: Optional[List[List[int]]] = None):
+        """ONE prefill program for the whole wave and ONE batched argmax
+        pull for its first tokens.  Returns (first tokens [W] np, prefill
+        caches [.., W, ..], last-position logits [W, V]).  Attention
+        stacks prefill the right-padded prompts ragged; with prefix-cache
+        hits in the wave (``matched``: each row's aliased blocks) the
+        suffix program computes only each row's uncached tokens, and the
+        caches hold only those.  SSM stacks prefill each request at its
+        exact length (state threads through pads) and gather its caches
+        into row j of the wave's (fixed-size) caches; their
+        last-position logits are stacked on the device, still ONE argmax
+        pull."""
+        self.prefill_waves += 1
         if self.cfg.has_ssm:
             pre = self.model.init_caches(len(reqs), 0)
             lasts = []
@@ -558,21 +727,44 @@ class ContinuousBatcher:
                     self.model.write_prefill_slot(pre, one, j)
                     lasts.append(logits[0, -1])
                     del one     # gathered: not alive through the next one
-            self.prefill_waves += 1
             last = torch.stack(lasts)
             firsts = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per prefill wave
             return firsts, pre, last
         lens = np.array([len(r.prompt) for r in reqs], np.int32)
-        padded = np.zeros((len(reqs), self.prompt_pad), np.int32)
-        for j, r in enumerate(reqs):
-            padded[j, :lens[j]] = r.prompt
-        tokens = torch.tensor(padded, dtype=torch.long, device=self.device)
-        with torch.no_grad():
-            logits, pre = self.model.prefill_ragged(
-                self.params, self._serve_lora(), {"tokens": tokens},
-                torch.tensor(lens, device=self.device),
-                adapter_idx=self._wave_adapter_idx(reqs))
-        self.prefill_waves += 1
+        if matched is not None and any(matched):
+            bs = self.block_size
+            pre_lens = np.array([len(m) * bs for m in matched], np.int32)
+            suf_lens = lens - pre_lens
+            # the reference's widths: the suffix padded to whole blocks,
+            # the prefix tables to a power of two over the wave's longest
+            # match (extra lanes name scratch block 0 and are masked)
+            suf_pad = bs * blocks_for(int(suf_lens.max()), bs)
+            npre = max(len(m) for m in matched)
+            npre = min(1 << (npre - 1).bit_length(),
+                       blocks_for(self.prompt_pad, bs))
+            padded = np.zeros((len(reqs), suf_pad), np.int32)
+            pre_tables = np.zeros((len(reqs), npre), np.int32)
+            for j, r in enumerate(reqs):
+                padded[j, :suf_lens[j]] = r.prompt[pre_lens[j]:]
+                pre_tables[j, :len(matched[j])] = matched[j]
+            with torch.no_grad():
+                logits, pre = self.model.prefill_ragged_suffix(
+                    self.params, self._serve_lora(),
+                    {"tokens": torch.tensor(padded, dtype=torch.long,
+                                            device=self.device)},
+                    suf_lens, pre_lens, self.caches, pre_tables,
+                    adapter_idx=self._wave_adapter_idx(reqs))
+        else:
+            padded = np.zeros((len(reqs), self.prompt_pad), np.int32)
+            for j, r in enumerate(reqs):
+                padded[j, :lens[j]] = r.prompt
+            tokens = torch.tensor(padded, dtype=torch.long,
+                                  device=self.device)
+            with torch.no_grad():
+                logits, pre = self.model.prefill_ragged(
+                    self.params, self._serve_lora(), {"tokens": tokens},
+                    torch.tensor(lens, device=self.device),
+                    adapter_idx=self._wave_adapter_idx(reqs))
         last = logits[:, -1]
         firsts = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per prefill wave
         return firsts, pre, last
@@ -581,14 +773,20 @@ class ContinuousBatcher:
         """Fill free slots from the queue, FCFS; returns requests that
         finished at admission (max_new_tokens == 1 / instant EOS).  Paged
         mode admits only while the allocator can cover the head request's
-        worst case — otherwise the queue waits for an eviction.  With a
+        worst case — otherwise the queue waits for an eviction.  With the
+        prefix cache on, the head's longest cached block-aligned prefix
+        (in its tenant's namespace) is aliased at refcount+1, trimmed
+        until the pool fits it, only the suffix is prefilled, and the
+        request's new full prompt blocks are registered.  With a
         registry, a request whose adapter cannot get a device slot (every
         slot pinned) is skipped for this wave and keeps its place; its
-        adapter is pinned at admission."""
+        adapter is pinned at admission.  Chunked mode only binds the
+        wave to slots (``_assign_chunked``)."""
         finished: List[GenRequest] = []
         free = [i for i in range(self.n_slots) if self.slot_req[i] is None]
         reqs: List[GenRequest] = []
-        reserved: List[int] = []
+        # per admitted request: (aliased block chain, blocks reserved)
+        plans: List = []
         picked: List[int] = []      # queue indices claimed this wave
         qi = 0
         while len(reqs) < len(free) and qi < len(self.queue):
@@ -598,11 +796,28 @@ class ContinuousBatcher:
                 qi += 1
                 continue
             if self.paged:
-                need = self._worst_blocks(head)
-                if not self.allocator.can_reserve(need):
+                matched = self.prefix_cache.match(
+                    head.prompt, namespace=head.adapter_id) \
+                    if self.prefix_cache is not None else []
+                # reviving retained blocks costs capacity on top of the
+                # reservation: trim the match until it fits (a cold
+                # admission always fits one worst-case request, so a
+                # warm hit never deadlocks an idle pool)
+                while matched and self.allocator.available() \
+                        < self._need_blocks(head, matched) \
+                        + self.allocator.n_would_revive(matched):
+                    matched.pop()
+                need = self._need_blocks(head, matched)
+                if self.allocator.available() \
+                        < need + self.allocator.n_would_revive(matched):
                     break           # strict FCFS backpressure
+                self.allocator.acquire(matched)
                 self.allocator.reserve(need)
-                reserved.append(need)
+                if self.prefix_cache is not None:
+                    self.prefix_cache.count_admitted(
+                        head.prompt, len(matched),
+                        namespace=head.adapter_id)
+                plans.append((matched, need))
             if head.adapter_id is not None:
                 self.adapters.acquire(head.adapter_id)
             reqs.append(head)
@@ -612,28 +827,31 @@ class ContinuousBatcher:
             del self.queue[j]
         if not reqs:
             return finished
-        firsts, wave_pre, last_logits = self._prefill_wave(reqs)
+        if self.prefill_chunk > 0:
+            self._assign_chunked(free, reqs, plans, now)
+            return finished
+        firsts, wave_pre, last_logits = self._prefill_wave(
+            reqs, [m for m, _ in plans] if self.paged else None)
         # one batched write per wave; rows flagged with an out-of-range
         # id are dropped (requests that finished at admission)
         if self.paged:
+            # the wave's width: full prompts, or just the suffixes
             nbp = blocks_for(wave_pre["kv"][0].shape[2], self.block_size)
             wave_tables = np.full((len(reqs), nbp), self.n_blocks, np.int32)
         else:
             wave_slots = np.full(len(reqs), self.n_slots, np.int32)
+        rows = last_logits.float().cpu().numpy() \
+            if any(r.samples for r in reqs) else None  # lint: host-sync-ok one batched logits pull per sampled admission wave
         admitted_rows = 0
         for k, (slot, req) in enumerate(zip(free, reqs)):
-            first = int(firsts[k])
-            if req.samples:
-                req.rng = np.random.default_rng(
-                    req.seed if req.seed is not None else req.request_id)
-                first = sample_token(
-                    last_logits[k].float().cpu().numpy(),  # lint: host-sync-ok one logits row per sampled admission
-                    temperature=req.temperature, top_k=req.top_k,
-                    top_p=req.top_p, rng=req.rng)
+            first = self._sample_first(req, int(firsts[k]), rows, k)
+            matched, reserved = plans[k] if self.paged else ([], 0)
+            n_cached = len(matched) * self.block_size if self.paged else 0
             req.tokens.append(first)
             req.prefill_at = req.first_token_at = now
             self.stats.admitted += 1
-            self.stats.prefill_tokens += len(req.prompt)
+            self.stats.prefill_tokens += len(req.prompt) - n_cached
+            self.stats.cached_prefix_tokens += n_cached
             self.stats.generated_tokens += 1
             if len(req.tokens) >= req.max_new_tokens \
                     or first == self.eos_id:
@@ -642,17 +860,22 @@ class ContinuousBatcher:
                 if req.adapter_id is not None:
                     self.adapters.release(req.adapter_id)
                 if self.paged:
-                    self.allocator.release(reserved[k])
+                    self.allocator.release(reserved)
+                    if matched:
+                        self.allocator.free(matched)
                 finished.append(req)
                 continue
             if self.paged:
-                need = blocks_for(len(req.prompt), self.block_size)
+                need = blocks_for(len(req.prompt) - n_cached,
+                                  self.block_size)
                 ids = self.allocator.take(need)
-                self.slot_blocks[slot] = ids
-                self.slot_reserved[slot] = reserved[k] - need
+                self.slot_blocks[slot] = list(matched) + ids
+                self.slot_reserved[slot] = reserved - need
                 self.block_tables[slot, :] = 0
-                self.block_tables[slot, :need] = ids
+                self.block_tables[slot, :len(matched) + need] = \
+                    self.slot_blocks[slot]
                 wave_tables[k, :need] = ids
+                self._register_prompt(slot, req, len(matched))
                 self._dev_tables = None
             else:
                 wave_slots[k] = slot
@@ -661,6 +884,9 @@ class ContinuousBatcher:
             self.slot_aid[slot] = req.adapter_id
             self.slot_pos[slot] = len(req.prompt)
             self.slot_tok[slot] = first
+            self.slot_prefilled[slot] = self.slot_goal[slot] = \
+                len(req.prompt)
+            self.slot_cached[slot] = n_cached
         if admitted_rows and self.paged:
             self.caches = self.model.write_prefill_blocks(
                 self.caches, wave_pre, wave_tables)
@@ -669,11 +895,187 @@ class ContinuousBatcher:
                 self.caches, wave_pre, wave_slots)
         return finished
 
+    def _register_prompt(self, slot: int, req: GenRequest,
+                         n_matched: int) -> None:
+        """Register the slot's new full prompt blocks in the prefix cache
+        — unless the request's decode will wrap the ring back into them:
+        they would be overwritten mid-flight, and an owner copying its
+        own registered blocks would outrun its reservation."""
+        wraps = len(req.prompt) + req.max_new_tokens - 1 > self.ring_len
+        if self.prefix_cache is not None and not wraps:
+            self.prefix_cache.register(req.prompt, self.slot_blocks[slot],
+                                       n_matched, namespace=req.adapter_id)
+
+    # ------------------------------------------------------ chunked prefill -
+    def _assign_chunked(self, free: List[int], reqs: List[GenRequest],
+                        plans: List, now: float) -> None:
+        """Chunked admission: bind each request to a slot in the
+        prefilling state (no prefill program runs here), starting from
+        its aliased prefix.  The slot stays out of the decode wave until
+        ``_advance_prefill`` lands its final chunk."""
+        for k, (slot, req) in enumerate(zip(free, reqs)):
+            matched, reserved = plans[k] if self.paged else ([], 0)
+            n_cached = len(matched) * self.block_size if self.paged else 0
+            req.prefill_at = now
+            self.stats.admitted += 1
+            self.stats.cached_prefix_tokens += n_cached
+            self.slot_req[slot] = req
+            self.slot_aid[slot] = req.adapter_id
+            self.slot_prefilled[slot] = n_cached
+            self.slot_goal[slot] = len(req.prompt)
+            self.slot_cached[slot] = n_cached
+            # parked: the decode wave's write for this row lands at
+            # position ``slot_prefilled`` (contiguous: the next chunk
+            # overwrites it before it is read) or on scratch block 0
+            # (paged: the device table row is zeroed)
+            self.slot_pos[slot] = n_cached
+            self.slot_tok[slot] = 0
+            if self.paged:
+                self.slot_blocks[slot] = list(matched)
+                self.slot_reserved[slot] = reserved
+                self.block_tables[slot, :] = 0
+                self.block_tables[slot, :len(matched)] = matched
+                self._dev_tables = None
+
+    def _advance_prefill(self, now: float, allowance: float):
+        """Spend up to ``allowance`` prefill tokens on the most urgent
+        prefilling slots (deadline-slack order), one chunk per slot, as
+        ONE wave program and ONE batched cache write.  A slot whose final
+        chunk lands takes its first token from the wave's logits and
+        joins this tick's decode wave.  Returns (requests finished at
+        prefill completion, measured seconds)."""
+        done: List[GenRequest] = []
+        pref = self.prefilling_slots()
+        if not pref or allowance <= 0:
+            return done, 0.0
+        order = slack_order(pref, now,
+                            key=lambda i: self.slot_req[i].deadline)
+        rows: List = []             # (slot, chunk_len)
+        used = 0
+        for i in order:
+            c = min(int(self.slot_goal[i]) - int(self.slot_prefilled[i]),
+                    self.prefill_chunk)
+            if rows and used + c > allowance:
+                break               # the first chunk always goes
+            rows.append((i, c))
+            used += c
+            if used >= allowance:
+                break
+        t0 = time.perf_counter()
+        wave_reqs = [self.slot_req[i] for i, _ in rows]
+        pre_lens = self.slot_prefilled[[i for i, _ in rows]]    # a copy
+        logits = self._chunk_wave(rows, pre_lens)
+        final = [j for j, (i, c) in enumerate(rows)
+                 if int(pre_lens[j]) + c >= int(self.slot_goal[i])]
+        nxt = host_rows = None
+        if final:
+            last = logits[:, -1]
+            nxt = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per chunk wave
+            if any(wave_reqs[j].samples for j in final):
+                host_rows = last.float().cpu().numpy()  # lint: host-sync-ok one batched logits pull per sampling chunk wave
+        for j, (i, c) in enumerate(rows):
+            req = wave_reqs[j]
+            p = int(pre_lens[j]) + c
+            self.slot_prefilled[i] = p
+            self.stats.prefill_tokens += c
+            if p < int(self.slot_goal[i]):
+                self.slot_pos[i] = p    # stay parked at the frontier
+                continue
+            # the final chunk's logits row is the whole prompt's last
+            # token's
+            first = self._sample_first(req, int(nxt[j]), host_rows, j)
+            req.tokens.append(first)
+            req.first_token_at = now
+            self.stats.generated_tokens += 1
+            if self.paged:
+                self._register_prompt(
+                    i, req, int(self.slot_cached[i]) // self.block_size)
+            if len(req.tokens) >= req.max_new_tokens \
+                    or first == self.eos_id:
+                self._record_finish(req, now)
+                self._evict(i)
+                done.append(req)
+                continue
+            self.slot_pos[i] = len(req.prompt)
+            self.slot_tok[i] = first
+        dt = time.perf_counter() - t0
+        if self.budget is not None:
+            self.budget.observe_prefill(used, dt)
+        return done, dt
+
+    def _chunk_wave(self, rows: List, pre_lens: np.ndarray):
+        """Run one chunk wave's program and land its K/V: row j prefills
+        ``rows[j] = (slot, chunk length)`` from token ``pre_lens[j]`` of
+        its sequence, over the K/V already in cache, and its chunk lands
+        in fresh blocks (paged) or its slot's rows (contiguous).  Returns
+        the wave's logits at each row's last chunk token [W, 1, V]."""
+        w = len(rows)
+        slots = [i for i, _ in rows]
+        chunk_lens = np.array([c for _, c in rows], np.int32)
+        tokens = np.zeros((w, self.prefill_chunk), np.int32)
+        for j, (i, c) in enumerate(rows):
+            p = int(pre_lens[j])
+            tokens[j, :c] = self.slot_req[i].prompt[p:p + c]
+        tokens = torch.tensor(tokens, dtype=torch.long, device=self.device)
+        adapter_idx = self._wave_adapter_idx(
+            [self.slot_req[i] for i in slots])
+        if self.paged:
+            bs = self.block_size
+            # prefix tables: each slot's blocks so far, width a power of
+            # two (extra lanes name scratch block 0, masked by pre_lens)
+            npre = max(max(len(self.slot_blocks[i]) for i in slots), 1)
+            npre = min(1 << (npre - 1).bit_length(), self.blocks_per_slot)
+            pre_tables = np.zeros((w, npre), np.int32)
+            for j, i in enumerate(slots):
+                pre_tables[j, :len(self.slot_blocks[i])] = \
+                    self.slot_blocks[i]
+            with torch.no_grad():
+                logits, pre = self.model.prefill_ragged_suffix(
+                    self.params, self._serve_lora(), {"tokens": tokens},
+                    chunk_lens, pre_lens, self.caches, pre_tables,
+                    adapter_idx=adapter_idx)
+            # the chunk lands in fresh blocks against each slot's
+            # admission-time reservation (chunks are whole blocks, so
+            # their blocks add up to the monolithic count)
+            wave_tables = np.full((w, blocks_for(self.prefill_chunk, bs)),
+                                  self.n_blocks, np.int32)
+            for j, (i, c) in enumerate(rows):
+                need = blocks_for(c, bs)
+                if self.slot_reserved[i] < need:
+                    raise RuntimeError(
+                        f"slot {i}: chunk beyond admission reservation")
+                ids = self.allocator.take(need)
+                self.slot_reserved[i] -= need
+                base = len(self.slot_blocks[i])
+                self.slot_blocks[i].extend(ids)
+                self.block_tables[i, base:base + need] = ids
+                wave_tables[j, :need] = ids
+            self._dev_tables = None
+            self.caches = self.model.write_prefill_blocks(
+                self.caches, pre, wave_tables)
+        else:
+            with torch.no_grad():
+                logits, pre = self.model.prefill_ragged_continue(
+                    self.params, self._serve_lora(), {"tokens": tokens},
+                    chunk_lens, pre_lens, self.caches, slots,
+                    adapter_idx=adapter_idx)
+            self.caches = self.model.write_prefill_rows(
+                self.caches, pre, slots, pre_lens, chunk_lens)
+        self.prefill_waves += 1
+        return logits
+
     # --------------------------------------------------------------- decode -
     def _grow_tables(self, active: List[int]) -> None:
-        """Allocate the block each slot's next write lands in when the
-        table doesn't cover it yet (one block at a time, always against
-        the slot's admission-time reservation)."""
+        """Make the block each slot's next write lands in writable:
+        allocate it when the table doesn't cover it yet (one block at a
+        time, against the slot's admission-time reservation); with the
+        prefix cache on, copy a covered block that is shared (refcount >
+        1: a ring wrap re-entering an aliased prompt block) to a private
+        one first, and unregister a registered refcount-1 block, so its
+        cache entry never goes stale in place.  A tick's copies run as
+        one ``copy_blocks`` call."""
+        cow_src: List[int] = []
+        cow_dst: List[int] = []
         for i in active:
             bidx = (int(self.slot_pos[i]) % self.ring_len) // self.block_size
             if bidx >= len(self.slot_blocks[i]):
@@ -685,6 +1087,25 @@ class ContinuousBatcher:
                 self.slot_blocks[i].append(bid)
                 self.block_tables[i, bidx] = bid
                 self._dev_tables = None
+            elif self.prefix_cache is not None:
+                bid = self.slot_blocks[i][bidx]
+                if self.allocator.ref(bid) > 1:
+                    if self.slot_reserved[i] <= 0:
+                        raise RuntimeError(
+                            f"slot {i}: copy-on-write beyond reservation")
+                    (nb,) = self.allocator.take(1)
+                    self.slot_reserved[i] -= 1
+                    cow_src.append(bid)
+                    cow_dst.append(nb)
+                    self.allocator.free([bid])   # drop our alias
+                    self.slot_blocks[i][bidx] = nb
+                    self.block_tables[i, bidx] = nb
+                    self._dev_tables = None
+                elif self.prefix_cache.is_registered(bid):
+                    self.prefix_cache.unregister_block(bid)
+        if cow_src:
+            self.caches = self.model.copy_blocks(self.caches, cow_src,
+                                                 cow_dst)
 
     def _table_width(self, active: List[int]) -> int:
         """Live-table width: the decode tick only walks blocks up to the
@@ -696,29 +1117,72 @@ class ContinuousBatcher:
 
     def step(self, train_batch: Optional[Dict[str, Any]] = None,
              now: float = 0.0) -> List[GenRequest]:
-        """One runtime tick: admit, then advance every active slot one
-        token — fused with a LoRA train step on ``train_batch`` when one
-        is given (a tick with no active slot trains alone).  Returns the
-        requests that finished this tick."""
+        """One runtime tick: admit, spend the tick's prefill allowance on
+        chunks (chunked mode), advance every DECODING slot one token —
+        fused with a LoRA train step on ``train_batch`` when one is given
+        and the token budget (``tpot_target``) leaves room for it (full,
+        half or skipped); a tick with no decoding slot trains alone.
+        Returns the requests that finished this tick."""
         if train_batch is not None and self.opt_state is None:
             raise ValueError(
                 "step(train_batch=...) requires opt_state (pass it to "
                 "the ContinuousBatcher constructor)")
         if train_batch is not None:
             train_batch = self._device_batch(train_batch)
+        budget = self.budget
+        self.last_tick_trained = False
+        self.last_tick_train_rows = 0
         finished = self.admit(now)
-        active = self.active_slots()
+        prefill_spent = 0.0
+        if self.prefilling_slots():
+            allowance = float("inf") if budget is None else \
+                budget.prefill_allowance(len(self.decoding_slots()))
+            done, prefill_spent = self._advance_prefill(now, allowance)
+            finished.extend(done)
+        active = self.decoding_slots()
+        if train_batch is not None:
+            b, s = train_batch["tokens"].shape[:2]
         if not active:
             if train_batch is not None:
-                self._plain_train(train_batch)
+                tt: Optional[int] = 0
+                if budget is not None and self.prefilling_slots():
+                    # mid-prefill slots wait on TTFT: train only in the
+                    # slack this tick has left
+                    tt = budget.train_tokens(b, s, prefill_spent)
+                if tt is None:
+                    self.stats.train_skipped_ticks += 1
+                else:
+                    t0 = time.perf_counter()
+                    self._plain_train(train_batch, train_tokens=tt)
+                    rows = b if tt == 0 else max(1, min(b, tt // s))
+                    if budget is not None:
+                        budget.observe_train(rows * s,
+                                             time.perf_counter() - t0)
+                    self.last_tick_trained = True
+                    self.last_tick_train_rows = rows
+            self._record_budget(prefill_spent)
             return finished
         toks = _host_ids(self.slot_tok[:, None], self.device)
-        pos = _host_ids(self.slot_pos, self.device)
         if self.paged:
             self._grow_tables(active)
+            pref = self.prefilling_slots()
+            pos_host = self.slot_pos
+            if pref:
+                # parked rows write and read scratch block 0 at offset 0
+                # (their table rows are zeroed below), so their lane never
+                # indexes past the live table width
+                pos_host = pos_host.copy()
+                pos_host[pref] = 0
+            pos = _host_ids(pos_host, self.device)
             if self._dev_tables is None:
-                self._dev_tables = _host_ids(self.block_tables, self.device)
+                tbl = self.block_tables
+                if pref:
+                    tbl = tbl.copy()
+                    tbl[pref, :] = 0
+                self._dev_tables = _host_ids(tbl, self.device)
             tables = self._dev_tables[:, :self._table_width(active)]
+        else:
+            pos = _host_ids(self.slot_pos, self.device)
         # registry mode: each slot's device adapter slot, -1 for inactive
         # and base-only slots (their rows take the base product bitwise)
         serve_idx = None
@@ -728,14 +1192,26 @@ class ContinuousBatcher:
                 if self.slot_aid[i] is not None:
                     idx[i] = self.adapters.slot_index(self.slot_aid[i])
             serve_idx = _host_ids(idx, self.device)
+        # the budget fits the train microbatch into the tick's slack:
+        # full, half or skipped (tt None)
+        tt = 0
+        train_rows = 0
         if train_batch is not None:
+            if budget is not None:
+                tt = budget.train_tokens(b, s, prefill_spent)
+            if tt is None:
+                self.stats.train_skipped_ticks += 1
+            else:
+                train_rows = b if tt == 0 else max(1, min(b, tt // s))
+        t0 = time.perf_counter()
+        if train_batch is not None and tt is not None:
             if self.paged:
                 (new_tl, self.opt_state, logits, self.caches,
                  metrics) = self.engine.combined_step_paged(
                     self.params, self._train_adapter(), self.opt_state,
                     train_batch, self.caches, toks, pos, tables,
                     ring_len=self.ring_len, serve_lora=self._serve_lora(),
-                    grad_accum=self.train_grad_accum,
+                    grad_accum=self.train_grad_accum, train_tokens=tt,
                     serve_adapter_idx=serve_idx)
             else:
                 (new_tl, self.opt_state, logits, self.caches,
@@ -743,10 +1219,12 @@ class ContinuousBatcher:
                     self.params, self._train_adapter(), self.opt_state,
                     train_batch, self.caches, toks, pos,
                     serve_lora=self._serve_lora(),
-                    grad_accum=self.train_grad_accum,
+                    grad_accum=self.train_grad_accum, train_tokens=tt,
                     serve_adapter_idx=serve_idx)
             self._store_trained(new_tl)
             self._record_train(metrics)
+            self.last_tick_trained = True
+            self.last_tick_train_rows = train_rows
         elif self.paged:
             logits, self.caches = self.model.decode_step_paged(
                 self.params, self._serve_lora(), self.caches, toks, pos,
@@ -758,6 +1236,17 @@ class ContinuousBatcher:
         self.stats.decode_steps += 1
         last = logits[:, -1]
         nxt = last.argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per decode wave
+        dt = time.perf_counter() - t0
+        if budget is not None:
+            if self.last_tick_trained:
+                # the fused tick's train share: what exceeded the known
+                # decode cost
+                budget.observe_train(
+                    train_rows * s,
+                    max(dt - (budget.decode_tick_s or 0.0), 0.0))
+            else:
+                budget.observe_decode(dt)
+        self._record_budget(prefill_spent + dt)
         if any(self.slot_req[i].samples for i in active):
             # ONE batched host fetch of the wave's logits rows
             rows = last.float().cpu().numpy()  # lint: host-sync-ok one batched logits pull per sampling tick
@@ -782,12 +1271,15 @@ class ContinuousBatcher:
         return finished
 
     def _evict(self, i: int) -> None:
-        """Free slot ``i`` completely: request, position AND feed token,
-        its adapter pin, plus its blocks and unused reservation in paged
-        mode."""
+        """Free slot ``i`` completely: request, position, feed token and
+        prefill progress, its adapter pin, plus its blocks and unused
+        reservation in paged mode."""
         self.slot_req[i] = None
         self.slot_pos[i] = 0
         self.slot_tok[i] = 0
+        self.slot_prefilled[i] = 0
+        self.slot_cached[i] = 0
+        self.slot_goal[i] = 0
         if self.slot_aid[i] is not None:
             # unpin the request's adapter: a leaked ref would pin the slot
             # forever and eventually stall admission
@@ -814,6 +1306,7 @@ class ContinuousBatcher:
             out.append(req)
         for r in out:
             r.tokens.clear()
+            r.prefill_at = None
             r.rng = None
         return out
 
@@ -837,13 +1330,23 @@ class ContinuousBatcher:
         else:
             self.lora = new_tl
 
-    def _plain_train(self, train_batch: Dict[str, Any]) -> None:
-        """A train step alone (a tick with no active slot)."""
+    def _plain_train(self, train_batch: Dict[str, Any],
+                     train_tokens: int = 0) -> None:
+        """A train step alone (a tick with no decoding slot)."""
         new_tl, self.opt_state, metrics = self.engine.train_step(
             self.params, self._train_adapter(), self.opt_state,
-            train_batch, grad_accum=self.train_grad_accum)
+            train_batch, grad_accum=self.train_grad_accum,
+            train_tokens=train_tokens)
         self._store_trained(new_tl)
         self._record_train(metrics)
+
+    def _record_budget(self, spent_s: float) -> None:
+        """Per-tick budget counters (tpot_target > 0 only)."""
+        if self.budget is None:
+            return
+        self.stats.budget_ticks += 1
+        self.stats.budget_target_s += self.budget.target_s
+        self.stats.budget_spent_s += spent_s
 
     def _record_train(self, metrics: Dict[str, Any]) -> None:
         """One host pull per train tick: the loss history and the scalar

@@ -131,11 +131,21 @@ def test_allocator_invariants():
 
 
 def test_unported_features_raise(setup):
+    """Oversubscription is the one batcher feature not ported yet; the
+    prefix cache, chunked prefill and the token budget construct, and
+    their gates raise as the reference's do."""
     engine, params, lora, _, _ = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1"):
+        ContinuousBatcher(engine, params, lora, paged=True,
+                          oversubscribe=0.9)
     for kw in ({"prefix_cache": True}, {"prefill_chunk": 8},
-               {"tpot_target": 0.01}, {"oversubscribe": 0.9}):
-        with pytest.raises(NotImplementedError):
-            ContinuousBatcher(engine, params, lora, paged=True, **kw)
+               {"tpot_target": 0.01}):
+        ContinuousBatcher(engine, params, lora, paged=True, **kw)
+    with pytest.raises(ValueError, match="prefix_cache requires paged"):
+        ContinuousBatcher(engine, params, lora, prefix_cache=True)
+    ssm = make_engine(get_config("mamba2-780m").scaled(), device="cpu")
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        ContinuousBatcher(ssm, None, None, prefill_chunk=8)
     b = ContinuousBatcher(engine, params, lora)
     # co-training is ported; as in JAX it needs an optimizer state
     with pytest.raises(ValueError, match="opt_state"):
