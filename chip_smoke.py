@@ -86,8 +86,11 @@ Phases, each printing JSON lines:
               greedy tokens on the card and the CPU (reduced float32):
               a repeated-prefix trace with the prefix cache off, on and
               on chunked, six prompts chunked (paged 8 and 12, contiguous
-              8 and 10) and monolithic, and a 16-token window whose ring
-              wrap copies shared blocks, every run of a trace equal;
+              8 and 10) and monolithic, a 16-token window whose ring
+              wrap copies shared blocks, and tests/test_preemption.py's
+              traces oversubscribed (swap under REPRO_SANITIZE=1, drop,
+              chunked, shared prefixes) beside an unbounded pool, every
+              run of a trace equal, every oversubscribed run preempting;
   reference_blockwise  the same at a reduced float32 config forced onto
               the blockwise path (prefill logits and caches, one train
               step, the flash launches they make), and at full width in
@@ -119,6 +122,24 @@ Phases, each printing JSON lines:
   serve_chunked  the 992 + 32 traffic paged and contiguous, prefill_chunk
               256 against monolithic: final-chunk logits within 2e-2 of the
               monolithic prefill's, launches as derived, TTFT / TPOT;
+  serve_oversub  KV-pool oversubscription at full width: a 62-block chain
+              of qwen's bf16 pool swapped to host and back onto fresh ids
+              (moved blocks bitwise, paged_decode_attention over the
+              remapped table bitwise its output over the original, swap
+              GB/s each way), then 16 requests of 256 + 256 tokens on 8
+              slots, paged in blocks of 16: qwen on a pool of 256 blocks
+              (every slot fits) and of 160 (admission holds 5 slots), on
+              160 at oversubscribe 1.0 with swap (again under
+              REPRO_SANITIZE=1: no report, host ms a tick it adds) and
+              without (drop and re-prefill), llama3-8b on 160 with swap;
+              every request finishes, the allocator drains, the
+              oversubscribed runs preempt, launches as derived; tok/s,
+              TTFT / TPOT, peak blocks, preemptions, blocks swapped each
+              way, tokens re-prefilled, what ``_SwapCost`` chose, swap ms
+              per block and GB/s;
+  static      ``static_batch_serve`` (batches of 8) against the batcher (8
+              contiguous slots), qwen 32 + 16, without and with an EOS id
+              that fires: the same EOS rule, launches as derived, tok/s;
   serve_ssm   mamba2-780m at full width (48 layers, d_model 1536, bf16),
               16 requests on 8 contiguous slots at 32+16, 992+32 and
               2,048+32 tokens: every request finishes, ssd_scan once per
@@ -452,60 +473,65 @@ PAGED_SHAPES = [
 ]
 
 
+def paged_row(pda, pda_ref, q, kp, vp, tables, kv_len):
+    """One paged_decode_attention row: the kernel's output, and its worst
+    error against the plain version, two calls bitwise equal, the
+    wrapper's host us per call, kernel / plain / SDPA time, the bound."""
+    out = pda(q, kp, vp, tables, kv_len)
+    ref = pda_ref(q, kp, vp, tables, kv_len)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    tol = TOL[q.dtype]
+    ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+    # the library yardstick: SDPA over the gathered cache (gather and
+    # head expansion outside the timed call)
+    b, nb, bs = q.shape[0], tables.shape[1], kp.shape[1]
+    g = q.shape[1] // kp.shape[2]
+    idx = tables.long()
+    k_log = kp[idx].reshape(b, nb * bs, *kp.shape[2:]).transpose(1, 2)
+    v_log = vp[idx].reshape(b, nb * bs, *vp.shape[2:]).transpose(1, 2)
+    k_log = k_log.repeat_interleave(g, dim=1).contiguous()
+    v_log = v_log.repeat_interleave(g, dim=1).contiguous()
+    mask = (torch.arange(nb * bs, device="cuda")[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, k_log, v_log,
+                                              attn_mask=mask)
+
+    lib_err = float((lib()[:, :, 0].float() - ref.float()).abs().max())
+    row = {
+        "dtype": str(q.dtype).split(".")[-1],
+        "max_abs_err": err, "tol": tol, "ok": bool(ok),
+        "ms": device_ms(lambda: pda(q, kp, vp, tables, kv_len)),
+        "plain_ms": device_ms(lambda: pda_ref(q, kp, vp, tables, kv_len)),
+        "library_ms": device_ms(lib),
+        "library_max_abs_err": lib_err,
+        "host_us": host_us(lambda: pda(q, kp, vp, tables, kv_len)),
+        "repeat_bitwise": bitwise_repeat(
+            lambda: pda(q, kp, vp, tables, kv_len), out),
+    }
+    row["bound_ms"], row["bound_by"] = attention_bound(q, kp, tables, kv_len)
+    row["bound_us"] = row["bound_ms"] * 1e3
+    return out, row
+
+
 def phase_kernel(pda, pda_ref):
     """paged_decode_attention against its plain version at PAGED_SHAPES,
-    float32 and bfloat16: the worst error, two calls bitwise equal, the
-    wrapper's host us per call, kernel / plain / SDPA time, the bound."""
+    float32 and bfloat16 (``paged_row``)."""
     rows = {}
     for si, (name, shp) in enumerate(PAGED_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
-            q, kp, vp, tables, kv_len = attention_case(
-                **shp, dtype=dtype, seed=100 + si)
-            out = pda(q, kp, vp, tables, kv_len)
-            ref = pda_ref(q, kp, vp, tables, kv_len)
-            torch.cuda.synchronize()
-            err = float((out.float() - ref.float()).abs().max())
-            tol = TOL[dtype]
-            ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
-            # the library yardstick: SDPA over the gathered cache (gather
-            # and head expansion outside the timed call)
-            b, nb, bs = q.shape[0], tables.shape[1], kp.shape[1]
-            g = q.shape[1] // kp.shape[2]
-            idx = tables.long()
-            k_log = kp[idx].reshape(b, nb * bs, *kp.shape[2:]).transpose(1, 2)
-            v_log = vp[idx].reshape(b, nb * bs, *vp.shape[2:]).transpose(1, 2)
-            k_log = k_log.repeat_interleave(g, dim=1).contiguous()
-            v_log = v_log.repeat_interleave(g, dim=1).contiguous()
-            mask = (torch.arange(nb * bs, device="cuda")[None, :]
-                    < kv_len[:, None])[:, None, None, :]
-            q4 = q[:, :, None, :]
-
-            def lib():
-                return F.scaled_dot_product_attention(q4, k_log, v_log,
-                                                      attn_mask=mask)
-
-            lib_err = float((lib()[:, :, 0].float() - ref.float()).abs().max())
-            row = {
-                "shape": name, **shp, "dtype": str(dtype).split(".")[-1],
-                "max_abs_err": err, "tol": tol, "ok": bool(ok),
-                "ms": device_ms(lambda: pda(q, kp, vp, tables, kv_len)),
-                "plain_ms": device_ms(
-                    lambda: pda_ref(q, kp, vp, tables, kv_len)),
-                "library_ms": device_ms(lib),
-                "library_max_abs_err": lib_err,
-                "host_us": host_us(lambda: pda(q, kp, vp, tables, kv_len)),
-                "repeat_bitwise": bitwise_repeat(
-                    lambda: pda(q, kp, vp, tables, kv_len), out),
-            }
-            row["bound_ms"], row["bound_by"] = attention_bound(
-                q, kp, tables, kv_len)
-            row["bound_us"] = row["bound_ms"] * 1e3
+            _, row = paged_row(pda, pda_ref, *attention_case(
+                **shp, dtype=dtype, seed=100 + si))
+            row = {"shape": name, **shp, **row}
             emit("kernel", kernel="paged_decode_attention", **row)
-            if not (ok and row["repeat_bitwise"]):
+            if not (row["ok"] and row["repeat_bitwise"]):
                 raise AssertionError(
                     f"paged_decode_attention {name} {dtype}: kernel vs "
-                    f"plain max abs err {err} beyond {tol}, or two calls on "
-                    "the same inputs differ")
+                    f"plain max abs err {row['max_abs_err']} beyond "
+                    f"{row['tol']}, or two calls on the same inputs differ")
             rows[(name, dtype)] = row
     return rows
 
@@ -1711,17 +1737,24 @@ def _reference_vlm(get_config, build, dattn, steps=5):
 
 
 def _reference_serving(get_config, make_engine):
-    """The batcher's prefix cache, chunked prefill and copy-on-write, the
-    port on the card against the port on the CPU, reduced float32 config,
-    the same weights (a live bypass): a repeated-prefix trace, cache off,
-    on, and on with 8-token chunks; six prompts chunked (paged blocks of
-    8: chunks of 8 and 12; contiguous: 8 and 10) and monolithic; a
-    16-token sliding window whose ring wrap re-enters aliased blocks,
-    cache off and on.  Within each trace every run emits the same greedy
-    tokens, the card's equal the CPU's, every paged allocator drains, and
-    the windowed run copies at least one block (``Model.copy_blocks``)."""
+    """The batcher's prefix cache, chunked prefill, copy-on-write and
+    oversubscription, the port on the card against the port on the CPU,
+    reduced float32 config, the same weights (a live bypass): a
+    repeated-prefix trace, cache off, on, and on with 8-token chunks; six
+    prompts chunked (paged blocks of 8: chunks of 8 and 12; contiguous: 8
+    and 10) and monolithic; a 16-token sliding window whose ring wrap
+    re-enters aliased blocks, cache off and on; and the twins of
+    tests/test_preemption.py's four traces on a pool far below their
+    worst case (``oversubscribe`` 1.0): swap (under REPRO_SANITIZE=1),
+    drop (``swap=False``), chunked, and shared prefixes with the prefix
+    cache, each beside the same trace on an unbounded pool.  Within each
+    trace every run emits the same greedy tokens, the card's equal the
+    CPU's, every paged allocator drains, every oversubscribed run
+    preempts, the sanitized run adds no report, and the windowed run
+    copies at least one block (``Model.copy_blocks``)."""
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.models.model import Model
+    from repro_torch.runtime import sanitize
     from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
     from repro_torch.tree import tree_map
 
@@ -1744,6 +1777,17 @@ def _reference_serving(get_config, make_engine):
                       for t in prompts(wcfg, [2, 2], 5)]
         win_kw = dict(n_slots=2, max_seq=40, prompt_pad=16, paged=True,
                       block_size=4, n_blocks=13)
+        # tests/test_preemption.py's traces: heavy-tailed answers on 3
+        # slots, and prompts sharing a 16-token head
+        ov = prompts(cfg, [7, 16, 13, 10, 6, 15], 3)
+        ov_kw = dict(n_slots=3, max_seq=48, prompt_pad=16, paged=True,
+                     block_size=8)
+        base = prompts(cfg, [16, 16], 3)
+        ovp = [base[0], np.concatenate([base[0], base[1][:4]]),
+               base[0].copy(), base[1], base[0][:10],
+               np.concatenate([base[0], base[1][4:9]])]
+        ovp_kw = {**ov_kw, "prompt_pad": 24, "prefix_cache": True}
+        over = {"oversubscribe": 1.0}
         return {
             "repeated_prefix": (False, rep, [5, 3, 6, 2, 4], [
                 ("cache_off", rep_kw), ("cache_on", {**rep_kw,
@@ -1763,6 +1807,15 @@ def _reference_serving(get_config, make_engine):
             "window_cow": (True, win, [4, 10, 10], [
                 ("cache_off", win_kw),
                 ("cache_on", {**win_kw, "prefix_cache": True})]),
+            "oversub": (False, ov, [24, 4, 20, 4, 6, 18], [
+                ("unbounded", {**ov_kw, "n_blocks": 64}),
+                ("swap_sanitized", {**ov_kw, **over, "n_blocks": 10}),
+                ("drop", {**ov_kw, **over, "n_blocks": 10, "swap": False}),
+                ("chunked", {**ov_kw, **over, "n_blocks": 9,
+                             "prefill_chunk": 8})]),
+            "oversub_prefix": (False, ovp, [24, 6, 18, 20, 4, 4], [
+                ("unbounded", {**ovp_kw, "n_blocks": 64}),
+                ("swap", {**ovp_kw, **over, "n_blocks": 12})]),
         }
 
     cfg = get_config(ARCH).scaled()
@@ -1784,7 +1837,8 @@ def _reference_serving(get_config, make_engine):
         return orig(self, caches, src, dst)
 
     Model.copy_blocks = spy
-    tokens, drained = {}, True
+    tokens, drained, preempted = {}, True, {}
+    reports = len(sanitize.reports())
     try:
         for dev in ("cpu", "cuda"):
             for key, (windowed, ps, gens, runs) in traces(cfg, wcfg).items():
@@ -1793,7 +1847,16 @@ def _reference_serving(get_config, make_engine):
                 p, lo = (tree_map(lambda t: t.to(dev), tree)
                          for tree in (p, lo))
                 for run, kw in runs:
-                    b = ContinuousBatcher(eng, p, lo, **kw)
+                    armed = run.endswith("sanitized")
+                    if armed:           # the factories read it at init
+                        os.environ["REPRO_SANITIZE"] = "1"
+                    try:
+                        b = ContinuousBatcher(eng, p, lo, **kw)
+                    finally:
+                        os.environ.pop("REPRO_SANITIZE", None)
+                    if armed and b.allocator.san is None:
+                        raise AssertionError("reference serving: the "
+                                             "sanitizer did not arm")
                     reqs = [GenRequest(request_id=i, prompt=q.copy(),
                                        max_new_tokens=g)
                             for i, (q, g) in enumerate(zip(ps, gens))]
@@ -1807,7 +1870,15 @@ def _reference_serving(get_config, make_engine):
                     tokens[(dev, key, run)] = [r.tokens for r in reqs]
                     if b.paged:
                         drained &= b.allocator.n_used == 0 \
-                            and b.allocator.reserved == 0
+                            and b.allocator.reserved == 0 \
+                            and b.n_preempted == 0
+                    if b.oversubscribe:
+                        st = b.stats
+                        preempted[f"{dev}/{key}/{run}"] = dict(
+                            preemptions=st.preemptions,
+                            swap_out_blocks=st.swap_out_blocks,
+                            swap_in_blocks=st.swap_in_blocks,
+                            reprefill_tokens=st.reprefill_tokens)
     finally:
         Model.copy_blocks = orig
     same = {key: all(tokens[(dev, key, run)] == tokens[("cpu", key,
@@ -1821,11 +1892,17 @@ def _reference_serving(get_config, make_engine):
          all_runs_and_card_equal_cpu_tokens=same, allocators_drained=drained,
          copy_blocks_calls={dev: sum(1 for d, _ in copies if d == dev)
                             for dev in ("cpu", "cuda")},
-         blocks_copied_cuda=cuda_copies)
-    if not (all(same.values()) and drained and cuda_copies > 0):
+         blocks_copied_cuda=cuda_copies, preemption_counters=preempted,
+         sanitizer_reports_added=len(sanitize.reports()) - reports)
+    every_run_preempted = all(c["preemptions"] > 0
+                              for c in preempted.values())
+    if not (all(same.values()) and drained and cuda_copies > 0
+            and every_run_preempted
+            and len(sanitize.reports()) == reports):
         raise AssertionError(
             f"reference serving: tokens {same}, drained {drained}, "
-            f"blocks copied on the card {cuda_copies}")
+            f"blocks copied on the card {cuda_copies}, preemptions "
+            f"{preempted}, sanitizer reports {sanitize.reports()[reports:]}")
 
 
 def phase_reference_blockwise(get_config, build, make_engine, fa):
@@ -2669,6 +2746,345 @@ def phase_serve_chunked(make_engine, get_config, pda, lm, fa, seg):
     return {k: v[0] for k, v in results.items()}
 
 
+# oversubscription at full width: 16 requests on 8 slots, 256-token
+# prompts, 256 tokens each (max_seq 512: a request's worst case is 32
+# blocks of 16); pools in blocks, scratch block 0 not counted
+OVERSUB_PROMPT, OVERSUB_GEN, OVERSUB_SWAP_CHAIN = 256, 256, 62
+OVERSUB_RUNS = [
+    ("a_pool256", ARCH, 256, {}),           # every slot's worst case fits
+    ("b_pool160", ARCH, 160, {}),           # admission holds 5 slots
+    ("c_pool160_swap", ARCH, 160, dict(oversubscribe=1.0)),
+    ("c_pool160_swap_sanitized", ARCH, 160, dict(oversubscribe=1.0)),
+    ("d_pool160_drop", ARCH, 160, dict(oversubscribe=1.0, swap=False)),
+    ("e_llama_pool160_swap", "llama3-8b", 160, dict(oversubscribe=1.0)),
+]
+
+
+def swap_round_trip(model, pda, pda_ref, reps=5):
+    """A 62-block chain of a full-width bf16 pool (random from a seed)
+    through the swap path as the batcher drives it: ``gather_blocks`` and
+    the copy to host memory, ``swap_out``, ``swap_in`` onto fresh ids,
+    ``scatter_blocks``.  The moved blocks must equal the originals
+    bitwise, and paged_decode_attention (layer 0, 8 queries over the
+    chain, 769-992 rows) over the remapped table must return bitwise its
+    output over the original table.  Times: the host clock around each
+    direction, synchronized (median of ``reps``), and ``paged_row``'s."""
+    from repro_torch.runtime.paging import BlockAllocator
+    cfg, bs, nb = model.cfg, 16, OVERSUB_SWAP_CHAIN
+    pool = model.init_paged_caches(2 * nb + 1, bs)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for t in pool["kv"]:
+        for layer in t:
+            layer.copy_(torch.randn(layer.shape, generator=g,
+                                    device="cuda"))
+    alloc = BlockAllocator(2 * nb + 1, bs)
+    alloc.reserve(nb)
+    chain = [int(b) for b in np.random.default_rng(11).permutation(
+        alloc.take(nb))]
+    outs, ins = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = tuple(t.cpu() for t in model.gather_blocks(pool, chain)["kv"])
+        outs.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        model.scatter_blocks(pool, chain, host)     # the same ids: a no-op
+        torch.cuda.synchronize()
+        ins.append(time.perf_counter() - t0)
+    alloc.swap_out(chain)
+    fresh = alloc.swap_in(nb)
+    model.scatter_blocks(pool, fresh, host)
+    torch.cuda.synchronize()
+    moved_bitwise = all(torch.equal(t[:, fresh], t[:, chain])
+                        for t in pool["kv"])
+    block_bytes = sum(t[:, :1].numel() * t.element_size()
+                      for t in pool["kv"])
+    rng = np.random.default_rng(12)
+    kv_len = rng.integers((nb - 14) * bs + 1, nb * bs + 1,
+                          size=8).astype(np.int32)
+    kv_len[0] = nb * bs
+    kv_len = torch.tensor(kv_len, device="cuda")
+    q = torch.randn((8, cfg.n_heads, cfg.head_dim), generator=g,
+                    device="cuda").to(pool["kv"][0].dtype)
+    kp, vp = pool["kv"][0][0], pool["kv"][1][0]
+    orig = pda(q, kp, vp, torch.tensor([chain] * 8, dtype=torch.int32,
+                                       device="cuda"), kv_len)
+    tables = torch.tensor([fresh] * 8, dtype=torch.int32, device="cuda")
+    out, row = paged_row(pda, pda_ref, q, kp, vp, tables, kv_len)
+    swap_out_s, swap_in_s = statistics.median(outs), statistics.median(ins)
+    row.update(
+        blocks=nb, block_bytes=block_bytes, moved_bitwise=moved_bitwise,
+        remapped_output_bitwise=bool(torch.equal(out, orig)),
+        swap_out_ms_per_block=swap_out_s / nb * 1e3,
+        swap_in_ms_per_block=swap_in_s / nb * 1e3,
+        swap_out_gb_s=nb * block_bytes / swap_out_s / 1e9,
+        swap_in_gb_s=nb * block_bytes / swap_in_s / 1e9)
+    emit("serve_oversub", step="swap_round_trip", **row)
+    if not (moved_bitwise and row["remapped_output_bitwise"] and row["ok"]
+            and row["repeat_bitwise"]):
+        raise AssertionError(f"swap round trip: {row}")
+    return row
+
+
+def oversub_run(eng, params, lora, prompts, n_blocks, sanitized=False,
+                **kw):
+    """One ``ContinuousBatcher.run`` of the oversubscription traffic
+    (paged, blocks of 16, ``n_blocks`` + scratch), with taps: each
+    swap-out's bytes and host seconds (as ``_SwapCost`` observes them),
+    each swap-in's (``Model.scatter_blocks``, synchronized), each
+    ``prefer_swap`` answer, each preemption's path, the ticks and, when
+    ``sanitized`` (REPRO_SANITIZE=1 at construction), the host seconds of
+    the decode-wave checks.  Returns (batcher, requests, stats, taps)."""
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+    if sanitized:
+        os.environ["REPRO_SANITIZE"] = "1"
+    try:
+        b = ContinuousBatcher(eng, params, lora, n_slots=8,
+                              max_seq=OVERSUB_PROMPT + OVERSUB_GEN,
+                              prompt_pad=OVERSUB_PROMPT, paged=True,
+                              block_size=16, n_blocks=n_blocks + 1, **kw)
+    finally:
+        os.environ.pop("REPRO_SANITIZE", None)
+    if sanitized and b.allocator.san is None:
+        raise AssertionError("serve_oversub: the sanitizer did not arm")
+    taps = {"swap_out": [], "swap_in": [], "prefer_swap": [], "paths": [],
+            "ticks": 0, "sanitize_s": 0.0}
+    if b.swap_cost is not None:
+        observe, prefer = b.swap_cost.observe_swap, b.swap_cost.prefer_swap
+
+        def tap_observe(nbytes, dt):
+            taps["swap_out"].append((nbytes, dt))
+            observe(nbytes, dt)
+
+        def tap_prefer(tail_bytes, tokens):
+            taps["prefer_swap"].append(prefer(tail_bytes, tokens))
+            return taps["prefer_swap"][-1]
+
+        b.swap_cost.observe_swap = tap_observe
+        b.swap_cost.prefer_swap = tap_prefer
+    preempt, step, check = b._preempt, b.step, b._sanitize_wave
+
+    def tap_preempt(i, now):
+        before = b.stats.swap_out_blocks
+        preempt(i, now)
+        taps["paths"].append("swap" if b.stats.swap_out_blocks > before
+                             else "drop")
+
+    def tap_step(*a, **k):
+        taps["ticks"] += 1
+        return step(*a, **k)
+
+    def tap_check(active):
+        t0 = time.perf_counter()
+        check(active)
+        taps["sanitize_s"] += time.perf_counter() - t0
+
+    scatter = Model.scatter_blocks
+
+    def tap_scatter(self, caches, ids, host_kv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = scatter(self, caches, ids, host_kv)
+        torch.cuda.synchronize()
+        taps["swap_in"].append((len(ids), time.perf_counter() - t0))
+        return out
+
+    b._preempt, b.step, b._sanitize_wave = tap_preempt, tap_step, tap_check
+    Model.scatter_blocks = tap_scatter
+    reqs = [GenRequest(request_id=i, prompt=p, max_new_tokens=OVERSUB_GEN)
+            for i, p in enumerate(prompts)]
+    try:
+        stats = b.run(reqs)
+    finally:
+        Model.scatter_blocks = scatter
+        del b._preempt, b.step, b._sanitize_wave
+        if b.swap_cost is not None:
+            del b.swap_cost.observe_swap, b.swap_cost.prefer_swap
+    torch.cuda.synchronize()
+    return b, reqs, stats, taps
+
+
+def phase_serve_oversub(make_engine, get_config, pda, pda_ref, lm, fa, seg):
+    """KV-pool oversubscription at full width: first ``swap_round_trip``
+    on qwen1.5-0.5b's pool, then OVERSUB_RUNS (16 requests on 8 slots,
+    256 + 256 tokens, paged in blocks of 16): qwen on 256 blocks without
+    oversubscription (every slot fits), on 160 without (admission holds 5
+    slots), on 160 at ``oversubscribe`` 1.0 with swap and with
+    ``swap=False``, llama3-8b on 160 with swap, and qwen's swap run again
+    under REPRO_SANITIZE=1.  Every request finishes, the allocator drains,
+    launches exactly as derived (a re-prefill is a prefill wave; swaps
+    launch no kernel; flash_attention never), the oversubscribed runs
+    preempt, the swap runs swap and the drop run re-prefills; the
+    sanitized run adds no report.  Per run: tok/s, TTFT / TPOT, peak
+    blocks, the four counters, ``_SwapCost``'s answers and the paths
+    taken, swap-out / swap-in ms per block and GB/s, streams equal to
+    run (a)'s (not asserted: waves of another composition can take
+    other cuBLAS kernels)."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.runtime import sanitize
+    fwd = fa.flash_attention_fwd
+    results, engines = {}, {}
+    reports = len(sanitize.reports())
+    for name, arch, n_blocks, kw in OVERSUB_RUNS:
+        if arch not in engines:
+            engines.clear()
+            torch.cuda.empty_cache()
+            engines[arch] = full_engine(make_engine, get_config, arch)
+            if arch == ARCH:
+                round_trip = swap_round_trip(engines[arch][0].model, pda,
+                                             pda_ref)
+        eng, params, lora = engines[arch]
+        n_layers, n_lora, _ = arch_counts(get_config, arch)
+        data = SyntheticDataset("alpaca", vocab_size=eng.model.cfg.vocab_size,
+                                seq_len=OVERSUB_PROMPT, seed=0)
+        prompts = list(data.sample_tokens(16)[:, :OVERSUB_PROMPT]
+                       .astype(np.int32))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(pda, lm, fwd, seg)                     # main path starts
+        b, reqs, stats, taps = oversub_run(
+            eng, params, lora, prompts, n_blocks,
+            sanitized=name.endswith("sanitized"), **kw)
+        got = serve_launches(pda, lm, seg, fwd)       # path ends
+        check_launches(f"serve_oversub {name}", got, {
+            "paged_decode_attention": n_layers * stats.decode_steps,
+            "lora_matmul": n_lora * (b.prefill_waves + stats.decode_steps),
+            "segmented_lora_matmul": 0, "flash_attention": 0})
+        row = serve_row(name, arch, b, reqs, stats, {}, OVERSUB_GEN, got)
+        out_b = sum(n for n, _ in taps["swap_out"])
+        out_s = sum(dt for _, dt in taps["swap_out"])
+        in_n = sum(n for n, _ in taps["swap_in"])
+        in_s = sum(dt for _, dt in taps["swap_in"])
+        block_bytes = b._block_bytes()
+        row.update(
+            pool_blocks_asked=n_blocks, ticks=taps["ticks"],
+            host_ms_per_tick=stats.wall_time / taps["ticks"] * 1e3,
+            preemptions=stats.preemptions,
+            swap_out_blocks=stats.swap_out_blocks,
+            swap_in_blocks=stats.swap_in_blocks,
+            reprefill_tokens=stats.reprefill_tokens,
+            preempted_by_path={p: taps["paths"].count(p)
+                               for p in ("swap", "drop")},
+            swap_cost_answers={"swap": taps["prefer_swap"].count(True),
+                               "drop": taps["prefer_swap"].count(False)},
+            swap_cost_state=None if b.swap_cost is None else {
+                "swap_byte_s": b.swap_cost.swap_byte_s,
+                "prefill_tok_s": b.swap_cost.prefill_tok_s},
+            block_bytes=block_bytes,
+            swap_out_ms_per_block=out_s / (out_b / block_bytes) * 1e3
+            if out_b else None,
+            swap_out_gb_s=out_b / out_s / 1e9 if out_b else None,
+            swap_in_ms_per_block=in_s / in_n * 1e3 if in_n else None,
+            swap_in_gb_s=in_n * block_bytes / in_s / 1e9 if in_n else None,
+            tokens=[r.tokens for r in reqs])
+        if name.endswith("sanitized"):
+            row.update(sanitize_ms_per_tick=taps["sanitize_s"]
+                       / taps["ticks"] * 1e3,
+                       sanitizer_reports_added=len(sanitize.reports())
+                       - reports)
+        results[name] = row
+        over = kw.get("oversubscribe", 0) > 0
+        swapping = over and kw.get("swap", True)
+        if (over and stats.preemptions == 0) \
+                or (swapping and stats.swap_out_blocks == 0) \
+                or (over and not swapping and stats.reprefill_tokens == 0):
+            raise AssertionError(f"serve_oversub {name}: preemptions "
+                                 f"{stats.preemptions}, swapped out / in "
+                                 f"{stats.swap_out_blocks} / "
+                                 f"{stats.swap_in_blocks}, re-prefilled "
+                                 f"{stats.reprefill_tokens}")
+        del b, reqs
+        torch.cuda.empty_cache()
+    engines.clear()
+    a = results["a_pool256"]
+    for name, row in results.items():
+        if row["arch"] == ARCH and name != "a_pool256":
+            row["identical_streams_vs_a"] = sum(
+                t == o for t, o in zip(row["tokens"], a["tokens"]))
+    san, plain = results["c_pool160_swap_sanitized"], \
+        results["c_pool160_swap"]
+    san["host_ms_per_tick_added"] = san["host_ms_per_tick"] \
+        - plain["host_ms_per_tick"]
+    for row in results.values():
+        emit("serve_oversub", **{k: v for k, v in row.items()
+                                 if k != "tokens"})
+    if san["sanitizer_reports_added"]:
+        raise AssertionError(f"serve_oversub: the sanitized run reported "
+                             f"{sanitize.reports()[reports:]}")
+    return {"round_trip": round_trip, **results}
+
+
+def phase_static(make_engine, get_config, pda, lm, fa, seg):
+    """The lock-step baseline against the batcher at full width:
+    qwen1.5-0.5b, 16 requests of 32 + 16 tokens, ``static_batch_serve``
+    in batches of 8 and ``ContinuousBatcher`` on 8 contiguous slots, with
+    no EOS and then with an EOS id that request 0 emits (its third
+    token).  Every request finishes under the same EOS rule (its tokens
+    end at their first EOS, or hold all 16), launches exactly as derived
+    (the static decode reaches the paged kernel through identity tables),
+    tok/s of each; streams equal between the two, not asserted."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.runtime.serving_loop import (
+        ContinuousBatcher, GenRequest, static_batch_serve,
+    )
+    fwd = fa.flash_attention_fwd
+    n_layers, n_lora, _ = arch_counts(get_config, ARCH)
+    eng, params, lora = full_engine(make_engine, get_config, ARCH)
+    data = SyntheticDataset("alpaca", vocab_size=eng.model.cfg.vocab_size,
+                            seq_len=32, seed=0)
+    prompts = list(data.sample_tokens(16)[:, :32].astype(np.int32))
+    rows, tokens, eos = {}, {}, None
+    for eos_run in (False, True):
+        for kind in ("continuous", "static"):
+            reqs = [GenRequest(request_id=i, prompt=p.copy(),
+                               max_new_tokens=16)
+                    for i, p in enumerate(prompts)]
+            _reset(pda, lm, fwd, seg)                 # main path starts
+            if kind == "static":
+                stats = static_batch_serve(eng, params, lora, reqs,
+                                           batch_size=8, prompt_pad=32,
+                                           max_seq=48, eos_id=eos)
+                waves = 2
+            else:
+                b = ContinuousBatcher(eng, params, lora, n_slots=8,
+                                      max_seq=48, prompt_pad=32, eos_id=eos)
+                stats = b.run(reqs)
+                waves = b.prefill_waves
+            got = serve_launches(pda, lm, seg, fwd)   # path ends
+            name = f"{kind}{'_eos' if eos_run else ''}"
+            check_launches(f"static {name}", got, {
+                "paged_decode_attention": n_layers * stats.decode_steps,
+                "lora_matmul": n_lora * (waves + stats.decode_steps),
+                "segmented_lora_matmul": 0, "flash_attention": 0})
+            rule = all(
+                len(r.tokens) == (r.tokens.index(eos) + 1
+                                  if eos in r.tokens else 16)
+                for r in reqs)
+            rows[name] = {"run": name, "eos_id": eos,
+                          "finished": stats.finished,
+                          "generated_tokens": stats.generated_tokens,
+                          "decode_steps": stats.decode_steps,
+                          "throughput_tok_s": stats.throughput(),
+                          "wall_s": stats.wall_time, "eos_rule_held": rule,
+                          "launches": got}
+            tokens[name] = [r.tokens for r in reqs]
+            if stats.finished != 16 or not rule \
+                    or any(r.finished_wall is None for r in reqs):
+                raise AssertionError(f"static {name}: {rows[name]}")
+        if not eos_run:
+            eos = tokens["continuous"][0][2]
+    for suffix in ("", "_eos"):
+        rows["static" + suffix]["identical_streams_vs_continuous"] = sum(
+            t == o for t, o in zip(tokens["static" + suffix],
+                                   tokens["continuous" + suffix]))
+    for row in rows.values():
+        emit("static", **row)
+    if not any(len(t) < 16 for t in tokens["static_eos"]):
+        raise AssertionError("static: the EOS id never fired")
+    return rows
+
+
 BUDGET_RUNS = [("paged", "paged", dict(prompt_len=32, gen_tokens=16)),
                ("paged_992_chunk256", "paged_992",
                 dict(prompt_len=992, gen_tokens=32, prefill_chunk=CHUNK))]
@@ -3399,6 +3815,10 @@ def main():
                                                    pda, lm, fa, seg),
         "serve_chunked": lambda: phase_serve_chunked(make_engine, get_config,
                                                      pda, lm, fa, seg),
+        "serve_oversub": lambda: phase_serve_oversub(
+            make_engine, get_config, pda, pda_ref, lm, fa, seg),
+        "static": lambda: phase_static(make_engine, get_config, pda, lm, fa,
+                                       seg),
         "serve_ssm": lambda: phase_serve_ssm(run_serving, get_config, pda,
                                              lm, fa, seg, ssd.ssd_scan),
         "serve_vlm": lambda: phase_serve_vlm(make_engine, get_config, pda, lm,
@@ -3478,6 +3898,12 @@ def main():
                                                 "bound_ms", "host_us")}
                         for (n, dt), r in rows.items()
                         if dt == torch.bfloat16},
+        # a 62-block chain swapped out and back onto fresh ids: the
+        # kernel over the remapped table against the original's output
+        "swap_round_trip": {k: out["serve_oversub"]["round_trip"][k] for k in (
+            "blocks", "moved_bitwise", "remapped_output_bitwise",
+            "max_abs_err", "repeat_bitwise", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "swap_out_gb_s", "swap_in_gb_s")},
     }, {
         "name": "lora_matmul",
         "route": "cuda",

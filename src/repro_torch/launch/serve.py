@@ -14,13 +14,16 @@ prefixes copy-on-write across requests, per tenant; ``--chunked-prefill
 N`` prefills prompts N tokens a tick beside the decode wave; ``--tpot-
 target S`` budgets each tick for a decode TPOT of S seconds (decode
 first, then prefill chunks, then a full, half or skipped train step).
+``--oversubscribe W`` (with ``--paged``) reserves only near-term blocks
+against a W-fraction watermark of the pool and preempts a slot when the
+pool runs out: its private blocks swap to host memory, or with
+``--no-swap`` are dropped and re-prefilled on restore.
 ``--arch mamba2-780m`` serves the attention-free Mamba2 stack
 (contiguous caches: a conv tail and an SSD state per slot): each prompt
 prefills at its exact length through the ssd_scan kernel in every layer,
 and ``--paged``, ``--adapters`` and ``--chunked-prefill`` raise for it,
 as in the reference.  Weights are random, drawn from ``--seed``.  The
-multi-replica fabric and oversubscription (``--oversubscribe``) are not
-ported yet (see ROADMAP.md).
+multi-replica fabric is not ported yet (see ROADMAP.md).
 
 Usage (on a machine with an NVIDIA Hopper card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
@@ -28,6 +31,7 @@ Usage (on a machine with an NVIDIA Hopper card):
   ... --paged --block-size 16 --n-blocks 64   # paged KV cache
   ... --paged --prefix-cache                  # copy-on-write prefix sharing
   ... --chunked-prefill 256 [--tpot-target 0.1]   # chunks, tick budget
+  ... --paged --n-blocks 160 --oversubscribe 1.0 [--no-swap]  # preemption
   ... --combined --train-batch 4              # co-train the adapter
   ... --adapters 3 [--combined]               # multi-tenant LoRA serving
   ... --arch mamba2-780m                      # Mamba2 (SSM), contiguous
@@ -56,8 +60,8 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
                 train_batch: int = 4, seed: int = 0, paged: bool = False,
                 block_size: int = 16, n_blocks: int = 0,
                 prefix_cache: bool = False, prefill_chunk: int = 0,
-                tpot_target: float = 0.0,
-                temperature: float = 0.0, top_k: int = 0,
+                tpot_target: float = 0.0, oversubscribe: float = 0.0,
+                swap: bool = True, temperature: float = 0.0, top_k: int = 0,
                 top_p: float = 1.0, n_adapters: int = 0,
                 adapter_slots: int = 0, device="cuda",
                 verbose: bool = True) -> dict:
@@ -67,9 +71,9 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
     (``combined``) the loss of the train step each tick co-ran on a
     fresh ``train_batch`` x ``prompt_len`` synthetic batch, with the rows
     each trained tick took (``tpot_target`` may halve or skip a step).
-    ``prefix_cache``, ``prefill_chunk`` and ``tpot_target`` reach the
-    batcher; the output then carries the cache's and the budget's
-    counters.
+    ``prefix_cache``, ``prefill_chunk``, ``tpot_target``,
+    ``oversubscribe`` and ``swap`` reach the batcher; the output then
+    carries the cache's, the budget's and the preemption counters.
 
     ``n_adapters > 0`` registers that many tenants (``make_tenant_adapters``)
     on an ``AdapterRegistry`` of ``adapter_slots`` device slots (default:
@@ -103,7 +107,8 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         opt_state=engine.optimizer.init(lora), paged=paged,
         block_size=block_size, n_blocks=n_blocks or None,
         prefix_cache=prefix_cache, adapters=registry,
-        prefill_chunk=prefill_chunk, tpot_target=tpot_target)
+        prefill_chunk=prefill_chunk, tpot_target=tpot_target,
+        oversubscribe=oversubscribe, swap=swap)
     prompts = data.sample_tokens(n_requests)[:, :prompt_len]
     requests = [GenRequest(request_id=i, prompt=prompts[i],
                            max_new_tokens=gen_tokens,
@@ -151,6 +156,11 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
         out["pool_blocks"] = batcher.allocator.capacity
         out["blocks_used_at_end"] = batcher.allocator.n_used
         out["blocks_reserved_at_end"] = batcher.allocator.reserved
+    if oversubscribe > 0:
+        out.update(preemptions=stats.preemptions,
+                   swap_out_blocks=stats.swap_out_blocks,
+                   swap_in_blocks=stats.swap_in_blocks,
+                   reprefill_tokens=stats.reprefill_tokens)
     if prefix_cache:
         out["cached_prefix_tokens"] = stats.cached_prefix_tokens
         out["prefix_cache_hits"] = batcher.prefix_cache.hits
@@ -186,7 +196,11 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
                  if batcher.train_losses else "")
               + (f"; {n_adapters} tenants "
                  f"{dict(sorted(stats.adapter_requests.items()))}"
-                 if registry is not None else ""))
+                 if registry is not None else "")
+              + (f"; {stats.preemptions} preemptions "
+                 f"({stats.swap_out_blocks} blocks swapped, "
+                 f"{stats.reprefill_tokens} tokens re-prefilled)"
+                 if oversubscribe > 0 else ""))
     return out
 
 
@@ -221,6 +235,17 @@ def main() -> None:
                          "no tick budget); > 0 budgets each tick: decode "
                          "first, then prefill chunks in deadline-slack "
                          "order, then a full, half or skipped train step")
+    ap.add_argument("--oversubscribe", type=float, default=0.0,
+                    help="oversubscribed KV pool watermark in (0, 1] (0 = "
+                         "worst-case reservations, no preemption); > 0 "
+                         "reserves only near-term need against that "
+                         "fraction of the pool and preempts on exhaustion "
+                         "(victims swap to host or drop and re-prefill); "
+                         "requires --paged")
+    ap.add_argument("--no-swap", dest="swap", action="store_false",
+                    help="no host swap for preempted requests: every "
+                         "victim drops its private KV and re-prefills on "
+                         "restore (--oversubscribe only)")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="sampling temperature (0 = greedy, the default)")
     ap.add_argument("--top-k", type=int, default=0,
@@ -238,6 +263,9 @@ def main() -> None:
     if args.prefix_cache and not args.paged:
         ap.error("--prefix-cache requires --paged (sharing rides on "
                  "pool block aliasing)")
+    if args.oversubscribe and not args.paged:
+        ap.error("--oversubscribe requires --paged (preemption swaps "
+                 "pool blocks)")
     run_serving(args.arch, smoke=args.smoke, n_requests=args.requests,
                 prompt_len=args.prompt_len, gen_tokens=args.gen,
                 batch_size=args.batch, combined=args.combined,
@@ -245,7 +273,9 @@ def main() -> None:
                 block_size=args.block_size, n_blocks=args.n_blocks,
                 prefix_cache=args.prefix_cache,
                 prefill_chunk=args.chunked_prefill,
-                tpot_target=args.tpot_target, temperature=args.temperature, top_k=args.top_k,
+                tpot_target=args.tpot_target,
+                oversubscribe=args.oversubscribe, swap=args.swap,
+                temperature=args.temperature, top_k=args.top_k,
                 top_p=args.top_p, n_adapters=args.adapters, seed=args.seed,
                 device=args.device)
 

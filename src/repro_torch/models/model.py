@@ -470,24 +470,58 @@ class Model:
                 pre[:, src_row, src_col].to(pool.dtype)
         return pool_caches
 
+    @staticmethod
+    def _pool_ids(paged_caches, ids, what: str) -> np.ndarray:
+        """Host-side block ids, each inside the pool: the JAX programs
+        pad ids and drop or clamp the pads, while an out-of-range index
+        on the card is a device assert, so the port takes exact lists."""
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        n_blocks = paged_caches["kv"][0].shape[1]
+        if ((ids < 0) | (ids >= n_blocks)).any():
+            raise ValueError(f"{what}: ids {ids.tolist()} outside the pool "
+                             f"of {n_blocks} blocks")
+        return ids
+
     def copy_blocks(self, paged_caches, src_ids, dst_ids):
         """Copy-on-write: pool blocks ``dst := src`` (host-side ids), one
         gather and one indexed write per K/V leaf.  The runtime batches a
         tick's copies into one call."""
-        src = np.asarray(src_ids, np.int64)
-        dst = np.asarray(dst_ids, np.int64)
-        n_blocks = paged_caches["kv"][0].shape[1]
-        if src.shape != dst.shape or ((src < 0) | (src >= n_blocks)
-                                      | (dst < 0) | (dst >= n_blocks)).any():
-            raise ValueError(f"copy_blocks: ids {src.tolist()} -> "
-                             f"{dst.tolist()} outside the pool of "
-                             f"{n_blocks} blocks")
+        src = self._pool_ids(paged_caches, src_ids, "copy_blocks")
+        dst = self._pool_ids(paged_caches, dst_ids, "copy_blocks")
+        if src.shape != dst.shape:
+            raise ValueError(f"copy_blocks: {src.size} sources, "
+                             f"{dst.size} destinations")
         if not src.size:
             return paged_caches
         for pool in paged_caches["kv"]:
             src_t = torch.as_tensor(src, device=pool.device)
             dst_t = torch.as_tensor(dst, device=pool.device)
             pool[:, dst_t] = pool[:, src_t]   # gathered before the write
+        return paged_caches
+
+    def gather_blocks(self, paged_caches, ids):
+        """Preemption swap-out, device half: pool blocks ``ids`` (host-side,
+        exact) in ONE indexed gather per K/V leaf, ``{"kv": (k, v)}`` with
+        k, v ``[L, len(ids), block_size, Hkv, Dh]`` on the pool's device
+        in its dtype; the runtime copies them to host memory."""
+        ids = self._pool_ids(paged_caches, ids, "gather_blocks")
+        k, v = (pool[:, torch.as_tensor(ids, device=pool.device)]
+                for pool in paged_caches["kv"])
+        return {"kv": (k, v)}
+
+    def scatter_blocks(self, paged_caches, ids, host_kv):
+        """Preemption swap-in: land host-side block contents ``host_kv``
+        (k, v ``[L, len(ids), block_size, Hkv, Dh]``, any device) in the
+        fresh pool blocks ``ids`` (host-side, exact): one copy to the
+        pool's device and ONE indexed write per K/V leaf, in place."""
+        ids = self._pool_ids(paged_caches, ids, "scatter_blocks")
+        for pool, vals in zip(paged_caches["kv"], host_kv):
+            if vals.shape[1] != ids.size:
+                raise ValueError(f"scatter_blocks: {vals.shape[1]} blocks "
+                                 f"of contents for {ids.size} ids")
+            if ids.size:
+                pool[:, torch.as_tensor(ids, device=pool.device)] = \
+                    vals.to(pool.device).to(pool.dtype)
         return paged_caches
 
     # ------------------------------------------------------- suffix prefill -

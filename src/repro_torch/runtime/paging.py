@@ -1,5 +1,5 @@
 """Host-side accounting for the paged KV cache, with copy-on-write
-prefix sharing — the port of the preemption-free core of
+prefix sharing and preemption swapping — the port of
 ``repro.runtime.paging``.
 
 The device side is a global block pool ``[L, n_blocks, block_size, Hkv,
@@ -9,6 +9,11 @@ case fits.  At admission the batcher reserves a request's WORST-CASE
 block count; blocks are then taken lazily (prompt blocks at admission,
 one more each time decode crosses a block boundary), always against the
 reservation, so a slot never stalls mid-decode waiting for a block.
+Oversubscribed admission (``ContinuousBatcher(oversubscribe=...)``)
+reserves only near-term need instead and handles mid-decode exhaustion
+by preempting a victim slot: the victim's private blocks either swap to
+host memory (``swap_out``/``swap_in`` below) or are dropped and
+re-prefilled on restore.
 
 Sharing (prefix caching): every block carries a refcount.  Full,
 immutable prompt blocks are registered in a ``PrefixCache`` keyed by
@@ -23,18 +28,20 @@ blocks, oldest first, only when the free list runs dry.
 
 Block 0 is the scratch block: inactive decode slots keep all-zero block
 tables, so their dead-lane writes land there instead of in live blocks.
-Swapping (oversubscription) and the shadow sanitizer come in later
-slices; ``san`` is the sanitizer's hook, None until then.
+``REPRO_SANITIZE=1`` arms ``san``, a shadow refcount and reservation
+ledger (``runtime/sanitize.py``) that every mutation below advances.
 """
 from __future__ import annotations
 
 import collections
 import hashlib
 from typing import (
-    Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple,
+    Callable, Deque, Dict, List, Optional, Sequence, Tuple,
 )
 
 import numpy as np
+
+from repro_torch.runtime.sanitize import block_sanitizer
 
 
 def blocks_for(n_tokens: int, block_size: int) -> int:
@@ -89,9 +96,9 @@ class BlockAllocator:
         # called with a block id when ``take`` reclaims a retained block
         # (the prefix cache drops its entry there)
         self.on_reclaim: Optional[Callable[[int], None]] = None
-        # shadow-state sanitizer hook (the JAX allocator's reprosan
-        # mirror); stays None until the sanitizer is ported
-        self.san: Any = None
+        # shadow refcount/reservation mirror, armed by REPRO_SANITIZE=1
+        # (None otherwise: every hook below is one is-not-None test)
+        self.san = block_sanitizer(self)
 
     # ------------------------------------------------------------ queries --
     @property
@@ -227,6 +234,42 @@ class BlockAllocator:
                              "broken")
         if self.san is not None:
             self.san.on_free(list(ids))
+
+    # ------------------------------------------------------------- swapping -
+    def swap_out(self, ids: Sequence[int]) -> None:
+        """Preemption swap-out: drop the SOLE reference on each private
+        block whose contents were just copied to host memory, returning
+        the block to the free list.  Only unpinned refcount-1 blocks may
+        swap (shared and registered blocks stay pool-resident), so
+        swapping another is a hard error.  The sanitizer marks the ids
+        swapped out: a decode wave that gathers one before a ``swap_in``
+        restores fresh blocks is a use-after-swap."""
+        for b in ids:
+            if not (self.n_scratch <= b < self.n_blocks):
+                raise BlockError(f"swap-out of invalid block id {b}")
+            if self._ref[b] != 1:
+                raise BlockError(
+                    f"swap-out of block {b} with refcount "
+                    f"{self._ref[b]} (must be the sole reference)")
+            if b in self._pinned:
+                raise BlockError(
+                    f"swap-out of pinned (prefix-cached) block {b} — "
+                    "registered blocks stay pool-resident")
+            self._ref[b] = 0
+            self._free.append(b)
+        if self.san is not None:
+            self.san.on_swap_out(list(ids))
+
+    def swap_in(self, n: int) -> List[int]:
+        """Restore-side allocation: reserve AND take ``n`` fresh blocks in
+        one step, for the host-to-device copy of a swapped-out chain.
+        Raises ``OutOfBlocks`` when the pool cannot cover the restore
+        (the caller defers it to a later tick)."""
+        self.reserve(n)
+        ids = self.take(n)
+        if self.san is not None:
+            self.san.on_swap_in(ids)
+        return ids
 
     # -------------------------------------------------------------- pinning -
     def pin(self, bid: int) -> None:

@@ -71,14 +71,37 @@ paged).  With ``tpot_target > 0`` a ``_TickBudget`` plans each tick from
 measured costs: decode first, prefill chunks in the slack, then a train
 microbatch in what is left (full, half or skipped).
 
+Oversubscription (``oversubscribe=w``, 0 < w <= 1, paged only):
+admission reserves only near-term need (the prompt's blocks and one
+block of decode lookahead) against a ``w``-fraction watermark of the
+pool, and a decode write that finds the pool exhausted PREEMPTS a victim
+slot (the one with the most deadline slack).  Its private block chain
+either swaps to host memory (one indexed gather per K/V leaf, one
+synchronous copy to the CPU; restored by one copy back and one indexed
+write into fresh blocks) or is dropped and re-prefilled from the
+request's prompt and generated tokens through the chunk programs,
+whichever an EMA cost model (``_SwapCost``) prices cheaper; ``swap=False``
+always drops.  Shared and prefix-registered blocks are never copied:
+they stay in the pool.  Restores run ahead of admission in
+deadline-slack order, and greedy output equals a never-preempted run's.
+
 These features, like the reference's, refuse a ``prompt_pad`` past the
 dense limit (``prompt_pad``^2 > 1M, where prefill runs blockwise, on the
 card through the flash_attention kernels): the suffix programs mirror
-the dense softmax.  Chunked prefill refuses SSM stacks.
-Oversubscription (swap and drop-restore) and the shadow sanitizer are
-not ported yet (``oversubscribe`` raises ``NotImplementedError``, naming
-ROADMAP item 1).  VLM stacks are refused, as in the reference: they
-serve through ``Engine.prefill_step``/``decode_step``.
+the dense softmax.  Chunked prefill refuses SSM stacks, and
+oversubscription sliding windows (a ring wrap overwrites rows in place,
+so a dropped request could not be re-prefilled into the same state).
+VLM stacks are refused, as in the reference: they serve through
+``Engine.prefill_step``/``decode_step``.
+
+``REPRO_SANITIZE=1`` arms the shadow sanitizers (``runtime/sanitize.py``):
+the allocator's refcount mirror, the registry's residency mirror and a
+request lifecycle FSM, each checked on every decode wave, eviction and
+drain; a violation raises a ``[reprosan:...]`` diagnostic.
+
+``static_batch_serve`` is the lock-step baseline: prefill a batch, then
+decode until every request of the batch finishes, finished requests
+riding along as dead slots.
 """
 from __future__ import annotations
 
@@ -95,6 +118,7 @@ from repro_torch.core.interfaces import slack_order
 from repro_torch.models.lora import lora_shapes
 from repro_torch.models.transformer import use_dense_prefill
 from repro_torch.runtime.paging import BlockAllocator, PrefixCache, blocks_for
+from repro_torch.runtime.sanitize import adapter_sanitizer, lifecycle_sanitizer
 from repro_torch.tree import tree_finite, tree_leaves, tree_map
 
 
@@ -126,6 +150,9 @@ class GenRequest:
     # its final chunk under chunked prefill
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
+    # wall-clock (perf_counter) finish stamp: ``finished_at`` is on the
+    # caller's ``now`` clock, which may be simulated time
+    finished_wall: Optional[float] = None
     rng: Any = None                     # per-request sampling stream
 
     @property
@@ -191,6 +218,14 @@ class ServeStats:
     budget_spent_s: float = 0.0
     budget_target_s: float = 0.0
     train_skipped_ticks: int = 0
+    # oversubscribed pool: victim slots preempted on pool exhaustion,
+    # blocks moved device->host and host->device by swaps, and prompt
+    # and generated tokens recomputed by drop-restores (these count in
+    # prefill_tokens too: that is all prefill compute)
+    preemptions: int = 0
+    swap_out_blocks: int = 0
+    swap_in_blocks: int = 0
+    reprefill_tokens: int = 0
     # per finished request, on the caller's ``now`` clock: time to first
     # token (arrival -> the admitting tick) and seconds per later output
     # token (first token -> the finishing tick, over the tokens after it)
@@ -199,6 +234,12 @@ class ServeStats:
 
     def throughput(self) -> float:
         return self.generated_tokens / max(self.wall_time, 1e-9)
+
+
+def _ema(old: Optional[float], new: float) -> float:
+    """The cost models' moving average: the first sample, then 3:1 old to
+    new."""
+    return new if old is None else 0.75 * old + 0.25 * new
 
 
 class _TickBudget:
@@ -219,21 +260,17 @@ class _TickBudget:
         self.prefill_tok_s: Optional[float] = None
         self.train_tok_s: Optional[float] = None
 
-    @staticmethod
-    def _ema(old: Optional[float], new: float) -> float:
-        return new if old is None else 0.75 * old + 0.25 * new
-
     def observe_decode(self, dt: float) -> None:
-        self.decode_tick_s = self._ema(self.decode_tick_s, dt)
+        self.decode_tick_s = _ema(self.decode_tick_s, dt)
 
     def observe_prefill(self, tokens: int, dt: float) -> None:
         if tokens > 0:
-            self.prefill_tok_s = self._ema(self.prefill_tok_s,
+            self.prefill_tok_s = _ema(self.prefill_tok_s,
                                            dt / tokens)
 
     def observe_train(self, tokens: int, dt: float) -> None:
         if tokens > 0 and dt > 0:
-            self.train_tok_s = self._ema(self.train_tok_s, dt / tokens)
+            self.train_tok_s = _ema(self.train_tok_s, dt / tokens)
 
     def prefill_allowance(self, n_decoding: int) -> float:
         """Prefill tokens this tick may spend after decode's share; with
@@ -264,6 +301,56 @@ class _TickBudget:
         if b >= 2 and rem >= half * self.train_tok_s:
             return half
         return None
+
+
+class _SwapCost:
+    """EMA cost model for the per-victim preemption choice, priced like
+    ``_TickBudget``: measured seconds per byte of a device-to-host block
+    copy against seconds per re-prefilled token.  Swap keeps the state
+    exactly, so unknown costs prefer swap: each path is measured before
+    it is regulated, and the safe choice is the default."""
+
+    def __init__(self) -> None:
+        self.swap_byte_s: Optional[float] = None
+        self.prefill_tok_s: Optional[float] = None
+
+    def observe_swap(self, nbytes: int, dt: float) -> None:
+        if nbytes > 0 and dt > 0:
+            self.swap_byte_s = _ema(self.swap_byte_s, dt / nbytes)
+
+    def observe_prefill(self, tokens: int, dt: float) -> None:
+        if tokens > 0 and dt > 0:
+            self.prefill_tok_s = _ema(self.prefill_tok_s,
+                                           dt / tokens)
+
+    def prefer_swap(self, tail_bytes: int, reprefill_tokens: int) -> bool:
+        """Is a swap round trip (out and in) cheaper than recomputing
+        the dropped rows?"""
+        if self.swap_byte_s is None or self.prefill_tok_s is None:
+            return True
+        return 2.0 * tail_bytes * self.swap_byte_s \
+            <= reprefill_tokens * self.prefill_tok_s
+
+
+@dataclasses.dataclass
+class _Swapped:
+    """A preempted request parked off its slot.  ``kept`` blocks (the
+    shared or prefix-registered start of its chain) stay in the pool with
+    its references held; the private tail either lives in host memory in
+    ``host_kv`` (mode "swap") or was dropped and is recomputed from the
+    request's token ids (mode "reprefill").  The adapter pin is kept
+    across the preemption, so a restore never waits on residency."""
+    req: GenRequest
+    adapter_id: Optional[str]
+    mode: str                     # "swap" | "reprefill"
+    kept: List[int]               # pool-resident chain start (refs held)
+    # (k, v) CPU tensors [L, n_tail, bs, Hkv, Dh] in the pool's dtype
+    # (swap mode only): a round trip is bitwise
+    host_kv: Any
+    n_tail: int                   # private blocks to restore
+    pos: int                      # decode frontier: next write position
+    tok: int                      # next token to feed
+    cached: int                   # prefix-cache hit tokens at admission
 
 
 def _host_ids(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -325,6 +412,9 @@ class AdapterRegistry:
         self.hits = 0
         self.loads = 0
         self.evictions = 0
+        # shadow residency/refcount/version mirror, armed by
+        # REPRO_SANITIZE=1 (None otherwise)
+        self.san = adapter_sanitizer()
 
     # ---------------------------------------------------------- tenants --
     def register(self, adapter_id: str, tree: Any,
@@ -336,12 +426,16 @@ class AdapterRegistry:
                 "update() to change a live tenant's weights")
         self._trees[adapter_id] = tree
         self._version[adapter_id] = version
+        if self.san is not None:
+            self.san.on_register(adapter_id, version)
 
     def unregister(self, adapter_id: str) -> None:
         if self.refcount(adapter_id) > 0:
             raise AdapterError(
                 f"{adapter_id}: unregister with {self.refcount(adapter_id)} "
                 "in-flight refs")
+        if self.san is not None:
+            self.san.on_unregister(adapter_id)
         if adapter_id in self._slot:
             self._free.append(self._slot.pop(adapter_id))
             self._refs.pop(adapter_id, None)
@@ -386,11 +480,15 @@ class AdapterRegistry:
             self.hits += 1
             self._lru.pop(adapter_id, None)
             self._refs[adapter_id] = self._refs.get(adapter_id, 0) + 1
+            if self.san is not None:
+                self.san.on_acquire(adapter_id)
             return slot
         if self._free:
             slot = self._free.pop()
         elif self._lru:
             cold, slot = self._lru.popitem(last=False)
+            if self.san is not None:
+                self.san.on_evict(cold)
             del self._slot[cold]
             self._refs.pop(cold, None)
             self.evictions += 1
@@ -402,12 +500,16 @@ class AdapterRegistry:
         self.loads += 1
         self._slot[adapter_id] = slot
         self._refs[adapter_id] = 1
+        if self.san is not None:
+            self.san.on_acquire(adapter_id)
         return slot
 
     def release(self, adapter_id: str) -> None:
         refs = self._refs.get(adapter_id, 0)
         if refs <= 0:
             raise AdapterError(f"{adapter_id}: release without acquire")
+        if self.san is not None:
+            self.san.on_release(adapter_id)
         refs -= 1
         self._refs[adapter_id] = refs
         if refs == 0:
@@ -424,12 +526,16 @@ class AdapterRegistry:
         if not tree_finite(tree):
             raise AdapterError(
                 f"{adapter_id}: refusing non-finite adapter publish")
+        if self.san is not None:
+            self.san.begin_publish(adapter_id, version)
         self._trees[adapter_id] = tree
         if version is not None:
             self._version[adapter_id] = version
         slot = self._slot.get(adapter_id)
         if slot is not None:
             _write_adapter_slot(self._stack, tree, slot)
+        if self.san is not None:
+            self.san.end_publish(adapter_id, version)
 
     def device_lora(self) -> Any:
         """The stacked device tree the multi-tenant paths read."""
@@ -463,7 +569,7 @@ class ContinuousBatcher:
                  prefix_cache: bool = False,
                  adapters: Optional[AdapterRegistry] = None,
                  prefill_chunk: int = 0, tpot_target: float = 0.0,
-                 oversubscribe: float = 0.0):
+                 oversubscribe: float = 0.0, swap: bool = True):
         cfg = engine.model.cfg
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
@@ -490,6 +596,20 @@ class ContinuousBatcher:
             raise NotImplementedError(
                 f"{cfg.name}: chunked prefill needs an attention-only "
                 "stack (SSM state threads through every token in order)")
+        if oversubscribe:
+            if not paged:
+                raise ValueError(
+                    "oversubscribe requires paged=True (preemption "
+                    "moves pool blocks, not contiguous slot stripes)")
+            if not 0 < oversubscribe <= 1:
+                raise ValueError(f"oversubscribe must be in (0, 1], got "
+                                 f"{oversubscribe}")
+            if cfg.sliding_window > 0:
+                raise NotImplementedError(
+                    f"{cfg.name}: oversubscribed preemption needs full "
+                    "attention — a sliding-window ring wrap overwrites "
+                    "cache rows in place, so a dropped request cannot "
+                    "be re-prefilled into an equivalent state")
         # these replay prefill through programs that mirror the DENSE
         # softmax bit for bit, so they refuse a prompt_pad past the dense
         # limit (blockwise prefill)
@@ -510,10 +630,6 @@ class ContinuousBatcher:
                 raise NotImplementedError(
                     f"{cfg.name}: {name} needs the dense prefill path — "
                     f"{why}")
-        if oversubscribe:
-            raise NotImplementedError(
-                "ContinuousBatcher(oversubscribe=...) is not ported to "
-                "repro_torch yet; see ROADMAP.md item 1")
         self.engine = engine
         self.model = engine.model
         self.device = engine.model.device
@@ -560,22 +676,50 @@ class ContinuousBatcher:
             self._dev_tables: Optional[torch.Tensor] = None
         else:
             self.caches = self.model.init_caches(n_slots, max_seq)
+        # oversubscribed pool: (1 - w) * capacity blocks stay out of
+        # admission's reach, headroom for decode growth and swap-in
+        # restores; preempted requests park in _swapped, restored ahead
+        # of admission in deadline-slack order
+        self.oversubscribe = float(oversubscribe)
+        self.swap = bool(swap)
+        self._headroom_blocks = 0
+        self.swap_cost: Optional[_SwapCost] = None
+        if self.oversubscribe > 0:
+            self._headroom_blocks = self.allocator.capacity \
+                - int(self.oversubscribe * self.allocator.capacity)
+            self.swap_cost = _SwapCost()
+        self._swapped: List[_Swapped] = []
         # chunked prefill: a paged chunk is rounded up to whole blocks
         # (write_prefill_blocks writes whole blocks; only a prompt's
-        # final chunk may be ragged); a chunk wave is this wide
+        # final chunk may be ragged)
         self.prefill_chunk = int(prefill_chunk)
         if self.prefill_chunk > 0 and paged:
             self.prefill_chunk = self.block_size * blocks_for(
                 self.prefill_chunk, self.block_size)
+        # the width of a chunk wave: the chunk when set; otherwise (a
+        # drop-restore re-prefills in chunk waves too) prompt_pad rounded
+        # up to whole blocks, so one chunk covers a typical prompt
+        if self.prefill_chunk > 0:
+            self._prefill_pad = self.prefill_chunk
+        elif paged:
+            self._prefill_pad = self.block_size * blocks_for(
+                self.prompt_pad, self.block_size)
+        else:
+            self._prefill_pad = self.prompt_pad
         self.tpot_target = float(tpot_target)
         self.budget = _TickBudget(self.tpot_target) \
             if self.tpot_target > 0 else None
-        # per-slot prefill progress: prompt tokens in cache (== the prompt
-        # length once decoding), how many of them were prefix-cache hits,
-        # and the goal (the prompt length)
+        # per-slot prefill progress: prompt tokens in cache (== the goal
+        # once decoding), how many of them were prefix-cache hits, and the
+        # goal: the prompt length, or for a drop-restore the restore
+        # sequence's (prompt and generated tokens, ``slot_seq``), whose
+        # final chunk re-installs the feed token ``slot_restore_tok``
+        # instead of sampling one
         self.slot_prefilled = np.zeros(n_slots, np.int32)
         self.slot_cached = np.zeros(n_slots, np.int32)
         self.slot_goal = np.zeros(n_slots, np.int32)
+        self.slot_seq: List[Optional[np.ndarray]] = [None] * n_slots
+        self.slot_restore_tok = np.full(n_slots, -1, np.int32)
         # what the latest step() trained: the budget may halve or skip
         # a tick's microbatch
         self.last_tick_trained = False
@@ -586,6 +730,9 @@ class ContinuousBatcher:
         self.slot_tok = np.zeros(n_slots, np.int32)   # next token to feed
         # registry mode: the adapter id each slot's request pinned
         self.slot_aid: List[Optional[str]] = [None] * n_slots
+        # request-lifecycle FSM shadow, armed by REPRO_SANITIZE=1 (None
+        # otherwise: each hook is one is-not-None test)
+        self._lsan = lifecycle_sanitizer()
         self.stats = ServeStats()
         # prefill programs run: monolithic, suffix and chunk waves
         self.prefill_waves = 0
@@ -617,6 +764,8 @@ class ContinuousBatcher:
         # a slot holds prompt + generation; clamp so writes stay in-cache
         budget = self.max_seq - len(req.prompt)
         req.max_new_tokens = max(1, min(req.max_new_tokens, budget))
+        if self._lsan is not None:
+            self._lsan.on_submit(req)
         self.queue.append(req)
 
     def active_slots(self) -> List[int]:
@@ -624,10 +773,17 @@ class ContinuousBatcher:
                 if self.slot_req[i] is not None]
 
     def _is_prefilling(self, i: int) -> bool:
-        """Slot ``i`` holds a request whose prompt is not all in cache
-        yet: parked out of the decode wave."""
+        """Slot ``i`` holds a request whose prefill goal (the prompt, or
+        for a drop-restore the prompt and generated tokens) is not all in
+        cache yet: parked out of the decode wave."""
         return self.slot_req[i] is not None \
             and int(self.slot_prefilled[i]) < int(self.slot_goal[i])
+
+    def _slot_seq(self, i: int) -> np.ndarray:
+        """The tokens slot ``i``'s prefill consumes: the request's prompt,
+        unless a drop-restore installed a longer restore sequence."""
+        seq = self.slot_seq[i]
+        return seq if seq is not None else self.slot_req[i].prompt
 
     def decoding_slots(self) -> List[int]:
         return [i for i in self.active_slots()
@@ -637,7 +793,14 @@ class ContinuousBatcher:
         return [i for i in self.active_slots() if self._is_prefilling(i)]
 
     def idle(self) -> bool:
-        return not self.queue and not self.active_slots()
+        return not self.queue and not self.active_slots() \
+            and not self._swapped
+
+    @property
+    def n_preempted(self) -> int:
+        """Requests parked off the device by preemption (swap or drop):
+        the replica's thrashing signal."""
+        return len(self._swapped)
 
     # ------------------------------------------------------------ admission -
     def _worst_blocks(self, req: GenRequest) -> int:
@@ -651,10 +814,18 @@ class ContinuousBatcher:
         """Blocks to reserve for ``req`` with ``matched`` blocks aliased:
         full attention never writes an aliased block, so the match comes
         off the worst case; a sliding window may copy every aliased block
-        on a ring wrap, so it reserves the whole worst case."""
+        on a ring wrap, so it reserves the whole worst case.  An
+        oversubscribed batcher reserves only near-term need: the prompt's
+        uncached blocks and one block of decode lookahead (growth past it
+        is ``_ensure_headroom``'s: reserve, or preempt)."""
         worst = self._worst_blocks(req)
-        return worst if self.cfg.sliding_window > 0 \
+        full = worst if self.cfg.sliding_window > 0 \
             else worst - len(matched)
+        if self.oversubscribe <= 0:
+            return full
+        return min(full, blocks_for(
+            len(req.prompt) - len(matched) * self.block_size,
+            self.block_size) + 1)
 
     # ---------------------------------------------------- adapter routing --
     def _serve_lora(self) -> Any:
@@ -674,7 +845,10 @@ class ContinuousBatcher:
             self.device)
 
     def _record_finish(self, req: GenRequest, now: float) -> None:
+        if self._lsan is not None:
+            self._lsan.on_finish(req)
         req.finished_at = now
+        req.finished_wall = time.perf_counter()
         self.stats.finished += 1
         first = req.first_token_at
         if first is not None:
@@ -802,14 +976,18 @@ class ContinuousBatcher:
                 # reviving retained blocks costs capacity on top of the
                 # reservation: trim the match until it fits (a cold
                 # admission always fits one worst-case request, so a
-                # warm hit never deadlocks an idle pool)
+                # warm hit never deadlocks an idle pool).  The
+                # oversubscription watermark keeps _headroom_blocks out
+                # of admission's reach (0 when off)
                 while matched and self.allocator.available() \
                         < self._need_blocks(head, matched) \
-                        + self.allocator.n_would_revive(matched):
+                        + self.allocator.n_would_revive(matched) \
+                        + self._headroom_blocks:
                     matched.pop()
                 need = self._need_blocks(head, matched)
                 if self.allocator.available() \
-                        < need + self.allocator.n_would_revive(matched):
+                        < need + self.allocator.n_would_revive(matched) \
+                        + self._headroom_blocks:
                     break           # strict FCFS backpressure
                 self.allocator.acquire(matched)
                 self.allocator.reserve(need)
@@ -818,6 +996,8 @@ class ContinuousBatcher:
                         head.prompt, len(matched),
                         namespace=head.adapter_id)
                 plans.append((matched, need))
+            if self._lsan is not None:
+                self._lsan.on_admit(head)
             if head.adapter_id is not None:
                 self.adapters.acquire(head.adapter_id)
             reqs.append(head)
@@ -954,7 +1134,7 @@ class ContinuousBatcher:
         used = 0
         for i in order:
             c = min(int(self.slot_goal[i]) - int(self.slot_prefilled[i]),
-                    self.prefill_chunk)
+                    self._prefill_pad)
             if rows and used + c > allowance:
                 break               # the first chunk always goes
             rows.append((i, c))
@@ -981,6 +1161,16 @@ class ContinuousBatcher:
             if p < int(self.slot_goal[i]):
                 self.slot_pos[i] = p    # stay parked at the frontier
                 continue
+            if int(self.slot_restore_tok[i]) >= 0:
+                # a drop-restore's final chunk: every generated token was
+                # emitted before the preemption, so re-install the decode
+                # frontier (next position, stored feed token) instead of
+                # sampling
+                self.slot_pos[i] = int(self.slot_goal[i])
+                self.slot_tok[i] = int(self.slot_restore_tok[i])
+                self.slot_restore_tok[i] = -1
+                self.slot_seq[i] = None
+                continue
             # the final chunk's logits row is the whole prompt's last
             # token's
             first = self._sample_first(req, int(nxt[j]), host_rows, j)
@@ -1001,21 +1191,24 @@ class ContinuousBatcher:
         dt = time.perf_counter() - t0
         if self.budget is not None:
             self.budget.observe_prefill(used, dt)
+        if self.swap_cost is not None:
+            self.swap_cost.observe_prefill(used, dt)
         return done, dt
 
     def _chunk_wave(self, rows: List, pre_lens: np.ndarray):
         """Run one chunk wave's program and land its K/V: row j prefills
         ``rows[j] = (slot, chunk length)`` from token ``pre_lens[j]`` of
-        its sequence, over the K/V already in cache, and its chunk lands
-        in fresh blocks (paged) or its slot's rows (contiguous).  Returns
-        the wave's logits at each row's last chunk token [W, 1, V]."""
+        its sequence (``_slot_seq``), over the K/V already in cache, and
+        its chunk lands in fresh blocks (paged) or its slot's rows
+        (contiguous).  Returns the wave's logits at each row's last chunk
+        token [W, 1, V]."""
         w = len(rows)
         slots = [i for i, _ in rows]
         chunk_lens = np.array([c for _, c in rows], np.int32)
-        tokens = np.zeros((w, self.prefill_chunk), np.int32)
+        tokens = np.zeros((w, self._prefill_pad), np.int32)
         for j, (i, c) in enumerate(rows):
             p = int(pre_lens[j])
-            tokens[j, :c] = self.slot_req[i].prompt[p:p + c]
+            tokens[j, :c] = self._slot_seq(i)[p:p + c]
         tokens = torch.tensor(tokens, dtype=torch.long, device=self.device)
         adapter_idx = self._wave_adapter_idx(
             [self.slot_req[i] for i in slots])
@@ -1037,7 +1230,7 @@ class ContinuousBatcher:
             # the chunk lands in fresh blocks against each slot's
             # admission-time reservation (chunks are whole blocks, so
             # their blocks add up to the monolithic count)
-            wave_tables = np.full((w, blocks_for(self.prefill_chunk, bs)),
+            wave_tables = np.full((w, blocks_for(self._prefill_pad, bs)),
                                   self.n_blocks, np.int32)
             for j, (i, c) in enumerate(rows):
                 need = blocks_for(c, bs)
@@ -1063,6 +1256,273 @@ class ContinuousBatcher:
                 self.caches, pre, slots, pre_lens, chunk_lens)
         self.prefill_waves += 1
         return logits
+
+    # --------------------------------------------------- preemption / swap -
+    def _block_bytes(self) -> int:
+        """Bytes one pool block holds across the K/V leaves (the swap cost
+        model's unit)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.caches["kv"]) // self.n_blocks
+
+    def _pick_victim(self, protect: int, now: float) -> Optional[int]:
+        """The victim of one preemption: among active slots that would
+        return pool capacity (a sole-referenced block to free, or an
+        unused reservation), the one with the MOST deadline slack; the
+        cheapest to restore (fewest rows) breaks ties.  ``slack_order``
+        puts the most urgent first, so the victim is its last."""
+        cands = []
+        for j in self.active_slots():
+            if j == protect:
+                continue
+            gain = int(self.slot_reserved[j]) + sum(
+                1 for b in self.slot_blocks[j] if self.allocator.ref(b) == 1)
+            if gain > 0:
+                cands.append(j)
+        if not cands:
+            return None
+        # a stable pre-sort by restore cost, so slack ties fall to the
+        # cheapest victim once the most-slack end is taken
+        cands.sort(key=lambda j: -int(self.slot_pos[j]))
+        order = slack_order(cands, now,
+                            key=lambda j: self.slot_req[j].deadline)
+        return order[-1]
+
+    def _preempt(self, i: int, now: float) -> None:
+        """Preempt slot ``i``: park its request off the device and return
+        its private pool capacity.  The shared or prefix-registered start
+        of its chain stays in the pool with its references held; the
+        private tail either swaps to host memory (one indexed gather per
+        K/V leaf and one synchronous copy to the CPU) or is dropped for a
+        re-prefill from the request's token ids, whichever ``_SwapCost``
+        prices cheaper.  The adapter pin is kept across the preemption,
+        so a restore never waits on adapter residency."""
+        req = self.slot_req[i]
+        chain = self.slot_blocks[i]
+
+        def resident(b: int) -> bool:
+            return self.allocator.ref(b) > 1 \
+                or (self.prefix_cache is not None
+                    and self.prefix_cache.is_registered(b))
+
+        kept = 0
+        while kept < len(chain) and resident(chain[kept]):
+            kept += 1
+        tail = chain[kept:]
+        # under full attention resident blocks form the START of a chain
+        # (decode never writes shared or registered blocks, and only full
+        # prompt blocks register); a resident block further in forces the
+        # drop path, whose ``free`` handles shared and registered blocks
+        mode = "swap"
+        if self._is_prefilling(i) or not tail \
+                or any(resident(b) for b in tail) or not self.swap:
+            mode = "reprefill"
+        elif not self.swap_cost.prefer_swap(
+                len(tail) * self._block_bytes(),
+                int(self.slot_pos[i]) - kept * self.block_size):
+            mode = "reprefill"
+        if mode == "swap":
+            t0 = time.perf_counter()
+            got = self.model.gather_blocks(self.caches, tail)["kv"]
+            host_kv = tuple(t.cpu() for t in got)  # lint: host-sync-ok one batched device-to-host block copy per swap-out
+            self.allocator.swap_out(tail)
+            self.swap_cost.observe_swap(len(tail) * self._block_bytes(),
+                                        time.perf_counter() - t0)
+            entry = _Swapped(
+                req=req, adapter_id=self.slot_aid[i], mode="swap",
+                kept=chain[:kept], host_kv=host_kv, n_tail=len(tail),
+                pos=int(self.slot_pos[i]), tok=int(self.slot_tok[i]),
+                cached=int(self.slot_cached[i]))
+            self.stats.swap_out_blocks += len(tail)
+        else:
+            # drop the whole chain: shared blocks lose this alias,
+            # registered sole-referenced ones park in the retained pool
+            # and revive through the prefix cache at the restore
+            if chain:
+                self.allocator.free(chain)
+            entry = _Swapped(
+                req=req, adapter_id=self.slot_aid[i], mode="reprefill",
+                kept=[], host_kv=None, n_tail=0,
+                pos=int(self.slot_pos[i]), tok=int(self.slot_tok[i]),
+                cached=0)
+        self._swapped.append(entry)
+        self.stats.preemptions += 1
+        # clear the slot WITHOUT finishing the request (it stays active in
+        # the lifecycle FSM: a restore is not an admission) and WITHOUT
+        # releasing its adapter pin
+        self.allocator.release(int(self.slot_reserved[i]))
+        self.slot_reserved[i] = 0
+        self.slot_req[i] = None
+        self.slot_aid[i] = None
+        self.slot_blocks[i] = []
+        self._reset_slot(i)
+
+    def _ensure_headroom(self, active: List[int], now: float) -> List[int]:
+        """Oversubscribed decode: every slot whose write crosses into a
+        new block this tick must hold a reservation for it BEFORE
+        ``_grow_tables`` takes one.  On pool exhaustion, preempt victims
+        (most deadline slack first) until the reservation fits; as a last
+        resort the needy slot preempts itself.  Returns the active slots
+        that were not preempted."""
+        active = list(active)
+        for i in list(active):
+            if self.slot_req[i] is None or i not in active:
+                continue
+            wr = int(self.slot_pos[i]) % self.ring_len
+            if wr // self.block_size < len(self.slot_blocks[i]) \
+                    or int(self.slot_reserved[i]) > 0:
+                continue
+            while not self.allocator.can_reserve(1):
+                victim = self._pick_victim(protect=i, now=now)
+                if victim is None:
+                    victim = i      # last resort: the needy slot itself
+                self._preempt(victim, now)
+                if victim in active:
+                    active.remove(victim)
+                if victim == i:
+                    break
+            if self.slot_req[i] is not None:
+                self.allocator.reserve(1)
+                self.slot_reserved[i] += 1
+        return active
+
+    def _demote(self, e: _Swapped) -> None:
+        """Give up a parked entry's pool footprint: drop its kept-chain
+        references (registered blocks park retained, shared ones lose
+        this alias) and its host K/V; it restores by re-prefill."""
+        if e.kept:
+            self.allocator.free(e.kept)
+            e.kept = []
+        e.host_kv = None
+        e.n_tail = 0
+        e.mode = "reprefill"
+        e.cached = 0
+
+    def _demote_one(self, prefer_not: int) -> bool:
+        """Demote one demotable parked entry, any but ``prefer_not`` (the
+        one being forced in) first.  False when none is left."""
+        cand = None
+        for k, e in enumerate(self._swapped):
+            if e.mode == "swap" or e.kept:
+                if k != prefer_not:
+                    cand = k
+                elif cand is None:
+                    cand = k
+        if cand is None:
+            return False
+        self._demote(self._swapped[cand])
+        return True
+
+    def _try_restore(self, e: _Swapped, slot: int) -> bool:
+        """Put one parked request back into free slot ``slot``.  Swap
+        mode: fresh blocks, and the host K/V copied back into them
+        (``Model.scatter_blocks``); decode resumes where it stopped.
+        Reprefill mode: back to the prefilling state over the prompt and
+        generated tokens (the chunk programs recompute the dropped K/V;
+        the final chunk re-installs the stored feed token).  Returns
+        False, with no side effect, when the pool cannot cover it yet."""
+        req = e.req
+        bs = self.block_size
+        if e.mode == "swap":
+            if not self.allocator.can_reserve(e.n_tail):
+                return False
+            ids = self.allocator.swap_in(e.n_tail)
+            self.caches = self.model.scatter_blocks(self.caches, ids,
+                                                    e.host_kv)
+            self.slot_blocks[slot] = list(e.kept) + ids
+            self.slot_reserved[slot] = 0
+            self.slot_prefilled[slot] = self.slot_goal[slot] = \
+                len(req.prompt)
+            self.slot_cached[slot] = e.cached
+            self.slot_pos[slot] = e.pos
+            self.slot_tok[slot] = e.tok
+            self.slot_seq[slot] = None
+            self.slot_restore_tok[slot] = -1
+            self.stats.swap_in_blocks += e.n_tail
+        else:
+            # re-prefill the prompt and every generated token but the
+            # last, whose K/V is never needed: it is the next token to
+            # FEED, which slot_restore_tok re-installs
+            seq = req.prompt if not req.tokens else np.concatenate(
+                [req.prompt, np.asarray(req.tokens[:-1], np.int32)])
+            matched = self.prefix_cache.match(
+                req.prompt, namespace=e.adapter_id) \
+                if self.prefix_cache is not None else []
+            worst = self._worst_blocks(req)
+
+            def need_for(m):
+                return min(worst - len(m),
+                           blocks_for(len(seq) - len(m) * bs, bs) + 1)
+
+            while matched and self.allocator.available() \
+                    < need_for(matched) \
+                    + self.allocator.n_would_revive(matched):
+                matched.pop()
+            need = need_for(matched)
+            if self.allocator.available() \
+                    < need + self.allocator.n_would_revive(matched):
+                return False
+            self.allocator.acquire(matched)
+            self.allocator.reserve(need)
+            n_cached = len(matched) * bs
+            self.slot_blocks[slot] = list(matched)
+            self.slot_reserved[slot] = need
+            self.slot_prefilled[slot] = n_cached
+            self.slot_goal[slot] = len(seq)
+            self.slot_cached[slot] = n_cached
+            self.slot_pos[slot] = n_cached
+            self.slot_tok[slot] = 0
+            self.slot_seq[slot] = seq if req.tokens else None
+            self.slot_restore_tok[slot] = req.tokens[-1] \
+                if req.tokens else -1
+            self.stats.reprefill_tokens += len(seq) - n_cached
+        self.slot_req[slot] = req
+        self.slot_aid[slot] = e.adapter_id
+        self.block_tables[slot, :] = 0
+        blks = self.slot_blocks[slot]
+        self.block_tables[slot, :len(blks)] = blks
+        self._dev_tables = None
+        return True
+
+    def _restore(self, now: float) -> None:
+        """Bring preempted requests back into free slots ahead of
+        admission, most urgent (least deadline slack) first; entries the
+        pool cannot cover yet stay parked.  If nothing else can run (no
+        active slot, and no queue or a head that cannot be admitted
+        either), the other parked entries' kept chains are demoted to
+        re-prefill until the most urgent restore goes through: the
+        batcher never livelocks on its own parked work."""
+        free = [i for i in range(self.n_slots) if self.slot_req[i] is None]
+        if not free:
+            return
+        order = slack_order(list(range(len(self._swapped))), now,
+                            key=lambda k: self._swapped[k].req.deadline)
+        restored = set()
+        for k in order:
+            if not free:
+                break
+            if self._try_restore(self._swapped[k], free[0]):
+                free.pop(0)
+                restored.add(k)
+        if not restored and free and not self.active_slots():
+            blocked_queue = False
+            if self.queue:
+                # a cold admission's need (a prefix match only shrinks
+                # it, so "fits" is exact)
+                head = self.queue[0]
+                need = min(self._worst_blocks(head),
+                           blocks_for(len(head.prompt), self.block_size) + 1)
+                blocked_queue = self.allocator.available() \
+                    < need + self._headroom_blocks
+            if not self.queue or blocked_queue:
+                k = order[0]
+                while not self._try_restore(self._swapped[k], free[0]):
+                    if not self._demote_one(k):
+                        break
+                if self.slot_req[free[0]] is not None:
+                    restored.add(k)
+        if restored:
+            self._swapped = [e for k, e in enumerate(self._swapped)
+                             if k not in restored]
 
     # --------------------------------------------------------------- decode -
     def _grow_tables(self, active: List[int]) -> None:
@@ -1132,6 +1592,8 @@ class ContinuousBatcher:
         budget = self.budget
         self.last_tick_trained = False
         self.last_tick_train_rows = 0
+        if self._swapped:
+            self._restore(now)
         finished = self.admit(now)
         prefill_spent = 0.0
         if self.prefilling_slots():
@@ -1140,6 +1602,9 @@ class ContinuousBatcher:
             done, prefill_spent = self._advance_prefill(now, allowance)
             finished.extend(done)
         active = self.decoding_slots()
+        if self.oversubscribe > 0 and active:
+            # reserve, or preempt, BEFORE _grow_tables takes fresh blocks
+            active = self._ensure_headroom(active, now)
         if train_batch is not None:
             b, s = train_batch["tokens"].shape[:2]
         if not active:
@@ -1183,6 +1648,8 @@ class ContinuousBatcher:
             tables = self._dev_tables[:, :self._table_width(active)]
         else:
             pos = _host_ids(self.slot_pos, self.device)
+        if self._lsan is not None:
+            self._sanitize_wave(active)
         # registry mode: each slot's device adapter slot, -1 for inactive
         # and base-only slots (their rows take the base product bitwise)
         serve_idx = None
@@ -1270,16 +1737,39 @@ class ContinuousBatcher:
                 finished.append(req)
         return finished
 
-    def _evict(self, i: int) -> None:
-        """Free slot ``i`` completely: request, position, feed token and
-        prefill progress, its adapter pin, plus its blocks and unused
-        reservation in paged mode."""
-        self.slot_req[i] = None
+    def _sanitize_wave(self, active: List[int]) -> None:
+        """REPRO_SANITIZE=1 only (``_lsan`` gates the call): check the wave
+        the decode program is about to read — every slot holds an active
+        request, every gathered block is live, every write target is
+        private and not scratch, reservations balance, and every routed
+        adapter slot is pinned, resident and not mid-publish."""
+        self._lsan.check_decode_wave(self, active)
+        if self.paged and self.allocator.san is not None:
+            self.allocator.san.check_decode_wave(self, active)
+        if self.adapters is not None and self.adapters.san is not None:
+            self.adapters.san.check_decode_wave(self, active)
+
+    def _reset_slot(self, i: int) -> None:
+        """Clear slot ``i``'s position, feed token (a stale one would leak
+        into the next request's first tick), prefill progress and restore
+        state, and park its table row on scratch block 0."""
         self.slot_pos[i] = 0
         self.slot_tok[i] = 0
         self.slot_prefilled[i] = 0
         self.slot_cached[i] = 0
         self.slot_goal[i] = 0
+        self.slot_seq[i] = None
+        self.slot_restore_tok[i] = -1
+        if self.paged:
+            self.block_tables[i, :] = 0
+            self._dev_tables = None
+
+    def _evict(self, i: int) -> None:
+        """Free slot ``i`` completely: its request and slot state, its
+        adapter pin, plus its blocks and unused reservation in paged
+        mode."""
+        self.slot_req[i] = None
+        self._reset_slot(i)
         if self.slot_aid[i] is not None:
             # unpin the request's adapter: a leaked ref would pin the slot
             # forever and eventually stall admission
@@ -1290,24 +1780,37 @@ class ContinuousBatcher:
             self.slot_blocks[i] = []
             self.allocator.release(int(self.slot_reserved[i]))
             self.slot_reserved[i] = 0
-            self.block_tables[i, :] = 0   # back to scratch block 0
-            self._dev_tables = None
+            if self.allocator.san is not None:
+                self.allocator.san.check_evicted(self, i)
 
     def drain_all(self) -> List[GenRequest]:
-        """Evict every active slot, clear the queue, and return all
-        unfinished requests with their partial tokens discarded.  In paged
-        mode every block and reservation returns to the allocator, and
-        every adapter pin to the registry (queued requests hold none)."""
+        """Evict every active slot, clear the queue and the parked
+        (preempted) requests, and return all unfinished requests with
+        their partial tokens discarded.  In paged mode every block and
+        reservation returns to the allocator, and every adapter pin to the
+        registry (queued requests hold none; parked ones keep theirs until
+        here)."""
         out: List[GenRequest] = list(self.queue)
         self.queue.clear()
         for i in self.active_slots():
             req = self.slot_req[i]
             self._evict(i)
             out.append(req)
+        for e in self._swapped:
+            if e.kept:
+                self.allocator.free(e.kept)
+            if e.adapter_id is not None:
+                self.adapters.release(e.adapter_id)
+            out.append(e.req)
+        self._swapped.clear()
         for r in out:
             r.tokens.clear()
             r.prefill_at = None
             r.rng = None
+            if self._lsan is not None:
+                self._lsan.on_drain(r)
+        if self.paged and self.allocator.san is not None:
+            self.allocator.san.check_quiescent(self)
         return out
 
     # ------------------------------------------------------------- train -
@@ -1386,3 +1889,81 @@ class ContinuousBatcher:
         if self.paged:
             total += self.block_tables.nbytes
         return total
+
+
+# =========================================================================
+# Lock-step static-batch baseline
+# =========================================================================
+def static_batch_serve(engine, params, lora, requests: Sequence[GenRequest],
+                       *, batch_size: int = 8, prompt_pad: int = 32,
+                       max_seq: int = 128,
+                       eos_id: Optional[int] = None) -> ServeStats:
+    """The serving loop before continuous batching: group requests into
+    fixed batches, prefill a batch (``Model.prefill_ragged``), then decode
+    it lock-step over contiguous caches (``Model.decode_step``) until every
+    request of the batch finishes (max_new_tokens or EOS); finished
+    requests ride along as dead slots.  The greedy math and the EOS rule
+    are ``ContinuousBatcher``'s, so a throughput difference is pure
+    scheduling."""
+    model = engine.model
+    cfg = model.cfg
+    if cfg.has_ssm or cfg.family is Family.VLM:
+        raise NotImplementedError(
+            f"{cfg.name}: the static baseline supports attention-only "
+            "stacks")
+    dev = model.device
+    stats = ServeStats()
+    t0 = time.perf_counter()
+
+    def finish(r: GenRequest) -> None:
+        r.finished_at = time.perf_counter() - t0
+        r.finished_wall = time.perf_counter()
+        stats.finished += 1
+
+    reqs = list(requests)
+    for lo in range(0, len(reqs), batch_size):
+        batch = reqs[lo:lo + batch_size]
+        bsz = len(batch)
+        lens = np.array([len(r.prompt) for r in batch], np.int32)
+        padded = np.zeros((bsz, prompt_pad), np.int32)
+        for i, r in enumerate(batch):
+            padded[i, :lens[i]] = r.prompt
+            r.max_new_tokens = max(
+                1, min(r.max_new_tokens, max_seq - int(lens[i])))
+        with torch.no_grad():
+            logits, pre = model.prefill_ragged(
+                params, lora,
+                {"tokens": torch.tensor(padded, dtype=torch.long,
+                                        device=dev)},
+                torch.tensor(lens, device=dev))
+            caches = model.write_prefill_slots(
+                model.init_caches(bsz, max_seq), pre, np.arange(bsz))
+        toks = logits[:, -1].argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per prefill batch
+        pos = lens.copy()
+        stats.admitted += bsz
+        stats.prefill_tokens += int(lens.sum())
+        for i, r in enumerate(batch):
+            r.tokens.append(int(toks[i]))
+            stats.generated_tokens += 1
+            if len(r.tokens) >= r.max_new_tokens or int(toks[i]) == eos_id:
+                finish(r)
+        # lock-step decode: every slot pays until the batch's LAST
+        # request finishes; finished requests are dead weight
+        while not all(r.done for r in batch):
+            with torch.no_grad():
+                logits, caches = model.decode_step(
+                    params, lora, caches, _host_ids(toks[:, None], dev),
+                    _host_ids(pos, dev))
+            stats.decode_steps += 1
+            toks = logits[:, -1].argmax(-1).cpu().numpy()  # lint: host-sync-ok one batched argmax pull per decode step
+            pos += 1
+            for i, r in enumerate(batch):
+                if r.done:
+                    continue
+                r.tokens.append(int(toks[i]))
+                stats.generated_tokens += 1
+                if len(r.tokens) >= r.max_new_tokens \
+                        or int(toks[i]) == eos_id:
+                    finish(r)
+    stats.wall_time += time.perf_counter() - t0
+    return stats

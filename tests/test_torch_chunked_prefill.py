@@ -1,13 +1,13 @@
 """The port's chunked prefill and per-tick token budget
 (``ContinuousBatcher(prefill_chunk=..., tpot_target=...)``,
 ``Model.prefill_ragged_continue`` / ``write_prefill_rows``, ``_TickBudget``)
-on the CPU.  Twins of ``tests/test_chunked_prefill.py`` but its
-oversubscription case (not ported): chunked prefill emits the greedy
-tokens of monolithic prefill and of ``conftest.reference_greedy`` on the
-JAX model, contiguous, sliding-window, paged and with the prefix cache;
-a mid-chunk eviction frees everything; and under a fixed budget cost
-model the port plans every tick as the JAX batcher does (the same ticks,
-train steps, skipped steps and tokens)."""
+on the CPU.  Twins of ``tests/test_chunked_prefill.py``: chunked prefill
+emits the greedy tokens of monolithic prefill and of
+``conftest.reference_greedy`` on the JAX model, contiguous,
+sliding-window, paged and with the prefix cache; a mid-chunk eviction and
+a preemption mid-prefill free everything (under the armed sanitizers);
+and under a fixed budget cost model the port plans every tick as the JAX
+batcher does (the same ticks, train steps, skipped steps and tokens)."""
 import jax
 import numpy as np
 import pytest
@@ -169,7 +169,8 @@ def test_continue_and_write_rows_match_jax():
 
 
 # ------------------------------------------------------ lifecycle edges ----
-def test_mid_chunk_eviction_frees_everything():
+def test_mid_chunk_eviction_frees_everything(monkeypatch):
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
     s = pair()
     prompts = sample_prompts(s["jcfg"], 2, [24, 24])
     b = ContinuousBatcher(s["eng"], s["params"], s["lora"], n_slots=2,
@@ -180,10 +181,52 @@ def test_mid_chunk_eviction_frees_everything():
     b.step()                    # one chunk in: slots parked mid-prefill
     assert b.prefilling_slots(), "expected mid-prefill slots"
     assert b.allocator.n_used > 0
-    b.drain_all()
+    assert b.allocator.san is not None
+    b.drain_all()               # check_quiescent runs inside when armed
     assert b.allocator.n_used == 0
     assert b.allocator.reserved == 0
     assert not b.prefilling_slots()
+
+
+def test_preempt_during_chunked_prefill_frees_everything(monkeypatch):
+    """Oversubscribed pool: an urgent decoder crosses a block boundary
+    while a late arrival with more slack is still mid-prefill — the
+    prefilling victim takes the drop and re-prefill path (its partial K/V
+    is never swapped), every block and reservation it held returns to
+    the pool, and both requests finish with the unbounded run's tokens,
+    all under the armed sanitizers."""
+    monkeypatch.setenv("REPRO_SANITIZE", "1")
+    s = pair()
+    prompts = sample_prompts(s["jcfg"], 2, [6, 28])
+
+    def serve(nb, **kw):
+        r0 = GenRequest(request_id=0, prompt=prompts[0].copy(),
+                        max_new_tokens=24, deadline=1.0)
+        r1 = GenRequest(request_id=1, prompt=prompts[1].copy(),
+                        max_new_tokens=8)   # inf deadline: most slack
+        b = ContinuousBatcher(s["eng"], s["params"], s["lora"], n_slots=2,
+                              max_seq=32, prompt_pad=28, paged=True,
+                              block_size=4, prefill_chunk=4, n_blocks=nb,
+                              **kw)
+        b.submit(r0)
+        b.step()
+        b.step()                # r0 decoding before r1 even arrives
+        b.submit(r1)
+        for _ in range(300):
+            if b.idle():
+                break
+            b.step()
+        return [list(r0.tokens), list(r1.tokens)], b
+
+    ref, _ = serve(64)
+    toks, b = serve(12, oversubscribe=1.0)
+    assert toks == ref
+    assert b.stats.preemptions > 0
+    assert b.stats.reprefill_tokens > 0     # the drop path, not swap:
+    assert b.stats.swap_out_blocks == 0     # partial prefill K/V is
+    assert b.allocator.n_used == 0          # recomputed, never copied
+    assert b.allocator.reserved == 0
+    assert b.idle()
 
 
 def test_ssm_arch_rejects_chunked_prefill():

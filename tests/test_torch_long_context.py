@@ -260,9 +260,7 @@ def test_features_keep_the_dense_prefill_gate(tiny):
         with pytest.raises(NotImplementedError, match="dense prefill"):
             ContinuousBatcher(eng, tp, tlora, paged=True, max_seq=LONG + 8,
                               prompt_pad=LONG, **kw)
-    # at a dense-path prompt length the prefix cache and chunked prefill
-    # construct; oversubscription is still not ported
-    for kw in ({"prefix_cache": True}, {"prefill_chunk": 64}):
+    # at a dense-path prompt length all three construct
+    for kw in ({"prefix_cache": True}, {"prefill_chunk": 64},
+               {"oversubscribe": 0.9}):
         ContinuousBatcher(eng, tp, tlora, paged=True, **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatcher(eng, tp, tlora, paged=True, oversubscribe=0.9)

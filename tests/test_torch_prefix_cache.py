@@ -210,7 +210,8 @@ def test_recycled_parent_id_cannot_resurrect_stale_chain():
 N_BLOCKS = 12
 OPS = st.lists(
     st.tuples(st.sampled_from(["reserve", "release", "take", "share",
-                               "acquire", "free", "pin", "unpin"]),
+                               "acquire", "free", "pin", "unpin",
+                               "swap_out", "swap_in"]),
               st.integers(min_value=0, max_value=4),
               st.integers(min_value=0, max_value=96)),
     min_size=1, max_size=64)
@@ -228,8 +229,8 @@ def _pick(cands, sel, n):
 @settings(max_examples=60, deadline=None)
 @given(OPS)
 def test_allocator_sharing_invariants(ops):
-    """The share / acquire / pin cases of
-    ``tests/test_paging_properties.py``'s walk (no swapping: not ported):
+    """``tests/test_paging_properties.py``'s walk (reserve, take, share,
+    free, pin, swap_out, swap_in) with the prefix cache's ``acquire``:
     after every operation the allocator agrees with a shadow model."""
     a = BlockAllocator(N_BLOCKS, 4)
     ref, retained, pinned, reserved = {}, set(), set(), 0
@@ -285,6 +286,23 @@ def test_allocator_sharing_invariants(ops):
                 a.unpin(b)
                 pinned.discard(b)
                 retained.discard(b)
+        elif kind == "swap_out":
+            sole = {b for b in live() if ref[b] == 1 and b not in pinned}
+            for b in _pick(sole, sel, n):
+                a.swap_out([b])
+                ref[b] = 0
+        elif kind == "swap_in":
+            if a.can_reserve(n):
+                ids = a.swap_in(n)
+                assert len(ids) == len(set(ids)) == n
+                for b in ids:
+                    assert ref.get(b, 0) == 0
+                    ref[b] = 1
+                    retained.discard(b)
+                    pinned.discard(b)
+            else:
+                with pytest.raises(OutOfBlocks):
+                    a.swap_in(n)
         n_live = len(live())
         assert a.n_used == n_live
         assert a.n_retained == len(retained)

@@ -12,7 +12,9 @@ relative + 1e-5 absolute: float32 sums in another order, compounded
 over a dozen Adam steps of lr 1e-3, where an element whose gradient is
 near zero can move by a fraction of a step (1e-5 is 1% of one).  Entry
 points asked for the default CUDA device must raise on a machine without
-one instead of running on the CPU."""
+one instead of running on the CPU.  The lock-step baseline
+``static_batch_serve`` emits the same tokens as the batcher and the
+reference, and stops at EOS as the batcher does."""
 import jax
 import numpy as np
 import pytest
@@ -31,7 +33,10 @@ from repro_torch.core.engine import make_engine
 from repro_torch.launch.serve import run_serving
 from repro_torch.models.model import build
 from repro_torch.runtime.paging import BlockAllocator, BlockError, OutOfBlocks
-from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+from repro_torch.runtime.serving_loop import (
+    ContinuousBatcher, GenRequest, static_batch_serve,
+)
+from test_torch_prefix_cache import pair, reference
 
 LENS = [6, 10, 4, 8, 7]
 GENS = [5, 2, 6, 3, 4]
@@ -131,16 +136,26 @@ def test_allocator_invariants():
 
 
 def test_unported_features_raise(setup):
-    """Oversubscription is the one batcher feature not ported yet; the
-    prefix cache, chunked prefill and the token budget construct, and
-    their gates raise as the reference's do."""
+    """No batcher feature of the reference is refused as not ported: the
+    prefix cache, chunked prefill, the token budget and oversubscription
+    (swap and drop) construct, and their gates raise as the reference's
+    do — oversubscription needs paged caches, a watermark in (0, 1] and
+    full attention (``tests/test_preemption.py``'s gates)."""
     engine, params, lora, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1"):
-        ContinuousBatcher(engine, params, lora, paged=True,
-                          oversubscribe=0.9)
     for kw in ({"prefix_cache": True}, {"prefill_chunk": 8},
-               {"tpot_target": 0.01}):
+               {"tpot_target": 0.01}, {"oversubscribe": 0.9},
+               {"oversubscribe": 1.0, "swap": False}):
         ContinuousBatcher(engine, params, lora, paged=True, **kw)
+    with pytest.raises(ValueError, match="paged"):
+        ContinuousBatcher(engine, params, lora, oversubscribe=0.9)
+    with pytest.raises(ValueError, match=r"in \(0, 1\]"):
+        ContinuousBatcher(engine, params, lora, paged=True, block_size=8,
+                          oversubscribe=1.5)
+    window = make_engine(get_config("qwen1.5-0.5b").scaled(
+        sliding_window=16), device="cpu")
+    with pytest.raises(NotImplementedError, match="window"):
+        ContinuousBatcher(window, None, None, paged=True, block_size=8,
+                          prompt_pad=16, max_seq=32, oversubscribe=0.9)
     with pytest.raises(ValueError, match="prefix_cache requires paged"):
         ContinuousBatcher(engine, params, lora, prefix_cache=True)
     ssm = make_engine(get_config("mamba2-780m").scaled(), device="cpu")
@@ -363,3 +378,63 @@ def test_ttft_tpot_match_jax(paged):
     assert tb.stats.tpot == jb.stats.tpot
     assert len(tb.stats.ttft) == len(tb.stats.tpot) == len(LENS)
     assert max(tb.stats.ttft) > 0.1      # someone queued behind a slot
+
+
+# ---------------------------------------------------- static baseline ----
+def test_continuous_matches_static_and_reference(setup):
+    """The same requests give the same greedy tokens whether the batcher
+    serves them (2 slots, mid-flight admission), the lock-step static
+    baseline does, or the reference decodes them one at a time."""
+    engine, params, lora, prompts, refs = setup
+    _, _, cont = _serve(setup)
+    stat = [GenRequest(request_id=i, prompt=prompts[i].copy(),
+                       max_new_tokens=GENS[i]) for i in range(len(LENS))]
+    stats = static_batch_serve(engine, params, lora, stat, batch_size=2,
+                               prompt_pad=10, max_seq=16)
+    assert cont == refs
+    assert [r.tokens for r in stat] == refs
+    assert stats.finished == stats.admitted == len(LENS)
+    assert stats.generated_tokens == sum(GENS)
+
+
+@pytest.mark.parametrize("kind", ["mha", "gqa"])
+def test_static_batch_honors_eos_and_wall_stamps(kind):
+    """``static_batch_serve`` stops a request at EOS exactly like the
+    batcher (the same tokens, only real tokens counted) and both stamp
+    ``finished_wall`` on every request."""
+    s = pair(kind)
+    lens = [6, 8, 5, 7]
+    prompts = sample_prompts(s["jcfg"], len(lens), lens)
+    refs = [reference((kind, 0, True), p, 6) for p in prompts]
+    eos = refs[0][2]          # an EOS id that fires mid-stream
+    truncated = [r[:r.index(eos) + 1] if eos in r else r for r in refs]
+
+    def fresh():
+        return [GenRequest(request_id=i, prompt=prompts[i].copy(),
+                           max_new_tokens=6) for i in range(len(lens))]
+
+    stat = fresh()
+    sstats = static_batch_serve(s["eng"], s["params"], s["lora"], stat,
+                                batch_size=2, prompt_pad=8, max_seq=16,
+                                eos_id=eos)
+    cont = fresh()
+    cstats = ContinuousBatcher(s["eng"], s["params"], s["lora"], n_slots=2,
+                               max_seq=16, prompt_pad=8,
+                               eos_id=eos).run(cont)
+    for i in range(len(lens)):
+        assert stat[i].tokens == truncated[i], f"static req {i}"
+        assert cont[i].tokens == truncated[i], f"continuous req {i}"
+        assert stat[i].finished_wall is not None
+        assert cont[i].finished_wall is not None
+    n_real = sum(len(t) for t in truncated)
+    assert sstats.generated_tokens == cstats.generated_tokens == n_real
+    assert sstats.finished == cstats.finished == len(lens)
+    assert any(len(t) < 6 for t in truncated)   # EOS did cut a stream
+
+
+def test_static_baseline_refuses_ssm_stacks():
+    """As in the reference, the static baseline serves attention-only
+    stacks; the port raises instead of asserting."""
+    ssm = make_engine(get_config("mamba2-780m").scaled(), device="cpu")
+    with pytest.raises(NotImplementedError, match="attention-only"):
+        static_batch_serve(ssm, None, None, [])
