@@ -185,6 +185,41 @@ Phases, each printing JSON lines:
               served alone as the single adapter on the same prompts: the
               same greedy tokens (each request in a wave of its own is
               read out beside it);
+  fabric_reference  the live fabric (``runtime/fabric.py``) at the
+              reduced float32 config: 2 replicas of 2 paged slots emit the
+              greedy tokens of one batcher on the card and of the same
+              fabric on the CPU (weights copied across), and with r1
+              failed over at tick 3 the never-failed run's;
+  fabric      (l-a) ``run_multi_replica_serving`` at full width: 2
+              replicas of 4 paged slots over one device copy of the
+              weights, 16 requests of 32 + 16, beside one batcher of 8
+              slots; (l-b) the same with r1 failed over at tick 6;
+              fabric and per-replica tok/s, busy shares, TTFT / TPOT, host
+              ms of ``ServingFabric.tick`` and its ``ClusterController.
+              tick`` share, peak memory against the weights and pools;
+  fabric_combined  (l-c) ``run_combined_fabric_serving``: 2 replicas, 2
+              FL rounds of 4 fused steps on a fixed pool of 4 batches,
+              FedAvg and publish at the boundaries: versions >= 2 on
+              both, round CE falls, every decode inside a round reads the
+              published tree (bitwise at the round's end);
+  fabric_chaos  (l-d) the same over 3 replicas under ``--chaos``, one
+              crash and one NaN round from the seeded schedule: the NaN
+              publish refused with the served tree bitwise unchanged, one
+              failover for the crash, no quarantine;
+  fabric_adapters  (l-e) ``run_multi_replica_serving(n_adapters=4)``:
+              segmented_lora_matmul on every wave and tick, the tenant
+              rollup sums to the requests finished.
+              In every fabric phase the port's ``fabric.warm_up`` warms
+              the replicas' shapes inside the entry point, before the
+              fabric's clock starts (its seconds are printed); every
+              request completes with its whole budget, every replica's
+              pool ends all-free, failovers and quarantines equal the
+              injected faults (the health monitor's record is printed),
+              the launches are exactly as derived from the replicas'
+              counts (eval probes and the train steps' microbatches
+              included), and every lora_matmul / segmented_lora_matmul
+              launch shape, dX included, is one that kernel_lora or
+              kernel_seg held against the plain version;
   train       ten full-width train steps on one fixed 4 x 256 batch: the
               loss falls, 189 lora_matmul launches per step;
   tick        where a full-width tick's time goes (serve ticks at 32-,
@@ -208,6 +243,7 @@ The last two lines are the card's name and power limit, then
 that.  Without a CUDA device, or without the rest of the repository, it
 exits non-zero and prints no result.
 """
+import gc
 import json
 import math
 import os
@@ -252,7 +288,11 @@ LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # the VLM's 8 x 32 prefill wave at its q/o; then the suffix programs'
 # waves (serve_prefix, serve_chunked, budget): qwen's suffix wave (8 x
 # 224 over the cached prefix) and chunk wave (8 x 256), llama3-8b's full
-# wave (8 x 992) and suffix wave (q/o and k/v each)
+# wave (8 x 992) and suffix wave (q/o and k/v each); then the fabric's
+# (traffic (l)): a replica's decode at 4 slots, its prefill waves of 1 and
+# 3 requests of 32 (2 are the train microbatch's M, 4 the "train" row's)
+# and the combined rounds' train microbatch (2 x 32 rows: train batch 4
+# in grad_accum 2), whose backward runs too
 LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
                ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
@@ -280,11 +320,21 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("llama_prefill_qo", 7936, 4096, 4096, 16),
                ("llama_prefill_kv", 7936, 4096, 1024, 16),
                ("llama_suffix_qo", 1792, 4096, 4096, 16),
-               ("llama_suffix_kv", 1792, 4096, 1024, 16)]
+               ("llama_suffix_kv", 1792, 4096, 1024, 16),
+               ("fabric_decode_4", 4, 1024, 1024, 16),
+               ("fabric_prefill_32", 32, 1024, 1024, 16),
+               ("fabric_prefill_96", 96, 1024, 1024, 16),
+               ("train_micro", 64, 1024, 1024, 16)]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
                   "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
                   "llama_suffix_qo", "llama_suffix_kv"}
+
+
+def lora_has_backward(name):
+    """Whether phase_kernel_lora also checks a LORA_SHAPES row's
+    backward (dX, dA, dB): the train rows and the decode tile's."""
+    return name.startswith("train") or name in ("decode", "decode_m16")
 
 
 def lora_dtypes(name):
@@ -628,7 +678,7 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
             rows[(name, dtype)] = row
     check_views(lm, lm_ref)
     for name, m, k, n, r in LORA_SHAPES:
-        if not (name.startswith("train") or name in ("decode", "decode_m16")):
+        if not lora_has_backward(name):
             continue
         for dtype in lora_dtypes(name):
             x, w, a, b = lora_case(m, k, n, r, dtype, 300)
@@ -660,7 +710,9 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
 # prefill waves (8 sequences of 32, 992 and 2,048 tokens, a slot per
 # sequence), a ragged shape with a slot per row, llama3-8b's decode
 # projections (k/v: N 1024; q/o: N 4096), qwen's decode at 16 slots, and
-# the 4-tenant suffix wave (8 x 224 over the cached prefix)
+# the 4-tenant suffix wave (8 x 224 over the cached prefix); then the
+# 4-tenant fabric's (traffic (l)): a replica's decode at 4 slots and its
+# prefill waves of 1 to 4 requests of 32
 SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
               ("decode_a1", 8, 1024, 1024, 16, 1, 1),
               ("decode_a8", 8, 1024, 1024, 16, 8, 1),
@@ -671,7 +723,12 @@ SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
               ("llama_decode_kv", 8, 4096, 1024, 16, 4, 1),
               ("llama_decode", 8, 4096, 4096, 16, 4, 1),
               ("decode_m16", 16, 1024, 1024, 16, 4, 1),
-              ("suffix_224", 1792, 1024, 1024, 16, 4, 224)]
+              ("suffix_224", 1792, 1024, 1024, 16, 4, 224),
+              ("fabric_decode_4", 4, 1024, 1024, 16, 4, 1),
+              ("fabric_prefill_32", 32, 1024, 1024, 16, 4, 32),
+              ("fabric_prefill_64", 64, 1024, 1024, 16, 4, 32),
+              ("fabric_prefill_96", 96, 1024, 1024, 16, 4, 32),
+              ("fabric_prefill_128", 128, 1024, 1024, 16, 4, 32)]
 SEG_REPS = 30
 
 
@@ -3755,6 +3812,590 @@ def _tick_vlm(make_engine, get_config, n):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------- live fabric (ROADMAP 2) -
+FABRIC_REQUESTS, FABRIC_PROMPT, FABRIC_GEN = 16, 32, 16
+FABRIC_SLOTS = 4            # per replica: 2 replicas x 4 = one batcher's 8
+FAIL_TICK = 6               # (l-b): r1 fails over at this fabric tick
+
+
+class _EngineTap:
+    """Stands in for one replica's batcher engine: forwards everything,
+    and counts the train microbatches of every train step it is asked for
+    (``grad_accum`` of each, since each microbatch runs the adapter
+    projections forward and their dX), the fused steps, and whether every
+    fused step inside a round had its decode read the replica's published
+    tree (``serve_lora``; the optimizer steps the shadow)."""
+
+    def __init__(self, eng, rep):
+        self._eng, self._rep = eng, rep
+        self.micro = 0
+        self.fused = 0
+        self.fused_in_round = 0
+        self.decode_read_published = True
+
+    def __getattr__(self, k):
+        return getattr(self._eng, k)
+
+    def _train(self, kw):
+        self.micro += kw.get("grad_accum", 1)
+
+    def train_step(self, *a, **kw):
+        self._train(kw)
+        return self._eng.train_step(*a, **kw)
+
+    def _fused(self, lora, kw):
+        self._train(kw)
+        self.fused += 1
+        b = self._rep.batcher
+        if self._rep._session is not None:
+            self.fused_in_round += 1
+            want = b.adapters.device_lora() if b.adapters is not None \
+                else b.lora
+            if kw.get("serve_lora") is not want:
+                self.decode_read_published = False
+
+    def combined_step(self, params, lora, *a, **kw):
+        self._fused(lora, kw)
+        return self._eng.combined_step(params, lora, *a, **kw)
+
+    def combined_step_paged(self, params, lora, *a, **kw):
+        self._fused(lora, kw)
+        return self._eng.combined_step_paged(params, lora, *a, **kw)
+
+
+def _tree_equal(a, b):
+    from repro_torch.tree import tree_leaves
+    return all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def _dtype_name(t):
+    return str(t.dtype).split(".")[-1]
+
+
+def lora_shape_checked(kind, m, k, n, r, na, dtype):
+    """Whether phase_kernel_lora or phase_kernel_seg held the kernel
+    against its plain version at a launch's shape: a LORA_SHAPES row of
+    that M, K, N, r and dtype (a dX launch, ``lora_matmul`` on the
+    transposed operands, needs a row whose backward is checked, with K
+    and N swapped), or a SEG_SHAPES row of that M, K, N, r and slot
+    count (checked in both dtypes)."""
+    if kind == "segmented_lora_matmul":
+        return any(row[1:6] == (m, k, n, r, na) for row in SEG_SHAPES)
+    for name, m2, k2, n2, r2 in LORA_SHAPES:
+        if (m2, r2) != (m, r) or dtype not in [
+                str(d).split(".")[-1] for d in lora_dtypes(name)]:
+            continue
+        if kind == "lora_matmul" and (k2, n2) == (k, n):
+            return True
+        if kind == "lora_matmul_dx" and (n2, k2) == (k, n) \
+                and lora_has_backward(name):
+            return True
+    return False
+
+
+class FabricTap:
+    """Taps the fabric a ``launch/serve.py`` entry point builds (patches
+    ``runtime.fabric.build_fabric`` for the call; the port's own
+    ``warm_up`` has run inside it, and its seconds are kept): records the
+    shape of every ``lora_matmul`` / ``segmented_lora_matmul`` launch
+    (forward, and the dX of ``LoRAMatmulFn``'s backward), sets the
+    kernels' counts to 0 and the peak memory mark as
+    ``ServingFabric.run`` starts and reads them as it returns; times every
+    ``ServingFabric.tick`` and its ``ClusterController.tick``; counts the
+    replicas' eval probes, train microbatches and fused steps; keeps the
+    requests; with ``fail_at`` fails r1 over at that tick; checks at
+    every round boundary that the published tree the round's decodes
+    read is bitwise the one the round began with, and at every refused
+    (non-finite) publish that the served tree is bitwise unchanged."""
+
+    def __init__(self, counters, *, fail_at=None):
+        self.counters, self.fail_at = counters, fail_at
+        self.tick_s, self.ctl_s = [], []
+        self.round_checks, self.blocked_checks = [], []
+        self.probes = {}
+
+    def __enter__(self):
+        import repro_torch.kernels.lora_matmul as lm_mod
+        import repro_torch.runtime.fabric as fabric_mod
+        # the last phase's fabric sits in reference cycles (its taps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._mod, self._orig = fabric_mod, fabric_mod.build_fabric
+        self._lm_mod = lm_mod
+        self._lm_orig = (lm_mod._launch, lm_mod._check_seg,
+                         lm_mod.LoRAMatmulFn.backward)
+        launch, check_seg, backward = self._lm_orig
+        self.shapes = {}
+        in_bwd = [False]
+
+        def note(key):
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+
+        def rec_launch(x, w, a, b, scaling):
+            note(("lora_matmul_dx" if in_bwd[0] else "lora_matmul",
+                  x.shape[0], x.shape[1], w.shape[1], a.shape[1], 1,
+                  _dtype_name(x)))
+            return launch(x, w, a, b, scaling)
+
+        def rec_check_seg(x, w, a, b, idx):
+            note(("segmented_lora_matmul", x.shape[0], x.shape[1],
+                  w.shape[1], a.shape[2], a.shape[0], _dtype_name(x)))
+            return check_seg(x, w, a, b, idx)
+
+        def rec_backward(ctx, dy):
+            in_bwd[0] = True
+            try:
+                return backward(ctx, dy)
+            finally:
+                in_bwd[0] = False
+
+        def build(*a, **kw):
+            fab, cfg = self._orig(*a, **kw)
+            self.attach(fab)
+            return fab, cfg
+
+        lm_mod._launch, lm_mod._check_seg = rec_launch, rec_check_seg
+        lm_mod.LoRAMatmulFn.backward = staticmethod(rec_backward)
+        fabric_mod.build_fabric = build
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.build_fabric = self._orig
+        lm = self._lm_mod
+        lm._launch, lm._check_seg = self._lm_orig[:2]
+        lm.LoRAMatmulFn.backward = staticmethod(self._lm_orig[2])
+        return False
+
+    def attach(self, fab):
+        self.fab, self.reps = fab, dict(fab.replicas)
+        self.params_shared = all(r.params is fab.replicas["r0"].params
+                                 and r.batcher.params is r.params
+                                 for r in self.reps.values())
+        self.taps = {}
+        for rid, rep in self.reps.items():
+            self.taps[rid] = rep.batcher.engine = _EngineTap(
+                rep.batcher.engine, rep)
+            self._wrap_replica(rid, rep)
+        orig_run, orig_tick = fab.run, fab.tick
+        orig_ctl = fab.cluster.tick
+        n = [0]
+
+        def ctl(now):
+            t = time.perf_counter()
+            orig_ctl(now)
+            self.ctl_s.append(time.perf_counter() - t)
+
+        def tick(now):
+            if self.fail_at is not None and n[0] == self.fail_at \
+                    and "r1" in fab.replicas:
+                fab.fail_replica("r1", now)
+            n[0] += 1
+            t = time.perf_counter()
+            busy = orig_tick(now)
+            self.tick_s.append(time.perf_counter() - t)
+            return busy
+
+        def run(requests, **kw):
+            self.requests = list(requests)
+            torch.cuda.synchronize()
+            self.start_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(*self.counters)                      # main path starts
+            t = time.perf_counter()
+            out = orig_run(requests, **kw)
+            torch.cuda.synchronize()
+            self.wall_s = time.perf_counter() - t
+            self.launches = {c.__name__: c.launches
+                             for c in self.counters}    # path ends
+            self.peak_bytes = torch.cuda.max_memory_allocated()
+            return out
+
+        fab.cluster.tick, fab.tick, fab.run = ctl, tick, run
+
+    def _wrap_replica(self, rid, rep):
+        from repro_torch.tree import tree_finite, tree_map
+        self.probes[rid] = 0
+        orig_probe, orig_begin = rep._probe_loss, rep.begin_round
+        orig_finish, orig_publish = rep.finish_round, rep.publish_adapter
+        snap = {}
+
+        def probe():
+            self.probes[rid] += 1
+            return orig_probe()
+
+        def begin(*a, **kw):
+            snap["round"] = tree_map(torch.clone, rep.lora)
+            return orig_begin(*a, **kw)
+
+        def finish(now):
+            if "round" in snap:
+                self.round_checks.append(
+                    _tree_equal(rep.lora, snap.pop("round")))
+            shadow = rep.batcher.train_lora
+            if shadow is not None and not tree_finite(shadow):
+                snap["blocked"] = tree_map(torch.clone, rep.lora)
+            return orig_finish(now)
+
+        def publish():
+            v = orig_publish()
+            if "blocked" in snap:
+                self.blocked_checks.append(
+                    _tree_equal(rep.lora, snap.pop("blocked")))
+            return v
+
+        rep._probe_loss, rep.begin_round = probe, begin
+        rep.finish_round, rep.publish_adapter = finish, publish
+
+    def row(self, out):
+        """The run's numbers: fabric and per-replica tok/s and busy share,
+        TTFT / TPOT, the control tick's host ms, the fault counters and
+        whatever the health monitor recorded."""
+        c, ft = out["cluster"], out["fault_tolerance"]
+        tick_ms = np.asarray(self.tick_s) * 1e3
+        ctl_ms = np.asarray(self.ctl_s) * 1e3
+        pct = {}
+        for key in ("ttft", "tpot"):
+            for p in ("p50", "p99"):
+                v = c[key][p]
+                pct[f"{key}_{p}_ms"] = None if v is None else v * 1e3
+        return {
+            "replicas": len(self.reps), "requests": len(self.requests),
+            "completed": out["completed"],
+            "finished": c["finished"],
+            "generated_tokens": c["generated_tokens"],
+            "run_wall_s": self.wall_s,
+            "fabric_tok_s": c["generated_tokens"] / self.wall_s,
+            "per_replica": {rid: {
+                "finished": row["finished"],
+                "generated_tokens": row["generated_tokens"],
+                "tok_s": row["throughput_tok_s"],
+                "busy_share": row["wall_time"] / self.wall_s,
+                "adapter_version": row["adapter_version"],
+                "train_loss": row["train_loss"]}
+                for rid, row in out["replicas"].items()},
+            **pct,
+            "ticks": len(self.tick_s),
+            "tick_host_ms_p50": float(np.percentile(tick_ms, 50)),
+            "tick_host_ms_p99": float(np.percentile(tick_ms, 99)),
+            "tick_host_ms_mean": float(tick_ms.mean()),
+            "cluster_tick_ms_mean": float(ctl_ms.mean()),
+            "cluster_tick_share": float(ctl_ms.sum() / tick_ms.sum()),
+            "launches": self.launches,
+            "probes": dict(self.probes),
+            "train_microbatches": {r: t.micro
+                                   for r, t in self.taps.items()},
+            "fused_steps": {r: t.fused for r, t in self.taps.items()},
+            "fl_rounds": out["fl_rounds"],
+            "failovers": ft["failovers"], "quarantines": ft["quarantines"],
+            "nan_publishes_blocked": ft["nan_publishes_blocked"],
+            "retried_requests": ft["retried_requests"],
+            "injected": ft["injected"],
+            "health_failures": [list(f) for f in
+                                self.fab.health.failures],
+            "fault_log": [list(f) for f in ft["log"]],
+            "params_shared": self.params_shared,
+            "warm_up_s": self.fab.warm_s,
+            "lora_shapes": [list(k) + [v] for k, v in
+                            sorted(self.shapes.items())],
+            "start_bytes": self.start_bytes,
+            "peak_bytes": self.peak_bytes,
+        }
+
+    def check(self, name, out, row, n_layers, n_lora, n_lora_bwd, *,
+              faults=0, seg_serves=False):
+        """Every request completes with its whole budget, every pool ends
+        all-free, the counters fold, failovers and quarantines equal the
+        injected faults, the weights are one copy, and the launches are
+        exactly as derived from the replicas' own counts."""
+        pda, lm, seg = self.counters[:3]
+        if row["failovers"] + row["quarantines"] != faults:
+            raise AssertionError(
+                f"{name}: {row['failovers']} failovers and "
+                f"{row['quarantines']} quarantines for {faults} injected "
+                f"faults; health: {row['health_failures']}")
+        if out["incomplete_requests"] or out.get("failed_requests") \
+                or any(r.completed_at is None
+                       or len(r.output_tokens) != r.tokens
+                       for r in self.requests):
+            raise AssertionError(f"{name}: not every request completed")
+        if row["finished"] != len(self.requests):
+            raise AssertionError(f"{name}: {row['finished']} finished in "
+                                 f"the rollup for {len(self.requests)}")
+        for rid, rep in self.reps.items():
+            a = rep.batcher.allocator
+            if a.n_used or a.reserved:
+                raise AssertionError(f"{name}: {rid}'s pool did not drain")
+        if not row["params_shared"]:
+            raise AssertionError(f"{name}: replicas hold their own params")
+        waves = sum(r.batcher.prefill_waves for r in self.reps.values())
+        steps = sum(r.batcher.stats.decode_steps
+                    for r in self.reps.values())
+        probes = sum(self.probes.values())
+        micro = sum(t.micro for t in self.taps.values())
+        serve = n_lora * (waves + steps)
+        want = {pda.__name__: n_layers * steps,
+                seg.__name__: serve if seg_serves else 0,
+                lm.__name__: (0 if seg_serves else serve) + n_lora * probes
+                + (n_lora + n_lora_bwd) * micro}
+        for c in self.counters[3:]:
+            want[c.__name__] = 0
+        row["launches_derived"] = want
+        if row["launches"] != want:
+            raise AssertionError(f"{name}: launches {row['launches']}, "
+                                 f"derived {want}")
+        unchecked = [k for k in self.shapes if not lora_shape_checked(*k)]
+        if unchecked:
+            raise AssertionError(f"{name}: launched at shapes no kernel "
+                                 f"phase checks: {unchecked}")
+
+
+def _fabric_kernels():
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.decode_attention import \
+        paged_decode_attention as pda
+    from repro_torch.kernels.lora_matmul import (
+        lora_matmul as lm, segmented_lora_matmul as seg)
+    return (pda, lm, seg, fa.flash_attention_fwd,
+            fa.flash_attention_backward)
+
+
+def _param_bytes(tree):
+    from repro_torch.tree import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def phase_fabric(get_config, serve=None):
+    """(l-a) ``run_multi_replica_serving`` at full width: 2 replicas of 4
+    paged slots (blocks of 16) share one device copy of the weights, 16
+    requests of 32 + 16, beside one batcher of 8 slots on the same
+    traffic (the serve phase's ``paged`` run, or run here); (l-b) the
+    same with r1 failed over at fabric tick ``FAIL_TICK``."""
+    from repro_torch.launch.serve import (
+        run_multi_replica_serving, run_serving)
+    counters = _fabric_kernels()
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, ARCH)
+    if serve is None:
+        out = run_serving(ARCH, smoke=False, n_requests=FABRIC_REQUESTS,
+                          batch_size=2 * FABRIC_SLOTS, seed=0, paged=True,
+                          prompt_len=FABRIC_PROMPT, gen_tokens=FABRIC_GEN,
+                          device="cuda", verbose=False)
+        one = {"throughput_tok_s": out["throughput_tok_s"],
+               **latency_percentiles(out)}
+    else:
+        one = {k: serve["paged"][0][k] for k in (
+            "throughput_tok_s", "ttft_p50_ms", "ttft_p99_ms",
+            "tpot_p50_ms", "tpot_p99_ms")}
+    results = {"one_batcher": one}
+    for name, fail_at in (("fabric", None), ("failover", FAIL_TICK)):
+        with FabricTap(counters, fail_at=fail_at) as tap:
+            out = run_multi_replica_serving(
+                ARCH, n_replicas=2, smoke=False,
+                n_requests=FABRIC_REQUESTS, prompt_len=FABRIC_PROMPT,
+                gen_tokens=FABRIC_GEN, batch_size=FABRIC_SLOTS, seed=0,
+                paged=True, device="cuda", verbose=False)
+        row = tap.row(out)
+        pool = tap.reps["r0"].batcher.cache_bytes()
+        row.update(run=name, one_batcher=one,
+                   param_bytes=_param_bytes(tap.reps["r0"].params),
+                   pool_bytes_per_replica=pool)
+        tap.check(name, out, row, n_layers, n_lora, n_lora_bwd,
+                  faults=int(fail_at is not None))
+        emit("fabric", **row)
+        if fail_at is not None and not row["retried_requests"]:
+            raise AssertionError("failover: r1 held no request at tick "
+                                 f"{fail_at}")
+        # one copy of the weights plus the pools: a second copy would add
+        # param_bytes; the activations of a 4 x 32 wave are far below it
+        if row["peak_bytes"] > row["param_bytes"] * 1.5 \
+                + len(tap.reps) * pool:
+            raise AssertionError(f"{name}: peak {row['peak_bytes']} bytes")
+        results[name] = row
+        del tap, out
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_fabric_combined(get_config):
+    """(l-c) ``run_combined_fabric_serving``: 2 replicas, 2 FL rounds of 4
+    fused steps on a fixed pool of 4 train batches (4 x 32), FedAvg and
+    publish at the round boundaries, over the same 16 x (32 + 16)
+    traffic."""
+    from repro_torch.launch.serve import run_combined_fabric_serving
+    counters = _fabric_kernels()
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, ARCH)
+    with FabricTap(counters) as tap:
+        out = run_combined_fabric_serving(
+            ARCH, n_replicas=2, smoke=False, n_requests=FABRIC_REQUESTS,
+            prompt_len=FABRIC_PROMPT, gen_tokens=FABRIC_GEN,
+            batch_size=FABRIC_SLOTS, seed=0, paged=True, train_batch=4,
+            rounds=2, steps_per_round=4, train_pool=4, device="cuda",
+            verbose=False)
+    row = tap.row(out)
+    losses = [r["avg_loss"] for r in out["rounds"]]
+    row.update(run="combined", round_avg_loss=losses,
+               rounds=[dict(r) for r in out["rounds"]],
+               fused_steps_in_round={r: t.fused_in_round
+                                     for r, t in tap.taps.items()},
+               decode_read_published=all(
+                   t.decode_read_published for t in tap.taps.values()),
+               round_checks=tap.round_checks)
+    tap.check("combined", out, row, n_layers, n_lora, n_lora_bwd)
+    emit("fabric_combined", **row)
+    versions = [r["adapter_version"] for r in row["per_replica"].values()]
+    if out["fl_rounds"] < 2 or min(versions) < 2:
+        raise AssertionError(f"combined: {out['fl_rounds']} rounds, "
+                             f"versions {versions}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"combined: round losses {losses}")
+    if sum(row["fused_steps_in_round"].values()) == 0 \
+            or not row["decode_read_published"] \
+            or not tap.round_checks or not all(tap.round_checks):
+        raise AssertionError("combined: a decode inside a round did not "
+                             "read the published tree")
+    return row
+
+
+def phase_fabric_chaos(get_config):
+    """(l-d) ``run_combined_fabric_serving`` under ``--chaos``: one crash
+    and one NaN round (no stall) from the seeded schedule over 3
+    replicas (so that the round survives the crash: a session needs 2
+    members), horizon 0.5 s."""
+    from repro_torch.launch.serve import run_combined_fabric_serving
+    counters = _fabric_kernels()
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, ARCH)
+    chaos = {"seed": 0, "horizon": 0.5, "crashes": 1, "stalls": 0,
+             "ooms": 0, "nan_rounds": 1}
+    with FabricTap(counters) as tap:
+        out = run_combined_fabric_serving(
+            ARCH, n_replicas=3, smoke=False, n_requests=FABRIC_REQUESTS,
+            prompt_len=FABRIC_PROMPT, gen_tokens=FABRIC_GEN,
+            batch_size=FABRIC_SLOTS, seed=0, paged=True, train_batch=4,
+            rounds=2, steps_per_round=4, train_pool=4, chaos=chaos,
+            device="cuda", verbose=False)
+    row = tap.row(out)
+    crashes = len({rid for _, rid, k in row["injected"] if k == "crash"})
+    row.update(run="chaos", chaos=chaos, crashed=crashes,
+               blocked_checks=tap.blocked_checks)
+    tap.check("chaos", out, row, n_layers, n_lora, n_lora_bwd,
+              faults=crashes)
+    emit("fabric_chaos", **row)
+    if crashes != 1 or row["nan_publishes_blocked"] < 1 \
+            or not tap.blocked_checks or not all(tap.blocked_checks):
+        raise AssertionError(
+            f"chaos: {crashes} crashes, {row['nan_publishes_blocked']} "
+            f"publishes blocked, served tree unchanged "
+            f"{tap.blocked_checks}")
+    return row
+
+
+def phase_fabric_adapters(get_config):
+    """(l-e) ``run_multi_replica_serving(n_adapters=4)``: 4 tenants tagged
+    round-robin over 2 replicas, each with every tenant registered."""
+    from repro_torch.launch.serve import run_multi_replica_serving
+    counters = _fabric_kernels()
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, ARCH)
+    with FabricTap(counters) as tap:
+        out = run_multi_replica_serving(
+            ARCH, n_replicas=2, smoke=False, n_requests=FABRIC_REQUESTS,
+            prompt_len=FABRIC_PROMPT, gen_tokens=FABRIC_GEN,
+            batch_size=FABRIC_SLOTS, seed=0, paged=True, n_adapters=4,
+            device="cuda", verbose=False)
+    row = tap.row(out)
+    rollup = {a: v["requests"] for a, v in out["cluster"]["adapters"].items()}
+    row.update(run="adapters", tenants=4, adapter_requests=rollup,
+               adapter_routed=sum(d["adapter_routed"]
+                                  for d in out["dispatchers"].values()))
+    tap.check("adapters", out, row, n_layers, n_lora, n_lora_bwd,
+              seg_serves=True)
+    emit("fabric_adapters", **row)
+    if sum(rollup.values()) != row["finished"] \
+            or row["launches"]["segmented_lora_matmul"] == 0:
+        raise AssertionError(f"adapters: rollup {rollup}, launches "
+                             f"{row['launches']}")
+    for rid, rep in tap.reps.items():
+        if any(rep.adapters.refcount(a) for a in rep.adapters.registered()):
+            raise AssertionError(f"adapters: {rid} holds adapter refs")
+    return row
+
+
+def phase_fabric_reference(make_engine, get_config):
+    """(l-a) and (l-b) with token identity, reduced float32 config: the
+    port's fabric on the card (2 replicas of 2 paged slots, blocks of 4)
+    emits the greedy tokens of one batcher on the card over the same
+    weights, and of the same fabric on the CPU (the weights copied
+    across); with r1 failed over at tick 3 too."""
+    from repro_torch.core.interfaces import Request
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.runtime.fabric import build_fabric, fabric_from_weights
+    from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+    from repro_torch.tree import tree_map
+
+    lens, gens = [6, 9, 4, 8, 7, 5, 10, 6], [5, 4, 6, 3, 5, 4, 6, 5]
+    data = SyntheticDataset("alpaca", vocab_size=get_config(ARCH).scaled()
+                            .vocab_size, seq_len=10, seed=3)
+    toks = data.sample_tokens(len(lens))
+    prompts = [toks[i, :n].astype(np.int32) for i, n in enumerate(lens)]
+    kw = dict(n_slots=2, prompt_len=10, gen_tokens=6, paged=True,
+              block_size=4)
+
+    def drive(fab, fail_at=None):
+        stream = next(iter(fab.replicas.values())).model_id
+        reqs = [Request(request_id=i, stream_id=stream, arrival=0.0,
+                        deadline=1e9, tokens=gens[i], prompt=prompts[i])
+                for i in range(len(lens))]
+        for r in reqs:
+            fab.submit(r)
+        t0 = time.perf_counter()
+        for it in range(5000):
+            now = time.perf_counter() - t0
+            if it == fail_at:
+                fab.fail_replica("r1", now)
+            busy = fab.tick(now)
+            if not busy and all(r.completed_at is not None for r in reqs):
+                break
+            if not busy:
+                time.sleep(0.002)
+        if any(r.completed_at is None or len(r.output_tokens) != r.tokens
+               for r in reqs):
+            raise AssertionError("fabric_reference: not every request "
+                                 "completed")
+        return [r.output_tokens for r in reqs]
+
+    fab, _ = build_fabric(ARCH, 2, smoke=True, device="cuda", **kw)
+    rep = fab.replicas["r0"]
+    eng, params = rep.engine, rep.params
+    lora = tree_map(torch.clone, rep.lora)
+    card = drive(fab)
+    fab_f, _ = build_fabric(ARCH, 2, smoke=True, device="cuda", **kw)
+    failed = drive(fab_f, fail_at=3)
+    single = [GenRequest(request_id=i, prompt=p.copy(),
+                         max_new_tokens=gens[i])
+              for i, p in enumerate(prompts)]
+    ContinuousBatcher(eng, params, lora, n_slots=4, max_seq=16,
+                      prompt_pad=10, paged=True, block_size=4).run(single)
+    ceng = make_engine(get_config(ARCH).scaled(), lr=3e-3, device="cpu")
+    cpu = tree_map(lambda t: t.cpu(), {"p": params, "l": lora})
+    fab_c = fabric_from_weights(ceng, cpu["p"], cpu["l"], 2, **kw)
+    on_cpu = drive(fab_c)
+    row = {"requests": len(lens), "card_equals_one_batcher":
+           card == [r.tokens for r in single],
+           "card_equals_cpu": card == on_cpu,
+           "failover_equals_never_failed": failed == card,
+           "failovers": fab_f.failovers,
+           "failover_finished_on_r1": fab_f.retired_stats["r1"].finished,
+           "failover_requeued": fab_f.retry_policy.retried,
+           "health_failures": [list(f) for f in fab.health.failures]}
+    emit("fabric_reference", **row)
+    if not (row["card_equals_one_batcher"] and row["card_equals_cpu"]
+            and row["failover_equals_never_failed"]) \
+            or row["failovers"] != 1 or not row["failover_requeued"] \
+            or fab.failovers \
+            or fab.quarantines or fab_f.quarantines:
+        raise AssertionError(f"fabric_reference: {row}")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3831,6 +4472,12 @@ def main():
             run_serving, get_config, pda, lm, fa, seg, out.get("serve")),
         "mixed_solo": lambda: phase_mixed_solo(get_config, make_engine, seg,
                                                lm),
+        "fabric_reference": lambda: phase_fabric_reference(make_engine,
+                                                           get_config),
+        "fabric": lambda: phase_fabric(get_config, out.get("serve")),
+        "fabric_combined": lambda: phase_fabric_combined(get_config),
+        "fabric_chaos": lambda: phase_fabric_chaos(get_config),
+        "fabric_adapters": lambda: phase_fabric_adapters(get_config),
         "train": lambda: phase_train(make_engine, get_config, lm),
         "tick": lambda: phase_tick(make_engine, get_config),
     }
@@ -3862,6 +4509,14 @@ def main():
     crows, vlm = out["kernel_decode"], out["serve_vlm"]
     c_main = crows[("cross", torch.bfloat16)]
 
+    fab = {"l-a": out["fabric"]["fabric"], "l-b": out["fabric"]["failover"],
+           "l-c": out["fabric_combined"], "l-d": out["fabric_chaos"],
+           "l-e": out["fabric_adapters"]}
+
+    def fabric_launches(kernel):
+        """A kernel's launches in each fabric run (traffic (l))."""
+        return {k: r["launches"][kernel] for k, r in fab.items()}
+
     main_row = rows[("serve", torch.bfloat16)]
     worst = max(r["max_abs_err"] for (n, dt), r in rows.items()
                 if dt == torch.bfloat16)
@@ -3884,6 +4539,7 @@ def main():
         "source": "src/repro_torch/csrc/paged_decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention.py:172",
         "launches": serve["paged"][0]["kernel_launches"],
+        "fabric_launches": fabric_launches("paged_decode_attention"),
         "max_abs_err": main_row["max_abs_err"],
         "worst_bf16_err_all_shapes": worst,
         "ms": main_row["ms"],
@@ -3911,6 +4567,7 @@ def main():
         "replaces": "src/repro/kernels/lora_matmul.py:57",
         # the co-training server, paged 32+16: prefill, decode and train
         "launches": combined["paged"]["lora_matmul_launches"],
+        "fabric_launches": fabric_launches("lora_matmul"),
         "shape": "decode M=8 K=N=1024 r=16 bf16",
         "max_abs_err": lrows[("decode", torch.bfloat16)]["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -3975,6 +4632,7 @@ def main():
         "replaces": "src/repro/kernels/lora_matmul.py:132",
         # the 4-tenant server, paged 32+16: prefill and decode
         "launches": adapters["paged"]["segmented_lora_matmul_launches"],
+        "fabric_launches": fabric_launches("segmented_lora_matmul"),
         "shape": "decode M=8 K=N=1024 r=16, 4 slots, bf16",
         "max_abs_err": s_main["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(

@@ -22,8 +22,21 @@ pool runs out: its private blocks swap to host memory, or with
 (contiguous caches: a conv tail and an SSD state per slot): each prompt
 prefills at its exact length through the ssd_scan kernel in every layer,
 and ``--paged``, ``--adapters`` and ``--chunked-prefill`` raise for it,
-as in the reference.  Weights are random, drawn from ``--seed``.  The
-multi-replica fabric is not ported yet (see ROADMAP.md).
+as in the reference.  Weights are random, drawn from ``--seed``.
+
+``--replicas N`` (N > 1) serves the same trace through the multi-replica
+fabric instead (``runtime/fabric.py``): one ``ClusterController`` routes
+dispatcher subflows across N live replicas that share one device copy of
+the base weights, with placement by pool headroom, prefix-cache and
+adapter affinity; the summary folds per-replica and cluster-total
+``ServeStats``.  ``--combined --replicas N`` runs the paper's
+co-execution: the launcher cohorts the replicas into federated LoRA
+rounds over the same fabric, each replica training a shadow adapter one
+fused step per tick while decode reads the published one, and FedAvg
+publishes the merged adapter at round boundaries (``--rounds``,
+``--steps-per-round``, ``--train-pool``).  ``--chaos`` arms a seeded
+fault schedule (crashes, stalls, admission OOMs, NaN rounds) against
+the pool and prints the failover and retry counters.
 
 Usage (on a machine with an NVIDIA Hopper card):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
@@ -35,12 +48,17 @@ Usage (on a machine with an NVIDIA Hopper card):
   ... --combined --train-batch 4              # co-train the adapter
   ... --adapters 3 [--combined]               # multi-tenant LoRA serving
   ... --arch mamba2-780m                      # Mamba2 (SSM), contiguous
+  ... --replicas 2 --paged                    # dispatcher-routed pool
+  ... --replicas 2 --combined --rounds 2      # FL rounds over the pool
+  ... --replicas 2 --adapters 4               # tenants across replicas
+  ... --replicas 2 --chaos --chaos-crashes 1  # seeded fault injection
   ... --smoke --device cpu [--combined]       # reduced config on the CPU
                                               # (plain PyTorch versions)
 """
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 import torch
@@ -52,6 +70,48 @@ from repro_torch.runtime.fabric import make_tenant_adapters
 from repro_torch.runtime.serving_loop import (
     AdapterRegistry, ContinuousBatcher, GenRequest, refuse_vlm,
 )
+
+
+def _make_injector(n_replicas: int, chaos: dict):
+    """Build a seeded FaultInjector over the fabric's replica ids from
+    the --chaos-* knobs."""
+    from repro_torch.runtime.fault import FaultInjector
+    plan = FaultInjector.random_plan(
+        [f"r{i}" for i in range(n_replicas)],
+        seed=chaos.get("seed", 0),
+        horizon=chaos.get("horizon", 5.0),
+        n_crashes=chaos.get("crashes", 1),
+        n_stalls=chaos.get("stalls", 1),
+        n_ooms=chaos.get("ooms", 0),
+        n_nan_rounds=chaos.get("nan_rounds", 0))
+    return FaultInjector(plan)
+
+
+def _print_fault_telemetry(out: dict) -> None:
+    ft = out.get("fault_tolerance")
+    if not ft:
+        return
+    print(f"  chaos: {len(ft['injected'])} faults injected, "
+          f"{ft['failovers']} failovers, {ft['quarantines']} quarantines, "
+          f"{ft['retried_requests']} retries, "
+          f"{ft['rejected_requests']} rejected, "
+          f"{ft['nan_publishes_blocked']} NaN publishes blocked; "
+          f"{out.get('failed_requests', 0)} requests failed")
+
+
+def _exit_unserved(out: dict) -> None:
+    """Exit non-zero, with every contained pump exception's traceback on
+    stderr, when the fabric left a request incomplete or failed: the
+    fabric contains a replica's exception as a failover and runs on, so
+    a kernel that fails on every replica would otherwise end in an
+    ordinary summary."""
+    bad = out.get("incomplete_requests", 0) + out.get("failed_requests", 0)
+    if not bad:
+        return
+    for now, rid, tb in out["fault_tolerance"]["pump_errors"]:
+        print(f"{rid} at {now:.3f} s: {tb}", file=sys.stderr)
+    sys.exit(f"fabric: {out.get('incomplete_requests', 0)} requests "
+             f"incomplete, {out.get('failed_requests', 0)} failed")
 
 
 def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
@@ -204,6 +264,150 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
     return out
 
 
+def _fabric_requests(cfg, n_requests: int, prompt_len: int,
+                     gen_tokens: int, seed: int, n_adapters: int,
+                     temperature: float, top_k: int, top_p: float):
+    """The fabric's trace: ``n_requests`` synthetic prompts on the
+    model's stream, all arriving at 0, tagged round-robin by tenant."""
+    from repro_torch.core.interfaces import Request
+    data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
+                            seq_len=prompt_len, seed=seed)
+    prompts = data.sample_tokens(n_requests)[:, :prompt_len]
+    return [Request(request_id=i, stream_id=cfg.name, arrival=0.0,
+                    deadline=1e9, tokens=gen_tokens,
+                    prompt=prompts[i].astype(np.int32),
+                    adapter_id=f"tenant{i % n_adapters}"
+                    if n_adapters > 0 else None,
+                    temperature=temperature, top_k=top_k,
+                    top_p=top_p, seed=seed + i)
+            for i in range(n_requests)]
+
+
+def run_multi_replica_serving(
+        arch: str, *, n_replicas: int = 2, smoke: bool = True,
+        n_requests: int = 16, prompt_len: int = 32, gen_tokens: int = 16,
+        batch_size: int = 4, seed: int = 0, paged: bool = False,
+        block_size: int = 16, n_blocks: int = 0,
+        prefix_cache: bool = False, temperature: float = 0.0,
+        top_k: int = 0, top_p: float = 1.0, n_adapters: int = 0,
+        prefill_chunk: int = 0, tpot_target: float = 0.0,
+        oversubscribe: float = 0.0, swap: bool = True,
+        chaos: dict = None, device="cuda", verbose: bool = True) -> dict:
+    """Serve ``n_requests`` prompts through the dispatcher-routed
+    multi-replica fabric on ``device``; returns the aggregate cluster
+    summary.  ``n_adapters > 0`` registers that many LoRA tenants on
+    every replica and tags requests round-robin, exercising
+    adapter-affinity routing and the segmented LoRA kernel.  ``chaos``
+    (a dict of seed/horizon/crashes/stalls/ooms/nan_rounds) arms a
+    seeded ``FaultInjector`` against the pool."""
+    from repro_torch.runtime.fabric import FabricConfig, build_fabric
+
+    fcfg = FabricConfig(prefill_chunk=prefill_chunk,
+                        tpot_target=tpot_target,
+                        oversubscribe=oversubscribe, swap=swap)
+    injector = _make_injector(n_replicas, chaos) if chaos else None
+    fabric, cfg = build_fabric(
+        arch, n_replicas, smoke=smoke, n_slots=batch_size,
+        prompt_len=prompt_len, gen_tokens=gen_tokens, paged=paged,
+        block_size=block_size, n_blocks=n_blocks or None,
+        prefix_cache=prefix_cache, seed=seed, n_adapters=n_adapters,
+        cfg=fcfg, injector=injector, device=device)
+    requests = _fabric_requests(cfg, n_requests, prompt_len, gen_tokens,
+                                seed, n_adapters, temperature, top_k,
+                                top_p)
+    out = fabric.run(requests)
+    out["completed"] = sum(1 for r in requests
+                           if r.completed_at is not None)
+    if verbose:
+        c = out["cluster"]
+        print(f"fabric served {out['completed']}/{n_requests} requests "
+              f"on {c['n_replicas']} replicas: "
+              f"{c['generated_tokens']} tokens, "
+              f"aggregate {c['throughput_sum_tok_s']:.1f} tok/s "
+              f"({c['throughput_wall_tok_s']:.1f} on the shared device)")
+        if n_adapters > 0 and c.get("adapters"):
+            parts = ", ".join(f"{aid}: {a['requests']}"
+                              for aid, a in c["adapters"].items())
+            routed = sum(d["adapter_routed"]
+                         for d in out["dispatchers"].values())
+            print(f"  tenants ({routed} adapter-affinity routed): "
+                  f"{parts}")
+        for rid, row in out["replicas"].items():
+            print(f"  {rid}: {row['finished']} finished, "
+                  f"{row['generated_tokens']} tokens, "
+                  f"{row['throughput_tok_s']:.1f} tok/s")
+        if chaos:
+            _print_fault_telemetry(out)
+    return out
+
+
+def run_combined_fabric_serving(
+        arch: str, *, n_replicas: int = 2, smoke: bool = True,
+        n_requests: int = 16, prompt_len: int = 32, gen_tokens: int = 16,
+        batch_size: int = 4, seed: int = 0, paged: bool = False,
+        block_size: int = 16, n_blocks: int = 0,
+        prefix_cache: bool = False, train_batch: int = 4,
+        rounds: int = 2, steps_per_round: int = 4, train_pool: int = 8,
+        temperature: float = 0.0, top_k: int = 0, top_p: float = 1.0,
+        n_adapters: int = 0, timeout: float = 300.0,
+        prefill_chunk: int = 0, tpot_target: float = 0.0,
+        oversubscribe: float = 0.0, swap: bool = True,
+        chaos: dict = None, device="cuda", verbose: bool = True) -> dict:
+    """Live co-execution: serve the trace through the multi-replica
+    fabric WHILE the launcher drives incremental FL train sessions over
+    the same replicas.  ``train_pool`` fixes the fine-tuning corpus to
+    that many batches cycled epoch-style (finite finetuning set; loss
+    falls visibly across rounds), 0 streams fresh batches.  Returns the
+    aggregate cluster summary plus the launcher's per-round
+    loss/version history."""
+    from repro_torch.runtime.fabric import FabricConfig, build_fabric
+
+    fcfg = FabricConfig(
+        enable_finetuning=True, train_batch=train_batch,
+        bootstrap_steps=steps_per_round, steps_per_round=steps_per_round,
+        min_cohort=min(2, n_replicas),
+        prefill_chunk=prefill_chunk, tpot_target=tpot_target,
+        oversubscribe=oversubscribe, swap=swap)
+    injector = _make_injector(n_replicas, chaos) if chaos else None
+    fabric, cfg = build_fabric(
+        arch, n_replicas, smoke=smoke, n_slots=batch_size,
+        prompt_len=prompt_len, gen_tokens=gen_tokens, paged=paged,
+        block_size=block_size, n_blocks=n_blocks or None,
+        prefix_cache=prefix_cache, seed=seed, train_pool=train_pool,
+        n_adapters=n_adapters, cfg=fcfg, injector=injector,
+        device=device)
+    requests = _fabric_requests(cfg, n_requests, prompt_len, gen_tokens,
+                                seed, n_adapters, temperature, top_k,
+                                top_p)
+    out = fabric.run(requests, min_rounds=rounds, timeout=timeout)
+    out["completed"] = sum(1 for r in requests
+                           if r.completed_at is not None)
+    if verbose:
+        c = out["cluster"]
+        print(f"combined fabric served {out['completed']}/{n_requests} "
+              f"requests on {c['n_replicas']} replicas while completing "
+              f"{out['fl_rounds']} FL rounds: {c['generated_tokens']} "
+              f"tokens, aggregate {c['throughput_sum_tok_s']:.1f} tok/s, "
+              f"{c['train_steps']} fused train steps")
+        for r in out["rounds"]:
+            print(f"  round {r['round']}: avg member loss "
+                  f"{r['avg_loss']:.4f} -> published v{r['version']} "
+                  f"({r['members']} members)")
+        if n_adapters > 0 and c.get("adapters"):
+            for aid, a in c["adapters"].items():
+                print(f"  {aid}: {a['requests']} requests, "
+                      f"version {a['version_min']}..{a['version_max']}")
+        for rid, row in out["replicas"].items():
+            tl = row["train_loss"]
+            print(f"  {rid}: v{row['adapter_version']}, "
+                  f"{row['finished']} finished, "
+                  f"{row['throughput_tok_s']:.1f} tok/s"
+                  + (f", train CE {tl:.4f}" if tl is not None else ""))
+        if chaos:
+            _print_fault_telemetry(out)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen1.5-0.5b")
@@ -214,10 +418,23 @@ def main() -> None:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="live replicas; > 1 routes the trace through "
+                         "the dispatcher-backed multi-replica fabric")
     ap.add_argument("--combined", action="store_true",
                     help="co-train the LoRA adapter on every tick")
     ap.add_argument("--train-batch", type=int, default=4,
                     help="co-running train batch (--combined)")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="FL rounds to drive in --combined --replicas "
+                         "mode (best effort, bounded by the timeout)")
+    ap.add_argument("--steps-per-round", type=int, default=4,
+                    help="fused train steps per FL round in --combined "
+                         "--replicas mode")
+    ap.add_argument("--train-pool", type=int, default=8,
+                    help="fixed fine-tuning corpus of that many batches, "
+                         "cycled epoch-style, in --combined --replicas "
+                         "mode (0 = fresh batches every step)")
     ap.add_argument("--paged", action="store_true")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--n-blocks", type=int, default=0,
@@ -256,6 +473,22 @@ def main() -> None:
                     help="multi-tenant LoRA: register N tenants and tag "
                          "requests round-robin (0 = one adapter)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--chaos", action="store_true",
+                    help="arm seeded fault injection against the fabric "
+                         "(requires --replicas > 1)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed for the chaos schedule")
+    ap.add_argument("--chaos-horizon", type=float, default=5.0,
+                    help="fault schedule horizon in seconds")
+    ap.add_argument("--chaos-crashes", type=int, default=1,
+                    help="replica crashes to schedule")
+    ap.add_argument("--chaos-stalls", type=int, default=1,
+                    help="straggler stalls to schedule")
+    ap.add_argument("--chaos-ooms", type=int, default=0,
+                    help="admission OOMs to schedule")
+    ap.add_argument("--chaos-nan-rounds", type=int, default=0,
+                    help="NaN-poisoned train rounds to schedule "
+                         "(combined mode)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
@@ -266,6 +499,38 @@ def main() -> None:
     if args.oversubscribe and not args.paged:
         ap.error("--oversubscribe requires --paged (preemption swaps "
                  "pool blocks)")
+    if args.chaos and args.replicas < 2:
+        ap.error("--chaos requires --replicas > 1 (fault tolerance is "
+                 "a property of the pool)")
+    chaos = None
+    if args.chaos:
+        chaos = {"seed": args.chaos_seed, "horizon": args.chaos_horizon,
+                 "crashes": args.chaos_crashes,
+                 "stalls": args.chaos_stalls, "ooms": args.chaos_ooms,
+                 "nan_rounds": args.chaos_nan_rounds}
+    if args.replicas > 1:
+        common = dict(
+            n_replicas=args.replicas, smoke=args.smoke,
+            n_requests=args.requests, prompt_len=args.prompt_len,
+            gen_tokens=args.gen, batch_size=args.batch, paged=args.paged,
+            block_size=args.block_size, n_blocks=args.n_blocks,
+            prefix_cache=args.prefix_cache, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p, n_adapters=args.adapters,
+            prefill_chunk=args.chunked_prefill,
+            tpot_target=args.tpot_target,
+            oversubscribe=args.oversubscribe, swap=args.swap,
+            seed=args.seed, chaos=chaos, device=args.device)
+        if args.combined:
+            # the full co-execution path: launcher-driven incremental
+            # train sessions over the live fabric
+            out = run_combined_fabric_serving(
+                args.arch, train_batch=args.train_batch,
+                rounds=args.rounds, steps_per_round=args.steps_per_round,
+                train_pool=args.train_pool, **common)
+        else:
+            out = run_multi_replica_serving(args.arch, **common)
+        _exit_unserved(out)
+        return
     run_serving(args.arch, smoke=args.smoke, n_requests=args.requests,
                 prompt_len=args.prompt_len, gen_tokens=args.gen,
                 batch_size=args.batch, combined=args.combined,

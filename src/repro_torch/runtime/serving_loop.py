@@ -202,9 +202,15 @@ class ServeStats:
     decode_steps: int = 0
     train_steps: int = 0
     wall_time: float = 0.0
+    # the adapter version this replica serves (bumped by the live
+    # replica's set_adapter / publish_adapter)
+    adapter_version: int = 0
     # latest train CE loss of a combined or plain train tick (NaN until
     # the batcher has trained)
     train_loss: float = float("nan")
+    # publish gate: shadow (or incoming global) trees refused as
+    # non-finite instead of being swapped into serving
+    nan_publishes_blocked: int = 0
     # multi-tenant: finished requests per adapter, and the version each
     # tenant's adapter served at its last finish
     adapter_requests: Dict[str, int] = dataclasses.field(
@@ -448,6 +454,12 @@ class AdapterRegistry:
 
     def registered(self) -> List[str]:
         return sorted(self._trees)
+
+    def host_tree(self, adapter_id: str) -> Any:
+        """A tenant's own tree, as registered or last updated (the
+        reference keeps it on the host; here it stays where its caller
+        made it).  Failover re-registers it on a survivor."""
+        return self._trees[adapter_id]
 
     def version(self, adapter_id: str) -> int:
         return self._version.get(adapter_id, 0)
