@@ -28,6 +28,7 @@ Phases, each printing JSON lines:
               (M 1000 and 5), mamba2-780m's ssm_in / ssm_out at
               decode and a 2,048-token prefill, and the decode q/o and
               k/v projections of llama-3.2-vision-90b and llama3-8b,
+              the training CLI's batches (qwen 4 x 128, llama3-8b 8 x 64),
               and (bf16) the rows of every M > 16 wave the serve, prefix,
               chunked and budget runs give it (qwen's suffix wave 8 x 224
               and chunk wave 8 x 256, llama3-8b's 8 x 992 and 8 x 224
@@ -222,6 +223,38 @@ Phases, each printing JSON lines:
               kernel_seg held against the plain version;
   train       ten full-width train steps on one fixed 4 x 256 batch: the
               loss falls, 189 lora_matmul launches per step;
+  train_cli   the training CLI (``launch/train.py``): (a)
+              ``train_from_weights`` on one reduced float32 weight set on
+              the card and the CPU, 15 steps with a checkpoint every 5,
+              then 25 with a NaN injected at step 12 (rolled back to 10
+              on both; losses within 1e-5 relative, adapters within
+              2e-4); (a2) tests/test_drivers.py's check on the card (the
+              reduced qwen, 30 steps of 8 x 32: held-out CE falls); (b)
+              ``run_training`` at full width, qwen1.5-0.5b bf16, 4 x 256,
+              20 steps, checkpoints every 10: CE on the last batch trained
+              on below the initial adapter's (held-out CE reported: 20
+              steps do not teach a chain over 151,936 tokens),
+              lora_matmul launches exactly
+              20 x 189, no flash_attention launch; host ms a step, the
+              share of the loop's loss pulls, checkpoint save / wait
+              seconds, peak memory; (c) ``restore=True`` to 30 steps from
+              (b)'s directory: resumes at 20, runs 10, the restored tree
+              bitwise (b)'s with AdamW step 20; a card checkpoint
+              restored onto the CPU and a CPU one onto the card bitwise;
+              (d) 4 x 2,048, 3 steps: flash_attention forward and
+              backward launches as derived; (e) ``python -m
+              repro_torch.launch.train --full`` in subprocesses with
+              PYTHONHASHSEED pinned, 10 steps, then ``--restore`` to 15;
+              the manifest's codec as this machine has it; (f) llama3-8b,
+              the CLI's default arch and batch (8 x 64), 5 steps; (g)
+              ``DataPipeline`` on the card yields the sample function's
+              batches in order, bitwise; every lora_matmul launch shape
+              of (b)-(f), dX included, one that kernel_lora checked;
+  experiment  ``run_experiment`` for the five policies at
+              tests/test_experiment.py's short configuration (6
+              replicas, 420 s simulated, seed 3) and those tests'
+              checks; printed with ``"simulated": true`` (the simulator's
+              arithmetic, no card time);
   tick        where a full-width tick's time goes (serve ticks at 32-,
               992- and 2,048-token prompts, combined ticks with a 4 x 32
               and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
@@ -292,7 +325,9 @@ LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # (traffic (l)): a replica's decode at 4 slots, its prefill waves of 1 and
 # 3 requests of 32 (2 are the train microbatch's M, 4 the "train" row's)
 # and the combined rounds' train microbatch (2 x 32 rows: train batch 4
-# in grad_accum 2), whose backward runs too
+# in grad_accum 2), whose backward runs too; then the training CLI's
+# (train_cli phase) batches of 4 x 128 (qwen) and 8 x 64 (llama3-8b, the
+# CLI's default arch and batch: q/o and k/v), with their backward
 LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
                ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
@@ -324,11 +359,15 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("fabric_decode_4", 4, 1024, 1024, 16),
                ("fabric_prefill_32", 32, 1024, 1024, 16),
                ("fabric_prefill_96", 96, 1024, 1024, 16),
-               ("train_micro", 64, 1024, 1024, 16)]
+               ("train_micro", 64, 1024, 1024, 16),
+               ("train_cli", 512, 1024, 1024, 16),
+               ("train_llama_cli_qo", 512, 4096, 4096, 16),
+               ("train_llama_cli_kv", 512, 4096, 1024, 16)]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
                   "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
-                  "llama_suffix_qo", "llama_suffix_kv"}
+                  "llama_suffix_qo", "llama_suffix_kv", "train_cli",
+                  "train_llama_cli_qo", "train_llama_cli_kv"}
 
 
 def lora_has_backward(name):
@@ -3511,6 +3550,460 @@ def phase_train(make_engine, get_config, lm, steps=10):
         raise AssertionError(f"train: lora_matmul launches {per_step}")
 
 
+# ------------------------------------------------------- training CLI ----
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10      # (b); (c) resumes to 30
+TRAIN_LONG_SEQ, TRAIN_LONG_STEPS = 2048, 3  # (d): past the dense limit
+CLI_SEQ, CLI_STEPS = 128, 10                # (e), then --restore to 15
+LLAMA_TRAIN_STEPS = 5                       # (f): the CLI's default arch
+# (a) card vs CPU, float32 reduced: the loss of each step within 1e-5
+# relative (the reference phase's one-step tolerance); the adapters
+# within 2e-4 absolute after 15 steps (AdamW's normalised update turns
+# float32 noise in a near-zero gradient component into a step-sized
+# difference: lr 3e-3; tests/test_torch_train_cli.py's bound against JAX)
+TRAIN_LOSS_RTOL, TRAIN_LORA_ATOL = 1e-5, 2e-4
+
+
+class TrainTap:
+    """Taps ``run_training`` / ``train_from_weights`` while entered: the
+    host clock of each loop iteration (from one ``Engine.train_step``
+    call to the next), of the step's dispatch and of the wait that the
+    loop's ``float(ce_loss)`` pull then takes (the tap synchronises
+    first, so the pull finds the loss ready), the last batch trained on,
+    the seconds of every ``Checkpointer.save`` and ``wait``, and the
+    trees ``restore`` returned."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.core.engine import Engine
+        self._orig = (Engine.train_step, Checkpointer.save,
+                      Checkpointer.wait, Checkpointer.restore)
+        step, save, wait, restore = self._orig
+        self.starts, self.dispatch_ms, self.pull_ms = [], [], []
+        self.save_s, self.wait_s, self.restored = [], [], []
+
+        def train_step(eng, *a, **kw):
+            t0 = time.perf_counter()
+            self.starts.append(t0)
+            self.last_batch = a[3]
+            out = step(eng, *a, **kw)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            self.dispatch_ms.append((t1 - t0) * 1e3)
+            self.pull_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        def timed(fn, into):
+            def call(ck, *a, **kw):
+                t0 = time.perf_counter()
+                out = fn(ck, *a, **kw)
+                into.append(time.perf_counter() - t0)
+                return out
+            return call
+
+        def restore_(ck, *a, **kw):
+            out = restore(ck, *a, **kw)
+            self.restored.append(out[0])
+            return out
+
+        Engine.train_step = train_step
+        Checkpointer.save = timed(save, self.save_s)
+        Checkpointer.wait = timed(wait, self.wait_s)
+        Checkpointer.restore = restore_
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        from repro_torch.core.engine import Engine
+        self.wall_s = time.perf_counter() - self.t0
+        (Engine.train_step, Checkpointer.save, Checkpointer.wait,
+         Checkpointer.restore) = self._orig
+        return False
+
+    def row(self):
+        """Per-iteration host ms (the last step's runs to the end of the
+        call: its checkpoint and the final save), dispatch ms, pull ms,
+        and the pulls' share of the loop's wall."""
+        ends = self.starts[1:] + [self.t0 + self.wall_s]
+        it = [(b - a) * 1e3 for a, b in zip(self.starts, ends)]
+        return {"step_ms": it, "dispatch_ms": self.dispatch_ms,
+                "loss_pull_wait_ms": self.pull_ms,
+                "loss_pull_share": sum(self.pull_ms) / max(sum(it), 1e-9),
+                "save_s": self.save_s, "wait_s": self.wait_s}
+
+
+def _ce(model, params, lora_trees, batch):
+    """The CE of each adapter on one batch."""
+    with torch.no_grad():
+        return [float(model.forward_loss(params, lo, batch)[0])
+                for lo in lora_trees]
+
+
+def _held_out(model, seq, rows, rng=None):
+    """A batch of the training chain (domain ``alpaca``, seed 0) on the
+    card: with ``rng``, rows no training step draws."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    data = SyntheticDataset("alpaca", vocab_size=model.cfg.vocab_size,
+                            seq_len=seq, seed=0)
+    return {k: torch.as_tensor(v, device=model.device)
+            for k, v in data.batch(rows, rng=rng).items()}
+
+
+def _to(tree, device):
+    """A copy of a tree of tensors (dicts, tuples, NamedTuples) on
+    ``device``."""
+    from repro_torch.checkpoint.checkpointer import _tree_paths, _unflatten
+    return _unflatten(tree, iter([t.to(device, copy=True)
+                                  for _, t in _tree_paths(tree)]))
+
+
+def _bitwise(a, b):
+    from repro_torch.checkpoint.checkpointer import _tree_paths
+    la, lb = _tree_paths(a), _tree_paths(b)
+    return [k for k, _ in la] == [k for k, _ in lb] and all(
+        x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def _train_reduced(make_engine, get_config, tmp):
+    """(a) ``train_from_weights`` on the reduced float32 qwen, one weight
+    set, on the CPU and on the card: 15 steps (a checkpoint every 5),
+    then 25 with a NaN injected at step 12."""
+    import contextlib
+    import io
+    from repro_torch.launch.train import init_weights, train_from_weights
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(ARCH).scaled()
+    params, lora = init_weights(make_engine(cfg, device="cpu"), 0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        for name, kw in (("plain", dict(steps=15)),
+                         ("nan", dict(steps=25, inject_nan_at=12))):
+            eng = make_engine(cfg, lr=3e-3, device=dev)
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                out = train_from_weights(
+                    eng, tree_map(lambda t: t.to(dev), params),
+                    tree_map(lambda t: t.to(dev), lora), arch=ARCH,
+                    batch=4, seq=32, ckpt_every=5, log_every=5,
+                    ckpt_dir=os.path.join(tmp, f"a_{name}_{dev}"), **kw)
+            out["rollbacks"] = [ln for ln in log.getvalue().splitlines()
+                                if "non-finite" in ln]
+            runs[(name, dev)] = out
+    row = {}
+    for name in ("plain", "nan"):
+        cpu, gpu = runs[(name, "cpu")], runs[(name, "cuda")]
+        loss_err = max(abs(a - b) / abs(b)
+                       for a, b in zip(gpu["losses"], cpu["losses"]))
+        lora_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(gpu["lora"]), tree_leaves(cpu["lora"])))
+        row[name] = {"steps": [cpu["steps"], gpu["steps"]],
+                     "kept_losses": [len(cpu["losses"]), len(gpu["losses"])],
+                     "loss_rel_err": loss_err, "lora_max_abs_err": lora_err,
+                     "rollbacks": gpu["rollbacks"],
+                     "first_loss": gpu["losses"][0],
+                     "last_loss": gpu["losses"][-1]}
+        want_steps = 15 if name == "plain" else 25
+        want_kept = want_steps + (2 if name == "nan" else 0)
+        want_log = ["step 12: non-finite loss; restoring step 10"] \
+            if name == "nan" else []
+        if not (cpu["steps"] == gpu["steps"] == want_steps
+                and len(cpu["losses"]) == len(gpu["losses"]) == want_kept
+                and cpu["rollbacks"] == gpu["rollbacks"] == want_log
+                and np.isfinite(gpu["losses"]).all()):
+            raise AssertionError(f"train_cli (a) {name}: steps, kept losses "
+                                 f"or rollbacks differ: {row[name]}")
+        if not (loss_err <= TRAIN_LOSS_RTOL and lora_err <= TRAIN_LORA_ATOL):
+            raise AssertionError(f"train_cli (a) {name}: card vs CPU "
+                                 f"beyond tolerance: {row[name]}")
+    emit("train_cli_reduced", config=cfg.name, dtype="float32", batch=[4, 32],
+         loss_rtol=TRAIN_LOSS_RTOL, lora_atol=TRAIN_LORA_ATOL, **row)
+    return row
+
+
+def phase_train_cli(make_engine, get_config, lm, fa):
+    """The training CLI (``launch/train.py``) on the card: (a) card vs
+    CPU at the reduced float32 config, through a NaN rollback; (a2)
+    held-out CE falls at the reduced config; (b) full width qwen, 4 x
+    256, 20 steps, checkpoints every 10: CE on the last batch falls,
+    launches as derived, step ms, the pulls' share, checkpoint
+    seconds, peak memory; (c) the restart to 30 from (b)'s directory,
+    and checkpoints across devices; (d) 4 x 2,048 through
+    ``flash_attention``; (e) the CLI in subprocesses with a restore; (f)
+    llama3-8b at the CLI's defaults; (g) ``DataPipeline`` on the card.
+    Every lora_matmul launch shape of (b)-(f) was held against the plain
+    version by ``kernel_lora``."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint import checkpointer as ckpt_mod
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.data.synthetic import SyntheticDataset
+    from repro_torch.launch.train import init_weights, run_training
+    from repro_torch.optim.adamw import AdamWState
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_backward
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, ARCH)
+    per_step = n_lora + n_lora_bwd
+    res, shapes = {}, {}
+    tmp = tempfile.mkdtemp()
+    try:
+        res["a"] = _train_reduced(make_engine, get_config, tmp)
+
+        # (a2) tests/test_drivers.py's check on the card: reduced qwen,
+        # 30 steps of 8 x 32 at lr 5e-3, held-out CE falls
+        out_a2 = run_training(ARCH, smoke=True, steps=30, batch=8, seq=32,
+                              ckpt_dir=os.path.join(tmp, "a2"),
+                              ckpt_every=10, lr=5e-3, verbose=False,
+                              device="cuda")
+        eng = make_engine(get_config(ARCH).scaled(), device="cuda")
+        params, lora0 = init_weights(eng, 0)
+        a2 = _ce(eng.model, params, [lora0, out_a2["lora"]],
+                 _held_out(eng.model, 32, 16))
+        emit("train_cli_reduced_held_out", config=eng.model.cfg.name,
+             steps=out_a2["steps"], batch=[8, 32], lr=5e-3,
+             held_out_ce_initial_trained=a2)
+        res["a2"] = a2
+        if out_a2["steps"] != 30 or not a2[1] < a2[0]:
+            raise AssertionError(f"train_cli (a2): held-out CE {a2}")
+        del eng, params, lora0, out_a2
+
+        # (b) full width, dense path
+        ckb = os.path.join(tmp, "b")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with LoraShapeTap() as st, TrainTap() as tt:
+            _reset(lm, fwd, bwd)                          # main path starts
+            out_b = run_training(ARCH, smoke=False, steps=TRAIN_STEPS,
+                                 batch=4, seq=256, ckpt_dir=ckb,
+                                 ckpt_every=TRAIN_CKPT_EVERY, verbose=False,
+                                 device="cuda")
+            launches = (lm.launches, fwd.launches, bwd.launches)  # ends
+        shapes.update(st.shapes)
+        eng = make_engine(get_config(ARCH), device="cuda")
+        params, lora0 = init_weights(eng, 0)
+        trees = [lora0, out_b["lora"]]
+        held = _ce(eng.model, params, trees, _held_out(
+            eng.model, 256, 8, np.random.default_rng(12345)))
+        last = _ce(eng.model, params, trees, tt.last_batch)
+        del params, lora0, eng, trees
+        b = {"config": ARCH, "dtype": "bfloat16", "batch": [4, 256],
+             "steps": out_b["steps"], "losses": out_b["losses"],
+             "held_out_ce_initial_trained": held,
+             "last_batch_ce_initial_trained": last,
+             "lora_matmul_launches": launches[0],
+             "lora_matmul_launches_derived": TRAIN_STEPS * per_step,
+             "flash_attention_launches": list(launches[1:]),
+             "checkpoints": sorted(os.listdir(ckb)), **tt.row(),
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        emit("train_cli_full", **b)
+        res["b"] = b
+        # at full width the chain has 151,936 states with 7 successors
+        # each, which 20 x 1,024 tokens do not teach: held-out CE is
+        # reported, and learning is held on the last batch trained on
+        # ((a2) holds held-out CE where the chain is learnable)
+        if out_b["steps"] != TRAIN_STEPS or not last[1] < last[0]:
+            raise AssertionError(f"train_cli (b): CE on the last batch "
+                                 f"{last} in {out_b['steps']} steps")
+        if launches != (TRAIN_STEPS * per_step, 0, 0):
+            raise AssertionError(f"train_cli (b): launches {launches}, "
+                                 f"derived {TRAIN_STEPS * per_step}, 0, 0")
+        if b["checkpoints"] != ["step_0000000010", "step_0000000020"]:
+            raise AssertionError(f"train_cli (b): {b['checkpoints']}")
+
+        # (c) restart from (b)'s directory
+        log = io.StringIO()
+        with LoraShapeTap() as st, TrainTap() as tt, \
+                contextlib.redirect_stdout(log):
+            _reset(lm, fwd, bwd)
+            out_c = run_training(ARCH, smoke=False, steps=30, batch=4,
+                                 seq=256, ckpt_dir=ckb, restore=True,
+                                 ckpt_every=TRAIN_CKPT_EVERY, verbose=True,
+                                 log_every=100, device="cuda")
+            c_launches = lm.launches
+        shapes.update(st.shapes)
+        got_lora, got_opt = tt.restored[0]
+        # a card checkpoint onto the CPU, and a CPU one onto the card
+        on_cpu, _ = Checkpointer(ckb).restore((out_b["lora"], got_opt),
+                                              step=20, device="cpu")
+        mixed = {"lora": _to(out_b["lora"], "cpu"),
+                 "bf16": torch.randn(64, 96, generator=torch.Generator()
+                                     .manual_seed(4)).to(torch.bfloat16),
+                 "step": torch.tensor(20, dtype=torch.int32)}
+        ckx = Checkpointer(os.path.join(tmp, "c_cpu"))
+        ckx.save(1, mixed, blocking=True)
+        on_gpu, _ = ckx.restore(_to(mixed, "cuda"))
+        c = {"restored_line": [ln for ln in log.getvalue().splitlines()
+                               if ln.startswith("restored")],
+             "steps": out_c["steps"], "steps_run": len(out_c["losses"]),
+             "restored_lora_bitwise": _bitwise(got_lora, out_b["lora"]),
+             "restored_opt_step": int(got_opt.step),
+             "restored_on": got_lora["q"]["a"].device.type,
+             "card_ckpt_on_cpu_bitwise": _bitwise(on_cpu[0], out_b["lora"])
+             and on_cpu[0]["q"]["a"].device.type == "cpu",
+             "cpu_ckpt_on_card_bitwise": _bitwise(on_gpu, mixed)
+             and on_gpu["bf16"].device.type == "cuda",
+             "lora_matmul_launches": c_launches,
+             "codec": "zstd" if ckpt_mod.zstandard else "zlib",
+             "last_loss": out_c["losses"][-1], **tt.row()}
+        emit("train_cli_restart", **c)
+        res["c"] = c
+        if not (c["restored_line"] == ["restored step 20"]
+                and c["steps"] == 30 and c["steps_run"] == 10
+                and c["restored_lora_bitwise"] and c["restored_opt_step"] == 20
+                and c["restored_on"] == "cuda"
+                and c["card_ckpt_on_cpu_bitwise"]
+                and c["cpu_ckpt_on_card_bitwise"]
+                and c_launches == 10 * per_step
+                and isinstance(got_opt, AdamWState)):
+            raise AssertionError(f"train_cli (c): restart failed: {c}")
+        del out_b, out_c, got_lora, got_opt, on_cpu, on_gpu
+        torch.cuda.empty_cache()
+
+        # (d) past the dense limit: flash_attention forward and backward
+        torch.cuda.reset_peak_memory_stats()
+        with LoraShapeTap() as st, TrainTap() as tt:
+            _reset(lm, fwd, bwd)
+            out_d = run_training(ARCH, smoke=False, steps=TRAIN_LONG_STEPS,
+                                 batch=4, seq=TRAIN_LONG_SEQ, verbose=False,
+                                 device="cuda")
+            launches = (lm.launches, fwd.launches, bwd.launches)
+        shapes.update(st.shapes)
+        want = (TRAIN_LONG_STEPS * per_step, TRAIN_LONG_STEPS * n_layers,
+                TRAIN_LONG_STEPS * FLASH_BWD * n_layers)
+        d = {"batch": [4, TRAIN_LONG_SEQ], "steps": out_d["steps"],
+             "losses": out_d["losses"], "launches": list(launches),
+             "launches_derived": list(want), **tt.row(),
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        emit("train_cli_long", **d)
+        res["d"] = d
+        if launches != want or not np.isfinite(out_d["losses"]).all():
+            raise AssertionError(f"train_cli (d): launches {launches}, "
+                                 f"derived {want}, losses {out_d['losses']}")
+        del out_d
+        torch.cuda.empty_cache()
+
+        # (e) the CLI in subprocesses; the synthetic data seeds from
+        # Python's salted hash, so the seed is pinned
+        cli_dir = os.path.join(tmp, "e")
+        env = dict(os.environ, PYTHONHASHSEED="0", PYTHONPATH=SRC)
+        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                ARCH, "--full", "--batch", "4", "--seq", str(CLI_SEQ),
+                "--ckpt", cli_dir]
+        e = {"batch": [4, CLI_SEQ], "runs": []}
+        for extra, want_lines in (
+                (["--steps", str(CLI_STEPS)], [f"done: {CLI_STEPS} steps"]),
+                (["--steps", "15", "--restore"],
+                 [f"restored step {CLI_STEPS}", "done: 15 steps"])):
+            t0 = time.perf_counter()
+            p = subprocess.run(base + extra, env=env, capture_output=True,
+                               text=True, timeout=600)
+            lines = p.stdout.splitlines()
+            ok = p.returncode == 0 and all(
+                any(ln.startswith(w) for ln in lines) for w in want_lines)
+            e["runs"].append({"args": extra, "rc": p.returncode,
+                              "wall_s": time.perf_counter() - t0,
+                              "lines": [ln for ln in lines
+                                        if ln.startswith(("done",
+                                                          "restored"))]})
+            if not ok:
+                raise AssertionError(f"train_cli (e): {extra} rc "
+                                     f"{p.returncode}\n{p.stdout}\n"
+                                     f"{p.stderr[-4000:]}")
+        with open(os.path.join(cli_dir, "step_0000000015",
+                               "manifest.json")) as f:
+            e["codec"] = json.load(f)["codec"]
+        e["codec_expected"] = "zstd" if ckpt_mod.zstandard else "zlib"
+        emit("train_cli_subprocess", **e)
+        res["e"] = e
+        if e["codec"] != e["codec_expected"]:
+            raise AssertionError(f"train_cli (e): codec {e['codec']}")
+        # the subprocesses' launches are not counted here: their shapes
+        # are derived (M = 4 x 128, qwen's q/k/v/o, forward and dX)
+        m = 4 * CLI_SEQ
+        for kind in ("lora_matmul", "lora_matmul_dx"):
+            shapes[(kind, m, 1024, 1024, 16, 1, "bfloat16")] = 0
+
+        # (f) llama3-8b at the CLI's defaults: batch 8, seq 64
+        l_layers, l_lora, l_bwd = arch_counts(get_config, "llama3-8b")
+        torch.cuda.reset_peak_memory_stats()
+        with LoraShapeTap() as st, TrainTap() as tt:
+            _reset(lm, fwd, bwd)
+            out_f = run_training("llama3-8b", smoke=False,
+                                 steps=LLAMA_TRAIN_STEPS, batch=8, seq=64,
+                                 verbose=False, device="cuda")
+            f_launches = lm.launches
+        shapes.update(st.shapes)
+        f = {"config": "llama3-8b", "batch": [8, 64], "steps": out_f["steps"],
+             "losses": out_f["losses"], "lora_matmul_launches": f_launches,
+             "lora_matmul_launches_derived": LLAMA_TRAIN_STEPS * (
+                 l_lora + l_bwd), **tt.row(),
+             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        emit("train_cli_llama", **f)
+        res["f"] = f
+        if not (np.isfinite(out_f["losses"]).all()
+                and out_f["steps"] == LLAMA_TRAIN_STEPS
+                and f_launches == f["lora_matmul_launches_derived"]):
+            raise AssertionError(f"train_cli (f): {f}")
+        del out_f
+        torch.cuda.empty_cache()
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (g) the pipeline: sample_fn's batches in order, bitwise, on the card
+    data = SyntheticDataset("alpaca", vocab_size=1000, seq_len=64, seed=3)
+    twin = SyntheticDataset("alpaca", vocab_size=1000, seq_len=64, seed=3)
+    pipe = DataPipeline(data.batch, 4)
+    got = [next(pipe) for _ in range(4)]
+    want_b = [twin.batch(4) for _ in range(4)]
+    g_ok = all(v.device.type == "cuda" and torch.equal(
+        v.cpu(), torch.as_tensor(w[k])) for gb, w in zip(got, want_b)
+        for k, v in gb.items()) and all(gb.keys() == w.keys()
+                                        for gb, w in zip(got, want_b))
+    emit("train_cli_pipeline", batches=len(got), in_order_bitwise=g_ok)
+    if not g_ok:
+        raise AssertionError("train_cli (g): DataPipeline batches differ")
+
+    unchecked = [k for k in shapes if not lora_shape_checked(*k)]
+    emit("train_cli_shapes", lora_shapes=[list(k) + [v] for k, v in
+                                           sorted(shapes.items())],
+         unchecked=[list(k) for k in unchecked])
+    if unchecked:
+        raise AssertionError(f"train_cli: launched at shapes no kernel "
+                             f"phase checked: {unchecked}")
+    return res
+
+
+def phase_experiment():
+    """The paper's comparison harness (``runtime/experiment.py``): the
+    five policies at ``tests/test_experiment.py``'s short configuration
+    (6 replicas, 420 s simulated, seed 3), held to those tests' checks.
+    Simulated: the outputs are the simulator's arithmetic on the
+    replicas' interference surfaces, not card times (only
+    ``control_wall_s`` is a host clock)."""
+    from repro_torch.runtime.experiment import (
+        POLICIES, ExperimentConfig, run_experiment)
+    outs = {}
+    for policy in POLICIES:
+        t0 = time.perf_counter()
+        out = run_experiment(ExperimentConfig(
+            policy=policy, n_replicas=6, duration=420.0, scale=1.0, seed=3))
+        outs[policy] = {k: v for k, v in out.items() if not k.startswith("_")}
+        emit("experiment", simulated=True, wall_s=time.perf_counter() - t0,
+             **outs[policy])
+    bad = [p for p, o in outs.items()
+           if not (o["requests"] > 0 and o["completed"] > 0
+                   and o["slo_rate"] > 0.3)]
+    c = outs["collm"]
+    if bad or not (c["fl_rounds"] > 0 and c["mean_loss"] < 2.4
+                   and all(c["mean_quality"] > outs[p]["mean_quality"]
+                           for p in POLICIES if p != "collm")
+                   and c["mean_util"] > outs["peft"]["mean_util"]
+                   and c["overhead_frac"] < 0.05):
+        raise AssertionError(f"experiment: checks failed ({bad}): {outs}")
+    return outs
+
 # ---------------------------------------------------------------- tick ----
 def _device_us(evt):
     return getattr(evt, "self_device_time_total", None) \
@@ -3894,34 +4387,14 @@ def lora_shape_checked(kind, m, k, n, r, na, dtype):
     return False
 
 
-class FabricTap:
-    """Taps the fabric a ``launch/serve.py`` entry point builds (patches
-    ``runtime.fabric.build_fabric`` for the call; the port's own
-    ``warm_up`` has run inside it, and its seconds are kept): records the
-    shape of every ``lora_matmul`` / ``segmented_lora_matmul`` launch
-    (forward, and the dX of ``LoRAMatmulFn``'s backward), sets the
-    kernels' counts to 0 and the peak memory mark as
-    ``ServingFabric.run`` starts and reads them as it returns; times every
-    ``ServingFabric.tick`` and its ``ClusterController.tick``; counts the
-    replicas' eval probes, train microbatches and fused steps; keeps the
-    requests; with ``fail_at`` fails r1 over at that tick; checks at
-    every round boundary that the published tree the round's decodes
-    read is bitwise the one the round began with, and at every refused
-    (non-finite) publish that the served tree is bitwise unchanged."""
-
-    def __init__(self, counters, *, fail_at=None):
-        self.counters, self.fail_at = counters, fail_at
-        self.tick_s, self.ctl_s = [], []
-        self.round_checks, self.blocked_checks = [], []
-        self.probes = {}
+class LoraShapeTap:
+    """Records the shape of every ``lora_matmul`` / ``segmented_lora_
+    matmul`` launch while it is entered (forward, and the dX of
+    ``LoRAMatmulFn``'s backward) as (kind, M, K, N, r, slots, dtype):
+    launch count, the keys ``lora_shape_checked`` reads."""
 
     def __enter__(self):
         import repro_torch.kernels.lora_matmul as lm_mod
-        import repro_torch.runtime.fabric as fabric_mod
-        # the last phase's fabric sits in reference cycles (its taps)
-        gc.collect()
-        torch.cuda.empty_cache()
-        self._mod, self._orig = fabric_mod, fabric_mod.build_fabric
         self._lm_mod = lm_mod
         self._lm_orig = (lm_mod._launch, lm_mod._check_seg,
                          lm_mod.LoRAMatmulFn.backward)
@@ -3950,21 +4423,63 @@ class FabricTap:
             finally:
                 in_bwd[0] = False
 
+        lm_mod._launch, lm_mod._check_seg = rec_launch, rec_check_seg
+        lm_mod.LoRAMatmulFn.backward = staticmethod(rec_backward)
+        return self
+
+    def __exit__(self, *exc):
+        lm = self._lm_mod
+        lm._launch, lm._check_seg = self._lm_orig[:2]
+        lm.LoRAMatmulFn.backward = staticmethod(self._lm_orig[2])
+        return False
+
+    def unchecked(self):
+        """The recorded shapes no kernel phase held against the plain
+        version."""
+        return [k for k in self.shapes if not lora_shape_checked(*k)]
+
+
+class FabricTap:
+    """Taps the fabric a ``launch/serve.py`` entry point builds (patches
+    ``runtime.fabric.build_fabric`` for the call; the port's own
+    ``warm_up`` has run inside it, and its seconds are kept): records the
+    shape of every ``lora_matmul`` / ``segmented_lora_matmul`` launch
+    (forward, and the dX of ``LoRAMatmulFn``'s backward), sets the
+    kernels' counts to 0 and the peak memory mark as
+    ``ServingFabric.run`` starts and reads them as it returns; times every
+    ``ServingFabric.tick`` and its ``ClusterController.tick``; counts the
+    replicas' eval probes, train microbatches and fused steps; keeps the
+    requests; with ``fail_at`` fails r1 over at that tick; checks at
+    every round boundary that the published tree the round's decodes
+    read is bitwise the one the round began with, and at every refused
+    (non-finite) publish that the served tree is bitwise unchanged."""
+
+    def __init__(self, counters, *, fail_at=None):
+        self.counters, self.fail_at = counters, fail_at
+        self.tick_s, self.ctl_s = [], []
+        self.round_checks, self.blocked_checks = [], []
+        self.probes = {}
+
+    def __enter__(self):
+        import repro_torch.runtime.fabric as fabric_mod
+        # the last phase's fabric sits in reference cycles (its taps)
+        gc.collect()
+        torch.cuda.empty_cache()
+        self._mod, self._orig = fabric_mod, fabric_mod.build_fabric
+        self._shape_tap = LoraShapeTap().__enter__()
+        self.shapes = self._shape_tap.shapes
+
         def build(*a, **kw):
             fab, cfg = self._orig(*a, **kw)
             self.attach(fab)
             return fab, cfg
 
-        lm_mod._launch, lm_mod._check_seg = rec_launch, rec_check_seg
-        lm_mod.LoRAMatmulFn.backward = staticmethod(rec_backward)
         fabric_mod.build_fabric = build
         return self
 
     def __exit__(self, *exc):
         self._mod.build_fabric = self._orig
-        lm = self._lm_mod
-        lm._launch, lm._check_seg = self._lm_orig[:2]
-        lm.LoRAMatmulFn.backward = staticmethod(self._lm_orig[2])
+        self._shape_tap.__exit__(*exc)
         return False
 
     def attach(self, fab):
@@ -4144,7 +4659,7 @@ class FabricTap:
         if row["launches"] != want:
             raise AssertionError(f"{name}: launches {row['launches']}, "
                                  f"derived {want}")
-        unchecked = [k for k in self.shapes if not lora_shape_checked(*k)]
+        unchecked = self._shape_tap.unchecked()
         if unchecked:
             raise AssertionError(f"{name}: launched at shapes no kernel "
                                  f"phase checks: {unchecked}")
@@ -4479,6 +4994,8 @@ def main():
         "fabric_chaos": lambda: phase_fabric_chaos(get_config),
         "fabric_adapters": lambda: phase_fabric_adapters(get_config),
         "train": lambda: phase_train(make_engine, get_config, lm),
+        "train_cli": lambda: phase_train_cli(make_engine, get_config, lm, fa),
+        "experiment": phase_experiment,
         "tick": lambda: phase_tick(make_engine, get_config),
     }
     # bring-up only: named on the command line, never in the full run
@@ -4512,6 +5029,17 @@ def main():
     fab = {"l-a": out["fabric"]["fabric"], "l-b": out["fabric"]["failover"],
            "l-c": out["fabric_combined"], "l-d": out["fabric_chaos"],
            "l-e": out["fabric_adapters"]}
+
+    tc = out["train_cli"]
+    # the training CLI's in-process runs of the train_cli phase: (b) and
+    # (c) qwen 4 x 256, (d) qwen 4 x 2,048, (f) llama3-8b 8 x 64
+    train_launches = {
+        "lora_matmul": {"b": tc["b"]["lora_matmul_launches"],
+                        "c": tc["c"]["lora_matmul_launches"],
+                        "d": tc["d"]["launches"][0],
+                        "f": tc["f"]["lora_matmul_launches"]},
+        "flash_attention": {"d": tc["d"]["launches"][1]},
+        "flash_attention_backward": {"d": tc["d"]["launches"][2]}}
 
     def fabric_launches(kernel):
         """A kernel's launches in each fabric run (traffic (l))."""
@@ -4568,6 +5096,7 @@ def main():
         # the co-training server, paged 32+16: prefill, decode and train
         "launches": combined["paged"]["lora_matmul_launches"],
         "fabric_launches": fabric_launches("lora_matmul"),
+        "train_cli_launches": train_launches["lora_matmul"],
         "shape": "decode M=8 K=N=1024 r=16 bf16",
         "max_abs_err": lrows[("decode", torch.bfloat16)]["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -4601,6 +5130,7 @@ def main():
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:86",
         "launches": combined["paged_2048"]["flash_attention_launches"],
+        "train_cli_launches": train_launches["flash_attention"],
         "shape": "prefill wave B=8 H=Hkv=16 D=64 S=2048 causal bf16",
         "max_abs_err": f_fwd["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -4617,6 +5147,7 @@ def main():
         "replaces": "src/repro/models/layers.py:105",
         "launches": combined["paged_2048"][
             "flash_attention_backward_launches"],
+        "train_cli_launches": train_launches["flash_attention_backward"],
         "shape": "train batch B=4 H=Hkv=16 D=64 S=2048 causal bf16",
         "max_abs_err": f_bwd["bwd_max_abs_err"],
         "max_rel_err": max(f_bwd[f"{g}_rel_err"] for g in ("dq", "dk", "dv")),

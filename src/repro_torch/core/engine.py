@@ -106,31 +106,23 @@ class Engine:
 
     # ------------------------------------------------------------ serving --
     @torch.no_grad()
-    def prefill_step(self, params: Any, lora: Any, batch: Any,
-                     adapter_idx: Any = None) -> Tuple[torch.Tensor, Any]:
-        """Prefill full-length prompts: (last-token logits, caches).
-        ``adapter_idx`` [B] selects each row's slot of a stacked
-        ``lora``.  SSM stacks take the exact-length ``Model.prefill``
-        (one adapter); a VLM batch carries ``batch["vision"]`` and its
-        caches ``cross_kv``."""
+    def prefill_step(self, params: Any, lora: Any, batch: Any
+                     ) -> Tuple[torch.Tensor, Any]:
+        """Prefill full-length prompts: (last-token logits, caches).  SSM
+        stacks take the exact-length ``Model.prefill``; a VLM batch
+        carries ``batch["vision"]`` and its caches ``cross_kv``."""
         if self.model.cfg.has_ssm:
-            if adapter_idx is not None:
-                raise NotImplementedError(
-                    f"{self.model.cfg.name}: per-row adapters need the "
-                    "ragged attention prefill")
             return self.model.prefill(params, lora, batch)
         tokens = batch["tokens"]
         lens = torch.full((tokens.shape[0],), tokens.shape[1],
                           device=tokens.device)
-        return self.model.prefill_ragged(params, lora, batch, lens,
-                                         adapter_idx=adapter_idx)
+        return self.model.prefill_ragged(params, lora, batch, lens)
 
     @torch.no_grad()
     def decode_step(self, params: Any, lora: Any, caches: Any,
-                    token: torch.Tensor, pos: torch.Tensor,
-                    adapter_idx: Any = None) -> Tuple[torch.Tensor, Any]:
-        return self.model.decode_step(params, lora, caches, token, pos,
-                                      adapter_idx=adapter_idx)
+                    token: torch.Tensor, pos: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Any]:
+        return self.model.decode_step(params, lora, caches, token, pos)
 
     # ------------------------------------------------- the paper's fusion --
     def combined_step(self, params: Any, lora: Any, opt_state: AdamWState,

@@ -226,7 +226,8 @@ def test_engine_prefill_step_is_the_exact_length_prefill(pair):
     assert torch.equal(lg, want)
     assert all(torch.equal(caches["ssm"][k], wcaches["ssm"][k])
                for k in ("conv", "state"))
-    with pytest.raises(NotImplementedError, match="ragged"):
+    with pytest.raises(TypeError, match="adapter_idx"):
+        # the reference's engine steps serve one adapter: no per-row slots
         eng.prefill_step(tp, tlora, toks,
                          adapter_idx=torch.zeros(1, dtype=torch.int32))
 
