@@ -32,7 +32,9 @@ Phases, each printing JSON lines:
               and (bf16) the rows of every M > 16 wave the serve, prefix,
               chunked and budget runs give it (qwen's suffix wave 8 x 224
               and chunk wave 8 x 256, llama3-8b's 8 x 992 and 8 x 224
-              waves), plus its backward (dX, dA, dB of
+              waves), hymba-1.5b's ssm_in (N 6,482, no multiple of 8: W
+              and B in padded storage) at M 8 and 8,192, plus its
+              backward (dX, dA, dB of
               LoRAMatmulFn against autograd of the plain version) at the
               train shapes and the decode shape;
   kernel_flash flash_attention forward and backward against the plain
@@ -56,8 +58,13 @@ Phases, each printing JSON lines:
               (H 50, N 16), x float32 and bfloat16 as a strided view like
               the mixer's; 2,048 tokens and the two requests again with
               dt and a as the mixer makes them, so that the state
-              carried from one chunk to the next shows in y; a CUDA
-              input that requires grad must raise;
+              carried from one chunk to the next shows in y; then the
+              backward kernel against ``ssd_scan_bwd_ref`` (every
+              gradient) at the co-training shapes: mamba2 and hymba at 4
+              x 32 and 4 x 2,048 rows, 2 x 1,000 from a random state with
+              a gradient on the final state, and the test distributions,
+              two calls bitwise equal, its workspace's peak; and autograd
+              through ``ssd_scan`` on CUDA tensors reaching it;
   kernel_decode decode_attention against its plain version at the VLM's
               cross-attention decode (8 slots, 64 heads / 8 KV, head_dim
               128, 1,601 vision tokens, K/V the transposed view of the
@@ -95,9 +102,9 @@ Phases, each printing JSON lines:
   reference_blockwise  the same at a reduced float32 config forced onto
               the blockwise path (prefill logits and caches, one train
               step, the flash launches they make), and at full width in
-              bf16 on 992 tokens each of the 24 layers' attention on the
+              bf16 on 992 tokens each layer's attention on the
               blockwise against the dense path, same input;
-  serve       qwen1.5-0.5b at full width (24 layers, d_model 1024, bf16,
+  serve       qwen1.5-0.5b at full width (d_model 1024, 8 layers, bf16,
               random weights from a seed) through ``run_serving``, 16
               requests on 8 slots: paged and contiguous with 32-token
               prompts, 992-token prompts paged (blocks of 16 and of 128)
@@ -127,12 +134,12 @@ Phases, each printing JSON lines:
               of qwen's bf16 pool swapped to host and back onto fresh ids
               (moved blocks bitwise, paged_decode_attention over the
               remapped table bitwise its output over the original, swap
-              GB/s each way), then 16 requests of 256 + 256 tokens on 8
-              slots, paged in blocks of 16: qwen on a pool of 256 blocks
-              (every slot fits) and of 160 (admission holds 5 slots), on
-              160 at oversubscribe 1.0 with swap (again under
+              GB/s each way), then 16 requests of 64 + 64 tokens on 8
+              slots, paged in blocks of 16: qwen on a pool of 64 blocks
+              (every slot fits) and of 40 (admission holds 5 slots), on
+              40 at oversubscribe 1.0 with swap (again under
               REPRO_SANITIZE=1: no report, host ms a tick it adds) and
-              without (drop and re-prefill), llama3-8b on 160 with swap;
+              without (drop and re-prefill), llama3-8b on 40 with swap;
               every request finishes, the allocator drains, the
               oversubscribed runs preempt, launches as derived; tok/s,
               TTFT / TPOT, peak blocks, preemptions, blocks swapped each
@@ -141,12 +148,26 @@ Phases, each printing JSON lines:
   static      ``static_batch_serve`` (batches of 8) against the batcher (8
               contiguous slots), qwen 32 + 16, without and with an EOS id
               that fires: the same EOS rule, launches as derived, tok/s;
-  serve_ssm   mamba2-780m at full width (48 layers, d_model 1536, bf16),
+  serve_ssm   mamba2-780m at full width (d_model 1536, 16 layers, bf16),
               16 requests on 8 contiguous slots at 32+16, 992+32 and
               2,048+32 tokens: every request finishes, ssd_scan once per
               layer per request (SSD_LAUNCHES launches a call),
               lora_matmul once per adapter projection
               per prefill call and decode step, no attention kernel;
+  serve_hybrid  hymba-1.5b: the reduced float32 batcher's greedy tokens
+              on the card and the CPU (16-token window, ring wraps); at
+              full width (32 layers, d_model 1,600, 25 / 5 heads of 64,
+              window 2,048, 50 SSM heads of 64, state 16, bf16) through
+              ``run_serving``, 8 contiguous slots: 16 requests at 32+16
+              and 992+32, 8 at 1,984+128 (every decode wraps the ring):
+              every request finishes, launches exactly as derived
+              (ssd_scan per layer per request, flash_attention per layer
+              per prefill past 1,024 tokens, the paged kernel per layer
+              per decode step, lora_matmul per adapter projection);
+              TTFT / TPOT; a 1,984-token prompt decoded 128 tokens
+              past the window, its logits past position 2,048 against
+              ``Model.logits`` of the same tokens (5e-2 of the largest,
+              90% of the argmaxes);
   serve_vlm   llama-3.2-vision-90b at published width (d_model 8192, 64
               heads / 8 KV, d_ff 28672, bf16), depth cut to 4 whole units
               (20 of 100 layers), gates at 0.5, through Engine.prefill_step
@@ -159,13 +180,21 @@ Phases, each printing JSON lines:
   combined    the same servers co-training the adapter on every tick
               (``run_serving(combined=True)``, train batch 4 x prompt
               length; llama3-8b 1 x prompt length): qwen paged and
-              contiguous 32+16, paged 992+32 and 2,048+32, llama3-8b paged
-              2,048+32; one train step per tick with finite losses, and
+              contiguous 32+16, paged 992+16 and 2,048+16, llama3-8b paged
+              2,048+16; one train step per tick with finite losses, and
               launches exactly as derived (lora_matmul: forward, then dX
               of every projection but layer 0's q/k/v; flash_attention:
               one forward per layer per prefill wave and train step, three
               backward launches per layer per train step, past 1,024
               tokens only);
+  combined_ssm  co-training on SSM stacks (``run_serving(combined=
+              True)``, 8 contiguous slots, 16 requests): mamba2-780m and
+              hymba-1.5b at 32+16 with 4 x 32 train rows, mamba2 at
+              2,048+8 with 4 x 2,048 (the backward at 2,048 tokens): one
+              train step per tick, finite losses, launches exactly as
+              derived (ssd_scan and its backward per layer per train
+              step, lora_matmul forward and dX); each arch's loss on a
+              fixed 4 x 32 batch falls over six steps;
   serve_adapters  multi-tenant serving at full width (4 tenants tagged
               round-robin; qwen paged and contiguous 32+16, paged 992+32 and
               2,048+32, 6 tenants on 4 device slots, co-training paged
@@ -175,7 +204,7 @@ Phases, each printing JSON lines:
               and step, lora_matmul only in the train step), tenant 0
               (b = 0) emits the single-adapter run's tokens;
   budget      co-training under a 0.1 s TPOT target, paged, 32 + 16 (4 x
-              32 train rows) and 992 + 32 in chunks of 256 (4 x 992),
+              32 train rows) and 992 + 16 in chunks of 256 (4 x 992),
               through run_serving; the host ms of drawing one train
               batch (run_serving draws one every tick); train steps,
               rows per trained tick,
@@ -242,14 +271,21 @@ Phases, each printing JSON lines:
               bitwise (b)'s with AdamW step 20; a card checkpoint
               restored onto the CPU and a CPU one onto the card bitwise;
               (d) 4 x 2,048, 3 steps: flash_attention forward and
-              backward launches as derived; (e) ``python -m
-              repro_torch.launch.train --full`` in subprocesses with
-              PYTHONHASHSEED pinned, 10 steps, then ``--restore`` to 15;
+              backward launches as derived; (e) the CLI's ``main``
+              (``--full``) in this process, 10 steps, then ``main``
+              ``--restore`` to 15 in a subprocess with PYTHONHASHSEED
+              pinned;
               the manifest's codec as this machine has it; (f) llama3-8b,
               the CLI's default arch and batch (8 x 64), 5 steps; (g)
               ``DataPipeline`` on the card yields the sample function's
               batches in order, bitwise; every lora_matmul launch shape
               of (b)-(f), dX included, one that kernel_lora checked;
+  train_cli_ssm  the training CLI on mamba2-780m and hymba-1.5b: (a)
+              reduced float32, card against CPU, 10 steps (losses 1e-5
+              relative, adapters 2e-4); (b) full width, 4 x 256, 3 steps,
+              a checkpoint at 3: the last batch's CE falls, launches as
+              derived, step ms, peak memory; (c) the restart to 4: the
+              restored tree bitwise (b)'s, AdamW step 3;
   experiment  ``run_experiment`` for the five policies at
               tests/test_experiment.py's short configuration (6
               replicas, 420 s simulated, seed 3) and those tests'
@@ -259,7 +295,8 @@ Phases, each printing JSON lines:
               992- and 2,048-token prompts, combined ticks with a 4 x 32
               and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
               tokens, mamba2-780m decode ticks after 32- and 2,048-token
-              prompts, a VLM decode tick; one full, one suffix and one
+              prompts and a combined one (4 x 32), hymba-1.5b's serve and
+              combined ticks at 32, a VLM decode tick; one full, one suffix and one
               chunk prefill wave at serve_prefix's shapes): host wall per
               tick or wave, and under torch.profiler the device time,
               each kernel's share and the kernels launched;
@@ -271,6 +308,13 @@ lora_matmul decode path over a range of split counts (what their split
 plans rest on), beside a streaming-read yardstick; ``budget_seeded`` runs
 the budget phase's traffic with the train cost priced first by a warm
 idle train tick (a policy the runtime does not have).
+Depth: every phase but ``tick`` and the fabric phases (WHOLE_DEPTH)
+runs qwen1.5-0.5b, llama3-8b and mamba2-780m at their published widths
+with DEPTH_CUT's layers (8 of 24, 8 of 32, 16 of 48; the registry's
+entries replaced in this process, so ``run_serving`` and
+``run_training`` build them too): a tick's host time, which bounds
+nearly every run here, grows with the kernels it launches, so with
+depth.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before
 that.  Without a CUDA device, or without the rest of the repository, it
@@ -299,10 +343,20 @@ HBM_BYTES_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_S = {torch.float32: 67e12,    # f32 outside the tensor cores
               torch.bfloat16: 989e12}  # dense bf16 tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-REPS = 60
+REPS = 30          # timed runs a median
 ARCH = "qwen1.5-0.5b"
-N_LORA = 96         # adapter projections per forward: 24 layers x q/k/v/o
-N_LORA_BWD = 93     # their dX in the backward, but layer 0's q/k/v
+# layers of the earlier paths' archs (published widths; see the module
+# docstring) in every phase but WHOLE_DEPTH's: tick (comparable with the
+# earlier breakdowns) and the fabric phases (their peak-memory check
+# bounds the activations by half a copy of the weights, the embedding
+# and head's 622 MB being most of a cut qwen)
+DEPTH_CUT = {"qwen1.5-0.5b": 8, "llama3-8b": 8, "mamba2-780m": 16}
+WHOLE_DEPTH = {"tick", "fabric_reference", "fabric", "fabric_combined",
+               "fabric_chaos", "fabric_adapters"}
+# ARCH's adapter projections per forward (8 layers x q/k/v/o) and their
+# dX in the backward (but layer 0's q/k/v); main() derives them again
+N_LORA = 32
+N_LORA_BWD = 29
 LORA_SCALING = 2.0  # alpha / r = 32 / 16
 # kernel vs plain, relative to the plain output's largest magnitude:
 # float32 sums over K <= 2816 in another order; in bfloat16 both round
@@ -327,7 +381,11 @@ LORA_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 # and the combined rounds' train microbatch (2 x 32 rows: train batch 4
 # in grad_accum 2), whose backward runs too; then the training CLI's
 # (train_cli phase) batches of 4 x 128 (qwen) and 8 x 64 (llama3-8b, the
-# CLI's default arch and batch: q/o and k/v), with their backward
+# CLI's default arch and batch: q/o and k/v), with their backward; then
+# hymba-1.5b's ssm_in (N = 6,482 = 8 x 810 + 2: W in padded storage, B
+# and in the backward dY copied into such storage by the wrapper, the
+# output row by row) at decode and at a 4 x 2,048 train batch with its
+# backward
 LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train", 128, 1024, 1024, 16),         # 4 x 32 tokens
                ("prefill", 256, 1024, 1024, 16),       # 8 x 32 prompt
@@ -362,12 +420,15 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train_micro", 64, 1024, 1024, 16),
                ("train_cli", 512, 1024, 1024, 16),
                ("train_llama_cli_qo", 512, 4096, 4096, 16),
-               ("train_llama_cli_kv", 512, 4096, 1024, 16)]
+               ("train_llama_cli_kv", 512, 4096, 1024, 16),
+               ("hymba_ssm_in_decode", 8, 1600, 6482, 16),
+               ("train_hymba_ssm_in", 8192, 1600, 6482, 16)]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
                   "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
                   "llama_suffix_qo", "llama_suffix_kv", "train_cli",
-                  "train_llama_cli_qo", "train_llama_cli_kv"}
+                  "train_llama_cli_qo", "train_llama_cli_kv",
+                  "train_hymba_ssm_in"}
 
 
 def lora_has_backward(name):
@@ -387,7 +448,11 @@ def lora_dtypes(name):
 # shape the serve and combined phases give it: the prefill waves of
 # qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and llama3-8b (GQA 4:1,
 # head_dim 128), the co-training train batches (qwen 4 x 2,048, llama
-# 1 x 2,048); then two ragged lengths and a sliding window
+# 1 x 2,048); then two ragged lengths and a sliding window; then
+# hymba-1.5b's (25 / 5 heads of 64, a 2,048-token window): a request's
+# 1,984-token exact-length prefill, the ring check's forward over 2,112
+# tokens (the window binding) and the co-training train batch of 4 x
+# 1,984 (forward and backward)
 FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0),
                 ("qwen_prefill_4096", 8, 16, 16, 64, 4096, 0),
                 ("llama_prefill", 8, 32, 8, 128, 2048, 0),
@@ -395,7 +460,10 @@ FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0),
                 ("llama_train", 1, 32, 8, 128, 2048, 0),
                 ("ragged_1000", 8, 16, 16, 64, 1000, 0),
                 ("ragged_2049", 4, 16, 16, 64, 2049, 0),
-                ("window", 4, 16, 16, 64, 2048, 512)]
+                ("window", 4, 16, 16, 64, 2048, 512),
+                ("hymba_prefill", 1, 25, 5, 64, 1984, 2048),
+                ("hymba_ring", 1, 25, 5, 64, 2112, 2048),
+                ("hymba_train", 4, 25, 5, 64, 1984, 2048)]
 FLASH_REPS = 10
 # backward launches: bf16 prep (delta, lse, zeroed dQ accumulator), the
 # single pass, finish (dQ rounded; dK, dV slices summed); f32 delta,
@@ -409,8 +477,13 @@ FLASH_BWD = 3
 FLASH_DQ_REPEAT_TOL = 2 ** -8
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t``: seconds since the script started."""
+    print(json.dumps({"phase": phase, "t": time.perf_counter() - _T0,
+                      **kw}), flush=True)
 
 
 def smi():
@@ -545,7 +618,12 @@ def attention_bound(q, kp, tables, kv_len):
 # 8 rows that contiguous caches of other lengths give (TMA boxes of fewer
 # than 8 rows; the VLM's self-attention, 8 query heads per KV head); last
 # the prefix cache's aliasing: every table names the same 48 prefix blocks
-# (768 rows), then 14 private blocks each, lengths ragged past the prefix
+# (768 rows), then 14 private blocks each, lengths ragged past the prefix;
+# last hymba-1.5b's decode (25 / 5 heads of 64) over its contiguous rings
+# through identity tables: 8 slots of 48 rows (32 + 16), 1,024 (992 +
+# 32), 1,992 (1,984 + 8, blocks of 8) and 2,048 (the window: 1,984 + 128,
+# wrapped), then one slot of 2,048 (the ring check) and of 64 (the exact
+# ring check's window, float32)
 PAGED_SHAPES = [
     ("serve", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=3)),
     ("long", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=64)),
@@ -559,6 +637,15 @@ PAGED_SHAPES = [
     ("bs2", dict(b=4, h=16, hkv=16, d=64, bs=2, nb=150)),
     ("bs8_g8", dict(b=2, h=64, hkv=8, d=128, bs=8, nb=40)),
     ("shared", dict(b=8, h=16, hkv=16, d=64, bs=16, nb=62, shared=48)),
+    ("hymba_48", dict(b=8, h=25, hkv=5, d=64, bs=16, nb=3)),
+    ("hymba_1024", dict(b=8, h=25, hkv=5, d=64, bs=256, nb=4)),
+    ("hymba_1992", dict(b=8, h=25, hkv=5, d=64, bs=8, nb=249)),
+    ("hymba_ring", dict(b=8, h=25, hkv=5, d=64, bs=256, nb=8,
+                        lengths="tick")),
+    ("hymba_ring_1", dict(b=1, h=25, hkv=5, d=64, bs=256, nb=8,
+                          lengths="tick")),
+    ("hymba_window_64", dict(b=1, h=25, hkv=5, d=64, bs=64, nb=1,
+                             lengths="tick")),
 ]
 
 
@@ -627,12 +714,18 @@ def phase_kernel(pda, pda_ref):
 
 # ------------------------------------------------------------- lora -------
 def lora_case(m, k, n, r, dtype, seed):
+    """x, W, A, B as the model hands them over: W in storage padded to
+    whole 16-byte rows where N is no multiple of 8 (``pad_columns``, as
+    ``mamba2.pad_storage`` keeps it), B compact (the wrapper copies it
+    into padded storage in the call)."""
+    from repro_torch.kernels.lora_matmul import pad_columns
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((m, k), generator=g, device="cuda")
     w = torch.randn((k, n), generator=g, device="cuda") / k ** 0.5
     a = torch.randn((k, r), generator=g, device="cuda") / k ** 0.5
     b = torch.randn((r, n), generator=g, device="cuda") * 0.1
-    return tuple(t.to(dtype) for t in (x, w, a, b))
+    x, w, a, b = (t.to(dtype) for t in (x, w, a, b))
+    return x, pad_columns(w), a, b
 
 
 def lora_bound(m, k, n, r, dtype):
@@ -724,7 +817,8 @@ def phase_kernel_lora(lm, lm_ref, fn_cls):
             dy = torch.randn((m, n), device="cuda").to(dtype)
             xk, ak, bk = (t.clone().requires_grad_() for t in (x, a, b))
             got = torch.autograd.grad(
-                fn_cls.apply(xk, w, ak, bk, LORA_SCALING), (xk, ak, bk), dy)
+                fn_cls.apply(xk, w, ak, bk, LORA_SCALING),
+                (xk, ak, bk), dy)
             xr, ar, br = (t.clone().requires_grad_() for t in (x, a, b))
             want = torch.autograd.grad(
                 lm_ref(xr, w, ar, br, LORA_SCALING), (xr, ar, br), dy)
@@ -1100,7 +1194,7 @@ def phase_kernel_ssd(ssd):
     the reference's chunk of 256) at the prefill shapes, x in float32 and
     bfloat16: y and the final state relative to their largest values.
     Times: kernel, plain version; no PyTorch call computes an SSD scan.
-    A CUDA call with an input that requires grad must raise."""
+    Then the backward kernel (``kernel_ssd_bwd``)."""
     rows = {}
     for si, (name, b, s, h, p, n, init, inputs) in enumerate(SSD_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1149,15 +1243,158 @@ def phase_kernel_ssd(ssd):
             rows[(name, dtype)] = row
             del x, dt, a, bm, cm, st, y, fin, yr, finr, y2, fin2
             torch.cuda.empty_cache()
-    x, dt, a, bm, cm, _ = ssd_case(1, 64, 48, 64, 128, False, torch.float32,
-                                   700)
-    try:
-        ssd.ssd_scan(x.clone().requires_grad_(), dt, a, bm, cm)
-    except NotImplementedError as e:
-        emit("kernel_grad_check", kernel="ssd_scan", raised=str(e))
-    else:
-        raise AssertionError("ssd_scan: a CUDA input that requires grad did "
-                             "not raise")
+    rows.update(kernel_ssd_bwd(ssd))
+    return rows
+
+
+# (name, B, S, H, P, N, random init_state and d(final_state), inputs):
+# the training shapes of the SSM co-training phases, mamba2-780m (48 heads
+# of 64, N 128) and hymba-1.5b (50 heads of 64, N 16) at the combined runs'
+# 4 x 32 rows and at 4 x 2,048; then a length that is no multiple of the
+# 64-row chunk from a random state with a gradient on the final state, and
+# the test distributions (a decay of ~e^-50 a chunk) at 2,048
+SSD_BWD_SHAPES = [
+    ("bwd_mamba_4x2048", 4, 2048, 48, 64, 128, False, "mixer"),
+    ("bwd_mamba_4x32", 4, 32, 48, 64, 128, False, "mixer"),
+    ("bwd_hymba_4x2048", 4, 2048, 50, 64, 16, False, "mixer"),
+    ("bwd_hymba_4x32", 4, 32, 50, 64, 16, False, "mixer"),
+    ("bwd_ragged_init_2x1000", 2, 1000, 48, 64, 128, True, "mixer"),
+    ("bwd_test_1x2048", 1, 2048, 48, 64, 128, False, "test")]
+SSD_BWD_CHUNK = 64    # the plain backward at the kernel's own chunk
+SSD_BWD_GRADS = ("dx", "ddt", "da", "dB", "dC", "dinit")
+# kernel vs plain, relative to each gradient's largest magnitude: float32
+# sums over 64 positions, P and N in another order (and da over every
+# position); dx in bf16 rounds once more (2^-8)
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SSD_BWD_REPS = 5
+
+
+def ssd_bwd_bound(b, s, h, p, n, init, dtype):
+    """Least time for one backward call: x, dy, dt, a, B, C (and the
+    entering state and d(final_state)) read once, dx, ddt, da, dB, dC
+    (and d(init_state)) written once; the float32 operations of the
+    chunk-wise backward at the kernel's 64-row chunk, counting what this
+    length needs (2 FLOP per multiply-add): per (batch, chunk, head) the
+    chunk's own state and reverse term, B G^T, x G and dy E (each 2 r P N
+    over the chunk's r rows) and dy x^T and scores^T dy over the causal
+    pairs (2 P each); per (batch, chunk) C B^T, dCB B and dCB^T C over
+    the causal pairs (2 N each)."""
+    elt = torch.empty((), dtype=dtype).element_size()
+    io = 2 if init else 0
+    nbytes = 3 * b * s * h * p * elt + 4 * (2 * b * s * h + 2 * h
+                                            + 4 * b * s * n) \
+        + 4 * b * h * p * n * io
+    per_head = shared = 0
+    for lo in range(0, s, SSD_BWD_CHUNK):
+        r = min(SSD_BWD_CHUNK, s - lo)
+        pairs = r * (r + 1) // 2
+        per_head += 10 * r * p * n + 4 * pairs * p
+        shared += 6 * pairs * n
+    ops = b * h * per_head + b * shared
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = ops / PEAK_OPS_S[torch.float32]
+    return max(t_bytes, t_ops) * 1e3, \
+        ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def kernel_ssd_bwd(ssd):
+    """The ssd_scan backward kernel against ``ssd_scan_bwd_ref`` at the
+    kernel's chunk, x (and dy) float32 and bfloat16: every gradient
+    relative to its largest magnitude, two calls bitwise equal, kernel /
+    plain time, host us; then autograd through ``ssd_scan`` on CUDA
+    tensors reaches the kernel (``ssd_scan_bwd.launches``).  No PyTorch
+    call computes the function."""
+    rows = {}
+    for si, (name, b, s, h, p, n, init, inputs) in enumerate(SSD_BWD_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dt, a, bm, cm, st = ssd_case(b, s, h, p, n, init, dtype,
+                                            800 + si, inputs)
+            g = torch.Generator(device="cuda").manual_seed(900 + si)
+            dy = torch.randn((b, s, h, p), generator=g,
+                             device="cuda").to(dtype)
+            dfin = torch.randn((b, h, p, n), generator=g, device="cuda") \
+                if init else None
+
+            def run():
+                return ssd.ssd_scan_bwd(x, dt, a, bm, cm, dy, dfin,
+                                        init_state=st)
+
+            def plain():
+                return ssd.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, dfin,
+                                            chunk=SSD_BWD_CHUNK,
+                                            init_state=st)
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            want = plain()
+            again = run()
+            torch.cuda.synchronize()
+            errs, finite = {}, True
+            for gname, u, v in zip(SSD_BWD_GRADS, got, want):
+                if v is None:
+                    continue
+                finite &= bool(torch.isfinite(u).all())
+                errs[gname] = _rel_err(u, v)
+            tol = {gname: SSD_BWD_TOL[dtype] if gname == "dx"
+                   else SSD_BWD_TOL[torch.float32] for gname in errs}
+            bitwise = all(torch.equal(u, v) for u, v in zip(got, again)
+                          if u is not None)
+            bound_ms, bound_by, ops = ssd_bwd_bound(b, s, h, p, n, init,
+                                                    dtype)
+            row = {
+                "shape": name, "B": b, "S": s, "H": h, "P": p, "N": n,
+                "init_state_and_dfinal": init, "inputs": inputs,
+                "dtype": str(dtype).split(".")[-1],
+                **{f"{k}_rel_err": e for k, e in errs.items()},
+                "rel_tol": tol, "finite": finite,
+                "max_abs_err": max(float((u.float() - v.float()).abs().max())
+                                   for u, v in zip(got, want)
+                                   if v is not None),
+                "repeat_bitwise": bitwise,
+                "workspace_and_outputs_peak_bytes": peak,
+                "ms": device_ms(run, SSD_BWD_REPS),
+                "plain_ms": device_ms(plain, SSD_BWD_REPS),
+                "library_ms": None,
+                "host_us": host_us(run, 20),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "gflop": ops / 1e9,
+            }
+            emit("kernel", kernel="ssd_scan_backward", **row)
+            if not (finite and bitwise
+                    and all(errs[k] <= tol[k] for k in errs)):
+                raise AssertionError(
+                    f"ssd_scan_bwd {name} {dtype}: {errs} beyond {tol}, not "
+                    "finite, or two calls on the same inputs differ")
+            rows[(name, dtype)] = row
+            del x, dt, a, bm, cm, st, dy, dfin, got, want, again
+            torch.cuda.empty_cache()
+    # autograd through the wrapper on CUDA tensors: the backward kernel,
+    # never a plain version
+    x, dt, a, bm, cm, st = ssd_case(2, 100, 48, 64, 128, True,
+                                    torch.float32, 700, "mixer")
+    ins = [t.detach().clone().requires_grad_()
+           for t in (x, dt, a, bm, cm, st)]
+    _reset(ssd.ssd_scan, ssd.ssd_scan_bwd)
+    y, fin = ssd.ssd_scan(*ins[:5], init_state=ins[5])
+    (y.square().sum() + fin.sum()).backward()
+    torch.cuda.synchronize()
+    launched = (ssd.ssd_scan.launches, ssd.ssd_scan_bwd.launches)
+    _reset(ssd.ssd_scan, ssd.ssd_scan_bwd)
+    want = ssd.ssd_scan_bwd_ref(x, dt, a, bm, cm, 2 * y.detach(),
+                                torch.ones_like(fin), chunk=SSD_BWD_CHUNK,
+                                init_state=st)
+    errs = {k: _rel_err(t.grad, w)
+            for k, t, w in zip(SSD_BWD_GRADS, ins, want)}
+    emit("kernel_grad_check", kernel="ssd_scan", launches=launched,
+         **{f"{k}_rel_err": e for k, e in errs.items()})
+    if launched != (SSD_LAUNCHES, ssd.LAUNCHES_BWD) \
+            or max(errs.values()) > SSD_BWD_TOL[torch.float32]:
+        raise AssertionError(f"ssd_scan autograd on the card: launches "
+                             f"{launched}, errors {errs}")
     return rows
 
 
@@ -2135,12 +2372,32 @@ def phase_reference_blockwise(get_config, build, make_engine, fa):
 
 
 # ------------------------------------------------------------- serving ----
+def set_depth(registry, whole, cut):
+    """Point ``registry``'s DEPTH_CUT archs, for this process, at their
+    depth-cut configs (``cut``) or at ``whole``, the configs as the
+    package has them."""
+    import dataclasses
+    for arch, n in DEPTH_CUT.items():
+        registry._REGISTRY[arch] = dataclasses.replace(
+            whole[arch], n_layers=n) if cut else whole[arch]
+
+
+def cut_depth(registry):
+    """``set_depth(cut=True)``; returns the whole configs."""
+    whole = dict(registry._REGISTRY)
+    set_depth(registry, whole, True)
+    return whole
+
+
 def arch_counts(get_config, arch):
     """(layers, adapter projections per forward, their dX launches per
-    backward) of ``arch``: 4 targets a layer, layer 0's q/k/v get no dX
-    (their input is the frozen embedding)."""
-    n = get_config(arch).n_layers
-    return n, 4 * n, 4 * n - 3
+    backward) of ``arch``: its LoRA targets in every layer; layer 0's
+    projections of the frozen embedding's norm (q, k, v, ``ssm_in``) get
+    no dX."""
+    cfg = get_config(arch)
+    n, targets = cfg.n_layers, set(cfg.lora.targets)
+    return n, len(targets) * n, \
+        len(targets) * n - len(targets & {"q", "k", "v", "ssm_in"})
 
 
 def long_prompt(plen):
@@ -2274,7 +2531,7 @@ SSM_RUNS = [("ssm_32", dict(prompt_len=32, gen_tokens=16)),
 
 
 def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
-    """mamba2-780m at full width (48 layers, d_model 1536, 48 SSM heads
+    """mamba2-780m at full width (16 layers, d_model 1536, 48 SSM heads
     of 64, state 128, bf16, random weights from a seed), 16 requests on
     8 contiguous slots: every request finishes, and the launches are
     exactly as derived: ssd_scan once per layer per request (each prompt
@@ -2325,6 +2582,538 @@ def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
         del out
         torch.cuda.empty_cache()
     return results
+
+
+# ------------------------------------------------- hybrid serving ---------
+HYBRID_ARCH = "hymba-1.5b"
+HYBRID_RUNS = [("hybrid_32", 16, dict(prompt_len=32, gen_tokens=16)),
+               ("hybrid_992", 16, dict(prompt_len=992, gen_tokens=32)),
+               ("hybrid_wrap_1984", 8, dict(prompt_len=1984,
+                                            gen_tokens=128))]
+# the ring-wrap check: a 1,984-token prompt prefilled, then 128 tokens
+# decoded through the 2,048-row ring (teacher-forced), whose logits past
+# position 2,048 are held against Model.logits of the same 2,112 tokens
+# (the windowed forward, flash_attention and the SSD scan), relative to
+# the largest logit: bf16 over 32 layers of two paths that round in
+# other places (reference_blockwise holds two bf16 attention paths over
+# 24 layers at 2e-2), so 5e-2, and the argmax of at least 90% of the rows;
+# and every ring slot of every layer, its K and V rows together, nearest
+# (Euclidean) to the forward's at the position it must hold, among all
+# 2,112: a stale, misplaced or off-by-one slot is nearer another
+# position's (K carries the rotary position; V alone does not tell a
+# repeated token's positions apart, so its count is shown, not held)
+RING_PROMPT, RING_GEN = 1984, 128
+RING_TOL, RING_ARGMAX = 5e-2, 0.9
+# the exact ring check: hymba's widths (d_model 1,600, 25 / 5 heads of
+# 64, 50 SSM heads of 64, state 16, vocab 32,001) at 4 layers in float32
+# with a 64-row window; a 48-token prompt, then 208 tokens decoded
+# teacher-forced (the ring wraps three times); every decode step's
+# logits, each layer's ring K/V rows and SSM state after the last step
+# against the plain versions: the same weights and tokens through
+# Model.logits and Model.hidden_states on the CPU; relative to the
+# largest value, float32 over 4 layers of paths that sum in other orders
+RING_EXACT_LAYERS, RING_EXACT_WINDOW = 4, 64
+RING_EXACT_PROMPT, RING_EXACT_GEN = 48, 208
+RING_EXACT_TOL = 1e-4
+# reduced float32 hymba on the card and on the CPU: a 16-token window
+# that every request's decode wraps, 6 requests on 2 slots
+HYBRID_REF_LENS, HYBRID_REF_GEN = [12, 16, 5, 9, 14, 7], 12
+
+
+def _hybrid_reference(get_config, make_engine):
+    """The reduced float32 hymba (window 16) on the card and on the CPU,
+    one weight set: the batcher's greedy tokens equal, every request's
+    decode wrapping its ring."""
+    import dataclasses
+    from repro_torch.runtime.serving_loop import ContinuousBatcher, GenRequest
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH).scaled(),
+                              sliding_window=16)
+    cpu = make_engine(cfg, device="cpu")
+    params = cpu.model.init(torch.Generator().manual_seed(0))
+    lora = tree_map(lambda t: t + 0.01,
+                    cpu.model.init_lora(torch.Generator().manual_seed(1)))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in HYBRID_REF_LENS]
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        eng = cpu if dev == "cpu" else make_engine(cfg, device="cuda")
+        b = ContinuousBatcher(eng, tree_map(lambda t: t.to(dev), params),
+                              tree_map(lambda t: t.to(dev), lora),
+                              n_slots=2, max_seq=32, prompt_pad=16)
+        reqs = [GenRequest(request_id=i, prompt=p.copy(),
+                           max_new_tokens=HYBRID_REF_GEN)
+                for i, p in enumerate(prompts)]
+        b.run(reqs)
+        tokens[dev] = [list(r.tokens) for r in reqs]
+    equal = tokens["cpu"] == tokens["cuda"]
+    emit("serve_hybrid_reference", config=cfg.name, dtype="float32",
+         window=16, prompt_lens=HYBRID_REF_LENS, gen=HYBRID_REF_GEN,
+         tokens_equal=equal, tokens=tokens["cuda"])
+    if not equal or any(len(t) != HYBRID_REF_GEN for t in tokens["cuda"]):
+        raise AssertionError(f"serve_hybrid reference: card {tokens['cuda']}"
+                             f" against CPU {tokens['cpu']}")
+
+
+def _ring_rows_nearest(ring_kv, full_kv, total, tokens):
+    """Per layer, whether each ring slot (K ‖ V, [L, B=1, W, Hkv, D]
+    each) is nearest (Euclidean, in float32) to the forward's (K ‖ V)
+    [L, 1, T, Hkv, D] at the position it must hold after ``total``
+    tokens (slot p % W holds the last position p < total), among all T.
+    Returns, for K ‖ V, K alone and V alone, the count of slots that
+    are, and of the V misses those whose nearest position holds the same
+    token (V has no rotary term: a repeated token's V rows differ only
+    by context)."""
+    w = ring_kv[0].shape[2]
+    slots = torch.tensor([p % w for p in range(total - w, total)],
+                         device=ring_kv[0].device)
+    want = torch.arange(total - w, total, device=ring_kv[0].device)
+    hits = {"kv": 0, "k": 0, "v": 0, "v_same_token": 0}
+    for layer in range(ring_kv[0].shape[0]):
+        r = [t[layer, 0, slots].flatten(1).float() for t in ring_kv]
+        f = [t[layer, 0, :total].flatten(1).float() for t in full_kv]
+        for name, a, b in (("kv", torch.cat(r, 1), torch.cat(f, 1)),
+                           ("k", r[0], f[0]), ("v", r[1], f[1])):
+            got = torch.cdist(a, b).argmin(1)
+            hits[name] += int((got == want).sum())
+            if name == "v":
+                miss = got != want
+                hits["v_same_token"] += int(
+                    (tokens[got[miss]] == tokens[want[miss]]).sum())
+    return hits
+
+
+def _ring_wrap(make_engine, get_config):
+    """Full-width hymba: a 1,984-token prompt prefilled, its caches in a
+    one-slot pool of the 2,048-row ring, 128 tokens decoded
+    teacher-forced; the logits past position 2,048 against
+    ``Model.logits`` of the 2,112 tokens, and every ring slot nearest
+    the forward's K ‖ V at its position (``_ring_rows_nearest``)."""
+    cfg = get_config(HYBRID_ARCH)
+    eng = make_engine(cfg, device="cuda")
+    model = eng.model
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.init(gen)
+    lora = model.init_lora(gen)
+    total = RING_PROMPT + RING_GEN
+    toks = torch.randint(0, cfg.vocab_size, (1, total), generator=gen,
+                         device="cuda")
+    with AttnShapeTap() as tap, torch.no_grad():
+        hidden, fwd = model.hidden_states(params, lora, {"tokens": toks},
+                                          collect_caches=True)
+        full = (hidden @ params["lm_head"])[0].float()   # Model.logits
+        del hidden
+        _, pre = model.prefill(params, lora,
+                               {"tokens": toks[:, :RING_PROMPT]})
+        pool = model.init_caches(1, total)
+        model.write_prefill_slot(pool, pre, 0)
+        del pre
+        got = {}
+        for t in range(RING_PROMPT, total):
+            lg, pool = model.decode_step(params, lora, pool, toks[:, t:t + 1],
+                                         torch.tensor([t], device="cuda"))
+            if t >= cfg.sliding_window:
+                got[t] = lg[0, 0].float()
+    rows = sorted(got)
+    dec = torch.stack([got[t] for t in rows])
+    ref = full[rows]
+    rel = float((dec - ref).abs().max() / ref.abs().max())
+    agree = float((dec.argmax(-1) == ref.argmax(-1)).float().mean())
+    ring = pool["kv"][0].shape[2]
+    n_rows = cfg.n_layers * ring
+    nearest = _ring_rows_nearest(pool["kv"], fwd["kv"], total, toks[0])
+    emit("serve_hybrid_ring", arch=HYBRID_ARCH, prompt=RING_PROMPT,
+         decoded=RING_GEN, ring_rows=ring, positions_checked=len(rows),
+         first_checked=rows[0], rel_err=rel, rel_tol=RING_TOL,
+         argmax_agreement=agree, argmax_min=RING_ARGMAX,
+         ring_slots_nearest_their_position=nearest, ring_slots_all=n_rows,
+         attention_shapes=tap.summary())
+    require_checked("serve_hybrid ring wrap", tap)
+    if ring != cfg.sliding_window or not (rel <= RING_TOL
+                                          and agree >= RING_ARGMAX):
+        raise AssertionError(f"serve_hybrid ring wrap: ring {ring}, logits "
+                             f"{rel} of the largest, argmax agreement "
+                             f"{agree}")
+    if nearest["kv"] != n_rows:
+        raise AssertionError(f"serve_hybrid ring wrap: {n_rows - nearest['kv']}"
+                             f" of {n_rows} ring slots are nearer another "
+                             f"position's forward K ‖ V than their own "
+                             f"({nearest})")
+    return {"rel_err": rel, "argmax_agreement": agree,
+            "ring_slots_nearest": nearest}
+
+
+def ring_exact(make_engine, cfg, device="cuda", seed=11):
+    """Hymba's float32 ring against the plain versions (see
+    RING_EXACT_*): one weight set (adapters non-zero) on the CPU and on
+    ``device``; the prompt prefilled and written into a one-slot pool,
+    the rest decoded teacher-forced on ``device``.  Returns the worst
+    errors relative to the largest reference value: logits of every
+    decode step against ``Model.logits`` on the CPU, and after the last
+    step each layer's ring K and V rows and SSM state against
+    ``Model.hidden_states``' K/V at the positions the ring must hold and
+    its final state."""
+    from repro_torch.tree import tree_map
+    total = RING_EXACT_PROMPT + RING_EXACT_GEN
+    cpu = make_engine(cfg, device="cpu").model
+    params = cpu.init(torch.Generator().manual_seed(seed))
+    lora = tree_map(lambda t: t + 0.01,
+                    cpu.init_lora(torch.Generator().manual_seed(seed + 1)))
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (1, total)))
+    with torch.no_grad():
+        hidden, ref = cpu.hidden_states(params, lora, {"tokens": toks},
+                                        collect_caches=True)
+        ref_logits = (hidden @ params["lm_head"])[0, RING_EXACT_PROMPT:]
+        del hidden
+        model = make_engine(cfg, device=device).model
+        p_dev, l_dev = (tree_map(lambda t: t.to(device), tr)
+                        for tr in (params, lora))
+        t_dev = toks.to(device)
+        _, pre = model.prefill(p_dev, l_dev,
+                               {"tokens": t_dev[:, :RING_EXACT_PROMPT]})
+        pool = model.init_caches(1, total)
+        model.write_prefill_slot(pool, pre, 0)
+        del pre
+        dec = []
+        for t in range(RING_EXACT_PROMPT, total):
+            lg, pool = model.decode_step(p_dev, l_dev, pool,
+                                         t_dev[:, t:t + 1],
+                                         torch.tensor([t], device=device))
+            dec.append(lg[0, 0].cpu())
+    w = cfg.sliding_window
+    slots = [p % w for p in range(total - w, total)]
+
+    def rel(got, want):
+        return float((got.cpu().float() - want.float()).abs().max()
+                     / want.float().abs().max())
+
+    return {"logits": rel(torch.stack(dec), ref_logits),
+            "k": rel(pool["kv"][0][:, 0, slots], ref["kv"][0][:, 0, -w:]),
+            "v": rel(pool["kv"][1][:, 0, slots], ref["kv"][1][:, 0, -w:]),
+            "ssm_state": rel(pool["ssm"]["state"], ref["ssm"]["state"]),
+            "ring_rows": pool["kv"][0].shape[2]}
+
+
+def _ring_exact_full(make_engine, get_config):
+    """``ring_exact`` at hymba's widths on the card (RING_EXACT_*)."""
+    import dataclasses
+    cfg = dataclasses.replace(
+        get_config(HYBRID_ARCH), n_layers=RING_EXACT_LAYERS,
+        sliding_window=RING_EXACT_WINDOW, dtype="float32",
+        param_dtype="float32")
+    with AttnShapeTap() as tap:
+        errs = ring_exact(make_engine, cfg)
+    worst = max(v for k, v in errs.items() if k != "ring_rows")
+    emit("serve_hybrid_ring_exact", arch=HYBRID_ARCH, dtype="float32",
+         layers=RING_EXACT_LAYERS, window=RING_EXACT_WINDOW,
+         prompt=RING_EXACT_PROMPT, decoded=RING_EXACT_GEN,
+         rel_tol=RING_EXACT_TOL, **{f"{k}_rel_err" if k != "ring_rows"
+                                    else k: v for k, v in errs.items()},
+         attention_shapes=tap.summary())
+    require_checked("serve_hybrid exact ring", tap)
+    if errs["ring_rows"] != RING_EXACT_WINDOW or worst > RING_EXACT_TOL:
+        raise AssertionError(f"serve_hybrid exact ring: {errs} beyond "
+                             f"{RING_EXACT_TOL} of the largest value")
+    return errs
+
+
+def phase_serve_hybrid(run_serving, make_engine, get_config, pda, lm, fa,
+                       seg, scan):
+    """hymba-1.5b: the reduced float32 batcher on the card against the
+    CPU (greedy tokens through ring wraps); at full width (32 layers,
+    d_model 1,600, 25 / 5 heads of 64, window 2,048, 50 SSM heads of 64,
+    state 16, bf16, random weights from a seed) through ``run_serving``
+    on 8 contiguous slots at 32 + 16 and 992 + 32 (16 requests) and 1,984
+    + 128 (8 requests, every decode wrapping the ring): every request
+    finishes and the launches are exactly as derived (ssd_scan once per
+    layer per request's exact-length prefill, flash_attention once per
+    layer per prefill past 1,024 tokens, the paged decode kernel through
+    identity tables once per layer per decode step, lora_matmul once per
+    adapter projection per prefill call and decode step), every attention
+    shape launched held against the plain version by a kernel phase
+    (``AttnShapeTap``); then the ring wrap's logits and ring rows against
+    the forward (``_ring_wrap``) and the float32 ring against the plain
+    versions (``_ring_exact_full``)."""
+    _hybrid_reference(get_config, make_engine)
+    n_layers, n_lora, _ = arch_counts(get_config, HYBRID_ARCH)
+    fwd = fa.flash_attention_fwd
+    results = {}
+    for name, n_req, kw in HYBRID_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(pda, lm, fwd, seg, scan)                   # main path starts
+        with AttnShapeTap() as tap:
+            out = run_serving(HYBRID_ARCH, smoke=False, n_requests=n_req,
+                              batch_size=8, seed=0, device="cuda",
+                              verbose=False, **kw)
+        launches = {"ssd_scan": scan.launches, "lora_matmul": lm.launches,
+                    "paged_decode_attention": pda.launches,
+                    "flash_attention": fwd.launches,
+                    "segmented_lora_matmul": seg.launches}   # path ends
+        gen, steps = kw["gen_tokens"], out["decode_steps"]
+        want = {"ssd_scan": n_layers * n_req * SSD_LAUNCHES,
+                "lora_matmul": n_lora * (n_req + steps),
+                "paged_decode_attention": n_layers * steps,
+                "flash_attention": n_layers * n_req
+                if long_prompt(kw["prompt_len"]) else 0,
+                "segmented_lora_matmul": 0}
+        row = {
+            "run": name, "arch": HYBRID_ARCH, "requests": n_req,
+            "prompt_len": kw["prompt_len"], "gen_tokens": gen,
+            "finished": out["finished"],
+            "tokens_generated": out["tokens_generated"],
+            "decode_steps": steps, "prefill_waves": out["prefill_waves"],
+            "launches": launches, "launches_derived": want,
+            "throughput_tok_s": out["throughput_tok_s"],
+            "wall_s": out["wall_s"], **latency_percentiles(out),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "cache_bytes": out["cache_bytes"],
+            "attention_shapes": tap.summary(),
+        }
+        emit("serve_hybrid", **row)
+        require_checked(f"serve_hybrid {name}", tap)
+        if out["finished"] != n_req or out["tokens_generated"] != n_req * gen \
+                or any(len(t) != gen for t in out["tokens"]):
+            raise AssertionError(f"serve_hybrid {name}: not every request "
+                                 "finished")
+        if launches != want:
+            raise AssertionError(f"serve_hybrid {name}: launches {launches}, "
+                                 f"derived {want}")
+        results[name] = row
+        del out
+        torch.cuda.empty_cache()
+    results["ring"] = _ring_wrap(make_engine, get_config)
+    torch.cuda.empty_cache()
+    results["ring_exact"] = _ring_exact_full(make_engine, get_config)
+    torch.cuda.empty_cache()
+    return results
+
+
+# --------------------------------------------------- SSM co-training ------
+# (name, arch, requests, run): 16 requests at 32 + 16 and 2,048 + 8; 8
+# at hymba's 1,984 + 8 (train batches of 4 x 1,984 through the
+# flash_attention forward and backward, the window 2,048)
+COMBINED_SSM_RUNS = [
+    ("mamba2_32", SSM_ARCH, 16, dict(prompt_len=32, gen_tokens=16)),
+    ("hymba_32", HYBRID_ARCH, 16, dict(prompt_len=32, gen_tokens=16)),
+    ("mamba2_2048", SSM_ARCH, 16, dict(prompt_len=2048, gen_tokens=8)),
+    ("hymba_1984", HYBRID_ARCH, 8, dict(prompt_len=1984, gen_tokens=8))]
+FIXED_BATCH_STEPS = 6
+
+
+def phase_combined_ssm(run_serving, make_engine, get_config, pda, lm, fa,
+                       seg, scan, scan_bwd):
+    """Serving while co-training on SSM stacks (``run_serving(combined=
+    True)`` on 8 contiguous slots, a fresh 4 x prompt-length train batch
+    every tick): mamba2-780m and hymba-1.5b at 32 + 16, mamba2 at 2,048 +
+    8 (the backward at 4 x 2,048), hymba at 1,984 + 8 (COMBINED_SSM_RUNS).
+    One train step per tick with finite losses, every request finishes,
+    launches exactly as derived (ssd_scan: each request's prefill and
+    each train step's forward, SSD_LAUNCHES a call; its backward
+    ``LAUNCHES_BWD`` a layer per train step; lora_matmul: forward, and
+    dX of every projection but layer 0's of the embedding; hymba past
+    1,024 tokens, flash_attention once a layer per prefill and train
+    step, its backward FLASH_BWD a layer per train step), every
+    attention shape launched held against the plain version by a kernel
+    phase; then the loss of each arch on a fixed batch falls over
+    ``FIXED_BATCH_STEPS`` steps."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES_BWD
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_backward
+    results = {}
+    for name, arch, n_req, kw in COMBINED_SSM_RUNS:
+        n_layers, n_lora, n_lora_bwd = arch_counts(get_config, arch)
+        hybrid = arch == HYBRID_ARCH
+        flash = hybrid and long_prompt(kw["prompt_len"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(pda, lm, fwd, bwd, seg, scan, scan_bwd)    # main path starts
+        with AttnShapeTap() as tap:
+            out = run_serving(arch, smoke=False, n_requests=n_req,
+                              batch_size=8, combined=True, train_batch=4,
+                              seed=0, device="cuda", verbose=False, **kw)
+        launches = {"ssd_scan": scan.launches,
+                    "ssd_scan_backward": scan_bwd.launches,
+                    "lora_matmul": lm.launches,
+                    "paged_decode_attention": pda.launches,
+                    "flash_attention": fwd.launches,
+                    "flash_attention_backward": bwd.launches,
+                    "segmented_lora_matmul": seg.launches}   # path ends
+        steps, ticks = out["train_steps"], out["decode_steps"]
+        want = {"ssd_scan": n_layers * SSD_LAUNCHES * (n_req + steps),
+                "ssd_scan_backward": n_layers * LAUNCHES_BWD * steps,
+                "lora_matmul": n_lora * (n_req + ticks)
+                + (n_lora + n_lora_bwd) * steps,
+                "paged_decode_attention": n_layers * ticks if hybrid else 0,
+                "flash_attention": n_layers * (n_req + steps) if flash
+                else 0,
+                "flash_attention_backward": FLASH_BWD * n_layers * steps
+                if flash else 0,
+                "segmented_lora_matmul": 0}
+        losses = out["train_losses"]
+        row = {
+            "run": name, "arch": arch, "requests": n_req,
+            "prompt_len": kw["prompt_len"], "gen_tokens": kw["gen_tokens"],
+            "train_batch": [4, kw["prompt_len"]],
+            "finished": out["finished"], "decode_steps": ticks,
+            "train_steps": steps, "prefill_waves": out["prefill_waves"],
+            "launches": launches, "launches_derived": want,
+            "throughput_tok_s": out["throughput_tok_s"],
+            "wall_s": out["wall_s"], **latency_percentiles(out),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "first_loss": losses[0] if losses else None,
+            "last_loss": losses[-1] if losses else None,
+            "attention_shapes": tap.summary(),
+        }
+        emit("combined_ssm", **row)
+        require_checked(f"combined_ssm {name}", tap)
+        if out["finished"] != n_req or any(len(t) != kw["gen_tokens"]
+                                           for t in out["tokens"]):
+            raise AssertionError(f"combined_ssm {name}: not every request "
+                                 "finished")
+        if steps != ticks or len(losses) != steps \
+                or not np.isfinite(losses).all():
+            raise AssertionError(f"combined_ssm {name}: {steps} train steps "
+                                 f"for {ticks} ticks, losses {losses}")
+        if launches != want:
+            raise AssertionError(f"combined_ssm {name}: launches {launches},"
+                                 f" derived {want}")
+        results[name] = row
+        del out
+        torch.cuda.empty_cache()
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        losses, times, _, peak = fixed_batch_steps(
+            make_engine, get_config, arch, 32, FIXED_BATCH_STEPS, lm)
+        emit("combined_ssm_fixed_batch", arch=arch, batch=[4, 32], lr=3e-3,
+             losses=losses, step_ms=times, max_memory_allocated_bytes=peak)
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"combined_ssm {arch}: the loss on a fixed "
+                                 f"batch did not fall: {losses}")
+        results[f"fixed_{arch}"] = losses
+        torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------ SSM training CLI --------
+SSM_TRAIN_ARCHS = (SSM_ARCH, HYBRID_ARCH)
+# (b) saves at 3 and again at the end, (c) resumes to 4 and saves once:
+# a save of mamba2's adapter and moments (116 MB) is ~6 s of zlib
+SSM_TRAIN_STEPS, SSM_TRAIN_CKPT = 3, 3     # (b); (c) resumes to 4
+SSM_TRAIN_SEQ = 256
+# (a) card vs CPU, float32 reduced, 10 steps: each step's loss within
+# 1e-5 relative, the adapters within 2e-4 absolute (the qwen (a) bounds)
+SSM_REF_STEPS = 10
+
+
+def phase_train_cli_ssm(make_engine, get_config, lm, scan, scan_bwd):
+    """The training CLI on SSM stacks, mamba2-780m and hymba-1.5b: (a)
+    ``train_from_weights`` on one reduced float32 weight set on the card
+    and the CPU, 10 steps with a checkpoint every 5: losses and adapters
+    within the qwen (a) bounds; (b) ``run_training`` at full width, 4 x
+    256, 3 steps with a checkpoint at 3: finite losses, the last batch
+    trained on has a lower CE under the trained adapter than under the
+    initial one, launches as derived (ssd_scan forward and backward
+    every layer every step, lora_matmul forward and dX), step ms, peak
+    memory; (c) ``restore=True`` to 4 steps: resumes at 3, the restored
+    tree bitwise (b)'s last, AdamW step 3."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.kernels.ssd_scan import LAUNCHES_BWD
+    from repro_torch.launch.train import (
+        init_weights, run_training, train_from_weights)
+    from repro_torch.tree import tree_leaves, tree_map
+    res = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        for arch in SSM_TRAIN_ARCHS:
+            cfg = get_config(arch).scaled()
+            params, lora = init_weights(make_engine(cfg, device="cpu"), 0)
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                eng = make_engine(cfg, lr=3e-3, device=dev)
+                with contextlib.redirect_stdout(io.StringIO()):
+                    runs[dev] = train_from_weights(
+                        eng, tree_map(lambda t: t.to(dev), params),
+                        tree_map(lambda t: t.to(dev), lora), arch=arch,
+                        steps=SSM_REF_STEPS, batch=4, seq=32, ckpt_every=5,
+                        ckpt_dir=os.path.join(tmp, f"a_{arch}_{dev}"))
+            cpu, gpu = runs["cpu"], runs["cuda"]
+            loss_err = max(abs(a - b) / abs(b)
+                           for a, b in zip(gpu["losses"], cpu["losses"]))
+            lora_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+                tree_leaves(gpu["lora"]), tree_leaves(cpu["lora"])))
+            emit("train_cli_ssm_reduced", arch=arch, dtype="float32",
+                 batch=[4, 32], steps=[cpu["steps"], gpu["steps"]],
+                 loss_rel_err=loss_err, lora_max_abs_err=lora_err,
+                 loss_rtol=TRAIN_LOSS_RTOL, lora_atol=TRAIN_LORA_ATOL,
+                 first_loss=gpu["losses"][0], last_loss=gpu["losses"][-1])
+            if not (cpu["steps"] == gpu["steps"] == SSM_REF_STEPS
+                    and loss_err <= TRAIN_LOSS_RTOL
+                    and lora_err <= TRAIN_LORA_ATOL):
+                raise AssertionError(f"train_cli_ssm (a) {arch}: card vs CPU "
+                                     f"losses {loss_err}, adapters {lora_err}")
+
+            n_layers, n_lora, n_lora_bwd = arch_counts(get_config, arch)
+            ck = os.path.join(tmp, f"b_{arch}")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(lm, scan, scan_bwd)                    # main path starts
+            with TrainTap() as tap, AttnShapeTap() as attn:
+                out_b = run_training(arch, smoke=False, steps=SSM_TRAIN_STEPS,
+                                     batch=4, seq=SSM_TRAIN_SEQ, ckpt_dir=ck,
+                                     ckpt_every=SSM_TRAIN_CKPT,
+                                     verbose=False, device="cuda")
+            launches = {"lora_matmul": lm.launches,
+                        "ssd_scan": scan.launches,
+                        "ssd_scan_backward": scan_bwd.launches}  # path ends
+            peak = torch.cuda.max_memory_allocated()
+            want = {"lora_matmul": SSM_TRAIN_STEPS * (n_lora + n_lora_bwd),
+                    "ssd_scan": SSM_TRAIN_STEPS * n_layers * SSD_LAUNCHES,
+                    "ssd_scan_backward": SSM_TRAIN_STEPS * n_layers
+                    * LAUNCHES_BWD}
+            eng = make_engine(get_config(arch), device="cuda")
+            p0, l0 = init_weights(eng, 0)
+            ce = _ce(eng.model, p0, [l0, out_b["lora"]], tap.last_batch)
+            del p0, l0
+            with TrainTap() as tap_c:
+                out_c = run_training(arch, smoke=False,
+                                     steps=SSM_TRAIN_STEPS + 1, batch=4,
+                                     seq=SSM_TRAIN_SEQ, ckpt_dir=ck,
+                                     restore=True, ckpt_every=SSM_TRAIN_CKPT,
+                                     verbose=False, device="cuda")
+            restored = tap_c.restored[0]
+            bitwise = _bitwise(restored[0], out_b["lora"])
+            row = {"arch": arch, "batch": [4, SSM_TRAIN_SEQ],
+                   "steps": out_b["steps"], "losses": out_b["losses"],
+                   "last_batch_ce_initial_trained": ce,
+                   "launches": launches, "launches_derived": want,
+                   "max_memory_allocated_bytes": peak, **tap.row(),
+                   "attention_shapes": attn.summary(),
+                   "restart_steps": out_c["steps"],
+                   "restart_losses": out_c["losses"],
+                   "restored_bitwise": bitwise,
+                   "restored_adamw_step": int(restored[1].step)}
+            emit("train_cli_ssm", **row)
+            require_checked(f"train_cli_ssm (b) {arch}", attn)
+            if not (out_b["steps"] == SSM_TRAIN_STEPS
+                    and np.isfinite(out_b["losses"]).all()
+                    and ce[1] < ce[0]):
+                raise AssertionError(f"train_cli_ssm (b) {arch}: {row}")
+            if launches != want:
+                raise AssertionError(f"train_cli_ssm (b) {arch}: launches "
+                                     f"{launches}, derived {want}")
+            if not (bitwise and row["restored_adamw_step"] == SSM_TRAIN_STEPS
+                    and out_c["steps"] == SSM_TRAIN_STEPS + 1
+                    and len(out_c["losses"]) == 1):
+                raise AssertionError(f"train_cli_ssm (c) {arch}: {row}")
+            res[arch] = row
+            del eng, out_b, out_c, restored, tap, tap_c
+            torch.cuda.empty_cache()
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
 
 
 # ------------------------------------------------------------ VLM serving -
@@ -2460,11 +3249,11 @@ COMBINED_RUNS = [
     ("paged", ARCH, 4, dict(paged=True, prompt_len=32, gen_tokens=16)),
     ("contiguous", ARCH, 4, dict(paged=False, prompt_len=32,
                                  gen_tokens=16)),
-    ("paged_992", ARCH, 4, dict(paged=True, prompt_len=992, gen_tokens=32)),
+    ("paged_992", ARCH, 4, dict(paged=True, prompt_len=992, gen_tokens=16)),
     ("paged_2048", ARCH, 4, dict(paged=True, prompt_len=2048,
-                                 gen_tokens=32)),
+                                 gen_tokens=16)),
     ("llama_paged_2048", "llama3-8b", 1, dict(paged=True, prompt_len=2048,
-                                              gen_tokens=32)),
+                                              gen_tokens=16)),
 ]
 
 
@@ -2842,17 +3631,18 @@ def phase_serve_chunked(make_engine, get_config, pda, lm, fa, seg):
     return {k: v[0] for k, v in results.items()}
 
 
-# oversubscription at full width: 16 requests on 8 slots, 256-token
-# prompts, 256 tokens each (max_seq 512: a request's worst case is 32
-# blocks of 16); pools in blocks, scratch block 0 not counted
-OVERSUB_PROMPT, OVERSUB_GEN, OVERSUB_SWAP_CHAIN = 256, 256, 62
+# oversubscription at full width: 16 requests on 8 slots, 64-token
+# prompts, 64 tokens each (max_seq 128: a request's worst case is 8
+# blocks of 16, so 64 blocks hold 8 slots and 40 hold 5); pools in
+# blocks, scratch block 0 not counted
+OVERSUB_PROMPT, OVERSUB_GEN, OVERSUB_SWAP_CHAIN = 64, 64, 62
 OVERSUB_RUNS = [
-    ("a_pool256", ARCH, 256, {}),           # every slot's worst case fits
-    ("b_pool160", ARCH, 160, {}),           # admission holds 5 slots
-    ("c_pool160_swap", ARCH, 160, dict(oversubscribe=1.0)),
-    ("c_pool160_swap_sanitized", ARCH, 160, dict(oversubscribe=1.0)),
-    ("d_pool160_drop", ARCH, 160, dict(oversubscribe=1.0, swap=False)),
-    ("e_llama_pool160_swap", "llama3-8b", 160, dict(oversubscribe=1.0)),
+    ("a_pool64", ARCH, 64, {}),             # every slot's worst case fits
+    ("b_pool40", ARCH, 40, {}),             # admission holds 5 slots
+    ("c_pool40_swap", ARCH, 40, dict(oversubscribe=1.0)),
+    ("c_pool40_swap_sanitized", ARCH, 40, dict(oversubscribe=1.0)),
+    ("d_pool40_drop", ARCH, 40, dict(oversubscribe=1.0, swap=False)),
+    ("e_llama_pool40_swap", "llama3-8b", 40, dict(oversubscribe=1.0)),
 ]
 
 
@@ -3004,10 +3794,10 @@ def oversub_run(eng, params, lora, prompts, n_blocks, sanitized=False,
 def phase_serve_oversub(make_engine, get_config, pda, pda_ref, lm, fa, seg):
     """KV-pool oversubscription at full width: first ``swap_round_trip``
     on qwen1.5-0.5b's pool, then OVERSUB_RUNS (16 requests on 8 slots,
-    256 + 256 tokens, paged in blocks of 16): qwen on 256 blocks without
-    oversubscription (every slot fits), on 160 without (admission holds 5
-    slots), on 160 at ``oversubscribe`` 1.0 with swap and with
-    ``swap=False``, llama3-8b on 160 with swap, and qwen's swap run again
+    64 + 64 tokens, paged in blocks of 16): qwen on 64 blocks without
+    oversubscription (every slot fits), on 40 without (admission holds 5
+    slots), on 40 at ``oversubscribe`` 1.0 with swap and with
+    ``swap=False``, llama3-8b on 40 with swap, and qwen's swap run again
     under REPRO_SANITIZE=1.  Every request finishes, the allocator drains,
     launches exactly as derived (a re-prefill is a prefill wave; swaps
     launch no kernel; flash_attention never), the oversubscribed runs
@@ -3093,13 +3883,13 @@ def phase_serve_oversub(make_engine, get_config, pda, pda_ref, lm, fa, seg):
         del b, reqs
         torch.cuda.empty_cache()
     engines.clear()
-    a = results["a_pool256"]
+    a = results["a_pool64"]
     for name, row in results.items():
-        if row["arch"] == ARCH and name != "a_pool256":
+        if row["arch"] == ARCH and name != "a_pool64":
             row["identical_streams_vs_a"] = sum(
                 t == o for t, o in zip(row["tokens"], a["tokens"]))
-    san, plain = results["c_pool160_swap_sanitized"], \
-        results["c_pool160_swap"]
+    san, plain = results["c_pool40_swap_sanitized"], \
+        results["c_pool40_swap"]
     san["host_ms_per_tick_added"] = san["host_ms_per_tick"] \
         - plain["host_ms_per_tick"]
     for row in results.values():
@@ -3183,7 +3973,7 @@ def phase_static(make_engine, get_config, pda, lm, fa, seg):
 
 BUDGET_RUNS = [("paged", "paged", dict(prompt_len=32, gen_tokens=16)),
                ("paged_992_chunk256", "paged_992",
-                dict(prompt_len=992, gen_tokens=32, prefill_chunk=CHUNK))]
+                dict(prompt_len=992, gen_tokens=16, prefill_chunk=CHUNK))]
 TPOT_TARGET = 0.1
 
 
@@ -3518,17 +4308,19 @@ def phase_mixed_solo(get_config, make_engine, seg, lm):
     torch.cuda.empty_cache()
 
 
-def phase_train(make_engine, get_config, lm, steps=10):
-    """Full-width train steps on one fixed batch: the loss must fall."""
+def fixed_batch_steps(make_engine, get_config, arch, seq, steps, lm):
+    """``steps`` full-width train steps of ``arch``'s adapter on one
+    fixed 4 x ``seq`` batch (lr 3e-3, weights from a seed): the losses,
+    each step's host ms and lora_matmul launches, the peak memory."""
     from repro_torch.data.synthetic import SyntheticDataset
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     eng = make_engine(cfg, lr=3e-3, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = eng.model.init(gen)
     lora = eng.model.init_lora(gen)
     opt = eng.optimizer.init(lora)
     data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
-                            seq_len=256, seed=1)
+                            seq_len=seq, seed=1)
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in data.batch(4).items()}
     torch.cuda.synchronize()
@@ -3541,9 +4333,16 @@ def phase_train(make_engine, get_config, lm, steps=10):
         losses.append(float(met["ce_loss"]))      # syncs
         times.append((time.perf_counter() - t0) * 1e3)
         per_step.append(lm.launches)
-    emit("train", config=cfg.name, batch=[4, 256], lr=3e-3, losses=losses,
+    return losses, times, per_step, torch.cuda.max_memory_allocated()
+
+
+def phase_train(make_engine, get_config, lm, steps=10):
+    """Full-width train steps on one fixed batch: the loss must fall."""
+    losses, times, per_step, peak = fixed_batch_steps(
+        make_engine, get_config, ARCH, 256, steps, lm)
+    emit("train", config=ARCH, batch=[4, 256], lr=3e-3, losses=losses,
          step_ms=times, lora_matmul_launches_per_step=per_step,
-         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+         max_memory_allocated_bytes=peak)
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss did not fall {losses}")
     if set(per_step) != {N_LORA + N_LORA_BWD}:
@@ -3729,7 +4528,7 @@ def phase_train_cli(make_engine, get_config, lm, fa):
     launches as derived, step ms, the pulls' share, checkpoint
     seconds, peak memory; (c) the restart to 30 from (b)'s directory,
     and checkpoints across devices; (d) 4 x 2,048 through
-    ``flash_attention``; (e) the CLI in subprocesses with a restore; (f)
+    ``flash_attention``; (e) the CLI, then its restore in a subprocess; (f)
     llama3-8b at the CLI's defaults; (g) ``DataPipeline`` on the card.
     Every lora_matmul launch shape of (b)-(f) was held against the plain
     version by ``kernel_lora``."""
@@ -3883,33 +4682,55 @@ def phase_train_cli(make_engine, get_config, lm, fa):
         del out_d
         torch.cuda.empty_cache()
 
-        # (e) the CLI in subprocesses; the synthetic data seeds from
-        # Python's salted hash, so the seed is pinned
+        # (e) the CLI's ``main``: in this process, then the restore in a
+        # subprocess (one process start, ~20 s, is enough to show the
+        # entry point) on the same depth-cut config; the synthetic data
+        # seeds from Python's salted hash, so the subprocess's seed is
+        # pinned
+        from repro_torch.launch import train as train_mod
         cli_dir = os.path.join(tmp, "e")
         env = dict(os.environ, PYTHONHASHSEED="0", PYTHONPATH=SRC)
-        base = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                ARCH, "--full", "--batch", "4", "--seq", str(CLI_SEQ),
-                "--ckpt", cli_dir]
+        code = ("import chip_smoke\n"
+                "from repro_torch.configs import registry\n"
+                "from repro_torch.launch.train import main\n"
+                "chip_smoke.cut_depth(registry)\n"
+                "main()\n")
+        args = ["--arch", ARCH, "--full", "--batch", "4", "--seq",
+                str(CLI_SEQ), "--ckpt", cli_dir]
         e = {"batch": [4, CLI_SEQ], "runs": []}
-        for extra, want_lines in (
-                (["--steps", str(CLI_STEPS)], [f"done: {CLI_STEPS} steps"]),
+        for extra, want_lines, sub in (
+                (["--steps", str(CLI_STEPS)], [f"done: {CLI_STEPS} steps"],
+                 False),
                 (["--steps", "15", "--restore"],
-                 [f"restored step {CLI_STEPS}", "done: 15 steps"])):
+                 [f"restored step {CLI_STEPS}", "done: 15 steps"], True)):
             t0 = time.perf_counter()
-            p = subprocess.run(base + extra, env=env, capture_output=True,
-                               text=True, timeout=600)
-            lines = p.stdout.splitlines()
-            ok = p.returncode == 0 and all(
+            if sub:
+                p = subprocess.run([sys.executable, "-c", code, *args,
+                                    *extra], env=env, capture_output=True,
+                                   text=True, timeout=600,
+                                   cwd=os.path.dirname(
+                                       os.path.abspath(__file__)))
+                rc, stdout, stderr = p.returncode, p.stdout, p.stderr
+            else:
+                buf, argv = io.StringIO(), sys.argv
+                sys.argv = ["train.py", *args, *extra]
+                try:
+                    with contextlib.redirect_stdout(buf):
+                        train_mod.main()
+                finally:
+                    sys.argv = argv
+                rc, stdout, stderr = 0, buf.getvalue(), ""
+            lines = stdout.splitlines()
+            ok = rc == 0 and all(
                 any(ln.startswith(w) for ln in lines) for w in want_lines)
-            e["runs"].append({"args": extra, "rc": p.returncode,
+            e["runs"].append({"args": extra, "subprocess": sub, "rc": rc,
                               "wall_s": time.perf_counter() - t0,
                               "lines": [ln for ln in lines
                                         if ln.startswith(("done",
                                                           "restored"))]})
             if not ok:
                 raise AssertionError(f"train_cli (e): {extra} rc "
-                                     f"{p.returncode}\n{p.stdout}\n"
-                                     f"{p.stderr[-4000:]}")
+                                     f"{rc}\n{stdout}\n{stderr[-4000:]}")
         with open(os.path.join(cli_dir, "step_0000000015",
                                "manifest.json")) as f:
             e["codec"] = json.load(f)["codec"]
@@ -3918,8 +4739,8 @@ def phase_train_cli(make_engine, get_config, lm, fa):
         res["e"] = e
         if e["codec"] != e["codec_expected"]:
             raise AssertionError(f"train_cli (e): codec {e['codec']}")
-        # the subprocesses' launches are not counted here: their shapes
-        # are derived (M = 4 x 128, qwen's q/k/v/o, forward and dX)
+        # the CLI runs' launches are not counted here: their shapes are
+        # derived (M = 4 x 128, qwen's q/k/v/o, forward and dX)
         m = 4 * CLI_SEQ
         for kind in ("lora_matmul", "lora_matmul_dx"):
             shapes[(kind, m, 1024, 1024, 16, 1, "bfloat16")] = 0
@@ -4029,16 +4850,29 @@ def _is_ssd(key):
     return "ssd_scan_kernel" in key
 
 
+def _is_ssd_bwd(key):
+    return "ssd_scan_bwd" in key
+
+
 # (context, prompt length, co-training, tenants: 0 = one adapter, arch)
 TICKS = [("serve", 32, False, 0, ARCH), ("long", 992, False, 0, ARCH),
          ("combined", 32, True, 0, ARCH), ("serve_2048", 2048, False, 0, ARCH),
          ("combined_2048", 2048, True, 0, ARCH),
          ("serve_4_tenants", 32, False, 4, ARCH),
          ("ssm_serve", 32, False, 0, SSM_ARCH),
-         ("ssm_serve_2048", 2048, False, 0, SSM_ARCH)]
+         ("ssm_serve_2048", 2048, False, 0, SSM_ARCH),
+         ("ssm_combined", 32, True, 0, SSM_ARCH),
+         ("hybrid_serve", 32, False, 0, HYBRID_ARCH),
+         ("hybrid_combined", 32, True, 0, HYBRID_ARCH)]
 
 
-def phase_tick(make_engine, get_config, n=5):
+# ticks a window: 3 timed on the host clock, then 3 under the profiler,
+# which records the card's activity only: the host's operators would
+# make most of the phase's time the profiler's own post-processing
+TICK_WINDOW = 3
+
+
+def phase_tick(make_engine, get_config, n=TICK_WINDOW):
     """Where a full-width tick's time goes (8 busy slots; paged, and
     contiguous for mamba2): serve ticks at 32-, 992- and 2,048-token
     prompts and combined ticks whose train batch is 4 x the prompt length
@@ -4046,7 +4880,9 @@ def phase_tick(make_engine, get_config, n=5):
     the device time its kernels take, each ported kernel's part, and
     kernels per tick.  One tick serves 4 tenants, round-robin over the 8
     slots; the last two are mamba2-780m decode ticks (no attention: the
-    O(1) state recurrence and the adapter projections)."""
+    O(1) state recurrence and the adapter projections), then a mamba2
+    combined tick (4 x 32 train rows through the ssd_scan backward) and
+    hymba-1.5b's serve and combined ticks."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.fabric import make_tenant_adapters
@@ -4096,8 +4932,7 @@ def phase_tick(make_engine, get_config, n=5):
         for _ in range(n):
             tick()
         host_ms = (time.perf_counter() - t0) / n * 1e3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 tick()
@@ -4141,6 +4976,9 @@ def phase_tick(make_engine, get_config, n=5):
                  e.count for e in kern if _is_flash(e.key)) / n,
              ssd_scan_launches_per_tick=sum(
                  e.count for e in kern if _is_ssd(e.key)) / n,
+             ssd_scan_backward_ms_per_tick=part(_is_ssd_bwd),
+             ssd_scan_backward_launches_per_tick=sum(
+                 e.count for e in kern if _is_ssd_bwd(e.key)) / n,
              kernels_per_tick=sum(e.count for e in kern) / n,
              top_kernels_ms_per_tick=[[e.key[:60], _device_us(e) / 1e3 / n]
                                       for e in top])
@@ -4205,8 +5043,7 @@ def _tick_waves(make_engine, get_config, n):
                 fn()
             torch.cuda.synchronize()
             host_ms = (time.perf_counter() - t0) / n * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(n):
                     fn()
@@ -4271,8 +5108,7 @@ def _tick_vlm(make_engine, get_config, n):
         tick()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             tick()
@@ -4437,6 +5273,89 @@ class LoraShapeTap:
         """The recorded shapes no kernel phase held against the plain
         version."""
         return [k for k in self.shapes if not lora_shape_checked(*k)]
+
+
+def attn_shape_checked(kind, *shape):
+    """Whether phase_kernel_flash or phase_kernel held the kernel against
+    its plain version at a launch's shape (both check every row in both
+    dtypes): a FLASH_SHAPES row of that B, H, Hkv, D, S and window (its
+    backward is checked too), or a PAGED_SHAPES row of that B, H, Hkv,
+    D, block size and table width."""
+    if kind in ("flash_attention", "flash_attention_backward"):
+        return any(row[1:] == shape[:6] for row in FLASH_SHAPES)
+    return any(tuple(shp[k] for k in ("b", "h", "hkv", "d", "bs", "nb"))
+               == shape[:6] for _, shp in PAGED_SHAPES)
+
+
+class AttnShapeTap:
+    """Records the shape of every ``flash_attention`` forward and
+    backward and ``paged_decode_attention`` launch while it is entered:
+    (kind, B, H, Hkv, D, S, window, dtype) and (kind, B, H, Hkv, D,
+    block size, table width, dtype) -> launch count, the keys
+    ``attn_shape_checked`` reads."""
+
+    def __enter__(self):
+        import repro_torch.kernels.decode_attention as da_mod
+        from repro_torch.kernels.flash_attention import FlashAttentionFn
+        self._da, self._fn = da_mod, FlashAttentionFn
+        self._orig = (FlashAttentionFn.forward, FlashAttentionFn.backward,
+                      da_mod._launch)
+        fwd, bwd, launch = self._orig
+        self.shapes = {}
+
+        def note(key):
+            self.shapes[key] = self.shapes.get(key, 0) + 1
+
+        def flash_key(kind, q, k, window):
+            b, h, s, d = q.shape
+            return (kind, b, h, k.shape[1], d, s, window, _dtype_name(q))
+
+        def rec_fwd(ctx, q, k, v, causal, window, scale):
+            if q.device.type != "cpu":
+                note(flash_key("flash_attention", q, k, window))
+            return fwd(ctx, q, k, v, causal, window, scale)
+
+        def rec_bwd(ctx, do):
+            saved = ctx.saved_tensors
+            if len(saved) == 5:          # the kernel's forward saved o, lse
+                note(flash_key("flash_attention_backward", saved[0],
+                               saved[1], ctx.window))
+            return bwd(ctx, do)
+
+        def rec_launch(q, k_pool, v_pool, block_tables, kv_len, scale):
+            note(("paged_decode_attention", q.shape[0], q.shape[1],
+                  k_pool.shape[2], q.shape[2], k_pool.shape[1],
+                  block_tables.shape[1], _dtype_name(q)))
+            return launch(q, k_pool, v_pool, block_tables, kv_len, scale)
+
+        FlashAttentionFn.forward = staticmethod(rec_fwd)
+        FlashAttentionFn.backward = staticmethod(rec_bwd)
+        da_mod._launch = rec_launch
+        return self
+
+    def __exit__(self, *exc):
+        fwd, bwd, self._da._launch = self._orig
+        self._fn.forward, self._fn.backward = staticmethod(fwd), \
+            staticmethod(bwd)
+        return False
+
+    def unchecked(self):
+        """The recorded shapes no kernel phase held against the plain
+        version."""
+        return [k for k in self.shapes if not attn_shape_checked(*k)]
+
+    def summary(self):
+        """The recorded shapes as a JSON-able list."""
+        return [[*k, n] for k, n in sorted(self.shapes.items())]
+
+
+def require_checked(phase, tap):
+    """Fails ``phase`` if it launched an attention shape no kernel phase
+    held against the plain version."""
+    bad = tap.unchecked()
+    if bad:
+        raise AssertionError(f"{phase}: launched attention shapes no kernel "
+                             f"phase checked: {bad}")
 
 
 class FabricTap:
@@ -4915,12 +5834,21 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
+    # SyntheticDataset (as the reference's) seeds from Python's salted
+    # str hash, so each process draws other batches; pinned, every run
+    # trains on the same ones (train_cli (a) holds the card's adapters
+    # against the CPU's after 15 AdamW steps, and how far two roundings
+    # drift apart there depends on the batches)
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  dict(os.environ, PYTHONHASHSEED="0"))
     if sys.argv[1:2] == ["--time-kernels"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         return time_kernels()
     if sys.argv[1:2] == ["--ab"]:
         print(smi(), flush=True)
         return run_ab(sys.argv[2])
+    from repro_torch.configs import registry
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import make_engine
     from repro_torch.kernels import _build
@@ -4937,6 +5865,10 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global N_LORA, N_LORA_BWD
+    whole = cut_depth(registry)
+    _, N_LORA, N_LORA_BWD = arch_counts(get_config, ARCH)
+    set_depth(registry, whole, False)
     card = smi()
     print(card, flush=True)
     emit("device", nvidia_smi=card, torch=torch.__version__,
@@ -4977,10 +5909,16 @@ def main():
                                        seg),
         "serve_ssm": lambda: phase_serve_ssm(run_serving, get_config, pda,
                                              lm, fa, seg, ssd.ssd_scan),
+        "serve_hybrid": lambda: phase_serve_hybrid(
+            run_serving, make_engine, get_config, pda, lm, fa, seg,
+            ssd.ssd_scan),
         "serve_vlm": lambda: phase_serve_vlm(make_engine, get_config, pda, lm,
                                              fa, seg, ssd.ssd_scan, dattn),
         "combined": lambda: phase_combined(run_serving, get_config, pda, lm,
                                            fa, seg),
+        "combined_ssm": lambda: phase_combined_ssm(
+            run_serving, make_engine, get_config, pda, lm, fa, seg,
+            ssd.ssd_scan, ssd.ssd_scan_bwd),
         "budget": lambda: phase_budget(run_serving, make_engine, get_config,
                                        pda, lm, fa, seg, out.get("combined")),
         "serve_adapters": lambda: phase_serve_adapters(
@@ -4989,12 +5927,15 @@ def main():
                                                lm),
         "fabric_reference": lambda: phase_fabric_reference(make_engine,
                                                            get_config),
-        "fabric": lambda: phase_fabric(get_config, out.get("serve")),
+        # its one-batcher baseline run here, at the fabric's whole depth
+        "fabric": lambda: phase_fabric(get_config),
         "fabric_combined": lambda: phase_fabric_combined(get_config),
         "fabric_chaos": lambda: phase_fabric_chaos(get_config),
         "fabric_adapters": lambda: phase_fabric_adapters(get_config),
         "train": lambda: phase_train(make_engine, get_config, lm),
         "train_cli": lambda: phase_train_cli(make_engine, get_config, lm, fa),
+        "train_cli_ssm": lambda: phase_train_cli_ssm(
+            make_engine, get_config, lm, ssd.ssd_scan, ssd.ssd_scan_bwd),
         "experiment": phase_experiment,
         "tick": lambda: phase_tick(make_engine, get_config),
     }
@@ -5008,13 +5949,18 @@ def main():
     if only:
         # bring-up: the named phases alone, and no result lines
         for name in only:
+            set_depth(registry, whole, name not in WHOLE_DEPTH)
             out[name] = {**phases, **bring_up}[name]()
         return
     seconds = {}
     for name, fn in phases.items():
+        set_depth(registry, whole, name not in WHOLE_DEPTH)
         t1 = time.perf_counter()
         out[name] = fn()
         seconds[name] = time.perf_counter() - t1
+        # as it goes, so a run cut short still shows where the time went
+        emit("phase_seconds", name=name, seconds=seconds[name],
+             total=time.perf_counter() - t0)
     emit("seconds", phases=seconds, total=time.perf_counter() - t0)
     rows, lrows, frows = out["kernel"], out["kernel_lora"], \
         out["kernel_flash"]
@@ -5023,6 +5969,9 @@ def main():
     s_main = srows[("decode", torch.bfloat16)]
     drows, ssm = out["kernel_ssd"], out["serve_ssm"]
     d_main = drows[("mamba_2048", torch.bfloat16)]
+    b_main = drows[("bwd_mamba_4x2048", torch.bfloat16)]
+    cssm, hyb = out["combined_ssm"], out["serve_hybrid"]
+    bwd_rows = {k: r for k, r in drows.items() if "bwd" in k[0]}
     crows, vlm = out["kernel_decode"], out["serve_vlm"]
     c_main = crows[("cross", torch.bfloat16)]
 
@@ -5068,6 +6017,12 @@ def main():
         "replaces": "src/repro/kernels/decode_attention.py:172",
         "launches": serve["paged"][0]["kernel_launches"],
         "fabric_launches": fabric_launches("paged_decode_attention"),
+        # hymba-1.5b (G 5) through identity tables over its rings
+        "hybrid_launches": {
+            **{n: r["launches"]["paged_decode_attention"]
+               for n, r in hyb.items() if n.startswith("hybrid_")},
+            **{f"combined_{n}": cssm[n]["launches"]["paged_decode_attention"]
+               for n in ("hymba_32", "hymba_1984")}},
         "max_abs_err": main_row["max_abs_err"],
         "worst_bf16_err_all_shapes": worst,
         "ms": main_row["ms"],
@@ -5124,6 +6079,15 @@ def main():
             **{k: lrows[("train_2048", torch.bfloat16)][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "base_only_ms", "host_us")}},
+        # hymba-1.5b's ssm_in, N = 6,482 (padded storage): decode and the
+        # 4 x 2,048 train batch; its launches in the hymba co-training run
+        "hymba_ssm_in": {
+            "hybrid_combined_32_launches": cssm["hymba_32"]["launches"][
+                "lora_matmul"],
+            **{n: {k: lrows[(n, torch.bfloat16)][k] for k in (
+                "M", "K", "N", "max_abs_err", "rel_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "base_only_ms")}
+               for n in ("hymba_ssm_in_decode", "train_hymba_ssm_in")}},
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -5131,6 +6095,13 @@ def main():
         "replaces": "src/repro/kernels/flash_attention.py:86",
         "launches": combined["paged_2048"]["flash_attention_launches"],
         "train_cli_launches": train_launches["flash_attention"],
+        # hymba-1.5b (G 5, window 2,048): the ring-wrap server's
+        # 1,984-token prefills; its co-training server at 1,984 + 8
+        "hybrid_launches": {
+            "serve_wrap_1984": hyb["hybrid_wrap_1984"]["launches"][
+                "flash_attention"],
+            "combined_1984": cssm["hymba_1984"]["launches"][
+                "flash_attention"]},
         "shape": "prefill wave B=8 H=Hkv=16 D=64 S=2048 causal bf16",
         "max_abs_err": f_fwd["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -5148,6 +6119,8 @@ def main():
         "launches": combined["paged_2048"][
             "flash_attention_backward_launches"],
         "train_cli_launches": train_launches["flash_attention_backward"],
+        "hybrid_launches": {"combined_1984": cssm["hymba_1984"]["launches"][
+            "flash_attention_backward"]},
         "shape": "train batch B=4 H=Hkv=16 D=64 S=2048 causal bf16",
         "max_abs_err": f_bwd["bwd_max_abs_err"],
         "max_rel_err": max(f_bwd[f"{g}_rel_err"] for g in ("dq", "dk", "dv")),
@@ -5203,12 +6176,38 @@ def main():
         "state_rel_err": d_main["state_rel_err"],
         "worst_y_rel_err_all_shapes": max(
             r["y_rel_err"] for (n, dt), r in drows.items()
-            if dt == torch.bfloat16),
+            if dt == torch.bfloat16 and "bwd" not in n),
         **{k: d_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms")},
         "bf16_shapes": {n: {k: r[k] for k in ("S", "H", "N", "ms",
                                                 "plain_ms", "bound_ms")}
                         for (n, dt), r in drows.items()
+                        if dt == torch.bfloat16 and "bwd" not in n},
+    }, {
+        "name": "ssd_scan_backward",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        # no TPU kernel: JAX differentiates the jnp ssd_chunked
+        "replaces": "src/repro/models/mamba2.py:81",
+        # the mamba2 co-training server at 2,048-token prompts: the
+        # backward of every layer of every train step (4 x 2,048 rows)
+        "launches": cssm["mamba2_2048"]["launches"]["ssd_scan_backward"],
+        "combined_ssm_launches": {
+            k: cssm[k]["launches"]["ssd_scan_backward"]
+            for k in ("mamba2_32", "hymba_32", "mamba2_2048", "hymba_1984")},
+        "shape": "train batch B=4 S=2048 H=48 P=64 N=128, x bf16",
+        "max_abs_err": b_main["max_abs_err"],
+        "worst_rel_err_all_shapes": max(
+            e for r in bwd_rows.values() for k, e in r.items()
+            if k.endswith("_rel_err")),
+        "repeat_bitwise_all_shapes": all(
+            r["repeat_bitwise"] for r in bwd_rows.values()),
+        **{k: b_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "host_us", "gflop",
+                                  "workspace_and_outputs_peak_bytes")},
+        "bf16_shapes": {n: {k: r[k] for k in ("B", "S", "H", "N", "ms",
+                                                "plain_ms", "bound_ms")}
+                        for (n, dt), r in bwd_rows.items()
                         if dt == torch.bfloat16},
     }, {
         "name": "decode_attention",

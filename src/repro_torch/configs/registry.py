@@ -1,16 +1,17 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-The ids are the JAX package's; the four dense decoders, the Mamba2 SSM
-and the llama-3.2-vision VLM are ported (their config files are copies
-of the JAX ones).  The other families raise ``NotImplementedError``
-naming the ROADMAP item that ports them (they need their mixers).
+The ids are the JAX package's; the four dense decoders, the Mamba2 SSM,
+the hybrid hymba-1.5b and the llama-3.2-vision VLM are ported (their
+config files are copies of the JAX ones).  The MoE and encoder-only
+families raise ``NotImplementedError`` naming the ROADMAP item that
+ports them (they need their blocks).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (
-    internlm2_1_8b, llama3_2_vision_90b, llama3_8b, mamba2_780m,
+    hymba_1_5b, internlm2_1_8b, llama3_2_vision_90b, llama3_8b, mamba2_780m,
     qwen1_5_0_5b, qwen3_14b,
 )
 from repro_torch.configs.base import ModelConfig
@@ -21,6 +22,7 @@ _REGISTRY: Dict[str, ModelConfig] = {
     "internlm2-1.8b": internlm2_1_8b.CONFIG,
     "llama3-8b": llama3_8b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
+    "hymba-1.5b": hymba_1_5b.CONFIG,
     "llama-3.2-vision-90b": llama3_2_vision_90b.CONFIG,
 }
 
@@ -28,7 +30,6 @@ _REGISTRY: Dict[str, ModelConfig] = {
 _FAMILIES = "'Other families'"
 _PENDING: Dict[str, str] = {
     "hubert-xlarge": f"{_FAMILIES} (encoder-only serve step)",
-    "hymba-1.5b": f"{_FAMILIES} (hybrid, sliding-window rings)",
     "moonshot-v1-16b-a3b": f"{_FAMILIES} (MoE)",
     "grok-1-314b": f"{_FAMILIES} (MoE)",
 }

@@ -5,8 +5,10 @@ leaf by the caller, have exactly the port's layout (nested dicts,
 stacked ``[L, ...]`` block leaves, ``[in, out]`` matrices), so loading
 is a per-leaf conversion that keeps dtypes: params in
 ``cfg.param_dtype`` except the leaves the JAX init keeps in float32 (the
-SSM's ``A_log``, ``D_skip``, ``dt_bias``; a VLM cross block's
-``gate_attn``, ``gate_mlp``), LoRA pairs in float32.  A VLM's
+SSM's ``A_log``, ``D_skip``, ``dt_bias``, in the SSM and hybrid blocks
+alike; a VLM cross block's ``gate_attn``, ``gate_mlp``), LoRA pairs in
+float32.  The tree goes through ``mamba2.pad_storage``, as
+``Model.init``'s does.  A VLM's
 ``[units, per, ...]`` blocks and ``[units, ...]`` cross blocks convert
 leaf for leaf like any other stack.  An AdamW
 state (step, m, v) converts the same way, so a test can carry a JAX
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.mamba2 import FLOAT32_LEAVES
+from repro_torch.models.mamba2 import FLOAT32_LEAVES, pad_storage
 from repro_torch.models.transformer import CROSS_FLOAT32_LEAVES
 from repro_torch.optim.adamw import AdamWState
 
@@ -45,8 +47,9 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict, device="cuda") -> Dict:
     """A JAX params tree (numpy leaves) -> the port's params, in
     ``cfg.param_dtype`` on ``device`` (the SSM's and the cross blocks'
     float32 leaves stay float32)."""
-    return _tree(tree, getattr(torch, cfg.param_dtype), torch.device(device),
-                 keep=FLOAT32_LEAVES + CROSS_FLOAT32_LEAVES)
+    return pad_storage(_tree(tree, getattr(torch, cfg.param_dtype),
+                             torch.device(device),
+                             keep=FLOAT32_LEAVES + CROSS_FLOAT32_LEAVES))
 
 
 def lora_from_numpy(tree: Dict, device="cuda") -> Dict:

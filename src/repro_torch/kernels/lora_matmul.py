@@ -25,7 +25,15 @@ kernel, or raise on a dtype, shape, rank or device it does not take.
 Nothing falls back from one to the other.  ``lora_matmul.launches``
 counts kernel launches.  Operands are taken with their strides, so
 transposed views cost no copy (bf16: W, A and B all row-major or all
-column-major, strides a multiple of 8 elements).
+column-major, strides a multiple of 8 elements).  A bf16 operand whose
+row stride is no multiple of 8 (hymba-1.5b's ``ssm_in``, N = 6,482 =
+8 x 810 + 2: its B, and dY in the dX backward) is copied by the wrapper
+into storage padded to one (``pad_columns``), in its own layout; the
+kernels read each row's valid elements (the rest of a 16-byte chunk and
+of a TMA box load as zeros) and write the output row by row.  So any
+tensor of the reference's shape is taken; the model keeps its large W
+in padded storage (``mamba2.pad_storage``) only so that no call copies
+it.
 
 ``LoRAMatmulFn`` is its gradient (the Pallas kernel has none; JAX trains
 through autodiff of the jnp bypass).  With ``t = s * dY @ B^T``:
@@ -90,6 +98,32 @@ MMA_GROUP_M = 8
 
 def _cdiv(a: int, c: int) -> int:
     return -(-a // c)
+
+
+ROW_ALIGN = 8            # bf16 row strides: whole 16-byte chunks
+
+
+def pad_columns(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (any rank >= 2) as a view of zero-padded storage with unit
+    stride along its last axis and a row stride that is a multiple of
+    ``ROW_ALIGN`` elements; ``t`` itself when it already is so."""
+    n = t.shape[-1]
+    if t.dim() < 2 or (t.stride(-1) == 1 and t.stride(-2) >= n
+                       and t.stride(-2) % ROW_ALIGN == 0):
+        return t
+    return torch.nn.functional.pad(t, (0, -n % ROW_ALIGN))[..., :n]
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """A 2-D bf16 operand as the kernels take it: ``t`` itself, or, where
+    its row stride (its column stride, column-major) is no multiple of
+    ``ROW_ALIGN``, a copy in padded storage of the same layout.  Any
+    other layout passes through to ``_check``, which refuses it."""
+    if t.dim() == 2 and t.stride(1) == 1:
+        return pad_columns(t)
+    if t.dim() == 2 and t.stride(0) == 1:
+        return pad_columns(t.t()).t()
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -270,6 +304,8 @@ def _plan_args(x, stream: int, k: int, n: int, r: int, na: int):
 
 
 def _launch(x, w, a, b, scaling: float):
+    if x.dtype == torch.bfloat16:
+        x, w, a, b = (_aligned(t) for t in (x, w, a, b))
     _check(x, w, a, b)
     fn = _entry()
     m, k = x.shape

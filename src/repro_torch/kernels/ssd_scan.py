@@ -33,9 +33,20 @@ final_state [B, H, P, N])``.
 
 Dispatch: CPU tensors take the plain PyTorch version ``ssd_scan_ref``;
 CUDA tensors launch the kernel, or raise on a dtype, rank, shape, stride
-or device it does not take, and raise ``NotImplementedError`` when an
-input requires grad (the kernel has no backward yet).  Nothing falls
-back.  ``ssd_scan.launches`` counts kernel launches, ``LAUNCHES`` a call.
+or device it does not take.  Nothing falls back.  ``ssd_scan.launches``
+counts kernel launches, ``LAUNCHES`` a call.
+
+The gradient (``SSDScanFn``, taken whenever autograd has to see the
+call): ``ssd_scan_bwd`` computes dx, ddt, da, dB, dC and d(init_state)
+from dy and d(final_state), the gradients ``jax.vjp`` of
+``repro.models.mamba2.ssd_chunked`` gives.  The Pallas kernel has no
+backward (JAX differentiates the jnp ``ssd_chunked``), so its CUDA
+kernel, ``csrc/ssd_scan_bwd.cu``, replaces no TPU kernel; it exists
+because a CUDA tensor never takes a plain version.  CPU tensors take
+``ssd_scan_bwd_ref``, the chunk-wise backward written out in explicit
+formulas, which the kernel mirrors.  Design, memory and bound are in the
+source note; ``ssd_scan_bwd.launches`` counts its launches,
+``LAUNCHES_BWD`` a call.
 """
 from __future__ import annotations
 
@@ -54,8 +65,6 @@ MAX_ROWS = 64            # P: rows of the state (one block's worth)
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _P = ctypes.c_void_p
-_BACKWARD = ("ssd_scan has no backward on the card yet; see ROADMAP.md, "
-             "'Other families' (SSM co-training: the ssd_scan backward)")
 
 
 def ssd_scan_ref(x, dt, a, bmat, cmat, *, chunk: int = 256,
@@ -203,21 +212,8 @@ def _aligned(t, base_strides) -> bool:
                                           for st in base_strides)
 
 
-def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 256,
-             init_state: Optional[torch.Tensor] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B,S,H,P], dt [B,S,H], a [H], bmat/cmat [B,S,N], init_state
-    [B,H,P,N] or None -> (y [B,S,H,P] in x's dtype, final state
-    [B,H,P,N] float32).  CPU tensors take ``ssd_scan_ref`` (``chunk``
-    is its chunk length); CUDA tensors launch the kernel (see the module
-    docstring)."""
-    tensors = [x, dt, a, bmat, cmat] + (
-        [init_state] if init_state is not None else [])
-    if all(t.device.type == "cpu" for t in tensors):
-        return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk,
-                            init_state=init_state)
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError(_BACKWARD)
+def _launch(x, dt, a, bmat, cmat, init_state):
+    """The forward kernel on CUDA tensors (checked first)."""
     _check(x, dt, a, bmat, cmat, init_state)
     fn = _entry()
     b, s, h, p = x.shape
@@ -248,4 +244,268 @@ def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 256,
     return y, fin
 
 
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors if t is not None)
+
+
+def _forward(x, dt, a, bmat, cmat, chunk, init_state):
+    if _on_cpu(x, dt, a, bmat, cmat, init_state):
+        return ssd_scan_ref(x, dt, a, bmat, cmat, chunk=chunk,
+                            init_state=init_state)
+    return _launch(x, dt, a, bmat, cmat, init_state)
+
+
+def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 256,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B,S,H,P], dt [B,S,H], a [H], bmat/cmat [B,S,N], init_state
+    [B,H,P,N] or None -> (y [B,S,H,P] in x's dtype, final state
+    [B,H,P,N] float32).  CPU tensors take ``ssd_scan_ref`` (``chunk``
+    is its chunk length); CUDA tensors launch the kernel (see the module
+    docstring); through ``SSDScanFn`` when an input requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, bmat, cmat, init_state)):
+        return SSDScanFn.apply(x, dt, a, bmat, cmat, init_state, chunk)
+    return _forward(x, dt, a, bmat, cmat, chunk, init_state)
+
+
 ssd_scan.launches = 0
+
+
+# ------------------------------------------------------------- backward ---
+def ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dfinal=None, *,
+                     chunk: int = 256,
+                     init_state: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the backward, the chunk-wise formulas
+    the kernel computes (float32 throughout).  Per chunk, with cum the
+    inclusive cumsum of dt * a, seg its last value, L[i, j] = exp(cum_i
+    - cum_j) for i >= j, w = exp(seg - cum) dt, E the state entering the
+    chunk and G the gradient of the state leaving it (G of the last
+    chunk is d(final_state), G of chunk c - 1 is exp(seg) G + sum_i
+    exp(cum_i) dy_i C_i^T, and what that gives before chunk 0 is
+    d(init_state)):
+
+      M = dy x^T (per head)     K = C B^T o L o M     S = C B^T o L o dt^T
+      dx = S^T dy + w o (B G^T)
+      dC = (sum_h M o L o dt^T) B + sum_h exp(cum) o (dy E)
+      dB = (sum_h M o L o dt^T)^T C + sum_h w o (x G)
+      d cum = K dt - dt o colsum(K) + exp(cum) o rowsum(C o (dy E))
+              - w o rowsum(x o (B G^T))
+      d seg = exp(seg) <G, E> + sum_j w_j x_j . (B G^T)_j
+      d(dt * a) = reverse cumsum of d cum, plus d seg
+      ddt = a d(dt * a) + colsum(K) + exp(seg - cum) o rowsum(x o (B G^T))
+      da = sum over batch and positions of d(dt * a) o dt
+
+    Returns (dx [B,S,H,P] in x's dtype, ddt [B,S,H], da [H], dB
+    [B,S,N], dC [B,S,N], d(init_state) [B,H,P,N] or None without an
+    ``init_state``); ``dfinal`` None means zeros."""
+    bt, s, h, p = x.shape
+    n = bmat.shape[-1]
+    q = chunk
+    nc = -(-s // q)
+    pad = nc * q - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dy = F.pad(dy, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, pad))
+    xc = x.reshape(bt, nc, q, h, p).float()
+    dyc = dy.reshape(bt, nc, q, h, p).float()
+    dtc = dt.reshape(bt, nc, q, h).float()
+    bc = bmat.reshape(bt, nc, q, n).float()
+    cc = cmat.reshape(bt, nc, q, n).float()
+    af = a.float()
+
+    cum = torch.cumsum(dtc * af, dim=2)                   # [Bt,nc,q,H]
+    seg = cum[:, :, -1]                                   # [Bt,nc,H]
+    eseg = torch.exp(seg)
+    ecum = torch.exp(cum)
+    ed = torch.exp(seg[:, :, None] - cum)                 # decay to the end
+    w = ed * dtc
+    ii = torch.arange(q, device=x.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    lmat = torch.where(causal, torch.exp(cum[:, :, :, None]
+                                         - cum[:, :, None, :]), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", cc, bc)
+
+    # the state entering each chunk, and the gradient of the one leaving
+    own = torch.einsum("bcjh,bcjn,bcjhp->bchpn", w, bc, xc)
+    rown = torch.einsum("bcih,bcin,bcihp->bchpn", ecum, cc, dyc)
+    e = torch.zeros((bt, h, p, n), dtype=torch.float32, device=x.device) \
+        if init_state is None else init_state.float()
+    ents = []
+    for c in range(nc):
+        ents.append(e)
+        e = own[:, c] + e * eseg[:, c, :, None, None]
+    g = torch.zeros((bt, h, p, n), dtype=torch.float32, device=x.device) \
+        if dfinal is None else dfinal.float()
+    gs = [None] * nc
+    for c in range(nc - 1, -1, -1):
+        gs[c] = g
+        g = rown[:, c] + g * eseg[:, c, :, None, None]
+    ent = torch.stack(ents, dim=1)                        # [Bt,nc,H,P,N]
+    gl = torch.stack(gs, dim=1)
+
+    bg = torch.einsum("bcjn,bchpn->bcjhp", bc, gl)        # B G^T
+    m = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    kmat = cb[..., None] * lmat * m
+    scores = cb[..., None] * lmat * dtc[:, :, None]
+    dx = torch.einsum("bcijh,bcihp->bcjhp", scores, dyc) + w[..., None] * bg
+    dcb = (m * lmat * dtc[:, :, None]).sum(-1)            # over the heads
+    dye = torch.einsum("bcihp,bchpn->bcihn", dyc, ent)
+    d_c = torch.einsum("bcij,bcjn->bcin", dcb, bc) \
+        + torch.einsum("bcih,bcihn->bcin", ecum, dye)
+    d_b = torch.einsum("bcij,bcin->bcjn", dcb, cc) \
+        + torch.einsum("bcjh,bcjhp,bchpn->bcjn", w, xc, gl)
+    row_k = (kmat * dtc[:, :, None]).sum(3)               # [Bt,nc,i,H]
+    col_k = kmat.sum(2)                                   # [Bt,nc,j,H]
+    r = ecum * torch.einsum("bcihn,bcin->bcih", dye, cc)
+    v = ed * (xc * bg).sum(-1)
+    u = dtc * v
+    dseg = eseg * (gl * ent).sum((-1, -2)) + u.sum(2)
+    dcum = row_k - dtc * col_k + r - u
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2]) \
+        + dseg[:, :, None]
+    ddt = af * dda + col_k + v
+    da = (dda * dtc).sum((0, 1, 2))
+    dx = dx.reshape(bt, nc * q, h, p)[:, :s].to(x.dtype)
+    ddt = ddt.reshape(bt, nc * q, h)[:, :s]
+    d_b = d_b.reshape(bt, nc * q, n)[:, :s]
+    d_c = d_c.reshape(bt, nc * q, n)[:, :s]
+    return dx, ddt, da, d_b, d_c, (g if init_state is not None else None)
+
+
+LAUNCHES_BWD = 4         # a call: states, scan, main, reduce
+BWD_MIN_BLOCKS = 132     # main blocks to aim for (one an SM on an H100)
+
+
+def bwd_state_cols(n: int) -> int:
+    """State columns the backward keeps: ``n`` padded to 16, 32, 64 or
+    128."""
+    return next(c for c in (16, 32, 64, 128) if n <= c)
+
+
+def bwd_plan(b: int, s: int, h: int, p: int, n: int,
+             n_sm: int = BWD_MIN_BLOCKS) -> Tuple[int, int, int, int]:
+    """(chunks, head groups G, heads a group, workspace floats) of one
+    backward call.  The main launch runs a block per (batch, chunk, head
+    group), each walking its group's heads; G is the fewest groups that
+    give ``n_sm`` blocks (at most one per head).  The workspace holds
+    each chunk's entering state and leaving-state gradient per head
+    ([B, chunks, H, P, NP] each), exp(seg) and the da partial per
+    (batch, chunk, head), and each block's dB and dC partials ([2, 64,
+    NP]), summed over the groups in order by the last launch."""
+    nc = -(-s // CHUNK)
+    npad = bwd_state_cols(n)
+    groups = max(1, min(h, -(-n_sm // (b * nc))))
+    per = -(-h // groups)
+    groups = -(-h // per)
+    floats = 2 * b * nc * h * p * npad + 2 * b * nc * h \
+        + b * nc * groups * 2 * CHUNK * npad
+    return nc, groups, per, floats
+
+
+@functools.lru_cache(maxsize=None)
+def _entry_bwd():
+    """The backward's C entry point, built and loaded on first use."""
+    fn = _build.library("ssd_scan_bwd").ssd_scan_bwd_launch
+    fn.restype = _I
+    fn.argtypes = [_I] + [_P] * 15 + [_I] * 7 + [_L] * 10 + [_P]
+    return fn
+
+
+def _check_bwd(x, dy, dfinal, n: int) -> None:
+    if dy.device != x.device or (dfinal is not None
+                                 and dfinal.device != x.device):
+        raise ValueError("ssd_scan_bwd: dy and d(final_state) must be on "
+                         f"x's device {x.device}")
+    if dy.dtype != x.dtype or tuple(dy.shape) != tuple(x.shape):
+        raise ValueError(f"ssd_scan_bwd: dy {dy.dtype} {tuple(dy.shape)} "
+                         f"must match y ({x.dtype} {tuple(x.shape)})")
+    b, _, h, p = x.shape
+    if dfinal is not None and (dfinal.dtype != torch.float32
+                               or tuple(dfinal.shape) != (b, h, p, n)):
+        raise ValueError(f"ssd_scan_bwd: d(final_state) {dfinal.dtype} "
+                         f"{tuple(dfinal.shape)} must be float32 "
+                         f"[{b}, {h}, {p}, {n}]")
+
+
+def _launch_bwd(x, dt, a, bmat, cmat, dy, dfinal, init_state):
+    """The backward kernel on CUDA tensors (checked first)."""
+    _check(x, dt, a, bmat, cmat, init_state)
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    _check_bwd(x, dy, dfinal, n)
+    fn = _entry_bwd()
+    dev = x.device
+    _, groups, per, floats = bwd_plan(b, s, h, p, n,
+                                      _scratch.sm_count(dev.index or 0))
+    dy = dy.contiguous()
+    dfinal = dfinal.contiguous() if dfinal is not None else None
+    init = init_state.contiguous() if init_state is not None else None
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, h), **f32)
+    da = torch.empty((h,), **f32)
+    d_b = torch.empty((b, s, n), **f32)
+    d_c = torch.empty((b, s, n), **f32)
+    dinit = torch.empty((b, h, p, n), **f32) if init is not None else None
+    ws = torch.empty((floats,), **f32)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
+                 dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
+                 cmat.data_ptr(), ptr(init), ptr(dfinal), dx.data_ptr(),
+                 ddt.data_ptr(), da.data_ptr(), d_b.data_ptr(),
+                 d_c.data_ptr(), ptr(dinit), ws.data_ptr(),
+                 b, s, h, p, n, groups, per, *x.stride()[:3], *dt.stride(),
+                 bmat.stride(0), bmat.stride(1), cmat.stride(0),
+                 cmat.stride(1), _scratch.stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"ssd_scan_bwd: launch failed with CUDA error {err} (x "
+            f"{tuple(x.shape)}, state {n}, {x.dtype})")
+    ssd_scan_bwd.launches += LAUNCHES_BWD
+    return dx, ddt, da, d_b, d_c, dinit
+
+
+def ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dfinal=None, *,
+                 chunk: int = 256,
+                 init_state: Optional[torch.Tensor] = None):
+    """The gradients of ``ssd_scan`` (see ``ssd_scan_bwd_ref`` for what
+    it returns).  CPU tensors take ``ssd_scan_bwd_ref`` (``chunk`` is its
+    chunk length); CUDA tensors launch the kernel, or raise."""
+    if _on_cpu(x, dt, a, bmat, cmat, dy, dfinal, init_state):
+        return ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dfinal,
+                                chunk=chunk, init_state=init_state)
+    return _launch_bwd(x, dt, a, bmat, cmat, dy, dfinal, init_state)
+
+
+ssd_scan_bwd.launches = 0
+
+
+class SSDScanFn(torch.autograd.Function):
+    """``ssd_scan`` with its gradient in every input: the forward as
+    ``ssd_scan`` runs it, the backward ``ssd_scan_bwd`` (the kernel on
+    the card, the plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, init_state, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, a, bmat, cmat, init_state)
+        return _forward(x, dt, a, bmat, cmat, chunk, init_state)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, a, bmat, cmat, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_scan_bwd(x, dt, a, bmat, cmat, dy, dfinal,
+                             chunk=ctx.chunk, init_state=init_state)
+        return (*grads, None)

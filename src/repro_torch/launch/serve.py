@@ -22,7 +22,10 @@ pool runs out: its private blocks swap to host memory, or with
 (contiguous caches: a conv tail and an SSD state per slot): each prompt
 prefills at its exact length through the ssd_scan kernel in every layer,
 and ``--paged``, ``--adapters`` and ``--chunked-prefill`` raise for it,
-as in the reference.  Weights are random, drawn from ``--seed``.
+as in the reference.  ``--arch hymba-1.5b`` serves the hybrid the same
+way, its sliding-window K/V in a ring per slot beside the SSM caches.
+With ``--combined`` either co-trains through the ssd_scan backward
+kernel.  Weights are random, drawn from ``--seed``.
 
 ``--replicas N`` (N > 1) serves the same trace through the multi-replica
 fabric instead (``runtime/fabric.py``): one ``ClusterController`` routes
@@ -47,7 +50,8 @@ Usage (on a machine with an NVIDIA Hopper card):
   ... --paged --n-blocks 160 --oversubscribe 1.0 [--no-swap]  # preemption
   ... --combined --train-batch 4              # co-train the adapter
   ... --adapters 3 [--combined]               # multi-tenant LoRA serving
-  ... --arch mamba2-780m                      # Mamba2 (SSM), contiguous
+  ... --arch mamba2-780m [--combined]         # Mamba2 (SSM), contiguous
+  ... --arch hymba-1.5b [--combined]          # hybrid: window ring + SSM
   ... --replicas 2 --paged                    # dispatcher-routed pool
   ... --replicas 2 --combined --rounds 2      # FL rounds over the pool
   ... --replicas 2 --adapters 4               # tenants across replicas

@@ -3,16 +3,18 @@ with checkpoint/restart fault tolerance and a NaN guard.
 
 Every LoRA projection runs the fused ``lora_matmul`` kernel, forward and
 the backward's dX; sequences past 1,024 tokens take ``flash_attention``,
-forward and backward.  The dense decoders train on the card and the CPU;
-mamba2-780m trains on the CPU only (the ``ssd_scan`` kernel has no
-backward yet, and its wrapper says so), and the VLM not at all (ROADMAP
-item 4).  Weights are random, drawn from ``--seed``'s generators;
+forward and backward; every SSM layer (mamba2-780m, and hymba-1.5b beside
+its attention) takes ``ssd_scan`` and its backward kernel.  The dense
+decoders, mamba2-780m and hymba-1.5b train on the card and the CPU, the
+VLM not at all (ROADMAP item 4).  Weights are random, drawn from
+``--seed``'s generators;
 checkpoints use the reference's format (``checkpoint/checkpointer.py``),
 so either package resumes from the other's.
 
 Usage (on a machine with an NVIDIA Hopper card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --batch 8 --seq 64 --ckpt /tmp/ck
+  ... --arch mamba2-780m | --arch hymba-1.5b   # SSM / hybrid stacks
   ... --restore            # resume from the latest checkpoint
   ... --full               # the published widths
   ... --device cpu         # on the CPU (plain PyTorch versions)
@@ -75,8 +77,10 @@ def train_from_weights(engine: Engine, params: Any, lora: Any, *,
     ``alpaca`` batches, a checkpoint every ``ckpt_every`` steps and at
     the end (``arch`` goes into each one's ``extra``), a non-finite loss
     (or ``inject_nan_at``, a fault hook for tests) rolled back to the last
-    checkpointed state.  Returns ``losses``, ``final_loss``, ``lora`` and
-    ``steps``."""
+    checkpointed state, after the write in flight (the reference reads
+    the latest complete step before its restore waits for the writer, so
+    it can resume an older step count with the newer state; ROADMAP §3).
+    Returns ``losses``, ``final_loss``, ``lora`` and ``steps``."""
     cfg = engine.model.cfg
     refuse_untrainable(cfg)
     device = engine.model.device
@@ -112,6 +116,10 @@ def train_from_weights(engine: Engine, params: Any, lora: Any, *,
                       f"step {last_good[2]}")
             lora, opt_state, step = last_good
             if ckpt:
+                # the last save may still be on the writer thread: its
+                # step, not an older complete one, is the one to resume
+                # at, as ``restore`` (which waits) loads its state
+                ckpt.wait()
                 lat = ckpt.latest_step()
                 if lat is not None:
                     (lora, opt_state), _ = ckpt.restore((lora, opt_state))

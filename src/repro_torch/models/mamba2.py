@@ -16,6 +16,10 @@ Both LoRA projections (``ssm_in`` on ``in_proj``, ``ssm_out`` on
 Apart from that the arithmetic and its casts are the JAX mixer's.
 Params are a dict with the JAX ``SSMParams`` fields; ``A_log``,
 ``D_skip`` and ``dt_bias`` stay float32 whatever the param dtype.
+``pad_storage`` keeps ``in_proj`` in storage padded to whole 16-byte
+rows, a view of the JAX shape (hymba-1.5b's width, 6,482, is no
+multiple of 8; the bf16 ``lora_matmul`` wrapper would otherwise copy it
+into such storage on every call).
 """
 from __future__ import annotations
 
@@ -26,12 +30,27 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.lora_matmul import pad_columns
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models import lora as lora_lib
 from repro_torch.models.layers import dense_init, rms_norm
 
 # leaves the JAX init keeps in float32 (``convert.py`` reads this too)
 FLOAT32_LEAVES = ("A_log", "D_skip", "dt_bias")
+# LoRA-projected weights ``pad_storage`` keeps in padded storage
+PADDED_LEAVES = ("in_proj",)
+
+
+def pad_storage(tree):
+    """``tree`` (a params tree, nested dicts) with every leaf named in
+    ``PADDED_LEAVES`` in padded storage (``lora_matmul.pad_columns``; a
+    copy where the width is no multiple of 8, else the leaf itself):
+    ``Model.init`` and ``convert.params_from_numpy`` hand their trees
+    through it."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: pad_columns(v) if k in PADDED_LEAVES else pad_storage(v)
+            for k, v in tree.items()}
 
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> Dict:

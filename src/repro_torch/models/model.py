@@ -1,6 +1,7 @@
 """The port's model: one ``Model`` per (ModelConfig, device) with the
 serving surface of ``repro.models.model.Model`` for the dense family,
-the attention-free SSM family (Mamba2) and the VLM (llama-3.2-vision):
+the attention-free SSM family (Mamba2), the hybrid (hymba) and the VLM
+(llama-3.2-vision):
 
   init(generator) -> params              init_lora(generator) -> adapters
   forward_loss(params, lora, batch)      (training objective), logits
@@ -18,8 +19,10 @@ applies its own slot (< 0: the base model alone).
   write_prefill_rows, copy_blocks        a chunk's rows; copy-on-write
 
 An SSM stack's caches are ``{"ssm": {"conv", "state"}}`` per slot (the
-conv tail and the SSD state, fixed size whatever the prompt); the ragged
-prefill and the paged layout are attention-only, as in JAX.
+conv tail and the SSD state, fixed size whatever the prompt); a hybrid
+stack's add ``{"kv": (k, v)}``, a ring of ``min(seq, window)`` rows per
+slot; the ragged prefill and the paged layout are attention-only, as in
+JAX.
 
 A VLM stack is ``units`` of ``per`` dense blocks and one cross block
 (``cross_attn_every = per + 1``): ``params["blocks"]`` ``[units, per,
@@ -162,7 +165,7 @@ class Model:
                                           device=generator.device)
         params["lm_head"] = dense_init(generator, cfg.d_model,
                                        cfg.vocab_size, dtype)
-        return params
+        return mamba2.pad_storage(params)
 
     def init_lora(self, generator: torch.Generator) -> Dict:
         """One adapter, stacked ``[L, ...]`` (a VLM: ``[units, per, ...]``
@@ -189,7 +192,7 @@ class Model:
         """Full-sequence forward.  Returns (hidden, caches | None) with
         caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``, or for an
         SSM stack ``{"ssm": {"conv": [L, B, W-1, C], "state": [L, B, H,
-        P, N]}}``.
+        P, N]}}``, or for a hybrid stack both.
         ``block_kv`` and ``skip_masked_blocks`` reach the blockwise
         attention of sequences past the dense limit; ``adapter_idx`` [B]
         selects each row's slot of a stacked ``lora`` tree."""
@@ -215,7 +218,11 @@ class Model:
             if collect_caches:
                 per_layer.append(cache)
         caches = None
-        if collect_caches and cfg.has_ssm:
+        if collect_caches and cfg.family is Family.HYBRID:
+            caches = {"kv": tuple(torch.stack(t) for t in zip(
+                *(c["kv"] for c in per_layer))),
+                "ssm": _stack([c["ssm"] for c in per_layer])}
+        elif collect_caches and cfg.has_ssm:
             caches = {"ssm": _stack(per_layer)}
         elif collect_caches:
             caches = {"kv": tuple(torch.stack(t) for t in zip(*per_layer))}
@@ -289,9 +296,9 @@ class Model:
         """Contiguous KV caches ``[L, batch, S, Hkv, Dh]`` per K/V
         (sliding-window archs keep a ring of window size); an SSM stack's
         ``{"ssm": {"conv", "state"}}`` instead (conv tail in the cache
-        dtype, state float32, whatever ``seq``); a VLM's ``kv`` ``[units,
-        per, batch, S, Hkv, Dh]`` and ``cross_kv`` ``[units, batch, T,
-        Hkv, Dh]``."""
+        dtype, state float32, whatever ``seq``); a hybrid stack's both;
+        a VLM's ``kv`` ``[units, per, batch, S, Hkv, Dh]`` and
+        ``cross_kv`` ``[units, batch, T, Hkv, Dh]``."""
         cfg = self.cfg
         if cfg.family is Family.VLM:
             units, per = self._vlm_shape()
@@ -304,16 +311,19 @@ class Model:
                     "cross_kv": tuple(torch.zeros(cross, dtype=dt,
                                                   device=self.device)
                                       for _ in range(2))}
-        if cfg.has_ssm:
-            return {"ssm": mamba2.init_ssm_cache(
-                cfg, batch, self._cache_dtype(dtype), self.device,
-                stacked=cfg.n_layers)}
-        kv_seq = seq if cfg.sliding_window == 0 \
-            else min(seq, cfg.sliding_window)
-        shape = (cfg.n_layers, batch, kv_seq, cfg.n_kv_heads, cfg.head_dim)
         dt = self._cache_dtype(dtype)
-        return {"kv": (torch.zeros(shape, dtype=dt, device=self.device),
-                       torch.zeros(shape, dtype=dt, device=self.device))}
+        caches: Dict[str, Any] = {}
+        if cfg.has_attention:
+            kv_seq = seq if cfg.sliding_window == 0 \
+                else min(seq, cfg.sliding_window)
+            shape = (cfg.n_layers, batch, kv_seq, cfg.n_kv_heads,
+                     cfg.head_dim)
+            caches["kv"] = (torch.zeros(shape, dtype=dt, device=self.device),
+                            torch.zeros(shape, dtype=dt, device=self.device))
+        if cfg.has_ssm:
+            caches["ssm"] = mamba2.init_ssm_cache(
+                cfg, batch, dt, self.device, stacked=cfg.n_layers)
+        return caches
 
     def init_paged_caches(self, n_blocks: int, block_size: int,
                           dtype=None) -> Dict:
@@ -372,16 +382,16 @@ class Model:
     # ---------------------------------------------------------- slot ops ---
     def write_prefill_slot(self, pool_caches, prefill_caches, slot: int,
                            src: int = 0):
-        """Copy sequence ``src`` of an SSM prefill's caches (conv tail and
-        SSD state, ``[L, B, ...]``, the same shape whatever the prompt)
-        into row ``slot`` of ``pool_caches``, in place: the batcher
-        gathers a wave's exact-length prefills with it."""
+        """Copy sequence ``src`` of a prefill's caches (``[L, B, ...]``:
+        an SSM stack's conv tail and SSD state, the same shape whatever
+        the prompt; a hybrid's prompt K/V too, into the first rows of the
+        slot's ring) into row ``slot`` of ``pool_caches``, in place: the
+        batcher gathers a wave's exact-length prefills with it."""
         self._no_vlm("cache-slot writes")
-
-        def write(pool, pre):
+        for pool, pre in zip(_cache_leaves(pool_caches),
+                             _cache_leaves(prefill_caches)):
             rows = tuple(slice(0, d) for d in pre.shape[2:])
             pool[(slice(None), slot) + rows].copy_(pre[:, src])
-        tree_map(write, pool_caches, prefill_caches)
         return pool_caches
 
     def write_prefill_slots(self, pool_caches, prefill_caches,
@@ -628,8 +638,11 @@ class Model:
                     "reference's VLM decode serves one adapter)")
             return self._vlm_decode(params, lora, caches, x, pos, rope_cs)
         for i in range(cfg.n_layers):
-            layer = {"ssm": _layer(caches["ssm"], i)} if cfg.has_ssm \
-                else {"kv": (caches["kv"][0][i], caches["kv"][1][i])}
+            layer = {}
+            if cfg.has_attention:
+                layer["kv"] = (caches["kv"][0][i], caches["kv"][1][i])
+            if cfg.has_ssm:
+                layer["ssm"] = _layer(caches["ssm"], i)
             x, _ = tfm.block_decode(_layer(params["blocks"], i), x, cfg,
                                     layer, pos, rope_cs,
                                     lora=_layer(lora, i),

@@ -1,9 +1,12 @@
 """Decoder blocks of the port — the counterparts of
 ``repro.models.transformer`` for the dense family, the attention-free
-SSM family (Mamba2) and the VLM (llama-3.2-vision):
+SSM family (Mamba2), the hybrid (hymba: attention and a Mamba2 mixer
+side by side) and the VLM (llama-3.2-vision):
 
   dense:  x += attn(norm1(x)); x += mlp(norm2(x))
   SSM:    x += ssm_mixer(norm1(x))
+  hybrid: x += 0.5 * (attn(norm1(x)) + ssm_mixer(norm1(x)));
+          x += mlp(norm2(x))
   VLM:    units of (cross_attn_every - 1) dense blocks and one
           cross-attention block over the request's vision tokens:
           x += tanh(gate_attn) * cross_attn(norm1(x));
@@ -20,9 +23,9 @@ With ``adapter_idx`` [B] (multi-tenant serving), ``lora`` is one layer's
 slot stack and each adapter projection is one ``segmented_lora_matmul``
 call over every sequence's own slot.
 Decode writes the new token's K/V (an SSM layer: its conv tail and
-state) into the caller's cache tensors IN PLACE (the JAX blocks return
-new caches); the returned caches are the same tensors.  The hybrid, MoE
-and encoder families raise ``NotImplementedError``.
+state; a hybrid layer: both) into the caller's cache tensors IN PLACE
+(the JAX blocks return new caches); the returned caches are the same
+tensors.  The MoE and encoder families raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -85,7 +88,8 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    if cfg.family not in (Family.DENSE, Family.SSM, Family.VLM):
+    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID,
+                          Family.VLM):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family is not ported to "
             "repro_torch yet; see ROADMAP.md, 'Other families'")
@@ -97,6 +101,8 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         p["ssm"] = mamba2.init_ssm(gen, cfg)
         return p
     p["attn"] = init_attn(gen, cfg)
+    if cfg.family is Family.HYBRID:
+        p["ssm"] = mamba2.init_ssm(gen, cfg)
     if cfg.d_ff > 0:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
         p["mlp"] = init_mlp(gen, cfg)
@@ -299,19 +305,25 @@ def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
                adapter_idx=None):
     """Full-sequence block (prefill, training).  Returns (x, (k, v)), or
     for an SSM layer (x, {"conv", "state"}): the conv tail and final
-    state prefill hands to decode."""
+    state prefill hands to decode; a hybrid layer (x, {"kv": (k, v),
+    "ssm": {"conv", "state"}})."""
+    h = rms_norm(x, bp["ln1"])
     if cfg.family is Family.SSM:
-        y, ssm_cache = mamba2.ssm_mixer(bp["ssm"], rms_norm(x, bp["ln1"]),
-                                        cfg, lora=lora)
+        y, ssm_cache = mamba2.ssm_mixer(bp["ssm"], h, cfg, lora=lora)
         return x + y, ssm_cache
-    attn_out, kv = attn_full(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
-                             rope_cs, lora=lora, block_kv=block_kv,
+    attn_out, kv = attn_full(bp["attn"], h, cfg, rope_cs, lora=lora,
+                             block_kv=block_kv,
                              skip_masked_blocks=skip_masked_blocks,
                              adapter_idx=adapter_idx)
+    cache = kv
+    if cfg.family is Family.HYBRID:
+        ssm_out, ssm_cache = mamba2.ssm_mixer(bp["ssm"], h, cfg, lora=lora)
+        attn_out = 0.5 * (attn_out + ssm_out)
+        cache = {"kv": kv, "ssm": ssm_cache}
     x = x + attn_out
     if cfg.d_ff > 0:
         x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
-    return x, kv
+    return x, cache
 
 
 def block_prefill_suffix(bp, x, cfg: ModelConfig, prefix_kv, prefix_len,
@@ -329,19 +341,24 @@ def block_prefill_suffix(bp, x, cfg: ModelConfig, prefix_kv, prefix_len,
 
 def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None,
                  adapter_idx=None):
-    """One-token block.  caches: {"kv": (k, v)} of this layer, or an SSM
-    layer's {"ssm": {"conv", "state"}} (updated in place).  Returns (x,
-    caches)."""
-    if cfg.family is Family.SSM:
+    """One-token block.  caches: {"kv": (k, v)} of this layer, an SSM
+    layer's {"ssm": {"conv", "state"}}, or a hybrid layer's both
+    (updated in place).  Returns (x, caches)."""
+    h = rms_norm(x, bp["ln1"])
+
+    def ssm_step():
         ssm = caches["ssm"]
-        y, new = mamba2.ssm_mixer(bp["ssm"], rms_norm(x, bp["ln1"]), cfg,
-                                  cache=ssm, lora=lora)
+        y, new = mamba2.ssm_mixer(bp["ssm"], h, cfg, cache=ssm, lora=lora)
         ssm["conv"].copy_(new["conv"])
         ssm["state"].copy_(new["state"])
-        return x + y, caches
-    attn_out, _ = attn_decode(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
-                              caches["kv"], pos, rope_cs, lora=lora,
-                              adapter_idx=adapter_idx)
+        return y
+
+    if cfg.family is Family.SSM:
+        return x + ssm_step(), caches
+    attn_out, _ = attn_decode(bp["attn"], h, cfg, caches["kv"], pos, rope_cs,
+                              lora=lora, adapter_idx=adapter_idx)
+    if cfg.family is Family.HYBRID:
+        attn_out = 0.5 * (attn_out + ssm_step())
     x = x + attn_out
     if cfg.d_ff > 0:
         x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)

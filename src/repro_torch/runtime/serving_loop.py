@@ -27,8 +27,12 @@ the ssd_scan kernel in every layer on the card), the wave's last-position
 logits are stacked on the device for ONE argmax pull, and the wave's
 caches, gathered row by row (``write_prefill_slot``), land in their
 slots with the same batched write.  Decode then runs the O(1)
-recurrence.  Paged caches and multi-tenant adapters refuse SSM
-stacks, as in the reference.
+recurrence.  The hybrid (hymba) takes the same path with its sliding-
+window K/V beside the SSM caches: each prompt's K/V lands verbatim in the
+first rows of its slot's ring (``prompt_pad`` is at most the window), and
+decode writes wrap at ``ring_len``.  Paged caches, multi-tenant adapters,
+chunked prefill, oversubscription and the prefix cache refuse SSM and
+hybrid stacks, as in the reference.
 
 Co-serving: passing a training batch to ``step`` runs the engine's
 ``combined_step[_paged]`` — the decode wave reads the published adapter
@@ -901,7 +905,9 @@ class ContinuousBatcher:
         pull."""
         self.prefill_waves += 1
         if self.cfg.has_ssm:
-            pre = self.model.init_caches(len(reqs), 0)
+            # a hybrid's K/V rows: the wave's longest prompt (<= the ring)
+            pre = self.model.init_caches(
+                len(reqs), max(len(r.prompt) for r in reqs))
             lasts = []
             with torch.no_grad():
                 for j, r in enumerate(reqs):
@@ -1893,10 +1899,10 @@ class ContinuousBatcher:
 
     # ---------------------------------------------------------- telemetry --
     def cache_bytes(self) -> int:
-        """Allocated cache bytes: KV (pool + tables), or an SSM stack's
-        conv tails and states."""
-        leaves = tree_leaves(self.caches["ssm"]) if self.cfg.has_ssm \
-            else self.caches["kv"]
+        """Allocated cache bytes: KV (pool + tables), an SSM stack's conv
+        tails and states, or a hybrid's both."""
+        leaves = list(self.caches.get("kv", ())) + (
+            tree_leaves(self.caches["ssm"]) if self.cfg.has_ssm else [])
         total = sum(t.numel() * t.element_size() for t in leaves)
         if self.paged:
             total += self.block_tables.nbytes

@@ -13,11 +13,21 @@ package on the CPU, float32, inputs drawn with numpy from a seed:
   oracle within 1e-4: the recurrence does not depend on the chunk;
 * the dispatch contract: CPU calls count no launch, tensors off the CPU
   never take the plain version, and an input that requires grad off the
-  CPU raises ``NotImplementedError`` (the kernel has no backward);
+  CPU goes through ``SSDScanFn`` to the backward kernel's entry, never to
+  a plain version;
 * the kernel's host-side plan (chunks, the main launch's blocks in ticket
-  order, scratch sizes) covers every chunk and head once.
-The CUDA kernel itself is held against ``ssd_scan_ref`` on the card by
-``chip_smoke.py``'s ``kernel_ssd`` phase."""
+  order, scratch sizes) covers every chunk and head once;
+* the backward: ``ssd_scan_bwd_ref`` and autograd through ``ssd_scan``
+  against ``jax.vjp`` of ``repro.models.mamba2.ssd_chunked`` for dx,
+  ddt, da, dB, dC and d(init_state), within ``BWD_REL`` of each
+  gradient's largest magnitude, at shapes with S not a multiple of the
+  chunk, with and without ``init_state`` and d(final_state); the same
+  gradients at any chunk; finite where the reference's vjp overflows;
+  the backward's host-side plan.
+The CUDA kernels themselves are held against ``ssd_scan_ref`` and
+``ssd_scan_bwd_ref`` on the card by ``chip_smoke.py``'s ``kernel_ssd``
+phase."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -129,12 +139,47 @@ def test_non_cpu_tensors_never_take_plain_version(where, monkeypatch):
     assert ssd_scan.launches == before
 
 
-def test_input_that_requires_grad_raises_off_the_cpu():
-    """No backward on the card: the call raises and names the ROADMAP
-    item, rather than running the plain version under autograd."""
+class _ReachedBackwardKernel(Exception):
+    pass
+
+
+def test_input_that_requires_grad_reaches_the_backward_kernel_off_the_cpu(
+        monkeypatch):
+    """Off the CPU an input that requires grad goes through ``SSDScanFn``:
+    the forward kernel's launcher (stubbed here to hand back meta
+    outputs: there is no card) and, in the backward, the backward
+    kernel's launcher, with dy and the inputs; neither plain version is
+    ever called."""
+    def fail(*_a, **_k):
+        raise AssertionError("plain version reached")
+
+    def fwd(x, dt, a, bmat, cmat, init_state):
+        b, s, h, p = x.shape
+        return (torch.empty_like(x),
+                torch.empty((b, h, p, bmat.shape[-1]), device=x.device))
+
+    seen = {}
+
+    def bwd(x, dt, a, bmat, cmat, dy, dfinal, init_state):
+        seen.update(x=x, dy=dy, dfinal=dfinal, init_state=init_state)
+        raise _ReachedBackwardKernel
+
+    monkeypatch.setattr(ssd_mod, "ssd_scan_ref", fail)
+    monkeypatch.setattr(ssd_mod, "ssd_scan_bwd_ref", fail)
+    monkeypatch.setattr(ssd_mod, "_launch", fwd)
+    monkeypatch.setattr(ssd_mod, "_launch_bwd", bwd)
     x, dt, a, bm, cm = (t.to("meta") for t in _t(*_inputs(1, 8, 2, 16, 4)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_scan(x.requires_grad_(), dt, a, bm, cm)
+    y, fin = ssd_scan(x.requires_grad_(), dt, a, bm, cm)
+    assert y.requires_grad and y.grad_fn is not None
+    with pytest.raises(_ReachedBackwardKernel):
+        y.sum().backward()
+    assert seen["x"].device.type == "meta"
+    assert tuple(seen["dy"].shape) == tuple(x.shape)
+    assert seen["dfinal"] is None and seen["init_state"] is None
+    # the backward entry itself refuses a device it has no kernel for
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ssd_mod.ssd_scan_bwd(x.detach(), dt, a, bm, cm, torch.empty_like(x))
 
 
 def _mixer_inputs(b, s, h, p, n, seed=7):
@@ -210,3 +255,151 @@ def test_kernel_plan_covers_every_chunk_and_head_once(b, s, h, n):
     assert floats == b * nc * 64 * (64 + npad) + b * h * 2 * npad * 64
     assert counters == 1 + b * h * ssd_mod.HANDOFF_WARPS
     assert ssd_mod.LAUNCHES == 2
+
+
+# ---------------------------------------------------------- backward ----
+BWD_REL = 2e-5
+GRADS = ("dx", "ddt", "da", "dB", "dC", "dinit")
+
+
+def _bwd_inputs(b, s, h, p, n, seed=11):
+    """The mixer's distributions (``_mixer_inputs``: dt ~ 0.01-0.1, a =
+    -linspace(1, 16, H)), so every chunk's decay stays where the
+    reference's vjp is finite, plus an entering state, dy and
+    d(final_state)."""
+    x, dt, a, bm, cm = _mixer_inputs(b, s, h, p, n, seed)
+    rng = np.random.default_rng(seed + 2)
+    st = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    dy = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dfin = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    return x, dt, a, bm, cm, st, dy, dfin
+
+
+def _jax_vjp(x, dt, a, bm, cm, st, dy, dfin, chunk, jit=True):
+    """``jax.vjp`` of ``ssd_chunked``, jitted (one compile a shape, where
+    the op-by-op run takes ~10x as long); ``jit=False`` runs it op by op."""
+    args = [jnp.asarray(t) for t in (x, dt, a, bm, cm)]
+    if st is not None:
+        args.append(jnp.asarray(st))
+
+    def grads(args, cot):
+        _, vjp = jax.vjp(lambda *t: jax_ssd_chunked(
+            *t[:5], chunk, init_state=t[5] if len(t) > 5 else None), *args)
+        return vjp(cot)
+
+    grads = jax.jit(grads) if jit else grads
+    return [np.asarray(g) for g in grads(tuple(args), (jnp.asarray(dy),
+                                                       jnp.asarray(dfin)))]
+
+
+def _close_rel(name, got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, name
+    assert np.isfinite(want).all(), name
+    err = np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-30)
+    assert err < BWD_REL, f"{name}: {err}"
+
+
+# (b, s, h, p, n, chunk, init_state): S a multiple of the chunk with and
+# without a state, ragged S (one and several chunks, with and without), a
+# single position, mamba2's head dim with hymba's state
+BWD_CASES = [(2, 64, 3, 16, 8, 32, False), (2, 64, 3, 16, 8, 32, True),
+             (2, 70, 4, 32, 16, 32, True), (1, 100, 2, 16, 4, 64, False),
+             (1, 1, 2, 16, 8, 32, True), (1, 40, 2, 64, 16, 16, False)]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,chunk,init", BWD_CASES)
+def test_backward_matches_jax_vjp(b, s, h, p, n, chunk, init):
+    x, dt, a, bm, cm, st, dy, dfin = _bwd_inputs(b, s, h, p, n)
+    st = st if init else None
+    want = _jax_vjp(x, dt, a, bm, cm, st, dy, dfin, chunk)
+    got = ssd_mod.ssd_scan_bwd_ref(
+        *_t(x, dt, a, bm, cm, dy, dfin), chunk=chunk,
+        init_state=torch.from_numpy(st) if init else None)
+    assert (got[5] is None) == (not init)
+    for name, g, w in zip(GRADS, got, want):
+        _close_rel(name, g, w)
+    # autograd through the wrapper: the same gradients, no launch
+    ins = [t.requires_grad_() for t in _t(x, dt, a, bm, cm)]
+    st_t = torch.from_numpy(st).requires_grad_() if init else None
+    before = (ssd_scan.launches, ssd_mod.ssd_scan_bwd.launches)
+    y, fin = ssd_scan(*ins, chunk=chunk, init_state=st_t)
+    ((y * torch.from_numpy(dy)).sum()
+     + (fin * torch.from_numpy(dfin)).sum()).backward()
+    assert (ssd_scan.launches, ssd_mod.ssd_scan_bwd.launches) == before
+    for name, t, w in zip(GRADS, ins + ([st_t] if init else []), want):
+        _close_rel(name, t.grad, w)
+
+
+def test_backward_without_final_state_gradient():
+    """Only y reaches the loss: d(final_state) is None, as autograd hands
+    it over (``set_materialize_grads(False)``), and counts as zeros."""
+    x, dt, a, bm, cm, st, dy, _ = _bwd_inputs(2, 50, 3, 16, 8, seed=4)
+    zero = np.zeros((2, 3, 16, 8), np.float32)
+    want = _jax_vjp(x, dt, a, bm, cm, st, dy, zero, 32)
+    ins = [t.requires_grad_() for t in _t(x, dt, a, bm, cm, st)]
+    y, _ = ssd_scan(*ins[:5], chunk=32, init_state=ins[5])
+    (y * torch.from_numpy(dy)).sum().backward()
+    for name, t, w in zip(GRADS, ins, want):
+        _close_rel(name, t.grad, w)
+
+
+def test_backward_is_the_same_at_any_chunk():
+    """The gradients do not depend on the chunk: 64 (the kernel's own)
+    against 16 and 256, within ``BWD_REL``."""
+    arrs = _bwd_inputs(1, 150, 4, 32, 16, seed=8)
+    x, dt, a, bm, cm, st, dy, dfin = _t(*arrs)
+    runs = [ssd_mod.ssd_scan_bwd_ref(x, dt, a, bm, cm, dy, dfin, chunk=c,
+                                     init_state=st) for c in (64, 16, 256)]
+    for other in runs[1:]:
+        for name, g, w in zip(GRADS, other, runs[0]):
+            _close_rel(name, g, w)
+
+
+def test_backward_stays_finite_where_the_reference_vjp_overflows():
+    """A chunk whose decay exceeds 88 (dt = 90 at a = -1 on the second
+    of two positions): the reference's vjp differentiates exp over the
+    masked upper triangle, exp(90) overflows float32 and ddt and da come
+    out NaN (ROADMAP section 3); the plain backward never forms exp of a
+    positive difference, and its gradients are finite."""
+    x = np.ones((1, 2, 1, 16), np.float32)
+    dt = np.array([[[1.0], [90.0]]], np.float32)
+    a = np.array([-1.0], np.float32)
+    bm = cm = np.full((1, 2, 4), 0.5, np.float32)
+    dy = np.ones((1, 2, 1, 16), np.float32)
+    dfin = np.ones((1, 1, 16, 4), np.float32)
+    want = _jax_vjp(x, dt, a, bm, cm, None, dy, dfin, 2, jit=False)
+    assert np.isnan(want[1]).any() and np.isnan(want[2]).any()
+    got = ssd_mod.ssd_scan_bwd_ref(*_t(x, dt, a, bm, cm, dy, dfin), chunk=2)
+    assert all(torch.isfinite(g).all() for g in got[:5])
+    # the gradients JAX does give agree
+    for name, g, w in zip(GRADS, got, want):
+        if np.isfinite(w).all():
+            _close_rel(name, g, w)
+
+
+@pytest.mark.parametrize("b,s,h,n,sms", [(4, 2048, 48, 128, 132),
+                                         (4, 32, 48, 128, 132),
+                                         (1, 2048, 50, 16, 132),
+                                         (4, 32, 50, 16, 132),
+                                         (2, 100, 3, 8, 132),
+                                         (1, 64, 7, 64, 4)])
+def test_backward_plan_covers_every_head_once(b, s, h, n, sms):
+    """The backward's host-side plan: 64-row chunks, head groups that
+    cover every head once (the last group may be short, none empty),
+    about ``sms`` main blocks where the heads allow it, state columns
+    padded to 16, 32, 64 or 128, and the workspace of its launches."""
+    nc, groups, per, floats = ssd_mod.bwd_plan(b, s, h, 64, n, sms)
+    assert (nc - 1) * 64 < s <= nc * 64
+    assert groups * per >= h and (groups - 1) * per < h
+    # as many groups as give ``sms`` blocks, rounded to whole heads a group
+    assert per == -(-h // min(h, -(-sms // (b * nc))))
+    heads = [hh for g in range(groups)
+             for hh in range(g * per, min(h, (g + 1) * per))]
+    assert heads == list(range(h))
+    npad = ssd_mod.bwd_state_cols(n)
+    assert npad in (16, 32, 64, 128) and n <= npad and (
+        npad == 16 or n > npad // 2)
+    assert floats == 2 * b * nc * h * 64 * npad + 2 * b * nc * h \
+        + b * nc * groups * 2 * 64 * npad
+    assert ssd_mod.LAUNCHES_BWD == 4

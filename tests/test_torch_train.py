@@ -18,7 +18,12 @@ LoRA projection runs the fused kernel's plain version and its gradient:
   above;
 * torch twins of ``tests/test_engine_combined.py`` for both combined
   steps (combined == separate steps, the loss falls on a fixed batch,
-  ``grad_accum`` equivalence) and the ``serve_lora`` shadow split."""
+  ``grad_accum`` equivalence) and the ``serve_lora`` shadow split;
+* SSM co-training: on mamba2-780m and hymba-1.5b at ``.scaled()`` (the
+  gradient through ``ssd_scan``'s plain backward), the LoRA gradients
+  against ``jax.grad``, two ``train_step``s and a ``combined_step``
+  against the JAX engine's (loss, new adapters and moments, decode
+  logits) at the tolerances above."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -381,3 +386,93 @@ def test_combined_prefill_step(setup):
     for a, b in zip(tree_leaves(new_lora), tree_leaves(ref_lora)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-5,
                                    atol=1e-6)
+
+
+# ------------------------------------------------------ SSM co-training --
+SSM_ARCHS = ["mamba2-780m", "hymba-1.5b"]
+# the new adapters after AdamW steps: the SSM's gradients are summed in
+# another order than JAX's autodiff (the chunk-wise backward), and AdamW
+# scales every component's step to about lr (1e-3), so float32 noise in a
+# near-zero gradient component moves that component by up to ~1.5% of a
+# step (one element of ssm_in's b in 4,416 here); the bound is 3% of a
+# step, the moments keep LORA_TOL
+SSM_LORA_TOL = dict(rtol=1e-5, atol=3e-5)
+
+
+@pytest.fixture(scope="module", params=SSM_ARCHS)
+def ssm_setup(request):
+    """The engines of an SSM stack (mamba2) and the hybrid (hymba) at
+    ``.scaled()`` on the same float32 weights; CE chunks of 16 over 24
+    positions, SSD chunks of 32 (the scaled ``ssm_chunk``)."""
+    jcfg = jax_config(request.param).scaled()
+    cfg = get_config(request.param).scaled()
+    jeng = jax_make_engine(jcfg, lr=LR)
+    jp = jeng.model.init(jax.random.key(0))
+    return dict(jcfg=jcfg, cfg=cfg, jeng=jeng, jp=jp,
+                lora_np=numpy_lora(jcfg),
+                eng=make_engine(cfg, lr=LR, device="cpu"),
+                params=params_from_numpy(cfg, _np(jp), "cpu"))
+
+
+def test_ssm_lora_grads_match_jax_grad(ssm_setup):
+    st = ssm_setup
+    batch = numpy_batch(st["cfg"])
+    jm = st["jeng"].model
+
+    def jloss(lora_):
+        return jm.forward_loss(st["jp"], lora_, jbatch(batch),
+                               ce_chunk=CHUNK)[0]
+
+    jg = jax.grad(jloss)(jax.tree.map(jnp.asarray, st["lora_np"]))
+    _, _, tg = st["eng"].loss_and_grads(
+        st["params"], lora_from_numpy(st["lora_np"], "cpu"), tbatch(batch),
+        ce_chunk=CHUNK)
+    assert set(tg) == set(jg) and {"ssm_in", "ssm_out"} <= set(tg)
+    for t, j in zip(jax.tree.leaves(_tnp(tg)), jax.tree.leaves(_np(jg))):
+        assert _rel(t, j) < GRAD_REL
+
+
+def test_ssm_train_steps_match_jax(ssm_setup):
+    st = ssm_setup
+    train = jax.jit(st["jeng"].train_step, static_argnames=("ce_chunk",))
+    jlora = jax.tree.map(jnp.asarray, st["lora_np"])
+    jopt = st["jeng"].optimizer.init(jlora)
+    lora = lora_from_numpy(st["lora_np"], "cpu")
+    opt = st["eng"].optimizer.init(lora)
+    for step in range(2):
+        batch = numpy_batch(st["cfg"], seed=60 + step)
+        jlora, jopt, jmet = train(st["jp"], jlora, jopt, jbatch(batch),
+                                  ce_chunk=CHUNK)
+        lora, opt, tmet = st["eng"].train_step(
+            st["params"], lora, opt, tbatch(batch), ce_chunk=CHUNK)
+        _close_trees(lora, jlora, **SSM_LORA_TOL)
+        _close_trees(opt.m, jopt.m, **LORA_TOL)
+        for k in ("loss", "ce_loss", "grad_norm"):
+            assert _rel(tmet[k], jmet[k]) < 1e-4, k
+
+
+def test_ssm_combined_step_matches_jax(ssm_setup):
+    """One fused tick: two slots decode their first token from zero
+    caches (a hybrid's window ring and SSM state, an SSM stack's state)
+    while the adapter takes a train step."""
+    st = ssm_setup
+    jm = st["jeng"].model
+    jlora = jax.tree.map(jnp.asarray, st["lora_np"])
+    jopt = st["jeng"].optimizer.init(jlora)
+    batch = numpy_batch(st["cfg"], seed=70)
+    tok = np.array([[3], [7]], np.int32)
+    pos = np.array([0, 0], np.int32)
+    jl, _, jlogits, _, jmet = jax.jit(st["jeng"].combined_step)(
+        st["jp"], jlora, jopt, jbatch(batch), jm.init_caches(2, 16),
+        jnp.asarray(tok), jnp.asarray(pos))
+    lora = lora_from_numpy(st["lora_np"], "cpu")
+    opt = st["eng"].optimizer.init(lora)
+    tl, _, tlogits, caches, tmet = st["eng"].combined_step(
+        st["params"], lora, opt, tbatch(batch),
+        st["eng"].model.init_caches(2, 16), torch.from_numpy(tok).long(),
+        torch.from_numpy(pos))
+    assert _rel(tlogits, jlogits) < LOGIT_REL
+    _close_trees(tl, jl, **SSM_LORA_TOL)
+    assert _rel(tmet["ce_loss"], jmet["ce_loss"]) < 1e-4
+    assert "ssm" in caches and ("kv" in caches) == (
+        st["cfg"].family.value == "hybrid")
