@@ -5,12 +5,15 @@ NVIDIA Hopper card.
   python3 chip_smoke.py             every phase, then the result lines
   python3 chip_smoke.py PHASE ...   bring-up: the named phases alone
                                     (after device and build), no result
-  python3 chip_smoke.py --ab DIR    A/B of the kernels' times: the
+  python3 chip_smoke.py --ab DIR [FAMILY ...]
+                                    A/B of the kernels' times: the
                                     package of the checkout at DIR (the
                                     parent commit, unpacked) and this one
                                     in turn, parent, change, change,
                                     parent, each in a process of its own
-                                    (``--time-kernels SRC`` is one turn)
+                                    (``--time-kernels SRC`` is one turn);
+                                    named kernel families (``ssd_scan_bwd``,
+                                    ``lora_matmul``, ...) alone when given
 
 Phases, each printing JSON lines:
   device      the card (``nvidia-smi`` name and power limit), TF32 off;
@@ -60,11 +63,14 @@ Phases, each printing JSON lines:
               dt and a as the mixer makes them, so that the state
               carried from one chunk to the next shows in y; then the
               backward kernel against ``ssd_scan_bwd_ref`` (every
-              gradient) at the co-training shapes: mamba2 and hymba at 4
-              x 32 and 4 x 2,048 rows, 2 x 1,000 from a random state with
-              a gradient on the final state, and the test distributions,
-              two calls bitwise equal, its workspace's peak; and autograd
-              through ``ssd_scan`` on CUDA tensors reaching it;
+              gradient) at every shape the SSM phases train at: mamba2
+              and hymba at 4 x 32, 4 x 256 and 4 x 2,048 rows, hymba at 4
+              x 1,984, 2 x 1,000 from a random state with a gradient on
+              the final state, and the test distributions, two calls
+              bitwise equal, its workspace's peak, its bound at float32's
+              rate and as 3xTF32 on the tensor cores; and autograd
+              through ``ssd_scan`` on CUDA tensors reaching it, chained
+              and in a single chunk, with the launches its plan names;
   kernel_decode decode_attention against its plain version at the VLM's
               cross-attention decode (8 slots, 64 heads / 8 KV, head_dim
               128, 1,601 vision tokens, K/V the transposed view of the
@@ -154,6 +160,8 @@ Phases, each printing JSON lines:
               layer per request (SSD_LAUNCHES launches a call),
               lora_matmul once per adapter projection
               per prefill call and decode step, no attention kernel;
+              every lora_matmul shape launched one that kernel_lora
+              checked (``LoraShapeTap``);
   serve_hybrid  hymba-1.5b: the reduced float32 batcher's greedy tokens
               on the card and the CPU (16-token window, ring wraps); at
               full width (32 layers, d_model 1,600, 25 / 5 heads of 64,
@@ -163,8 +171,9 @@ Phases, each printing JSON lines:
               every request finishes, launches exactly as derived
               (ssd_scan per layer per request, flash_attention per layer
               per prefill past 1,024 tokens, the paged kernel per layer
-              per decode step, lora_matmul per adapter projection);
-              TTFT / TPOT; a 1,984-token prompt decoded 128 tokens
+              per decode step, lora_matmul per adapter projection),
+              every attention and lora_matmul shape launched one that a
+              kernel phase checked; TTFT / TPOT; a 1,984-token prompt decoded 128 tokens
               past the window, its logits past position 2,048 against
               ``Model.logits`` of the same tokens (5e-2 of the largest,
               90% of the argmaxes);
@@ -193,8 +202,10 @@ Phases, each printing JSON lines:
               2,048+8 with 4 x 2,048 (the backward at 2,048 tokens): one
               train step per tick, finite losses, launches exactly as
               derived (ssd_scan and its backward per layer per train
-              step, lora_matmul forward and dX); each arch's loss on a
-              fixed 4 x 32 batch falls over six steps;
+              step, lora_matmul forward and dX), every lora_matmul and
+              backward shape launched one that a kernel phase checked
+              (``LoraShapeTap``, ``SsdBwdShapeTap``); each arch's loss on
+              a fixed 4 x 32 batch falls over six steps;
   serve_adapters  multi-tenant serving at full width (4 tenants tagged
               round-robin; qwen paged and contiguous 32+16, paged 992+32 and
               2,048+32, 6 tenants on 4 device slots, co-training paged
@@ -254,10 +265,12 @@ Phases, each printing JSON lines:
               loss falls, 189 lora_matmul launches per step;
   train_cli   the training CLI (``launch/train.py``): (a)
               ``train_from_weights`` on one reduced float32 weight set on
-              the card and the CPU, 15 steps with a checkpoint every 5,
-              then 25 with a NaN injected at step 12 (rolled back to 10
-              on both; losses within 1e-5 relative, adapters within
-              2e-4); (a2) tests/test_drivers.py's check on the card (the
+              the card, 15 steps with a checkpoint every 5, then 25 with
+              a NaN injected at step 12 (rolled back to 10), and each
+              run's trajectory one step at a time, the card taking every
+              step from the CPU's state (``train_walk``: losses within
+              1e-5 relative, moments within float32 noise, adapters
+              within 1e-6 plus what the moments' bounds allow); (a2) tests/test_drivers.py's check on the card (the
               reduced qwen, 30 steps of 8 x 32: held-out CE falls); (b)
               ``run_training`` at full width, qwen1.5-0.5b bf16, 4 x 256,
               20 steps, checkpoints every 10: CE on the last batch trained
@@ -273,19 +286,20 @@ Phases, each printing JSON lines:
               (d) 4 x 2,048, 3 steps: flash_attention forward and
               backward launches as derived; (e) the CLI's ``main``
               (``--full``) in this process, 10 steps, then ``main``
-              ``--restore`` to 15 in a subprocess with PYTHONHASHSEED
-              pinned;
-              the manifest's codec as this machine has it; (f) llama3-8b,
+              ``--restore`` to 15 in a subprocess; the manifest's codec as this machine has it; (f) llama3-8b,
               the CLI's default arch and batch (8 x 64), 5 steps; (g)
               ``DataPipeline`` on the card yields the sample function's
               batches in order, bitwise; every lora_matmul launch shape
               of (b)-(f), dX included, one that kernel_lora checked;
   train_cli_ssm  the training CLI on mamba2-780m and hymba-1.5b: (a)
-              reduced float32, card against CPU, 10 steps (losses 1e-5
-              relative, adapters 2e-4); (b) full width, 4 x 256, 3 steps,
-              a checkpoint at 3: the last batch's CE falls, launches as
-              derived, step ms, peak memory; (c) the restart to 4: the
-              restored tree bitwise (b)'s, AdamW step 3;
+              reduced float32, 10 steps on the card, and their trajectory
+              one step at a time against the CPU (``train_walk``); (b)
+              full width, 4 x 256, 3 steps, a checkpoint at 3: the last
+              batch's CE falls, launches as derived, step ms, peak
+              memory; (c) the restart to 4: the restored tree bitwise
+              (b)'s, AdamW step 3; every attention, lora_matmul and
+              backward shape of (b) and (c) one that a kernel phase
+              checked;
   experiment  ``run_experiment`` for the five policies at
               tests/test_experiment.py's short configuration (6
               replicas, 420 s simulated, seed 3) and those tests'
@@ -307,7 +321,8 @@ Bring-up only, when named: ``splits`` times decode_attention and the
 lora_matmul decode path over a range of split counts (what their split
 plans rest on), beside a streaming-read yardstick; ``budget_seeded`` runs
 the budget phase's traffic with the train cost priced first by a warm
-idle train tick (a policy the runtime does not have).
+idle train tick (a policy the runtime does not have); ``kernel_ssd_bwd``
+runs the ssd_scan backward's rows and autograd checks alone.
 Depth: every phase but ``tick`` and the fabric phases (WHOLE_DEPTH)
 runs qwen1.5-0.5b, llama3-8b and mamba2-780m at their published widths
 with DEPTH_CUT's layers (8 of 24, 8 of 32, 16 of 48; the registry's
@@ -342,6 +357,7 @@ sys.path.insert(0, SRC)
 HBM_BYTES_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_S = {torch.float32: 67e12,    # f32 outside the tensor cores
               torch.bfloat16: 989e12}  # dense bf16 tensor cores
+PEAK_TF32_S = 495e12                   # dense TF32 tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 REPS = 30          # timed runs a median
 ARCH = "qwen1.5-0.5b"
@@ -422,13 +438,36 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
                ("train_llama_cli_qo", 512, 4096, 4096, 16),
                ("train_llama_cli_kv", 512, 4096, 1024, 16),
                ("hymba_ssm_in_decode", 8, 1600, 6482, 16),
-               ("train_hymba_ssm_in", 8192, 1600, 6482, 16)]
+               ("train_hymba_ssm_in", 8192, 1600, 6482, 16)] + [
+    # the SSM and hybrid phases' (serve_ssm, serve_hybrid, combined_ssm,
+    # train_cli_ssm): mamba2's ssm_in / ssm_out prefills of 32 and 992
+    # tokens and its train batches of 4 x 32, 4 x 256 and 4 x 2,048;
+    # hymba's q/o, k/v (5 heads of 64) and ssm_out at decode, and all
+    # four at its prefills of 32, 992 and 1,984 tokens and train batches
+    # of 4 x 32, 4 x 256 and 4 x 1,984
+    (f"{kind}{proj}_{m}", m, k, n, 16)
+    for kind, ms in (("ssm_prefill_", (32, 992)),
+                     ("train_ssm_", (128, 1024, 8192)))
+    for m in ms
+    for proj, k, n in (("in", 1536, 6448), ("out", 3072, 1536))] + [
+    ("hymba_decode_qo", 8, 1600, 1600, 16),
+    ("hymba_decode_kv", 8, 1600, 320, 16),
+    ("hymba_ssm_out_decode", 8, 3200, 1600, 16)] + [
+    (f"{kind}{proj}_{m}", m, k, n, 16)
+    for kind, ms in (("hymba_prefill_", (32, 992, 1984)),
+                     ("train_hymba_", (128, 1024, 7936)))
+    for m in ms
+    for proj, k, n in (("qo", 1600, 1600), ("kv", 1600, 320),
+                       ("ssm_in", 1600, 6482), ("ssm_out", 3200, 1600))]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
                   "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
                   "llama_suffix_qo", "llama_suffix_kv", "train_cli",
                   "train_llama_cli_qo", "train_llama_cli_kv",
-                  "train_hymba_ssm_in"}
+                  "train_hymba_ssm_in"} | {
+    row[0] for row in LORA_SHAPES
+    if row[0].startswith(("ssm_prefill_", "train_ssm_", "hymba_prefill_",
+                          "train_hymba_"))}
 
 
 def lora_has_backward(name):
@@ -1253,11 +1292,20 @@ def phase_kernel_ssd(ssd):
 # 4 x 32 rows and at 4 x 2,048; then a length that is no multiple of the
 # 64-row chunk from a random state with a gradient on the final state, and
 # the test distributions (a decay of ~e^-50 a chunk) at 2,048
+# (name, B, S, H, P, N, init_state and d(final_state), inputs): mamba2 and
+# hymba at the co-training ticks' train batches (4 x 2,048 and 4 x 32, and
+# hymba's 4 x 1,984 of the combined_ssm run at 1,984 tokens) and the
+# training CLI's (4 x 256); a ragged length from a state; the test
+# distributions.  Every (B, S, H, P, N, dtype) the SSM phases launch the
+# backward at has its row (SsdBwdShapeTap)
 SSD_BWD_SHAPES = [
     ("bwd_mamba_4x2048", 4, 2048, 48, 64, 128, False, "mixer"),
     ("bwd_mamba_4x32", 4, 32, 48, 64, 128, False, "mixer"),
     ("bwd_hymba_4x2048", 4, 2048, 50, 64, 16, False, "mixer"),
     ("bwd_hymba_4x32", 4, 32, 50, 64, 16, False, "mixer"),
+    ("bwd_hymba_4x1984", 4, 1984, 50, 64, 16, False, "mixer"),
+    ("bwd_mamba_4x256", 4, 256, 48, 64, 128, False, "mixer"),
+    ("bwd_hymba_4x256", 4, 256, 50, 64, 16, False, "mixer"),
     ("bwd_ragged_init_2x1000", 2, 1000, 48, 64, 128, True, "mixer"),
     ("bwd_test_1x2048", 1, 2048, 48, 64, 128, False, "test")]
 SSD_BWD_CHUNK = 64    # the plain backward at the kernel's own chunk
@@ -1278,7 +1326,9 @@ def ssd_bwd_bound(b, s, h, p, n, init, dtype):
     chunk's own state and reverse term, B G^T, x G and dy E (each 2 r P N
     over the chunk's r rows) and dy x^T and scores^T dy over the causal
     pairs (2 P each); per (batch, chunk) C B^T, dCB B and dCB^T C over
-    the causal pairs (2 N each)."""
+    the causal pairs (2 N each).  Returns (ms at float32's 67 TFLOP/s or
+    the bytes, what bounds it, the FLOP, ms as 3xTF32: three TF32
+    products for each float32 one at 495 TFLOP/s, or the bytes)."""
     elt = torch.empty((), dtype=dtype).element_size()
     io = 2 if init else 0
     nbytes = 3 * b * s * h * p * elt + 4 * (2 * b * s * h + 2 * h
@@ -1293,8 +1343,24 @@ def ssd_bwd_bound(b, s, h, p, n, init, dtype):
     ops = b * h * per_head + b * shared
     t_bytes = nbytes / HBM_BYTES_S
     t_ops = ops / PEAK_OPS_S[torch.float32]
+    t_tc = max(t_bytes, 3 * ops / PEAK_TF32_S)
     return max(t_bytes, t_ops) * 1e3, \
-        ("bytes" if t_bytes >= t_ops else "operations"), ops
+        ("bytes" if t_bytes >= t_ops else "operations"), ops, t_tc * 1e3
+
+
+def bwd_launches(ssd, b, s, h, p, n, init=False):
+    """Launches of one ssd_scan backward call on this card (its plan)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return len(ssd.bwd_plan(b, s, h, p, n, init, sms).launches)
+
+
+def arch_bwd_launches(get_config, arch, b, s):
+    """Launches of one ssd_scan backward call of ``arch``'s SSM layers
+    over a b x s train batch."""
+    from repro_torch.kernels import ssd_scan as ssd
+    cfg = get_config(arch)
+    return bwd_launches(ssd, b, s, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                        cfg.ssm_state)
 
 
 def kernel_ssd_bwd(ssd):
@@ -1343,8 +1409,8 @@ def kernel_ssd_bwd(ssd):
                    else SSD_BWD_TOL[torch.float32] for gname in errs}
             bitwise = all(torch.equal(u, v) for u, v in zip(got, again)
                           if u is not None)
-            bound_ms, bound_by, ops = ssd_bwd_bound(b, s, h, p, n, init,
-                                                    dtype)
+            bound_ms, bound_by, ops, tc_ms = ssd_bwd_bound(b, s, h, p, n,
+                                                           init, dtype)
             row = {
                 "shape": name, "B": b, "S": s, "H": h, "P": p, "N": n,
                 "init_state_and_dfinal": init, "inputs": inputs,
@@ -1361,7 +1427,8 @@ def kernel_ssd_bwd(ssd):
                 "library_ms": None,
                 "host_us": host_us(run, 20),
                 "bound_ms": bound_ms, "bound_by": bound_by,
-                "gflop": ops / 1e9,
+                "bound_3xtf32_ms": tc_ms, "gflop": ops / 1e9,
+                "launches_a_call": bwd_launches(ssd, b, s, h, p, n, init),
             }
             emit("kernel", kernel="ssd_scan_backward", **row)
             if not (finite and bitwise
@@ -1373,28 +1440,32 @@ def kernel_ssd_bwd(ssd):
             del x, dt, a, bm, cm, st, dy, dfin, got, want, again
             torch.cuda.empty_cache()
     # autograd through the wrapper on CUDA tensors: the backward kernel,
-    # never a plain version
-    x, dt, a, bm, cm, st = ssd_case(2, 100, 48, 64, 128, True,
-                                    torch.float32, 700, "mixer")
-    ins = [t.detach().clone().requires_grad_()
-           for t in (x, dt, a, bm, cm, st)]
-    _reset(ssd.ssd_scan, ssd.ssd_scan_bwd)
-    y, fin = ssd.ssd_scan(*ins[:5], init_state=ins[5])
-    (y.square().sum() + fin.sum()).backward()
-    torch.cuda.synchronize()
-    launched = (ssd.ssd_scan.launches, ssd.ssd_scan_bwd.launches)
-    _reset(ssd.ssd_scan, ssd.ssd_scan_bwd)
-    want = ssd.ssd_scan_bwd_ref(x, dt, a, bm, cm, 2 * y.detach(),
-                                torch.ones_like(fin), chunk=SSD_BWD_CHUNK,
-                                init_state=st)
-    errs = {k: _rel_err(t.grad, w)
-            for k, t, w in zip(SSD_BWD_GRADS, ins, want)}
-    emit("kernel_grad_check", kernel="ssd_scan", launches=launched,
-         **{f"{k}_rel_err": e for k, e in errs.items()})
-    if launched != (SSD_LAUNCHES, ssd.LAUNCHES_BWD) \
-            or max(errs.values()) > SSD_BWD_TOL[torch.float32]:
-        raise AssertionError(f"ssd_scan autograd on the card: launches "
-                             f"{launched}, errors {errs}")
+    # never a plain version; chained (from a state) and a single chunk
+    for b, s, init in ((2, 100, True), (4, 32, False)):
+        x, dt, a, bm, cm, st = ssd_case(b, s, 48, 64, 128, init,
+                                        torch.float32, 700, "mixer")
+        ins = [t.detach().clone().requires_grad_()
+               for t in (x, dt, a, bm, cm, st) if t is not None]
+        _reset(ssd.ssd_scan, ssd.ssd_scan_bwd)
+        y, fin = ssd.ssd_scan(*ins[:5], init_state=ins[5] if init else None)
+        (y.square().sum() + fin.sum()).backward()
+        torch.cuda.synchronize()
+        launched = (ssd.ssd_scan.launches, ssd.ssd_scan_bwd.launches)
+        _reset(ssd.ssd_scan, ssd.ssd_scan_bwd)
+        want = ssd.ssd_scan_bwd_ref(x, dt, a, bm, cm, 2 * y.detach(),
+                                    torch.ones_like(fin),
+                                    chunk=SSD_BWD_CHUNK, init_state=st)
+        errs = {k: _rel_err(t.grad, w)
+                for k, t, w in zip(SSD_BWD_GRADS, ins, want)}
+        derived = (SSD_LAUNCHES, bwd_launches(ssd, b, s, 48, 64, 128, init))
+        emit("kernel_grad_check", kernel="ssd_scan", batch=[b, s],
+             init_state=init, launches=launched, launches_derived=derived,
+             **{f"{k}_rel_err": e for k, e in errs.items()})
+        if launched != derived \
+                or max(errs.values()) > SSD_BWD_TOL[torch.float32]:
+            raise AssertionError(f"ssd_scan autograd on the card ({b} x "
+                                 f"{s}): launches {launched}, derived "
+                                 f"{derived}, errors {errs}")
     return rows
 
 
@@ -1639,16 +1710,19 @@ def phase_splits():
 
 
 # ------------------------------------------------------------ A / B -----
-def time_kernels():
-    """``--time-kernels SRC``: of the package under SRC, lora_matmul and
-    segmented_lora_matmul at every shape of LORA_SHAPES and SEG_SHAPES in
-    bfloat16 (and float32 at M <= 16), lora_matmul's dX (the transposed
-    operands) at its train shapes, decode_attention at DECODE_SHAPES,
-    paged_decode_attention at PAGED_SHAPES and ssd_scan (y) at
-    SSD_SHAPES (float32 and bfloat16), and flash_attention's bf16
-    forward and backward at their main shapes, on the kernel phases' inputs (same
+def time_kernels(families=()):
+    """``--time-kernels SRC [FAMILY ...]``: of the package under SRC,
+    lora_matmul and segmented_lora_matmul at every shape of LORA_SHAPES
+    and SEG_SHAPES in bfloat16 (and float32 at M <= 16), lora_matmul's
+    dX (the transposed operands) at its train shapes, decode_attention at
+    DECODE_SHAPES, paged_decode_attention at PAGED_SHAPES, ssd_scan (y)
+    at SSD_SHAPES and its backward (every gradient) at SSD_BWD_SHAPES
+    (float32 and bfloat16), and flash_attention's bf16 forward and
+    backward at their main shapes, on the kernel phases' inputs (same
     seeds): device ms (as the kernel phases time them), host us per call,
-    max abs error against the plain version.  One JSON line."""
+    max abs error against the plain version.  Named families (the part
+    of a row's key before the first slash) alone when given.  One JSON
+    line."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -1660,7 +1734,12 @@ def time_kernels():
         list(pool.map(_build.library, built))
     rows = {}
 
+    def want(family):
+        return not families or family in families
+
     def add(key, fn, ref, reps=REPS, calls=100):
+        if not want(key.split("/")[0]):
+            return
         out = fn()
         rows[key] = {"ms": device_ms(fn, reps), "host_us": host_us(fn, calls),
                      "max_abs_err": float((out.float() - ref.float())
@@ -1713,9 +1792,38 @@ def time_kernels():
                 lambda: ssd.ssd_scan(x, dts, a, bm, cm, init_state=st)[0],
                 ssd.ssd_scan_ref(x, dts, a, bm, cm, chunk=SSD_CHUNK,
                                  init_state=st)[0], SSD_REPS, 20)
+        for si, (name, b, s, h, p, n, init, inputs) in enumerate(
+                SSD_BWD_SHAPES):
+            if not want("ssd_scan_bwd"):
+                break
+            x, dts, a, bm, cm, st = ssd_case(b, s, h, p, n, init, dtype,
+                                             800 + si, inputs)
+            g = torch.Generator(device="cuda").manual_seed(900 + si)
+            dy = torch.randn((b, s, h, p), generator=g,
+                             device="cuda").to(dtype)
+            dfin = torch.randn((b, h, p, n), generator=g, device="cuda") \
+                if init else None
+
+            def bwd():
+                return ssd.ssd_scan_bwd(x, dts, a, bm, cm, dy, dfin,
+                                        init_state=st)
+
+            got = bwd()
+            ref = ssd.ssd_scan_bwd_ref(x, dts, a, bm, cm, dy, dfin,
+                                       chunk=SSD_BWD_CHUNK, init_state=st)
+            rows[f"ssd_scan_bwd/{name}/{dt}"] = {
+                "ms": device_ms(bwd, SSD_BWD_REPS),
+                "host_us": host_us(bwd, 20),
+                "max_abs_err": max(float((u.float() - v.float()).abs().max())
+                                   for u, v in zip(got, ref)
+                                   if v is not None)}
+            del x, dts, a, bm, cm, st, dy, dfin, got, ref
+            torch.cuda.empty_cache()
     # flash_attention shares csrc/hopper.cuh with them: its bf16 forward
     # at the qwen wave and backward at the qwen train batch
     for name, backward in (("qwen_prefill", False), ("qwen_train", True)):
+        if not want("flash_attention" + ("_backward" if backward else "")):
+            continue
         si = [f[0] for f in FLASH_SHAPES].index(name)
         _, b, h, hkv, d, s, w = FLASH_SHAPES[si]
         g = torch.Generator(device="cuda").manual_seed(400 + si)
@@ -1740,18 +1848,20 @@ def time_kernels():
     print(json.dumps({"time_kernels": SRC, "rows": rows}), flush=True)
 
 
-def run_ab(parent):
-    """``--ab DIR``: ``time_kernels`` on the package of the checkout at
-    DIR (the parent commit, unpacked) and on this one in turn: parent,
-    change, change, parent, each in a process of its own on this card.
-    One line per run, then one per call with the four times."""
+def run_ab(parent, families=()):
+    """``--ab DIR [FAMILY ...]``: ``time_kernels`` on the package of the
+    checkout at DIR (the parent commit, unpacked) and on this one in
+    turn: parent, change, change, parent, each in a process of its own
+    on this card.  One line per run, then one per call with the four
+    times."""
     trees = [os.path.join(os.path.abspath(parent), "src"), SRC, SRC,
              os.path.join(os.path.abspath(parent), "src")]
     runs = []
     for tree in trees:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--time-kernels",
-             tree], capture_output=True, text=True, timeout=1500)
+             tree, *families], capture_output=True, text=True,
+            timeout=1500)
         if proc.returncode != 0:
             raise RuntimeError(f"--time-kernels {tree} failed:\n"
                                f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
@@ -2547,9 +2657,10 @@ def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset(pda, lm, fwd, seg, scan)                   # main path starts
-        out = run_serving(SSM_ARCH, smoke=False, n_requests=16,
-                          batch_size=8, seed=0, device="cuda",
-                          verbose=False, **kw)
+        with LoraShapeTap() as ltap:
+            out = run_serving(SSM_ARCH, smoke=False, n_requests=16,
+                              batch_size=8, seed=0, device="cuda",
+                              verbose=False, **kw)
         launches = {"ssd_scan": scan.launches, "lora_matmul": lm.launches,
                     "paged_decode_attention": pda.launches,
                     "flash_attention": fwd.launches,
@@ -2569,8 +2680,10 @@ def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
             "wall_s": out["wall_s"],
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "cache_bytes": out["cache_bytes"],
+            "lora_shapes": lora_summary(ltap),
         }
         emit("serve_ssm", **row)
+        require_checked(f"serve_ssm {name}", ltap)
         if out["finished"] != 16 or out["tokens_generated"] != 16 * gen \
                 or any(len(t) != gen for t in out["tokens"]):
             raise AssertionError(f"serve_ssm {name}: not every request "
@@ -2843,7 +2956,7 @@ def phase_serve_hybrid(run_serving, make_engine, get_config, pda, lm, fa,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset(pda, lm, fwd, seg, scan)                   # main path starts
-        with AttnShapeTap() as tap:
+        with AttnShapeTap() as tap, LoraShapeTap() as ltap:
             out = run_serving(HYBRID_ARCH, smoke=False, n_requests=n_req,
                               batch_size=8, seed=0, device="cuda",
                               verbose=False, **kw)
@@ -2870,9 +2983,10 @@ def phase_serve_hybrid(run_serving, make_engine, get_config, pda, lm, fa,
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "cache_bytes": out["cache_bytes"],
             "attention_shapes": tap.summary(),
+            "lora_shapes": lora_summary(ltap),
         }
         emit("serve_hybrid", **row)
-        require_checked(f"serve_hybrid {name}", tap)
+        require_checked(f"serve_hybrid {name}", tap, ltap)
         if out["finished"] != n_req or out["tokens_generated"] != n_req * gen \
                 or any(len(t) != gen for t in out["tokens"]):
             raise AssertionError(f"serve_hybrid {name}: not every request "
@@ -2911,14 +3025,13 @@ def phase_combined_ssm(run_serving, make_engine, get_config, pda, lm, fa,
     One train step per tick with finite losses, every request finishes,
     launches exactly as derived (ssd_scan: each request's prefill and
     each train step's forward, SSD_LAUNCHES a call; its backward
-    ``LAUNCHES_BWD`` a layer per train step; lora_matmul: forward, and
+    ``arch_bwd_launches`` a layer per train step; lora_matmul: forward, and
     dX of every projection but layer 0's of the embedding; hymba past
     1,024 tokens, flash_attention once a layer per prefill and train
     step, its backward FLASH_BWD a layer per train step), every
     attention shape launched held against the plain version by a kernel
     phase; then the loss of each arch on a fixed batch falls over
     ``FIXED_BATCH_STEPS`` steps."""
-    from repro_torch.kernels.ssd_scan import LAUNCHES_BWD
     fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_backward
     results = {}
     for name, arch, n_req, kw in COMBINED_SSM_RUNS:
@@ -2928,7 +3041,8 @@ def phase_combined_ssm(run_serving, make_engine, get_config, pda, lm, fa,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset(pda, lm, fwd, bwd, seg, scan, scan_bwd)    # main path starts
-        with AttnShapeTap() as tap:
+        with AttnShapeTap() as tap, LoraShapeTap() as ltap, \
+                SsdBwdShapeTap() as btap:
             out = run_serving(arch, smoke=False, n_requests=n_req,
                               batch_size=8, combined=True, train_batch=4,
                               seed=0, device="cuda", verbose=False, **kw)
@@ -2941,7 +3055,8 @@ def phase_combined_ssm(run_serving, make_engine, get_config, pda, lm, fa,
                     "segmented_lora_matmul": seg.launches}   # path ends
         steps, ticks = out["train_steps"], out["decode_steps"]
         want = {"ssd_scan": n_layers * SSD_LAUNCHES * (n_req + steps),
-                "ssd_scan_backward": n_layers * LAUNCHES_BWD * steps,
+                "ssd_scan_backward": n_layers * steps * arch_bwd_launches(
+                    get_config, arch, 4, kw["prompt_len"]),
                 "lora_matmul": n_lora * (n_req + ticks)
                 + (n_lora + n_lora_bwd) * steps,
                 "paged_decode_attention": n_layers * ticks if hybrid else 0,
@@ -2964,9 +3079,11 @@ def phase_combined_ssm(run_serving, make_engine, get_config, pda, lm, fa,
             "first_loss": losses[0] if losses else None,
             "last_loss": losses[-1] if losses else None,
             "attention_shapes": tap.summary(),
+            "lora_shapes": lora_summary(ltap),
+            "ssd_scan_backward_shapes": btap.summary(),
         }
         emit("combined_ssm", **row)
-        require_checked(f"combined_ssm {name}", tap)
+        require_checked(f"combined_ssm {name}", tap, ltap, btap)
         if out["finished"] != n_req or any(len(t) != kw["gen_tokens"]
                                            for t in out["tokens"]):
             raise AssertionError(f"combined_ssm {name}: not every request "
@@ -2982,8 +3099,10 @@ def phase_combined_ssm(run_serving, make_engine, get_config, pda, lm, fa,
         del out
         torch.cuda.empty_cache()
     for arch in (SSM_ARCH, HYBRID_ARCH):
-        losses, times, _, peak = fixed_batch_steps(
-            make_engine, get_config, arch, 32, FIXED_BATCH_STEPS, lm)
+        with LoraShapeTap() as ltap, SsdBwdShapeTap() as btap:
+            losses, times, _, peak = fixed_batch_steps(
+                make_engine, get_config, arch, 32, FIXED_BATCH_STEPS, lm)
+        require_checked(f"combined_ssm fixed batch {arch}", ltap, btap)
         emit("combined_ssm_fixed_batch", arch=arch, batch=[4, 32], lr=3e-3,
              losses=losses, step_ms=times, max_memory_allocated_bytes=peak)
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
@@ -3000,17 +3119,18 @@ SSM_TRAIN_ARCHS = (SSM_ARCH, HYBRID_ARCH)
 # a save of mamba2's adapter and moments (116 MB) is ~6 s of zlib
 SSM_TRAIN_STEPS, SSM_TRAIN_CKPT = 3, 3     # (b); (c) resumes to 4
 SSM_TRAIN_SEQ = 256
-# (a) card vs CPU, float32 reduced, 10 steps: each step's loss within
-# 1e-5 relative, the adapters within 2e-4 absolute (the qwen (a) bounds)
+# (a) card vs CPU, float32 reduced, 10 steps one at a time (``train_walk``,
+# the qwen (a) bounds)
 SSM_REF_STEPS = 10
 
 
 def phase_train_cli_ssm(make_engine, get_config, lm, scan, scan_bwd):
     """The training CLI on SSM stacks, mamba2-780m and hymba-1.5b: (a)
-    ``train_from_weights`` on one reduced float32 weight set on the card
-    and the CPU, 10 steps with a checkpoint every 5: losses and adapters
-    within the qwen (a) bounds; (b) ``run_training`` at full width, 4 x
-    256, 3 steps with a checkpoint at 3: finite losses, the last batch
+    ``train_from_weights`` on one reduced float32 weight set on the card,
+    10 steps with a checkpoint every 5, and its trajectory one step at a
+    time, card against CPU (``train_walk``, the qwen (a) bounds); (b)
+    ``run_training`` at full width, 4 x 256, 3 steps with a checkpoint
+    at 3: finite losses, the last batch
     trained on has a lower CE under the trained adapter than under the
     initial one, launches as derived (ssd_scan forward and backward
     every layer every step, lora_matmul forward and dX), step ms, peak
@@ -3019,47 +3139,42 @@ def phase_train_cli_ssm(make_engine, get_config, lm, scan, scan_bwd):
     import contextlib
     import io
     import tempfile
-    from repro_torch.kernels.ssd_scan import LAUNCHES_BWD
     from repro_torch.launch.train import (
         init_weights, run_training, train_from_weights)
-    from repro_torch.tree import tree_leaves, tree_map
     res = {}
     tmp = tempfile.mkdtemp()
     try:
         for arch in SSM_TRAIN_ARCHS:
             cfg = get_config(arch).scaled()
             params, lora = init_weights(make_engine(cfg, device="cpu"), 0)
-            runs = {}
-            for dev in ("cpu", "cuda"):
-                eng = make_engine(cfg, lr=3e-3, device=dev)
-                with contextlib.redirect_stdout(io.StringIO()):
-                    runs[dev] = train_from_weights(
-                        eng, tree_map(lambda t: t.to(dev), params),
-                        tree_map(lambda t: t.to(dev), lora), arch=arch,
-                        steps=SSM_REF_STEPS, batch=4, seq=32, ckpt_every=5,
-                        ckpt_dir=os.path.join(tmp, f"a_{arch}_{dev}"))
-            cpu, gpu = runs["cpu"], runs["cuda"]
-            loss_err = max(abs(a - b) / abs(b)
-                           for a, b in zip(gpu["losses"], cpu["losses"]))
-            lora_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
-                tree_leaves(gpu["lora"]), tree_leaves(cpu["lora"])))
+            eng = make_engine(cfg, lr=TRAIN_ADAMW[0], device="cuda")
+            with contextlib.redirect_stdout(io.StringIO()):
+                gpu = train_from_weights(
+                    eng, _to(params, "cuda"), _to(lora, "cuda"), arch=arch,
+                    steps=SSM_REF_STEPS, batch=4, seq=32, ckpt_every=5,
+                    ckpt_dir=os.path.join(tmp, f"a_{arch}"))
+            start = (lora, make_engine(cfg, device="cpu").optimizer.init(
+                lora))
+            _, losses, worst = train_walk(make_engine, cfg, params, start,
+                                          train_batches(cfg, SSM_REF_STEPS))
             emit("train_cli_ssm_reduced", arch=arch, dtype="float32",
-                 batch=[4, 32], steps=[cpu["steps"], gpu["steps"]],
-                 loss_rel_err=loss_err, lora_max_abs_err=lora_err,
+                 batch=[4, 32], steps=gpu["steps"],
                  loss_rtol=TRAIN_LOSS_RTOL, lora_atol=TRAIN_LORA_ATOL,
+                 m_tol=TRAIN_M_TOL, v_tol=TRAIN_V_TOL, walk=worst,
                  first_loss=gpu["losses"][0], last_loss=gpu["losses"][-1])
-            if not (cpu["steps"] == gpu["steps"] == SSM_REF_STEPS
-                    and loss_err <= TRAIN_LOSS_RTOL
-                    and lora_err <= TRAIN_LORA_ATOL):
-                raise AssertionError(f"train_cli_ssm (a) {arch}: card vs CPU "
-                                     f"losses {loss_err}, adapters {lora_err}")
+            if gpu["steps"] != SSM_REF_STEPS:
+                raise AssertionError(f"train_cli_ssm (a) {arch}: "
+                                     f"{gpu['steps']} steps")
+            _runs_match_walk(f"train_cli_ssm (a) {arch}", gpu, losses)
+            del eng, gpu
 
             n_layers, n_lora, n_lora_bwd = arch_counts(get_config, arch)
             ck = os.path.join(tmp, f"b_{arch}")
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset(lm, scan, scan_bwd)                    # main path starts
-            with TrainTap() as tap, AttnShapeTap() as attn:
+            with TrainTap() as tap, AttnShapeTap() as attn, \
+                    LoraShapeTap() as ltap, SsdBwdShapeTap() as btap:
                 out_b = run_training(arch, smoke=False, steps=SSM_TRAIN_STEPS,
                                      batch=4, seq=SSM_TRAIN_SEQ, ckpt_dir=ck,
                                      ckpt_every=SSM_TRAIN_CKPT,
@@ -3071,12 +3186,14 @@ def phase_train_cli_ssm(make_engine, get_config, lm, scan, scan_bwd):
             want = {"lora_matmul": SSM_TRAIN_STEPS * (n_lora + n_lora_bwd),
                     "ssd_scan": SSM_TRAIN_STEPS * n_layers * SSD_LAUNCHES,
                     "ssd_scan_backward": SSM_TRAIN_STEPS * n_layers
-                    * LAUNCHES_BWD}
+                    * arch_bwd_launches(get_config, arch, 4,
+                                        SSM_TRAIN_SEQ)}
             eng = make_engine(get_config(arch), device="cuda")
             p0, l0 = init_weights(eng, 0)
             ce = _ce(eng.model, p0, [l0, out_b["lora"]], tap.last_batch)
             del p0, l0
-            with TrainTap() as tap_c:
+            with TrainTap() as tap_c, LoraShapeTap() as ltap_c, \
+                    SsdBwdShapeTap() as btap_c:
                 out_c = run_training(arch, smoke=False,
                                      steps=SSM_TRAIN_STEPS + 1, batch=4,
                                      seq=SSM_TRAIN_SEQ, ckpt_dir=ck,
@@ -3090,12 +3207,15 @@ def phase_train_cli_ssm(make_engine, get_config, lm, scan, scan_bwd):
                    "launches": launches, "launches_derived": want,
                    "max_memory_allocated_bytes": peak, **tap.row(),
                    "attention_shapes": attn.summary(),
+                   "lora_shapes": lora_summary(ltap),
+                   "ssd_scan_backward_shapes": btap.summary(),
                    "restart_steps": out_c["steps"],
                    "restart_losses": out_c["losses"],
                    "restored_bitwise": bitwise,
                    "restored_adamw_step": int(restored[1].step)}
             emit("train_cli_ssm", **row)
-            require_checked(f"train_cli_ssm (b) {arch}", attn)
+            require_checked(f"train_cli_ssm (b, c) {arch}", attn, ltap, btap,
+                            ltap_c, btap_c)
             if not (out_b["steps"] == SSM_TRAIN_STEPS
                     and np.isfinite(out_b["losses"]).all()
                     and ce[1] < ce[0]):
@@ -4354,12 +4474,119 @@ TRAIN_STEPS, TRAIN_CKPT_EVERY = 20, 10      # (b); (c) resumes to 30
 TRAIN_LONG_SEQ, TRAIN_LONG_STEPS = 2048, 3  # (d): past the dense limit
 CLI_SEQ, CLI_STEPS = 128, 10                # (e), then --restore to 15
 LLAMA_TRAIN_STEPS = 5                       # (f): the CLI's default arch
-# (a) card vs CPU, float32 reduced: the loss of each step within 1e-5
-# relative (the reference phase's one-step tolerance); the adapters
-# within 2e-4 absolute after 15 steps (AdamW's normalised update turns
-# float32 noise in a near-zero gradient component into a step-sized
-# difference: lr 3e-3; tests/test_torch_train_cli.py's bound against JAX)
-TRAIN_LOSS_RTOL, TRAIN_LORA_ATOL = 1e-5, 2e-4
+# (a) card vs CPU, float32 reduced, one step at a time: along the CPU's
+# trajectory the card takes each step from the CPU's state on the same
+# batch (``train_walk``).  The loss within 1e-5 relative (the reference
+# phase's one-step tolerance); the AdamW moments, which hold the gradient
+# (m' - 0.9 m = 0.1 g from the same m), within float32 noise; the
+# adapters within TRAIN_LORA_ATOL plus lr times the widest change of the
+# normalised update m^ / (sqrt(v^) + eps) that the moments' bounds allow
+# (a gradient component at noise level, near eps, moves that update by a
+# real fraction of lr whatever the batches: tests/test_torch_train_cli.py
+# has the derivation and the same bounds against JAX)
+TRAIN_LOSS_RTOL, TRAIN_LORA_ATOL = 1e-5, 1e-6
+TRAIN_M_TOL = (1e-5, 1e-8)        # (rtol, atol)
+TRAIN_V_TOL = (1e-4, 1e-12)
+TRAIN_ADAMW = (3e-3, 0.9, 0.999, 1e-8)   # lr, b1, b2, eps of make_engine
+
+
+def _update_slack(m, v, step):
+    """lr times the widest change of one AdamW update over the corners of
+    the box that TRAIN_M_TOL / TRAIN_V_TOL allow around moments m, v
+    (float64)."""
+    lr, b1, b2, eps = TRAIN_ADAMW
+    bc1, bc2 = 1 - b1 ** step, 1 - b2 ** step
+    m, v = m.double(), v.double()
+    dm = TRAIN_M_TOL[0] * m.abs() + TRAIN_M_TOL[1]
+    dv = TRAIN_V_TOL[0] * v.abs() + TRAIN_V_TOL[1]
+
+    def upd(mm, vv):
+        return (mm / bc1) / ((vv.clamp(min=0) / bc2).sqrt() + eps)
+    u = upd(m, v)
+    return lr * torch.stack([(upd(m + sm * dm, v + sv * dv) - u).abs()
+                             for sm in (-1, 1) for sv in (-1, 1)]).amax(0)
+
+
+def train_walk(make_engine, cfg, params, state, batches):
+    """From ``state`` (CPU adapters, AdamW state) along the CPU's
+    trajectory over ``batches`` (numpy): at each step the CPU and the
+    card each take one ``Engine.train_step`` from the CPU's state, and
+    the card's loss, moments and adapters are held against the CPU's
+    (bounds above); the walk goes on from the CPU's state.  Returns the
+    CPU states before each step and after the last, the CPU losses and
+    the largest gaps (the adapters' also as a share of what they were
+    allowed)."""
+    from repro_torch.checkpoint.checkpointer import _tree_paths
+    cpu = make_engine(cfg, lr=TRAIN_ADAMW[0], device="cpu")
+    gpu = make_engine(cfg, lr=TRAIN_ADAMW[0], device="cuda")
+    gparams = _to(params, "cuda")
+    states, losses = [state], []
+    worst = {"loss_rel_err": 0.0, "m_max_abs_err": 0.0, "v_max_abs_err": 0.0,
+             "lora_max_abs_err": 0.0, "lora_err_share_of_allowed": 0.0}
+    for k, b in enumerate(batches):
+        lora, opt = state
+        cl, co, cm = cpu.train_step(params, lora, opt,
+                                    {n: torch.as_tensor(x)
+                                     for n, x in b.items()})
+        gl, go, gm = gpu.train_step(gparams, _to(lora, "cuda"),
+                                    _to(opt, "cuda"),
+                                    {n: torch.as_tensor(x, device="cuda")
+                                     for n, x in b.items()})
+        c_loss, g_loss = float(cm["ce_loss"]), float(gm["ce_loss"])
+        rel = abs(g_loss - c_loss) / abs(c_loss)
+        worst["loss_rel_err"] = max(worst["loss_rel_err"], rel)
+        bad = [] if rel <= TRAIN_LOSS_RTOL and int(go.step) == int(co.step) \
+            else [f"loss {g_loss} vs {c_loss}, AdamW step {int(go.step)}"]
+        for what, g_tree, c_tree, (rtol, atol) in (
+                ("m", go.m, co.m, TRAIN_M_TOL),
+                ("v", go.v, co.v, TRAIN_V_TOL)):
+            for (path, g), (_, c) in zip(_tree_paths(g_tree),
+                                         _tree_paths(c_tree)):
+                err = (g.cpu() - c).abs()
+                worst[f"{what}_max_abs_err"] = max(
+                    worst[f"{what}_max_abs_err"], float(err.max()))
+                if not bool((err <= atol + rtol * c.abs()).all()):
+                    bad.append(f"{what} {path}")
+        slack = {path: _update_slack(m, v, int(co.step))
+                 for (path, m), (_, v) in zip(_tree_paths(co.m),
+                                              _tree_paths(co.v))}
+        for (path, g), (_, c) in zip(_tree_paths(gl), _tree_paths(cl)):
+            err = (g.cpu().double() - c.double()).abs()
+            allowed = TRAIN_LORA_ATOL + slack[path]
+            worst["lora_max_abs_err"] = max(worst["lora_max_abs_err"],
+                                            float(err.max()))
+            worst["lora_err_share_of_allowed"] = max(
+                worst["lora_err_share_of_allowed"],
+                float((err / allowed).max()))
+            if not bool((err <= allowed).all()):
+                bad.append(f"adapter {path}")
+        if bad:
+            raise AssertionError(f"train_walk step {k} (from the CPU's "
+                                 f"state): card beyond tolerance: {bad}")
+        state = (cl, co)
+        states.append(state)
+        losses.append(c_loss)
+    return states, losses, worst
+
+
+def train_batches(cfg, n, seq=32, rows=4):
+    """The first ``n`` batches a run of seed 0 draws, as numpy, drawn once
+    in this process for both devices."""
+    from repro_torch.data.synthetic import SyntheticDataset
+    data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
+                            seq_len=seq, seed=0)
+    return [data.batch(rows) for _ in range(n)]
+
+
+def _runs_match_walk(name, run, walk_losses):
+    """The card run's losses are those of the trajectory walked."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                                  walk_losses))
+    if len(run["losses"]) != len(walk_losses) or rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{name}: the card run's losses "
+                             f"{run['losses']} are not the walk's "
+                             f"{walk_losses}")
+    return rel
 
 
 class TrainTap:
@@ -4465,58 +4692,60 @@ def _bitwise(a, b):
 
 
 def _train_reduced(make_engine, get_config, tmp):
-    """(a) ``train_from_weights`` on the reduced float32 qwen, one weight
-    set, on the CPU and on the card: 15 steps (a checkpoint every 5),
-    then 25 with a NaN injected at step 12."""
+    """(a) the reduced float32 qwen, one weight set: ``train_from_weights``
+    on the card, 15 steps (a checkpoint every 5), then 25 with a NaN
+    injected at step 12 (steps, kept losses and the rollback line); then
+    the trajectory of each run one step at a time, card against CPU
+    (``train_walk``): without a fault batch k at step k; with one, steps
+    0-11, the faulted step's batch 12 spent, then steps 10-24 from the
+    step-10 state on batches 13-27."""
     import contextlib
     import io
     from repro_torch.launch.train import init_weights, train_from_weights
-    from repro_torch.tree import tree_leaves, tree_map
     cfg = get_config(ARCH).scaled()
     params, lora = init_weights(make_engine(cfg, device="cpu"), 0)
-    runs = {}
-    for dev in ("cpu", "cuda"):
-        for name, kw in (("plain", dict(steps=15)),
-                         ("nan", dict(steps=25, inject_nan_at=12))):
-            eng = make_engine(cfg, lr=3e-3, device=dev)
-            log = io.StringIO()
-            with contextlib.redirect_stdout(log):
-                out = train_from_weights(
-                    eng, tree_map(lambda t: t.to(dev), params),
-                    tree_map(lambda t: t.to(dev), lora), arch=ARCH,
-                    batch=4, seq=32, ckpt_every=5, log_every=5,
-                    ckpt_dir=os.path.join(tmp, f"a_{name}_{dev}"), **kw)
-            out["rollbacks"] = [ln for ln in log.getvalue().splitlines()
-                                if "non-finite" in ln]
-            runs[(name, dev)] = out
+    start = (lora, make_engine(cfg, device="cpu").optimizer.init(lora))
+    batches = train_batches(cfg, 28)
     row = {}
-    for name in ("plain", "nan"):
-        cpu, gpu = runs[(name, "cpu")], runs[(name, "cuda")]
-        loss_err = max(abs(a - b) / abs(b)
-                       for a, b in zip(gpu["losses"], cpu["losses"]))
-        lora_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
-            tree_leaves(gpu["lora"]), tree_leaves(cpu["lora"])))
-        row[name] = {"steps": [cpu["steps"], gpu["steps"]],
-                     "kept_losses": [len(cpu["losses"]), len(gpu["losses"])],
-                     "loss_rel_err": loss_err, "lora_max_abs_err": lora_err,
-                     "rollbacks": gpu["rollbacks"],
-                     "first_loss": gpu["losses"][0],
-                     "last_loss": gpu["losses"][-1]}
+    for name, kw in (("plain", dict(steps=15)),
+                     ("nan", dict(steps=25, inject_nan_at=12))):
+        eng = make_engine(cfg, lr=TRAIN_ADAMW[0], device="cuda")
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            gpu = train_from_weights(
+                eng, _to(params, "cuda"), _to(lora, "cuda"), arch=ARCH,
+                batch=4, seq=32, ckpt_every=5, log_every=5,
+                ckpt_dir=os.path.join(tmp, f"a_{name}"), **kw)
+        rollbacks = [ln for ln in log.getvalue().splitlines()
+                     if "non-finite" in ln]
         want_steps = 15 if name == "plain" else 25
         want_kept = want_steps + (2 if name == "nan" else 0)
         want_log = ["step 12: non-finite loss; restoring step 10"] \
             if name == "nan" else []
-        if not (cpu["steps"] == gpu["steps"] == want_steps
-                and len(cpu["losses"]) == len(gpu["losses"]) == want_kept
-                and cpu["rollbacks"] == gpu["rollbacks"] == want_log
+        if name == "plain":
+            _, losses, worst = train_walk(make_engine, cfg, params, start,
+                                          batches[:15])
+        else:
+            states, losses, worst = train_walk(make_engine, cfg, params,
+                                               start, batches[:12])
+            _, more, worst2 = train_walk(make_engine, cfg, params,
+                                         states[10], batches[13:])
+            losses += more
+            worst = {k: max(v, worst2[k]) for k, v in worst.items()}
+        row[name] = {"steps": gpu["steps"], "kept_losses": len(gpu["losses"]),
+                     "rollbacks": rollbacks, "first_loss": gpu["losses"][0],
+                     "last_loss": gpu["losses"][-1], "walk": worst}
+        if not (gpu["steps"] == want_steps
+                and len(gpu["losses"]) == want_kept
+                and rollbacks == want_log
                 and np.isfinite(gpu["losses"]).all()):
             raise AssertionError(f"train_cli (a) {name}: steps, kept losses "
                                  f"or rollbacks differ: {row[name]}")
-        if not (loss_err <= TRAIN_LOSS_RTOL and lora_err <= TRAIN_LORA_ATOL):
-            raise AssertionError(f"train_cli (a) {name}: card vs CPU "
-                                 f"beyond tolerance: {row[name]}")
+        row[name]["run_vs_walk_loss_rel_err"] = _runs_match_walk(
+            f"train_cli (a) {name}", gpu, losses)
     emit("train_cli_reduced", config=cfg.name, dtype="float32", batch=[4, 32],
-         loss_rtol=TRAIN_LOSS_RTOL, lora_atol=TRAIN_LORA_ATOL, **row)
+         loss_rtol=TRAIN_LOSS_RTOL, lora_atol=TRAIN_LORA_ATOL,
+         m_tol=TRAIN_M_TOL, v_tol=TRAIN_V_TOL, **row)
     return row
 
 
@@ -4684,12 +4913,10 @@ def phase_train_cli(make_engine, get_config, lm, fa):
 
         # (e) the CLI's ``main``: in this process, then the restore in a
         # subprocess (one process start, ~20 s, is enough to show the
-        # entry point) on the same depth-cut config; the synthetic data
-        # seeds from Python's salted hash, so the subprocess's seed is
-        # pinned
+        # entry point) on the same depth-cut config
         from repro_torch.launch import train as train_mod
         cli_dir = os.path.join(tmp, "e")
-        env = dict(os.environ, PYTHONHASHSEED="0", PYTHONPATH=SRC)
+        env = dict(os.environ, PYTHONPATH=SRC)
         code = ("import chip_smoke\n"
                 "from repro_torch.configs import registry\n"
                 "from repro_torch.launch.train import main\n"
@@ -5349,13 +5576,65 @@ class AttnShapeTap:
         return [[*k, n] for k, n in sorted(self.shapes.items())]
 
 
-def require_checked(phase, tap):
-    """Fails ``phase`` if it launched an attention shape no kernel phase
+def ssd_bwd_shape_checked(kind, b, s, h, p, n, dtype):
+    """Whether kernel_ssd_bwd held the backward against its plain version
+    at a launch's shape: an SSD_BWD_SHAPES row of that B, S, H, P and N
+    (each row runs in float32 and bfloat16)."""
+    return dtype in ("float32", "bfloat16") and any(
+        row[1:6] == (b, s, h, p, n) for row in SSD_BWD_SHAPES)
+
+
+class SsdBwdShapeTap:
+    """Records the shape of every ``ssd_scan`` backward launch (autograd
+    through ``SSDScanFn`` on the card) while it is entered: (kind, B, S,
+    H, P, N, dtype) -> launch count, the keys ``ssd_bwd_shape_checked``
+    reads."""
+
+    def __enter__(self):
+        from repro_torch.kernels.ssd_scan import SSDScanFn
+        self._fn = SSDScanFn
+        self._orig = SSDScanFn.backward
+        bwd = self._orig
+        self.shapes = {}
+
+        def rec_bwd(ctx, dy, dfinal):
+            x, _, _, bmat = ctx.saved_tensors[:4]
+            if x.device.type != "cpu":
+                key = ("ssd_scan_backward", *x.shape, bmat.shape[-1],
+                       _dtype_name(x))
+                self.shapes[key] = self.shapes.get(key, 0) + 1
+            return bwd(ctx, dy, dfinal)
+
+        SSDScanFn.backward = staticmethod(rec_bwd)
+        return self
+
+    def __exit__(self, *exc):
+        self._fn.backward = staticmethod(self._orig)
+        return False
+
+    def unchecked(self):
+        """The recorded shapes no kernel phase held against the plain
+        version."""
+        return [k for k in self.shapes if not ssd_bwd_shape_checked(*k)]
+
+    def summary(self):
+        """The recorded shapes as a JSON-able list."""
+        return [[*k, n] for k, n in sorted(self.shapes.items())]
+
+
+def lora_summary(tap):
+    """A LoraShapeTap's recorded shapes as a JSON-able list."""
+    return [[*k, n] for k, n in sorted(tap.shapes.items())]
+
+
+def require_checked(phase, *taps):
+    """Fails ``phase`` if it launched a shape (attention, lora_matmul or
+    the ssd_scan backward, as each tap records them) that no kernel phase
     held against the plain version."""
-    bad = tap.unchecked()
+    bad = [k for tap in taps for k in tap.unchecked()]
     if bad:
-        raise AssertionError(f"{phase}: launched attention shapes no kernel "
-                             f"phase checked: {bad}")
+        raise AssertionError(f"{phase}: launched shapes no kernel phase "
+                             f"checked: {bad}")
 
 
 class FabricTap:
@@ -5834,20 +6113,12 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         sys.exit(2)
-    # SyntheticDataset (as the reference's) seeds from Python's salted
-    # str hash, so each process draws other batches; pinned, every run
-    # trains on the same ones (train_cli (a) holds the card's adapters
-    # against the CPU's after 15 AdamW steps, and how far two roundings
-    # drift apart there depends on the batches)
-    if os.environ.get("PYTHONHASHSEED") != "0":
-        os.execve(sys.executable, [sys.executable, *sys.argv],
-                  dict(os.environ, PYTHONHASHSEED="0"))
     if sys.argv[1:2] == ["--time-kernels"]:
         torch.backends.cuda.matmul.allow_tf32 = False
-        return time_kernels()
+        return time_kernels(sys.argv[3:])
     if sys.argv[1:2] == ["--ab"]:
         print(smi(), flush=True)
-        return run_ab(sys.argv[2])
+        return run_ab(sys.argv[2], sys.argv[3:])
     from repro_torch.configs import registry
     from repro_torch.configs.registry import get_config
     from repro_torch.core.engine import make_engine
@@ -5941,6 +6212,7 @@ def main():
     }
     # bring-up only: named on the command line, never in the full run
     bring_up = {"splits": phase_splits,
+                "kernel_ssd_bwd": lambda: kernel_ssd_bwd(ssd),
                 "budget_seeded": lambda: phase_budget(
                     run_serving, make_engine, get_config, pda, lm, fa, seg,
                     seeded=True)}
@@ -6203,10 +6475,12 @@ def main():
         "repeat_bitwise_all_shapes": all(
             r["repeat_bitwise"] for r in bwd_rows.values()),
         **{k: b_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms", "host_us", "gflop",
+                                  "bound_3xtf32_ms", "library_ms", "host_us",
+                                  "gflop", "launches_a_call",
                                   "workspace_and_outputs_peak_bytes")},
         "bf16_shapes": {n: {k: r[k] for k in ("B", "S", "H", "N", "ms",
-                                                "plain_ms", "bound_ms")}
+                                                "plain_ms", "bound_ms",
+                                                "bound_3xtf32_ms")}
                         for (n, dt), r in bwd_rows.items()
                         if dt == torch.bfloat16},
     }, {

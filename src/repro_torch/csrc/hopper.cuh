@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels:
-// flash_attention.cu, decode_attention.cu and lora_mma.cuh (lora_matmul.cu,
-// segmented_lora_matmul.cu).  Each is one PTX instruction or a short fixed
-// sequence of them: mbarriers, TMA loads and their host-side tensor maps,
-// named barriers, ldmatrix and the m16n8k16 bf16 MMA, wgmma (m64n16 to
-// m64n256 from shared memory, m64n32 to m64n128 with A in registers) and
-// its shared-memory descriptors, setmaxnreg.
+// flash_attention.cu, decode_attention.cu, ssd_scan_bwd.cu and lora_mma.cuh
+// (lora_matmul.cu, segmented_lora_matmul.cu).  Each is one PTX instruction
+// or a short fixed sequence of them: mbarriers, TMA loads and their
+// host-side tensor maps, named barriers, ldmatrix and the m16n8k16 bf16
+// MMA, the m16n8k8 TF32 MMA and the split of a float into two TF32 parts
+// (3xTF32), wgmma (m64n16 to m64n256 from shared memory, m64n32 to m64n128
+// with A in registers) and its shared-memory descriptors, setmaxnreg.
 #pragma once
 
 #include <cuda.h>
@@ -114,6 +115,39 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
                                          uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------------------- TF32 and 3xTF32 --
+// x rounded to TF32 (10 mantissa bits, round to nearest, ties away): a
+// float32 bit pattern whose 13 low mantissa bits are zero
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|): hi its TF32 rounding, lo the TF32 rounding
+// of the (exact) float32 rest.  With SPLIT false, x is taken as exact in
+// TF32 (a bf16 value is) and lo is left unset.
+template <bool SPLIT>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  if (SPLIT) lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a @ b for one m16n8k8 TF32 fragment, f32 accumulate.  Lane l, g =
+// l / 4, t = l % 4: a = A(g, t), A(g + 8, t), A(g, t + 4), A(g + 8, t + 4);
+// b = B(t, g), B(t + 4, g); d = D(g, 2t), D(g, 2t + 1), D(g + 8, 2t),
+// D(g + 8, 2t + 1)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])

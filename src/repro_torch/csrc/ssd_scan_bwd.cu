@@ -32,93 +32,290 @@
 //   d(dt a) = reverse cumsum of d cum, plus d seg
 //   ddt = a d(dt a) + colsum K + exp(seg - cum) o (x . B G^T)
 //   da  = sum over batch and positions of d(dt a) o dt
-// E runs from the first chunk to the last (E' = exp(seg) E + (x o w)^T B),
-// G from the last to the first (G_{c-1} = exp(seg_c) G_c + sum_i
-// exp(cum_i) dy_i^T C_i, starting from dfin); what G reaches before chunk
-// 0 is dinit.
+// E runs from the first chunk to the last (E' = exp(seg) E + x^T (w o B)),
+// G from the last to the first (G_{c-1} = exp(seg_c) G_c + dy^T (exp(cum)
+// o C) over chunk c, starting from dfin); what G reaches before chunk 0 is
+// dinit.
 //
-// Design (simple and deterministic; four launches):
-//   * states, one block per (batch, chunk, head): the chunk's own state
-//     (x o w)^T B and its own reverse term (dy o exp(cum))^T C, each [P, NP]
-//     (N padded to NP = 16, 32, 64 or 128), and exp(seg), into the
-//     workspace.
-//   * scan, one thread per (batch, head, p, n): walks the chunks forward,
-//     turning each own state into the state entering the chunk, then
-//     backward, turning each reverse term into the gradient of the state
-//     leaving it, in place.  So the backward recomputes E rather than
-//     keeping it from the forward: the workspace lives for one layer's
-//     backward, 2 B (S / 64) H P NP floats (mamba2-780m at 4 x 2,048
-//     tokens: 403 MB, freed when the call returns), where autograd would
-//     hold 201 MB a layer for every layer until the backward reached it.
+// What bounds it: operations.  The work the algorithm needs, per (batch,
+// chunk of r rows, head): 2 r P N each for the chunk's own state, its
+// reverse term, B G^T, x G and dy E, and 2 P per causal pair (r (r + 1) /
+// 2 of them) each for dy x^T and scores^T dy; per (batch, chunk) 2 N per
+// causal pair each for C B^T, dCB B and dCB^T C (chip_smoke.py::
+// ssd_bwd_bound).  At mamba2-780m's 4 x 2,048 rows (H 48, P 64, N 128)
+// that is 35.7 GFLOP: 0.53 ms at the 67 TFLOP/s of float32 FMA, 0.216 ms
+// as 3xTF32 on the tensor cores (three TF32 products for each float32
+// one, 3 x 35.7 GFLOP at 495 TFLOP/s); at hymba-1.5b's (H 50, N 16) 7.6
+// GFLOP, 0.114 and 0.046 ms.  The bytes it must move are a few percent of
+// that time.
+//
+// Design: up to three launches (kernels/ssd_scan.py::bwd_plan names them).
+//   * chain (past a single chunk, or with init): the states handed from
+//     chunk to chunk.  One block per (chain, batch, head) walks its
+//     chunks with the state in registers: an E block from chunk 0 up,
+//     E' = exp(seg) E + (w o x)^T B, writing the state entering each
+//     later chunk; a G block from the last chunk down, G_{c-1} =
+//     exp(seg) G + (e o dy)^T C, writing the gradient leaving each
+//     earlier chunk (dinit at chunk 0).  The MMAs sum onto the state
+//     itself, so a step is one product, its loads in flight before it:
+//     x or dy rows two chunks ahead by cp.async into the other of two
+//     buffers, B or C one chunk ahead, the next chunk's cumsum at the
+//     end of each step.  The workspace holds the states main reads,
+//     each written once and read once: 2 B (S / 64) H P NP floats
+//     (mamba2-780m at 4 x 2,048 tokens: 403 MB written and 403 MB read,
+//     0.24 ms at 3.35 TB/s, where PR 25's four launches (own states, a
+//     scan over them in place, main, reduce) moved 1.6 GB).  A single
+//     chunk needs none of it: E is init or 0, G is dfin or 0.
 //   * main, one block per (batch, chunk, head group): C B^T once, then for
-//     each head of the group every product above from shared memory,
-//     dx and ddt written directly, d(dt a) o dt summed per (batch, chunk,
-//     head), and dCB, exp(cum) o (dy E) and w o (x G) summed over the
-//     group's heads in registers and shared memory; at the end the
-//     group's dB and dC partials.  Head groups are as few as give ~132
-//     blocks (kernels/ssd_scan.py::bwd_plan), so a call at 4 x 2,048
-//     tokens runs 2 groups of 24 heads.
-//   * reduce: dB and dC summed over the groups, da over batch and chunks,
-//     each in a fixed order.  No float atomics anywhere, so two calls on
-//     the same inputs give bitwise-equal gradients; what it costs is the
-//     partials' round trip (2 x 64 x NP floats a block) and a launch.
-//   * arithmetic: float32 FMA from shared memory (rows padded to an odd
-//     pitch, so a warp's column reads fall on distinct banks), 4 x 4 or
-//     4 x NP/16 outputs a thread; no tensor cores (TF32 would keep ~3
-//     digits).  Rows past S load as zeros (dt = 0 there), so padded
-//     positions and state columns add nothing to dB, dC or ddt.
-//
-// What bounds it: float32 operations.  The work the algorithm needs, per
-// (batch, chunk of r rows, head): 2 r P N each for the chunk's own state,
-// its reverse term, B G^T, x G and dy E, and 2 P per causal pair (r (r +
-// 1) / 2 of them) each for dy x^T and scores^T dy; per (batch, chunk) 2 N
-// per causal pair each for C B^T, dCB B and dCB^T C.  At mamba2-780m's 4 x
-// 2,048 rows (H 48, P 64, N 128) that is 35.7 GFLOP, 0.53 ms at 67
-// TFLOP/s; at hymba-1.5b's (H 50, N 16) 7.6 GFLOP, 0.11 ms (chip_smoke.py
-// computes the bound of every shape it times from this count; PERF.md has
-// the times).  The kernel does more than that: the full 64 x 64 products
-// where only the causal half counts, and N padded to NP.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+//     each head of the group every product above, dx and ddt written
+//     directly, d(dt a) o dt summed per (batch, chunk, head), and dCB,
+//     exp(cum) o (dy E) and w o (x G) summed over the group's heads in
+//     registers; at the end dCB B and dCB^T C, and the group's dB and dC
+//     (written directly when there is one group).  The last block to
+//     finish (an atomic count, reset by that block) sums da over (batch,
+//     chunk) in a fixed order.  Head groups are as few as give 132
+//     blocks: at 4 x 2,048 tokens 2 groups of 24 heads (256 blocks), at
+//     4 x 32 one head a group (192 blocks for mamba2, 200 for hymba).
+//   * reduce (more than one group): dB and dC summed over the groups in
+//     group order, a thread per output.
+//   No float atomics anywhere, so two calls on the same inputs give
+//   bitwise-equal gradients.
+//   * arithmetic: every product on the tensor cores, mma.sync m16n8k8
+//     TF32, 16 x 8 output tiles a warp, in 3xTF32: each float32 operand
+//     split into a TF32 high part and the TF32 rounding of the rest, and
+//     lo*hi + hi*lo + hi*hi summed in float32 (hopper.cuh::split_tf32),
+//     which keeps ~22 bits of each product where one TF32 product keeps
+//     ~11 (tests/test_torch_ssd_scan.py emulates it: 5e-7 of the largest
+//     output against float64, where one TF32 product is 2.5e-4 off).  A
+//     bf16 x or dy is exact in TF32 and takes no low part: dy x^T from
+//     bf16 is one product, x G, dy E and scores^T dy two.  The products
+//     over position pairs (dy x^T, C B^T, scores^T dy, dCB B, dCB^T C)
+//     take only the tiles on or below the diagonal and mask the diagonal
+//     ones; a warp's few tiles of a product run as independent chains of
+//     MMAs (the split's correction terms in accumulators of their own).
+//     Operands come from shared memory, rows padded so that most
+//     fragment loads fall on distinct banks, each phase's global loads
+//     all in flight before its first store.  Rows past S load as zeros
+//     (dt = 0 there), so padded positions and state columns add nothing.
+//   * occupancy: main keeps 160 KB of tiles at NP 128 (one block, 8
+//     warps an SM) and 74 KB at NP 16 (two blocks); chain 73 KB at NP
+//     128 (three blocks), 44 KB at NP 16 (four).
+//   What still holds it back (scripts/ssd_bwd_ablation.py drops one part
+//   at a time; mamba2 4 x 2,048, bf16): main's per-head loads of x, dy,
+//   G and E (a third of main's ~1.0 ms: each head waits on them, eight
+//   warps an SM at NP 128), x G with dy E (a quarter) and B G^T (a
+//   sixth), mma.sync fed by scalar shared-memory loads and splitting
+//   every operand element where it is loaded; the chain's 31 serial steps
+//   a (batch, head) (~0.49 ms: its MMAs 0.21, its fetches of B and C one
+//   chunk ahead 0.12, its state stores 0.06).
+//   Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --ab,
+//   PERF.md section 6 has every shape against PR 25's kernel): mamba2 4 x
+//   2,048 1.53 ms (bf16; PR 25's 4.33), 2.9x its f32 bound and 7.1x its
+//   3xTF32 bound; hymba 4 x 2,048 0.62 ms (1.59); the 4 x 32 calls 76 us
+//   (mamba2; 155) and 32 us (hymba; 69).
+#include "hopper.cuh"
 
 namespace {
-
-typedef long long i64;
 
 constexpr int kQ = 64;          // positions per chunk
 constexpr int kP = 64;          // state rows (P <= 64)
 constexpr int kThreads = 256;
-constexpr int LQ = kQ + 1;      // odd pitches: conflict-free column reads
-constexpr int LP = kP + 1;
+constexpr int kWarps = kThreads / 32;
+constexpr int LQ = kQ + 4;      // main: pitch of x, dy and score rows
+constexpr int kCausal = 20;     // 16 x 8 tiles of a 64 x 64 lower triangle
 
-__device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ void store2(float* p, float u, float v) {
+  *reinterpret_cast<float2*>(p) = make_float2(u, v);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float u, float v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(u, v);
 }
 
-// acc[r][c] += sum_k A(r0 + 16 r, k) * B(c0 + 16 c, k), A(i, k) at
-// A[i * sai + k * sak], B(j, k) at B[j * sbj + k * sbk]
-template <int R, int C>
-__device__ __forceinline__ void mm(float (&acc)[R][C], const float* A,
-                                   int sai, int sak, const float* Bm,
-                                   int sbj, int sbk, int K, int r0, int c0) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float av[R], bv[C];
+// acc[j] (a 16 x 8 tile, columns 8 j ..) += sum over k in [k0, k1) (steps
+// of 8) of A(r, k) B(k, c): A(r, k) at A[r * ai + k * ak], B(k, c) at
+// Bm[k * bk + c * bn], both already offset to the tile's first row and
+// column.  SA / SB: split that operand (3xTF32); false when it is exact in
+// TF32.
+template <int NT, bool SA, bool SB>
+__device__ __forceinline__ void tile_mma(float (&acc)[NT][4], const float* A,
+                                         int ai, int ak, const float* Bm,
+                                         int bk, int bn, int k0, int k1,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* a0 = A + g * ai;
+  const float* a1 = A + (g + 8) * ai;
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32<SA>(a0[(k + t) * ak], ah[0], al[0]);
+    split_tf32<SA>(a1[(k + t) * ak], ah[1], al[1]);
+    split_tf32<SA>(a0[(k + t + 4) * ak], ah[2], al[2]);
+    split_tf32<SA>(a1[(k + t + 4) * ak], ah[3], al[3]);
 #pragma unroll
-    for (int r = 0; r < R; ++r) av[r] = A[(r0 + 16 * r) * sai + k * sak];
-#pragma unroll
-    for (int c = 0; c < C; ++c) bv[c] = Bm[(c0 + 16 * c) * sbj + k * sbk];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[r][c] = fmaf(av[r], bv[c], acc[r][c]);
+    for (int j = 0; j < NT; ++j) {
+      const float* bc = Bm + (8 * j + g) * bn;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32<SB>(bc[(k + t) * bk], bh0, bl0);
+      split_tf32<SB>(bc[(k + t + 4) * bk], bh1, bl1);
+      if constexpr (SA) mma_tf32(acc[j], al, bh0, bh1);
+      if constexpr (SB) {
+        mma_tf32(acc[j], ah, bl0, bl1);
+      }
+      mma_tf32(acc[j], ah, bh0, bh1);
+    }
   }
+}
+
+// The same for MT row blocks (A[m] offset to block m's first row) over
+// the same B columns, with the split's correction terms in accumulators
+// of their own: 2 MT NT independent chains of MMAs, where a product of
+// few tiles would otherwise wait on one chain.
+template <int MT, int NT, bool SA, bool SB>
+__device__ __forceinline__ void tile_mma_rows(float (&acc)[MT][NT][4],
+                                              const float* const (&A)[MT],
+                                              int ai, int ak,
+                                              const float* Bm, int bk,
+                                              int bn, int k0, int k1,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float cor[MT][NT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      cor[m][j][0] = cor[m][j][1] = cor[m][j][2] = cor[m][j][3] = 0.f;
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const float* a0 = A[m] + g * ai;
+      const float* a1 = A[m] + (g + 8) * ai;
+      split_tf32<SA>(a0[(k + t) * ak], ah[m][0], al[m][0]);
+      split_tf32<SA>(a1[(k + t) * ak], ah[m][1], al[m][1]);
+      split_tf32<SA>(a0[(k + t + 4) * ak], ah[m][2], al[m][2]);
+      split_tf32<SA>(a1[(k + t + 4) * ak], ah[m][3], al[m][3]);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* bc = Bm + (8 * j + g) * bn;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32<SB>(bc[(k + t) * bk], bh0, bl0);
+      split_tf32<SB>(bc[(k + t + 4) * bk], bh1, bl1);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if constexpr (SA) mma_tf32(cor[m][j], al[m], bh0, bh1);
+        if constexpr (SB) {
+          mma_tf32(cor[m][j], ah[m], bl0, bl1);
+        }
+        mma_tf32(acc[m][j], ah[m], bh0, bh1);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] += cor[m][j][e];
+}
+
+// One 16 x 8 tile each of `count` (<= MT) tiles, each with its own A rows
+// and B columns, over the same k range; correction terms apart, as above.
+template <int MT, bool SA, bool SB>
+__device__ __forceinline__ void tiles_mma(float (&acc)[MT][4],
+                                          const float* const (&A)[MT],
+                                          int ai, int ak,
+                                          const float* const (&Bm)[MT],
+                                          int bk, int bn, int k0, int k1,
+                                          int count, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  float cor[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m) cor[m][0] = cor[m][1] = cor[m][2] = cor[m][3] = 0.f;
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m >= count) break;
+      uint32_t ah[4], al[4];
+      const float* a0 = A[m] + g * ai;
+      const float* a1 = A[m] + (g + 8) * ai;
+      split_tf32<SA>(a0[(k + t) * ak], ah[0], al[0]);
+      split_tf32<SA>(a1[(k + t) * ak], ah[1], al[1]);
+      split_tf32<SA>(a0[(k + t + 4) * ak], ah[2], al[2]);
+      split_tf32<SA>(a1[(k + t + 4) * ak], ah[3], al[3]);
+      const float* bc = Bm[m] + g * bn;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32<SB>(bc[(k + t) * bk], bh0, bl0);
+      split_tf32<SB>(bc[(k + t + 4) * bk], bh1, bl1);
+      if constexpr (SA) mma_tf32(cor[m], al, bh0, bh1);
+      if constexpr (SB) {
+        mma_tf32(cor[m], ah, bl0, bl1);
+      }
+      mma_tf32(acc[m], ah, bh0, bh1);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[m][e] += cor[m][e];
+}
+
+// tile_mma with A(r, k) scaled by ksc[k] as it is loaded (both operands
+// split): acc[j] += sum_k ksc[k] A(r, k) B(k, c); with one or two column
+// tiles the split's correction terms go to accumulators of their own (a
+// second chain of MMAs), with more the tiles already give chains enough
+template <int NT>
+__device__ __forceinline__ void tile_mma_ks(float (&acc)[NT][4],
+                                            const float* A, int ai, int ak,
+                                            const float* ksc,
+                                            const float* Bm, int bk, int bn,
+                                            int k0, int k1, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* a0 = A + g * ai;
+  const float* a1 = A + (g + 8) * ai;
+  constexpr bool SEP = NT <= 2;
+  float cor[SEP ? NT : 1][4];
+#pragma unroll
+  for (int j = 0; j < (SEP ? NT : 1); ++j)
+    cor[j][0] = cor[j][1] = cor[j][2] = cor[j][3] = 0.f;
+#pragma unroll 2
+  for (int k = k0; k < k1; k += 8) {
+    const float s0 = ksc[k + t], s1 = ksc[k + t + 4];
+    uint32_t ah[4], al[4];
+    split_tf32<true>(a0[(k + t) * ak] * s0, ah[0], al[0]);
+    split_tf32<true>(a1[(k + t) * ak] * s0, ah[1], al[1]);
+    split_tf32<true>(a0[(k + t + 4) * ak] * s1, ah[2], al[2]);
+    split_tf32<true>(a1[(k + t + 4) * ak] * s1, ah[3], al[3]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float* bc = Bm + (8 * j + g) * bn;
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32<true>(bc[(k + t) * bk], bh0, bl0);
+      split_tf32<true>(bc[(k + t + 4) * bk], bh1, bl1);
+      float (&c)[4] = cor[SEP ? j : 0];
+      mma_tf32(SEP ? c : acc[j], al, bh0, bh1);
+      mma_tf32(SEP ? c : acc[j], ah, bl0, bl1);
+      mma_tf32(acc[j], ah, bh0, bh1);
+    }
+  }
+  if constexpr (SEP) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += cor[j][e];
+  }
+}
+
+// the causal 16 x 8 tile `k` of a 64 x 64 lower triangle: row block rb,
+// column tile nt (nt <= 2 rb + 1); rb's tiles start at rb (rb + 1)
+__device__ __forceinline__ void causal_tile(int k, int& rb, int& nt) {
+  rb = k >= 12 ? 3 : k >= 6 ? 2 : k >= 2 ? 1 : 0;
+  nt = k - rb * (rb + 1);
 }
 
 // warp 0: inclusive cumsum of dt * a over the chunk (two positions a lane),
@@ -141,10 +338,8 @@ __device__ __forceinline__ float chunk_cumsum(const float* vdt, float ah,
   const float seg = __shfl_sync(0xffffffffu, inc, 31);
   vcum[2 * lane] = c0;
   vcum[2 * lane + 1] = c1;
-  if (vecum) {
-    vecum[2 * lane] = expf(c0);
-    vecum[2 * lane + 1] = expf(c1);
-  }
+  vecum[2 * lane] = expf(c0);
+  vecum[2 * lane + 1] = expf(c1);
   const float e0 = expf(seg - c0), e1 = expf(seg - c1);
   if (ved) {
     ved[2 * lane] = e0;
@@ -161,180 +356,402 @@ __device__ __forceinline__ float warp_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
 
-// a [Q][LP] tile of x or dy (rows past nv and columns past P zero)
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, i64 srow,
-                                          int nv, int P, int t) {
-  for (int i = t; i < kQ * kP; i += kThreads) {
-    const int j = i / kP, p = i % kP;
-    dst[j * LP + p] = j < nv && p < P ? to_f(src[(i64)j * srow + p]) : 0.f;
+// four consecutive elements as floats, those from `valid` on zero; vec:
+// one aligned 16-byte (float) or 8-byte (bf16) load when all four count
+__device__ __forceinline__ float4 load4(const float* p, int valid, bool vec) {
+  if (vec && valid >= 4) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(valid > 0 ? p[0] : 0.f, valid > 1 ? p[1] : 0.f,
+                     valid > 2 ? p[2] : 0.f, valid > 3 ? p[3] : 0.f);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int valid,
+                                        bool vec) {
+  if (vec && valid >= 4) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(__uint_as_float(u.x << 16),
+                       __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16),
+                       __uint_as_float(u.y & 0xffff0000u));
+  }
+  return make_float4(valid > 0 ? to_f(p[0]) : 0.f,
+                     valid > 1 ? to_f(p[1]) : 0.f,
+                     valid > 2 ? to_f(p[2]) : 0.f,
+                     valid > 3 ? to_f(p[3]) : 0.f);
+}
+
+// ROWS x COLS of src (row stride srow) into dst (pitch ld) as float, rows
+// past nv and columns past ncols zero: every load of a thread issued
+// before its first store, so that a phase waits on memory once
+template <int ROWS, int COLS, int THREADS, typename T>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+                                      i64 srow, int nv, int ncols, bool vec,
+                                      int t) {
+  constexpr int G4 = COLS / 4, V = ROWS * G4 / THREADS;
+  static_assert(V * THREADS == ROWS * G4, "whole float4s a thread");
+  float4 v[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int i = t + u * THREADS, r = i / G4, c = 4 * (i % G4);
+    v[u] = load4(src + (i64)r * srow + c, r < nv ? ncols - c : 0, vec);
+  }
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int i = t + u * THREADS, r = i / G4, c = 4 * (i % G4);
+    *reinterpret_cast<float4*>(dst + r * ld + c) = v[u];
   }
 }
 
-// [Q][LN] rows of B or C (rows past nv and columns past N zero)
-template <int NP>
-__device__ __forceinline__ void load_bc(float* dst, const float* src,
-                                        i64 srow, int nv, int N, int t) {
-  constexpr int LN = NP + 1;
-  for (int i = t; i < kQ * NP; i += kThreads) {
-    const int j = i / NP, n = i % NP;
-    dst[j * LN + n] = j < nv && n < N ? src[(i64)j * srow + n] : 0.f;
-  }
+// 16 bytes global -> shared, asynchronously; zeros when !valid
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  const uint32_t d = smem_u32(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// until at most the newest of this thread's copy groups is in flight
+__device__ __forceinline__ void cp_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// ------------------------------------------------------------ states ----
-// grid (B * chunks * H), block (b, c, h) in that order.  own [B][nc][H][P]
-// [NP]: (x o w)^T B; rev (same layout): (dy o exp(cum))^T C; es [B][nc][H]:
-// exp(seg).
+// ------------------------------------------------------------- chain ----
+// One block per (chain, batch, head), walking its chain's chunks with the
+// state in registers; the next chunk's x or dy rows on their way (cp.async
+// into the other of two buffers) while it works on this one.  ws_e / ws_g
+// [B][nc][H][P][NP]: the state entering / the gradient of the state
+// leaving each chunk (E of chunk 0 and G of the last chunk are not
+// stored: init and dfin).
+constexpr int LX = kP + 8;           // pitch of a chain block's x / dy rows
+
 template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_bwd_states(const T* __restrict__ x, const T* __restrict__ dy,
-                        const float* __restrict__ dt,
-                        const float* __restrict__ a,
-                        const float* __restrict__ bm,
-                        const float* __restrict__ cm, float* __restrict__ own,
-                        float* __restrict__ rev, float* __restrict__ es,
-                        int S, int H, int P, int N, int nc, i64 sxb, i64 sxs,
-                        i64 sxh, i64 sdb, i64 sds, i64 sdh, i64 sbb, i64 sbs,
-                        i64 scb, i64 scs) {
-  constexpr int NP = 16 * NC, LN = NP + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                 // [Q][LP] x o w
-  float* dys = xs + kQ * LP;        // [Q][LP] dy o exp(cum)
-  float* bs = dys + kQ * LP;        // [Q][LN]
-  float* cs = bs + kQ * LN;         // [Q][LN]
-  float* vdt = cs + kQ * LN;
-  float* vcum = vdt + kQ;
-  float* vecum = vcum + kQ;
-  float* vw = vecum + kQ;
-  const int t = threadIdx.x;
-  const int h = blockIdx.x % H, bc = blockIdx.x / H;
-  const int c = bc % nc, b = bc / nc;
-  const int s0 = c * kQ, nv = min(kQ, S - s0);
+struct ChainSmem {
+  static constexpr int NP = 16 * NC, LN = NP + 8;
+  static constexpr int XW = kQ * LX * (int)sizeof(T) / 4;  // a T buffer
+  static constexpr int BR = 0;                  // [Q][LN] B or C rows
+  static constexpr int XR = BR + kQ * LN;       // 2 x [Q][LX] x or dy rows
+  static constexpr int XS = XR + 2 * XW;        // [Q][LX] w o x (bf16 x;
+                                                // float x is scaled in place)
+  static constexpr int VEC = XS + (sizeof(T) == 4 ? 0 : kQ * LX);
+  static constexpr int MISC = VEC + 4 * kQ;     // dt, cum, exp(cum), w;
+  static constexpr int FLOATS = MISC + 4;       // exp(seg)
+};
 
-  load_rows(xs, x + b * sxb + h * sxh + (i64)s0 * sxs, sxs, nv, P, t);
-  load_rows(dys, dy + ((i64)b * S + s0) * H * P + (i64)h * P, (i64)H * P, nv,
-            P, t);
-  load_bc<NP>(bs, bm + b * sbb + (i64)s0 * sbs, sbs, nv, N, t);
-  load_bc<NP>(cs, cm + b * scb + (i64)s0 * scs, scs, nv, N, t);
-  if (t < kQ) vdt[t] = t < nv ? dt[b * sdb + h * sdh + (i64)(s0 + t) * sds]
-                              : 0.f;
-  __syncthreads();
-  if (t < 32) {
-    const float e = chunk_cumsum(vdt, a[h], vcum, vecum, nullptr, vw, t);
-    if (t == 0) es[((i64)b * nc + c) * H + h] = e;
-  }
-  __syncthreads();
-  for (int i = t; i < kQ * kP; i += kThreads) {
-    const int j = i / kP, p = i % kP;
-    xs[j * LP + p] *= vw[j];
-    dys[j * LP + p] *= vecum[j];
-  }
-  __syncthreads();
-  const int r0 = t >> 4, c0 = t & 15;
-  float so[4][NC] = {}, sr[4][NC] = {};
-  // rows p, columns n, summed over the chunk's positions j
-  mm(so, xs, 1, LP, bs, 1, LN, nv, r0, c0);
-  mm(sr, dys, 1, LP, cs, 1, LN, nv, r0, c0);
-  const i64 base = (((i64)b * nc + c) * H + h) * P * NP;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int p = r0 + 16 * r;
-    if (p >= P) break;
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      own[base + p * NP + c0 + 16 * q] = so[r][q];
-      rev[base + p * NP + c0 + 16 * q] = sr[r][q];
+// rows [Q][NP] of B or C (16-byte copies when vec) into br, rows past nv
+// and columns past N zero
+template <int NP, int LN>
+__device__ __forceinline__ void chain_fetch_bc(float* br, const float* bc,
+                                               i64 sbc, int nv, int N,
+                                               bool vec, int t) {
+  if (vec) {
+    for (int i = t; i < kQ * NP / 4; i += kThreads) {
+      const int j = i / (NP / 4), n = 4 * (i % (NP / 4));
+      const bool ok = j < nv && n < N;
+      cp16(br + j * LN + n, ok ? bc + (i64)j * sbc + n : bc, ok);
+    }
+  } else {
+    for (int i = t; i < kQ * NP; i += kThreads) {
+      const int j = i / NP, n = i % NP;
+      br[j * LN + n] = j < nv && n < N ? bc[(i64)j * sbc + n] : 0.f;
     }
   }
 }
 
-// -------------------------------------------------------------- scan ----
-// one thread per (b, h, p, n), n fastest: own -> the state entering each
-// chunk (from init), rev -> the gradient of the state leaving each chunk
-// (from dfin), in place; dinit what the gradient reaches before chunk 0.
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_bwd_scan(float* __restrict__ own, float* __restrict__ rev,
-                      const float* __restrict__ es,
-                      const float* __restrict__ init,
-                      const float* __restrict__ dfin,
-                      float* __restrict__ dinit, int B, int H, int P, int N,
-                      int NP, int nc) {
-  const i64 i = (i64)blockIdx.x * kThreads + threadIdx.x;
+// rows [Q][P] of x or dy (T; 16-byte copies when vec) into xr, rows past
+// nv and columns past P zero
+template <typename T>
+__device__ __forceinline__ void chain_fetch_x(T* xr, const T* xv, i64 sx,
+                                              int nv, int P, bool vec,
+                                              int t) {
+  constexpr int E16 = 16 / sizeof(T);  // elements a 16-byte copy
+  if (vec) {
+    for (int i = t; i < kQ * kP / E16; i += kThreads) {
+      const int j = i / (kP / E16), p = E16 * (i % (kP / E16));
+      const bool ok = j < nv && p < P;
+      cp16(xr + j * LX + p, ok ? xv + (i64)j * sx + p : xv, ok);
+    }
+  } else {
+    for (int i = t; i < kQ * kP; i += kThreads) {
+      const int j = i / kP, p = i % kP;
+      xr[j * LX + p] = j < nv && p < P ? xv[(i64)j * sx + p] : T(0.f);
+    }
+  }
+}
+
+// grid: (E and G walks, or the G walks alone) x B H, the chain fastest.
+// E walks chunks 0 .. nc - 2, writing E of chunks 1 .. nc - 1; G walks
+// chunks nc - 1 down to 1 (down to 0 with dinit), writing G of chunks
+// nc - 2 .. 0 (then dinit).  Per chunk the state becomes exp(seg) times
+// itself plus (w o x)^T B or (e o dy)^T C, [P, NP] over the chunk's rows,
+// summed by the MMAs onto the state itself.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kThreads, NC >= 8 ? 3 : 4)
+    ssd_scan_bwd_chain(const T* __restrict__ x, const T* __restrict__ dy,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ a,
+                       const float* __restrict__ bm,
+                       const float* __restrict__ cm,
+                       const float* __restrict__ init,
+                       const float* __restrict__ dfin,
+                       float* __restrict__ dinit, float* __restrict__ ws_e,
+                       float* __restrict__ ws_g, int S, int H, int P, int N,
+                       int nc, int both, int vec, i64 sxb, i64 sxs, i64 sxh,
+                       i64 sdb, i64 sds, i64 sdh, i64 sbb, i64 sbs, i64 scb,
+                       i64 scs) {
+  typedef ChainSmem<T, NC> L;
+  constexpr int NP = L::NP, LN = L::LN, NT = NP / 16;
+  constexpr bool kF32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) float smem[];
+  float* br = smem + L::BR;
+  float* vdt = smem + L::VEC;
+  float* vcum = vdt + kQ;
+  float* vecum = vcum + kQ;
+  float* vw = vecum + kQ;
+  float* misc = vdt + 4 * kQ;
+
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const bool gchain = both ? (blockIdx.x & 1) : true;
+  const int bh = both ? blockIdx.x >> 1 : blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int rb = warp & 3, cbase = (warp >> 2) * (NP / 2);
   const i64 per = (i64)P * NP;
-  if (i >= (i64)B * H * per) return;
-  const int n = (int)(i % NP), p = (int)((i / NP) % P);
-  const int bh = (int)(i / per), b = bh / H, h = bh % H;
-  const i64 st = ((i64)bh * P + p) * N + n;
-  const i64 step = (i64)H * per;
-  const i64 first = ((i64)b * nc * H + h) * per + (i64)p * NP + n;
-  const float* eseg = es + (i64)b * nc * H + h;
-  float e = init != nullptr && n < N ? init[st] : 0.f;
-  for (int c = 0; c < nc; ++c) {
-    float* q = own + first + c * step;
-    const float v = *q;
-    *q = e;
-    e = fmaf(eseg[(i64)c * H], e, v);
+  const int steps = gchain ? nc - (dinit ? 0 : 1) : nc - 1;
+  const bool vec_bc = gchain ? (vec & 4) : (vec & 2);
+  const bool vec_x = gchain || (vec & 1);   // dy is contiguous
+
+  auto chunk = [&](int step) { return gchain ? nc - 1 - step : step; };
+  auto fetch_bc = [&](int step) {
+    const int s0 = chunk(step) * kQ, nv = min(kQ, S - s0);
+    if (gchain)
+      chain_fetch_bc<NP, LN>(br, cm + b * scb + (i64)s0 * scs, scs, nv, N,
+                             vec_bc, t);
+    else
+      chain_fetch_bc<NP, LN>(br, bm + b * sbb + (i64)s0 * sbs, sbs, nv, N,
+                             vec_bc, t);
+  };
+  auto fetch_x = [&](int step) {
+    if (step >= steps) return;
+    const int s0 = chunk(step) * kQ, nv = min(kQ, S - s0);
+    T* xr = reinterpret_cast<T*>(smem + L::XR + (step & 1) * L::XW);
+    if (gchain)
+      chain_fetch_x<T>(xr, dy + ((i64)b * S + s0) * H * P + (i64)h * P,
+                       (i64)H * P, nv, P, vec_x, t);
+    else
+      chain_fetch_x<T>(xr, x + b * sxb + h * sxh + (i64)s0 * sxs, sxs, nv, P,
+                       vec_x, t);
+  };
+  auto dt_of = [&](int step) {
+    if (step >= steps || t >= kQ) return 0.f;
+    const int s = chunk(step) * kQ + t;
+    return s < S ? dt[b * sdb + h * sdh + (i64)s * sds] : 0.f;
+  };
+
+  // the state, in the product's layout: rows 16 rb + g8 (+ 8), columns
+  // cbase + 8 j + 2 tq (+ 1)
+  float st[NT][4];
+  {
+    const float* src = gchain ? dfin : init;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = 16 * rb + g8 + 8 * (e >> 1);
+        const int n = cbase + 8 * j + 2 * tq + (e & 1);
+        st[j][e] = src && p < P && n < N ? src[((i64)bh * P + p) * N + n]
+                                         : 0.f;
+      }
   }
-  float g = dfin != nullptr && n < N ? dfin[st] : 0.f;
-  for (int c = nc - 1; c >= 0; --c) {
-    float* q = rev + first + c * step;
-    const float v = *q;
-    *q = g;
-    g = fmaf(eseg[(i64)c * H], g, v);
+  // a chunk's dt (warps 0 and 1), then its cumsum, exp(cum), w and
+  // exp(seg) (warp 0)
+  auto cumsum = [&](float dtv) {
+    vdt[t] = dtv;
+    named_sync(1, kQ);
+    if (t < 32) {
+      const float e = chunk_cumsum(vdt, a[h], vcum, vecum, nullptr, vw, lane);
+      if (lane == 0) misc[0] = e;
+    }
+  };
+  // copy groups: B or C of a chunk, then x or dy of the chunk after, so
+  // that waiting for all but the newest group waits for this chunk's rows
+  fetch_x(0);
+  cp_commit();
+  fetch_bc(0);
+  cp_commit();
+  fetch_x(1);
+  cp_commit();
+  if (t < kQ) cumsum(dt_of(0));
+  for (int step = 0; step < steps; ++step) {
+    const int c = chunk(step);
+    const int nv = min(kQ, S - c * kQ);
+    const T* xr = reinterpret_cast<const T*>(smem + L::XR +
+                                             (step & 1) * L::XW);
+    cp_wait_one();      // this chunk's B or C and x or dy rows
+    __syncthreads();
+    const float dt_next = dt_of(step + 1);
+    const float es = misc[0];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] *= es;
+    // x^T (w o B) as (w o x)^T B: w (or exp(cum)) scales x's rows
+    const float* scale = gchain ? vecum : vw;
+    if constexpr (kF32) {
+      tile_mma_ks<NT>(st, reinterpret_cast<const float*>(xr) + 16 * rb, 1,
+                      LX, scale, br + cbase, LN, 1, 0, (nv + 7) & ~7, lane);
+    } else {
+      float* xs = smem + L::XS;
+      for (int i = t; i < kQ * kP; i += kThreads) {
+        const int j = i / kP, p = i % kP;
+        xs[j * LX + p] = to_f(xr[j * LX + p]);
+      }
+      __syncthreads();
+      tile_mma_ks<NT>(st, xs + 16 * rb, 1, LX, scale, br + cbase, LN, 1, 0,
+                      (nv + 7) & ~7, lane);
+    }
+    const bool to_dinit = gchain && c == 0;
+    float* dst = to_dinit ? dinit + (i64)bh * P * N
+                 : gchain ? ws_g + ((i64)(b * nc + c - 1) * H + h) * per
+                          : ws_e + ((i64)(b * nc + c + 1) * H + h) * per;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int p = 16 * rb + g8 + 8 * hr;
+        const int n = cbase + 8 * j + 2 * tq;
+        const float u = st[j][2 * hr], v = st[j][2 * hr + 1];
+        if (p >= P) continue;
+        if (to_dinit) {
+          if (n < N) dst[(i64)p * N + n] = u;
+          if (n + 1 < N) dst[(i64)p * N + n + 1] = v;
+        } else {
+          __stcg(reinterpret_cast<float2*>(dst + (i64)p * NP + n),
+                 make_float2(u, v));
+        }
+      }
+    __syncthreads();    // this chunk's rows and vectors are read
+    if (step + 1 < steps) fetch_bc(step + 1);
+    cp_commit();
+    fetch_x(step + 2);
+    cp_commit();
+    if (t < kQ) cumsum(dt_next);
   }
-  if (dinit != nullptr && n < N) dinit[st] = g;
+}
+
+// ------------------------------------------------------------ reduce ----
+// dB, dC [B][S][N]: the head groups' partials summed in group order
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan_bwd_reduce(const float* __restrict__ part,
+                        float* __restrict__ db, float* __restrict__ dc,
+                        int B, int S, int N, int NP, int nc, int G) {
+  const i64 i = (i64)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= (i64)B * S * N) return;
+  const int n = (int)(i % N);
+  const i64 bs_ = i / N;
+  const int s = (int)(bs_ % S), b = (int)(bs_ / S);
+  const int c = s / kQ, j = s % kQ;
+  const float* p0 = part + ((i64)b * nc + c) * G * 2 * kQ * NP + j * NP + n;
+  float sb = 0.f, sc = 0.f;
+#pragma unroll 4
+  for (int g = 0; g < G; ++g) {
+    sb += p0[(i64)g * 2 * kQ * NP];
+    sc += p0[(i64)g * 2 * kQ * NP + kQ * NP];
+  }
+  db[i] = sb;
+  dc[i] = sc;
 }
 
 // -------------------------------------------------------------- main ----
 template <int NC>
 struct MainSmem {
-  static constexpr int NP = 16 * NC, LN = NP + 1;
+  static constexpr int NP = 16 * NC, LN = NP + 4;
   static constexpr int BS = 0;                 // [Q][LN] B rows
   static constexpr int CS = BS + kQ * LN;      // [Q][LN] C rows
-  static constexpr int CB = CS + kQ * LN;      // [Q][LQ] C_i . B_j
-  static constexpr int DCB = CB + kQ * LQ;     // [Q][LQ] dCB over the heads
-  static constexpr int XS = DCB + kQ * LQ;     // [Q][LP] x
-  static constexpr int DY = XS + kQ * LP;      // [Q][LP] dy
-  static constexpr int EG = DY + kQ * LP;      // [kP][LN] G, then E
-  static constexpr int KM = EG + kP * LN;      // [Q][LQ] K, then scores
-  static constexpr int BG = KM + kQ * LQ;      // [Q][LP] B G^T
-  static constexpr int VEC = BG + kQ * LP;     // 10 vectors of Q
-  static constexpr int MISC = VEC + 10 * kQ;   // exp(seg), warp sums
+  static constexpr int SS = CS + kQ * LN;      // [Q][LQ] scores; dCB
+  static constexpr int XS = SS + kQ * LQ;      // [Q][LQ] x
+  static constexpr int DY = XS + kQ * LQ;      // [Q][LQ] dy
+  static constexpr int EG = DY + kQ * LQ;      // [kP][LN] G, then E
+  static constexpr int VEC = EG + kP * LN;     // 10 vectors of Q
+  static constexpr int RP = VEC + 10 * kQ;     // [20][16] K dt row parts
+  static constexpr int CP = RP + kCausal * 16; // [20][8] K column parts
+  static constexpr int VP = CP + kCausal * 8;  // [4][Q] x . B G^T parts
+  static constexpr int RR = VP + 4 * kQ;       // [2][Q] C . dy E parts
+  static constexpr int MISC = RR + 2 * kQ;     // exp(seg), warp sums
   static constexpr int FLOATS = MISC + 16;
 };
 
+// [P][NP] of a state into eg (pitch LN): from the workspace (padded rows),
+// from init / dfin ([P][N]) or zeros, every load of a thread in flight
+// before its first store; with dot, also the sum of eg's old values times
+// the new ones over this thread's elements (<G, E> as E replaces G)
+template <int NP, int LN>
+__device__ __forceinline__ float load_state(float* eg, const float* src,
+                                            bool padded, int P, int N,
+                                            int t, bool dot) {
+  constexpr int V = kP * NP / 4 / kThreads;
+  float4 v[V];
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int i = t + u * kThreads;
+    const int p = i / (NP / 4), n = 4 * (i % (NP / 4));
+    v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (p < P && src) {
+      if (padded)
+        v[u] = __ldcg(reinterpret_cast<const float4*>(src + (i64)p * NP + n));
+      else
+        v[u] = load4(src + (i64)p * N + n, N - n, false);
+    }
+  }
+  float ge = 0.f;
+#pragma unroll
+  for (int u = 0; u < V; ++u) {
+    const int i = t + u * kThreads;
+    const int p = i / (NP / 4), n = 4 * (i % (NP / 4));
+    float4* d = reinterpret_cast<float4*>(eg + p * LN + n);
+    if (dot) {
+      const float4 o = *d;
+      ge = fmaf(o.x, v[u].x, fmaf(o.y, v[u].y, fmaf(o.z, v[u].z,
+                                                   fmaf(o.w, v[u].w, ge))));
+    }
+    *d = v[u];
+  }
+  return ge;
+}
+
 // grid (B * chunks * G), block (b, c, g) in that order: heads g HG ..
-// min(H, (g + 1) HG).  state: the scan's entering states; grad: the
-// gradients of the leaving ones (both [B][nc][H][P][NP]).  dap [B][nc][H]:
-// sum_k d(dt a)_k dt_k; part [B][nc][G][2][Q][NP]: dB, then dC.
+// min(H, (g + 1) HG).  dap [B][nc][H]: sum_k d(dt a)_k dt_k; part
+// [B][nc][G][2][Q][NP]: dB, then dC (G > 1); sync[0]: blocks done.
 template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
     ssd_scan_bwd_main(const T* __restrict__ x, const T* __restrict__ dy,
                       const float* __restrict__ dt,
                       const float* __restrict__ a,
                       const float* __restrict__ bm,
                       const float* __restrict__ cm,
-                      const float* __restrict__ state,
-                      const float* __restrict__ grad, T* __restrict__ dx,
-                      float* __restrict__ ddt, float* __restrict__ dap,
-                      float* __restrict__ part, int S, int H, int P, int N,
-                      int nc, int G, int HG, i64 sxb, i64 sxs, i64 sxh,
-                      i64 sdb, i64 sds, i64 sdh, i64 sbb, i64 sbs, i64 scb,
-                      i64 scs) {
+                      const float* __restrict__ init,
+                      const float* __restrict__ dfin, const float* ws_e,
+                      const float* ws_g, T* __restrict__ dx,
+                      float* __restrict__ ddt, float* __restrict__ da,
+                      float* __restrict__ db, float* __restrict__ dc,
+                      float* dap, float* part, int* sync, int S, int H,
+                      int P, int N, int nc, int G, int HG, int vec, i64 sxb,
+                      i64 sxs, i64 sxh, i64 sdb, i64 sds, i64 sdh, i64 sbb,
+                      i64 sbs, i64 scb, i64 scs) {
   typedef MainSmem<NC> L;
-  constexpr int NP = L::NP, LN = L::LN;
+  constexpr int NP = L::NP, LN = L::LN, NT = NP / 16;
+  constexpr bool kExact = sizeof(T) == 2;
   extern __shared__ __align__(16) float smem[];
   float* bs = smem + L::BS;
   float* cs = smem + L::CS;
-  float* cbm = smem + L::CB;
-  float* dcb = smem + L::DCB;
+  float* ss = smem + L::SS;
   float* xs = smem + L::XS;
   float* dys = smem + L::DY;
   float* eg = smem + L::EG;
-  float* km = smem + L::KM;
-  float* bg = smem + L::BG;
   float* vdt = smem + L::VEC;
   float* vcum = vdt + kQ;
   float* vecum = vcum + kQ;
@@ -345,41 +762,71 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* vv = vcol + kQ;
   float* vu = vv + kQ;
   float* vr = vu + kQ;
+  float* rp = smem + L::RP;
+  float* cp = smem + L::CP;
+  float* vp = smem + L::VP;
+  float* rr = smem + L::RR;
   float* misc = smem + L::MISC;  // [0] exp(seg), [8..15] warp sums
 
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int r0 = t >> 4, c0 = t & 15;
-  const int g = blockIdx.x % G, bc = blockIdx.x / G;
+  const int g8 = lane >> 2, tq = lane & 3;
+  const int grp = blockIdx.x % G, bc = blockIdx.x / G;
   const int c = bc % nc, b = bc / nc;
   const int s0 = c * kQ, nv = min(kQ, S - s0);
-  const int h0 = g * HG, h1 = min(H, h0 + HG);
+  const int h0 = grp * HG, h1 = min(H, h0 + HG);
+  const i64 per = (i64)P * NP;
 
-  load_bc<NP>(bs, bm + b * sbb + (i64)s0 * sbs, sbs, nv, N, t);
-  load_bc<NP>(cs, cm + b * scb + (i64)s0 * scs, scs, nv, N, t);
-  for (int i = t; i < kQ * LQ; i += kThreads) dcb[i] = 0.f;
+  stage<kQ, NP, kThreads>(bs, LN, bm + b * sbb + (i64)s0 * sbs, sbs, nv, N,
+                          vec & 2, t);
+  stage<kQ, NP, kThreads>(cs, LN, cm + b * scb + (i64)s0 * scs, scs, nv, N,
+                          vec & 4, t);
   __syncthreads();
+
+  // C B^T on this warp's causal tiles, warp, warp + 8 and (warps 0-3)
+  // warp + 16: the same tiles as dy x^T below, so it stays in registers,
+  // as does dCB, summed over the heads there
+  const int ntiles = warp + 2 * kWarps < kCausal ? 3 : 2;
+  int trb[3], tnt[3];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+    causal_tile(min(warp + kWarps * q, kCausal - 1), trb[q], tnt[q]);
+  float cbr[3][4], dcb[3][4];
+#pragma unroll
+  for (int q = 0; q < 3; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cbr[q][e] = dcb[q][e] = 0.f;
   {
-    float acc[4][4] = {};
-    mm(acc, cs, LN, 1, bs, LN, 1, NP, r0, c0);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        cbm[(r0 + 16 * r) * LQ + c0 + 16 * q] = acc[r][q];
+    const float* const ta[3] = {cs + 16 * trb[0] * LN, cs + 16 * trb[1] * LN,
+                                cs + 16 * trb[2] * LN};
+    const float* const tb[3] = {bs + 8 * tnt[0] * LN, bs + 8 * tnt[1] * LN,
+                                bs + 8 * tnt[2] * LN};
+    tiles_mma<3, true, true>(cbr, ta, LN, 1, tb, 1, LN, 0, NP, ntiles, lane);
   }
-  float dba[4][NC] = {}, dca[4][NC] = {};
-  const i64 chunk_base = ((i64)b * nc + c) * H;
+
+  // dB and dC of this warp's rows (16 rx ..) and half of the columns
+  const int rx = warp & 3, cbase = (warp >> 2) * (NP / 2);
+  float dba[NT][4], dca[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dba[j][e] = dca[j][e] = 0.f;
+  // dx: column tiles 2 (warp & 3), + 1 of row blocks warp >> 2 and 3 -
+  // that (the long and the short rows of the causal product together)
+  const int ntb = 2 * (warp & 3);
+  const int rbs[2] = {warp >> 2, 3 - (warp >> 2)};
+
   for (int h = h0; h < h1; ++h) {
-    const i64 hb = (chunk_base + h) * P * NP;
-    const float* gsrc = grad + hb;
-    const float* esrc = state + hb;
-    load_rows(xs, x + b * sxb + h * sxh + (i64)s0 * sxs, sxs, nv, P, t);
-    load_rows(dys, dy + ((i64)b * S + s0) * H * P + (i64)h * P, (i64)H * P,
-              nv, P, t);
-    for (int i = t; i < kP * NP; i += kThreads) {
-      const int p = i / NP, n = i % NP;
-      eg[p * LN + n] = p < P ? gsrc[p * NP + n] : 0.f;
-    }
+    const i64 hs = ((i64)(b * nc + c) * H + h) * per;
+    stage<kQ, kP, kThreads>(xs, LQ, x + b * sxb + h * sxh + (i64)s0 * sxs,
+                            sxs, nv, P, vec & 1, t);
+    stage<kQ, kP, kThreads>(dys, LQ,
+                            dy + ((i64)b * S + s0) * H * P + (i64)h * P,
+                            (i64)H * P, nv, P, true, t);
+    if (c < nc - 1)
+      load_state<NP, LN>(eg, ws_g + hs, true, P, N, t, false);
+    else
+      load_state<NP, LN>(eg, dfin ? dfin + ((i64)b * H + h) * P * N
+                                  : nullptr, false, P, N, t, false);
     if (t < kQ)
       vdt[t] = t < nv ? dt[b * sdb + h * sdh + (i64)(s0 + t) * sds] : 0.f;
     __syncthreads();
@@ -388,121 +835,195 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) misc[0] = e;
     }
     __syncthreads();
-    {  // B G^T [j][p]
-      float acc[4][4] = {};
-      mm(acc, bs, LN, 1, eg, LN, 1, NP, r0, c0);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          bg[(r0 + 16 * r) * LP + c0 + 16 * q] = acc[r][q];
+
+    // M = dy x^T on the causal tiles: dCB += M o L o dt^T, K = C B^T o L
+    // o M (its row sums against dt and its column sums, per tile), the
+    // scores C B^T o L o dt^T into ss
+    float mt[3][4] = {};
+    {
+      const float* const ta[3] = {dys + 16 * trb[0] * LQ,
+                                  dys + 16 * trb[1] * LQ,
+                                  dys + 16 * trb[2] * LQ};
+      const float* const tb[3] = {xs + 8 * tnt[0] * LQ, xs + 8 * tnt[1] * LQ,
+                                  xs + 8 * tnt[2] * LQ};
+      tiles_mma<3, !kExact, !kExact>(mt, ta, LQ, 1, tb, 1, LQ, 0, P, ntiles,
+                                     lane);
     }
-    {  // dB += w o (x G) [j][n]
-      float acc[4][NC] = {};
-      mm(acc, xs, LP, 1, eg, 1, LN, P, r0, c0);
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float wj = vw[r0 + 16 * r];
+    for (int q = 0; q < 3; ++q) {
+      const int k = warp + kWarps * q;
+      if (k >= kCausal) continue;
+      const int rb = trb[q], nt = tnt[q];
+      float rs[2] = {0.f, 0.f}, cl[2] = {0.f, 0.f};
 #pragma unroll
-        for (int q = 0; q < NC; ++q) dba[r][q] = fmaf(wj, acc[r][q], dba[r][q]);
-      }
-    }
-    __syncthreads();  // G read, B G^T written
-    float ge = 0.f;
-    for (int i = t; i < kP * NP; i += kThreads) {
-      const int p = i / NP, n = i % NP;
-      const float e = p < P ? esrc[p * NP + n] : 0.f;
-      eg[p * LN + n] = e;
-      if (p < P) ge = fmaf(e, gsrc[p * NP + n], ge);
-    }
-    ge = warp_sum(ge);
-    if (lane == 0) misc[8 + warp] = ge;
-    if (t < kQ) {
-      float v = 0.f;
-      for (int p = 0; p < P; ++p) v = fmaf(xs[t * LP + p], bg[t * LP + p], v);
-      vv[t] = ved[t] * v;
-      vu[t] = vdt[t] * vv[t];
-    }
-    {  // M = dy x^T; dCB += M o L o dt^T; K = C B^T o L o M
-      float m[4][4] = {};
-      mm(m, dys, LP, 1, xs, LP, 1, P, r0, c0);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = r0 + 16 * r;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int j = c0 + 16 * q;
-          const float ml = i >= j ? m[r][q] * expf(vcum[i] - vcum[j]) : 0.f;
-          dcb[i * LQ + j] = fmaf(ml, vdt[j], dcb[i * LQ + j]);
-          km[i * LQ + j] = cbm[i * LQ + j] * ml;
+      for (int e = 0; e < 4; ++e) {
+        const int i = 16 * rb + g8 + 8 * (e >> 1);
+        const int j = 8 * nt + 2 * tq + (e & 1);
+        float s = 0.f;
+        if (i >= j) {
+          const float l = expf(vcum[i] - vcum[j]);
+          const float ml = mt[q][e] * l;
+          dcb[q][e] = fmaf(ml, vdt[j], dcb[q][e]);
+          const float kij = cbr[q][e] * ml;
+          rs[e >> 1] = fmaf(kij, vdt[j], rs[e >> 1]);
+          cl[e & 1] += kij;
+          s = cbr[q][e] * l * vdt[j];
         }
+        ss[i * LQ + j] = s;
+      }
+      rs[0] = quad_sum(rs[0]);
+      rs[1] = quad_sum(rs[1]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1)
+          cl[e] += __shfl_xor_sync(0xffffffffu, cl[e], off);
+      if (tq == 0) {
+        rp[k * 16 + g8] = rs[0];
+        rp[k * 16 + g8 + 8] = rs[1];
+      }
+      if (g8 == 0) {
+        cp[k * 8 + 2 * tq] = cl[0];
+        cp[k * 8 + 2 * tq + 1] = cl[1];
       }
     }
-    __syncthreads();
-    if (t < kQ) {
-      float s = 0.f;
-      for (int j = 0; j < kQ; ++j) s = fmaf(km[t * LQ + j], vdt[j], s);
-      vrow[t] = s;
-    } else if (t < 2 * kQ) {
-      const int j = t - kQ;
-      float s = 0.f;
-      for (int i = 0; i < kQ; ++i) s += km[i * LQ + j];
-      vcol[j] = s;
+
+    // B G^T [j][p] on this warp's dx tiles: x . B G^T per row, then w o
+    // (B G^T) is where dx starts
+    float dxa[2][2][4] = {};
+    {
+      const float* const ta[2] = {bs + 16 * rbs[0] * LN,
+                                  bs + 16 * rbs[1] * LN};
+      tile_mma_rows<2, 2, true, true>(dxa, ta, LN, 1, eg + 8 * ntb * LN, 1,
+                                      LN, 0, NP, lane);
     }
-    __syncthreads();
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {  // the scores, over K
-      const int i = r0 + 16 * r;
+    for (int r = 0; r < 2; ++r) {
+      float xb[2] = {0.f, 0.f};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int j = c0 + 16 * q;
-        km[i * LQ + j] =
-            i >= j ? cbm[i * LQ + j] * expf(vcum[i] - vcum[j]) * vdt[j] : 0.f;
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * rbs[r] + g8 + 8 * (e >> 1);
+          const int p = 8 * (ntb + j) + 2 * tq + (e & 1);
+          xb[e >> 1] = fmaf(xs[row * LQ + p], dxa[r][j][e], xb[e >> 1]);
+        }
+      xb[0] = quad_sum(xb[0]);
+      xb[1] = quad_sum(xb[1]);
+      if (tq == 0) {
+        vp[(warp & 3) * kQ + 16 * rbs[r] + g8] = xb[0];
+        vp[(warp & 3) * kQ + 16 * rbs[r] + g8 + 8] = xb[1];
       }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dxa[r][j][e] *= vw[16 * rbs[r] + g8 + 8 * (e >> 1)];
+    }
+
+    // x G [j][n]: dB += w o (x G)
+    {
+      float tmp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        tmp[j][0] = tmp[j][1] = tmp[j][2] = tmp[j][3] = 0.f;
+      tile_mma<NT, !kExact, true>(tmp, xs + 16 * rx * LQ, LQ, 1, eg + cbase,
+                                  LN, 1, 0, P, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dba[j][e] = fmaf(vw[16 * rx + g8 + 8 * (e >> 1)], tmp[j][e],
+                           dba[j][e]);
+    }
+    __syncthreads();  // G read; scores and partials written
+
+    {  // E over G, and <G, E>
+      const i64 es_off = ((i64)b * H + h) * P * N;
+      const float ge =
+          c > 0 ? load_state<NP, LN>(eg, ws_e + hs, true, P, N, t, true)
+                : load_state<NP, LN>(eg, init ? init + es_off : nullptr,
+                                     false, P, N, t, true);
+      const float w = warp_sum(ge);
+      if (lane == 0) misc[8 + warp] = w;
     }
     __syncthreads();
-    {  // dx = scores^T dy + w o (B G^T)
-      float acc[4][4] = {};
-      mm(acc, km, 1, LQ, dys, 1, LP, nv, r0, c0);
+
+    // dx += scores^T dy over the pairs i >= j (both row blocks from the
+    // later one's diagonal on, the earlier one's own rows before), then out
+    {
+      const float* const ta[2] = {ss + 16 * rbs[0], ss + 16 * rbs[1]};
+      tile_mma_rows<2, 2, true, !kExact>(dxa, ta, 1, LQ, dys + 8 * ntb, LQ,
+                                         1, 16 * rbs[1], kQ, lane);
+      float (&d0)[1][2][4] = reinterpret_cast<float (&)[1][2][4]>(dxa[0]);
+      const float* const t0[1] = {ss + 16 * rbs[0]};
+      tile_mma_rows<1, 2, true, !kExact>(d0, t0, 1, LQ, dys + 8 * ntb, LQ, 1,
+                                         16 * rbs[0], 16 * rbs[1], lane);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int jb = rbs[r];
       T* dxb = dx + ((i64)b * S + s0) * H * P + (i64)h * P;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int j = r0 + 16 * r;
-        if (j >= nv) break;
+      for (int hr = 0; hr < 2; ++hr) {
+        const int j = 16 * jb + g8 + 8 * hr;
+        if (j >= nv) continue;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int p = c0 + 16 * q;
+        for (int q = 0; q < 2; ++q) {
+          const int p = 8 * (ntb + q) + 2 * tq;
           if (p < P)
-            from_f(dxb + (i64)j * H * P + p,
-                   fmaf(vw[j], bg[j * LP + p], acc[r][q]));
+            store2(dxb + (i64)j * H * P + p, dxa[r][q][2 * hr],
+                   dxa[r][q][2 * hr + 1]);
         }
       }
     }
-    {  // dy E [i][n]: dC += exp(cum) o (dy E); R = exp(cum) o (C . dy E)
-      float acc[4][NC] = {};
-      mm(acc, dys, LP, 1, eg, 1, LN, P, r0, c0);
+
+    // dy E [i][n]: dC += exp(cum) o (dy E); C . (dy E) per row
+    {
+      float tmp[NT][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = r0 + 16 * r;
-        const float e = vecum[i];
-        float rp = 0.f;
+      for (int j = 0; j < NT; ++j)
+        tmp[j][0] = tmp[j][1] = tmp[j][2] = tmp[j][3] = 0.f;
+      tile_mma<NT, !kExact, true>(tmp, dys + 16 * rx * LQ, LQ, 1,
+                                  eg + cbase, LN, 1, 0, P, lane);
+      float rsum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int q = 0; q < NC; ++q) {
-          const float v = e * acc[r][q];
-          dca[r][q] += v;
-          rp = fmaf(cs[i * LN + c0 + 16 * q], v, rp);
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 16 * rx + g8 + 8 * (e >> 1);
+          const int n = cbase + 8 * j + 2 * tq + (e & 1);
+          const float v = vecum[i] * tmp[j][e];
+          dca[j][e] += v;
+          rsum[e >> 1] = fmaf(cs[i * LN + n], v, rsum[e >> 1]);
         }
-        // the 16 lanes of a half-warp share r0
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          rp += __shfl_xor_sync(0xffffffffu, rp, off);
-        if (c0 == 0) vr[i] = rp;
+      rsum[0] = quad_sum(rsum[0]);
+      rsum[1] = quad_sum(rsum[1]);
+      if (tq == 0) {
+        rr[(warp >> 2) * kQ + 16 * rx + g8] = rsum[0];
+        rr[(warp >> 2) * kQ + 16 * rx + g8 + 8] = rsum[1];
       }
+    }
+    __syncthreads();
+
+    if (t < kQ) {  // the per-position sums, each in a fixed order
+      const int rb = t >> 4, nt = t >> 3;
+      float s = 0.f;
+      for (int q = 0; q <= 2 * rb + 1; ++q) s += rp[(rb * (rb + 1) + q) * 16 + (t & 15)];
+      vrow[t] = s;
+      s = 0.f;
+      for (int q = nt >> 1; q < 4; ++q) s += cp[(q * (q + 1) + nt) * 8 + (t & 7)];
+      vcol[t] = s;
+      const float v = ved[t] * (vp[t] + vp[kQ + t] + vp[2 * kQ + t] +
+                                vp[3 * kQ + t]);
+      vv[t] = v;
+      vu[t] = vdt[t] * v;
+      vr[t] = rr[t] + rr[kQ + t];
     }
     __syncthreads();
     if (t < 32) {  // d cum, its reverse cumsum, ddt and the da partial
       float gsum = 0.f;
-      for (int w8 = 0; w8 < kThreads / 32; ++w8) gsum += misc[8 + w8];
+      for (int w8 = 0; w8 < kWarps; ++w8) gsum += misc[8 + w8];
       const int k0 = 2 * lane, k1 = k0 + 1;
       const float d0 = vrow[k0] - vdt[k0] * vcol[k0] + vr[k0] - vu[k0];
       const float d1 = vrow[k1] - vdt[k1] * vcol[k1] + vr[k1] - vu[k1];
@@ -517,72 +1038,83 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 31) exc = 0.f;
       const float dda1 = exc + d1 + dseg, dda0 = exc + d1 + d0 + dseg;
       const float ah = a[h];
-      float* db = ddt + ((i64)b * S + s0) * H + h;
-      if (k0 < nv) db[(i64)k0 * H] = fmaf(ah, dda0, vcol[k0] + vv[k0]);
-      if (k1 < nv) db[(i64)k1 * H] = fmaf(ah, dda1, vcol[k1] + vv[k1]);
+      float* dd = ddt + ((i64)b * S + s0) * H + h;
+      if (k0 < nv) dd[(i64)k0 * H] = fmaf(ah, dda0, vcol[k0] + vv[k0]);
+      if (k1 < nv) dd[(i64)k1 * H] = fmaf(ah, dda1, vcol[k1] + vv[k1]);
       const float s = warp_sum(fmaf(dda0, vdt[k0], dda1 * vdt[k1]));
-      if (lane == 0) dap[chunk_base + h] = s;
+      if (lane == 0) dap[(i64)(b * nc + c) * H + h] = s;
     }
     __syncthreads();
   }
-  {  // the heads' dCB: dC += dCB B, dB += dCB^T C
-    float acc[4][NC] = {};
-    mm(acc, dcb, LQ, 1, bs, 1, LN, nv, r0, c0);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < NC; ++q) dca[r][q] += acc[r][q];
-  }
-  {
-    float acc[4][NC] = {};
-    mm(acc, dcb, 1, LQ, cs, 1, LN, nv, r0, c0);
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int q = 0; q < NC; ++q) dba[r][q] += acc[r][q];
-  }
-  float* pb = part + (i64)blockIdx.x * 2 * kQ * NP;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int q = 0; q < NC; ++q) {
-      const int o = (r0 + 16 * r) * NP + c0 + 16 * q;
-      pb[o] = dba[r][q];
-      pb[kQ * NP + o] = dca[r][q];
-    }
-}
 
-// ------------------------------------------------------------ reduce ----
-// dB, dC [B][S][N]: the groups' partials summed in order; the last block:
-// da [H], the (batch, chunk) partials summed in order.
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_bwd_reduce(const float* __restrict__ part,
-                        const float* __restrict__ dap, float* __restrict__ db,
-                        float* __restrict__ dc, float* __restrict__ da, int B,
-                        int S, int H, int N, int NP, int nc, int G) {
-  const int t = threadIdx.x;
-  if (blockIdx.x == gridDim.x - 1) {
-    for (int h = t; h < H; h += kThreads) {
+  // the heads' dCB: dC += dCB B over j <= i, dB += dCB^T C over i >= j
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int k = warp + kWarps * q;
+    if (k >= kCausal) continue;
+    int rb, nt;
+    causal_tile(k, rb, nt);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ss[(16 * rb + g8 + 8 * (e >> 1)) * LQ + 8 * nt + 2 * tq + (e & 1)] =
+          dcb[q][e];
+  }
+  __syncthreads();
+  tile_mma<NT, true, true>(dca, ss + 16 * rx * LQ, LQ, 1, bs + cbase, LN, 1,
+                           0, 16 * rx + 16, lane);
+  tile_mma<NT, true, true>(dba, ss + 16 * rx, 1, LQ, cs + cbase, LN, 1,
+                           16 * rx, kQ, lane);
+
+  if (G == 1) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = 16 * rx + g8 + 8 * (e >> 1);
+        const int n = cbase + 8 * j + 2 * tq + (e & 1);
+        if (row < nv && n < N) {
+          const i64 o = ((i64)b * S + s0 + row) * N + n;
+          db[o] = dba[j][e];
+          dc[o] = dca[j][e];
+        }
+      }
+  } else {  // summed over the groups by the reduce launch
+    float* pb = part + (i64)blockIdx.x * 2 * kQ * NP;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int o = (16 * rx + g8 + 8 * hr) * NP + cbase + 8 * j + 2 * tq;
+        *reinterpret_cast<float2*>(pb + o) =
+            make_float2(dba[j][2 * hr], dba[j][2 * hr + 1]);
+        *reinterpret_cast<float2*>(pb + kQ * NP + o) =
+            make_float2(dca[j][2 * hr], dca[j][2 * hr + 1]);
+      }
+  }
+
+  // da: the last block of the launch to finish (an atomic count, reset by
+  // that block) sums the (batch, chunk) partials, each head's in a fixed
+  // order (rows to lanes, then the warp's butterfly)
+  __threadfence();
+  __syncthreads();
+  int* done = reinterpret_cast<int*>(misc + 1);
+  if (t == 0) {
+    const int v = atomicAdd(sync, 1);
+    *done = v == (int)gridDim.x - 1;
+    if (v == (int)gridDim.x - 1) *sync = 0;  // ready for the next launch
+  }
+  __syncthreads();
+  if (*done) {
+    __threadfence();
+    const int rows = gridDim.x / G;  // B nc
+    for (int hh = warp; hh < H; hh += kWarps) {
       float s = 0.f;
-      for (int i = 0; i < B * nc; ++i) s += dap[(i64)i * H + h];
-      da[h] = s;
+      for (int i = lane; i < rows; i += 32)
+        s += __ldcg(dap + (i64)i * H + hh);
+      s = warp_sum(s);
+      if (lane == 0) da[hh] = s;
     }
-    return;
   }
-  const i64 i = (i64)blockIdx.x * kThreads + t;
-  if (i >= (i64)B * S * N) return;
-  const int n = (int)(i % N);
-  const i64 bs_ = i / N;
-  const int s = (int)(bs_ % S), b = (int)(bs_ / S);
-  const int c = s / kQ, j = s % kQ;
-  const float* p0 = part + ((i64)b * nc + c) * G * 2 * kQ * NP + j * NP + n;
-  float sb = 0.f, sc = 0.f;
-  for (int g = 0; g < G; ++g) {
-    sb += p0[(i64)g * 2 * kQ * NP];
-    sc += p0[(i64)g * 2 * kQ * NP + kQ * NP];
-  }
-  db[i] = sb;
-  dc[i] = sc;
 }
 
 template <typename K>
@@ -595,23 +1127,23 @@ template <typename T, int NC>
 int launch(const void* x, const void* dy, const void* dt, const void* a,
            const void* bm, const void* cm, const void* init, const void* dfin,
            void* dx, void* ddt, void* da, void* db, void* dc, void* dinit,
-           void* ws, int B, int S, int H, int P, int N, int G, int HG,
-           const i64* st, cudaStream_t stream) {
+           void* ws, void* sync, int B, int S, int H, int P, int N, int G,
+           int HG, int vec, const i64* st, cudaStream_t stream) {
   constexpr int NP = 16 * NC;
   const int nc = (S + kQ - 1) / kQ;
-  float* own = static_cast<float*>(ws);
-  float* rev = own + (i64)B * nc * H * P * NP;
-  float* es = rev + (i64)B * nc * H * P * NP;
-  float* dap = es + (i64)B * nc * H;
+  // the chain's states (none for a single chunk: E is init, G dfin)
+  const i64 states = nc > 1 ? (i64)B * nc * H * P * NP : 0;
+  float* ws_e = static_cast<float*>(ws);
+  float* ws_g = ws_e + states;
+  float* dap = ws_g + states;
   float* part = dap + (i64)B * nc * H;
-  if ((i64)B * nc * H > 0x7fffffff || (i64)B * nc * G > 0x7fffffff)
+  if ((i64)B * nc * H > 0x3fffffff || (i64)B * nc * G > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const int states_smem =
-      (2 * kQ * LP + 2 * kQ * (NP + 1) + 4 * kQ) * (int)sizeof(float);
+  const int chain_smem = ChainSmem<T, NC>::FLOATS * (int)sizeof(float);
   const int main_smem = MainSmem<NC>::FLOATS * (int)sizeof(float);
   static bool opted_in = false;
   if (!opted_in) {
-    cudaError_t e = opt_in(ssd_scan_bwd_states<T, NC>, states_smem);
+    cudaError_t e = opt_in(ssd_scan_bwd_chain<T, NC>, chain_smem);
     if (e == cudaSuccess) e = opt_in(ssd_scan_bwd_main<T, NC>, main_smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
@@ -622,30 +1154,32 @@ int launch(const void* x, const void* dy, const void* dt, const void* a,
   const float* af = static_cast<const float*>(a);
   const float* bmf = static_cast<const float*>(bm);
   const float* cmf = static_cast<const float*>(cm);
-  ssd_scan_bwd_states<T, NC><<<B * nc * H, kThreads, states_smem, stream>>>(
-      xt, dyt, dtf, af, bmf, cmf, own, rev, es, S, H, P, N, nc, st[0], st[1],
+  const float* initf = static_cast<const float*>(init);
+  const float* dfinf = static_cast<const float*>(dfin);
+  if (nc > 1 || dinit) {
+    const int both = nc > 1;
+    ssd_scan_bwd_chain<T, NC>
+        <<<(1 + both) * B * H, kThreads, chain_smem, stream>>>(
+            xt, dyt, dtf, af, bmf, cmf, initf, dfinf,
+            static_cast<float*>(dinit), ws_e, ws_g, S, H, P, N, nc, both,
+            vec, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
+            st[9]);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  ssd_scan_bwd_main<T, NC><<<B * nc * G, kThreads, main_smem, stream>>>(
+      xt, dyt, dtf, af, bmf, cmf, initf, dfinf, ws_e, ws_g,
+      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(da),
+      static_cast<float*>(db), static_cast<float*>(dc), dap, part,
+      static_cast<int*>(sync), S, H, P, N, nc, G, HG, vec, st[0], st[1],
       st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9]);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const i64 cells = (i64)B * H * P * NP;
-  ssd_scan_bwd_scan<<<(unsigned)((cells + kThreads - 1) / kThreads),
-                      kThreads, 0, stream>>>(
-      own, rev, es, static_cast<const float*>(init),
-      static_cast<const float*>(dfin), static_cast<float*>(dinit), B, H, P,
-      N, NP, nc);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  ssd_scan_bwd_main<T, NC><<<B * nc * G, kThreads, main_smem, stream>>>(
-      xt, dyt, dtf, af, bmf, cmf, own, rev, static_cast<T*>(dx),
-      static_cast<float*>(ddt), dap, part, S, H, P, N, nc, G, HG, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9]);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  if (e != cudaSuccess || G == 1) return (int)e;
   const i64 outs = (i64)B * S * N;
-  ssd_scan_bwd_reduce<<<(unsigned)((outs + kThreads - 1) / kThreads + 1),
+  ssd_scan_bwd_reduce<<<(unsigned)((outs + kThreads - 1) / kThreads),
                         kThreads, 0, stream>>>(
-      part, dap, static_cast<float*>(db), static_cast<float*>(dc),
-      static_cast<float*>(da), B, S, H, N, NP, nc, G);
+      part, static_cast<float*>(db), static_cast<float*>(dc), B, S, N, NP, nc,
+      G);
   return (int)cudaGetLastError();
 }
 
@@ -653,14 +1187,15 @@ template <typename T>
 int launch_t(const void* x, const void* dy, const void* dt, const void* a,
              const void* bm, const void* cm, const void* init,
              const void* dfin, void* dx, void* ddt, void* da, void* db,
-             void* dc, void* dinit, void* ws, int B, int S, int H, int P,
-             int N, int G, int HG, const i64* st, cudaStream_t s) {
+             void* dc, void* dinit, void* ws, void* sync, int B, int S, int H,
+             int P, int N, int G, int HG, int vec, const i64* st,
+             cudaStream_t s) {
   const auto fn = N <= 16   ? launch<T, 1>
                   : N <= 32 ? launch<T, 2>
                   : N <= 64 ? launch<T, 4>
                             : launch<T, 8>;
   return fn(x, dy, dt, a, bm, cm, init, dfin, dx, ddt, da, db, dc, dinit, ws,
-            B, S, H, P, N, G, HG, st, s);
+            sync, B, S, H, P, N, G, HG, vec, st, s);
 }
 
 }  // namespace
@@ -669,30 +1204,36 @@ int launch_t(const void* x, const void* dy, const void* dt, const void* a,
 // elements: x (batch, seq, head), dt (batch, seq, head), bm and cm
 // (batch, seq); dy, init, dfin and every output contiguous; init, dfin and
 // dinit may be null (dinit is written when it is not).  ws: the floats of
-// kernels/ssd_scan.py::bwd_plan for the head groups G of HG heads.  Four
-// launches on `stream`; returns cudaGetLastError() after them.  The caller
-// checks shapes and dtypes; this entry refuses only what the kernel cannot
-// do.
+// kernels/ssd_scan.py::bwd_plan for the head groups G of HG heads; sync:
+// one int32 counter, zero before the call (each call leaves it zero).  vec:
+// bit 0 when x's base and strides allow aligned 4-element loads, bit 1
+// when B's do, bit 2 when C's do (and N is a multiple of 4).  The
+// chain launch (past a single chunk, or with dinit), main, and the reduce
+// launch (more than one head group) on `stream`; returns
+// cudaGetLastError() after them.  The caller checks
+// shapes and dtypes; this entry refuses only what the kernel cannot do.
 extern "C" int ssd_scan_bwd_launch(
     int dtype, const void* x, const void* dy, const void* dt, const void* a,
     const void* bm, const void* cm, const void* init, const void* dfin,
     void* dx, void* ddt, void* da, void* db, void* dc, void* dinit, void* ws,
-    int B, int S, int H, int P, int N, int G, int HG, long long sxb,
-    long long sxs, long long sxh, long long sdb, long long sds,
-    long long sdh, long long sbb, long long sbs, long long scb,
-    long long scs, void* stream) {
+    void* sync, int B, int S, int H, int P, int N, int G, int HG,
+    long long sxb, long long sxs, long long sxh, long long sdb,
+    long long sds, long long sdh, long long sbb, long long sbs,
+    long long scb, long long scs, int vec, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || N <= 0 || N > 128 || P <= 0 ||
       P > kP || P % 16 != 0 || G <= 0 || HG <= 0 || (i64)G * HG < H ||
-      (i64)(G - 1) * HG >= H || ws == nullptr)
+      (i64)(G - 1) * HG >= H || ws == nullptr || sync == nullptr ||
+      (dinit != nullptr) != (init != nullptr))
     return (int)cudaErrorInvalidValue;
   const i64 st[10] = {sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, scb, scs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_t<float>(x, dy, dt, a, bm, cm, init, dfin, dx, ddt, da, db,
-                           dc, dinit, ws, B, S, H, P, N, G, HG, st, s);
+                           dc, dinit, ws, sync, B, S, H, P, N, G, HG, vec, st,
+                           s);
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(x, dy, dt, a, bm, cm, init, dfin, dx, ddt,
-                                   da, db, dc, dinit, ws, B, S, H, P, N, G,
-                                   HG, st, s);
+                                   da, db, dc, dinit, ws, sync, B, S, H, P, N,
+                                   G, HG, vec, st, s);
   return (int)cudaErrorInvalidValue;
 }

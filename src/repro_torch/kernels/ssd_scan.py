@@ -46,13 +46,17 @@ because a CUDA tensor never takes a plain version.  CPU tensors take
 ``ssd_scan_bwd_ref``, the chunk-wise backward written out in explicit
 formulas, which the kernel mirrors.  Design, memory and bound are in the
 source note; ``ssd_scan_bwd.launches`` counts its launches,
-``LAUNCHES_BWD`` a call.
+``bwd_plan(...).launches`` names a call's (of ``LAUNCHES_BWD``: the
+chain of states past a single chunk or with an initial state, main, and
+the sum over head groups when there are several); its int32 counter is
+the (device, stream) scratch of ``kernels/_scratch.py``, zero between
+launches.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -377,7 +381,10 @@ def ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dfinal=None, *,
     return dx, ddt, da, d_b, d_c, (g if init_state is not None else None)
 
 
-LAUNCHES_BWD = 4         # a call: states, scan, main, reduce
+# the launches a backward call can make, each at most once: the chain of
+# states (past a single chunk, or with an initial state, whose gradient it
+# writes), main, and the sum over head groups (more than one group)
+LAUNCHES_BWD = ("chain", "main", "reduce")
 BWD_MIN_BLOCKS = 132     # main blocks to aim for (one an SM on an H100)
 
 
@@ -387,24 +394,43 @@ def bwd_state_cols(n: int) -> int:
     return next(c for c in (16, 32, 64, 128) if n <= c)
 
 
-def bwd_plan(b: int, s: int, h: int, p: int, n: int,
-             n_sm: int = BWD_MIN_BLOCKS) -> Tuple[int, int, int, int]:
-    """(chunks, head groups G, heads a group, workspace floats) of one
-    backward call.  The main launch runs a block per (batch, chunk, head
-    group), each walking its group's heads; G is the fewest groups that
-    give ``n_sm`` blocks (at most one per head).  The workspace holds
-    each chunk's entering state and leaving-state gradient per head
-    ([B, chunks, H, P, NP] each), exp(seg) and the da partial per
-    (batch, chunk, head), and each block's dB and dC partials ([2, 64,
-    NP]), summed over the groups in order by the last launch."""
+class BwdPlan(NamedTuple):
+    """One backward call's work: ``chunks`` of 64 rows; main's ``groups``
+    of ``per`` heads (a block per (batch, chunk, group)); the float32
+    workspace and int32 counters it needs; its ``launches``, by name
+    (``LAUNCHES_BWD``)."""
+    chunks: int
+    groups: int
+    per: int
+    floats: int
+    counters: int
+    launches: Tuple[str, ...]
+
+
+def bwd_plan(b: int, s: int, h: int, p: int, n: int, init: bool = False,
+             n_sm: int = BWD_MIN_BLOCKS) -> BwdPlan:
+    """The plan of one backward call.  Main runs a block per (batch,
+    chunk, head group), each walking its group's heads: the most heads a
+    group that still give ``n_sm`` blocks (one head a group when even
+    that gives fewer).  The workspace holds, past a single chunk, the
+    state entering each chunk and the gradient of the state leaving it
+    per head ([B, chunks, H, P, NP] each, written by the chain launch and
+    read by main), the da partial per (batch, chunk, head), and with more
+    than one group each main block's dB and dC partials ([2, 64, NP]),
+    which the reduce launch sums in group order.  One counter: main's
+    blocks done (the last sums da)."""
     nc = -(-s // CHUNK)
     npad = bwd_state_cols(n)
-    groups = max(1, min(h, -(-n_sm // (b * nc))))
-    per = -(-h // groups)
+    per = -(-h // max(1, min(h, -(-n_sm // (b * nc)))))
+    while per > 1 and b * nc * -(-h // per) < n_sm:
+        per -= 1
     groups = -(-h // per)
-    floats = 2 * b * nc * h * p * npad + 2 * b * nc * h \
-        + b * nc * groups * 2 * CHUNK * npad
-    return nc, groups, per, floats
+    states = 2 * b * nc * h * p * npad if nc > 1 else 0
+    parts = b * nc * groups * 2 * CHUNK * npad if groups > 1 else 0
+    launches = tuple(k for k, used in zip(LAUNCHES_BWD, (
+        nc > 1 or init, True, groups > 1)) if used)
+    return BwdPlan(nc, groups, per, states + b * nc * h + parts, 1,
+                   launches)
 
 
 @functools.lru_cache(maxsize=None)
@@ -412,7 +438,7 @@ def _entry_bwd():
     """The backward's C entry point, built and loaded on first use."""
     fn = _build.library("ssd_scan_bwd").ssd_scan_bwd_launch
     fn.restype = _I
-    fn.argtypes = [_I] + [_P] * 15 + [_I] * 7 + [_L] * 10 + [_P]
+    fn.argtypes = [_I] + [_P] * 16 + [_I] * 7 + [_L] * 10 + [_I, _P]
     return fn
 
 
@@ -440,8 +466,8 @@ def _launch_bwd(x, dt, a, bmat, cmat, dy, dfinal, init_state):
     _check_bwd(x, dy, dfinal, n)
     fn = _entry_bwd()
     dev = x.device
-    _, groups, per, floats = bwd_plan(b, s, h, p, n,
-                                      _scratch.sm_count(dev.index or 0))
+    plan = bwd_plan(b, s, h, p, n, init_state is not None,
+                    _scratch.sm_count(dev.index or 0))
     dy = dy.contiguous()
     dfinal = dfinal.contiguous() if dfinal is not None else None
     init = init_state.contiguous() if init_state is not None else None
@@ -452,25 +478,30 @@ def _launch_bwd(x, dt, a, bmat, cmat, dy, dfinal, init_state):
     d_b = torch.empty((b, s, n), **f32)
     d_c = torch.empty((b, s, n), **f32)
     dinit = torch.empty((b, h, p, n), **f32) if init is not None else None
-    ws = torch.empty((floats,), **f32)
+    ws = torch.empty((plan.floats,), **f32)
+    vec = int(_aligned(x, x.stride()[:3])) \
+        | 2 * int(n % 4 == 0 and _aligned(bmat, bmat.stride()[:2])) \
+        | 4 * int(n % 4 == 0 and _aligned(cmat, cmat.stride()[:2]))
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
     with torch.cuda.device(dev):
+        stream = _scratch.stream(dev)
+        _, sync = _scratch.buffers(dev, stream, 1, plan.counters)
         err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
                  dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
                  cmat.data_ptr(), ptr(init), ptr(dfinal), dx.data_ptr(),
                  ddt.data_ptr(), da.data_ptr(), d_b.data_ptr(),
-                 d_c.data_ptr(), ptr(dinit), ws.data_ptr(),
-                 b, s, h, p, n, groups, per, *x.stride()[:3], *dt.stride(),
-                 bmat.stride(0), bmat.stride(1), cmat.stride(0),
-                 cmat.stride(1), _scratch.stream(dev))
+                 d_c.data_ptr(), ptr(dinit), ws.data_ptr(), sync.data_ptr(),
+                 b, s, h, p, n, plan.groups, plan.per, *x.stride()[:3],
+                 *dt.stride(), bmat.stride(0), bmat.stride(1),
+                 cmat.stride(0), cmat.stride(1), vec, stream)
     if err != 0:
         raise RuntimeError(
             f"ssd_scan_bwd: launch failed with CUDA error {err} (x "
             f"{tuple(x.shape)}, state {n}, {x.dtype})")
-    ssd_scan_bwd.launches += LAUNCHES_BWD
+    ssd_scan_bwd.launches += len(plan.launches)
     return dx, ddt, da, d_b, d_c, dinit
 
 

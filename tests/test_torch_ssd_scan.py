@@ -23,7 +23,10 @@ package on the CPU, float32, inputs drawn with numpy from a seed:
   gradient's largest magnitude, at shapes with S not a multiple of the
   chunk, with and without ``init_state`` and d(final_state); the same
   gradients at any chunk; finite where the reference's vjp overflows;
-  the backward's host-side plan.
+  the backward's host-side plan;
+* the backward kernel's 3xTF32 products emulated in torch at its shapes
+  and magnitudes: within a tenth of its tolerance, where one TF32
+  product is not.
 The CUDA kernels themselves are held against ``ssd_scan_ref`` and
 ``ssd_scan_bwd_ref`` on the card by ``chip_smoke.py``'s ``kernel_ssd``
 phase."""
@@ -378,28 +381,101 @@ def test_backward_stays_finite_where_the_reference_vjp_overflows():
             _close_rel(name, g, w)
 
 
-@pytest.mark.parametrize("b,s,h,n,sms", [(4, 2048, 48, 128, 132),
-                                         (4, 32, 48, 128, 132),
-                                         (1, 2048, 50, 16, 132),
-                                         (4, 32, 50, 16, 132),
-                                         (2, 100, 3, 8, 132),
-                                         (1, 64, 7, 64, 4)])
-def test_backward_plan_covers_every_head_once(b, s, h, n, sms):
+# (b, s, h, n, SMs, init, groups, heads a group): mamba2 and hymba at 4 x
+# 2,048 (two groups of about half the heads) and at 4 x 32 (one chunk: a
+# head a group, every SM busy), ragged, a small card, and one chunk with
+# an initial state (its gradient needs the chain launch)
+@pytest.mark.parametrize("b,s,h,n,sms,init,groups,per", [
+    (4, 2048, 48, 128, 132, False, 2, 24),
+    (4, 32, 48, 128, 132, False, 48, 1),
+    (1, 2048, 50, 16, 132, False, 5, 10),
+    (4, 32, 50, 16, 132, False, 50, 1),
+    (2, 100, 3, 8, 132, False, 3, 1),
+    (1, 64, 7, 64, 4, False, 4, 2),
+    (2, 40, 5, 16, 132, True, 5, 1)])
+def test_backward_plan_covers_every_head_once(b, s, h, n, sms, init, groups,
+                                              per):
     """The backward's host-side plan: 64-row chunks, head groups that
-    cover every head once (the last group may be short, none empty),
-    about ``sms`` main blocks where the heads allow it, state columns
-    padded to 16, 32, 64 or 128, and the workspace of its launches."""
-    nc, groups, per, floats = ssd_mod.bwd_plan(b, s, h, 64, n, sms)
+    cover every head once (the last group may be short, none empty), at
+    least ``sms`` main blocks unless every group is one head, state
+    columns padded to 16, 32, 64 or 128, the workspace and counter of
+    its launches, and the launches: the chain of states past a single
+    chunk or with an initial state, main, and the sum over head groups
+    when there are several."""
+    plan = ssd_mod.bwd_plan(b, s, h, 64, n, init, sms)
+    nc = plan.chunks
     assert (nc - 1) * 64 < s <= nc * 64
-    assert groups * per >= h and (groups - 1) * per < h
-    # as many groups as give ``sms`` blocks, rounded to whole heads a group
-    assert per == -(-h // min(h, -(-sms // (b * nc))))
-    heads = [hh for g in range(groups)
-             for hh in range(g * per, min(h, (g + 1) * per))]
+    assert (plan.groups, plan.per) == (groups, per)
+    assert plan.groups * plan.per >= h and (plan.groups - 1) * plan.per < h
+    assert b * nc * plan.groups >= sms or plan.per == 1
+    heads = [hh for g in range(plan.groups)
+             for hh in range(g * plan.per, min(h, (g + 1) * plan.per))]
     assert heads == list(range(h))
     npad = ssd_mod.bwd_state_cols(n)
     assert npad in (16, 32, 64, 128) and n <= npad and (
         npad == 16 or n > npad // 2)
-    assert floats == 2 * b * nc * h * 64 * npad + 2 * b * nc * h \
-        + b * nc * groups * 2 * 64 * npad
-    assert ssd_mod.LAUNCHES_BWD == 4
+    states = 2 * b * nc * h * 64 * npad if nc > 1 else 0
+    parts = b * nc * plan.groups * 2 * 64 * npad if plan.groups > 1 else 0
+    assert plan.floats == states + b * nc * h + parts
+    assert plan.counters == 1
+    assert ssd_mod.LAUNCHES_BWD == ("chain", "main", "reduce")
+    assert plan.launches == (("chain",) if nc > 1 or init else ()) \
+        + ("main",) + (("reduce",) if groups > 1 else ())
+
+
+# ------------------------------------------------------ 3xTF32 products ---
+def _tf32(x):
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32`` does it: the 13 low
+    mantissa bits cleared, to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The backward kernel's products (``csrc/hopper.cuh::split_tf32``):
+    each operand split into its TF32 rounding and the TF32 rounding of the
+    rest, lo*hi + hi*lo + hi*hi summed in float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _chunk_products(seed=0, q=64, p=64, n=128):
+    """One 64-row chunk of one head with the mixer's inputs (dt =
+    softplus(z + dt_bias), a = -16, the fastest decay, B and C at 0.3):
+    the operand pairs of the backward's products, as float32."""
+    rng = np.random.default_rng(seed)
+    x, dy = (torch.from_numpy(rng.standard_normal((q, p)).astype(np.float32))
+             for _ in range(2))
+    bm, cm = (torch.from_numpy((rng.standard_normal((q, n)) * 0.3)
+                               .astype(np.float32)) for _ in range(2))
+    g = torch.from_numpy(rng.standard_normal((p, n)).astype(np.float32))
+    z = torch.from_numpy(rng.standard_normal(q).astype(np.float32))
+    dt = torch.nn.functional.softplus(z + np.log(np.expm1(0.01)))
+    cum = torch.cumsum(dt * -16.0, 0)
+    w, ecum = torch.exp(cum[-1] - cum) * dt, torch.exp(cum)
+    lmat = torch.tril(torch.exp(cum[:, None] - cum[None, :]))
+    scores = (cm @ bm.T) * lmat * dt[None, :]
+    return {"own": ((x * w[:, None]).T, bm),           # x^T (w o B)
+            "rev": ((dy * ecum[:, None]).T, cm),       # dy^T (e o C)
+            "bg": (bm, g.T), "dye": (dy, g),           # B G^T, dy E
+            "sdy": (scores.T, dy)}                     # scores^T dy
+
+
+@pytest.mark.parametrize("product", ["own", "rev", "bg", "dye", "sdy"])
+def test_3xtf32_products_keep_the_backward_tolerance(product):
+    """The backward kernel runs its float32 products on the tensor cores
+    as 3xTF32: emulated here on the CPU at the backward's shapes and
+    magnitudes, every product is within 1e-5 of float64 (relative to its
+    largest output), a tenth of ``chip_smoke.py``'s SSD_BWD_TOL of 1e-4,
+    where one TF32 product (10 mantissa bits) is beyond that tolerance."""
+    assert float(_tf32(torch.tensor([1 + 2 ** -11]))) == 1 + 2 ** -10
+    assert float(_tf32(torch.tensor([-(1 + 2 ** -12)]))) == -1.0
+    a, b = _chunk_products()[product]
+    ref = a.double() @ b.double()
+    scale = ref.abs().max()
+
+    def err(out):
+        return float((out.double() - ref).abs().max() / scale)
+    assert err(_mm_3xtf32(a, b)) < 1e-5
+    assert err(_tf32(a) @ _tf32(b)) > 1e-4

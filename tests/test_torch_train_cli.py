@@ -5,14 +5,18 @@ pipeline, on the CPU:
   falls, a NaN rolls back, a restart resumes from the checkpoint);
 * ``train_from_weights`` over the JAX ``Model.init`` / ``init_lora``
   weights (through ``repro_torch.convert``) against the JAX
-  ``run_training`` in the same process on the same synthetic batches
-  (the data seeds from Python's per-process ``hash``): 15 steps with a
-  checkpoint every 5, again with a NaN injected at step 12, and a
-  restart.  Step counts, checkpointed steps and the rollback lines are
-  exact; every per-step loss within ``LOSS_RTOL`` relative (the rtol of
-  ``tests/test_torch_train.py``'s train steps) and the final adapters
-  within ``LORA_ATOL``; the port also resumes from the JAX run's
-  checkpoints;
+  ``run_training`` in the same process: 15 steps with a checkpoint every
+  5, again with a NaN injected at step 12, and a restart.  Step counts,
+  checkpointed steps and the rollback lines are exact, and every
+  per-step loss is within ``LOSS_RTOL`` relative (the rtol of
+  ``tests/test_torch_train.py``'s train steps); the port also resumes
+  from the JAX run's checkpoints.  The adapters are held one step at a
+  time: along the JAX run's own trajectory (its states, its batches,
+  drawn once here and handed to both), each package takes one
+  ``Engine.train_step`` from JAX's state, and the new adapters and AdamW
+  moments agree within ``STEP_ATOL``; the walk goes on from JAX's state,
+  so no gap carries from one step to the next, whatever batches
+  Python's per-process ``hash`` seeds;
 * ``main()`` in-process prints the reference's lines;
 * mamba2 trains on the CPU (the plain ``ssd_scan`` and its plain
   backward; hymba's twin is in ``tests/test_torch_hybrid.py``); the VLM
@@ -26,6 +30,7 @@ import threading
 import time
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -35,7 +40,9 @@ from repro.core.engine import make_engine as jax_make_engine
 from repro.launch import train as jax_train
 from repro_torch.checkpoint import checkpointer as ckpt_mod
 from repro_torch.configs.registry import get_config
-from repro_torch.convert import lora_from_numpy, params_from_numpy
+from repro_torch.convert import (
+    lora_from_numpy, opt_state_from_numpy, params_from_numpy,
+)
 from repro_torch.core.engine import make_engine
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import SyntheticDataset
@@ -43,16 +50,27 @@ from repro_torch.launch import train
 from repro_torch.launch.train import (
     init_weights, run_training, train_from_weights,
 )
-from repro_torch.tree import tree_leaves
 
 ARCH = "qwen1.5-0.5b"
-# the losses agree far inside the train-step rtol; the adapters' gap
-# depends on the (hash-seeded) data: AdamW's normalised update (lr 3e-3
-# a step) turns float32 noise in a near-zero gradient component into a
-# step-sized difference in that component, so their bound sits above the
-# largest gap seen across data sets, a small fraction of one step
+# the losses agree far inside the train-step rtol
 LOSS_RTOL = 1e-5
-LORA_ATOL = 2e-4
+# one AdamW step from a shared state.  The moments hold the gradient:
+# m' - 0.9 m = 0.1 g, v' - 0.999 v = 0.001 g^2, both from the same m, v,
+# so their gaps are float32 noise in g (at most 3.7e-9 in m across hash
+# seeds; v within the rtol of tests/test_torch_train.py).  The adapters move by lr m^/(sqrt(v^) + eps): where |g| is far
+# above that noise the update is well determined and the adapters agree
+# to float32 rounding, STEP_ATOL; where g is itself at noise level (seed
+# 13, step 0: g of 1e-9 in one bias, beside eps 1e-8) the noise moves
+# the normalised update by a real fraction of lr (3.8e-4 there).  So
+# each adapter element is held at STEP_ATOL plus lr times the widest
+# change of its update that the moments' own bounds allow (the corners
+# of the box that M_* and V_* allow around JAX's moments),
+# about lr M_ATOL / (0.1 |g|) on the first step: 3e-8 at |g| of 1e-2,
+# 3e-6 at 1e-4.
+STEP_ATOL = 1e-6
+M_RTOL, M_ATOL = 1e-5, 1e-8
+V_RTOL, V_ATOL = 1e-4, 1e-12
+LR, B1, B2, EPS = 3e-3, 0.9, 0.999, 1e-8
 
 
 # ------------------------------------------- twins of test_drivers -------
@@ -150,6 +168,104 @@ def jax_weights():
     return params, lora
 
 
+@pytest.fixture(scope="module")
+def steppers(jax_weights):
+    """One train step of each package: JAX's public ``Engine.train_step``
+    (jitted, as ``run_training`` runs it) and the port's, over the same
+    weights; and a fresh JAX start state (adapters, AdamW state)."""
+    params, lora = jax_weights
+    jeng = jax_make_engine(jax_config(ARCH).scaled(), lr=3e-3)
+    cfg = get_config(ARCH).scaled()
+    return {"jstep": jax.jit(jeng.train_step),
+            "jparams": jax.tree.map(jnp.asarray, params),
+            "start": (jax.tree.map(jnp.asarray, lora),
+                      jeng.optimizer.init(jax.tree.map(jnp.asarray, lora))),
+            "engine": make_engine(cfg, lr=3e-3, device="cpu"),
+            "params": params_from_numpy(cfg, params, device="cpu")}
+
+
+def _batches(n):
+    """The first ``n`` batches a run draws (``SyntheticDataset`` of seed
+    0), drawn once in this process for both packages."""
+    cfg = get_config(ARCH).scaled()
+    data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size, seq_len=32,
+                            seed=0)
+    return [data.batch(4) for _ in range(n)]
+
+
+def _np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _paths(tree, prefix=""):
+    """(path, leaf) of a tree of nested dicts, sorted by path."""
+    if isinstance(tree, dict):
+        return sorted(p for key, v in tree.items()
+                      for p in _paths(v, f"{prefix}/{key}"))
+    return [(prefix, tree)]
+
+
+def _close(port_tree, jax_tree, what, k, **tol):
+    got = [(p, t.numpy()) for p, t in _paths(port_tree)]
+    want = _paths(_np_tree(jax_tree))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (p, g), (_, w) in zip(got, want):
+        np.testing.assert_allclose(g, w, err_msg=f"step {k}: {what} {p}",
+                                   **tol)
+
+
+def _update_slack(opt):
+    """Per adapter leaf: lr times the widest change of the AdamW update
+    m^ / (sqrt(v^) + eps) over the corners of the box that the moment
+    bounds allow around ``opt``'s (JAX's) new moments."""
+    t = int(opt.step)
+    bc1, bc2 = 1 - B1 ** t, 1 - B2 ** t
+    out = {}
+    for (p, m), (_, v) in zip(_paths(_np_tree(opt.m)),
+                              _paths(_np_tree(opt.v))):
+        m, v = m.astype(np.float64), v.astype(np.float64)
+        dm, dv = M_RTOL * np.abs(m) + M_ATOL, V_RTOL * np.abs(v) + V_ATOL
+
+        def upd(mm, vv):
+            return (mm / bc1) / (np.sqrt(np.maximum(vv, 0) / bc2) + EPS)
+        u = upd(m, v)
+        out[p] = LR * np.max([np.abs(upd(m + sm * dm, v + sv * dv) - u)
+                              for sm in (-1, 1) for sv in (-1, 1)], axis=0)
+    return out
+
+
+def _walk(st, state, batches, first_step):
+    """JAX's trajectory from ``state`` over ``batches``; at each step the
+    port takes one train step from JAX's state (converted through
+    ``convert.py``) on the same batch, and its loss, new adapters and new
+    moments are held against JAX's.  Returns JAX's states before each
+    step and after the last, and JAX's losses."""
+    states, losses = [state], []
+    for k, b in enumerate(batches, start=first_step):
+        lora, opt = state
+        jl, jo, jm = st["jstep"](st["jparams"], lora, opt,
+                                 {n: jnp.asarray(v) for n, v in b.items()})
+        tl, to, tm = st["engine"].train_step(
+            st["params"], lora_from_numpy(_np_tree(lora), device="cpu"),
+            opt_state_from_numpy(_np_tree(opt), device="cpu"),
+            {n: torch.as_tensor(v) for n, v in b.items()})
+        np.testing.assert_allclose(float(tm["ce_loss"]), float(jm["ce_loss"]),
+                                   rtol=LOSS_RTOL, err_msg=f"step {k}")
+        assert int(to.step) == int(jo.step)
+        _close(to.m, jo.m, "m", k, rtol=M_RTOL, atol=M_ATOL)
+        _close(to.v, jo.v, "v", k, rtol=V_RTOL, atol=V_ATOL)
+        slack = _update_slack(jo)
+        for (p, g), (_, w) in zip(_paths(tl), _paths(_np_tree(jl))):
+            gap = np.abs(g.numpy().astype(np.float64) - w)
+            assert np.all(gap <= STEP_ATOL + slack[p]), (
+                f"step {k}: adapter {p} off by {gap.max()} (allowed "
+                f"{STEP_ATOL} + {slack[p].max()})")
+        state = (jl, jo)
+        states.append(state)
+        losses.append(float(jm["ce_loss"]))
+    return states, losses
+
+
 def _port_run(jax_weights, **kw):
     cfg = get_config(ARCH).scaled()
     engine = make_engine(cfg, lr=3e-3, device="cpu")
@@ -175,25 +291,12 @@ def _compare(port, ref):
     assert len(port["losses"]) == len(ref["losses"])
     np.testing.assert_allclose(port["losses"], ref["losses"],
                                rtol=LOSS_RTOL)
-    got = [t.numpy() for t in tree_leaves(port["lora"])]
-    want = jax.tree.leaves(jax.tree.map(np.asarray, ref["lora"]))
-    # both trees are dicts: tree_leaves walks insertion order, JAX sorted
-    got = [g for _, g in sorted(zip(_keys(port["lora"]), got))]
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g, w, rtol=0, atol=LORA_ATOL)
-
-
-def _keys(tree, prefix=""):
-    if isinstance(tree, dict):
-        return [k for key, v in tree.items()
-                for k in _keys(v, f"{prefix}/{key}")]
-    return [prefix]
 
 
 @pytest.mark.parametrize("inject_nan_at,steps", [(-1, 15), (12, 25)],
                          ids=["plain", "nan_at_12"])
 def test_train_from_weights_matches_jax(tmp_path, capsys, jax_weights,
-                                        inject_nan_at, steps):
+                                        steppers, inject_nan_at, steps):
     ref = _jax_run(steps=steps, ckpt_dir=str(tmp_path / "jax"),
                    inject_nan_at=inject_nan_at)
     ref_log = capsys.readouterr().out
@@ -209,10 +312,24 @@ def test_train_from_weights_matches_jax(tmp_path, capsys, jax_weights,
         assert len(port["losses"]) == steps + 2
     assert sorted(p.name for p in (tmp_path / "port").iterdir()) == \
         sorted(p.name for p in (tmp_path / "jax").iterdir())
+    # the run's trajectory one step at a time: without a fault, batch k
+    # at step k; with one, steps 0-11, the faulted step's batch 12 spent,
+    # then steps 10-24 from the step-10 state on batches 13-27
+    batches = _batches(steps + 3 if inject_nan_at >= 0 else steps)
+    if inject_nan_at < 0:
+        _, losses = _walk(steppers, steppers["start"], batches, 0)
+    else:
+        states, losses = _walk(steppers, steppers["start"],
+                               batches[:inject_nan_at], 0)
+        _, more = _walk(steppers, states[10], batches[inject_nan_at + 1:],
+                        10)
+        losses += more
+    # ... which is the JAX run's own
+    np.testing.assert_allclose(losses, ref["losses"], rtol=LOSS_RTOL)
 
 
 def test_restart_matches_jax_and_resumes_from_its_checkpoint(
-        tmp_path, capsys, jax_weights):
+        tmp_path, capsys, jax_weights, steppers):
     jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
     _jax_run(steps=10, ckpt_dir=jdir)
     _port_run(jax_weights, steps=10, ckpt_dir=pdir)
@@ -228,6 +345,11 @@ def test_restart_matches_jax_and_resumes_from_its_checkpoint(
     _jax_run(steps=10, ckpt_dir=cross)
     port2 = _port_run(jax_weights, steps=15, ckpt_dir=cross, restore=True)
     _compare(port2, ref)
+    # one step at a time: the step-10 state (the checkpoint both resume
+    # from), then steps 10-14 on a restarted run's first five batches
+    states, _ = _walk(steppers, steppers["start"], _batches(10), 0)
+    _, losses = _walk(steppers, states[-1], _batches(5), 10)
+    np.testing.assert_allclose(losses, ref["losses"], rtol=LOSS_RTOL)
 
 
 def _done_lines(text):
