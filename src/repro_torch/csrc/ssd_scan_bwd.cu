@@ -49,7 +49,7 @@
 // GFLOP, 0.114 and 0.046 ms.  The bytes it must move are a few percent of
 // that time.
 //
-// Design: up to three launches (kernels/ssd_scan.py::bwd_plan names them).
+// Design: two or three launches (kernels/ssd_scan.py::bwd_plan names them).
 //   * chain (past a single chunk, or with init): the states handed from
 //     chunk to chunk.  One block per (chain, batch, head) walks its
 //     chunks with the state in registers: an E block from chunk 0 up,
@@ -71,13 +71,13 @@
 //     directly, d(dt a) o dt summed per (batch, chunk, head), and dCB,
 //     exp(cum) o (dy E) and w o (x G) summed over the group's heads in
 //     registers; at the end dCB B and dCB^T C, and the group's dB and dC
-//     (written directly when there is one group).  The last block to
-//     finish (an atomic count, reset by that block) sums da over (batch,
-//     chunk) in a fixed order.  Head groups are as few as give 132
-//     blocks: at 4 x 2,048 tokens 2 groups of 24 heads (256 blocks), at
-//     4 x 32 one head a group (192 blocks for mamba2, 200 for hymba).
-//   * reduce (more than one group): dB and dC summed over the groups in
-//     group order, a thread per output.
+//     (written directly when there is one group).  Head groups are as few
+//     as give 132 blocks: at 4 x 2,048 tokens 2 groups of 24 heads (256
+//     blocks), at 4 x 32 one head a group (192 blocks for mamba2, 200 for
+//     hymba).
+//   * reduce: da summed over (batch, chunk) in a fixed order by one block;
+//     with more than one group, dB and dC summed over the groups in group
+//     order, a thread per output.
 //   No float atomics anywhere, so two calls on the same inputs give
 //   bitwise-equal gradients.
 //   * arithmetic: every product on the tensor cores, mma.sync m16n8k8
@@ -100,19 +100,19 @@
 //   * occupancy: main keeps 160 KB of tiles at NP 128 (one block, 8
 //     warps an SM) and 74 KB at NP 16 (two blocks); chain 73 KB at NP
 //     128 (three blocks), 44 KB at NP 16 (four).
-//   What still holds it back (scripts/ssd_bwd_ablation.py drops one part
-//   at a time; mamba2 4 x 2,048, bf16): main's per-head loads of x, dy,
-//   G and E (a third of main's ~1.0 ms: each head waits on them, eight
-//   warps an SM at NP 128), x G with dy E (a quarter) and B G^T (a
-//   sixth), mma.sync fed by scalar shared-memory loads and splitting
-//   every operand element where it is loaded; the chain's 31 serial steps
-//   a (batch, head) (~0.49 ms: its MMAs 0.21, its fetches of B and C one
-//   chunk ahead 0.12, its state stores 0.06).
-//   Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --ab,
-//   PERF.md section 6 has every shape against PR 25's kernel): mamba2 4 x
-//   2,048 1.53 ms (bf16; PR 25's 4.33), 2.9x its f32 bound and 7.1x its
-//   3xTF32 bound; hymba 4 x 2,048 0.62 ms (1.59); the 4 x 32 calls 76 us
-//   (mamba2; 155) and 32 us (hymba; 69).
+//   What still holds it back (chip_smoke.py's kernel_ssd_bwd, each
+//   launch's device time under torch.profiler; mamba2 4 x 2,048, bf16):
+//   main, 0.95 ms: each head of a group loads x, dy, G and E before its
+//   products, with eight warps an SM at NP 128 to hide those loads, and
+//   its mma.sync is fed by scalar shared-memory loads that split each
+//   operand element where it is loaded; the chain, 0.47 ms: 31 serial
+//   steps a (batch, head); reduce 12 us.
+//   Measured on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py's
+//   kernel_ssd_bwd; PERF.md section 6 has every shape against PR 25's
+//   kernel, from chip_smoke.py --ab): mamba2 4 x 2,048 1.52 ms (bf16;
+//   PR 25's 4.33), 2.9x its f32 bound and 7.0x its 3xTF32 bound; hymba
+//   4 x 2,048 0.64 ms (1.59); the 4 x 32 calls 69 us (mamba2; 155) and
+//   28 us (hymba; 69).
 #include "hopper.cuh"
 
 namespace {
@@ -644,11 +644,27 @@ __global__ void __launch_bounds__(kThreads, NC >= 8 ? 3 : 4)
 }
 
 // ------------------------------------------------------------ reduce ----
-// dB, dC [B][S][N]: the head groups' partials summed in group order
+// da [H] by the last block: the (batch, chunk) partials of dap [B nc][H]
+// summed in a fixed order (rows to lanes, then the warp's butterfly).
+// With more than one head group, dB and dC [B][S][N] by the blocks before
+// it: the groups' partials summed in group order, a thread per output.
 __global__ void __launch_bounds__(kThreads)
     ssd_scan_bwd_reduce(const float* __restrict__ part,
-                        float* __restrict__ db, float* __restrict__ dc,
-                        int B, int S, int N, int NP, int nc, int G) {
+                        const float* __restrict__ dap,
+                        float* __restrict__ da, float* __restrict__ db,
+                        float* __restrict__ dc, int B, int S, int H, int N,
+                        int NP, int nc, int G) {
+  if (blockIdx.x == gridDim.x - 1) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int rows = B * nc;
+    for (int hh = warp; hh < H; hh += kWarps) {
+      float s = 0.f;
+      for (int i = lane; i < rows; i += 32) s += dap[(i64)i * H + hh];
+      s = warp_sum(s);
+      if (lane == 0) da[hh] = s;
+    }
+    return;
+  }
   const i64 i = (i64)blockIdx.x * kThreads + threadIdx.x;
   if (i >= (i64)B * S * N) return;
   const int n = (int)(i % N);
@@ -725,7 +741,7 @@ __device__ __forceinline__ float load_state(float* eg, const float* src,
 
 // grid (B * chunks * G), block (b, c, g) in that order: heads g HG ..
 // min(H, (g + 1) HG).  dap [B][nc][H]: sum_k d(dt a)_k dt_k; part
-// [B][nc][G][2][Q][NP]: dB, then dC (G > 1); sync[0]: blocks done.
+// [B][nc][G][2][Q][NP]: dB, then dC (G > 1).
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
     ssd_scan_bwd_main(const T* __restrict__ x, const T* __restrict__ dy,
@@ -736,12 +752,11 @@ __global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
                       const float* __restrict__ init,
                       const float* __restrict__ dfin, const float* ws_e,
                       const float* ws_g, T* __restrict__ dx,
-                      float* __restrict__ ddt, float* __restrict__ da,
-                      float* __restrict__ db, float* __restrict__ dc,
-                      float* dap, float* part, int* sync, int S, int H,
-                      int P, int N, int nc, int G, int HG, int vec, i64 sxb,
-                      i64 sxs, i64 sxh, i64 sdb, i64 sds, i64 sdh, i64 sbb,
-                      i64 sbs, i64 scb, i64 scs) {
+                      float* __restrict__ ddt, float* __restrict__ db,
+                      float* __restrict__ dc, float* dap, float* part,
+                      int S, int H, int P, int N, int nc, int G, int HG,
+                      int vec, i64 sxb, i64 sxs, i64 sxh, i64 sdb, i64 sds,
+                      i64 sdh, i64 sbb, i64 sbs, i64 scb, i64 scs) {
   typedef MainSmem<NC> L;
   constexpr int NP = L::NP, LN = L::LN, NT = NP / 16;
   constexpr bool kExact = sizeof(T) == 2;
@@ -1091,30 +1106,6 @@ __global__ void __launch_bounds__(kThreads, NC <= 2 ? 2 : 1)
             make_float2(dca[j][2 * hr], dca[j][2 * hr + 1]);
       }
   }
-
-  // da: the last block of the launch to finish (an atomic count, reset by
-  // that block) sums the (batch, chunk) partials, each head's in a fixed
-  // order (rows to lanes, then the warp's butterfly)
-  __threadfence();
-  __syncthreads();
-  int* done = reinterpret_cast<int*>(misc + 1);
-  if (t == 0) {
-    const int v = atomicAdd(sync, 1);
-    *done = v == (int)gridDim.x - 1;
-    if (v == (int)gridDim.x - 1) *sync = 0;  // ready for the next launch
-  }
-  __syncthreads();
-  if (*done) {
-    __threadfence();
-    const int rows = gridDim.x / G;  // B nc
-    for (int hh = warp; hh < H; hh += kWarps) {
-      float s = 0.f;
-      for (int i = lane; i < rows; i += 32)
-        s += __ldcg(dap + (i64)i * H + hh);
-      s = warp_sum(s);
-      if (lane == 0) da[hh] = s;
-    }
-  }
 }
 
 template <typename K>
@@ -1127,8 +1118,8 @@ template <typename T, int NC>
 int launch(const void* x, const void* dy, const void* dt, const void* a,
            const void* bm, const void* cm, const void* init, const void* dfin,
            void* dx, void* ddt, void* da, void* db, void* dc, void* dinit,
-           void* ws, void* sync, int B, int S, int H, int P, int N, int G,
-           int HG, int vec, const i64* st, cudaStream_t stream) {
+           void* ws, int B, int S, int H, int P, int N, int G, int HG,
+           int vec, const i64* st, cudaStream_t stream) {
   constexpr int NP = 16 * NC;
   const int nc = (S + kQ - 1) / kQ;
   // the chain's states (none for a single chunk: E is init, G dfin)
@@ -1169,17 +1160,17 @@ int launch(const void* x, const void* dy, const void* dt, const void* a,
   }
   ssd_scan_bwd_main<T, NC><<<B * nc * G, kThreads, main_smem, stream>>>(
       xt, dyt, dtf, af, bmf, cmf, initf, dfinf, ws_e, ws_g,
-      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(da),
-      static_cast<float*>(db), static_cast<float*>(dc), dap, part,
-      static_cast<int*>(sync), S, H, P, N, nc, G, HG, vec, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9]);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || G == 1) return (int)e;
-  const i64 outs = (i64)B * S * N;
-  ssd_scan_bwd_reduce<<<(unsigned)((outs + kThreads - 1) / kThreads),
+      static_cast<T*>(dx), static_cast<float*>(ddt), static_cast<float*>(db),
+      static_cast<float*>(dc), dap, part, S, H, P, N, nc, G, HG, vec, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9]);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // dB and dC's blocks (more than one group), then da's
+  const i64 outs = G > 1 ? (i64)B * S * N : 0;
+  ssd_scan_bwd_reduce<<<(unsigned)((outs + kThreads - 1) / kThreads + 1),
                         kThreads, 0, stream>>>(
-      part, static_cast<float*>(db), static_cast<float*>(dc), B, S, N, NP, nc,
-      G);
+      part, dap, static_cast<float*>(da), static_cast<float*>(db),
+      static_cast<float*>(dc), B, S, H, N, NP, nc, G);
   return (int)cudaGetLastError();
 }
 
@@ -1187,15 +1178,14 @@ template <typename T>
 int launch_t(const void* x, const void* dy, const void* dt, const void* a,
              const void* bm, const void* cm, const void* init,
              const void* dfin, void* dx, void* ddt, void* da, void* db,
-             void* dc, void* dinit, void* ws, void* sync, int B, int S, int H,
-             int P, int N, int G, int HG, int vec, const i64* st,
-             cudaStream_t s) {
+             void* dc, void* dinit, void* ws, int B, int S, int H, int P,
+             int N, int G, int HG, int vec, const i64* st, cudaStream_t s) {
   const auto fn = N <= 16   ? launch<T, 1>
                   : N <= 32 ? launch<T, 2>
                   : N <= 64 ? launch<T, 4>
                             : launch<T, 8>;
   return fn(x, dy, dt, a, bm, cm, init, dfin, dx, ddt, da, db, dc, dinit, ws,
-            sync, B, S, H, P, N, G, HG, vec, st, s);
+            B, S, H, P, N, G, HG, vec, st, s);
 }
 
 }  // namespace
@@ -1204,36 +1194,34 @@ int launch_t(const void* x, const void* dy, const void* dt, const void* a,
 // elements: x (batch, seq, head), dt (batch, seq, head), bm and cm
 // (batch, seq); dy, init, dfin and every output contiguous; init, dfin and
 // dinit may be null (dinit is written when it is not).  ws: the floats of
-// kernels/ssd_scan.py::bwd_plan for the head groups G of HG heads; sync:
-// one int32 counter, zero before the call (each call leaves it zero).  vec:
+// kernels/ssd_scan.py::bwd_plan for the head groups G of HG heads.  vec:
 // bit 0 when x's base and strides allow aligned 4-element loads, bit 1
 // when B's do, bit 2 when C's do (and N is a multiple of 4).  The
-// chain launch (past a single chunk, or with dinit), main, and the reduce
-// launch (more than one head group) on `stream`; returns
+// chain launch (past a single chunk, or with dinit), main and reduce on
+// `stream`; returns
 // cudaGetLastError() after them.  The caller checks
 // shapes and dtypes; this entry refuses only what the kernel cannot do.
 extern "C" int ssd_scan_bwd_launch(
     int dtype, const void* x, const void* dy, const void* dt, const void* a,
     const void* bm, const void* cm, const void* init, const void* dfin,
     void* dx, void* ddt, void* da, void* db, void* dc, void* dinit, void* ws,
-    void* sync, int B, int S, int H, int P, int N, int G, int HG,
+    int B, int S, int H, int P, int N, int G, int HG,
     long long sxb, long long sxs, long long sxh, long long sdb,
     long long sds, long long sdh, long long sbb, long long sbs,
     long long scb, long long scs, int vec, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || N <= 0 || N > 128 || P <= 0 ||
       P > kP || P % 16 != 0 || G <= 0 || HG <= 0 || (i64)G * HG < H ||
-      (i64)(G - 1) * HG >= H || ws == nullptr || sync == nullptr ||
+      (i64)(G - 1) * HG >= H || ws == nullptr ||
       (dinit != nullptr) != (init != nullptr))
     return (int)cudaErrorInvalidValue;
   const i64 st[10] = {sxb, sxs, sxh, sdb, sds, sdh, sbb, sbs, scb, scs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_t<float>(x, dy, dt, a, bm, cm, init, dfin, dx, ddt, da, db,
-                           dc, dinit, ws, sync, B, S, H, P, N, G, HG, vec, st,
-                           s);
+                           dc, dinit, ws, B, S, H, P, N, G, HG, vec, st, s);
   if (dtype == 1)
     return launch_t<__nv_bfloat16>(x, dy, dt, a, bm, cm, init, dfin, dx, ddt,
-                                   da, db, dc, dinit, ws, sync, B, S, H, P, N,
-                                   G, HG, vec, st, s);
+                                   da, db, dc, dinit, ws, B, S, H, P, N, G,
+                                   HG, vec, st, s);
   return (int)cudaErrorInvalidValue;
 }

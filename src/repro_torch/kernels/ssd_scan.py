@@ -48,9 +48,8 @@ formulas, which the kernel mirrors.  Design, memory and bound are in the
 source note; ``ssd_scan_bwd.launches`` counts its launches,
 ``bwd_plan(...).launches`` names a call's (of ``LAUNCHES_BWD``: the
 chain of states past a single chunk or with an initial state, main, and
-the sum over head groups when there are several); its int32 counter is
-the (device, stream) scratch of ``kernels/_scratch.py``, zero between
-launches.
+the reduce, which sums da and, when there are several head groups, dB
+and dC over them).
 """
 from __future__ import annotations
 
@@ -383,7 +382,8 @@ def ssd_scan_bwd_ref(x, dt, a, bmat, cmat, dy, dfinal=None, *,
 
 # the launches a backward call can make, each at most once: the chain of
 # states (past a single chunk, or with an initial state, whose gradient it
-# writes), main, and the sum over head groups (more than one group)
+# writes), main, and the reduce (da; dB and dC over head groups when there
+# are several), which every call makes
 LAUNCHES_BWD = ("chain", "main", "reduce")
 BWD_MIN_BLOCKS = 132     # main blocks to aim for (one an SM on an H100)
 
@@ -397,13 +397,11 @@ def bwd_state_cols(n: int) -> int:
 class BwdPlan(NamedTuple):
     """One backward call's work: ``chunks`` of 64 rows; main's ``groups``
     of ``per`` heads (a block per (batch, chunk, group)); the float32
-    workspace and int32 counters it needs; its ``launches``, by name
-    (``LAUNCHES_BWD``)."""
+    workspace it needs; its ``launches``, by name (``LAUNCHES_BWD``)."""
     chunks: int
     groups: int
     per: int
     floats: int
-    counters: int
     launches: Tuple[str, ...]
 
 
@@ -416,9 +414,9 @@ def bwd_plan(b: int, s: int, h: int, p: int, n: int, init: bool = False,
     state entering each chunk and the gradient of the state leaving it
     per head ([B, chunks, H, P, NP] each, written by the chain launch and
     read by main), the da partial per (batch, chunk, head), and with more
-    than one group each main block's dB and dC partials ([2, 64, NP]),
-    which the reduce launch sums in group order.  One counter: main's
-    blocks done (the last sums da)."""
+    than one group each main block's dB and dC partials ([2, 64, NP]);
+    the reduce launch sums the da partials in a fixed order and the dB
+    and dC partials in group order."""
     nc = -(-s // CHUNK)
     npad = bwd_state_cols(n)
     per = -(-h // max(1, min(h, -(-n_sm // (b * nc)))))
@@ -427,10 +425,8 @@ def bwd_plan(b: int, s: int, h: int, p: int, n: int, init: bool = False,
     groups = -(-h // per)
     states = 2 * b * nc * h * p * npad if nc > 1 else 0
     parts = b * nc * groups * 2 * CHUNK * npad if groups > 1 else 0
-    launches = tuple(k for k, used in zip(LAUNCHES_BWD, (
-        nc > 1 or init, True, groups > 1)) if used)
-    return BwdPlan(nc, groups, per, states + b * nc * h + parts, 1,
-                   launches)
+    launches = LAUNCHES_BWD if nc > 1 or init else LAUNCHES_BWD[1:]
+    return BwdPlan(nc, groups, per, states + b * nc * h + parts, launches)
 
 
 @functools.lru_cache(maxsize=None)
@@ -438,7 +434,7 @@ def _entry_bwd():
     """The backward's C entry point, built and loaded on first use."""
     fn = _build.library("ssd_scan_bwd").ssd_scan_bwd_launch
     fn.restype = _I
-    fn.argtypes = [_I] + [_P] * 16 + [_I] * 7 + [_L] * 10 + [_I, _P]
+    fn.argtypes = [_I] + [_P] * 15 + [_I] * 7 + [_L] * 10 + [_I, _P]
     return fn
 
 
@@ -488,14 +484,13 @@ def _launch_bwd(x, dt, a, bmat, cmat, dy, dfinal, init_state):
 
     with torch.cuda.device(dev):
         stream = _scratch.stream(dev)
-        _, sync = _scratch.buffers(dev, stream, 1, plan.counters)
         err = fn(_DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
                  dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
                  cmat.data_ptr(), ptr(init), ptr(dfinal), dx.data_ptr(),
                  ddt.data_ptr(), da.data_ptr(), d_b.data_ptr(),
-                 d_c.data_ptr(), ptr(dinit), ws.data_ptr(), sync.data_ptr(),
-                 b, s, h, p, n, plan.groups, plan.per, *x.stride()[:3],
-                 *dt.stride(), bmat.stride(0), bmat.stride(1),
+                 d_c.data_ptr(), ptr(dinit), ws.data_ptr(), b, s, h, p, n,
+                 plan.groups, plan.per, *x.stride()[:3], *dt.stride(),
+                 bmat.stride(0), bmat.stride(1),
                  cmat.stride(0), cmat.stride(1), vec, stream)
     if err != 0:
         raise RuntimeError(

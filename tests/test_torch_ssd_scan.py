@@ -398,10 +398,10 @@ def test_backward_plan_covers_every_head_once(b, s, h, n, sms, init, groups,
     """The backward's host-side plan: 64-row chunks, head groups that
     cover every head once (the last group may be short, none empty), at
     least ``sms`` main blocks unless every group is one head, state
-    columns padded to 16, 32, 64 or 128, the workspace and counter of
-    its launches, and the launches: the chain of states past a single
-    chunk or with an initial state, main, and the sum over head groups
-    when there are several."""
+    columns padded to 16, 32, 64 or 128, the workspace of its launches,
+    and the launches: the chain of states past a single chunk or with an
+    initial state, main, and the reduce (da, and dB and dC over the head
+    groups when there are several)."""
     plan = ssd_mod.bwd_plan(b, s, h, 64, n, init, sms)
     nc = plan.chunks
     assert (nc - 1) * 64 < s <= nc * 64
@@ -417,10 +417,9 @@ def test_backward_plan_covers_every_head_once(b, s, h, n, sms, init, groups,
     states = 2 * b * nc * h * 64 * npad if nc > 1 else 0
     parts = b * nc * plan.groups * 2 * 64 * npad if plan.groups > 1 else 0
     assert plan.floats == states + b * nc * h + parts
-    assert plan.counters == 1
     assert ssd_mod.LAUNCHES_BWD == ("chain", "main", "reduce")
     assert plan.launches == (("chain",) if nc > 1 or init else ()) \
-        + ("main",) + (("reduce",) if groups > 1 else ())
+        + ("main", "reduce")
 
 
 # ------------------------------------------------------ 3xTF32 products ---
