@@ -25,7 +25,9 @@ Phases, each printing JSON lines:
               serve tick after 2,048-token prompts paged in blocks of 16
               and contiguous as identity-table blocks of 32, identity-
               table blocks of 1, 2 and 8 rows, and tables that alias the
-              same 48 prefix blocks, as the prefix cache makes them);
+              same 48 prefix blocks, as the prefix cache makes them;
+              hymba-1.5b's rings; the MoE serve runs' G 1 (moonshot, 48
+              and 2,080 rows) and G 6 (grok, 48 rows) at head_dim 128);
   kernel_lora lora_matmul at the decode, train, prefill, long train and
               long prefill shapes of qwen1.5-0.5b, two ragged shapes
               (M 1000 and 5), mamba2-780m's ssm_in / ssm_out at
@@ -39,19 +41,23 @@ Phases, each printing JSON lines:
               and B in padded storage) at M 8 and 8,192, plus its
               backward (dX, dA, dB of
               LoRAMatmulFn against autograd of the plain version) at the
-              train shapes and the decode shape;
+              train shapes and the decode shape; the MoE phases' q/k/v/o
+              (moonshot K = N = 2,048; grok q/o 6,144, k/v N 1,024) at
+              every M they launch, the train batches' backward too;
   kernel_flash flash_attention forward and backward against the plain
               version (dense f32 softmax, autograd of it) at the prefill
               waves of qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and
               llama3-8b (8 x 2,048, GQA 4:1 with head_dim 128), the
               train batches (qwen 4 x 2,048, llama3-8b 1 x 2,048), ragged
-              lengths 1,000 and 2,049 and a 512-token window; the
+              lengths 1,000 and 2,049 and a 512-token window, hymba-1.5b's
+              and moonshot-v1-16b-a3b's 8 x 2,048 wave; the
               backward twice (dK, dV bitwise, dQ within one bf16 ulp);
               achieved TFLOP/s;
   kernel_seg  segmented_lora_matmul against its plain version at the
               multi-tenant decode (1, 4 and 8 slots) and prefill waves of
               qwen1.5-0.5b, its 4-tenant suffix wave (8 x 224), a ragged
-              shape and llama3-8b's decode; in bf16
+              shape, llama3-8b's decode and moonshot-v1-16b-a3b's
+              4-tenant decode and 8 x 32 wave; in bf16
               each row bitwise lora_matmul of its own slot (B = 0 for -1
               rows) and no leak from 1e6 in an unused slot;
   kernel_ssd  ssd_scan against its plain version (the reference's chunked
@@ -302,6 +308,34 @@ Phases, each printing JSON lines:
               (b)'s, AdamW step 3; every attention, lora_matmul and
               backward shape of (b) and (c) one that a kernel phase
               checked;
+  moe_route   ``moe._routing`` on the card against the CPU on the same
+              float32 logits: moonshot-v1-16b-a3b's 64 experts, top 6, at
+              a decode group of 8 and at 512-token groups, grok-1-314b's
+              8 experts, top 2, at 8 and 128, planted exact ties, one
+              expert every token wants (drops): dispatch and combine
+              bitwise, aux within 1e-6 of its magnitude;
+  serve_moe   moonshot-v1-16b-a3b at published width (d_model 2,048, 16
+              / 16 heads of 128, 64 experts of 1,408, top 6, bf16) at
+              DEPTH_CUT's 8 layers through ``run_serving``, 16 requests on
+              8 slots: paged and contiguous 32 + 16 (the same tokens,
+              bitwise), paged 2,048 + 32, 4 tenants paged 32 + 16; then
+              grok-1-314b (d_model 6,144, 48 / 8 heads of 128, 8 experts
+              of 32,768, top 2) cut to GROK_LAYERS (4 of 64 layers),
+              paged 32 + 16: every request finishes, launches exactly as
+              derived, every attention and lora_matmul shape one a kernel
+              phase checked; tok/s, TTFT / TPOT p50 / p99, peak memory;
+  combined_moe  both stacks co-training (paged 32 + 16, 4 x 32 train
+              rows a tick): one step a tick, the loss and the
+              load-balancing aux loss finite, aux > 0, launches as
+              derived, every shape (dX included) checked;
+  train_cli_moe  the training CLI on moonshot: (a) a reduced float32
+              moonshot with its 64 experts, top 6, card against CPU one
+              step at a time (``moe_walk``: a step whose routing flips
+              between the two is named, and held to the reference's MoE
+              rule if it misses the walk's bounds); (b) 8 layers at
+              published width, 4 x 256, 3 steps, a checkpoint at 3: the
+              last batch's CE falls, aux > 0; (c) the restart to 4: the
+              restored tree bitwise, AdamW step 3;
   experiment  ``run_experiment`` for the five policies at
               tests/test_experiment.py's short configuration (6
               replicas, 420 s simulated, seed 3) and those tests'
@@ -312,7 +346,10 @@ Phases, each printing JSON lines:
               and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
               tokens, mamba2-780m decode ticks after 32- and 2,048-token
               prompts and a combined one (4 x 32), hymba-1.5b's serve and
-              combined ticks at 32, a VLM decode tick; one full, one suffix and one
+              combined ticks at 32, moonshot-v1-16b-a3b's serve tick at
+              its published 48 layers (the expert products' part and the
+              least time of reading every weight the tick reads), a VLM
+              decode tick; one full, one suffix and one
               chunk prefill wave at serve_prefix's shapes): host wall per
               tick or wave, and under torch.profiler the device time,
               each kernel's share and the kernels launched;
@@ -324,12 +361,14 @@ lora_matmul decode path over a range of split counts (what their split
 plans rest on), beside a streaming-read yardstick; ``budget_seeded`` runs
 the budget phase's traffic with the train cost priced first by a warm
 idle train tick (a policy the runtime does not have); ``kernel_ssd_bwd``
-runs the ssd_scan backward's rows and autograd checks alone.
+runs the ssd_scan backward's rows and autograd checks alone; ``tick_moe``
+the MoE tick alone.
 Depth: every phase but ``tick`` and the fabric phases (WHOLE_DEPTH)
-runs qwen1.5-0.5b, llama3-8b and mamba2-780m at their published widths
-with DEPTH_CUT's layers (8 of 24, 8 of 32, 16 of 48; the registry's
-entries replaced in this process, so ``run_serving`` and
-``run_training`` build them too): a tick's host time, which bounds
+runs qwen1.5-0.5b, llama3-8b, mamba2-780m and moonshot-v1-16b-a3b at
+their published widths with DEPTH_CUT's layers (8 of 24, 8 of 32, 16 of
+48, 8 of 48; the registry's entries replaced in this process, so
+``run_serving`` and ``run_training`` build them too), and every phase
+grok-1-314b at GROK_LAYERS (4 of 64): a tick's host time, which bounds
 nearly every run here, grows with the kernels it launches, so with
 depth.
 The last two lines are the card's name and power limit, then
@@ -368,9 +407,14 @@ ARCH = "qwen1.5-0.5b"
 # earlier breakdowns) and the fabric phases (their peak-memory check
 # bounds the activations by half a copy of the weights, the embedding
 # and head's 622 MB being most of a cut qwen)
-DEPTH_CUT = {"qwen1.5-0.5b": 8, "llama3-8b": 8, "mamba2-780m": 16}
-WHOLE_DEPTH = {"tick", "fabric_reference", "fabric", "fabric_combined",
-               "fabric_chaos", "fabric_adapters"}
+DEPTH_CUT = {"qwen1.5-0.5b": 8, "llama3-8b": 8, "mamba2-780m": 16,
+             "moonshot-v1-16b-a3b": 8}
+# grok-1-314b at published width, cut to whole layers in every phase
+# (n_layers 64 -> 4: 4 x 9.67 GB of layers, 3.22 GB of embedding and head)
+GROK_ARCH = "grok-1-314b"
+GROK_LAYERS = 4
+WHOLE_DEPTH = {"tick", "tick_moe", "fabric_reference", "fabric",
+               "fabric_combined", "fabric_chaos", "fabric_adapters"}
 # ARCH's adapter projections per forward (8 layers x q/k/v/o) and their
 # dX in the backward (but layer 0's q/k/v); main() derives them again
 N_LORA = 32
@@ -465,7 +509,21 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
     (f"hymba_ring_{proj}_{m}", m, k, n, 16)
     for m in (1, 2112)
     for proj, k, n in (("qo", 1600, 1600), ("kv", 1600, 320),
-                       ("ssm_in", 1600, 6482), ("ssm_out", 3200, 1600))]
+                       ("ssm_in", 1600, 6482), ("ssm_out", 3200, 1600))] + [
+    # the MoE phases' (serve_moe, combined_moe, train_cli_moe):
+    # moonshot-v1-16b-a3b's q/k/v/o (K = N = 2,048) at decode (8 slots),
+    # its prefill waves of 8 x 32 and 8 x 2,048 and its train batches of
+    # 4 x 32 and 4 x 256; grok-1-314b's q/o (N 6,144) and k/v (8 KV heads
+    # of 128: N 1,024) at decode, its 8 x 32 wave and 4 x 32 train batch
+    ("moe_decode", 8, 2048, 2048, 16),
+    ("moe_prefill", 256, 2048, 2048, 16),
+    ("moe_prefill_2048", 16384, 2048, 2048, 16),
+    ("train_moe", 128, 2048, 2048, 16),
+    ("train_moe_cli", 1024, 2048, 2048, 16)] + [
+    (f"{kind}_{proj}", m, 6144, n, 16)
+    for kind, m in (("grok_decode", 8), ("grok_prefill", 256),
+                    ("train_grok", 128))
+    for proj, n in (("qo", 6144), ("kv", 1024))]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
                   "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
@@ -474,7 +532,8 @@ LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_hymba_ssm_in"} | {
     row[0] for row in LORA_SHAPES
     if row[0].startswith(("ssm_prefill_", "train_ssm_", "hymba_prefill_",
-                          "train_hymba_")) or row[0].endswith("_2112")}
+                          "train_hymba_", "moe_", "train_moe", "grok_",
+                          "train_grok")) or row[0].endswith("_2112")}
 
 
 def lora_has_backward(name):
@@ -509,7 +568,9 @@ FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0),
                 ("window", 4, 16, 16, 64, 2048, 512),
                 ("hymba_prefill", 1, 25, 5, 64, 1984, 2048),
                 ("hymba_ring", 1, 25, 5, 64, 2112, 2048),
-                ("hymba_train", 4, 25, 5, 64, 1984, 2048)]
+                ("hymba_train", 4, 25, 5, 64, 1984, 2048),
+                # moonshot-v1-16b-a3b's prefill wave (16 / 16 heads of 128)
+                ("moonshot_prefill", 8, 16, 16, 128, 2048, 0)]
 FLASH_REPS = 10
 # backward launches: bf16 prep (delta, lse, zeroed dQ accumulator), the
 # single pass, finish (dQ rounded; dK, dV slices summed); f32 delta,
@@ -692,6 +753,14 @@ PAGED_SHAPES = [
                           lengths="tick")),
     ("hymba_window_64", dict(b=1, h=25, hkv=5, d=64, bs=64, nb=1,
                              lengths="tick")),
+    # the MoE phases': moonshot-v1-16b-a3b (16 / 16 heads of 128, G 1)
+    # over 32 + 16 (3 blocks of 16, paged, or 48 contiguous rows as
+    # identity blocks of 16) and 2,048 + 32 (130 blocks); grok-1-314b
+    # (48 / 8 heads of 128, G 6) over 32 + 16
+    ("moonshot_48", dict(b=8, h=16, hkv=16, d=128, bs=16, nb=3)),
+    ("moonshot_2080", dict(b=8, h=16, hkv=16, d=128, bs=16, nb=130,
+                           lengths="tick")),
+    ("grok_48", dict(b=8, h=48, hkv=8, d=128, bs=16, nb=3)),
 ]
 
 
@@ -907,7 +976,10 @@ SEG_SHAPES = [("decode", 8, 1024, 1024, 16, 4, 1),
               ("fabric_prefill_32", 32, 1024, 1024, 16, 4, 32),
               ("fabric_prefill_64", 64, 1024, 1024, 16, 4, 32),
               ("fabric_prefill_96", 96, 1024, 1024, 16, 4, 32),
-              ("fabric_prefill_128", 128, 1024, 1024, 16, 4, 32)]
+              ("fabric_prefill_128", 128, 1024, 1024, 16, 4, 32),
+              # moonshot-v1-16b-a3b's 4-tenant decode and 8 x 32 wave
+              ("moe_decode", 8, 2048, 2048, 16, 4, 1),
+              ("moe_prefill", 256, 2048, 2048, 16, 4, 32)]
 SEG_REPS = 30
 
 
@@ -2471,7 +2543,7 @@ def phase_reference_blockwise(get_config, build, make_engine, fa):
                                                   rope, lora=lo)[0]
                    for m in (dense, blockwise)}
             layer_errs.append(rel(out["blockwise"], out["dense"]))
-            x, _ = tfm.block_full(bp, x, dense.cfg, rope, lora=lo)
+            x, _, _ = tfm.block_full(bp, x, dense.cfg, rope, lora=lo)
         ld = dense.logits(params, lora, {"tokens": toks}).float()
         lb = blockwise.logits(params, lora, {"tokens": toks}).float()
         lt = f32.logits(tree_map(lambda t: t.float(), params), lora,
@@ -2494,11 +2566,13 @@ def phase_reference_blockwise(get_config, build, make_engine, fa):
 def set_depth(registry, whole, cut):
     """Point ``registry``'s DEPTH_CUT archs, for this process, at their
     depth-cut configs (``cut``) or at ``whole``, the configs as the
-    package has them."""
+    package has them; grok-1-314b at GROK_LAYERS layers either way."""
     import dataclasses
     for arch, n in DEPTH_CUT.items():
         registry._REGISTRY[arch] = dataclasses.replace(
             whole[arch], n_layers=n) if cut else whole[arch]
+    registry._REGISTRY[GROK_ARCH] = dataclasses.replace(
+        whole[GROK_ARCH], n_layers=GROK_LAYERS)
 
 
 def cut_depth(registry):
@@ -3242,6 +3316,441 @@ def phase_train_cli_ssm(make_engine, get_config, lm, scan, scan_bwd):
             torch.cuda.empty_cache()
     finally:
         import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+# ------------------------------------------------------------------ MoE ---
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_AUX_REL = 1e-6
+# moe_route: (name, groups, tokens a group, E, k, logits): moonshot's E 64
+# / k 6 at a decode group of 8 slots and 512-token groups, grok's E 8 /
+# k 2 at 8 slots and 128 train rows, exact ties planted across the top-k
+# boundary, and one expert every token wants (capacity drops)
+MOE_ROUTE_CASES = [("moonshot_8", 1, 8, 64, 6, "normal"),
+                   ("moonshot_512", 4, 512, 64, 6, "normal"),
+                   ("grok_8", 1, 8, 8, 2, "normal"),
+                   ("grok_128", 2, 128, 8, 2, "normal"),
+                   ("ties", 2, 64, 64, 6, "tie"),
+                   ("one_expert", 1, 128, 8, 2, "one_expert")]
+
+
+def moe_logits(g, t, e, kind, seed):
+    """float32 router logits [G, T, E] from a seed (numpy): normal, with
+    exact ties planted, or every token wanting expert 0."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((g, t, e)) * 2).astype(np.float32)
+    if kind == "tie":
+        x[..., 1] = x[..., 3] = x[..., 0]
+        x[:, ::2, 5 % e] = x[:, ::2, 0]
+    elif kind == "one_expert":
+        x[..., 0] = 5.0
+        x[..., 1:] = -5.0
+    return x
+
+
+def phase_moe_route():
+    """``moe._routing`` on the card against the CPU on the same float32
+    logits (MOE_ROUTE_CASES, capacity as ``moe_mlp`` sets it for the
+    group): dispatch and combine bitwise equal, aux within 1e-6 of its
+    magnitude, the choices dropped; and ``moe_mlp`` at moonshot's decode
+    group on the card, device ms."""
+    from repro_torch.models import moe
+    rows = {}
+    for i, (name, g, t, e, k, kind) in enumerate(MOE_ROUTE_CASES):
+        x = torch.from_numpy(moe_logits(g, t, e, kind, 300 + i))
+        cap = max(k, math.ceil(t * k * 1.25 / e))
+        cd, cc, ca = moe._routing(x, k, cap)
+        gd, gc, ga = moe._routing(x.cuda(), k, cap)
+        row = {"case": name, "groups": g, "tokens": t, "experts": e,
+               "top_k": k, "capacity": cap,
+               "dispatch_bitwise": torch.equal(gd.cpu(), cd),
+               "combine_bitwise": torch.equal(gc.cpu(), cc),
+               "aux_abs_err": abs(float(ga) - float(ca)), "aux": float(ca),
+               "choices_dropped": int(g * t * k - cd.sum())}
+        emit("moe_route", **row)
+        if not (row["dispatch_bitwise"] and row["combine_bitwise"]
+                and row["aux_abs_err"] <= MOE_AUX_REL * abs(float(ca))):
+            raise AssertionError(f"moe_route {name}: card against CPU {row}")
+        rows[name] = row
+    if not rows["one_expert"]["choices_dropped"]:
+        raise AssertionError("moe_route: one wanted expert dropped nothing")
+    return rows
+
+
+class AuxTap:
+    """Records every ``Engine.train_step``'s ``aux_loss`` metric (device
+    tensors, read after the run) while entered."""
+
+    def __enter__(self):
+        from repro_torch.core.engine import Engine
+        self._cls, self._orig = Engine, Engine.train_step
+        orig, self.aux = self._orig, []
+
+        def train_step(eng, *a, **kw):
+            out = orig(eng, *a, **kw)
+            self.aux.append(out[2]["aux_loss"])
+            return out
+
+        Engine.train_step = train_step
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.train_step = self._orig
+        return False
+
+    def values(self):
+        return [float(a) for a in self.aux]
+
+
+# serve_moe: (name, arch, run): moonshot at DEPTH_CUT's 8 layers, paged
+# and contiguous 32 + 16, paged 2,048 + 32, 4 tenants paged 32 + 16;
+# grok at GROK_LAYERS, paged 32 + 16; 16 requests of one length and
+# budget on 8 slots.  Paged equals contiguous bit for bit (a free slot
+# feeds token 0 at position 0 in both layouts)
+MOE_SERVE_RUNS = [
+    ("paged", MOE_ARCH, dict(paged=True, prompt_len=32, gen_tokens=16)),
+    ("contiguous", MOE_ARCH, dict(paged=False, prompt_len=32,
+                                  gen_tokens=16)),
+    ("paged_2048", MOE_ARCH, dict(paged=True, prompt_len=2048,
+                                  gen_tokens=32)),
+    ("tenants_4", MOE_ARCH, dict(paged=True, prompt_len=32, gen_tokens=16,
+                                 n_adapters=4)),
+    ("grok_paged", GROK_ARCH, dict(paged=True, prompt_len=32,
+                                   gen_tokens=16)),
+]
+
+
+def moe_launches(pda, lm, fa, seg):
+    """The kernels' launch counters as the MoE phases read them."""
+    return {"paged_decode_attention": pda.launches,
+            "lora_matmul": lm.launches,
+            "flash_attention": fa.flash_attention_fwd.launches,
+            "flash_attention_backward": fa.flash_attention_backward.launches,
+            "segmented_lora_matmul": seg.launches}
+
+
+def phase_serve_moe(run_serving, get_config, pda, lm, fa, seg):
+    """The MoE stacks through ``run_serving`` (MOE_SERVE_RUNS): every
+    request finishes, the allocator drains, the launches are exactly as
+    derived (the decode kernel once per layer per decode step; lora_matmul,
+    or with tenants segmented_lora_matmul, once per adapter projection
+    per prefill wave and decode step; flash_attention once per layer per
+    wave past 1,024 tokens), every attention and lora_matmul shape one a
+    kernel phase checked; moonshot's paged and contiguous tokens bitwise
+    equal; tok/s, TTFT / TPOT p50 / p99, peak memory."""
+    from repro_torch.configs import grok1_314b, moonshot_v1_16b_a3b
+    published = {MOE_ARCH: moonshot_v1_16b_a3b.CONFIG.n_layers,
+                 GROK_ARCH: grok1_314b.CONFIG.n_layers}
+    fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_backward
+    results = {}
+    for name, arch, kw in MOE_SERVE_RUNS:
+        n_layers, n_lora, _ = arch_counts(get_config, arch)
+        tenants = kw.get("n_adapters", 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(pda, lm, fwd, bwd, seg)                    # main path starts
+        with AttnShapeTap() as tap, LoraShapeTap() as ltap:
+            out = run_serving(arch, smoke=False, n_requests=16,
+                              batch_size=8, seed=0, device="cuda",
+                              verbose=False, **kw)
+        launches = moe_launches(pda, lm, fa, seg)         # path ends
+        gen, steps, waves = kw["gen_tokens"], out["decode_steps"], \
+            out["prefill_waves"]
+        proj = n_lora * (steps + waves)
+        want = {"paged_decode_attention": n_layers * steps,
+                "lora_matmul": 0 if tenants else proj,
+                "flash_attention": n_layers * waves
+                if long_prompt(kw["prompt_len"]) else 0,
+                "flash_attention_backward": 0,
+                "segmented_lora_matmul": proj if tenants else 0}
+        row = {
+            "run": name, "arch": arch,
+            "n_layers": n_layers, "published_n_layers": published[arch],
+            "prompt_len": kw["prompt_len"], "gen_tokens": gen,
+            "tenants": tenants, "paged": kw["paged"],
+            "finished": out["finished"],
+            "tokens_generated": out["tokens_generated"],
+            "decode_steps": steps, "prefill_waves": waves,
+            "launches": launches, "launches_derived": want,
+            "throughput_tok_s": out["throughput_tok_s"],
+            "wall_s": out["wall_s"], **latency_percentiles(out),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "cache_bytes": out["cache_bytes"],
+            "attention_shapes": tap.summary(),
+            "lora_shapes": lora_summary(ltap),
+        }
+        emit("serve_moe", **row)
+        require_checked(f"serve_moe {name}", tap, ltap)
+        if out["finished"] != 16 or out["tokens_generated"] != 16 * gen \
+                or any(len(t) != gen for t in out["tokens"]):
+            raise AssertionError(f"serve_moe {name}: not every request "
+                                 "finished")
+        if launches != want:
+            raise AssertionError(f"serve_moe {name}: launches {launches}, "
+                                 f"derived {want}")
+        if kw["paged"] and (out["blocks_used_at_end"]
+                            or out["blocks_reserved_at_end"]):
+            raise AssertionError(f"serve_moe {name}: allocator did not "
+                                 "drain")
+        results[name] = (row, out["tokens"])
+        del out
+        torch.cuda.empty_cache()
+    same = results["paged"][1] == results["contiguous"][1]
+    emit("serve_moe_check", paged_equals_contiguous_tokens=same)
+    if not same:
+        raise AssertionError("serve_moe: paged and contiguous emitted "
+                             "different tokens")
+    return {k: r for k, (r, _) in results.items()}
+
+
+MOE_COMBINED_RUNS = [("moonshot", MOE_ARCH), ("grok", GROK_ARCH)]
+
+
+def phase_combined_moe(run_serving, get_config, pda, lm, fa, seg):
+    """The MoE stacks co-training while they serve (``run_serving(
+    combined=True)``, paged, 16 requests of 32 + 16 on 8 slots, a fresh 4
+    x 32 train batch every tick): one train step per tick, the loss and
+    the load-balancing aux loss finite (aux > 0) on every step, launches
+    exactly as derived (lora_matmul: forward, and dX of every projection
+    but layer 0's q/k/v), every attention and lora_matmul shape, dX
+    included, one a kernel phase checked."""
+    results = {}
+    for name, arch in MOE_COMBINED_RUNS:
+        n_layers, n_lora, n_lora_bwd = arch_counts(get_config, arch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(pda, lm, fa.flash_attention_fwd, fa.flash_attention_backward,
+               seg)                                       # main path starts
+        with AttnShapeTap() as tap, LoraShapeTap() as ltap, AuxTap() as aux:
+            out = run_serving(arch, smoke=False, n_requests=16, batch_size=8,
+                              paged=True, prompt_len=32, gen_tokens=16,
+                              combined=True, train_batch=4, seed=0,
+                              device="cuda", verbose=False)
+        launches = moe_launches(pda, lm, fa, seg)         # path ends
+        steps, ticks = out["train_steps"], out["decode_steps"]
+        want = {"paged_decode_attention": n_layers * ticks,
+                "lora_matmul": n_lora * (out["prefill_waves"] + ticks)
+                + (n_lora + n_lora_bwd) * steps,
+                "flash_attention": 0, "flash_attention_backward": 0,
+                "segmented_lora_matmul": 0}
+        losses, auxes = out["train_losses"], aux.values()
+        row = {
+            "run": name, "arch": arch, "n_layers": n_layers,
+            "prompt_len": 32, "gen_tokens": 16, "train_batch": [4, 32],
+            "finished": out["finished"], "decode_steps": ticks,
+            "train_steps": steps, "prefill_waves": out["prefill_waves"],
+            "launches": launches, "launches_derived": want,
+            "throughput_tok_s": out["throughput_tok_s"],
+            "wall_s": out["wall_s"], **latency_percentiles(out),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "ce_loss_first_last": [losses[0], losses[-1]] if losses else None,
+            "aux_loss_first_last": [auxes[0], auxes[-1]] if auxes else None,
+            "attention_shapes": tap.summary(),
+            "lora_shapes": lora_summary(ltap),
+        }
+        emit("combined_moe", **row)
+        require_checked(f"combined_moe {name}", tap, ltap)
+        if out["finished"] != 16 or any(len(t) != 16 for t in out["tokens"]):
+            raise AssertionError(f"combined_moe {name}: not every request "
+                                 "finished")
+        if not (steps == ticks == len(losses) == len(auxes) > 0
+                and np.isfinite(losses).all() and np.isfinite(auxes).all()
+                and min(auxes) > 0):
+            raise AssertionError(f"combined_moe {name}: {steps} steps for "
+                                 f"{ticks} ticks, losses {losses}, aux "
+                                 f"{auxes}")
+        if launches != want:
+            raise AssertionError(f"combined_moe {name}: launches {launches},"
+                                 f" derived {want}")
+        results[name] = row
+        del out
+        torch.cuda.empty_cache()
+    return results
+
+
+class RouteTap:
+    """Records every ``moe._route`` call's device, experts and kept flags
+    while entered (a train step's forward routes each MoE layer once)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._mod, self._orig = moe, moe._route
+        orig, self.calls = self._orig, []
+
+        def route(logits, *a):
+            out = orig(logits, *a)
+            self.calls.append((logits.device.type, out[0].cpu(),
+                               out[2].cpu()))
+            return out
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._route = self._orig
+        return False
+
+    def flips(self):
+        """(layer, group, token) of every token routed otherwise on the
+        card than on the CPU, the calls paired in order by device."""
+        cpu = [c for c in self.calls if c[0] == "cpu"]
+        card = [c for c in self.calls if c[0] != "cpu"]
+        out = []
+        for layer, (c, g) in enumerate(zip(cpu, card)):
+            diff = (c[1] != g[1]).any(-1) | (c[2] != g[2]).any(-1)
+            out += [(layer, int(gi), int(ti))
+                    for gi, ti in torch.nonzero(diff).tolist()]
+        return out
+
+
+MOE_REF_STEPS = 10
+MOE_REL = 5e-5          # the reference's MoE rule (test_decode_parity)
+
+
+def moe_walk(make_engine, cfg, params, batches):
+    """``train_walk`` one step at a time under ``RouteTap``: a step whose
+    routing matches the CPU's token for token is held to the walk's
+    bounds; a step where a token's experts flip between card and CPU is
+    named (step, layer, group, token) and, if it misses the bounds, held
+    to the reference's MoE rule (60% of the batch's positions and the
+    median within 5e-5 of the largest logit, card against CPU, from the
+    step's state).  Returns the CPU losses, the walk's worst gaps and the
+    flips."""
+    from repro_torch.launch.train import init_weights
+    cpu = make_engine(cfg, lr=TRAIN_ADAMW[0], device="cpu")
+    card = make_engine(cfg, device="cuda").model
+    gparams = _to(params, "cuda")
+    lora = init_weights(cpu, 0)[1]
+    state = (lora, cpu.optimizer.init(lora))
+    losses, flips, worst = [], [], {}
+    for k, b in enumerate(batches):
+        with RouteTap() as tap:
+            try:
+                _, step_losses, step_worst = train_walk(
+                    make_engine, cfg, params, state, [b])
+                missed = None
+            except AssertionError as err:
+                missed = str(err)
+        step_flips = tap.flips()
+        flips += [(k, *f) for f in step_flips]
+        if missed is not None:
+            if not step_flips:
+                raise AssertionError(f"moe_walk step {k}: {missed} (no "
+                                     "routing flip)")
+            tb = {n: torch.as_tensor(x) for n, x in b.items()}
+            with torch.no_grad():
+                lc = cpu.model.logits(params, state[0], tb)
+                lg = card.logits(gparams, _to(state[0], "cuda"),
+                                 {n: x.cuda() for n, x in tb.items()}).cpu()
+            scale = float(lc.abs().max())
+            rels = sorted(((lg - lc).abs().amax(-1) / scale).flatten()
+                          .tolist())
+            if sum(r < MOE_REL for r in rels) < 0.6 * len(rels) \
+                    or rels[len(rels) // 2] >= MOE_REL:
+                raise AssertionError(f"moe_walk step {k}: flips "
+                                     f"{step_flips}, MoE rule missed")
+        for key, v in (step_worst if missed is None else {}).items():
+            worst[key] = max(worst.get(key, 0.0), v)
+        lora, opt = state
+        new_lora, new_opt, m = cpu.train_step(
+            params, lora, opt, {n: torch.as_tensor(x) for n, x in b.items()})
+        state = (new_lora, new_opt)
+        losses.append(float(m["ce_loss"]))
+    return losses, worst, flips
+
+
+MOE_TRAIN_STEPS, MOE_TRAIN_SEQ = 3, 256
+
+
+def phase_train_cli_moe(make_engine, get_config, lm, fa):
+    """The training CLI on the MoE family: (a) a reduced float32
+    moonshot with its published 64 experts, top 6 (``scaled(n_experts=
+    64, top_k=6)``: 2 layers, d_model 128), the card against the CPU one
+    step at a time (``moe_walk``), MOE_REF_STEPS steps of 4 x 32; (b)
+    ``run_training`` on moonshot at published width (DEPTH_CUT's 8
+    layers), 4 x 256, 3 steps with a checkpoint at 3: finite losses and
+    aux losses, the last batch's CE lower under the trained adapter,
+    launches as derived, step ms, peak memory; (c) ``restore=True`` to 4
+    steps: resumes at 3, the restored tree bitwise (b)'s, AdamW step 3;
+    every attention and lora_matmul shape of (b) and (c) one that a kernel
+    phase checked."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import init_weights, run_training
+    cfg = get_config(MOE_ARCH).scaled(n_experts=64, top_k=6)
+    params = init_weights(make_engine(cfg, device="cpu"), 0)[0]
+    batches = train_batches(cfg, MOE_REF_STEPS)
+    losses, worst, flips = moe_walk(make_engine, cfg, params, batches)
+    emit("train_cli_moe_reduced", arch=MOE_ARCH, dtype="float32",
+         n_experts=64, top_k=6, batch=[4, 32], steps=MOE_REF_STEPS,
+         loss_rtol=TRAIN_LOSS_RTOL, lora_atol=TRAIN_LORA_ATOL,
+         m_tol=TRAIN_M_TOL, v_tol=TRAIN_V_TOL, walk=worst,
+         routing_flips=flips, first_loss=losses[0], last_loss=losses[-1])
+    res = {"reduced": {"walk": worst, "routing_flips": flips}}
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, MOE_ARCH)
+    tmp = tempfile.mkdtemp()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(lm, fa.flash_attention_fwd)                # main path starts
+        with TrainTap() as tap, AttnShapeTap() as attn, \
+                LoraShapeTap() as ltap, AuxTap() as aux:
+            out_b = run_training(MOE_ARCH, smoke=False,
+                                 steps=MOE_TRAIN_STEPS, batch=4,
+                                 seq=MOE_TRAIN_SEQ, ckpt_dir=tmp,
+                                 ckpt_every=MOE_TRAIN_STEPS, verbose=False,
+                                 device="cuda")
+        launches = {"lora_matmul": lm.launches,
+                    "flash_attention": fa.flash_attention_fwd.launches}
+        peak = torch.cuda.max_memory_allocated()       # path ends
+        want = {"lora_matmul": MOE_TRAIN_STEPS * (n_lora + n_lora_bwd),
+                "flash_attention": 0}
+        eng = make_engine(get_config(MOE_ARCH), device="cuda")
+        p0, l0 = init_weights(eng, 0)
+        with torch.no_grad():
+            ce = [float(eng.model.forward_loss(p0, lo, tap.last_batch)[1][
+                "ce_loss"]) for lo in (l0, out_b["lora"])]
+        del p0, l0
+        with TrainTap() as tap_c, LoraShapeTap() as ltap_c:
+            out_c = run_training(MOE_ARCH, smoke=False,
+                                 steps=MOE_TRAIN_STEPS + 1, batch=4,
+                                 seq=MOE_TRAIN_SEQ, ckpt_dir=tmp,
+                                 restore=True, ckpt_every=MOE_TRAIN_STEPS,
+                                 verbose=False, device="cuda")
+        restored = tap_c.restored[0]
+        bitwise = _bitwise(restored[0], out_b["lora"])
+        auxes = aux.values()
+        row = {"arch": MOE_ARCH, "n_layers": n_layers,
+               "batch": [4, MOE_TRAIN_SEQ], "steps": out_b["steps"],
+               "losses": out_b["losses"], "aux_losses": auxes,
+               "last_batch_ce_initial_trained": ce,
+               "launches": launches, "launches_derived": want,
+               "max_memory_allocated_bytes": peak, **tap.row(),
+               "attention_shapes": attn.summary(),
+               "lora_shapes": lora_summary(ltap),
+               "restart_steps": out_c["steps"],
+               "restart_losses": out_c["losses"],
+               "restored_bitwise": bitwise,
+               "restored_adamw_step": int(restored[1].step)}
+        emit("train_cli_moe", **row)
+        require_checked("train_cli_moe (b, c)", attn, ltap, ltap_c)
+        if not (out_b["steps"] == MOE_TRAIN_STEPS
+                and np.isfinite(out_b["losses"]).all()
+                and len(auxes) == MOE_TRAIN_STEPS and min(auxes) > 0
+                and ce[1] < ce[0]):
+            raise AssertionError(f"train_cli_moe (b): {row}")
+        if launches != want:
+            raise AssertionError(f"train_cli_moe (b): launches {launches}, "
+                                 f"derived {want}")
+        if not (bitwise and row["restored_adamw_step"] == MOE_TRAIN_STEPS
+                and out_c["steps"] == MOE_TRAIN_STEPS + 1
+                and len(out_c["losses"]) == 1):
+            raise AssertionError(f"train_cli_moe (c): {row}")
+        res["cli"] = row
+        del eng, out_b, out_c, restored, tap, tap_c
+        torch.cuda.empty_cache()
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return res
 
@@ -5092,7 +5601,8 @@ TICKS = [("serve", 32, False, 0, ARCH), ("long", 992, False, 0, ARCH),
          ("ssm_serve_2048", 2048, False, 0, SSM_ARCH),
          ("ssm_combined", 32, True, 0, SSM_ARCH),
          ("hybrid_serve", 32, False, 0, HYBRID_ARCH),
-         ("hybrid_combined", 32, True, 0, HYBRID_ARCH)]
+         ("hybrid_combined", 32, True, 0, HYBRID_ARCH),
+         ("moe_serve", 32, False, 0, MOE_ARCH)]
 
 
 # ticks a window: 3 timed on the host clock, then 3 under the profiler,
@@ -5101,7 +5611,8 @@ TICKS = [("serve", 32, False, 0, ARCH), ("long", 992, False, 0, ARCH),
 TICK_WINDOW = 3
 
 
-def phase_tick(make_engine, get_config, n=TICK_WINDOW):
+def phase_tick(make_engine, get_config, n=TICK_WINDOW, ticks=TICKS,
+               waves=True):
     """Where a full-width tick's time goes (8 busy slots; paged, and
     contiguous for mamba2): serve ticks at 32-, 992- and 2,048-token
     prompts and combined ticks whose train batch is 4 x the prompt length
@@ -5110,8 +5621,10 @@ def phase_tick(make_engine, get_config, n=TICK_WINDOW):
     kernels per tick.  One tick serves 4 tenants, round-robin over the 8
     slots; the last two are mamba2-780m decode ticks (no attention: the
     O(1) state recurrence and the adapter projections), then a mamba2
-    combined tick (4 x 32 train rows through the ssd_scan backward) and
-    hymba-1.5b's serve and combined ticks."""
+    combined tick (4 x 32 train rows through the ssd_scan backward),
+    hymba-1.5b's serve and combined ticks, and moonshot-v1-16b-a3b's
+    serve tick at its published 48 layers, with the expert products'
+    part (``_tick_experts``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.synthetic import SyntheticDataset
     from repro_torch.runtime.fabric import make_tenant_adapters
@@ -5119,7 +5632,7 @@ def phase_tick(make_engine, get_config, n=TICK_WINDOW):
         AdapterRegistry, ContinuousBatcher, GenRequest)
     rng = np.random.default_rng(0)
     arch_now = None
-    for name, plen, train, n_tenants, arch in TICKS:
+    for name, plen, train, n_tenants, arch in ticks:
         if arch != arch_now:                 # one model at a time
             arch_now, cfg = arch, get_config(arch)
             engine = params = lora = None
@@ -5176,6 +5689,8 @@ def phase_tick(make_engine, get_config, n=TICK_WINDOW):
             return sum(_device_us(e) for e in kern if pred(e.key)) / 1e3 / n
 
         dev_ms = part(lambda key: True)
+        moe_row = _tick_experts(cfg, params, dev_ms) if cfg.n_experts \
+            else {}
         attn_ms = part(lambda key: "paged_decode_kernel" in key)
         lora_ms = part(_is_lora)
         flash_ms = part(_is_flash)
@@ -5210,13 +5725,52 @@ def phase_tick(make_engine, get_config, n=TICK_WINDOW):
                  e.count for e in kern if _is_ssd_bwd(e.key)) / n,
              kernels_per_tick=sum(e.count for e in kern) / n,
              top_kernels_ms_per_tick=[[e.key[:60], _device_us(e) / 1e3 / n]
-                                      for e in top])
+                                      for e in top], **moe_row)
         del b, batches, reg
         torch.cuda.empty_cache()
     del engine, params, lora
     torch.cuda.empty_cache()
-    _tick_waves(make_engine, get_config, n)
-    _tick_vlm(make_engine, get_config, n)
+    if waves:
+        _tick_waves(make_engine, get_config, n)
+        _tick_vlm(make_engine, get_config, n)
+
+
+def _tick_experts(cfg, params, dev_ms):
+    """An MoE tick's expert products: every layer's three expert
+    ``torch.bmm`` calls at a decode tick's capacity (8 slots: moonshot's 6
+    slots an expert, so any expert may be taken and every expert's
+    weights are read), timed alone (CUDA events, median of 5), and their
+    share of the tick's device busy ``dev_ms``; the least time of reading
+    every layer's weights and the head once (HBM_BYTES_S)."""
+    from repro_torch.models.moe import capacity
+    from repro_torch.tree import tree_leaves
+    blk = params["blocks"]["moe"]
+    c = capacity(8, cfg)
+    ein = torch.zeros((cfg.n_experts, c, cfg.d_model), dtype=blk["wg"].dtype,
+                      device="cuda")
+    h = torch.zeros((cfg.n_experts, c, cfg.d_ff), dtype=blk["wg"].dtype,
+                    device="cuda")
+
+    def products():
+        for i in range(cfg.n_layers):
+            torch.bmm(ein, blk["wg"][i])
+            torch.bmm(ein, blk["wu"][i])
+            torch.bmm(h, blk["wd"][i])
+
+    ms = device_ms(products, reps=5)
+    weights = sum(t.numel() * t.element_size() for t in
+                  tree_leaves(params["blocks"])) \
+        + params["lm_head"].numel() * params["lm_head"].element_size()
+    expert_bytes = sum(blk[k].numel() * blk[k].element_size()
+                       for k in ("wg", "wu", "wd"))
+    return {"n_layers": cfg.n_layers, "experts": cfg.n_experts,
+            "capacity": c,
+            "expert_products_alone_ms": ms,
+            "expert_products_share_of_device": ms / dev_ms if dev_ms else None,
+            "expert_products_launches_derived": 3 * cfg.n_layers,
+            "expert_weights_bound_ms": expert_bytes / HBM_BYTES_S * 1e3,
+            "weights_read_bytes": weights,
+            "weights_read_bound_ms": weights / HBM_BYTES_S * 1e3}
 
 
 def _tick_waves(make_engine, get_config, n):
@@ -6209,12 +6763,23 @@ def main():
         "train_cli": lambda: phase_train_cli(make_engine, get_config, lm, fa),
         "train_cli_ssm": lambda: phase_train_cli_ssm(
             make_engine, get_config, lm, ssd.ssd_scan, ssd.ssd_scan_bwd),
+        "moe_route": phase_moe_route,
+        "serve_moe": lambda: phase_serve_moe(run_serving, get_config, pda,
+                                             lm, fa, seg),
+        "combined_moe": lambda: phase_combined_moe(run_serving, get_config,
+                                                   pda, lm, fa, seg),
+        "train_cli_moe": lambda: phase_train_cli_moe(make_engine, get_config,
+                                                     lm, fa),
         "experiment": phase_experiment,
         "tick": lambda: phase_tick(make_engine, get_config),
     }
     # bring-up only: named on the command line, never in the full run
     bring_up = {"splits": phase_splits,
                 "kernel_ssd_bwd": lambda: kernel_ssd_bwd(ssd),
+                "tick_moe": lambda: phase_tick(
+                    make_engine, get_config,
+                    ticks=[t for t in TICKS if t[4] == MOE_ARCH],
+                    waves=False),
                 "budget_seeded": lambda: phase_budget(
                     run_serving, make_engine, get_config, pda, lm, fa, seg,
                     seeded=True)}
@@ -6248,6 +6813,17 @@ def main():
     bwd_rows = {k: r for k, r in drows.items() if "bwd" in k[0]}
     crows, vlm = out["kernel_decode"], out["serve_vlm"]
     c_main = crows[("cross", torch.bfloat16)]
+    smoe, cmoe = out["serve_moe"], out["combined_moe"]
+
+    def moe_launches_of(kernel):
+        """A kernel's launches in each MoE serve and co-training run, and
+        (lora_matmul) the MoE training CLI's."""
+        got = {**{n: r["launches"][kernel] for n, r in smoe.items()},
+               **{f"combined_{n}": r["launches"][kernel]
+                  for n, r in cmoe.items()}}
+        if kernel == "lora_matmul":
+            got["train_cli"] = out["train_cli_moe"]["cli"]["launches"][kernel]
+        return got
 
     fab = {"l-a": out["fabric"]["fabric"], "l-b": out["fabric"]["failover"],
            "l-c": out["fabric_combined"], "l-d": out["fabric_chaos"],
@@ -6297,6 +6873,7 @@ def main():
                for n, r in hyb.items() if n.startswith("hybrid_")},
             **{f"combined_{n}": cssm[n]["launches"]["paged_decode_attention"]
                for n in ("hymba_32", "hymba_1984")}},
+        "moe_launches": moe_launches_of("paged_decode_attention"),
         "max_abs_err": main_row["max_abs_err"],
         "worst_bf16_err_all_shapes": worst,
         "ms": main_row["ms"],
@@ -6326,6 +6903,7 @@ def main():
         "launches": combined["paged"]["lora_matmul_launches"],
         "fabric_launches": fabric_launches("lora_matmul"),
         "train_cli_launches": train_launches["lora_matmul"],
+        "moe_launches": moe_launches_of("lora_matmul"),
         "shape": "decode M=8 K=N=1024 r=16 bf16",
         "max_abs_err": lrows[("decode", torch.bfloat16)]["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -6376,6 +6954,7 @@ def main():
                 "flash_attention"],
             "combined_1984": cssm["hymba_1984"]["launches"][
                 "flash_attention"]},
+        "moe_launches": moe_launches_of("flash_attention"),
         "shape": "prefill wave B=8 H=Hkv=16 D=64 S=2048 causal bf16",
         "max_abs_err": f_fwd["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -6411,6 +6990,7 @@ def main():
         # the 4-tenant server, paged 32+16: prefill and decode
         "launches": adapters["paged"]["segmented_lora_matmul_launches"],
         "fabric_launches": fabric_launches("segmented_lora_matmul"),
+        "moe_launches": moe_launches_of("segmented_lora_matmul"),
         "shape": "decode M=8 K=N=1024 r=16, 4 slots, bf16",
         "max_abs_err": s_main["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(

@@ -1,0 +1,23 @@
+"""moonshot-v1-16b-a3b (kimi/moonlight) — MoE, 64 experts top-6.
+
+[hf:moonshotai/Moonlight-16B-A3B; hf] 48L d_model=2048 16H (GQA kv=16)
+d_ff=1408 (per expert) vocab=163840, MoE 64e top-6.
+"""
+from repro_torch.configs.base import Family, LoRAConfig, ModelConfig
+
+CONFIG = ModelConfig(
+    name="moonshot-v1-16b-a3b",
+    family=Family.MOE,
+    n_layers=48,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=16,
+    head_dim=128,
+    d_ff=1408,
+    vocab_size=163840,
+    n_experts=64,
+    top_k=6,
+    moe_shard="ep",          # 64 experts % 16 model-shards == 0
+    lora=LoRAConfig(targets=("q", "k", "v", "o")),  # adapters on attn only
+    source="hf:moonshotai/Moonlight-16B-A3B; hf",
+)

@@ -6,9 +6,9 @@ stacked ``[L, ...]`` block leaves, ``[in, out]`` matrices), so loading
 is a per-leaf conversion that keeps dtypes: params in
 ``cfg.param_dtype`` except the leaves the JAX init keeps in float32 (the
 SSM's ``A_log``, ``D_skip``, ``dt_bias``, in the SSM and hybrid blocks
-alike; a VLM cross block's ``gate_attn``, ``gate_mlp``), LoRA pairs in
-float32.  The tree goes through ``mamba2.pad_storage``, as
-``Model.init``'s does.  A VLM's
+alike; a VLM cross block's ``gate_attn``, ``gate_mlp``; an MoE block's
+``router``), LoRA pairs in float32.  The tree goes through
+``mamba2.pad_storage``, as ``Model.init``'s does.  A VLM's
 ``[units, per, ...]`` blocks and ``[units, ...]`` cross blocks convert
 leaf for leaf like any other stack.  An AdamW
 state (step, m, v) converts the same way, so a test can carry a JAX
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.mamba2 import FLOAT32_LEAVES, pad_storage
+from repro_torch.models.moe import MOE_FLOAT32_LEAVES
 from repro_torch.models.transformer import CROSS_FLOAT32_LEAVES
 from repro_torch.optim.adamw import AdamWState
 
@@ -45,11 +46,12 @@ def _tree(tree: Any, dtype: torch.dtype, device, keep=()) -> Any:
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict, device="cuda") -> Dict:
     """A JAX params tree (numpy leaves) -> the port's params, in
-    ``cfg.param_dtype`` on ``device`` (the SSM's and the cross blocks'
-    float32 leaves stay float32)."""
+    ``cfg.param_dtype`` on ``device`` (the SSM's, the cross blocks' and
+    the MoE router's float32 leaves stay float32)."""
     return pad_storage(_tree(tree, getattr(torch, cfg.param_dtype),
                              torch.device(device),
-                             keep=FLOAT32_LEAVES + CROSS_FLOAT32_LEAVES))
+                             keep=FLOAT32_LEAVES + CROSS_FLOAT32_LEAVES
+                             + MOE_FLOAT32_LEAVES))
 
 
 def lora_from_numpy(tree: Dict, device="cuda") -> Dict:

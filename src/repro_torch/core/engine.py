@@ -63,7 +63,10 @@ class Engine:
         noise-scale estimator.  ``train_tokens`` > 0 caps the step at
         about that many tokens by keeping whole leading rows.  Returns
         (new lora, new optimizer state, metrics ``loss``, ``ce_loss``,
-        ``grad_norm``, ``lr``, ``micro_grad_sqnorm``, ``grad_sqnorm``).
+        ``aux_loss`` (the MoE layers' load-balancing loss, zero for the
+        other families; with ``grad_accum`` > 1 only ``ce_loss``, as in
+        the reference), ``grad_norm``, ``lr``, ``micro_grad_sqnorm``,
+        ``grad_sqnorm``).
         ``skip_masked_blocks`` reaches the blockwise attention of
         sequences past the dense limit."""
         if train_tokens > 0:

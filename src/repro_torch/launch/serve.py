@@ -25,7 +25,14 @@ and ``--paged``, ``--adapters`` and ``--chunked-prefill`` raise for it,
 as in the reference.  ``--arch hymba-1.5b`` serves the hybrid the same
 way, its sliding-window K/V in a ring per slot beside the SSM caches.
 With ``--combined`` either co-trains through the ssd_scan backward
-kernel.  Weights are random, drawn from ``--seed``.
+kernel.  ``--arch moonshot-v1-16b-a3b`` and ``--arch grok-1-314b`` serve
+the MoE stacks through every path a dense stack takes (paged,
+contiguous, tenants, co-training): each MLP routes its tokens top-k over
+the experts with a per-expert capacity, every decode slot included (a
+free slot's token takes capacity, as in the reference), and a wave
+of more than 512 tokens must be a whole number of 512-token groups (the
+reference asserts; the port raises).  Weights are random, drawn from
+``--seed``.
 
 ``--replicas N`` (N > 1) serves the same trace through the multi-replica
 fabric instead (``runtime/fabric.py``): one ``ClusterController`` routes
@@ -52,6 +59,7 @@ Usage (on a machine with an NVIDIA Hopper card):
   ... --adapters 3 [--combined]               # multi-tenant LoRA serving
   ... --arch mamba2-780m [--combined]         # Mamba2 (SSM), contiguous
   ... --arch hymba-1.5b [--combined]          # hybrid: window ring + SSM
+  ... --arch moonshot-v1-16b-a3b [--paged]    # MoE (64 experts, top 6)
   ... --replicas 2 --paged                    # dispatcher-routed pool
   ... --replicas 2 --combined --rounds 2      # FL rounds over the pool
   ... --replicas 2 --adapters 4               # tenants across replicas

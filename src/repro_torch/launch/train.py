@@ -5,8 +5,10 @@ Every LoRA projection runs the fused ``lora_matmul`` kernel, forward and
 the backward's dX; sequences past 1,024 tokens take ``flash_attention``,
 forward and backward; every SSM layer (mamba2-780m, and hymba-1.5b beside
 its attention) takes ``ssd_scan`` and its backward kernel.  The dense
-decoders, mamba2-780m and hymba-1.5b train on the card and the CPU, the
-VLM not at all (ROADMAP item 4).  Weights are random, drawn from
+decoders, the MoE stacks (moonshot-v1-16b-a3b, grok-1-314b: the loss
+adds 0.01 x the experts' load-balancing loss), mamba2-780m and
+hymba-1.5b train on the card and the CPU, the VLM not at all (ROADMAP
+item 4).  Weights are random, drawn from
 ``--seed``'s generators;
 checkpoints use the reference's format (``checkpoint/checkpointer.py``),
 so either package resumes from the other's.
@@ -15,6 +17,7 @@ Usage (on a machine with an NVIDIA Hopper card):
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b \
       --smoke --steps 50 --batch 8 --seq 64 --ckpt /tmp/ck
   ... --arch mamba2-780m | --arch hymba-1.5b   # SSM / hybrid stacks
+  ... --arch moonshot-v1-16b-a3b | --arch grok-1-314b   # MoE stacks
   ... --restore            # resume from the latest checkpoint
   ... --full               # the published widths
   ... --device cpu         # on the CPU (plain PyTorch versions)

@@ -1,7 +1,7 @@
 """The port's model: one ``Model`` per (ModelConfig, device) with the
 serving surface of ``repro.models.model.Model`` for the dense family,
-the attention-free SSM family (Mamba2), the hybrid (hymba) and the VLM
-(llama-3.2-vision):
+the MoE family (moonshot, grok-1), the attention-free SSM family
+(Mamba2), the hybrid (hymba) and the VLM (llama-3.2-vision):
 
   init(generator) -> params              init_lora(generator) -> adapters
   forward_loss(params, lora, batch)      (training objective), logits
@@ -113,12 +113,14 @@ def _draw_stacked(draw, lead: Tuple[int, ...]):
     """``prod(lead)`` trees from ``draw()``, in order, written into stacks
     of leading dims ``lead`` allocated once: the stacks and one layer's
     draw are alive together, never every layer's draw beside them."""
-    first = draw()
+    tree = draw()
     out = tree_map(lambda t: torch.empty(lead + t.shape, dtype=t.dtype,
-                                         device=t.device), first)
+                                         device=t.device), tree)
     for i, idx in enumerate(np.ndindex(*lead)):
-        tree = first if i == 0 else draw()
+        if i:
+            tree = draw()
         tree_map(lambda dst, src: dst[idx].copy_(src), out, tree)
+        tree = None                    # freed before the next draw
     return out
 
 
@@ -188,11 +190,14 @@ class Model:
 
     def hidden_states(self, params, lora, batch, *,
                       collect_caches: bool = False, block_kv: int = 512,
-                      skip_masked_blocks: bool = False, adapter_idx=None):
+                      skip_masked_blocks: bool = False, adapter_idx=None,
+                      return_aux: bool = False):
         """Full-sequence forward.  Returns (hidden, caches | None) with
         caches ``{"kv": (k, v)}``, each ``[L, B, S, Hkv, Dh]``, or for an
         SSM stack ``{"ssm": {"conv": [L, B, W-1, C], "state": [L, B, H,
-        P, N]}}``, or for a hybrid stack both.
+        P, N]}}``, or for a hybrid stack both; with ``return_aux``
+        (hidden, caches, aux): the MoE layers' load-balancing losses
+        summed over the layers, None for a stack without MoE layers.
         ``block_kv`` and ``skip_masked_blocks`` reach the blockwise
         attention of sequences past the dense limit; ``adapter_idx`` [B]
         selects each row's slot of a stacked ``lora`` tree."""
@@ -203,18 +208,22 @@ class Model:
                               cfg.head_dim, cfg.rope_theta) \
             if cfg.has_attention else None
         if cfg.family is Family.VLM:
-            return self._vlm_hidden_states(
+            out = self._vlm_hidden_states(
                 params, lora, batch, x, rope_cs,
                 collect_caches=collect_caches, block_kv=block_kv,
                 skip_masked_blocks=skip_masked_blocks,
                 adapter_idx=adapter_idx)
+            return out + (None,) if return_aux else out
         per_layer = []
+        aux = None
         for i in range(cfg.n_layers):
-            x, cache = tfm.block_full(
+            x, cache, layer_aux = tfm.block_full(
                 _layer(params["blocks"], i), x, cfg, rope_cs,
                 lora=_layer(lora, i), block_kv=block_kv,
                 skip_masked_blocks=skip_masked_blocks,
                 adapter_idx=adapter_idx)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
             if collect_caches:
                 per_layer.append(cache)
         caches = None
@@ -226,7 +235,8 @@ class Model:
             caches = {"ssm": _stack(per_layer)}
         elif collect_caches:
             caches = {"kv": tuple(torch.stack(t) for t in zip(*per_layer))}
-        return rms_norm(x, params["final_norm"]), caches
+        hidden = rms_norm(x, params["final_norm"])
+        return (hidden, caches, aux) if return_aux else (hidden, caches)
 
     def _vlm_hidden_states(self, params, lora, batch, x, rope_cs, *,
                            collect_caches, block_kv, skip_masked_blocks,
@@ -242,7 +252,7 @@ class Model:
         for u in range(units):
             blocks, ulora = _layer(params["blocks"], u), _layer(lora, u)
             for j in range(per):
-                x, kv = tfm.block_full(
+                x, kv, _ = tfm.block_full(
                     _layer(blocks, j), x, cfg, rope_cs,
                     lora=_layer(ulora, j), block_kv=block_kv,
                     skip_masked_blocks=skip_masked_blocks,
@@ -266,15 +276,17 @@ class Model:
     def forward_loss(self, params, lora, batch, *, ce_chunk: int = 512,
                      block_kv: int = 512, skip_masked_blocks: bool = False):
         """Training objective: chunked next-token CE plus 0.01 x the
-        auxiliary loss (zero for the dense family).  Returns (total,
-        metrics ``ce_loss``, ``aux_loss``, ``loss_sum``, ``token_count``)."""
-        hidden, _ = self.hidden_states(
+        auxiliary loss (the MoE layers' load-balancing losses summed;
+        zero for the other families).  Returns (total, metrics
+        ``ce_loss``, ``aux_loss``, ``loss_sum``, ``token_count``)."""
+        hidden, _, aux = self.hidden_states(
             params, lora, batch, block_kv=block_kv,
-            skip_masked_blocks=skip_masked_blocks)
+            skip_masked_blocks=skip_masked_blocks, return_aux=True)
         loss, metrics = chunked_ce_loss(
             hidden, params["lm_head"], batch["labels"],
             batch["mask"].float(), chunk=ce_chunk)
-        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
         metrics["aux_loss"] = aux
         metrics["ce_loss"] = loss
         return loss + 0.01 * aux, metrics

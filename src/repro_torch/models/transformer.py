@@ -1,9 +1,13 @@
 """Decoder blocks of the port — the counterparts of
-``repro.models.transformer`` for the dense family, the attention-free
-SSM family (Mamba2), the hybrid (hymba: attention and a Mamba2 mixer
-side by side) and the VLM (llama-3.2-vision):
+``repro.models.transformer`` for the dense family, the MoE family, the
+attention-free SSM family (Mamba2), the hybrid (hymba: attention and a
+Mamba2 mixer side by side) and the VLM (llama-3.2-vision):
 
   dense:  x += attn(norm1(x)); x += mlp(norm2(x))
+  MoE:    x += attn(norm1(x)); x += moe_mlp(norm2(x)), the experts
+          plain batched products (``models/moe.py``); ``block_full``
+          returns the layer's load-balancing aux loss, the suffix and
+          decode blocks drop it, as the reference's do
   SSM:    x += ssm_mixer(norm1(x))
   hybrid: x += 0.5 * (attn(norm1(x)) + ssm_mixer(norm1(x)));
           x += mlp(norm2(x))
@@ -25,7 +29,7 @@ call over every sequence's own slot.
 Decode writes the new token's K/V (an SSM layer: its conv tail and
 state; a hybrid layer: both) into the caller's cache tensors IN PLACE
 (the JAX blocks return new caches); the returned caches are the same
-tensors.  The MoE and encoder families raise ``NotImplementedError``.
+tensors.  The encoder family raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from repro_torch.models.layers import (
     apply_rope, attention_blockwise, attention_decode, attention_decode_paged,
     attention_dense, attention_prefix_suffix, dense_init, rms_norm,
 )
+from repro_torch.models.moe import init_moe, moe_mlp
 
 
 # a cross block's leaves the JAX init makes float32 whatever the params'
@@ -88,8 +93,7 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID,
-                          Family.VLM):
+    if cfg.family is Family.ENCODER:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family is not ported to "
             "repro_torch yet; see ROADMAP.md, 'Other families'")
@@ -105,7 +109,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
         p["ssm"] = mamba2.init_ssm(gen, cfg)
     if cfg.d_ff > 0:
         p["ln2"] = torch.ones((cfg.d_model,), dtype=dtype, device=dev)
-        p["mlp"] = init_mlp(gen, cfg)
+        if cfg.family is Family.MOE:
+            p["moe"] = init_moe(gen, cfg)
+        else:
+            p["mlp"] = init_mlp(gen, cfg)
     return p
 
 
@@ -288,6 +295,10 @@ def cross_attn(p, x, vkv, cfg: ModelConfig, kv_len=None):
 
 # ----------------------------------------------------------------- blocks --
 def _mlp_out(bp, h, cfg: ModelConfig, lora, adapter_idx=None):
+    """(MLP or MoE output, the MoE's aux loss; None for an MLP, which
+    makes no aux tensor)."""
+    if "moe" in bp:
+        return moe_mlp(bp["moe"], h, cfg)
     sc = cfg.lora.scaling
     mlp = bp["mlp"]
     g = lora_lib.project(h, mlp["wg"], lora.get("gate") if lora else None,
@@ -297,20 +308,21 @@ def _mlp_out(bp, h, cfg: ModelConfig, lora, adapter_idx=None):
     hidden = F.silu(g) * u
     return lora_lib.project(hidden, mlp["wd"],
                             lora.get("down") if lora else None, sc,
-                            adapter_idx)
+                            adapter_idx), None
 
 
 def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
                block_kv: int = 512, skip_masked_blocks: bool = False,
                adapter_idx=None):
-    """Full-sequence block (prefill, training).  Returns (x, (k, v)), or
-    for an SSM layer (x, {"conv", "state"}): the conv tail and final
-    state prefill hands to decode; a hybrid layer (x, {"kv": (k, v),
-    "ssm": {"conv", "state"}})."""
+    """Full-sequence block (prefill, training).  Returns (x, (k, v), aux),
+    or for an SSM layer (x, {"conv", "state"}, aux): the conv tail and
+    final state prefill hands to decode; a hybrid layer (x, {"kv": (k,
+    v), "ssm": {"conv", "state"}}, aux).  ``aux`` is an MoE layer's
+    load-balancing loss (float32 scalar), None for every other layer."""
     h = rms_norm(x, bp["ln1"])
     if cfg.family is Family.SSM:
         y, ssm_cache = mamba2.ssm_mixer(bp["ssm"], h, cfg, lora=lora)
-        return x + y, ssm_cache
+        return x + y, ssm_cache, None
     attn_out, kv = attn_full(bp["attn"], h, cfg, rope_cs, lora=lora,
                              block_kv=block_kv,
                              skip_masked_blocks=skip_masked_blocks,
@@ -321,9 +333,11 @@ def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
         attn_out = 0.5 * (attn_out + ssm_out)
         cache = {"kv": kv, "ssm": ssm_cache}
     x = x + attn_out
+    aux = None
     if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
-    return x, cache
+        y, aux = _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
+        x = x + y
+    return x, cache, aux
 
 
 def block_prefill_suffix(bp, x, cfg: ModelConfig, prefix_kv, prefix_len,
@@ -335,7 +349,8 @@ def block_prefill_suffix(bp, x, cfg: ModelConfig, prefix_kv, prefix_len,
                                        lora=lora, adapter_idx=adapter_idx)
     x = x + attn_out
     if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
+                         adapter_idx)[0]       # the aux is dropped
     return x, kv
 
 
@@ -361,7 +376,8 @@ def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None,
         attn_out = 0.5 * (attn_out + ssm_step())
     x = x + attn_out
     if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
+                         adapter_idx)[0]       # the aux is dropped
     return x, caches
 
 
@@ -376,7 +392,8 @@ def block_decode_paged(bp, x, cfg: ModelConfig, pool_kv, rope_cs,
         adapter_idx=adapter_idx)
     x = x + attn_out
     if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
+                         adapter_idx)[0]       # the aux is dropped
     return x, pool_kv
 
 
@@ -386,5 +403,5 @@ def cross_block(cp, x, vkv, cfg: ModelConfig, kv_len=None):
     ga = torch.tanh(cp["gate_attn"]).to(x.dtype)   # f32 gate, carry dtype
     x = x + ga * cross_attn(cp["attn"], rms_norm(x, cp["ln1"]), vkv, cfg,
                             kv_len)
-    y = _mlp_out(cp, rms_norm(x, cp["ln2"]), cfg, None)
+    y, _ = _mlp_out(cp, rms_norm(x, cp["ln2"]), cfg, None)
     return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * y

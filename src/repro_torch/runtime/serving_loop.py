@@ -98,6 +98,16 @@ so a dropped request could not be re-prefilled into the same state).
 VLM stacks are refused, as in the reference: they serve through
 ``Engine.prefill_step``/``decode_step``.
 
+MoE stacks take every path a dense stack takes, with the reference's
+routing (``models/moe.py``): a decode tick routes every slot's token, a
+free slot's too (token 0 at position 0, as ``_evict`` leaves it, the
+same row paged or contiguous), and its choices take expert capacity, so
+a request's tokens can depend on its slot and its neighbours; a prefill
+wave routes its pad tokens with its prompts.  A wave (or chunk, or
+suffix wave) of more than 512 tokens must be a whole number of 512-token
+routing groups: a lone 992-token wave or an 8 x 224 suffix wave raises
+``ValueError`` where the reference asserts.
+
 ``REPRO_SANITIZE=1`` arms the shadow sanitizers (``runtime/sanitize.py``):
 the allocator's refcount mirror, the registry's residency mirror and a
 request lifecycle FSM, each checked on every decode wave, eviction and

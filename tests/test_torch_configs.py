@@ -3,8 +3,9 @@
 their ``.scaled()`` size:
 
 * ``get_config`` resolves each id, and every field equals the JAX
-  config's (the port's files are copies; ``mamba2-780m`` too, whose
-  model is tested in ``test_torch_mamba2.py``);
+  config's (the port's files are copies; ``mamba2-780m`` and the two
+  MoE configs too, whose models are tested in ``test_torch_mamba2.py``
+  and ``test_torch_moe.py``);
 * a torch twin of ``tests/test_decode_parity.py``: incremental decode
   over the contiguous cache reproduces the full-sequence forward within
   5e-5 of the largest logit;
@@ -37,7 +38,9 @@ def _fields(cfg):
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE + ["mamba2-780m"])
+@pytest.mark.parametrize("arch", DENSE + ["mamba2-780m",
+                                          "moonshot-v1-16b-a3b",
+                                          "grok-1-314b"])
 def test_config_is_the_jax_config(arch):
     assert arch in ARCH_IDS
     assert _fields(get_config(arch)) == _fields(jax_config(arch))

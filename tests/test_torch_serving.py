@@ -197,7 +197,7 @@ def test_default_device_raises_without_a_card():
 
 def test_unported_arch_names_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("moonshot-v1-16b-a3b")
+        get_config("hubert-xlarge")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
