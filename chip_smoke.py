@@ -50,7 +50,11 @@ Phases, each printing JSON lines:
               llama3-8b (8 x 2,048, GQA 4:1 with head_dim 128), the
               train batches (qwen 4 x 2,048, llama3-8b 1 x 2,048), ragged
               lengths 1,000 and 2,049 and a 512-token window, hymba-1.5b's
-              and moonshot-v1-16b-a3b's 8 x 2,048 wave; the
+              and moonshot-v1-16b-a3b's 8 x 2,048 wave; non-causal (each
+              row's mask a column of FLASH_SHAPES, the bound counting S^2
+              pairs) at head_dim 64 and 128 and at hubert-xlarge's 80
+              (16 / 16 heads): its serve wave 4 x 2,048, 1 x 1,040 (the
+              Skv edge) and its train batch 2 x 2,048; the
               backward twice (dK, dV bitwise, dQ within one bf16 ulp);
               achieved TFLOP/s;
   kernel_seg  segmented_lora_matmul against its plain version at the
@@ -160,7 +164,7 @@ Phases, each printing JSON lines:
   static      ``static_batch_serve`` (batches of 8) against the batcher (8
               contiguous slots), qwen 32 + 16, without and with an EOS id
               that fires: the same EOS rule, launches as derived, tok/s;
-  serve_ssm   mamba2-780m at full width (d_model 1536, 16 layers, bf16),
+  serve_ssm   mamba2-780m at full width (d_model 1536, 8 layers, bf16),
               16 requests on 8 contiguous slots at 32+16, 992+32 and
               2,048+32 tokens: every request finishes, ssd_scan once per
               layer per request (SSD_LAUNCHES launches a call),
@@ -170,7 +174,7 @@ Phases, each printing JSON lines:
               checked (``LoraShapeTap``);
   serve_hybrid  hymba-1.5b: the reduced float32 batcher's greedy tokens
               on the card and the CPU (16-token window, ring wraps); at
-              full width (32 layers, d_model 1,600, 25 / 5 heads of 64,
+              full width (16 of 32 layers, d_model 1,600, 25 / 5 heads of 64,
               window 2,048, 50 SSM heads of 64, state 16, bf16) through
               ``run_serving``, 8 contiguous slots: 16 requests at 32+16
               and 992+32, 8 at 1,984+128 (every decode wraps the ring):
@@ -194,6 +198,17 @@ Phases, each printing JSON lines:
               launches exactly as derived, and one unit's cross-attention
               at decode through the kernel against the dense path (bf16,
               2e-2);
+  combined_vlm  co-training on serve_vlm's weights (not drawn again):
+              8 decode slots filled by a prefill, three
+              ``Engine.combined_step``s (a decode tick and an AdamW step
+              on a 4 x 32 batch with vision [4, 1,601, 8,192]): the first
+              tick's logits equal a plain decode step's with the
+              pre-update adapter, finite losses, launches exactly as
+              derived, every lora_matmul shape (dX included) one that
+              kernel_lora checked; then ``launch/train.py``'s loop for 2
+              steps (zero vision inputs); then the reduced float32 VLM's
+              LoRA gradients card against CPU (1e-4 of each leaf's
+              largest, gates 0.5);
   combined    the same servers co-training the adapter on every tick
               (``run_serving(combined=True)``, train batch 4 x prompt
               length; llama3-8b 1 x prompt length): qwen paged and
@@ -336,6 +351,25 @@ Phases, each printing JSON lines:
               published width, 4 x 256, 3 steps, a checkpoint at 3: the
               last batch's CE falls, aux > 0; (c) the restart to 4: the
               restored tree bitwise, AdamW step 3;
+  serve_encoder  hubert-xlarge at published depth and width (48 layers,
+              d_model 1,280, 16 / 16 heads of 80, bf16, random weights
+              from a seed) through ``Engine.encoder_serve_step``: waves of
+              seeded frame embeddings, 8 x 512 (dense attention) and 4 x
+              2,048 (flash_attention, non-causal, D 80), a warm wave and
+              three timed ones each: frames/s, ms per wave, logits finite
+              and shaped, launches exactly as derived, peak memory; the
+              reduced float32 copy (2 layers, full width) at 1 x 1,040
+              card against CPU (5e-5 of the largest logit); every
+              attention and lora_matmul shape one a kernel phase checked;
+  train_encoder  (a) the reduced float32 hubert one step at a time card
+              against CPU (``train_walk``, frame embeddings drawn once);
+              (b) ``run_training`` at published depth and width, 4 x 256
+              frames, 3 steps, a checkpoint at 3: finite losses,
+              launches as derived; (c) the restart to 4: the restored
+              tree bitwise; (d) one ``Engine.train_step`` at 2 x 2,048
+              frames: the D-80 non-causal flash forward and backward,
+              finite loss, launches as derived; every shape of (b)-(d)
+              checked;
   experiment  ``run_experiment`` for the five policies at
               tests/test_experiment.py's short configuration (6
               replicas, 420 s simulated, seed 3) and those tests'
@@ -364,11 +398,13 @@ idle train tick (a policy the runtime does not have); ``kernel_ssd_bwd``
 runs the ssd_scan backward's rows and autograd checks alone; ``tick_moe``
 the MoE tick alone.
 Depth: every phase but ``tick`` and the fabric phases (WHOLE_DEPTH)
-runs qwen1.5-0.5b, llama3-8b, mamba2-780m and moonshot-v1-16b-a3b at
-their published widths with DEPTH_CUT's layers (8 of 24, 8 of 32, 16 of
-48, 8 of 48; the registry's entries replaced in this process, so
-``run_serving`` and ``run_training`` build them too), and every phase
-grok-1-314b at GROK_LAYERS (4 of 64): a tick's host time, which bounds
+runs qwen1.5-0.5b, llama3-8b, mamba2-780m, hymba-1.5b and
+moonshot-v1-16b-a3b at their published widths with DEPTH_CUT's layers
+(8 of 24, 8 of 32, 8 of 48, 16 of 32, 8 of 48; the registry's entries
+replaced in this process, so
+``run_serving`` and ``run_training`` build them too), every phase
+grok-1-314b at GROK_LAYERS (4 of 64) and the VLM at VLM_LAYERS (20 of
+100); hubert-xlarge runs its published 48 layers: a tick's host time, which bounds
 nearly every run here, grows with the kernels it launches, so with
 depth.
 The last two lines are the card's name and power limit, then
@@ -406,9 +442,11 @@ ARCH = "qwen1.5-0.5b"
 # docstring) in every phase but WHOLE_DEPTH's: tick (comparable with the
 # earlier breakdowns) and the fabric phases (their peak-memory check
 # bounds the activations by half a copy of the weights, the embedding
-# and head's 622 MB being most of a cut qwen)
-DEPTH_CUT = {"qwen1.5-0.5b": 8, "llama3-8b": 8, "mamba2-780m": 16,
-             "moonshot-v1-16b-a3b": 8}
+# and head's 622 MB being most of a cut qwen); mamba2-780m and
+# hymba-1.5b cut further (16 -> 8, 32 -> 16) to make room for the
+# encoder and VLM co-training phases within the script's time
+DEPTH_CUT = {"qwen1.5-0.5b": 8, "llama3-8b": 8, "mamba2-780m": 8,
+             "hymba-1.5b": 16, "moonshot-v1-16b-a3b": 8}
 # grok-1-314b at published width, cut to whole layers in every phase
 # (n_layers 64 -> 4: 4 x 9.67 GB of layers, 3.22 GB of embedding and head)
 GROK_ARCH = "grok-1-314b"
@@ -523,7 +561,20 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
     (f"{kind}_{proj}", m, 6144, n, 16)
     for kind, m in (("grok_decode", 8), ("grok_prefill", 256),
                     ("train_grok", 128))
-    for proj, n in (("qo", 6144), ("kv", 1024))]
+    for proj, n in (("qo", 6144), ("kv", 1024))] + [
+    # the encoder and VLM co-training phases (serve_encoder,
+    # train_encoder, combined_vlm): hubert-xlarge's q/k/v/o (K = N =
+    # 1,280) at its flash serve wave (4 x 2,048), the card-vs-CPU
+    # check's 1 x 1,040 (float32 too), its train batches of 4 x 256 and
+    # 2 x 2,048 with their backward (the latter's 4,096 rows also the
+    # dense serve wave's 8 x 512); the VLM's q/o and k/v at its 4 x 32
+    # train batch, with their backward
+    ("hubert_serve_8192", 8192, 1280, 1280, 16),
+    ("hubert_edge_1040", 1040, 1280, 1280, 16),
+    ("train_hubert_1024", 1024, 1280, 1280, 16),
+    ("train_hubert_4096", 4096, 1280, 1280, 16),
+    ("train_vlm_qo", 128, 8192, 8192, 16),
+    ("train_vlm_kv", 128, 8192, 1024, 16)]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
                   "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
@@ -533,7 +584,8 @@ LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
     row[0] for row in LORA_SHAPES
     if row[0].startswith(("ssm_prefill_", "train_ssm_", "hymba_prefill_",
                           "train_hymba_", "moe_", "train_moe", "grok_",
-                          "train_grok")) or row[0].endswith("_2112")}
+                          "train_grok", "hubert_serve", "train_hubert",
+                          "train_vlm")) or row[0].endswith("_2112")}
 
 
 def lora_has_backward(name):
@@ -549,8 +601,8 @@ def lora_dtypes(name):
             else (torch.float32, torch.bfloat16))
 
 
-# flash_attention, causal: (name, B, H, Hkv, D, S, window) -- every
-# shape the serve and combined phases give it: the prefill waves of
+# flash_attention: (name, B, H, Hkv, D, S, window, causal) -- every
+# shape the serve, combined and train phases give it: the prefill waves of
 # qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and llama3-8b (GQA 4:1,
 # head_dim 128), the co-training train batches (qwen 4 x 2,048, llama
 # 1 x 2,048); then two ragged lengths and a sliding window; then
@@ -558,19 +610,29 @@ def lora_dtypes(name):
 # 1,984-token exact-length prefill, the ring check's forward over 2,112
 # tokens (the window binding) and the co-training train batch of 4 x
 # 1,984 (forward and backward)
-FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0),
-                ("qwen_prefill_4096", 8, 16, 16, 64, 4096, 0),
-                ("llama_prefill", 8, 32, 8, 128, 2048, 0),
-                ("qwen_train", 4, 16, 16, 64, 2048, 0),
-                ("llama_train", 1, 32, 8, 128, 2048, 0),
-                ("ragged_1000", 8, 16, 16, 64, 1000, 0),
-                ("ragged_2049", 4, 16, 16, 64, 2049, 0),
-                ("window", 4, 16, 16, 64, 2048, 512),
-                ("hymba_prefill", 1, 25, 5, 64, 1984, 2048),
-                ("hymba_ring", 1, 25, 5, 64, 2112, 2048),
-                ("hymba_train", 4, 25, 5, 64, 1984, 2048),
+FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0, True),
+                ("qwen_prefill_4096", 8, 16, 16, 64, 4096, 0, True),
+                ("llama_prefill", 8, 32, 8, 128, 2048, 0, True),
+                ("qwen_train", 4, 16, 16, 64, 2048, 0, True),
+                ("llama_train", 1, 32, 8, 128, 2048, 0, True),
+                ("ragged_1000", 8, 16, 16, 64, 1000, 0, True),
+                ("ragged_2049", 4, 16, 16, 64, 2049, 0, True),
+                ("window", 4, 16, 16, 64, 2048, 512, True),
+                ("hymba_prefill", 1, 25, 5, 64, 1984, 2048, True),
+                ("hymba_ring", 1, 25, 5, 64, 2112, 2048, True),
+                ("hymba_train", 4, 25, 5, 64, 1984, 2048, True),
                 # moonshot-v1-16b-a3b's prefill wave (16 / 16 heads of 128)
-                ("moonshot_prefill", 8, 16, 16, 128, 2048, 0)]
+                ("moonshot_prefill", 8, 16, 16, 128, 2048, 0, True),
+                # non-causal at the decoders' head dims (no model path
+                # launches these; the encoder's mask at D 64 and 128)
+                ("noncausal_64", 4, 16, 16, 64, 2048, 0, False),
+                ("noncausal_128", 1, 32, 8, 128, 2048, 0, False),
+                # hubert-xlarge (16 / 16 heads of 80, non-causal): the
+                # serve wave 4 x 2,048, the card-vs-CPU check's 1 x 1,040
+                # (no multiple of 128: the Skv edge), the train batch
+                ("hubert_serve", 4, 16, 16, 80, 2048, 0, False),
+                ("hubert_edge", 1, 16, 16, 80, 1040, 0, False),
+                ("hubert_train", 2, 16, 16, 80, 2048, 0, False)]
 FLASH_REPS = 10
 # backward launches: bf16 prep (delta, lse, zeroed dQ accumulator), the
 # single pass, finish (dQ rounded; dK, dV slices summed); f32 delta,
@@ -1091,14 +1153,17 @@ def phase_kernel_seg(seg, seg_ref, lm):
 
 
 # ------------------------------------------------------- flash attention --
-def causal_pairs(s, window):
-    """Allowed (query, key) pairs of one causal head of length s."""
+def causal_pairs(s, window, causal=True):
+    """Allowed (query, key) pairs of one head of length s: all s^2 when
+    not causal (no FLASH_SHAPES row windows a non-causal mask)."""
+    if not causal:
+        return s * s
     if window <= 0 or window >= s:
         return s * (s + 1) // 2
     return window * (window + 1) // 2 + (s - window) * window
 
 
-def flash_bound(b, h, hkv, d, s, window, dtype, backward):
+def flash_bound(b, h, hkv, d, s, window, dtype, backward, causal=True):
     """Least time for one call.  Forward: q, k, v read, o and the f32 lse
     written; 4 FLOP per allowed (query, key) pair and channel (q k^T and
     P V).  Backward: q, k, v, o, dO and lse read, dq, dk, dv written;
@@ -1108,10 +1173,10 @@ def flash_bound(b, h, hkv, d, s, window, dtype, backward):
     if backward:
         nbytes = (3 * q_elems + 2 * kv_elems) * elt + 4 * b * h * s \
             + (q_elems + 2 * kv_elems) * elt
-        ops = 10 * d * causal_pairs(s, window) * b * h
+        ops = 10 * d * causal_pairs(s, window, causal) * b * h
     else:
         nbytes = (2 * q_elems + 2 * kv_elems) * elt + 4 * b * h * s
-        ops = 4 * d * causal_pairs(s, window) * b * h
+        ops = 4 * d * causal_pairs(s, window, causal) * b * h
     t_bytes = nbytes / HBM_BYTES_S
     t_ops = ops / PEAK_OPS_S[dtype]
     return max(t_bytes, t_ops) * 1e3, \
@@ -1130,7 +1195,7 @@ def phase_kernel_flash(fa):
     yardstick, never called by the port; achieved TFLOP/s (the bound's
     operations over the time) of kernel and library."""
     rows = {}
-    for si, (name, b, h, hkv, d, s, w) in enumerate(FLASH_SHAPES):
+    for si, (name, b, h, hkv, d, s, w, causal) in enumerate(FLASH_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device="cuda").manual_seed(400 + si)
 
@@ -1139,7 +1204,7 @@ def phase_kernel_flash(fa):
                                    device="cuda").to(dtype).transpose(1, 2)
 
             q, k, v, do = draw(h), draw(hkv), draw(hkv), draw(h)
-            kw = dict(causal=True, window=w)
+            kw = dict(causal=causal, window=w)
             o, lse = fa.flash_attention_fwd(q, k, v, **kw)
             out = o
             ref = fa.flash_attention_ref(q, k, v, **kw)
@@ -1162,7 +1227,7 @@ def phase_kernel_flash(fa):
                     & (qpos[:, None] - qpos[None, :] < w)
                 lib_kw = dict(attn_mask=mask)
             else:
-                lib_kw = dict(is_causal=True)
+                lib_kw = dict(is_causal=causal)
 
             def lib(q_, k_, v_):
                 return F.scaled_dot_product_attention(
@@ -1173,7 +1238,8 @@ def phase_kernel_flash(fa):
             lib_out = lib(qs, ks, vs)
             row = {
                 "shape": name, "B": b, "H": h, "Hkv": hkv, "D": d, "S": s,
-                "window": w, "dtype": str(dtype).split(".")[-1],
+                "window": w, "causal": causal,
+                "dtype": str(dtype).split(".")[-1],
                 "rel_err": err, "rel_tol": tol,
                 "max_abs_err": float((out.float() - ref.float()).abs().max()),
                 **{f"{n}_rel_err": e for n, e in gerr.items()},
@@ -1200,11 +1266,11 @@ def phase_kernel_flash(fa):
                     FLASH_REPS),
             }
             row["bound_ms"], row["bound_by"] = flash_bound(
-                b, h, hkv, d, s, w, dtype, backward=False)
+                b, h, hkv, d, s, w, dtype, backward=False, causal=causal)
             row["bwd_bound_ms"], row["bwd_bound_by"] = flash_bound(
-                b, h, hkv, d, s, w, dtype, backward=True)
+                b, h, hkv, d, s, w, dtype, backward=True, causal=causal)
             # achieved rate: the bound's operations over the kernel time
-            ops = 4 * d * causal_pairs(s, w) * b * h
+            ops = 4 * d * causal_pairs(s, w, causal) * b * h
             row["tflops"] = ops / row["ms"] * 1e-9
             row["bwd_tflops"] = 2.5 * ops / row["bwd_ms"] * 1e-9
             row["library_tflops"] = ops / row["library_ms"] * 1e-9
@@ -1906,21 +1972,26 @@ def time_kernels(families=()):
         if not want("flash_attention" + ("_backward" if backward else "")):
             continue
         si = [f[0] for f in FLASH_SHAPES].index(name)
-        _, b, h, hkv, d, s, w = FLASH_SHAPES[si]
+        _, b, h, hkv, d, s, w, causal = FLASH_SHAPES[si]
         g = torch.Generator(device="cuda").manual_seed(400 + si)
         q, k, v, do = (torch.randn((b, s, n, d), generator=g, device="cuda")
                        .to(torch.bfloat16).transpose(1, 2)
                        for n in (h, hkv, hkv, h))
-        o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=w)
 
         def fn():
             if backward:   # dQ
                 return fa.flash_attention_backward(q, k, v, o, lse, do,
-                                                   causal=True)[0]
-            return fa.flash_attention_fwd(q, k, v, causal=True)[0]
+                                                   causal=causal,
+                                                   window=w)[0]
+            return fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=w)[0]
 
-        ref = (fa.flash_attention_grad_ref(q, k, v, do, causal=True)[0]
-               if backward else fa.flash_attention_ref(q, k, v, causal=True))
+        ref = (fa.flash_attention_grad_ref(q, k, v, do, causal=causal,
+                                           window=w)[0]
+               if backward else fa.flash_attention_ref(q, k, v,
+                                                       causal=causal,
+                                                       window=w))
         rows[f"flash_attention{'_backward' if backward else ''}/{name}/"
              "bfloat16"] = {"ms": device_ms(fn, FLASH_REPS),
                             "host_us": host_us(fn, 20),
@@ -2724,7 +2795,7 @@ SSM_RUNS = [("ssm_32", dict(prompt_len=32, gen_tokens=16)),
 
 
 def phase_serve_ssm(run_serving, get_config, pda, lm, fa, seg, scan):
-    """mamba2-780m at full width (16 layers, d_model 1536, 48 SSM heads
+    """mamba2-780m at full width (8 layers, d_model 1536, 48 SSM heads
     of 64, state 128, bf16, random weights from a seed), 16 requests on
     8 contiguous slots: every request finishes, and the launches are
     exactly as derived: ssd_scan once per layer per request (each prompt
@@ -2790,7 +2861,7 @@ HYBRID_RUNS = [("hybrid_32", 16, dict(prompt_len=32, gen_tokens=16)),
 # decoded through the 2,048-row ring (teacher-forced), whose logits past
 # position 2,048 are held against Model.logits of the same 2,112 tokens
 # (the windowed forward, flash_attention and the SSD scan), relative to
-# the largest logit: bf16 over 32 layers of two paths that round in
+# the largest logit: bf16 over 16 layers of two paths that round in
 # other places (reference_blockwise holds two bf16 attention paths over
 # 24 layers at 2e-2), so 5e-2, and the argmax of at least 90% of the rows;
 # and every ring slot of every layer, its K and V rows together, nearest
@@ -3017,7 +3088,7 @@ def _ring_exact_full(make_engine, get_config):
 def phase_serve_hybrid(run_serving, make_engine, get_config, pda, lm, fa,
                        seg, scan):
     """hymba-1.5b: the reduced float32 batcher on the card against the
-    CPU (greedy tokens through ring wraps); at full width (32 layers,
+    CPU (greedy tokens through ring wraps); at full width (16 layers,
     d_model 1,600, 25 / 5 heads of 64, window 2,048, 50 SSM heads of 64,
     state 16, bf16, random weights from a seed) through ``run_serving``
     on 8 contiguous slots at 32 + 16 and 992 + 32 (16 requests) and 1,984
@@ -3755,6 +3826,286 @@ def phase_train_cli_moe(make_engine, get_config, lm, fa):
     return res
 
 
+# ------------------------------------------------------------- encoder ---
+ENC_ARCH = "hubert-xlarge"
+# encoder_serve_step waves (name, rows, frames): 8 x 512 takes the dense
+# attention, 4 x 2,048 (past s*s <= 1M) flash_attention, non-causal
+ENC_WAVES = [("dense_512", 8, 512), ("flash_2048", 4, 2048)]
+ENC_REPS = 3                 # timed waves of each shape, after a warm one
+ENC_REF_FRAMES = 1040        # the card-vs-CPU check: no multiple of 128
+ENC_REF_REL = 5e-5           # tests/test_decode_parity.py's logit bound
+ENC_TRAIN = (4, 256)         # the CLI's batch: rows x frames
+ENC_TRAIN_STEPS = 3
+# no checkpoint before each run's end-of-run save: one zlib write of the
+# 48 layers' adapters and moments takes ~5 s, and a write at the last
+# step would repeat it
+ENC_CKPT_EVERY = 100
+ENC_FLASH_TRAIN = (2, 2048)  # one train step past the dense limit
+ENC_REF_STEPS = 5
+
+
+def _enc_reduced(get_config):
+    """hubert at full width, 2 layers, float32: the card-vs-CPU copy."""
+    import dataclasses
+    return dataclasses.replace(get_config(ENC_ARCH), n_layers=2,
+                               dtype="float32", param_dtype="float32")
+
+
+def _enc_reference(get_config, make_engine):
+    """The reduced float32 hubert (full width, 2 layers) on the card and
+    the CPU on the same weights: ``encoder_serve_step`` logits of one
+    ENC_REF_FRAMES-frame sequence (the blockwise path: flash_attention's
+    f32 kernel at D 80, non-causal, with a ragged last tile), within
+    ENC_REF_REL of the largest."""
+    from repro_torch.launch.train import init_weights
+    from repro_torch.tree import tree_map
+    cfg = _enc_reduced(get_config)
+    cpu = make_engine(cfg, device="cpu")
+    params, lora = init_weights(cpu, 0)
+    for pair in lora.values():              # a live bypass: b != 0
+        pair["b"].normal_(0.0, 0.1, generator=torch.Generator()
+                          .manual_seed(2))
+    emb = torch.randn((1, ENC_REF_FRAMES, cfg.d_model),
+                      generator=torch.Generator().manual_seed(3))
+    out = {}
+    for name, eng in (("cpu", cpu), ("cuda", make_engine(cfg,
+                                                         device="cuda"))):
+        dev = eng.model.device
+        out[name] = eng.encoder_serve_step(
+            tree_map(lambda t: t.to(dev), params),
+            tree_map(lambda t: t.to(dev), lora),
+            {"embeds": emb.to(dev)}).cpu()
+    err = float((out["cuda"] - out["cpu"]).abs().max()
+                / out["cpu"].abs().max())
+    row = {"reduced_config": "hubert-xlarge, 2 layers, float32",
+           "frames": [1, ENC_REF_FRAMES], "logits_rel_err": err,
+           "tol": ENC_REF_REL}
+    emit("serve_encoder_reference", **row)
+    if not err < ENC_REF_REL:
+        raise AssertionError(f"serve_encoder: card vs CPU logits {err}")
+    return row
+
+
+def phase_serve_encoder(make_engine, get_config, pda, lm, fa, seg):
+    """hubert-xlarge at published depth (48 layers) and width, bf16,
+    random weights from seed 0: ``Engine.encoder_serve_step`` over waves
+    of seeded frame embeddings (ENC_WAVES), a warm wave then ENC_REPS
+    timed ones each: frames per second, ms per wave, logits finite and
+    [B, S, 504], launches exactly as derived (lora_matmul once per
+    adapter projection per layer per wave, flash_attention once per layer
+    per wave past the dense limit, nothing else), peak memory; then the
+    reduced float32 copy card against CPU (``_enc_reference``).  All
+    under the shape taps: every launch at a shape a kernel phase
+    checked."""
+    from repro_torch.launch.train import init_weights
+    engine = make_engine(get_config(ENC_ARCH), device="cuda")
+    cfg = engine.model.cfg
+    params, lora = init_weights(engine, 0)
+    n_layers, n_lora, _ = arch_counts(get_config, ENC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = {"arch": ENC_ARCH, "n_layers": n_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "dtype": cfg.dtype, "waves": {}}
+    with AttnShapeTap() as attn, LoraShapeTap() as ltap:
+        for name, b, s in ENC_WAVES:
+            embeds = [torch.randn((b, s, cfg.d_model), generator=gen,
+                                  device="cuda")
+                      for _ in range(ENC_REPS + 1)]
+            engine.encoder_serve_step(params, lora, {"embeds": embeds[0]})
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset(pda, lm, fa.flash_attention_fwd,
+                   fa.flash_attention_backward, seg)  # main path starts
+            ms = []
+            for e in embeds[1:]:
+                t0 = time.perf_counter()
+                logits = engine.encoder_serve_step(params, lora,
+                                                   {"embeds": e})
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {"lora_matmul": lm.launches,
+                        "flash_attention": fa.flash_attention_fwd.launches,
+                        "flash_attention_backward":
+                            fa.flash_attention_backward.launches,
+                        "paged_decode_attention": pda.launches,
+                        "segmented_lora_matmul": seg.launches}  # path ends
+            peak = torch.cuda.max_memory_allocated()
+            flash = long_prompt(s)
+            want = {"lora_matmul": n_lora * ENC_REPS,
+                    "flash_attention": n_layers * ENC_REPS if flash else 0,
+                    "flash_attention_backward": 0,
+                    "paged_decode_attention": 0,
+                    "segmented_lora_matmul": 0}
+            ok = bool(torch.isfinite(logits).all()) \
+                and tuple(logits.shape) == (b, s, cfg.vocab_size)
+            med = float(np.median(ms))
+            row = {"wave": [b, s], "attention": "flash" if flash else
+                   "dense", "ms_per_wave": ms, "median_ms": med,
+                   "frames_per_s": b * s / med * 1e3,
+                   "logits_finite_and_shaped": ok,
+                   "launches": launches, "launches_derived": want,
+                   "max_memory_allocated_bytes": peak}
+            emit("serve_encoder", name=name, **row)
+            if not ok:
+                raise AssertionError(f"serve_encoder {name}: logits "
+                                     f"{tuple(logits.shape)} not finite or "
+                                     "misshaped")
+            if launches != want:
+                raise AssertionError(f"serve_encoder {name}: launches "
+                                     f"{launches}, derived {want}")
+            res["waves"][name] = row
+            del embeds, logits
+        del params, lora, engine
+        torch.cuda.empty_cache()
+        res["reference"] = _enc_reference(get_config, make_engine)
+    res["attention_shapes"] = attn.summary()
+    res["lora_shapes"] = lora_summary(ltap)
+    emit("serve_encoder_shapes", attention_shapes=res["attention_shapes"],
+         lora_shapes=res["lora_shapes"])
+    require_checked("serve_encoder", attn, ltap)
+    return res
+
+
+def _enc_batches(cfg, n, seq=32, rows=4):
+    """``train_batches`` with the frame embeddings an encoder batch
+    carries (numpy, seeded), drawn once for both devices."""
+    rng = np.random.default_rng(6)
+    out = []
+    for b in train_batches(cfg, n, seq=seq, rows=rows):
+        b["embeds"] = rng.standard_normal((rows, seq, cfg.d_model)) \
+            .astype(np.float32)
+        out.append(b)
+    return out
+
+
+def phase_train_encoder(make_engine, get_config, lm, fa):
+    """Training the encoder: (a) the reduced float32 hubert (full width,
+    2 layers), the card against the CPU one step at a time from the
+    CPU's state (``train_walk``), ENC_REF_STEPS steps of 4 x 32 frames;
+    (b) ``run_training`` on hubert at published depth and width, 4 x
+    256 frames, ENC_TRAIN_STEPS steps with a checkpoint at the last:
+    finite losses, launches as derived, step ms, peak memory; (c)
+    ``restore=True`` to one more step: resumes there, the restored tree
+    bitwise (b)'s; (d) one ``Engine.train_step`` at 2 x 2,048 frames on
+    (b)'s weights, through the D-80 non-causal flash_attention forward
+    and backward: finite loss, launches as derived.  (b)-(d) under the
+    shape taps."""
+    import shutil
+    import tempfile
+    from repro_torch.launch.train import init_weights, run_training
+    cfg = _enc_reduced(get_config)
+    cpu = make_engine(cfg, device="cpu")
+    params, lora = init_weights(cpu, 0)
+    _, losses, worst = train_walk(make_engine, cfg, params,
+                                  (lora, cpu.optimizer.init(lora)),
+                                  _enc_batches(cfg, ENC_REF_STEPS))
+    emit("train_encoder_reduced", reduced_config="hubert-xlarge, 2 layers, "
+         "float32", batch=[4, 32], steps=ENC_REF_STEPS,
+         loss_rtol=TRAIN_LOSS_RTOL, lora_atol=TRAIN_LORA_ATOL,
+         m_tol=TRAIN_M_TOL, v_tol=TRAIN_V_TOL, walk=worst,
+         first_loss=losses[0], last_loss=losses[-1])
+    res = {"reduced": {"walk": worst, "losses": losses}}
+    del params, lora, cpu
+    n_layers, n_lora, n_lora_bwd = arch_counts(get_config, ENC_ARCH)
+    rows, seq = ENC_TRAIN
+    tmp = tempfile.mkdtemp()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(lm, fa.flash_attention_fwd, fa.flash_attention_backward)
+        with TrainTap() as tap, AttnShapeTap() as attn, \
+                LoraShapeTap() as ltap:              # main path starts
+            out_b = run_training(ENC_ARCH, smoke=False,
+                                 steps=ENC_TRAIN_STEPS, batch=rows, seq=seq,
+                                 ckpt_dir=tmp, ckpt_every=ENC_CKPT_EVERY,
+                                 verbose=False, device="cuda")
+        launches = {"lora_matmul": lm.launches,
+                    "flash_attention": fa.flash_attention_fwd.launches,
+                    "flash_attention_backward":
+                        fa.flash_attention_backward.launches}
+        peak = torch.cuda.max_memory_allocated()       # path ends
+        want = {"lora_matmul": ENC_TRAIN_STEPS * (n_lora + n_lora_bwd),
+                "flash_attention": 0, "flash_attention_backward": 0}
+        with TrainTap() as tap_c, LoraShapeTap() as ltap_c:
+            out_c = run_training(ENC_ARCH, smoke=False,
+                                 steps=ENC_TRAIN_STEPS + 1, batch=rows,
+                                 seq=seq, ckpt_dir=tmp, restore=True,
+                                 ckpt_every=ENC_CKPT_EVERY, verbose=False,
+                                 device="cuda")
+        restored = tap_c.restored[0]
+        bitwise = _bitwise(restored[0], out_b["lora"])
+        # (d) one step at 2 x 2,048 frames on (b)'s weights and adapters
+        eng = make_engine(get_config(ENC_ARCH), lr=TRAIN_ADAMW[0],
+                          device="cuda")
+        p0, _ = init_weights(eng, 0)
+        fb, fs = ENC_FLASH_TRAIN
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        batch = {"embeds": torch.randn((fb, fs, eng.model.cfg.d_model),
+                                       generator=gen, device="cuda"),
+                 "labels": torch.randint(0, eng.model.cfg.vocab_size,
+                                         (fb, fs), generator=gen,
+                                         device="cuda"),
+                 "mask": torch.ones((fb, fs), device="cuda")}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(lm, fa.flash_attention_fwd, fa.flash_attention_backward)
+        with AttnShapeTap() as attn_d, LoraShapeTap() as ltap_d:
+            t0 = time.perf_counter()
+            _, _, met = eng.train_step(p0, out_b["lora"],
+                                       eng.optimizer.init(out_b["lora"]),
+                                       batch)
+            d_loss = float(met["ce_loss"])
+            d_ms = (time.perf_counter() - t0) * 1e3
+        d_launches = {"lora_matmul": lm.launches,
+                      "flash_attention": fa.flash_attention_fwd.launches,
+                      "flash_attention_backward":
+                          fa.flash_attention_backward.launches}
+        d_peak = torch.cuda.max_memory_allocated()
+        d_want = {"lora_matmul": n_lora + n_lora_bwd,
+                  "flash_attention": n_layers,
+                  "flash_attention_backward": FLASH_BWD * n_layers}
+        row = {"arch": ENC_ARCH, "n_layers": n_layers,
+               "batch": [rows, seq], "steps": out_b["steps"],
+               "losses": out_b["losses"], "launches": launches,
+               "launches_derived": want, "max_memory_allocated_bytes": peak,
+               **tap.row(), "attention_shapes": attn.summary(),
+               "lora_shapes": lora_summary(ltap),
+               "restart_steps": out_c["steps"],
+               "restart_losses": out_c["losses"],
+               "restored_bitwise": bitwise,
+               "restored_adamw_step": int(restored[1].step),
+               "flash_train": {"batch": [fb, fs], "ce_loss": d_loss,
+                               "step_ms_first_call": d_ms,
+                               "launches": d_launches,
+                               "launches_derived": d_want,
+                               "max_memory_allocated_bytes": d_peak,
+                               "attention_shapes": attn_d.summary(),
+                               "lora_shapes": lora_summary(ltap_d)}}
+        emit("train_encoder", **row)
+        require_checked("train_encoder (b, c, d)", attn, ltap, ltap_c,
+                        attn_d, ltap_d)
+        if not (out_b["steps"] == ENC_TRAIN_STEPS
+                and np.isfinite(out_b["losses"]).all()):
+            raise AssertionError(f"train_encoder (b): {row}")
+        if launches != want:
+            raise AssertionError(f"train_encoder (b): launches {launches}, "
+                                 f"derived {want}")
+        if not (bitwise and row["restored_adamw_step"] == ENC_TRAIN_STEPS
+                and out_c["steps"] == ENC_TRAIN_STEPS + 1
+                and len(out_c["losses"]) == 1
+                and np.isfinite(out_c["losses"]).all()):
+            raise AssertionError(f"train_encoder (c): {row}")
+        if not (math.isfinite(d_loss) and d_launches == d_want):
+            raise AssertionError(f"train_encoder (d): loss {d_loss}, "
+                                 f"launches {d_launches}, derived {d_want}")
+        res["cli"] = row
+        del eng, p0, batch, out_b, out_c, restored, tap, tap_c
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 # ------------------------------------------------------------ VLM serving -
 def _vlm_full(make_engine, get_config):
     """llama-3.2-vision-90b at published width, depth cut to VLM_LAYERS
@@ -3878,8 +4229,187 @@ def phase_serve_vlm(make_engine, get_config, pda, lm, fa, seg, scan, dattn):
     if not cross_err < 2e-2:
         raise AssertionError(f"serve_vlm: cross-attention through the "
                              f"kernel {cross_err} from the dense path")
-    del engine, params, lora, caches, visions, vkv, x, got, o
+    del caches, visions, vkv, x, got, o
+    # combined_vlm, the next phase, co-trains on these weights: one draw
+    # of the 38.4 GB tree serves both
+    _VLM_WEIGHTS["full"] = (engine, params, lora, gen)
+    del engine, params, lora
     torch.cuda.empty_cache()
+    return row
+
+
+# ------------------------------------------------------- VLM co-training --
+_VLM_WEIGHTS = {}       # serve_vlm's full-width weights, for combined_vlm
+VLM_TRAIN = (4, 32)     # the co-training batch: rows x tokens
+VLM_COMBINED_STEPS = 3
+VLM_CLI_STEPS = 2
+VLM_GRAD_REL = 1e-4     # tests/test_torch_train.py's LoRA gradient bound
+
+
+def _vlm_grads_reference(get_config, make_engine):
+    """The reduced float32 VLM (2 units of 2 dense blocks and a cross
+    block, 37 vision tokens), both gates at 0.5: the LoRA gradients of
+    one batch through ``Engine.loss_and_grads``, the card against the
+    CPU, within VLM_GRAD_REL of each leaf's largest magnitude; the loss
+    within TRAIN_LOSS_RTOL."""
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_config(VLM_ARCH).scaled(n_layers=6, cross_attn_every=3,
+                                      vision_tokens=37)
+    cpu = make_engine(cfg, device="cpu")
+    params = cpu.model.init(torch.Generator().manual_seed(0))
+    _open_gates(params)
+    lora = cpu.model.init_lora(torch.Generator().manual_seed(1))
+    for pair in lora.values():              # a live bypass: b != 0
+        pair["b"].normal_(0.0, 0.1, generator=torch.Generator()
+                          .manual_seed(2))
+    batch = train_batches(cfg, 1, seq=10, rows=2)[0]
+    batch["vision"] = np.random.default_rng(3).standard_normal(
+        (2, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+    out = {}
+    for name, eng in (("cpu", cpu), ("cuda", make_engine(cfg,
+                                                         device="cuda"))):
+        dev = eng.model.device
+        loss, _, grads = eng.loss_and_grads(
+            tree_map(lambda t: t.to(dev), params),
+            tree_map(lambda t: t.to(dev), lora),
+            {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+        out[name] = (float(loss), [g.cpu() for g in tree_leaves(grads)])
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    grad_err = max(float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                   for a, b in zip(gg, gc))
+    row = {"reduced_config": cfg.name, "dtype": "float32", "gates": 0.5,
+           "vision_tokens": cfg.vision_tokens, "batch": [2, 10],
+           "loss_rel_err": abs(lg - lc) / abs(lc), "loss_rtol":
+           TRAIN_LOSS_RTOL, "grad_rel_err": grad_err,
+           "grad_rel_tol": VLM_GRAD_REL}
+    emit("combined_vlm_reference", **row)
+    if not (row["loss_rel_err"] <= TRAIN_LOSS_RTOL
+            and grad_err < VLM_GRAD_REL):
+        raise AssertionError(f"combined_vlm: card vs CPU gradients: {row}")
+    return row
+
+
+def phase_combined_vlm(make_engine, get_config, pda, lm, fa, seg, dattn):
+    """VLM co-training on serve_vlm's weights (llama-3.2-vision-90b at
+    published width, VLM_LAYERS of 100 layers, bf16, gates 0.5): a
+    prefill of 8 32-token prompts with their vision inputs fills 8
+    decode slots, then VLM_COMBINED_STEPS ``Engine.combined_step``s,
+    each a decode tick over the slots (``decode_step``: the paged kernel
+    per dense block, ``decode_attention`` per cross block) and an AdamW
+    step on a 4 x 32 batch with vision [4, 1,601, 8,192] (the cross
+    attention dense under autograd, as the reference computes it): the
+    first tick's logits equal a plain ``decode_step``'s with the
+    pre-update adapter, losses and logits finite, launches as derived;
+    then ``launch/train.py``'s loop (``train_from_weights``, zero vision
+    inputs as the reference's CLI) for VLM_CLI_STEPS steps; then the
+    reduced float32 VLM's gradients card against CPU."""
+    from repro_torch.launch.train import train_from_weights
+    if "full" not in _VLM_WEIGHTS:          # named alone (bring-up)
+        engine, params, lora, gen = _vlm_full(make_engine, get_config)
+    else:
+        engine, params, lora, gen = _VLM_WEIGHTS.pop("full")
+    model, cfg = engine.model, engine.model.cfg
+    units, per = cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+    slots, plen, steps = 8, 32, VLM_COMBINED_STEPS
+    rows, seq = VLM_TRAIN
+    n_dense = units * per
+    n_lora = len(cfg.lora.targets) * n_dense   # adapter projections
+    prompts = torch.randint(0, cfg.vocab_size, (slots, plen), generator=gen,
+                            device="cuda")
+    vis = torch.randn((slots, cfg.vision_tokens, cfg.d_model),
+                      generator=gen, device="cuda", dtype=torch.bfloat16)
+    logits, pre = engine.prefill_step(params, lora, {"tokens": prompts,
+                                                     "vision": vis})
+    tok = logits[:, -1].argmax(-1)
+    caches = _vlm_decode_caches(model, pre, slots, plen + steps)
+    del pre, vis, logits
+    data_gen = torch.Generator(device="cuda").manual_seed(5)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (rows, seq),
+                                        generator=data_gen, device="cuda"),
+                "labels": torch.randint(0, cfg.vocab_size, (rows, seq),
+                                        generator=data_gen, device="cuda"),
+                "mask": torch.ones((rows, seq), device="cuda"),
+                "vision": torch.randn((rows, cfg.vision_tokens, cfg.d_model),
+                                      generator=data_gen, device="cuda",
+                                      dtype=torch.bfloat16)}
+               for _ in range(steps)]
+    # the first tick's decode alone, with the pre-update adapter, on a
+    # copy of the caches: the combined step's logits must equal it
+    with torch.no_grad():
+        plain, _ = model.decode_step(
+            params, lora, {k: tuple(t.clone() for t in v)
+                           for k, v in caches.items()},
+            tok[:, None], torch.full((slots,), plen, dtype=torch.int32,
+                                     device="cuda"))
+    opt = engine.optimizer.init(lora)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(pda, lm, fa.flash_attention_fwd, fa.flash_attention_backward,
+           seg, dattn)                                 # main path starts
+    losses, step_ms, first = [], [], None
+    with LoraShapeTap() as ltap:
+        for s in range(steps):
+            t0 = time.perf_counter()
+            pos = torch.full((slots,), plen + s, dtype=torch.int32,
+                             device="cuda")
+            lora, opt, logits, caches, met = engine.combined_step(
+                params, lora, opt, batches[s], caches, tok[:, None], pos)
+            losses.append(float(met["ce_loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if first is None:
+                first = logits
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"combined_vlm step {s}: logits not "
+                                     "finite")
+            tok = logits[:, -1].argmax(-1)
+    launches = {"decode_attention": dattn.launches,
+                "paged_decode_attention": pda.launches,
+                "lora_matmul": lm.launches,
+                "flash_attention": fa.flash_attention_fwd.launches,
+                "flash_attention_backward":
+                    fa.flash_attention_backward.launches,
+                "segmented_lora_matmul": seg.launches}  # path ends
+    peak = torch.cuda.max_memory_allocated()
+    # a tick: 4 adapter projections per dense block; a train step: those
+    # forward and their dX, but layer 0's q, k, v (its input is frozen)
+    want = {"decode_attention": units * steps,
+            "paged_decode_attention": n_dense * steps,
+            "lora_matmul": (n_lora + n_lora + n_lora - 3) * steps,
+            "flash_attention": 0, "flash_attention_backward": 0,
+            "segmented_lora_matmul": 0}
+    first_vs_plain = bool(torch.equal(first, plain))
+    del batches, plain, first, logits
+    with TrainTap() as tap, LoraShapeTap() as ltap_cli:
+        cli = train_from_weights(engine, params, lora, arch=VLM_ARCH,
+                                 steps=VLM_CLI_STEPS, batch=rows, seq=seq,
+                                 verbose=False)
+    row = {"arch": VLM_ARCH, "n_layers": cfg.n_layers,
+           "n_layers_published": 100, "units": units,
+           "dense_blocks_per_unit": per, "vision_tokens": cfg.vision_tokens,
+           "gates": 0.5, "slots": slots, "prompt_len": plen,
+           "train_batch": [rows, seq], "combined_steps": steps,
+           "losses": losses, "step_ms": step_ms,
+           "first_tick_logits_equal_plain_decode": first_vs_plain,
+           "launches": launches, "launches_derived": want,
+           "max_memory_allocated_bytes": peak,
+           "lora_shapes": lora_summary(ltap),
+           "cli_steps": cli["steps"], "cli_losses": cli["losses"],
+           "cli_step_ms": tap.row()["step_ms"],
+           "cli_lora_shapes": lora_summary(ltap_cli)}
+    emit("combined_vlm", **row)
+    require_checked("combined_vlm", ltap, ltap_cli)
+    if not (np.isfinite(losses).all() and np.isfinite(cli["losses"]).all()
+            and cli["steps"] == VLM_CLI_STEPS):
+        raise AssertionError(f"combined_vlm: a loss not finite: {row}")
+    if not first_vs_plain:
+        raise AssertionError("combined_vlm: the combined step's logits are "
+                             "not the pre-update adapter's decode")
+    if launches != want:
+        raise AssertionError(f"combined_vlm: launches {launches}, derived "
+                             f"{want}")
+    del engine, params, lora, opt, caches, cli, tap
+    torch.cuda.empty_cache()
+    row["reference"] = _vlm_grads_reference(get_config, make_engine)
     return row
 
 
@@ -6061,11 +6591,11 @@ class LoraShapeTap:
 def attn_shape_checked(kind, *shape):
     """Whether phase_kernel_flash or phase_kernel held the kernel against
     its plain version at a launch's shape (both check every row in both
-    dtypes): a FLASH_SHAPES row of that B, H, Hkv, D, S and window (its
-    backward is checked too), or a PAGED_SHAPES row of that B, H, Hkv,
-    D, block size and table width."""
+    dtypes): a FLASH_SHAPES row of that B, H, Hkv, D, S, window and
+    mask (its backward is checked too), or a PAGED_SHAPES row of that B,
+    H, Hkv, D, block size and table width."""
     if kind in ("flash_attention", "flash_attention_backward"):
-        return any(row[1:] == shape[:6] for row in FLASH_SHAPES)
+        return any(row[1:] == shape[:7] for row in FLASH_SHAPES)
     return any(tuple(shp[k] for k in ("b", "h", "hkv", "d", "bs", "nb"))
                == shape[:6] for _, shp in PAGED_SHAPES)
 
@@ -6073,7 +6603,7 @@ def attn_shape_checked(kind, *shape):
 class AttnShapeTap:
     """Records the shape of every ``flash_attention`` forward and
     backward and ``paged_decode_attention`` launch while it is entered:
-    (kind, B, H, Hkv, D, S, window, dtype) and (kind, B, H, Hkv, D,
+    (kind, B, H, Hkv, D, S, window, causal, dtype) and (kind, B, H, Hkv, D,
     block size, table width, dtype) -> launch count, the keys
     ``attn_shape_checked`` reads."""
 
@@ -6089,20 +6619,21 @@ class AttnShapeTap:
         def note(key):
             self.shapes[key] = self.shapes.get(key, 0) + 1
 
-        def flash_key(kind, q, k, window):
+        def flash_key(kind, q, k, window, causal):
             b, h, s, d = q.shape
-            return (kind, b, h, k.shape[1], d, s, window, _dtype_name(q))
+            return (kind, b, h, k.shape[1], d, s, window, bool(causal),
+                    _dtype_name(q))
 
         def rec_fwd(ctx, q, k, v, causal, window, scale):
             if q.device.type != "cpu":
-                note(flash_key("flash_attention", q, k, window))
+                note(flash_key("flash_attention", q, k, window, causal))
             return fwd(ctx, q, k, v, causal, window, scale)
 
         def rec_bwd(ctx, do):
             saved = ctx.saved_tensors
             if len(saved) == 5:          # the kernel's forward saved o, lse
                 note(flash_key("flash_attention_backward", saved[0],
-                               saved[1], ctx.window))
+                               saved[1], ctx.window, ctx.causal))
             return bwd(ctx, do)
 
         def rec_launch(q, k_pool, v_pool, block_tables, kv_len, scale):
@@ -6741,6 +7272,9 @@ def main():
             ssd.ssd_scan),
         "serve_vlm": lambda: phase_serve_vlm(make_engine, get_config, pda, lm,
                                              fa, seg, ssd.ssd_scan, dattn),
+        # on serve_vlm's weights, so right after it
+        "combined_vlm": lambda: phase_combined_vlm(make_engine, get_config,
+                                                   pda, lm, fa, seg, dattn),
         "combined": lambda: phase_combined(run_serving, get_config, pda, lm,
                                            fa, seg),
         "combined_ssm": lambda: phase_combined_ssm(
@@ -6769,6 +7303,10 @@ def main():
         "combined_moe": lambda: phase_combined_moe(run_serving, get_config,
                                                    pda, lm, fa, seg),
         "train_cli_moe": lambda: phase_train_cli_moe(make_engine, get_config,
+                                                     lm, fa),
+        "serve_encoder": lambda: phase_serve_encoder(make_engine, get_config,
+                                                     pda, lm, fa, seg),
+        "train_encoder": lambda: phase_train_encoder(make_engine, get_config,
                                                      lm, fa),
         "experiment": phase_experiment,
         "tick": lambda: phase_tick(make_engine, get_config),
@@ -6812,6 +7350,16 @@ def main():
     cssm, hyb = out["combined_ssm"], out["serve_hybrid"]
     bwd_rows = {k: r for k, r in drows.items() if "bwd" in k[0]}
     crows, vlm = out["kernel_decode"], out["serve_vlm"]
+    cvlm, senc = out["combined_vlm"], out["serve_encoder"]
+    tenc = out["train_encoder"]["cli"]
+
+    def encoder_launches(kernel):
+        """A kernel's launches in each encoder run: the serve waves (per
+        ENC_REPS timed waves), the CLI's (b) and the 2 x 2,048 step."""
+        return {**{f"serve_{n}": r["launches"][kernel]
+                   for n, r in senc["waves"].items()},
+                "train_cli": tenc["launches"][kernel],
+                "train_2x2048": tenc["flash_train"]["launches"][kernel]}
     c_main = crows[("cross", torch.bfloat16)]
     smoe, cmoe = out["serve_moe"], out["combined_moe"]
 
@@ -6853,7 +7401,8 @@ def main():
     f_fwd = frows[("qwen_prefill", torch.bfloat16)]
     f_bwd = frows[("qwen_train", torch.bfloat16)]
     flash_shapes = {n: {k: r[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "bwd_ms",
+        "D", "causal", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "bwd_ms",
         "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms", "bwd_bound_by")}
         for (n, dt), r in frows.items() if dt == torch.bfloat16}
     seg_shapes = {n: {k: r[k] for k in (
@@ -6874,6 +7423,8 @@ def main():
             **{f"combined_{n}": cssm[n]["launches"]["paged_decode_attention"]
                for n in ("hymba_32", "hymba_1984")}},
         "moe_launches": moe_launches_of("paged_decode_attention"),
+        # the VLM co-training ticks' dense blocks
+        "vlm_combined_launches": cvlm["launches"]["paged_decode_attention"],
         "max_abs_err": main_row["max_abs_err"],
         "worst_bf16_err_all_shapes": worst,
         "ms": main_row["ms"],
@@ -6904,6 +7455,8 @@ def main():
         "fabric_launches": fabric_launches("lora_matmul"),
         "train_cli_launches": train_launches["lora_matmul"],
         "moe_launches": moe_launches_of("lora_matmul"),
+        "encoder_launches": encoder_launches("lora_matmul"),
+        "vlm_combined_launches": cvlm["launches"]["lora_matmul"],
         "shape": "decode M=8 K=N=1024 r=16 bf16",
         "max_abs_err": lrows[("decode", torch.bfloat16)]["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -6955,6 +7508,9 @@ def main():
             "combined_1984": cssm["hymba_1984"]["launches"][
                 "flash_attention"]},
         "moe_launches": moe_launches_of("flash_attention"),
+        # hubert-xlarge, non-causal at D 80 (the 128-wide body on
+        # extent-80 tensor maps)
+        "encoder_launches": encoder_launches("flash_attention"),
         "shape": "prefill wave B=8 H=Hkv=16 D=64 S=2048 causal bf16",
         "max_abs_err": f_fwd["max_abs_err"],
         "worst_bf16_rel_err_all_shapes": max(
@@ -6974,6 +7530,8 @@ def main():
         "train_cli_launches": train_launches["flash_attention_backward"],
         "hybrid_launches": {"combined_1984": cssm["hymba_1984"]["launches"][
             "flash_attention_backward"]},
+        "encoder_launches": {"train_2x2048": tenc["flash_train"][
+            "launches"]["flash_attention_backward"]},
         "shape": "train batch B=4 H=Hkv=16 D=64 S=2048 causal bf16",
         "max_abs_err": f_bwd["bwd_max_abs_err"],
         "max_rel_err": max(f_bwd[f"{g}_rel_err"] for g in ("dq", "dk", "dv")),
@@ -7072,6 +7630,7 @@ def main():
         "replaces": "src/repro/kernels/decode_attention.py:80",
         # the VLM server: one per unit per decode step
         "launches": vlm["launches"]["decode_attention"],
+        "vlm_combined_launches": cvlm["launches"]["decode_attention"],
         "shape": "cross-attention decode B=8 H=64 Hkv=8 D=128 T=1601, "
                  "K/V a transposed view, bf16",
         "max_abs_err": c_main["max_abs_err"],

@@ -51,8 +51,9 @@ except ImportError:               # optional dep: fall back to stdlib zlib
     zstandard = None
 
 _FLAG = "_COMPLETE"
-_MESH = ("shardings= restores onto a device mesh, which the port does not "
-         "have yet; see ROADMAP.md, item 6 (the XLA/TPU-mesh tooling)")
+_MESH = ("shardings= restores onto an XLA device mesh; the port scopes the "
+         "XLA/TPU-mesh tooling out (it lowers XLA programs for TPU meshes "
+         "and has no single-card counterpart); see ROADMAP.md, item 6")
 
 
 def _compressor(codec: str):

@@ -1,19 +1,19 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-The ids are the JAX package's; the four dense decoders, the Mamba2 SSM,
-the hybrid hymba-1.5b, the llama-3.2-vision VLM and the two MoE stacks
-(moonshot-v1-16b-a3b, grok-1-314b) are ported (their config files are
-copies of the JAX ones).  The encoder-only family raises
-``NotImplementedError`` naming the ROADMAP item that ports it (it needs
-its serve step).
+The ids are the JAX package's, every one of them ported: the four dense
+decoders, the Mamba2 SSM, the hybrid hymba-1.5b, the encoder-only
+hubert-xlarge, the llama-3.2-vision VLM and the two MoE stacks
+(moonshot-v1-16b-a3b, grok-1-314b); their config files are copies of
+the JAX ones.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (
-    grok1_314b, hymba_1_5b, internlm2_1_8b, llama3_2_vision_90b, llama3_8b,
-    mamba2_780m, moonshot_v1_16b_a3b, qwen1_5_0_5b, qwen3_14b,
+    grok1_314b, hubert_xlarge, hymba_1_5b, internlm2_1_8b,
+    llama3_2_vision_90b, llama3_8b, mamba2_780m, moonshot_v1_16b_a3b,
+    qwen1_5_0_5b, qwen3_14b,
 )
 from repro_torch.configs.base import ModelConfig
 
@@ -24,25 +24,19 @@ _REGISTRY: Dict[str, ModelConfig] = {
     "llama3-8b": llama3_8b.CONFIG,
     "mamba2-780m": mamba2_780m.CONFIG,
     "hymba-1.5b": hymba_1_5b.CONFIG,
+    "hubert-xlarge": hubert_xlarge.CONFIG,
     "llama-3.2-vision-90b": llama3_2_vision_90b.CONFIG,
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "grok-1-314b": grok1_314b.CONFIG,
 }
 
-# arch id -> the ROADMAP item ("Modules to port") that brings it over
-_FAMILIES = "'Other families'"
-_PENDING: Dict[str, str] = {
-    "hubert-xlarge": f"{_FAMILIES} (encoder-only serve step)",
-}
-
-ARCH_IDS = tuple(_REGISTRY) + tuple(_PENDING)
+ARCH_IDS = tuple(_REGISTRY)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch in _REGISTRY:
+    try:
         return _REGISTRY[arch]
-    if arch in _PENDING:
-        raise NotImplementedError(
-            f"{arch} is not ported to repro_torch yet; see ROADMAP.md, "
-            f"'Modules to port', {_PENDING[arch]}")
-    raise KeyError(f"unknown arch {arch!r}; available: {', '.join(ARCH_IDS)}")
+    except KeyError:
+        raise KeyError(
+            f"unknown arch {arch!r}; available: {', '.join(ARCH_IDS)}"
+        ) from None

@@ -10,7 +10,8 @@ alike; a VLM cross block's ``gate_attn``, ``gate_mlp``; an MoE block's
 ``router``), LoRA pairs in float32.  The tree goes through
 ``mamba2.pad_storage``, as ``Model.init``'s does.  A VLM's
 ``[units, per, ...]`` blocks and ``[units, ...]`` cross blocks convert
-leaf for leaf like any other stack.  An AdamW
+leaf for leaf like any other stack, and so does an encoder's tree (dense
+blocks, its embedding table and frame classifier head).  An AdamW
 state (step, m, v) converts the same way, so a test can carry a JAX
 optimizer state across.
 """

@@ -27,6 +27,12 @@ def _rows(batch: Dict, n: int) -> Dict:
     return {k: v[:n] for k, v in batch.items()}
 
 
+def _lead(batch: Dict) -> torch.Tensor:
+    """The tensor whose leading dims are the batch's (rows, sequence):
+    ``tokens``, or an encoder batch's ``embeds``."""
+    return batch["tokens"] if "tokens" in batch else batch["embeds"]
+
+
 @dataclasses.dataclass(frozen=True)
 class Engine:
     """Step factory for one architecture on one device."""
@@ -70,7 +76,7 @@ class Engine:
         ``skip_masked_blocks`` reaches the blockwise attention of
         sequences past the dense limit."""
         if train_tokens > 0:
-            b, s = batch["tokens"].shape[:2]
+            b, s = _lead(batch).shape[:2]
             rows = max(1, min(b, train_tokens // max(s, 1)))
             if rows < b:
                 batch = _rows(batch, rows)
@@ -82,11 +88,11 @@ class Engine:
                 skip_masked_blocks=skip_masked_blocks)
             micro_sqnorm = global_norm(grads) ** 2
         else:
-            n = batch["tokens"].shape[0] // grad_accum
+            n = _lead(batch).shape[0] // grad_accum
             grads = tree_map(lambda t: torch.zeros(
                 t.shape, dtype=torch.float32, device=t.device), lora)
             loss = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
+                               device=_lead(batch).device)
             micro_sqnorm = torch.zeros_like(loss)
             for i in range(grad_accum):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
@@ -126,6 +132,15 @@ class Engine:
                     token: torch.Tensor, pos: torch.Tensor
                     ) -> Tuple[torch.Tensor, Any]:
         return self.model.decode_step(params, lora, caches, token, pos)
+
+    @torch.no_grad()
+    def encoder_serve_step(self, params: Any, lora: Any, batch: Dict
+                           ) -> torch.Tensor:
+        """Encoder-only serving: frame classification of whole sequences,
+        ``hidden @ lm_head`` [B, S, V] over ``batch["embeds"]`` [B, S,
+        d_model]."""
+        hidden, _ = self.model.hidden_states(params, lora, batch)
+        return hidden @ params["lm_head"]
 
     # ------------------------------------------------- the paper's fusion --
     def combined_step(self, params: Any, lora: Any, opt_state: AdamWState,

@@ -32,6 +32,17 @@
 // the exponentials come close too: one ex2 per score against 4 * 64 flop,
 // and the card has ~250x more tensor flop than ex2 per cycle.
 //
+// Head dims 64, 80 and 128.  The bfloat16 kernels are written for 64 and
+// 128 (one or two 64-column swizzle regions); head_dim 80 (hubert-xlarge)
+// runs the 128 body on tensor maps whose D extent is 80: TMA loads fill
+// columns 80-127 with zeros, so every product over D and every output
+// column past 80 is exact zero, and TMA stores clip at the extent.  The
+// stores that do not go through TMA (the f32 dQ accumulator and slices,
+// which keep a 128-column layout, and their rounding into the outputs)
+// mask the columns past D.  The scale comes from the caller (1 / sqrt(80)
+// for hubert), never from the padded width.  The float32 kernels take D
+// = 80 as it is (10 channels per lane).
+//
 // Design, bfloat16 (the serving and training dtype), warp-specialised:
 // one producer warp feeds shared memory with TMA (4-D tensor maps over
 // (D, S, H, B) with the views' byte strides, 128-byte swizzle, 64-column
@@ -841,9 +852,16 @@ __global__ void __launch_bounds__(N_THREADS, 1)
   }
 }
 
+// The width of the bf16 body a head_dim runs on, and of its f32 dQ
+// accumulator rows: 64, else 128 (head_dim 80 padded)
+__host__ __device__ __forceinline__ int body_width(int D) {
+  return D == 64 ? 64 : 128;
+}
+
 // Before the backward: delta = rowsum(dO * O) in f32 and lse in log2 units
 // for every row padded to Sqp (0 and +inf past Sq), and the dQ
-// accumulator zeroed; one warp per padded row
+// accumulator (rows of body_width(D) floats) zeroed; one warp per padded
+// row
 __global__ void __launch_bounds__(256)
     fa_bwd_prep(const Args a, int D, int Sqp, float* lse2, float* dlt,
                 float* acc) {
@@ -876,23 +894,27 @@ __global__ void __launch_bounds__(256)
     dlt[row] = x;
     lse2[row] = qp < a.Sq ? a.lse[bh * a.Sq + qp] * LOG2E : INFINITY;
   }
-  float4* z = reinterpret_cast<float4*>(acc + row * D);
-  for (int i = lane; i < D / 4; i += 32) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int W = body_width(D);
+  float4* z = reinterpret_cast<float4*>(acc + row * W);
+  for (int i = lane; i < W / 4; i += 32) z[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // After it: dQ = scale * the accumulator, rounded to bf16 into the model
-// layout, one thread per float4 of a piece (rows past Sq dropped); with
-// split > 1 also dK = scale * the sum of its slices and dV the sum of
-// its, one thread per 4 channels of a key row
+// layout, one thread per float4 of a piece (rows past Sq and columns past
+// D dropped); with split > 1 also dK = scale * the sum of its slices and
+// dV the sum of its, one thread per 4 channels of a key row.  The
+// accumulator and the slices are laid out body_width(D) wide.
 __global__ void __launch_bounds__(256)
-    fa_bwd_finish(const Args a, int D, int Sqp, const float* acc, u16* dq,
+    fa_bwd_finish(const Args a, int Dreal, int Sqp, const float* acc, u16* dq,
                   int split, const float* part, int Skvp) {
+  const int D = body_width(Dreal);
   i64 idx = (i64)blockIdx.x * 256 + threadIdx.x;
   const i64 n_dq = (i64)a.B * a.H * Sqp * D / 4;
   if (idx >= n_dq) {
     idx -= n_dq;
     if (split < 2 || idx >= (i64)a.B * a.Hkv * a.Skv * D / 4) return;
     const int c = (int)(idx % (D / 4)) * 4;
+    if (c >= Dreal) return;
     i64 r = idx / (D / 4);
     const int kp = (int)(r % a.Skv);
     r /= a.Skv;
@@ -927,6 +949,7 @@ __global__ void __launch_bounds__(256)
   const int lane = tid % 32;
   const int row = qb * 64 + (tid / 32) * 16 + (lane >> 2);
   const int col = db * 64 + 8 * i + 2 * (lane & 3);
+  if (col >= Dreal) return;
   const float4 v = reinterpret_cast<const float4*>(acc)[idx];
   u16* out = dq + b * a.outs[0] + h * a.outs[1] + col;
   if (row < a.Sq)
@@ -1209,14 +1232,16 @@ Args make_args(int B, int H, int Hkv, int Sq, int Skv, int causal,
 }
 
 bool bad_dims(int dtype, int B, int H, int Hkv, int Sq, int Skv, int D) {
-  return (dtype != 0 && dtype != 1) || (D != 64 && D != 128) || B <= 0 ||
+  return (dtype != 0 && dtype != 1) || (D != 64 && D != 80 && D != 128) ||
+         B <= 0 ||
          Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Skv <= 0;
 }
 
-template <int D>
-int fwd(const Args& a, int dtype, cudaStream_t s) {
+// DK: the kernel's width (D = 64, or 128 for 80 and 128); D: the tensors'
+template <int DK>
+int fwd(const Args& a, int D, int dtype, cudaStream_t s) {
   if (dtype == 1) {
-    typedef Fwd<D> C;
+    typedef Fwd<DK> C;
     CUtensorMap qm, km, vm, om;
     if (!tensor_map(&qm, a.q, D, a.Sq, a.H, a.B, a.qs, C::BQ) ||
         !tensor_map(&km, a.k, D, a.Skv, a.Hkv, a.B, a.ks, C::BK) ||
@@ -1224,7 +1249,7 @@ int fwd(const Args& a, int dtype, cudaStream_t s) {
         !tensor_map(&om, a.out, D, a.Sq, a.H, a.B, a.outs, 64))
       return (int)cudaErrorInvalidValue;
     static bool done = false;
-    const int e = opt_in(fa_fwd_wgmma<D>, C::SMEM, done);
+    const int e = opt_in(fa_fwd_wgmma<DK>, C::SMEM, done);
     if (e) return e;
     const int nq = cdiv(a.Sq, C::BQ), n_tiles = nq * a.H * a.B;
     const int sms = n_sms();
@@ -1232,11 +1257,14 @@ int fwd(const Args& a, int dtype, cudaStream_t s) {
     // units as share L2_SHARE bytes of K and V
     const int gh =
         max(cdiv(sms, nq), (int)(L2_SHARE / (4.0 * a.Skv * D / a.G)));
-    fa_fwd_wgmma<D><<<min(n_tiles, sms), N_THREADS, C::SMEM, s>>>(
+    fa_fwd_wgmma<DK><<<min(n_tiles, sms), N_THREADS, C::SMEM, s>>>(
         qm, km, vm, om, a, n_tiles, gh);
   } else {
     dim3 grid(cdiv(a.Sq, F_ROWS), a.H, a.B);
-    fa_fwd_f32<D><<<grid, F_NT, 0, s>>>(a);
+    if (D == 80)
+      fa_fwd_f32<80><<<grid, F_NT, 0, s>>>(a);
+    else
+      fa_fwd_f32<DK><<<grid, F_NT, 0, s>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -1255,10 +1283,11 @@ int dq_f32(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <int D>
-int bwd_bf16(const Args& a, int Sqp, const float* lse2, const float* dlt,
-             float* acc, int split, float* part, int Skvp, cudaStream_t s) {
-  typedef Bwd<D> C;
+template <int DK>
+int bwd_bf16(const Args& a, int D, int Sqp, const float* lse2,
+             const float* dlt, float* acc, int split, float* part, int Skvp,
+             cudaStream_t s) {
+  typedef Bwd<DK> C;
   CUtensorMap qm, km, vm, dom, dkm, dvm;
   if (!tensor_map(&qm, a.q, D, a.Sq, a.H, a.B, a.qs, C::BQ) ||
       !tensor_map(&km, a.k, D, a.Skv, a.Hkv, a.B, a.ks, C::BK) ||
@@ -1268,14 +1297,14 @@ int bwd_bf16(const Args& a, int Sqp, const float* lse2, const float* dlt,
       !tensor_map(&dvm, a.dv, D, a.Skv, a.Hkv, a.B, a.dvs, 64))
     return (int)cudaErrorInvalidValue;
   static bool done = false;
-  const int e = opt_in(fa_bwd_wgmma<D>, C::SMEM, done);
+  const int e = opt_in(fa_bwd_wgmma<DK>, C::SMEM, done);
   if (e) return e;
   // a group: at least a wave of the grid, and as many units as share
   // L2_SHARE bytes of Q, dO and the f32 dQ accumulator
   const int nk = cdiv(a.Skv, C::BK);
   const int gh = max(cdiv(n_sms(), nk),
                      (int)(L2_SHARE / (8.0 * a.Sq * D * (a.G / split))));
-  fa_bwd_wgmma<D><<<nk * a.Hkv * a.B * split, N_THREADS, C::SMEM, s>>>(
+  fa_bwd_wgmma<DK><<<nk * a.Hkv * a.B * split, N_THREADS, C::SMEM, s>>>(
       qm, km, vm, dom, dkm, dvm, a, lse2, dlt, acc, Sqp, split, part, Skvp,
       gh);
   return (int)cudaGetLastError();
@@ -1286,7 +1315,7 @@ int bwd_bf16(const Args& a, int Sqp, const float* lse2, const float* dlt,
 // dtype 0: float32, 1: bfloat16.  q [B, H, Sq, D], k and v [B, Hkv, Skv,
 // D], o [B, H, Sq, D], each with element strides (b, h, s) and unit
 // stride along D (bf16: strides multiples of 8 elements, 16-byte aligned
-// pointers); lse a contiguous f32 [B, H, Sq].  D is 64 or 128.  Each
+// pointers); lse a contiguous f32 [B, H, Sq].  D is 64, 80 or 128.  Each
 // entry returns cudaGetLastError() after its launch (0 when accepted),
 // or cudaErrorInvalidValue for operands it does not take.
 extern "C" int flash_attention_fwd_launch(
@@ -1313,7 +1342,7 @@ extern "C" int flash_attention_fwd_launch(
         aligned(o)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? fwd<64>(a, dtype, s) : fwd<128>(a, dtype, s);
+  return D == 64 ? fwd<64>(a, D, dtype, s) : fwd<128>(a, D, dtype, s);
 }
 
 // ---- float32 backward: delta, then dK/dV, then dQ (three launches)
@@ -1363,7 +1392,8 @@ extern "C" int flash_attention_bwd_dkdv_launch(
   set3(a.dks, skgb, skgh, skgs);
   set3(a.dvs, svgb, svgh, svgs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? dkdv_f32<64>(a, s) : dkdv_f32<128>(a, s);
+  return D == 64 ? dkdv_f32<64>(a, s)
+                 : D == 80 ? dkdv_f32<80>(a, s) : dkdv_f32<128>(a, s);
 }
 
 extern "C" int flash_attention_bwd_dq_launch(
@@ -1389,20 +1419,22 @@ extern "C" int flash_attention_bwd_dq_launch(
   set3(a.dos, sdb, sdh, sds);
   set3(a.outs, sgb, sgh, sgs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? dq_f32<64>(a, s) : dq_f32<128>(a, s);
+  return D == 64 ? dq_f32<64>(a, s)
+                 : D == 80 ? dq_f32<80>(a, s) : dq_f32<128>(a, s);
 }
 
 // ---- bfloat16 backward: prep, the single pass, finish (three launches).
 // Sqp: Sq rounded up to 128; lse2 and delta f32 [B, H, Sqp]; acc the f32
-// dQ accumulator, B * H * Sqp * D floats in 64 x 64 pieces.  split (a
-// divisor of H / Hkv) slices each group's heads over that many blocks;
-// above 1 the slices' f32 dK and dV go to part, 2 * split * B * Hkv *
-// Skvp * D floats (Skvp: Skv rounded up to 128), and finish adds them.
+// dQ accumulator, B * H * Sqp * W floats in 64 x 64 pieces, W =
+// body_width(D) (128 for D = 80).  split (a divisor of H / Hkv) slices
+// each group's heads over that many blocks; above 1 the slices' f32 dK
+// and dV go to part, 2 * split * B * Hkv * Skvp * W floats (Skvp: Skv
+// rounded up to 128), and finish adds them.
 extern "C" int flash_attention_bwd_bf16_prep_launch(
     const void* o, const void* dO, const float* lse, float* lse2,
     float* delta, float* acc, int B, int H, int Sq, int D, int Sqp, i64 sob,
     i64 soh, i64 sos, i64 sdb, i64 sdh, i64 sds, void* stream) {
-  if (B <= 0 || H <= 0 || Sq <= 0 || (D != 64 && D != 128) ||
+  if (B <= 0 || H <= 0 || Sq <= 0 || (D != 64 && D != 80 && D != 128) ||
       Sqp % 128 != 0 || Sqp < Sq)
     return (int)cudaErrorInvalidValue;
   Args a = make_args(B, H, 1, Sq, 1, 0, 0, 0.f);
@@ -1453,9 +1485,10 @@ extern "C" int flash_attention_bwd_bf16_launch(
         aligned(delta) && aligned(part)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64
-             ? bwd_bf16<64>(a, Sqp, lse2, delta, acc, split, part, Skvp, s)
-             : bwd_bf16<128>(a, Sqp, lse2, delta, acc, split, part, Skvp, s);
+  return D == 64 ? bwd_bf16<64>(a, D, Sqp, lse2, delta, acc, split, part,
+                                Skvp, s)
+                 : bwd_bf16<128>(a, D, Sqp, lse2, delta, acc, split, part,
+                                 Skvp, s);
 }
 
 extern "C" int flash_attention_bwd_bf16_finish_launch(
@@ -1477,8 +1510,9 @@ extern "C" int flash_attention_bwd_bf16_finish_launch(
         aligned(dq) && aligned(dk) && aligned(dv) && aligned(acc) &&
         aligned(part)))
     return (int)cudaErrorInvalidValue;
-  const i64 n = (i64)B * H * Sqp * D / 4 +
-                (split > 1 ? (i64)B * Hkv * Skv * D / 4 : 0);
+  const i64 W = body_width(D);
+  const i64 n = (i64)B * H * Sqp * W / 4 +
+                (split > 1 ? (i64)B * Hkv * Skv * W / 4 : 0);
   fa_bwd_finish<<<(unsigned)((n + 255) / 256), 256, 0,
                   static_cast<cudaStream_t>(stream)>>>(
       a, D, Sqp, acc, static_cast<u16*>(dq), split, part, Skvp);

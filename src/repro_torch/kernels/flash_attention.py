@@ -1,7 +1,8 @@
-"""Flash attention: causal or windowed GQA softmax attention over a whole
-sequence with an online softmax, forward and backward — the prefill and
-training attention of every sequence longer than the dense path takes
-(``s*s > 1M``, ``models/transformer.py::use_dense_prefill``).
+"""Flash attention: causal, windowed or non-causal GQA softmax attention
+over a whole sequence with an online softmax, forward and backward — the
+prefill and training attention of every sequence longer than the dense
+path takes (``s*s > 1M``, ``models/transformer.py::use_dense_prefill``),
+non-causal in the encoder (hubert-xlarge, head_dim 80).
 
 Replaces the TPU kernel ``repro.kernels.flash_attention.flash_attention``
 (``src/repro/kernels/flash_attention.py:86``, its ``pallas_call`` at
@@ -34,8 +35,11 @@ gradient).  CPU tensors take the plain PyTorch versions
 (``flash_attention_ref`` and, for the gradient, autograd of it in
 ``flash_attention_grad_ref``); CUDA tensors launch the kernels
 (``flash_attention_fwd``, ``flash_attention_backward``), which raise on
-a dtype (float32, bfloat16), head_dim (64, 128), layout or device they
-do not take.  Nothing falls back.  ``flash_attention_fwd.launches``
+a dtype (float32, bfloat16), head_dim (64, 80, 128), layout or device
+they do not take.  bfloat16 head_dim 80 runs the 128-wide kernels on
+tensor maps of extent 80 (zero-filled loads, clipped stores; its f32 dQ
+accumulator is 128 wide, ``_body_width``), so it does 1.6x the tensor
+work the shape needs.  Nothing falls back.  ``flash_attention_fwd.launches``
 counts forward launches (one per call), ``flash_attention_backward.
 launches`` backward launches: three per backward.  In bfloat16 (wgmma
 and TMA, ``csrc/flash_attention.cu``): a prep kernel (``delta =
@@ -57,7 +61,7 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _P = ctypes.c_void_p
@@ -148,6 +152,13 @@ def _check(q, k, v, extra=()) -> None:
             raise ValueError(
                 f"flash_attention: bf16 {name} strides {t.stride()} must be "
                 "multiples of 8 elements and the tensor 16-byte aligned")
+
+
+def _body_width(d: int) -> int:
+    """The bfloat16 kernels' width for head_dim ``d`` (80 runs the
+    128-wide body) and so the row width of the f32 dQ accumulator and of
+    the dK / dV slices."""
+    return 64 if d == 64 else 128
 
 
 def _bhs(t):
@@ -280,9 +291,10 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal: bool = True,
         split = backward_split(b, hkv, h // hkv, skv, _n_sms(q.device))
         lse2 = torch.empty((b, h, sqp), dtype=torch.float32, device=q.device)
         delta = torch.empty_like(lse2)
-        acc = torch.empty((b * h * sqp * d,), dtype=torch.float32,
+        width = _body_width(d)
+        acc = torch.empty((b * h * sqp * width,), dtype=torch.float32,
                           device=q.device)
-        part = torch.empty((2 * split * b * hkv * skvp * d,),
+        part = torch.empty((2 * split * b * hkv * skvp * width,),
                            dtype=torch.float32, device=q.device) \
             if split > 1 else None
         with torch.cuda.device(q.device):

@@ -154,6 +154,8 @@ def run_serving(arch: str, *, smoke: bool = True, n_requests: int = 16,
     combined mode training steps tenant 0's tree in place while decode
     reads the registry's copies."""
     cfg = get_config(arch)
+    if not cfg.has_decode:             # the reference's assert, its words
+        raise AssertionError(f"{arch} is encoder-only; no decode serving")
     refuse_vlm(cfg)                    # before building a model for it
     if smoke:
         cfg = cfg.scaled()

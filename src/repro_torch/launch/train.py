@@ -3,13 +3,15 @@ with checkpoint/restart fault tolerance and a NaN guard.
 
 Every LoRA projection runs the fused ``lora_matmul`` kernel, forward and
 the backward's dX; sequences past 1,024 tokens take ``flash_attention``,
-forward and backward; every SSM layer (mamba2-780m, and hymba-1.5b beside
-its attention) takes ``ssd_scan`` and its backward kernel.  The dense
-decoders, the MoE stacks (moonshot-v1-16b-a3b, grok-1-314b: the loss
-adds 0.01 x the experts' load-balancing loss), mamba2-780m and
-hymba-1.5b train on the card and the CPU, the VLM not at all (ROADMAP
-item 4).  Weights are random, drawn from
-``--seed``'s generators;
+forward and backward (non-causal in the encoder); every SSM layer
+(mamba2-780m, and hymba-1.5b beside its attention) takes ``ssd_scan`` and
+its backward kernel.  Every family trains, on the card and the CPU: the
+dense decoders, the MoE stacks (moonshot-v1-16b-a3b, grok-1-314b: the
+loss adds 0.01 x the experts' load-balancing loss), mamba2-780m,
+hymba-1.5b, the encoder hubert-xlarge and the VLM.  As in the
+reference's CLI, a VLM batch carries zero ``vision`` inputs and an
+encoder batch frame embeddings drawn per step (``encoder_embeds``).
+Weights are random, drawn from ``--seed``'s generators;
 checkpoints use the reference's format (``checkpoint/checkpointer.py``),
 so either package resumes from the other's.
 
@@ -18,6 +20,7 @@ Usage (on a machine with an NVIDIA Hopper card):
       --smoke --steps 50 --batch 8 --seq 64 --ckpt /tmp/ck
   ... --arch mamba2-780m | --arch hymba-1.5b   # SSM / hybrid stacks
   ... --arch moonshot-v1-16b-a3b | --arch grok-1-314b   # MoE stacks
+  ... --arch hubert-xlarge | --arch llama-3.2-vision-90b
   ... --restore            # resume from the latest checkpoint
   ... --full               # the published widths
   ... --device cpu         # on the CPU (plain PyTorch versions)
@@ -29,6 +32,7 @@ import math
 import time
 from typing import Any, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import Checkpointer
@@ -40,12 +44,35 @@ from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_map
 
 
-def refuse_untrainable(cfg: ModelConfig) -> None:
-    """The VLM's gradients are held against the reference nowhere yet."""
+def encoder_embeds(cfg: ModelConfig, rows: int, seq: int, seed: int,
+                   step: int, device) -> torch.Tensor:
+    """An encoder batch's frame embeddings [rows, seq, d_model], float32
+    standard normal from a generator on ``device`` seeded by (``seed``,
+    ``step``) (mixed into 32 bits by numpy's ``SeedSequence``; both are
+    non-negative): a restart draws the same embeddings for the same
+    step.  The reference draws them with ``jax.random.normal(key(step))``,
+    which a torch generator cannot reproduce; tests that compare the two
+    packages feed both the same numpy embeddings."""
+    mixed = np.random.SeedSequence((seed, step)).generate_state(1)[0]
+    gen = torch.Generator(device=device).manual_seed(int(mixed))
+    return torch.randn((rows, seq, cfg.d_model), generator=gen,
+                       device=device)
+
+
+def step_batch(cfg: ModelConfig, data: SyntheticDataset, rows: int,
+               seq: int, seed: int, step: int, device) -> dict:
+    """Step ``step``'s batch: the dataset's next ``rows`` (tokens,
+    labels, mask) on ``device``, plus zero ``vision`` inputs for a VLM
+    and ``encoder_embeds`` for an encoder, as the reference's CLI adds
+    them."""
+    b = {k: torch.as_tensor(v, device=device)
+         for k, v in data.batch(rows).items()}
     if cfg.family is Family.VLM:
-        raise NotImplementedError(
-            f"{cfg.name}: training a VLM stack is not ported yet; see "
-            "ROADMAP.md, item 4, 'Other families' (VLM co-training)")
+        b["vision"] = torch.zeros((rows, cfg.vision_tokens, cfg.d_model),
+                                  device=device)
+    if cfg.encoder_only:
+        b["embeds"] = encoder_embeds(cfg, rows, seq, seed, step, device)
+    return b
 
 
 def init_weights(engine: Engine, seed: int) -> Tuple[Any, Any]:
@@ -85,7 +112,6 @@ def train_from_weights(engine: Engine, params: Any, lora: Any, *,
     it can resume an older step count with the newer state; ROADMAP §3).
     Returns ``losses``, ``final_loss``, ``lora`` and ``steps``."""
     cfg = engine.model.cfg
-    refuse_untrainable(cfg)
     device = engine.model.device
     opt_state = engine.optimizer.init(lora)
     data = SyntheticDataset("alpaca", vocab_size=cfg.vocab_size,
@@ -105,8 +131,7 @@ def train_from_weights(engine: Engine, params: Any, lora: Any, *,
     t0 = time.time()
     step = start_step
     while step < steps:
-        b = {k: torch.as_tensor(v, device=device)
-             for k, v in data.batch(batch).items()}
+        b = step_batch(cfg, data, batch, seq, seed, step, device)
         new_lora, new_opt, metrics = engine.train_step(params, lora,
                                                        opt_state, b)
         loss = float(metrics["ce_loss"])  # lint: host-sync-ok the NaN guard reads each step's loss
@@ -159,7 +184,6 @@ def run_training(arch: str, *, smoke: bool = True, steps: int = 100,
     draw its weights from ``seed`` and train the adapter
     (``train_from_weights``)."""
     cfg = get_config(arch)
-    refuse_untrainable(cfg)           # before building a model for it
     if smoke:
         cfg = cfg.scaled()
     engine = make_engine(cfg, lr=lr, device=device)

@@ -1,7 +1,8 @@
 """The port's model: one ``Model`` per (ModelConfig, device) with the
 serving surface of ``repro.models.model.Model`` for the dense family,
 the MoE family (moonshot, grok-1), the attention-free SSM family
-(Mamba2), the hybrid (hymba) and the VLM (llama-3.2-vision):
+(Mamba2), the hybrid (hymba), the encoder-only family (hubert) and the
+VLM (llama-3.2-vision):
 
   init(generator) -> params              init_lora(generator) -> adapters
   forward_loss(params, lora, batch)      (training objective), logits
@@ -33,6 +34,13 @@ vision K/V of each unit ``[units, B, T, Hkv, Dh]``, made at prefill and
 read by every decode step.  As in JAX, a VLM stack has no paged caches
 and no cache-slot writes (the caller copies a prefill's caches into its
 decode caches), and its decode serves one adapter.
+
+An encoder stack (``cfg.encoder_only``) reads ``batch["embeds"]`` [B, S,
+d_model] (the stub audio frontend's frame embeddings, cast to
+``cfg.dtype``) in place of token embeddings when the batch carries them,
+attends non-causally, and serves through ``hidden_states`` / ``logits``
+(``Engine.encoder_serve_step``) and trains through ``forward_loss``.
+It has no decode: the cache, prefill and decode methods raise.
 
 Params are nested dicts of tensors in the JAX layout (stacked ``[L, ...]``
 block leaves, ``[in, out]`` matrices), so ``convert.py`` loads a JAX tree
@@ -186,7 +194,15 @@ class Model:
 
     # ------------------------------------------------------------ forward --
     def _embed(self, params, batch) -> torch.Tensor:
+        if self.cfg.encoder_only and "embeds" in batch:
+            return batch["embeds"].to(getattr(torch, self.cfg.dtype))
         return params["embed"][batch["tokens"]]
+
+    def _no_decode(self, what: str) -> None:
+        if not self.cfg.has_decode:
+            raise NotImplementedError(
+                f"{self.cfg.name}: encoder-only, no {what} (it serves "
+                "through Engine.encoder_serve_step)")
 
     def hidden_states(self, params, lora, batch, *,
                       collect_caches: bool = False, block_kv: int = 512,
@@ -312,6 +328,7 @@ class Model:
         a VLM's ``kv`` ``[units, per, batch, S, Hkv, Dh]`` and
         ``cross_kv`` ``[units, batch, T, Hkv, Dh]``."""
         cfg = self.cfg
+        self._no_decode("decode caches")
         if cfg.family is Family.VLM:
             units, per = self._vlm_shape()
             dt = self._cache_dtype(dtype)
@@ -342,6 +359,7 @@ class Model:
         """Global paged KV pool ``[L, n_blocks, block_size, Hkv, Dh]``
         per K/V; block 0 is the runtime's scratch block."""
         cfg = self.cfg
+        self._no_decode("paged KV caches")
         self._attention_only("paged KV caches")
         self._no_vlm("paged KV caches")
         shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
@@ -370,6 +388,7 @@ class Model:
         position [B,1,V], caches as ``hidden_states`` collects them) —
         the SSM stacks' prefill, one request at a time in the batcher; a
         VLM's caches include ``cross_kv``."""
+        self._no_decode("prefill")
         hidden, caches = self.hidden_states(params, lora, batch,
                                             collect_caches=True)
         return hidden[:, -1:] @ params["lm_head"], caches
@@ -382,6 +401,7 @@ class Model:
         with k, v ``[L, B, P, Hkv, Dh]``; a VLM's ``kv`` and ``cross_kv``
         as ``hidden_states`` collects them).  Causal masking keeps pad
         tokens out of every real position's K/V."""
+        self._no_decode("prefill")
         self._attention_only("ragged (padded) prefills")
         hidden, caches = self.hidden_states(
             params, lora, batch, collect_caches=True, block_kv=block_kv,
@@ -554,6 +574,7 @@ class Model:
         layer's prefix K/V (gathered inside the loop, so a wave never
         holds every layer's copy of the prefixes)."""
         cfg = self.cfg
+        self._no_decode("prefill")
         self._attention_only("suffix prefills")
         self._no_vlm("suffix prefills")
         tokens = batch["tokens"]
@@ -639,6 +660,7 @@ class Model:
         unit's ``cross_kv`` and serves one adapter (``adapter_idx``
         raises)."""
         cfg = self.cfg
+        self._no_decode("decode step")
         pos = self._positions(pos, token.shape[0])
         x = params["embed"][token]
         rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta) \
@@ -695,6 +717,7 @@ class Model:
         offset and kv_len are computed on the device.  Returns
         (logits [B,1,V], caches updated in place)."""
         cfg = self.cfg
+        self._no_decode("decode step")
         self._attention_only("paged decode steps")
         self._no_vlm("paged decode steps")
         k_all, v_all = caches["kv"]

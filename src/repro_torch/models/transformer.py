@@ -1,9 +1,11 @@
-"""Decoder blocks of the port — the counterparts of
-``repro.models.transformer`` for the dense family, the MoE family, the
-attention-free SSM family (Mamba2), the hybrid (hymba: attention and a
-Mamba2 mixer side by side) and the VLM (llama-3.2-vision):
+"""Blocks of the port — the counterparts of ``repro.models.transformer``
+for the dense family, the encoder-only family (hubert), the MoE family,
+the attention-free SSM family (Mamba2), the hybrid (hymba: attention and
+a Mamba2 mixer side by side) and the VLM (llama-3.2-vision):
 
   dense:  x += attn(norm1(x)); x += mlp(norm2(x))
+  encoder: the dense block with non-causal attention (full-sequence
+          only: the family has no decode)
   MoE:    x += attn(norm1(x)); x += moe_mlp(norm2(x)), the experts
           plain batched products (``models/moe.py``); ``block_full``
           returns the layer's load-balancing aux loss, the suffix and
@@ -29,7 +31,7 @@ call over every sequence's own slot.
 Decode writes the new token's K/V (an SSM layer: its conv tail and
 state; a hybrid layer: both) into the caller's cache tensors IN PLACE
 (the JAX blocks return new caches); the returned caches are the same
-tensors.  The encoder family raises ``NotImplementedError``.
+tensors.
 """
 from __future__ import annotations
 
@@ -93,10 +95,6 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig) -> Dict:
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
-    if cfg.family is Family.ENCODER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family.value} family is not ported to "
-            "repro_torch yet; see ROADMAP.md, 'Other families'")
     dtype = _dtype(cfg.param_dtype)
     dev = gen.device
     p: Dict[str, Any] = {"ln1": torch.ones((cfg.d_model,), dtype=dtype,

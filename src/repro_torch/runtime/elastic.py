@@ -2,8 +2,10 @@
 runtime (``repro.runtime.elastic.ElasticServingPool``).
 
 The training side of the reference module (``shardings_for`` and
-``elastic_restore``, checkpoint-based re-meshing) belongs to the mesh
-tooling the port has not taken on yet (ROADMAP.md, item 6).
+``elastic_restore``, checkpoint-based re-meshing onto an XLA device
+mesh) belongs to the XLA/TPU-mesh tooling, which the port scopes out: it
+lowers XLA programs for TPU meshes and has no single-card counterpart
+(ROADMAP.md, item 6).
 """
 from __future__ import annotations
 

@@ -568,6 +568,14 @@ class AdapterRegistry:
         return self._stack
 
 
+def refuse_encoder(cfg) -> None:
+    """The reference's refusal of an encoder-only stack, which has no
+    decode (it serves through ``Engine.encoder_serve_step``)."""
+    if not cfg.has_decode:
+        raise NotImplementedError(
+            f"{cfg.name}: encoder-only, no decode serving")
+
+
 def refuse_vlm(cfg) -> None:
     """The reference's refusal of VLM stacks, which serve through the
     engine's prefill and decode steps instead."""
@@ -599,6 +607,7 @@ class ContinuousBatcher:
         cfg = engine.model.cfg
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        refuse_encoder(cfg)
         refuse_vlm(cfg)
         if cfg.sliding_window > 0 and prompt_pad > cfg.sliding_window:
             raise ValueError(
@@ -1935,6 +1944,7 @@ def static_batch_serve(engine, params, lora, requests: Sequence[GenRequest],
     scheduling."""
     model = engine.model
     cfg = model.cfg
+    refuse_encoder(cfg)
     if cfg.has_ssm or cfg.family is Family.VLM:
         raise NotImplementedError(
             f"{cfg.name}: the static baseline supports attention-only "

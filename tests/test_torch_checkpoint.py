@@ -1,7 +1,8 @@
 """The port's checkpointer (``repro_torch.checkpoint``):
 
 * twins of ``tests/test_checkpoint.py``'s first five tests on tensor
-  trees (the elastic restore onto another mesh waits for ROADMAP item 6);
+  trees (the elastic restore onto another mesh is scoped out with the
+  XLA/TPU-mesh tooling, ROADMAP item 6);
 * cross-package, bitwise, both ways: a checkpoint of the reduced qwen's
   ``(lora, AdamWState)`` after two JAX train steps (nonzero moments and
   step), carried into the port through ``repro_torch.convert``, written

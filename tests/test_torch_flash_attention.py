@@ -4,12 +4,14 @@ against the JAX package, float32 on the CPU, inputs drawn with numpy:
 
 * ``flash_attention_ref`` (the forward kernel's plain version) against
   the Pallas ``flash_attention`` run in interpret mode, as
-  ``tests/test_kernels.py`` runs it: rtol = atol = 2e-5;
+  ``tests/test_kernels.py`` runs it: rtol = atol = 2e-5 (also at
+  head_dim 80, hubert-xlarge's, causal and not);
 * gradients in q, k and v of the port's blockwise plain loop and of
   ``FlashAttentionFn`` (on the CPU: autograd of the plain version, the
   backward kernels' plain version) against ``jax.grad`` of the JAX
   ``attention_blockwise``: within 1e-5 of the largest gradient (float32
-  sums over every query or key, in another order);
+  sums over every query or key, in another order); non-causal too (the
+  encoder's mask, at head_dim 16 and 80) against ``jax.vjp``;
 * the port's ``attention_blockwise`` against the JAX one, both variants,
   at several ``block_kv``: within 1e-5 of the largest output; the two
   variants bitwise equal to each other, as in JAX;
@@ -73,6 +75,22 @@ def test_plain_version_matches_pallas(b, h, hkv, sq, skv, causal, window):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [False, True],
+                         ids=["non-causal", "causal"])
+@pytest.mark.parametrize("sq,skv", [(256, 256), (200, 200)],
+                         ids=["tiles", "ragged"])
+def test_plain_version_matches_pallas_at_head_dim_80(sq, skv, causal):
+    """hubert-xlarge's head_dim (1,280 / 16), non-causal as the encoder
+    runs it, and causal."""
+    q, k, v = _inputs(1, 4, 4, sq, skv, 80, seed=7)
+    want = pallas_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        causal=causal, bq=128, bk=128, interpret=True)
+    got = flash_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
 def test_fully_masked_rows_are_zero():
     """Queries whose window holds none of the keys (two keys, window 3:
     rows 4 and on) give zeros, the kernels' clamped-l contract."""
@@ -111,6 +129,33 @@ def test_gradient_matches_jax_grad(path, hkv, window):
                                    tv.transpose(1, 2), True, window,
                                    None).transpose(1, 2)
     got = torch.autograd.grad((o * torch.from_numpy(w)).sum(), (tq, tk, tv))
+    for name, g, j in zip("qkv", got, want):
+        assert _rel(g.numpy(), j) < GRAD_REL, name
+
+
+@pytest.mark.parametrize("path", ["blockwise", "flash_fn"])
+@pytest.mark.parametrize("hkv,d", [(2, 16), (4, 80)], ids=["gqa", "d80"])
+def test_noncausal_gradient_matches_jax_vjp(path, hkv, d):
+    """The encoder's mask: gradients in q, k and v of the non-causal
+    blockwise loop and ``FlashAttentionFn`` against ``jax.vjp`` of the
+    JAX ``attention_blockwise`` (causal=False), at a length that is no
+    multiple of the block, and at head_dim 80."""
+    b, sq, hq, bk = 2, 40, 4, 16
+    q, k, v = _inputs(b, hq, hkv, sq, sq, d, seed=8, layout="bshd")
+    do = np.random.default_rng(9).standard_normal(
+        (b, sq, hq, d)).astype(np.float32)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_blockwise(
+        q_, k_, v_, causal=False, block_kv=bk), jnp.asarray(q),
+        jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    if path == "blockwise":
+        o = attention_blockwise(tq, tk, tv, causal=False, block_kv=bk)
+    else:
+        o = FlashAttentionFn.apply(tq.transpose(1, 2), tk.transpose(1, 2),
+                                   tv.transpose(1, 2), False, 0,
+                                   None).transpose(1, 2)
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
     for name, g, j in zip("qkv", got, want):
         assert _rel(g.numpy(), j) < GRAD_REL, name
 

@@ -195,10 +195,8 @@ def test_default_device_raises_without_a_card():
         run_serving("qwen1.5-0.5b", n_requests=1, verbose=False)
 
 
-def test_unported_arch_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("hubert-xlarge")
-    with pytest.raises(KeyError):
+def test_unknown_arch_raises_key_error():
+    with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
 
 

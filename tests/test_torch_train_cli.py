@@ -21,9 +21,10 @@ pipeline, on the CPU:
   batches Python's per-process ``hash`` seeds;
 * ``main()`` in-process prints the reference's lines;
 * mamba2 trains on the CPU (the plain ``ssd_scan`` and its plain
-  backward; hymba's twin is in ``tests/test_torch_hybrid.py``); the VLM
-  and the archs still to port raise, naming their ROADMAP item; the
-  default device raises without a card;
+  backward; hymba's twin is in ``tests/test_torch_hybrid.py``; the
+  encoder's and the VLM's CLI runs are in ``tests/test_torch_encoder.py``
+  and ``tests/test_torch_vlm.py``); the default device raises without a
+  card;
 * ``DataPipeline`` yields ``sample_fn``'s batches in order.
 """
 import re
@@ -383,18 +384,6 @@ def test_mamba2_trains_on_the_cpu(tmp_path):
                        ckpt_dir=str(tmp_path), verbose=False, device="cpu")
     assert out["steps"] == 3
     assert all(np.isfinite(out["losses"]))
-
-
-def test_vlm_refused_naming_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run_training("llama-3.2-vision-90b", steps=1, device="cpu",
-                     verbose=False)
-
-
-@pytest.mark.parametrize("arch", ["hubert-xlarge"])
-def test_pending_archs_refused_naming_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="Other families"):
-        run_training(arch, steps=1, device="cpu", verbose=False)
 
 
 def test_default_device_raises_without_a_card():

@@ -24,7 +24,17 @@ decode caches filled from its prefill by the same slice copy;
 ``Engine.prefill_step`` against JAX's on full-length prompts;
 ``prefill_ragged`` on right-padded prompts; and the refusals the
 reference has (batcher, paged caches and decode, cache-slot writes) plus
-``adapter_idx`` in a VLM decode, which JAX silently drops."""
+``adapter_idx`` in a VLM decode, which JAX silently drops.
+
+Co-training (gates at 0.5): ``forward_loss`` and the LoRA gradients
+(through the cross blocks' dense attention under autograd) against
+``jax.grad``, ``Engine.train_step`` (two AdamW steps) and
+``Engine.combined_step`` (decode over caches filled from a prefill, its
+logits from the pre-update adapter) against the JAX engine's, at
+``tests/test_torch_train.py``'s tolerances, the new adapters held to
+the AdamW update of the port's moments (``test_torch_encoder.
+adamw_gap``); and the train CLI on the scaled VLM (zero vision inputs,
+as the reference's CLI)."""
 import dataclasses
 
 import jax
@@ -38,13 +48,17 @@ from repro.core.engine import make_engine as jax_make_engine
 from repro.models import transformer as jax_tfm
 from repro.models.model import build as jax_build
 from repro_torch.configs.registry import get_config
-from repro_torch.convert import lora_from_numpy, params_from_numpy
+from repro_torch.convert import (
+    lora_from_numpy, opt_state_from_numpy, params_from_numpy,
+)
 from repro_torch.core.engine import make_engine
 from repro_torch.launch.serve import run_serving
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import build
 from repro_torch.runtime.serving_loop import ContinuousBatcher
-from repro_torch.tree import tree_map
+from repro_torch.launch.train import run_training
+from repro_torch.tree import tree_leaves, tree_map
+from test_torch_encoder import adamw_gap
 
 ARCH = "llama-3.2-vision-90b"
 REL = 5e-5
@@ -324,3 +338,128 @@ def test_vlm_refusals_match_the_reference(pair):
                        adapter_idx=torch.zeros(2, dtype=torch.int32))
     # nothing of the refused calls touched the caches
     assert not any(t.any() for kv in caches.values() for t in kv)
+
+
+# ------------------------------------------------------------ training ----
+LR = 1e-3
+LOSS_REL = 1e-5
+GRAD_REL = 1e-4
+MOMENT_TOL = {"m": dict(rtol=1e-5, atol=1e-7), "v": dict(rtol=1e-4,
+                                                         atol=1e-12)}
+
+
+def _train_batch(cfg, b=2, s=10, seed=30):
+    toks, vis = _batch(cfg, b=b, s=s + 1, seed=seed)
+    mask = np.ones((b, s), np.float32)
+    mask[0, -2:] = 0.0
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:], "mask": mask,
+            "vision": vis}
+
+
+def _np_leaves(tree):
+    """A port tree's leaves as numpy in JAX's (sorted-key) order."""
+    return jax.tree.leaves(tree_map(lambda t: t.detach().numpy(), tree))
+
+
+def test_forward_loss_and_lora_grads_match_jax(pair):
+    (jm, jp, jl), (tm, tp, tl) = pair
+    batch = _train_batch(tm.cfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, jmet), jg = jax.value_and_grad(
+        lambda lo: jm.forward_loss(jp, lo, jb), has_aux=True)(jl)
+    eng = make_engine(tm.cfg, device="cpu")
+    loss, met, tg = eng.loss_and_grads(
+        tp, tl, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert _rel(loss, jloss) < LOSS_REL
+    assert _rel(met["ce_loss"], jmet["ce_loss"]) < LOSS_REL
+    for t, j in zip(_np_leaves(tg), jax.tree.leaves(jg)):
+        assert _rel(t, j) < GRAD_REL
+    # the cross blocks are in the gradient's path: other vision inputs
+    # give other adapter gradients
+    other = dict(batch, vision=batch["vision"][::-1].copy())
+    _, _, tg2 = eng.loss_and_grads(
+        tp, tl, {k: torch.from_numpy(v) for k, v in other.items()})
+    assert max(float((a - b).abs().max()) for a, b in
+               zip(tree_leaves(tg), tree_leaves(tg2))) > 1e-6
+
+
+def _check_step(new, prev, opt, jopt, step):
+    for key in ("m", "v"):
+        for t, j in zip(_np_leaves(getattr(opt, key)),
+                        jax.tree.leaves(getattr(jopt, key))):
+            np.testing.assert_allclose(t, np.asarray(j), **MOMENT_TOL[key])
+    for a, b, m, v in zip(*(tree_leaves(t) for t in
+                            (new, prev, opt.m, opt.v))):
+        assert adamw_gap(a, b, m, v, step, lr=LR) < 1e-6
+    assert int(opt.step) == int(jopt.step) == step
+
+
+def test_train_step_matches_jax(pair):
+    """Two AdamW steps from the same adapters; each port step starts
+    from JAX's state, so a step's noise does not carry into the next."""
+    (jm, jp, jl), (tm, tp, _) = pair
+    jeng = jax_make_engine(jm.cfg, lr=LR)
+    eng = make_engine(tm.cfg, lr=LR, device="cpu")
+    jopt = jeng.optimizer.init(jl)
+    for step in (1, 2):
+        batch = _train_batch(tm.cfg, seed=40 + step)
+        prev = lora_from_numpy(jax.tree.map(np.asarray, jl), "cpu")
+        opt = eng.optimizer.init(prev) if step == 1 else \
+            opt_state_from_numpy(jax.tree.map(np.asarray, jopt), "cpu")
+        jl, jopt, jmet = jeng.train_step(
+            jp, jl, jopt, {k: jnp.asarray(v) for k, v in batch.items()})
+        new, opt, tmet = eng.train_step(
+            tp, prev, opt, {k: torch.from_numpy(v) for k, v in
+                            batch.items()})
+        _check_step(new, prev, opt, jopt, step)
+        for k in ("loss", "ce_loss", "grad_norm"):
+            assert _rel(tmet[k], jmet[k]) < 1e-4, k
+
+
+def test_combined_step_matches_jax(pair):
+    """A decode tick over caches filled from a 6-token prefill and a
+    train step in one call: the logits are the pre-update adapter's
+    (equal to a plain decode step's) and match JAX's; the new adapters
+    and moments as in ``test_train_step_matches_jax``."""
+    (jm, jp, jl), (tm, tp, tl) = pair
+    jeng = jax_make_engine(jm.cfg, lr=LR)
+    eng = make_engine(tm.cfg, lr=LR, device="cpu")
+    toks, vis = _batch(tm.cfg, s=6, seed=7)
+    jlg, jpre = jm.prefill(jp, jl, _jb(toks, vis))
+    jc = jm.init_caches(2, 9)
+    jc = {"kv": tuple(c.at[:, :, :, :6].set(x)
+                      for c, x in zip(jc["kv"], jpre["kv"])),
+          "cross_kv": jpre["cross_kv"]}
+    tlg, tpre = tm.prefill(tp, tl, _tb(toks, vis))
+    tok = np.array(jnp.argmax(jlg[:, -1], -1))[:, None]
+    assert np.array_equal(tok[:, 0], tlg[:, -1].argmax(-1).numpy())
+    batch = _train_batch(tm.cfg, seed=50)
+    jopt = jeng.optimizer.init(jl)
+    jnew, jopt, jlogits, _, jmet = jeng.combined_step(
+        jp, jl, jopt, {k: jnp.asarray(v) for k, v in batch.items()}, jc,
+        jnp.asarray(tok), jnp.int32(6))
+    opt = eng.optimizer.init(tl)
+    snapshot = tree_map(torch.clone, tl)
+    new, opt, logits, _, tmet = eng.combined_step(
+        tp, tl, opt, {k: torch.from_numpy(v) for k, v in batch.items()},
+        _decode_caches(tm, tpre, 2, 9), torch.from_numpy(tok).long(),
+        torch.tensor(6))
+    assert _rel(logits, jlogits) < REL
+    plain, _ = tm.decode_step(tp, snapshot, _decode_caches(tm, tpre, 2, 9),
+                              torch.from_numpy(tok).long(), torch.tensor(6))
+    assert torch.equal(logits, plain)
+    for a, b in zip(tree_leaves(tl), tree_leaves(snapshot)):
+        assert torch.equal(a, b)             # the served tree untouched
+    _check_step(new, tl, opt, jopt, 1)
+    assert _rel(tmet["ce_loss"], jmet["ce_loss"]) < 1e-4
+
+
+def test_train_cli_trains_the_scaled_vlm(tmp_path):
+    out = run_training(ARCH, smoke=True, steps=3, batch=2, seq=8,
+                       ckpt_dir=str(tmp_path), verbose=False, device="cpu")
+    assert out["steps"] == 3 and len(out["losses"]) == 3
+    assert np.isfinite(out["losses"]).all()
+    again = run_training(ARCH, smoke=True, steps=4, batch=2, seq=8,
+                         ckpt_dir=str(tmp_path), restore=True,
+                         verbose=False, device="cpu")
+    assert again["steps"] == 4 and len(again["losses"]) == 1
