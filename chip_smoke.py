@@ -27,7 +27,8 @@ Phases, each printing JSON lines:
               table blocks of 1, 2 and 8 rows, and tables that alias the
               same 48 prefix blocks, as the prefix cache makes them;
               hymba-1.5b's rings; the MoE serve runs' G 1 (moonshot, 48
-              and 2,080 rows) and G 6 (grok, 48 rows) at head_dim 128);
+              and 2,080 rows) and G 6 (grok, 48 rows) at head_dim 128;
+              the mesh phase's per-rank heads and slots);
   kernel_lora lora_matmul at the decode, train, prefill, long train and
               long prefill shapes of qwen1.5-0.5b, two ragged shapes
               (M 1000 and 5), mamba2-780m's ssm_in / ssm_out at
@@ -43,7 +44,8 @@ Phases, each printing JSON lines:
               LoRAMatmulFn against autograd of the plain version) at the
               train shapes and the decode shape; the MoE phases' q/k/v/o
               (moonshot K = N = 2,048; grok q/o 6,144, k/v N 1,024) at
-              every M they launch, the train batches' backward too;
+              every M they launch, the train batches' backward too; the
+              mesh phase's per-rank blocks (llama3-8b, grok);
   kernel_flash flash_attention forward and backward against the plain
               version (dense f32 softmax, autograd of it) at the prefill
               waves of qwen1.5-0.5b (8 x 2,048 and 8 x 4,096) and
@@ -81,6 +83,10 @@ Phases, each printing JSON lines:
               rate and as 3xTF32 on the tensor cores; and autograd
               through ``ssd_scan`` on CUDA tensors reaching it, chained
               and in a single chunk, with the launches its plan names;
+  kernel_lse  the return_lse launch of paged_decode_attention (float32
+              output and log-sum-exp) against its plain version at the
+              mesh phase's sequence-sharded shapes (LSE_SHAPES), with
+              rows at kv_len 0: exactly zeros and -inf, no NaN;
   kernel_decode decode_attention against its plain version at the VLM's
               cross-attention decode (8 slots, 64 heads / 8 KV, head_dim
               128, 1,601 vision tokens, K/V the transposed view of the
@@ -164,6 +170,20 @@ Phases, each printing JSON lines:
   static      ``static_batch_serve`` (batches of 8) against the batcher (8
               contiguous slots), qwen 32 + 16, without and with an EOS id
               that fires: the same EOS rule, launches as derived, tok/s;
+  mesh        serving on a 2 x 2 (data, model) mesh, one process a rank
+              (``launch/mesh.py::spawn_ranks``; gloo, the four ranks
+              sharing card 0, or NCCL with a card a rank where the
+              machine has four): each model of MESH_MODELS served
+              unsharded first, then ``static_batch_serve`` on every rank
+              on ``init_sharded`` weights from the same seed, under
+              ``rules_for``'s table and a forced ``kv_seq`` table (the
+              sequence-sharded decode through the ``return_lse`` launch);
+              every rank's tokens equal, the logits of every step both
+              runs reached alike within MESH_TOL (MoE: 60% and the
+              median), every rank's launches nonzero and as derived and
+              its shapes checked by a kernel phase, every rank's serve
+              peak under half the unsharded weights and caches; prints
+              the backend, ranks, cards and whether they share one;
   serve_ssm   mamba2-780m at full width (d_model 1536, 8 layers, bf16),
               16 requests on 8 contiguous slots at 32+16, 992+32 and
               2,048+32 tokens: every request finishes, ssd_scan once per
@@ -375,14 +395,13 @@ Phases, each printing JSON lines:
               replicas, 420 s simulated, seed 3) and those tests'
               checks; printed with ``"simulated": true`` (the simulator's
               arithmetic, no card time);
-  tick        where a full-width tick's time goes (serve ticks at 32-,
+  tick        where a full-width tick's time goes, at DEPTH_CUT's
+              layers since PR 29 (serve ticks at 32-,
               992- and 2,048-token prompts, combined ticks with a 4 x 32
               and a 4 x 2,048 train batch, a serve tick of 4 tenants at 32
-              tokens, mamba2-780m decode ticks after 32- and 2,048-token
+              tokens, mamba2-780m decode ticks after 32-token
               prompts and a combined one (4 x 32), hymba-1.5b's serve and
-              combined ticks at 32, moonshot-v1-16b-a3b's serve tick at
-              its published 48 layers (the expert products' part and the
-              least time of reading every weight the tick reads), a VLM
+              combined ticks at 32, a VLM
               decode tick; one full, one suffix and one
               chunk prefill wave at serve_prefix's shapes): host wall per
               tick or wave, and under torch.profiler the device time,
@@ -396,8 +415,10 @@ plans rest on), beside a streaming-read yardstick; ``budget_seeded`` runs
 the budget phase's traffic with the train cost priced first by a warm
 idle train tick (a policy the runtime does not have); ``kernel_ssd_bwd``
 runs the ssd_scan backward's rows and autograd checks alone; ``tick_moe``
-the MoE tick alone.
-Depth: every phase but ``tick`` and the fabric phases (WHOLE_DEPTH)
+the MoE tick alone (moonshot-v1-16b-a3b at its published 48 layers: the
+expert products' part and the least time of reading every weight the
+tick reads).
+Depth: every phase but the fabric phases and tick_moe (WHOLE_DEPTH)
 runs qwen1.5-0.5b, llama3-8b, mamba2-780m, hymba-1.5b and
 moonshot-v1-16b-a3b at their published widths with DEPTH_CUT's layers
 (8 of 24, 8 of 32, 8 of 48, 16 of 32, 8 of 48; the registry's entries
@@ -436,22 +457,25 @@ PEAK_OPS_S = {torch.float32: 67e12,    # f32 outside the tensor cores
               torch.bfloat16: 989e12}  # dense bf16 tensor cores
 PEAK_TF32_S = 495e12                   # dense TF32 tensor cores
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-REPS = 30          # timed runs a median
+# timed runs a median (30 until PR 29, which cut it to make room for the
+# mesh phase within the script's time)
+REPS = 20
 ARCH = "qwen1.5-0.5b"
 # layers of the earlier paths' archs (published widths; see the module
-# docstring) in every phase but WHOLE_DEPTH's: tick (comparable with the
-# earlier breakdowns) and the fabric phases (their peak-memory check
-# bounds the activations by half a copy of the weights, the embedding
-# and head's 622 MB being most of a cut qwen); mamba2-780m and
-# hymba-1.5b cut further (16 -> 8, 32 -> 16) to make room for the
-# encoder and VLM co-training phases within the script's time
+# docstring) in every phase but WHOLE_DEPTH's: the fabric phases (their
+# peak-memory check bounds the activations by half a copy of the
+# weights, the embedding and head's 622 MB being most of a cut qwen) and
+# the bring-up tick_moe; mamba2-780m and hymba-1.5b cut further (16 -> 8,
+# 32 -> 16) to make room for the encoder and VLM co-training phases,
+# and tick too since PR 29 (its breakdowns before then are at whole
+# depth), to make room for the mesh phase, within the script's time
 DEPTH_CUT = {"qwen1.5-0.5b": 8, "llama3-8b": 8, "mamba2-780m": 8,
              "hymba-1.5b": 16, "moonshot-v1-16b-a3b": 8}
 # grok-1-314b at published width, cut to whole layers in every phase
 # (n_layers 64 -> 4: 4 x 9.67 GB of layers, 3.22 GB of embedding and head)
 GROK_ARCH = "grok-1-314b"
 GROK_LAYERS = 4
-WHOLE_DEPTH = {"tick", "tick_moe", "fabric_reference", "fabric",
+WHOLE_DEPTH = {"tick_moe", "fabric_reference", "fabric",
                "fabric_combined", "fabric_chaos", "fabric_adapters"}
 # ARCH's adapter projections per forward (8 layers x q/k/v/o) and their
 # dX in the backward (but layer 0's q/k/v); main() derives them again
@@ -574,7 +598,27 @@ LORA_SHAPES = [("decode", 8, 1024, 1024, 16),          # 8 slots
     ("train_hubert_1024", 1024, 1280, 1280, 16),
     ("train_hubert_4096", 4096, 1280, 1280, 16),
     ("train_vlm_qo", 128, 8192, 8192, 16),
-    ("train_vlm_kv", 128, 8192, 1024, 16)]
+    ("train_vlm_kv", 128, 8192, 1024, 16)] + [
+    # the mesh phase's local shapes on a 2 x 2 (data, model) mesh, where
+    # each rank contracts its w_embed block (K / 2) into its heads' block
+    # (N / 2): llama3-8b's q/o (2,048 x 2,048) and k/v (N 512) at decode
+    # (8 slots) and at the 8 x 32 wave (float32 too: the 2-layer float32
+    # copy), its 8 x 2,048 wave cut by rows (4 x 2,048 a rank, the weights
+    # gathered over data: q K 4,096 N 2,048, k/v N 512, o K 2,048 N
+    # 4,096); grok-1-314b's q/o (3,072) and k/v (N 512) at decode and its
+    # 8 x 32 wave (float32 too: its 1-layer float32 copy; moonshot's
+    # 1,024 x 1,024 blocks are the decode and prefill rows above)
+    ("mesh_llama_decode_qo", 8, 2048, 2048, 16),
+    ("mesh_llama_decode_kv", 8, 2048, 512, 16),
+    ("mesh_llama_prefill_qo", 256, 2048, 2048, 16),
+    ("mesh_llama_prefill_kv", 256, 2048, 512, 16),
+    ("mesh_llama_long_q", 8192, 4096, 2048, 16),
+    ("mesh_llama_long_kv", 8192, 4096, 512, 16),
+    ("mesh_llama_long_o", 8192, 2048, 4096, 16),
+    ("mesh_grok_decode_qo", 8, 3072, 3072, 16),
+    ("mesh_grok_decode_kv", 8, 3072, 512, 16),
+    ("mesh_grok_prefill_qo", 256, 3072, 3072, 16),
+    ("mesh_grok_prefill_kv", 256, 3072, 512, 16)]
 LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
                   "train_llama_kv", "vlm_prefill_qo", "suffix_1792",
                   "chunk_2048", "llama_prefill_qo", "llama_prefill_kv",
@@ -585,7 +629,8 @@ LORA_BF16_ONLY = {"train_2048", "prefill_2048", "train_llama_qo",
     if row[0].startswith(("ssm_prefill_", "train_ssm_", "hymba_prefill_",
                           "train_hymba_", "moe_", "train_moe", "grok_",
                           "train_grok", "hubert_serve", "train_hubert",
-                          "train_vlm")) or row[0].endswith("_2112")}
+                          "train_vlm", "mesh_llama_long"))
+    or row[0].endswith("_2112")}
 
 
 def lora_has_backward(name):
@@ -632,8 +677,11 @@ FLASH_SHAPES = [("qwen_prefill", 8, 16, 16, 64, 2048, 0, True),
                 # (no multiple of 128: the Skv edge), the train batch
                 ("hubert_serve", 4, 16, 16, 80, 2048, 0, False),
                 ("hubert_edge", 1, 16, 16, 80, 1040, 0, False),
-                ("hubert_train", 2, 16, 16, 80, 2048, 0, False)]
-FLASH_REPS = 10
+                ("hubert_train", 2, 16, 16, 80, 2048, 0, False),
+                # the mesh phase's llama3-8b 8 x 2,048 wave on a 2 x 2
+                # mesh: a rank's 4 rows and its 16 / 4 heads
+                ("mesh_llama_prefill", 4, 16, 4, 128, 2048, 0, True)]
+FLASH_REPS = 6     # 10 until PR 29 (the mesh phase's time)
 # backward launches: bf16 prep (delta, lse, zeroed dQ accumulator), the
 # single pass, finish (dQ rounded; dK, dV slices summed); f32 delta,
 # dK/dV, dQ
@@ -823,21 +871,37 @@ PAGED_SHAPES = [
     ("moonshot_2080", dict(b=8, h=16, hkv=16, d=128, bs=16, nb=130,
                            lengths="tick")),
     ("grok_48", dict(b=8, h=48, hkv=8, d=128, bs=16, nb=3)),
+    # the mesh phase's (2 x 2, rules_for's table: each rank its 4 slots'
+    # block of the cache and its heads): llama3-8b's 16 / 4 heads over 48
+    # rows (32 + 16) and 2,064 (2,048 + 16, identity blocks of 16),
+    # moonshot's 8 / 8 and grok's 24 / 4 over 48
+    ("mesh_llama_48", dict(b=4, h=16, hkv=4, d=128, bs=16, nb=3)),
+    ("mesh_llama_2064", dict(b=4, h=16, hkv=4, d=128, bs=16, nb=129,
+                             lengths="tick")),
+    ("mesh_moonshot_48", dict(b=4, h=8, hkv=8, d=128, bs=16, nb=3)),
+    ("mesh_grok_48", dict(b=4, h=24, hkv=4, d=128, bs=16, nb=3)),
+]
+# the return_lse launch of paged_decode_attention (the sequence-sharded
+# decode's partials): the mesh phase's forced kv_seq table cuts each
+# cache's rows over the model axis, so a rank walks all heads (llama3-8b
+# 32 / 8) over its 24 of 48 rows (identity blocks of 8) or 1,032 of
+# 2,064; then the same with half the rows at kv_len 0 (a rank whose
+# slice lies past the position: zeros and -inf, no NaN)
+LSE_SHAPES = [
+    ("mesh_seq_24", dict(b=4, h=32, hkv=8, d=128, bs=8, nb=3)),
+    ("mesh_seq_1032", dict(b=4, h=32, hkv=8, d=128, bs=8, nb=129,
+                           lengths="tick")),
+    ("mesh_seq_24_empty", dict(b=4, h=32, hkv=8, d=128, bs=8, nb=3),
+     "empty"),
+    ("mesh_seq_1032_empty", dict(b=4, h=32, hkv=8, d=128, bs=8, nb=129),
+     "empty"),
 ]
 
 
-def paged_row(pda, pda_ref, q, kp, vp, tables, kv_len):
-    """One paged_decode_attention row: the kernel's output, and its worst
-    error against the plain version, two calls bitwise equal, the
-    wrapper's host us per call, kernel / plain / SDPA time, the bound."""
-    out = pda(q, kp, vp, tables, kv_len)
-    ref = pda_ref(q, kp, vp, tables, kv_len)
-    torch.cuda.synchronize()
-    err = float((out.float() - ref.float()).abs().max())
-    tol = TOL[q.dtype]
-    ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
-    # the library yardstick: SDPA over the gathered cache (gather and
-    # head expansion outside the timed call)
+def sdpa_call(q, kp, vp, tables, kv_len):
+    """The library yardstick of a decode-attention call: SDPA over the
+    gathered cache (gather and head expansion done here, outside the
+    returned call)."""
     b, nb, bs = q.shape[0], tables.shape[1], kp.shape[1]
     g = q.shape[1] // kp.shape[2]
     idx = tables.long()
@@ -852,7 +916,20 @@ def paged_row(pda, pda_ref, q, kp, vp, tables, kv_len):
     def lib():
         return F.scaled_dot_product_attention(q4, k_log, v_log,
                                               attn_mask=mask)
+    return lib
 
+
+def paged_row(pda, pda_ref, q, kp, vp, tables, kv_len):
+    """One paged_decode_attention row: the kernel's output, and its worst
+    error against the plain version, two calls bitwise equal, the
+    wrapper's host us per call, kernel / plain / SDPA time, the bound."""
+    out = pda(q, kp, vp, tables, kv_len)
+    ref = pda_ref(q, kp, vp, tables, kv_len)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref.float()).abs().max())
+    tol = TOL[q.dtype]
+    ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
+    lib = sdpa_call(q, kp, vp, tables, kv_len)
     lib_err = float((lib()[:, :, 0].float() - ref.float()).abs().max())
     row = {
         "dtype": str(q.dtype).split(".")[-1],
@@ -885,6 +962,68 @@ def phase_kernel(pda, pda_ref):
                     f"paged_decode_attention {name} {dtype}: kernel vs "
                     f"plain max abs err {row['max_abs_err']} beyond "
                     f"{row['tol']}, or two calls on the same inputs differ")
+            rows[(name, dtype)] = row
+    return rows
+
+
+def phase_kernel_lse(pda, pda_lse_ref):
+    """The ``return_lse`` launch of paged_decode_attention against its
+    plain version at LSE_SHAPES, float32 and bfloat16: the float32 output
+    and the log-sum-exp each within TOL, a row at kv_len 0 exactly zeros
+    and -inf, no NaN, two calls bitwise equal; kernel / plain / SDPA time
+    (SDPA computes the output alone) and the bound (bytes: q read, the
+    live K/V rows read once, the float32 output and lse written)."""
+    rows = {}
+    for si, (name, shp, *kind) in enumerate(LSE_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, tables, kv_len = attention_case(
+                **shp, dtype=dtype, seed=300 + si)
+            if kind == ["empty"]:
+                kv_len[::2] = 0
+            out, lse = pda(q, kp, vp, tables, kv_len, return_lse=True)
+            ref, ref_lse = pda_lse_ref(q, kp, vp, tables, kv_len)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            empty = kv_len == 0
+            live = ~empty
+            ok = bool(
+                out.dtype == lse.dtype == torch.float32
+                and not torch.isnan(out).any() and not torch.isnan(lse).any()
+                and torch.equal(out[empty], torch.zeros_like(out[empty]))
+                and bool((lse[empty] == float("-inf")).all())
+                and torch.allclose(out, ref, rtol=tol, atol=tol)
+                and torch.allclose(lse[live], ref_lse[live], rtol=tol,
+                                   atol=tol))
+            again = pda(q, kp, vp, tables, kv_len, return_lse=True)
+            torch.cuda.synchronize()
+            b, h, d = q.shape
+            elt = q.element_size()
+            # attention_bound's bytes with the output written in float32
+            # and the lse added
+            extra = b * h * d * (4 - elt) + 4 * b * h
+            bound, by = attention_bound(q, kp, tables, kv_len)
+            bound += extra / HBM_BYTES_S * 1e3 if by == "bytes" else 0.0
+            row = {"shape": name, **shp, "empty_rows": int(empty.sum()),
+                   "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": float((out - ref).abs().max()),
+                   "lse_max_abs_err": float(
+                       (lse[live] - ref_lse[live]).abs().max()),
+                   "tol": tol, "ok": ok,
+                   "repeat_bitwise": bool(torch.equal(again[0], out)
+                                          and torch.equal(again[1], lse)),
+                   "ms": device_ms(lambda: pda(q, kp, vp, tables, kv_len,
+                                               return_lse=True)),
+                   "plain_ms": device_ms(lambda: pda_lse_ref(
+                       q, kp, vp, tables, kv_len)),
+                   "library_ms": device_ms(sdpa_call(q, kp, vp, tables,
+                                                     kv_len)),
+                   "host_us": host_us(lambda: pda(q, kp, vp, tables, kv_len,
+                                                  return_lse=True)),
+                   "bound_ms": bound, "bound_by": by}
+            emit("kernel_lse", kernel="paged_decode_attention_lse", **row)
+            if not (row["ok"] and row["repeat_bitwise"]):
+                raise AssertionError(
+                    f"paged_decode_attention lse {name} {dtype}: {row}")
             rows[(name, dtype)] = row
     return rows
 
@@ -5140,6 +5279,330 @@ def phase_static(make_engine, get_config, pda, lm, fa, seg):
     return rows
 
 
+# ------------------------------------------------------------- mesh -------
+# the serving half of the mesh (models/sharding.py, models/collectives.py,
+# launch/mesh.py): four ranks on a (data 2, model 2) mesh, one process a
+# rank, spawned once; each model's unsharded port runs first on the card
+# (its logits kept, then freed).  The models: (arch, layers, float32,
+# rule tables, traffic (name, requests, prompt tokens, new tokens)):
+# llama3-8b at DEPTH_CUT's 8 layers under rules_for's table (each rank
+# its heads and its slots' block of the caches) and the forced one
+# (kv_seq on model: every rank all heads over its half of each cache,
+# the sequence-sharded decode through the lse launch), 8 x (32 + 16) and
+# 8 x (2,048 + 16) (the wave cut by rows, flash on each rank's heads);
+# a 2-layer float32 copy of it; moonshot-v1-16b-a3b (EP) at 8 layers and
+# grok-1-314b (TP) at 2, 8 x (32 + 16), and float32 copies of them at 2
+# and 1 layers
+MESH_SHAPE = (2, 2)
+MESH_MODELS = [
+    ("llama3-8b", 8, False, ("rules", "forced"),
+     (("s32", 8, 32, 16), ("s2048", 8, 2048, 16))),
+    ("llama3-8b", 2, True, ("rules", "forced"), (("s32", 8, 32, 16),)),
+    ("moonshot-v1-16b-a3b", 8, False, ("rules",), (("s32", 8, 32, 16),)),
+    ("grok-1-314b", 2, False, ("rules",), (("s32", 8, 32, 16),)),
+    ("moonshot-v1-16b-a3b", 2, True, ("rules",), (("s32", 8, 32, 16),)),
+    ("grok-1-314b", 1, True, ("rules",), (("s32", 8, 32, 16),)),
+]
+# sharded vs unsharded logits, relative to the largest: bf16 rounds in
+# other places (each rank's partial products, the lse combine), the rule
+# the script holds two bf16 paths of a model to; float32 as
+# tests/test_shardmap_decode.py holds JAX.  A bf16 MoE stack under the
+# reference's MoE rule (60% of the compared steps and the median within
+# the bound): its expert products are partial sums rounded apart, and the
+# mesh path keeps their float32 sums where the plain path rounds them to
+# bf16 (the reference's two paths do the same), which moonshot's eight
+# MoE layers carry to a median of 2.2–2.4e-2 (my chip runs, PR 29); so
+# 5e-2, RING_TOL's bound for two bf16 paths that round apart
+MESH_TOL = {False: 2e-2, True: 5e-5}
+MESH_MOE_BF16_TOL = 5e-2
+# the rule-table names launch.mesh's parameter table cuts weights by: two
+# tables equal in these cut the weights alike
+WEIGHT_AXES = ("vocab", "w_embed", "heads", "ff", "experts", "expert_ff")
+
+
+def mesh_key(arch, layers, f32):
+    return f"{arch}_{layers}L" + ("_f32" if f32 else "")
+
+
+def mesh_config(get_config, arch, layers, f32):
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32") \
+        if f32 else cfg
+
+
+def mesh_adapter(model, gen):
+    """The adapter both runs serve: ``init_lora`` from ``gen`` (drawn after
+    the weights), B drawn too (N(0, 0.01^2)), so the bypass is no no-op
+    and a wrongly cut A or B shows in the logits."""
+    lora = model.init_lora(gen)
+    for pair in lora.values():
+        pair["b"].copy_(0.01 * torch.randn(pair["b"].shape, generator=gen,
+                                           device=gen.device))
+    return lora
+
+
+def mesh_prompts(vocab, n, plen):
+    """``n`` prompts of ``plen`` tokens, the same in every process (the
+    synthetic dataset seeds from Python's salted hash)."""
+    rng = np.random.default_rng(plen)
+    return list(rng.integers(0, vocab, (n, plen), dtype=np.int32))
+
+
+class LogitsTap:
+    """Records the last-position logits of every ``Model.prefill_ragged``
+    and ``Model.decode_step`` call while it is entered (on the host, in
+    their dtype)."""
+
+    def __enter__(self):
+        from repro_torch.models.model import Model
+        self._model = Model
+        self._orig = (Model.prefill_ragged, Model.decode_step)
+        pre, dec = self._orig
+        self.logits = []
+
+        def keep(out):
+            self.logits.append(out[0][:, -1].cpu())  # lint: host-sync-ok the check's copy, one a step
+            return out
+
+        Model.prefill_ragged = lambda *a, **k: keep(pre(*a, **k))
+        Model.decode_step = lambda *a, **k: keep(dec(*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        self._model.prefill_ragged, self._model.decode_step = self._orig
+        return False
+
+
+def mesh_serve(eng, params, lora, n, plen, gen):
+    """``static_batch_serve`` of ``n`` requests of ``plen`` + ``gen``
+    tokens in one batch; (tokens, stats, logits of each step)."""
+    from repro_torch.runtime.serving_loop import (
+        GenRequest, static_batch_serve,
+    )
+    reqs = [GenRequest(request_id=i, prompt=p.copy(), max_new_tokens=gen)
+            for i, p in enumerate(mesh_prompts(eng.model.cfg.vocab_size, n,
+                                               plen))]
+    with LogitsTap() as tap:
+        stats = static_batch_serve(eng, params, lora, reqs, batch_size=n,
+                                   prompt_pad=plen, max_seq=plen + gen)
+    torch.cuda.synchronize()
+    return [list(r.tokens) for r in reqs], stats, tap.logits
+
+
+def mesh_rank(mesh):
+    """One rank of the mesh phase: every model of MESH_MODELS under each
+    of its tables, its weights ``init_sharded`` from the unsharded run's
+    seed; per run the tokens, each rank's launch counts (set to 0 just
+    before the run, read just after, held against the derived ones),
+    peak memory while serving, wall time; rank 0 also the logits."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.engine import make_engine
+    from repro_torch.kernels.decode_attention import (
+        paged_decode_attention as pda,
+    )
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.lora_matmul import lora_matmul as lm
+    from repro_torch.launch.mesh import rules_for
+    from repro_torch.models.sharding import ShardingRules, sharding_context
+    from repro_torch.models.transformer import mesh_plan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    forced = dataclasses.replace(ShardingRules(), kv_seq="model",
+                                 kv_batch="data")
+    out = {}
+    for arch, layers, f32, tables, traffic in MESH_MODELS:
+        cfg = mesh_config(get_config, arch, layers, f32)
+        eng = make_engine(cfg, device="cuda")
+        params, cut = None, None
+        n_targets = len(cfg.lora.targets)
+        for table in tables:
+            rules = rules_for(cfg, mesh, "decode") if table == "rules" \
+                else forced
+            with sharding_context(mesh, rules):
+                # the weights' cut: the rule table's names of weight dims
+                if cut != [getattr(rules, f) for f in WEIGHT_AXES]:
+                    params = None
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                    gen = torch.Generator(device="cuda").manual_seed(0)
+                    t0 = time.perf_counter()
+                    params = eng.model.init_sharded(gen, mesh, rules)
+                    lora = mesh_adapter(eng.model, gen)
+                    init_s = time.perf_counter() - t0
+                    init_peak = torch.cuda.max_memory_allocated()
+                    cut = [getattr(rules, f) for f in WEIGHT_AXES]
+                for name, n, plen, gen_tokens in traffic:
+                    seq = bool(mesh_plan(cfg, mesh, rules, n, n).kv_seq)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    _reset(pda, lm, flash_attention_fwd)
+                    pda.lse_launches = 0                  # main path starts
+                    t0 = time.perf_counter()
+                    with LoraShapeTap() as ltap, AttnShapeTap() as atap:
+                        tokens, stats, logits = mesh_serve(
+                            eng, params, lora, n, plen, gen_tokens)
+                    wall = time.perf_counter() - t0
+                    got = {"paged_decode_attention": pda.launches,
+                           "paged_decode_attention_lse": pda.lse_launches,
+                           "lora_matmul": lm.launches,
+                           "flash_attention": flash_attention_fwd.launches}
+                    steps = stats.decode_steps              # path ends
+                    want = {"paged_decode_attention":
+                            0 if seq else layers * steps,
+                            "paged_decode_attention_lse":
+                            layers * steps if seq else 0,
+                            "lora_matmul": n_targets * layers * (1 + steps),
+                            "flash_attention":
+                            layers if long_prompt(plen) else 0}
+                    key = (mesh_key(arch, layers, f32), table, name)
+                    check_launches(f"mesh {key} rank {mesh.rank}", got, want)
+                    require_checked(f"mesh {key}", ltap, atap)
+                    out[key] = {
+                        "tokens": tokens, "launches": got,
+                        "decode_steps": steps, "seq_sharded": seq,
+                        "wall_s": wall, "tok_s": stats.throughput(),
+                        "peak_bytes": torch.cuda.max_memory_allocated(),
+                        "init_s": init_s, "init_peak_bytes": init_peak,
+                        "param_bytes": _param_bytes(params),
+                        "logits": logits if mesh.rank == 0 else None,
+                        "lora_shapes": lora_summary(ltap),
+                        "attn_shapes": atap.summary()}
+        params = lora = eng = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(make_engine, get_config):
+    """The serving half of the mesh on the card: each model of
+    MESH_MODELS unsharded first (logits, tokens, time; its weights and
+    caches' bytes), then four ranks of a 2 x 2 mesh, one process a rank
+    (NCCL with a card a rank where the machine has four; else gloo, the
+    ranks sharing card 0: times then measure no sharding speed), serving
+    the same requests on the same weights.  Held: every rank's tokens
+    equal; the logits of every step whose earlier tokens agree within
+    MESH_TOL of the largest (float32: every token equal too); every
+    rank's launches nonzero and derived; every rank's peak memory while
+    serving below half the unsharded weights plus caches."""
+    import gc
+    import tempfile
+
+    from repro_torch.launch.mesh import spawn_ranks
+    ref = {}
+    for arch, layers, f32, tables, traffic in MESH_MODELS:
+        cfg = mesh_config(get_config, arch, layers, f32)
+        eng = make_engine(cfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = eng.model.init(gen)
+        lora = mesh_adapter(eng.model, gen)
+        mkey = mesh_key(arch, layers, f32)
+        for name, n, plen, gen_tokens in traffic:
+            t0 = time.perf_counter()
+            tokens, stats, logits = mesh_serve(eng, params, lora, n, plen,
+                                               gen_tokens)
+            caches = eng.model.init_caches(n, plen + gen_tokens)["kv"]
+            ref[(mkey, name)] = {
+                "tokens": tokens, "logits": logits,
+                "wall_s": time.perf_counter() - t0,
+                "tok_s": stats.throughput(),
+                "bytes": _param_bytes(params) + _param_bytes(
+                    dict(enumerate(caches)))}
+            caches = None
+            emit("mesh_unsharded", model=mkey, traffic=name,
+                 **{k: v for k, v in ref[(mkey, name)].items()
+                    if k not in ("tokens", "logits")})
+        params = lora = eng = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    backend = "nccl" if cards >= world else "gloo"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store:
+        ranks = spawn_ranks(mesh_rank, MESH_SHAPE, backend=backend,
+                            store_dir=store, device_type="cuda",
+                            timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    rows = {}
+    for key in ranks[0]:
+        mkey, table, name = key
+        base = ref[(mkey, name)]
+        f32 = mkey.endswith("_f32")
+        got = [r[key] for r in ranks]
+        agree = all(g["tokens"] == got[0]["tokens"] for g in got)
+        rels = mesh_logit_err(base, got[0])
+        compared = len(rels)
+        err = rels[-1] if rels else math.inf
+        # MoE: a token whose rounding moves it across a near tie of its
+        # experts' probabilities routes otherwise, so MoE logits are held
+        # to the reference's MoE rule (moe_walk): 60% of the compared
+        # (request, step) logits and the median within MESH_TOL
+        moe = get_config(mkey.split("_")[0]).family.value == "moe"
+        tol = MESH_MOE_BF16_TOL if moe and not f32 else MESH_TOL[f32]
+        within = sum(r <= tol for r in rels)
+        held = bool(rels) and (
+            within >= 0.6 * compared and rels[compared // 2] <= tol
+            if moe else err <= tol)
+        same_tokens = sum(a == b for a, b in zip(base["tokens"],
+                                                 got[0]["tokens"]))
+        half = 0.5 * base["bytes"]
+        row = {"model": mkey, "table": table, "traffic": name,
+               "backend": backend, "ranks": world, "cards": cards,
+               "shared_card": cards < world,
+               "ranks_agree": agree, "seq_sharded": got[0]["seq_sharded"],
+               "logits_rel_err": err, "tol": tol,
+               "logits_rel_err_median": rels[compared // 2]
+               if rels else None,
+               "steps_within_tol": within, "steps_compared": compared,
+               "rule": "moe: 60% and the median" if moe else "all",
+               "requests_same_tokens_as_unsharded": same_tokens,
+               "requests": len(base["tokens"]),
+               "launches_by_rank": [g["launches"] for g in got],
+               "decode_steps": got[0]["decode_steps"],
+               "peak_bytes_by_rank": [g["peak_bytes"] for g in got],
+               "init_peak_bytes_by_rank": [g["init_peak_bytes"] for g in got],
+               "param_bytes_by_rank": [g["param_bytes"] for g in got],
+               "unsharded_weights_and_caches_bytes": base["bytes"],
+               "wall_s_by_rank": [g["wall_s"] for g in got],
+               "tok_s_rank0": got[0]["tok_s"],
+               "init_s_rank0": got[0]["init_s"],
+               "unsharded_wall_s": base["wall_s"],
+               "unsharded_tok_s": base["tok_s"],
+               "lora_shapes": got[0]["lora_shapes"],
+               "attn_shapes": got[0]["attn_shapes"]}
+        emit("mesh", **row)
+        ok = agree and compared > 0 and held \
+            and all(p < half for p in row["peak_bytes_by_rank"]) \
+            and (not f32 or same_tokens == row["requests"])
+        if not ok:
+            raise AssertionError(f"mesh {key}: {row}")
+        rows[key] = row
+    emit("mesh_spawn", seconds=spawn_s, backend=backend, ranks=world,
+         cards=cards)
+    return rows
+
+
+def mesh_logit_err(base, got):
+    """|sharded - unsharded| logits over the steps each request reached
+    with the same earlier tokens in both runs, relative to the largest
+    unsharded logit there: each compared (request, step)'s largest,
+    sorted."""
+    errs, scale = [], 0.0
+    n = len(base["tokens"])
+    for t, (a, b) in enumerate(zip(base["logits"], got["logits"])):
+        rows = [i for i in range(n)
+                if t < len(base["tokens"][i])
+                and base["tokens"][i][:t] == got["tokens"][i][:t]]
+        if not rows:
+            continue
+        a, b = a[rows].float(), b[rows].float()
+        errs += (a - b).abs().amax(-1).tolist()
+        scale = max(scale, float(a.abs().max()))
+    return sorted(e / max(scale, 1e-30) for e in errs)
+
+
 BUDGET_RUNS = [("paged", "paged", dict(prompt_len=32, gen_tokens=16)),
                ("paged_992_chunk256", "paged_992",
                 dict(prompt_len=992, gen_tokens=16, prefill_chunk=CHUNK))]
@@ -6128,11 +6591,14 @@ TICKS = [("serve", 32, False, 0, ARCH), ("long", 992, False, 0, ARCH),
          ("combined_2048", 2048, True, 0, ARCH),
          ("serve_4_tenants", 32, False, 4, ARCH),
          ("ssm_serve", 32, False, 0, SSM_ARCH),
-         ("ssm_serve_2048", 2048, False, 0, SSM_ARCH),
          ("ssm_combined", 32, True, 0, SSM_ARCH),
          ("hybrid_serve", 32, False, 0, HYBRID_ARCH),
-         ("hybrid_combined", 32, True, 0, HYBRID_ARCH),
-         ("moe_serve", 32, False, 0, MOE_ARCH)]
+         ("hybrid_combined", 32, True, 0, HYBRID_ARCH)]
+# the 48-layer moonshot tick (56 GB of weights), the bring-up phase
+# tick_moe's alone since PR 29 (the full run's time went to the mesh
+# phase; PERF.md keeps its row); mamba2's tick after 2,048-token prompts,
+# whose device time equalled the 32-token one's (PERF.md §5), went then
+TICKS_MOE = [("moe_serve", 32, False, 0, MOE_ARCH)]
 
 
 # ticks a window: 3 timed on the host clock, then 3 under the profiler,
@@ -6596,8 +7062,10 @@ def attn_shape_checked(kind, *shape):
     H, Hkv, D, block size and table width."""
     if kind in ("flash_attention", "flash_attention_backward"):
         return any(row[1:] == shape[:7] for row in FLASH_SHAPES)
-    return any(tuple(shp[k] for k in ("b", "h", "hkv", "d", "bs", "nb"))
-               == shape[:6] for _, shp in PAGED_SHAPES)
+    rows = LSE_SHAPES if kind == "paged_decode_attention_lse" \
+        else PAGED_SHAPES
+    return any(tuple(row[1][k] for k in ("b", "h", "hkv", "d", "bs", "nb"))
+               == shape[:6] for row in rows)
 
 
 class AttnShapeTap:
@@ -6636,11 +7104,14 @@ class AttnShapeTap:
                                saved[1], ctx.window, ctx.causal))
             return bwd(ctx, do)
 
-        def rec_launch(q, k_pool, v_pool, block_tables, kv_len, scale):
-            note(("paged_decode_attention", q.shape[0], q.shape[1],
+        def rec_launch(q, k_pool, v_pool, block_tables, kv_len, scale,
+                       return_lse=False):
+            note(("paged_decode_attention_lse" if return_lse
+                  else "paged_decode_attention", q.shape[0], q.shape[1],
                   k_pool.shape[2], q.shape[2], k_pool.shape[1],
                   block_tables.shape[1], _dtype_name(q)))
-            return launch(q, k_pool, v_pool, block_tables, kv_len, scale)
+            return launch(q, k_pool, v_pool, block_tables, kv_len, scale,
+                          return_lse)
 
         FlashAttentionFn.forward = staticmethod(rec_fwd)
         FlashAttentionFn.backward = staticmethod(rec_bwd)
@@ -7214,7 +7685,8 @@ def main():
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.kernels.decode_attention import (
         decode_attention as dattn, decode_attention_ref as dattn_ref,
-        paged_decode_attention as pda, paged_decode_attention_ref as pda_ref)
+        paged_decode_attention as pda, paged_decode_attention_ref as pda_ref,
+        paged_decode_attention_lse_ref as pda_lse_ref)
     from repro_torch.kernels.lora_matmul import (
         LoRAMatmulFn, lora_matmul as lm, lora_matmul_ref as lm_ref,
         segmented_lora_matmul as seg, segmented_lora_matmul_ref as seg_ref)
@@ -7246,6 +7718,7 @@ def main():
 
     phases = {
         "kernel": lambda: phase_kernel(pda, pda_ref),
+        "kernel_lse": lambda: phase_kernel_lse(pda, pda_lse_ref),
         "kernel_lora": lambda: phase_kernel_lora(lm, lm_ref, LoRAMatmulFn),
         "kernel_flash": lambda: phase_kernel_flash(fa),
         "kernel_seg": lambda: phase_kernel_seg(seg, seg_ref, lm),
@@ -7265,6 +7738,7 @@ def main():
             make_engine, get_config, pda, pda_ref, lm, fa, seg),
         "static": lambda: phase_static(make_engine, get_config, pda, lm, fa,
                                        seg),
+        "mesh": lambda: phase_mesh(make_engine, get_config),
         "serve_ssm": lambda: phase_serve_ssm(run_serving, get_config, pda,
                                              lm, fa, seg, ssd.ssd_scan),
         "serve_hybrid": lambda: phase_serve_hybrid(
@@ -7316,7 +7790,7 @@ def main():
                 "kernel_ssd_bwd": lambda: kernel_ssd_bwd(ssd),
                 "tick_moe": lambda: phase_tick(
                     make_engine, get_config,
-                    ticks=[t for t in TICKS if t[4] == MOE_ARCH],
+                    ticks=TICKS_MOE,
                     waves=False),
                 "budget_seeded": lambda: phase_budget(
                     run_serving, make_engine, get_config, pda, lm, fa, seg,
@@ -7373,6 +7847,14 @@ def main():
             got["train_cli"] = out["train_cli_moe"]["cli"]["launches"][kernel]
         return got
 
+    mesh = out["mesh"]
+
+    def mesh_launches(kernel):
+        """A kernel's launches on each rank in each mesh run."""
+        return {"/".join(k): [r[kernel] for r in row["launches_by_rank"]]
+                for k, row in mesh.items()}
+    lse_rows = out["kernel_lse"]
+    lse_main = lse_rows[("mesh_seq_24", torch.bfloat16)]
     fab = {"l-a": out["fabric"]["fabric"], "l-b": out["fabric"]["failover"],
            "l-c": out["fabric_combined"], "l-d": out["fabric_chaos"],
            "l-e": out["fabric_adapters"]}
@@ -7423,6 +7905,7 @@ def main():
             **{f"combined_{n}": cssm[n]["launches"]["paged_decode_attention"]
                for n in ("hymba_32", "hymba_1984")}},
         "moe_launches": moe_launches_of("paged_decode_attention"),
+        "mesh_launches": mesh_launches("paged_decode_attention"),
         # the VLM co-training ticks' dense blocks
         "vlm_combined_launches": cvlm["launches"]["paged_decode_attention"],
         "max_abs_err": main_row["max_abs_err"],
@@ -7455,6 +7938,7 @@ def main():
         "fabric_launches": fabric_launches("lora_matmul"),
         "train_cli_launches": train_launches["lora_matmul"],
         "moe_launches": moe_launches_of("lora_matmul"),
+        "mesh_launches": mesh_launches("lora_matmul"),
         "encoder_launches": encoder_launches("lora_matmul"),
         "vlm_combined_launches": cvlm["launches"]["lora_matmul"],
         "shape": "decode M=8 K=N=1024 r=16 bf16",
@@ -7508,6 +7992,7 @@ def main():
             "combined_1984": cssm["hymba_1984"]["launches"][
                 "flash_attention"]},
         "moe_launches": moe_launches_of("flash_attention"),
+        "mesh_launches": mesh_launches("flash_attention"),
         # hubert-xlarge, non-causal at D 80 (the 128-wide body on
         # extent-80 tensor maps)
         "encoder_launches": encoder_launches("flash_attention"),
@@ -7649,6 +8134,31 @@ def main():
                                                 "bound_ms", "host_us")}
                         for (n, dt), r in crows.items()
                         if dt == torch.bfloat16},
+    }, {
+        "name": "paged_decode_attention_lse",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+        # the paged kernel's launch that writes the float32 output and the
+        # log-sum-exp: the sequence-sharded decode's partials
+        "replaces": "src/repro/kernels/decode_attention.py:172",
+        # rank 0 of the mesh's forced kv_seq table, llama3-8b 8 x (32 + 16)
+        "launches": mesh[("llama3-8b_8L", "forced", "s32")][
+            "launches_by_rank"][0]["paged_decode_attention_lse"],
+        "mesh_launches": mesh_launches("paged_decode_attention_lse"),
+        "shape": "B=4 H=32 Hkv=8 D=128, 24 of 48 cache rows a rank, bf16",
+        "max_abs_err": lse_main["max_abs_err"],
+        "lse_max_abs_err": lse_main["lse_max_abs_err"],
+        **{k: lse_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "host_us")},
+        "library": "SDPA over the gathered cache: the output alone, no lse",
+        "empty_rows_zero_and_minus_inf": all(
+            r["ok"] for (n, dt), r in lse_rows.items() if "empty" in n),
+        "repeat_bitwise_all_shapes": all(
+            r["repeat_bitwise"] for r in lse_rows.values()),
+        "shapes": {f"{n}_{str(dt).split('.')[-1]}": {k: r[k] for k in (
+            "empty_rows", "max_abs_err", "lse_max_abs_err", "ms", "plain_ms",
+            "library_ms", "bound_ms", "host_us")}
+            for (n, dt), r in lse_rows.items()},
     }]}), flush=True)
     print(smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,10 @@ records the codec; a zstd checkpoint restored without zstandard raises.
 ``save`` copies every leaf to host memory before it returns (the
 training loop may update its tensors in place afterwards) and writes on
 a background thread; ``wait()`` joins it and raises what it raised.
+``restore(shardings=)`` keeps each rank's block of every leaf on a
+device mesh (``launch/mesh.py``): the files hold whole leaves whatever
+mesh, if any, wrote them, so a checkpoint moves between meshes
+(``runtime/elastic.py::elastic_restore``).
 """
 from __future__ import annotations
 
@@ -51,9 +55,6 @@ except ImportError:               # optional dep: fall back to stdlib zlib
     zstandard = None
 
 _FLAG = "_COMPLETE"
-_MESH = ("shardings= restores onto an XLA device mesh; the port scopes the "
-         "XLA/TPU-mesh tooling out (it lowers XLA programs for TPU meshes "
-         "and has no single-card counterpart); see ROADMAP.md, item 6")
 
 
 def _compressor(codec: str):
@@ -235,10 +236,13 @@ class Checkpointer:
         template leaf's dtype and lands on ``device``, or, when that is
         None, on its template leaf's device.  A template leaf on the
         ``meta`` device (shapes and dtypes only, as ``jax.eval_shape``
-        gives them) lands on ``device``, by default the card.  Returns
-        (tree, the manifest's ``extra``)."""
-        if shardings is not None:
-            raise NotImplementedError(_MESH)
+        gives them) lands on ``device``, by default the card.
+
+        ``shardings`` (a matching tree of ``launch.mesh.MeshSharding``,
+        for any mesh: the checkpoint holds whole leaves, whatever mesh
+        wrote them) restores each rank's block of every leaf: the rank
+        reads the leaf and keeps its block.  Returns (tree, the
+        manifest's ``extra``)."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -250,8 +254,14 @@ class Checkpointer:
         # pre-codec checkpoints carry no codec field and were zstd-only
         decompress = _decompressor(manifest.get("codec", "zstd"))
         by_key = manifest["leaves"]
+        paths = _tree_paths(template)
+        cuts = [s for _, s in _tree_paths(shardings)] \
+            if shardings is not None else [None] * len(paths)
+        if len(cuts) != len(paths):
+            raise ValueError(f"shardings has {len(cuts)} leaves, the "
+                             f"template {len(paths)}")
         out = []
-        for key, leaf in _tree_paths(template):
+        for (key, leaf), cut in zip(paths, cuts):
             meta = by_key.get(key)
             if meta is None:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
@@ -265,7 +275,9 @@ class Checkpointer:
             dev = device if device is not None else (
                 "cuda" if leaf.device.type == "meta" else leaf.device)
             dev = resolve_device(dev)
-            out.append(_from_bytes(raw, meta["dtype"], want_shape)
-                       .to(device=dev, dtype=leaf.dtype))
+            t = _from_bytes(raw, meta["dtype"], want_shape)
+            if cut is not None:
+                t = cut.local(t).clone()
+            out.append(t.to(device=dev, dtype=leaf.dtype))
         return _unflatten(template, iter(out)), manifest["extra"]
 

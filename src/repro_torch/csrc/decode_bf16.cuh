@@ -87,6 +87,25 @@ __device__ __forceinline__ float rows_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 16);
 }
 
+// The float32 outputs of a launch that returns the log-sum-exp (the
+// sequence-sharded decode combines ranks' partials with it): when `out`
+// is set the output is written there unrounded, [B, H, D] float, in place
+// of the bfloat16 one, and `lse` [B, H] gets ln(sum_j exp(s_j)) of each
+// row's scaled scores, -inf where the row has no live key (its output
+// is then 0).  Null for every other launch.
+struct LseOut {
+  float* out;
+  float* lse;
+};
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// the natural log-sum-exp of a row from its max `mx` in log2 units and
+// its sum `l` of 2^(s - mx): -inf for a row with no live key
+__device__ __forceinline__ float lse_of(float mx, float l) {
+  return l > 0.f ? fmaf(mx, kLn2, logf(l)) : -CUDART_INF_F;
+}
+
 // Where the paged producer finds a sequence's rows; unused (null) for
 // contiguous caches.
 struct PagedRows {
@@ -104,7 +123,8 @@ __device__ __forceinline__ void decode_bf16_body(
     const CUtensorMap* kmap, const CUtensorMap* vmap, const u16* q,
     const int* kv_len, u16* out, float* part_acc, float* part_ml,
     int* tickets, int H, int Hkv, int S, i64 qsb, i64 qsh, int splits,
-    int chunk, float scale_log2, const PagedRows& pg) {
+    int chunk, float scale_log2, const PagedRows& pg,
+    const LseOut lse_out = LseOut{nullptr, nullptr}) {
   typedef Bf<D, STAGES> C;
   const float NEG_INF = -CUDART_INF_F;
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
@@ -321,8 +341,13 @@ __device__ __forceinline__ void decode_bf16_body(
         sum = fmaf(wt, at(w, h)[D + 1], sum);
       }
     if (splits == 1) {
-      out[(bh0 + h) * D + d] =
-          __bfloat16_as_ushort(__float2bfloat16(acc / fmaxf(sum, 1e-30f)));
+      if (lse_out.out) {
+        lse_out.out[(bh0 + h) * D + d] = acc / fmaxf(sum, 1e-30f);
+        if (d == 0) lse_out.lse[bh0 + h] = lse_of(mx, sum);
+      } else {
+        out[(bh0 + h) * D + d] = __bfloat16_as_ushort(
+            __float2bfloat16(acc / fmaxf(sum, 1e-30f)));
+      }
     } else {
       part_acc[((bh0 + h) * splits + split) * D + d] = acc;
       if (d == 0) {
@@ -365,6 +390,7 @@ __device__ __forceinline__ void decode_bf16_body(
       wl[h * splits + sp].x = wt;
     }
     lsum[h] = fmaxf(sum, 1e-30f);
+    if (lse_out.out) lse_out.lse[bh0 + h] = lse_of(mx, sum);
   }
   named_sync(1, kCons * 32);
   for (int i = tid; i < G * D; i += kCons * 32) {
@@ -380,8 +406,11 @@ __device__ __forceinline__ void decode_bf16_body(
       for (int q = 0; q < 8; ++q)
         if (sp0 + q < splits) acc = fmaf(wl[h * splits + sp0 + q].x, u[q], acc);
     }
-    out[(bh0 + h) * D + d] =
-        __bfloat16_as_ushort(__float2bfloat16(acc / lsum[h]));
+    if (lse_out.out)
+      lse_out.out[(bh0 + h) * D + d] = acc / lsum[h];
+    else
+      out[(bh0 + h) * D + d] =
+          __bfloat16_as_ushort(__float2bfloat16(acc / lsum[h]));
   }
 }
 

@@ -12,6 +12,12 @@
 //   tables   [B, NB] int32, row stride `table_stride` elements
 //   kv_len   [B] int32
 //   out      [B, H, D]                     T
+//   (return_lse) out_f32 [B, H, D] float and lse [B, H] float in place of
+//            out: the unrounded output and each row's log-sum-exp, the
+//            partial a rank of the sequence-sharded decode contributes
+//            (models/layers.py::attention_decode_seqsharded; the TPU
+//            reference's shard_map body, src/repro/models/layers.py:383,
+//            carries the same (m, l) through pmax / psum)
 //
 // Query head h reads KV head h / G (G = H / Hkv).  Table entries past a
 // sequence's live blocks point at scratch block 0 and are never read:
@@ -117,7 +123,8 @@ __global__ void __launch_bounds__(1024)
                         const T* __restrict__ v_pool,
                         const int* __restrict__ tables,
                         const int* __restrict__ kv_len, T* __restrict__ out,
-                        int H, int Hkv, int D, int bs, int NB,
+                        float* __restrict__ lse, int H, int Hkv, int D,
+                        int bs, int NB,
                         int table_stride, int rows, int splits,
                         float scale) {
   const int b = blockIdx.x;
@@ -234,6 +241,10 @@ __global__ void __launch_bounds__(1024)
   if (owner && split == 0) {
     const float o = acc / fmaxf(l_s[g], 1e-30f);
     out[((size_t)b * H + (size_t)hk * G + g) * D + d] = from_float<T>(o);
+    // natural units: -inf for a row with no live key (m_s still -inf)
+    if (lse && d == 0)
+      lse[(size_t)b * H + (size_t)hk * G + g] =
+          l_s[g] > 0.f ? m_s[g] + logf(l_s[g]) : -CUDART_INF_F;
   }
 }
 
@@ -245,9 +256,9 @@ size_t smem_bytes(int G, int D, int rows, int splits) {
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* tables, const void* kv_len, void* out, int B, int H,
-           int Hkv, int D, int bs, int NB, int table_stride, float scale,
-           cudaStream_t stream) {
+           const void* tables, const void* kv_len, void* out, void* lse,
+           int B, int H, int Hkv, int D, int bs, int NB, int table_stride,
+           float scale, cudaStream_t stream) {
   const int G = H / Hkv;
   const int GD = G * D;
   const int splits = GD >= kMinThreads ? 1 : kMinThreads / GD;
@@ -272,8 +283,9 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
   paged_decode_kernel<T><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
       static_cast<const T*>(v_pool), static_cast<const int*>(tables),
-      static_cast<const int*>(kv_len), static_cast<T*>(out), H, Hkv, D, bs,
-      NB, table_stride, rows, splits, scale);
+      static_cast<const int*>(kv_len), static_cast<T*>(out),
+      static_cast<float*>(lse), H, Hkv, D, bs, NB, table_stride, rows, splits,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -296,16 +308,18 @@ __global__ void __launch_bounds__(kBfThreads)
                              float* __restrict__ part_ml,
                              int* __restrict__ tickets, int H, int Hkv,
                              int S, i64 qsb, i64 qsh, int splits, int chunk,
-                             float scale_log2, const PagedRows pg) {
+                             float scale_log2, const PagedRows pg,
+                             const LseOut lse_out) {
   decode_bf16_body<D, kPagedStages<D>, true>(&kmap, &vmap, q, kv_len, out, part_acc,
                                     part_ml, tickets, H, Hkv, S, qsb, qsh,
-                                    splits, chunk, scale_log2, pg);
+                                    splits, chunk, scale_log2, pg, lse_out);
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
                 const void* tables, const void* kv_len, void* out,
-                void* part_acc, void* part_ml, void* tickets, int B, int H,
+                const LseOut& lse_out, void* part_acc, void* part_ml,
+                void* tickets, int B, int H,
                 int Hkv, int n_blocks, int bs, int NB, i64 table_stride,
                 i64 qsb, i64 qsh, const i64* ks, const i64* vs, int splits,
                 int chunk, int box, float scale, cudaStream_t stream) {
@@ -333,28 +347,29 @@ int launch_bf16(const void* q, const void* k_pool, const void* v_pool,
           static_cast<const int*>(kv_len), static_cast<u16*>(out),
           static_cast<float*>(part_acc), static_cast<float*>(part_ml),
           static_cast<int*>(tickets), H, Hkv, NB * bs, qsb, qsh, splits,
-          chunk, scale * 1.4426950408889634f, pg);
+          chunk, scale * 1.4426950408889634f, pg, lse_out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // float32 only (dtype 0; bfloat16 takes paged_decode_attention_bf16_launch).
-// Returns cudaGetLastError() after the launch (a refused launch never
+// `lse` [B, H] float, or null: each row's natural log-sum-exp of its
+// scaled scores, -inf for a row with kv_len 0.  Returns cudaGetLastError() after the launch (a refused launch never
 // runs, and a later synchronize would not report it).  The caller checks
 // shapes; this entry checks only what would make the launch itself
 // invalid.
 extern "C" int paged_decode_attention_launch(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
-    const void* tables, const void* kv_len, void* out, int B, int H,
-    int Hkv, int D, int bs, int NB, int table_stride, float scale,
+    const void* tables, const void* kv_len, void* out, void* lse, int B,
+    int H, int Hkv, int D, int bs, int NB, int table_stride, float scale,
     void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || bs <= 0 || NB <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k_pool, v_pool, tables, kv_len, out, B, H, Hkv,
-                         D, bs, NB, table_stride, scale, s);
+    return launch<float>(q, k_pool, v_pool, tables, kv_len, out, lse, B, H,
+                         Hkv, D, bs, NB, table_stride, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -365,11 +380,16 @@ extern "C" int paged_decode_attention_launch(
 // The caller allocates the partials ([B, H,
 // splits, D] and [B, H, splits, 2] float) and B * Hkv int32 tickets that
 // are zero before the first call (each launch leaves them zero) when
-// splits > 1.  Returns cudaGetLastError() after the launch.
+// splits > 1.  `out_f32` [B, H, D] and `lse` [B, H] float, both or
+// neither: the unrounded output goes to out_f32 (out is not written) and
+// each row's natural log-sum-exp to lse (-inf for kv_len 0), the partials
+// the sequence-sharded decode combines across ranks.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int paged_decode_attention_bf16_launch(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* tables, const void* kv_len, void* out, void* part_acc,
-    void* part_ml, void* tickets, int B, int H, int Hkv, int D,
+    const void* tables, const void* kv_len, void* out, void* out_f32,
+    void* lse, void* part_acc, void* part_ml, void* tickets, int B, int H,
+    int Hkv, int D,
     int n_blocks, int bs, int NB, long long table_stride, long long qsb,
     long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int splits, int chunk,
@@ -382,14 +402,18 @@ extern "C" int paged_decode_attention_bf16_launch(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const i64 ks[3] = {ksb, kss, ksh}, vs[3] = {vsb, vss, vsh};
+  if ((out_f32 == nullptr) != (lse == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const LseOut lse_out{static_cast<float*>(out_f32),
+                      static_cast<float*>(lse)};
   if (D == 64)
-    return launch_bf16<64>(q, k_pool, v_pool, tables, kv_len, out, part_acc,
-                           part_ml, tickets, B, H, Hkv, n_blocks, bs, NB,
+    return launch_bf16<64>(q, k_pool, v_pool, tables, kv_len, out, lse_out,
+                           part_acc, part_ml, tickets, B, H, Hkv, n_blocks, bs, NB,
                            table_stride, qsb, qsh, ks, vs, splits, chunk, box,
                            scale, s);
   if (D == 128)
-    return launch_bf16<128>(q, k_pool, v_pool, tables, kv_len, out, part_acc,
-                            part_ml, tickets, B, H, Hkv, n_blocks, bs, NB,
+    return launch_bf16<128>(q, k_pool, v_pool, tables, kv_len, out,
+                            lse_out, part_acc, part_ml, tickets, B, H, Hkv, n_blocks, bs, NB,
                             table_stride, qsb, qsh, ks, vs, splits, chunk,
                             box, scale, s);
   return (int)cudaErrorInvalidValue;

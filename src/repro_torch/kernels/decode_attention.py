@@ -9,7 +9,12 @@ decode_attention`` with a CUDA kernel written for Hopper, built by
     (``src/repro/kernels/decode_attention.py:172``, its ``pallas_call``
     at ``:215``) with ``csrc/paged_decode_attention.cu``.  The self
     attention of every decoder block runs it, the contiguous cache
-    through identity block tables.
+    through identity block tables.  Its ``return_lse`` launch writes the
+    unrounded float32 output and each row's log-sum-exp instead (zeros
+    and ``-inf`` for a row with ``kv_len == 0``): a rank's partial of the
+    sequence-sharded decode (``models/layers.py::
+    attention_decode_seqsharded``), which the ranks combine through one
+    max and one sum.
 ``decode_attention``        head-major caches ``[B, Hkv, S, D]`` of any
     strides with a unit last axis; replaces ``decode_attention``
     (``:80``, its ``pallas_call`` at ``:101``) with
@@ -29,7 +34,8 @@ paged one loading each 64-row tile through the block table
 
 Each wrapper dispatches on where its tensors lie: CPU tensors take the
 plain PyTorch version (``paged_decode_attention_ref``,
-``decode_attention_ref``: the contiguous decode math in float32); CUDA
+``paged_decode_attention_lse_ref``, ``decode_attention_ref``: the
+contiguous decode math in float32); CUDA
 tensors launch the kernel, or raise on a dtype, shape, layout or device
 it does not take.  Nothing falls back from one to the other.  Each
 wrapper's ``launches`` counts its kernel launches.
@@ -81,6 +87,30 @@ def paged_decode_attention_ref(q, k_pool, v_pool, block_tables, kv_len,
     k = k_pool[idx].reshape(b, nb * bs, *k_pool.shape[2:])
     v = v_pool[idx].reshape(b, nb * bs, *v_pool.shape[2:])
     return decode_attention_math(q, k, v, kv_len, scale)
+
+
+def paged_decode_attention_lse_ref(q, k_pool, v_pool, block_tables, kv_len,
+                                   scale: Optional[float] = None):
+    """Plain PyTorch version of the ``return_lse`` launch: (out [B,H,D]
+    float32, unrounded; lse [B,H] float32), the contiguous math over the
+    gathered caches in float32; a row with ``kv_len == 0`` gives zeros
+    and ``-inf``."""
+    b, nb = block_tables.shape
+    bs = k_pool.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    idx = block_tables.long()
+    k = k_pool[idx].reshape(b, nb * bs, *k_pool.shape[2:])
+    v = v_pool[idx].reshape(b, nb * bs, *v_pool.shape[2:])
+    g = q.shape[1] // k.shape[2]
+    kr = k.repeat_interleave(g, dim=2) if g > 1 else k
+    vr = v.repeat_interleave(g, dim=2) if g > 1 else v
+    scores = torch.einsum("bhd,bkhd->bhk", q.float(), kr.float()) * scale
+    mask = torch.arange(nb * bs, device=q.device)[None, :] < kv_len[:, None]
+    scores = scores.masked_fill(~mask[:, None, :], float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)                   # -inf: no key
+    probs = torch.nan_to_num(torch.exp(scores - lse[..., None]), nan=0.0)
+    out = torch.einsum("bhk,bkhd->bhd", probs, vr.float())
+    return out, lse
 
 
 def _check(q, k_pool, v_pool, block_tables, kv_len) -> None:
@@ -181,8 +211,8 @@ def _entry():
     fn = _build.library("paged_decode_attention") \
         .paged_decode_attention_launch
     fn.restype = _I
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   ctypes.c_float, _P]
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                   _I, ctypes.c_float, _P]
     return fn
 
 
@@ -192,17 +222,24 @@ def _entry_bf16():
     fn = _build.library("paged_decode_attention") \
         .paged_decode_attention_bf16_launch
     fn.restype = _I
-    fn.argtypes = [_P] * 9 + [_I] * 7 + [_L] * 9 + [_I] * 3 \
+    fn.argtypes = [_P] * 11 + [_I] * 7 + [_L] * 9 + [_I] * 3 \
         + [ctypes.c_float, _P]
     return fn
 
 
-def _launch(q, k_pool, v_pool, block_tables, kv_len, scale: float):
+def _launch(q, k_pool, v_pool, block_tables, kv_len, scale: float,
+            return_lse: bool = False):
     _check(q, k_pool, v_pool, block_tables, kv_len)
     b, h, d = q.shape
     n_blocks, bs, hkv = k_pool.shape[:3]
     nb = block_tables.shape[1]
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    # the float32 output of a bf16 launch that returns the lse (the
+    # bf16 `out` is then not written)
+    out_f32 = torch.empty((b, h, d), dtype=torch.float32, device=q.device) \
+        if return_lse and q.dtype == torch.bfloat16 else None
     with torch.cuda.device(q.device):
         if q.dtype == torch.bfloat16:
             fn = _entry_bf16()
@@ -217,7 +254,8 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, scale: float):
                                            b * hkv)
             err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                      block_tables.data_ptr(), kv_len.data_ptr(),
-                     out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
+                     out.data_ptr(), _ptr(out_f32), _ptr(lse),
+                     ws.data_ptr(), ws.data_ptr() + 4 * n_acc,
                      tickets.data_ptr(), b, h, hkv, d, n_blocks, bs, nb,
                      block_tables.stride(0), q.stride(0), q.stride(1),
                      *k_pool.stride()[:3], *v_pool.stride()[:3], splits,
@@ -227,19 +265,27 @@ def _launch(q, k_pool, v_pool, block_tables, kv_len, scale: float):
             err = _entry()(_DTYPE_CODE[q.dtype], q.data_ptr(),
                            k_pool.data_ptr(), v_pool.data_ptr(),
                            block_tables.data_ptr(), kv_len.data_ptr(),
-                           out.data_ptr(), b, h, hkv, d, bs, nb,
+                           out.data_ptr(), _ptr(lse), b, h, hkv, d, bs, nb,
                            block_tables.stride(0), scale, stream)
     if err != 0:
         raise RuntimeError(
             f"paged_decode_attention: launch failed with CUDA error {err} "
             f"(q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
             f"tables {tuple(block_tables.shape)}, {q.dtype})")
+    if return_lse:
+        paged_decode_attention.lse_launches += 1
+        return (out if out_f32 is None else out_f32), lse
     paged_decode_attention.launches += 1
     return out
 
 
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
-                           scale: Optional[float] = None):
+                           scale: Optional[float] = None,
+                           return_lse: bool = False):
     """q [B,H,D]; pools [n_blocks, block_size, Hkv, D]; block_tables
     [B, NB] int32; kv_len [B] int32 -> [B,H,D].
 
@@ -253,17 +299,29 @@ def paged_decode_attention(q, k_pool, v_pool, block_tables, kv_len,
     qualifies (qwen1.5-0.5b G 1 / D 64, internlm2-1.8b G 2 / D 128,
     llama3-8b G 4 / D 128, qwen3-14b G 5 / D 128, the VLM's self-attention
     G 8 / D 128, contiguous caches through identity tables of blocks of 1
-    to 256 rows).  The float32 kernel takes contiguous q and pools."""
+    to 256 rows).  The float32 kernel takes contiguous q and pools.
+
+    ``return_lse=True`` returns ``(out, lse)`` instead: the output
+    unrounded in float32 ``[B, H, D]`` and each row's natural log-sum-exp
+    of its scaled scores ``[B, H]`` float32, ``-inf`` (and a zero output)
+    for a row with ``kv_len == 0``: a rank's partial of the
+    sequence-sharded decode.  Those launches count in ``lse_launches``,
+    the others in ``launches``."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu" and all(
             t.device.type == "cpu"
             for t in (k_pool, v_pool, block_tables, kv_len)):
+        if return_lse:
+            return paged_decode_attention_lse_ref(
+                q, k_pool, v_pool, block_tables, kv_len, scale)
         return paged_decode_attention_ref(q, k_pool, v_pool, block_tables,
                                           kv_len, scale)
-    return _launch(q, k_pool, v_pool, block_tables, kv_len, scale)
+    return _launch(q, k_pool, v_pool, block_tables, kv_len, scale,
+                   return_lse)
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.lse_launches = 0
 
 
 # ------------------------------------------------------ contiguous caches --

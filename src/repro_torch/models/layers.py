@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.decode_attention import paged_decode_attention
 from repro_torch.kernels.flash_attention import FlashAttentionFn
+from repro_torch.models import collectives as col
 
 
 # ---------------------------------------------------------------- norms ----
@@ -221,14 +222,15 @@ def attention_prefix_suffix(q, k_pre, v_pre, k_suf, v_suf, prefix_len, *,
 
 
 def attention_decode(q, k_cache, v_cache, kv_len,
-                     scale: Optional[float] = None):
+                     scale: Optional[float] = None, return_lse: bool = False):
     """Single-token decode attention over a contiguous KV cache.
 
     q: [B,1,Hq,D]; caches: [B,S,Hkv,D]; kv_len: [B] int32 — valid cache
     entries (the new token's KV already written).  The cache is viewed as
     a block pool with an identity block table (block size: the largest
     of 256, 128, ..., 1 that divides S, as in the JAX layer), so the
-    paged kernel serves both layouts."""
+    paged kernel serves both layouts.  ``return_lse``: (out [B,Hq,D]
+    float32, lse [B,Hq] float32), the kernel's ``return_lse`` launch."""
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     bk = next(bk for bk in (256, 128, 64, 32, 16, 8, 4, 2, 1) if s % bk == 0)
@@ -238,8 +240,53 @@ def attention_decode(q, k_cache, v_cache, kv_len,
     tables = torch.arange(b * nk, dtype=torch.int32,
                           device=q.device).reshape(b, nk)
     out = paged_decode_attention(q[:, 0], kp, vp, tables,
-                                 kv_len.to(torch.int32), scale=scale)
+                                 kv_len.to(torch.int32), scale=scale,
+                                 return_lse=return_lse)
+    if return_lse:
+        return out
     return out[:, None].to(q.dtype)
+
+
+def attention_decode_seqsharded(q, k_new, v_new, k_cache, v_cache, pos,
+                                seq_axis, scale: Optional[float] = None):
+    """Sequence-sharded flash-decode (``repro.models.layers.
+    attention_decode_seqsharded``): each rank of the mesh axis
+    ``seq_axis`` owns a contiguous slice of every sequence's cache.
+
+    It writes the new token's K/V only where it owns position ``pos``
+    (in place: a rank that does not own it rewrites the slot's old
+    value, so there is no data-dependent index), attends over its slice
+    with the ``return_lse`` launch of ``paged_decode_attention`` (local
+    ``kv_len = clamp(pos - start + 1, 0, S_loc)``: 0, zeros and -inf, on
+    a rank whose slice lies past ``pos``), and the ranks combine their
+    partials through one MAX and one SUM all-reduce over the axis:
+    ``out = sum_r e^(lse_r - M) o_r / sum_r e^(lse_r - M)``.
+
+    q/k_new/v_new: [B,1,H*,D] with every head; caches: [B,S_loc,Hkv,D],
+    this rank's slice; pos: [B] (or scalar) positions of the new tokens.
+    Returns (out [B,1,Hq,D] in q's dtype, caches)."""
+    b, s_loc = k_cache.shape[:2]
+    start = col.axis_index(seq_axis) * s_loc
+    pos = torch.as_tensor(pos, device=q.device).long().expand(b)
+    loc = pos - start
+    own = (loc >= 0) & (loc < s_loc)
+    loc_c = loc.clamp(0, s_loc - 1)
+    rows = torch.arange(b, device=q.device)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        old = cache[rows, loc_c]
+        cache[rows, loc_c] = torch.where(own[:, None, None],
+                                         new[:, 0].to(cache.dtype), old)
+    kv_len = (loc + 1).clamp(0, s_loc).to(torch.int32)
+    o, lse = attention_decode(q, k_cache, v_cache, kv_len, scale=scale,
+                              return_lse=True)         # [B,H,D], [B,H]
+    m = col.pmax(lse, seq_axis)
+    w = torch.where(torch.isinf(m), torch.zeros_like(lse), torch.exp(lse - m))
+    h, d = o.shape[1:]
+    packed = torch.cat([(w[..., None] * o).reshape(b, h * d), w], dim=1)
+    packed = col.psum(packed, seq_axis)
+    num, den = packed[:, :h * d].reshape(b, h, d), packed[:, h * d:]
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out[:, None].to(q.dtype), (k_cache, v_cache)
 
 
 def attention_decode_paged(q, k_pool, v_pool, block_tables, kv_len,

@@ -12,6 +12,13 @@ Multi-tenant serving stacks several tenants' trees into one
 each sequence with its slot (``adapter_idx`` [B] int32, < 0 for the
 base model alone): ``project`` then runs ``segmented_lora_matmul`` over
 the rows, ``apply_segmented`` is its unfused form.
+
+On a mesh, ``project_sharded`` runs ``project`` on a rank's block of the
+base weight, the adapter tree staying replicated (it is tiny): B cut
+with W's columns on a column-parallel projection, A cut with W's rows
+on a row-parallel one, whose base and bypass partials are summed
+together by one all-reduce: sum_r (x_r W_r + s (x_r A_r) B) = x W +
+s (x A) B, exact up to rounding.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import collectives as col
 from repro_torch.kernels.lora_matmul import (
     LoRAMatmulFn, lora_matmul, segmented_lora_matmul,
 )
@@ -140,3 +148,50 @@ def project(x: torch.Tensor, w: torch.Tensor, pair: Optional[Dict],
     else:
         y = lora_matmul(x2, w, a, b, scaling)
     return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def project_sharded(x: torch.Tensor, w: torch.Tensor, w_spec,
+                    pair: Optional[Dict], scaling: float, x_axes=(),
+                    rows=(), reduce: bool = True):
+    """``project`` on a mesh: x [..., K_x] whose rows (dim 0) are cut along
+    the axes ``rows`` and whose features are cut along ``x_axes``; ``w``
+    this rank's block of a whole ``[K, N]`` weight cut as ``w_spec`` (two
+    spec entries) says.  Returns (y, the axes y's last dim is cut along).
+
+    A weight dim cut along an axis the rows are cut along is gathered
+    whole first (FSDP: those ranks hold other rows).  The contraction dim
+    keeps its other cuts: x's features are brought to it (a view where x
+    is whole) and the partial products are summed over them (row
+    parallel).  The output dim keeps its other cuts (column parallel).
+    ``reduce=False`` returns (partial, the axes still to sum over, the
+    output's axes) for a caller that sums several projections at once
+    (``psum_rounded`` on their concatenation)."""
+    k_ax, n_ax = (col.axes_of(e) for e in w_spec)
+
+    def fsdp(axes):
+        cut = tuple(a for a in axes if a in rows)
+        if cut and cut != axes:
+            raise NotImplementedError(
+                f"a weight dim cut along {axes} with rows cut along {rows}")
+        return cut
+
+    k_g, n_g = fsdp(k_ax), fsdp(n_ax)
+    w = col.all_gather(col.all_gather(w, k_g, 0), n_g, 1)
+    k_rest = () if k_g else k_ax
+    n_rest = () if n_g else n_ax
+    x = col.reshard_dim(x, -1, x_axes, k_rest)
+    if pair is not None:
+        pair = {"a": col.local_slice(pair["a"], k_rest, 0).contiguous(),
+                "b": col.local_slice(pair["b"], n_rest, 1).contiguous()}
+    y = project(x, w, pair, scaling)
+    if not reduce:
+        return y, k_rest, n_rest
+    return psum_rounded(y, k_rest), n_rest
+
+
+def psum_rounded(y: torch.Tensor, axes) -> torch.Tensor:
+    """Partial products summed over ``axes`` in float32 and rounded to
+    their dtype once (a bf16 sum would round at every add)."""
+    if not col.axes_of(axes):
+        return y
+    return col.psum(y.float(), axes).to(y.dtype)

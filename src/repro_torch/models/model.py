@@ -42,6 +42,17 @@ attends non-causally, and serves through ``hidden_states`` / ``logits``
 (``Engine.encoder_serve_step``) and trains through ``forward_loss``.
 It has no decode: the cache, prefill and decode methods raise.
 
+On a device mesh (``models/sharding.py::sharding_context``; dense and MoE
+stacks, serving only) each rank holds its blocks of the params
+(``init_sharded``, or ``launch.mesh.shard_tree``) and caches
+(``init_caches``, local shapes), while ``prefill_ragged`` and
+``decode_step`` take every sequence's tokens and positions and return
+every sequence's full-vocab logits on every rank: the embedding and the
+head are vocab-parallel (a masked lookup and an all-reduce; a product
+and an all-gather).  Training, the paged and suffix programs,
+multi-tenant decode and the SSM, hybrid, VLM and encoder stacks raise
+``NotImplementedError`` there (later slices of the mesh).
+
 Params are nested dicts of tensors in the JAX layout (stacked ``[L, ...]``
 block leaves, ``[in, out]`` matrices), so ``convert.py`` loads a JAX tree
 leaf for leaf.  The layer stack is a Python loop over per-layer views of
@@ -60,10 +71,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.launch.mesh import (
+    MeshSharding, _leading, _map_paths, batch_spec, param_spec,
+)
+from repro_torch.models import collectives as col
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import mamba2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dense_init, rms_norm, rope_tables
+from repro_torch.models.sharding import current_mesh, current_rules
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -117,16 +133,19 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _draw_stacked(draw, lead: Tuple[int, ...]):
+def _draw_stacked(draw, lead: Tuple[int, ...], keep=None):
     """``prod(lead)`` trees from ``draw()``, in order, written into stacks
     of leading dims ``lead`` allocated once: the stacks and one layer's
-    draw are alive together, never every layer's draw beside them."""
-    tree = draw()
+    draw are alive together, never every layer's draw beside them.
+    ``keep(path, leaf)``, where given, cuts each drawn leaf (at its path
+    in the drawn tree) to what the stack holds."""
+    cut = (lambda tree: _map_paths(keep, tree)) if keep else (lambda t: t)
+    tree = cut(draw())
     out = tree_map(lambda t: torch.empty(lead + t.shape, dtype=t.dtype,
                                          device=t.device), tree)
     for i, idx in enumerate(np.ndindex(*lead)):
         if i:
-            tree = draw()
+            tree = cut(draw())
         tree_map(lambda dst, src: dst[idx].copy_(src), out, tree)
         tree = None                    # freed before the next draw
     return out
@@ -151,31 +170,69 @@ class Model:
     device: torch.device
 
     # --------------------------------------------------------------- init --
-    def init(self, generator: torch.Generator) -> Dict:
+    def init(self, generator: torch.Generator, keep=None) -> Dict:
         """Random weights with the JAX initializer's shapes and scales,
-        drawn from ``generator`` (which must live on ``self.device``)."""
+        drawn from ``generator`` (which must live on ``self.device``).
+        ``keep(path, leaf)`` (``init_sharded``) cuts each leaf as it is
+        drawn, a stacked one layer by layer."""
         cfg = self.cfg
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
+        keep = keep or (lambda path, t: t)
         dtype = getattr(torch, cfg.param_dtype)
         params: Dict[str, Any] = {}
-        params["embed"] = dense_init(generator, cfg.vocab_size, cfg.d_model,
-                                     dtype, scale=1.0)
+        params["embed"] = keep("embed", dense_init(
+            generator, cfg.vocab_size, cfg.d_model, dtype, scale=1.0))
         if cfg.family is Family.VLM:
             units, per = self._vlm_shape()
             params["blocks"] = _draw_stacked(
-                lambda: tfm.init_block(generator, cfg), (units, per))
+                lambda: tfm.init_block(generator, cfg), (units, per),
+                lambda path, t: keep("blocks/" + path, t))
             params["cross"] = _draw_stacked(
-                lambda: tfm.init_cross_block(generator, cfg), (units,))
+                lambda: tfm.init_cross_block(generator, cfg), (units,),
+                lambda path, t: keep("cross/" + path, t))
         else:
             params["blocks"] = _draw_stacked(
-                lambda: tfm.init_block(generator, cfg), (cfg.n_layers,))
-        params["final_norm"] = torch.ones((cfg.d_model,), dtype=dtype,
-                                          device=generator.device)
-        params["lm_head"] = dense_init(generator, cfg.d_model,
-                                       cfg.vocab_size, dtype)
+                lambda: tfm.init_block(generator, cfg), (cfg.n_layers,),
+                lambda path, t: keep("blocks/" + path, t))
+        params["final_norm"] = keep("final_norm", torch.ones(
+            (cfg.d_model,), dtype=dtype, device=generator.device))
+        params["lm_head"] = keep("lm_head", dense_init(
+            generator, cfg.d_model, cfg.vocab_size, dtype))
         return mamba2.pad_storage(params)
+
+    def init_sharded(self, generator: torch.Generator, mesh,
+                     rules) -> Dict:
+        """This rank's blocks of ``init``'s weights on ``mesh`` under
+        ``rules`` (as ``launch.mesh.param_shardings`` cuts them): every
+        leaf is drawn whole from ``generator``, as ``init`` draws it (so
+        the blocks are those of the unsharded model from the same seed),
+        cut, and the draw freed.  The ranks draw one after another, so
+        one rank's whole layer is alive at a time."""
+        import torch.distributed as dist
+
+        cfg = self.cfg
+        self._mesh_family("sharded weights")
+
+        def keep(path, t):
+            lead = _leading(path, cfg)     # the stacked dims, drawn apart
+            spec = param_spec(path, (1,) * lead + tuple(t.shape), cfg, mesh,
+                              rules)[lead:]
+            for d, e in enumerate(spec):
+                t = col.local_slice(t, e, d, mesh)
+            return t.clone()
+
+        params = None
+        for r in range(mesh.size):
+            if mesh.rank == r:
+                params = self.init(generator, keep)
+                if self.device.type == "cuda":
+                    # the whole draws' blocks, cached by this process's
+                    # allocator, back to the card for the next rank's
+                    torch.cuda.empty_cache()
+            dist.barrier()
+        return params
 
     def init_lora(self, generator: torch.Generator) -> Dict:
         """One adapter, stacked ``[L, ...]`` (a VLM: ``[units, per, ...]``
@@ -198,6 +255,64 @@ class Model:
             return batch["embeds"].to(getattr(torch, self.cfg.dtype))
         return params["embed"][batch["tokens"]]
 
+    # ------------------------------------------------------------- mesh ---
+    def _mesh_family(self, what: str) -> None:
+        if self.cfg.family not in (Family.DENSE, Family.MOE):
+            raise NotImplementedError(
+                f"{self.cfg.name}: {what} of a {self.cfg.family.value} stack "
+                f"on a mesh: {tfm._QUEUED}")
+
+    def _no_mesh(self, what: str) -> None:
+        if current_mesh() is not None:
+            raise NotImplementedError(f"{self.cfg.name}: {what} on a mesh"
+                                      f": {tfm._QUEUED}")
+
+    def _mesh_plan(self, batch: int, tokens: int, adapter_idx=None):
+        """The ``MeshPlan`` of a call under ``sharding_context``, None
+        outside one."""
+        mesh = current_mesh()
+        if mesh is None:
+            return None
+        self._mesh_family("serving")
+        if adapter_idx is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: multi-tenant (per-row adapter) serving "
+                f"on a mesh: {tfm._QUEUED}")
+        return tfm.mesh_plan(self.cfg, mesh, current_rules(), batch, tokens)
+
+    def _embed_mesh(self, params, tokens, plan) -> torch.Tensor:
+        """Vocab-parallel lookup of every sequence's ``tokens`` [B, S]:
+        each rank reads the rows of its vocab block (zeros elsewhere), the
+        vocab ranks sum them, the ``w_embed`` ranks' columns are gathered.
+        Returns the rows ``plan.rows`` keeps, [B_rows, S, D]."""
+        cfg = self.cfg
+        v_ax, d_ax = (col.axes_of(e) for e in param_spec(
+            "embed", (cfg.vocab_size, cfg.d_model), cfg, plan.mesh,
+            plan.rules))
+        early = not set(d_ax) & set(plan.rows)
+        if early:                  # the column gather stays within rows
+            tokens = col.local_slice(tokens, plan.rows, 0)
+        vl = cfg.vocab_size // col.axis_size(v_ax)
+        idx = tokens.long() - col.axis_index(v_ax) * vl
+        inside = (idx >= 0) & (idx < vl)
+        e = params["embed"][idx.clamp(0, vl - 1)]
+        e = torch.where(inside[..., None], e, torch.zeros_like(e))
+        e = col.all_gather(col.psum(e, v_ax), d_ax, -1)
+        return e if early else col.local_slice(e, plan.rows, 0)
+
+    def _head_mesh(self, params, hidden, plan) -> torch.Tensor:
+        """Vocab-parallel head: normed ``hidden`` [B_rows, S, D] (rows of
+        ``plan.rows``) -> every sequence's full-vocab logits [B, S, V] on
+        every rank (the rows gathered, the contraction's partials summed
+        over ``w_embed``'s axes, the vocab blocks gathered)."""
+        cfg = self.cfg
+        spec = param_spec("lm_head", (cfg.d_model, cfg.vocab_size), cfg,
+                          plan.mesh, plan.rules)
+        h = col.all_gather(hidden, plan.rows, 0)
+        y, y_ax = lora_lib.project_sharded(h, params["lm_head"], spec, None,
+                                           0.0)
+        return col.all_gather(y, y_ax, -1)
+
     def _no_decode(self, what: str) -> None:
         if not self.cfg.has_decode:
             raise NotImplementedError(
@@ -218,6 +333,10 @@ class Model:
         attention of sequences past the dense limit; ``adapter_idx`` [B]
         selects each row's slot of a stacked ``lora`` tree."""
         cfg = self.cfg
+        if current_mesh() is not None:
+            return self._hidden_states_mesh(params, lora, batch,
+                                            collect_caches, block_kv,
+                                            adapter_idx, return_aux)
         x = self._embed(params, batch)
         s = x.shape[1]
         rope_cs = rope_tables(torch.arange(s, device=x.device),
@@ -251,6 +370,32 @@ class Model:
             caches = {"ssm": _stack(per_layer)}
         elif collect_caches:
             caches = {"kv": tuple(torch.stack(t) for t in zip(*per_layer))}
+        hidden = rms_norm(x, params["final_norm"])
+        return (hidden, caches, aux) if return_aux else (hidden, caches)
+
+    def _hidden_states_mesh(self, params, lora, batch, collect_caches,
+                            block_kv, adapter_idx, return_aux):
+        """``hidden_states`` on the mesh: the hidden rows ``plan.rows``
+        keeps; K/V ``[L, B_kv, S, Hkv_l, Dh]`` in the caches' batch and
+        head cut, every position."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        plan = self._mesh_plan(tokens.shape[0], tokens.numel(), adapter_idx)
+        x = self._embed_mesh(params, tokens, plan)
+        s = x.shape[1]
+        rope_cs = rope_tables(torch.arange(s, device=x.device),
+                              cfg.head_dim, cfg.rope_theta)
+        kvs, aux = [], None
+        for i in range(cfg.n_layers):
+            x, kv, layer_aux = tfm.block_full_mesh(
+                _layer(params["blocks"], i), x, cfg, rope_cs, _layer(lora, i),
+                plan, block_kv=block_kv)
+            if layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
+            if collect_caches:
+                kvs.append(kv)
+        caches = {"kv": tuple(torch.stack(t) for t in zip(*kvs))} \
+            if collect_caches else None
         hidden = rms_norm(x, params["final_norm"])
         return (hidden, caches, aux) if return_aux else (hidden, caches)
 
@@ -295,6 +440,8 @@ class Model:
         auxiliary loss (the MoE layers' load-balancing losses summed;
         zero for the other families).  Returns (total, metrics
         ``ce_loss``, ``aux_loss``, ``loss_sum``, ``token_count``)."""
+        self._no_mesh("training (sequence-parallel activations, sharded "
+                      "gradients and optimizer state)")
         hidden, _, aux = self.hidden_states(
             params, lora, batch, block_kv=block_kv,
             skip_masked_blocks=skip_masked_blocks, return_aux=True)
@@ -313,6 +460,9 @@ class Model:
         hidden, _ = self.hidden_states(
             params, lora, batch, block_kv=block_kv,
             skip_masked_blocks=skip_masked_blocks)
+        if current_mesh() is not None:
+            return self._head_mesh(params, hidden, self._mesh_plan(
+                batch["tokens"].shape[0], batch["tokens"].numel()))
         return hidden @ params["lm_head"]
 
     # ------------------------------------------------------------- caches --
@@ -329,6 +479,8 @@ class Model:
         ``cross_kv`` ``[units, batch, T, Hkv, Dh]``."""
         cfg = self.cfg
         self._no_decode("decode caches")
+        if current_mesh() is not None:
+            return self._init_caches_mesh(batch, seq, dtype)
         if cfg.family is Family.VLM:
             units, per = self._vlm_shape()
             dt = self._cache_dtype(dtype)
@@ -354,11 +506,36 @@ class Model:
                 cfg, batch, dt, self.device, stacked=cfg.n_layers)
         return caches
 
+    def _init_caches_mesh(self, batch: int, seq: int, dtype) -> Dict:
+        """This rank's blocks of the ``[L, batch, seq, Hkv, Dh]`` caches,
+        cut as ``launch.mesh.batch_shardings`` says; each K/V tensor
+        carries the whole shape as ``mesh_whole``.  ``seq`` must divide
+        the ``kv_seq`` axes (the layout of every later call rests on it)."""
+        cfg = self.cfg
+        self._mesh_family("decode caches")
+        mesh, rules = current_mesh(), current_rules()
+        n_seq = col.axis_size(rules.kv_seq)
+        if cfg.sliding_window > 0 and n_seq > 1 or seq % n_seq:
+            raise NotImplementedError(
+                f"{cfg.name}: a cache of {seq} positions (window "
+                f"{cfg.sliding_window}) on a kv_seq axis of {n_seq} "
+                f"ranks: {tfm._QUEUED}")
+        whole = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+        shape = MeshSharding(mesh, batch_spec("kv/0", whole, mesh, rules)) \
+            .local_shape(whole)
+        dt = self._cache_dtype(dtype)
+        kv = tuple(torch.zeros(shape, dtype=dt, device=self.device)
+                   for _ in range(2))
+        for t in kv:
+            t.mesh_whole = whole
+        return {"kv": kv}
+
     def init_paged_caches(self, n_blocks: int, block_size: int,
                           dtype=None) -> Dict:
         """Global paged KV pool ``[L, n_blocks, block_size, Hkv, Dh]``
         per K/V; block 0 is the runtime's scratch block."""
         cfg = self.cfg
+        self._no_mesh("the paged KV pool")
         self._no_decode("paged KV caches")
         self._attention_only("paged KV caches")
         self._no_vlm("paged KV caches")
@@ -389,6 +566,7 @@ class Model:
         the SSM stacks' prefill, one request at a time in the batcher; a
         VLM's caches include ``cross_kv``."""
         self._no_decode("prefill")
+        self._no_mesh("exact-length prefill")
         hidden, caches = self.hidden_states(params, lora, batch,
                                             collect_caches=True)
         return hidden[:, -1:] @ params["lm_head"], caches
@@ -407,8 +585,15 @@ class Model:
             params, lora, batch, collect_caches=True, block_kv=block_kv,
             skip_masked_blocks=skip_masked_blocks, adapter_idx=adapter_idx)
         lens = torch.as_tensor(prompt_lens, device=hidden.device).long()
+        plan = None
+        if current_mesh() is not None:
+            tokens = batch["tokens"]
+            plan = self._mesh_plan(tokens.shape[0], tokens.numel())
+            lens = col.local_slice(lens, plan.rows, 0)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last = hidden[rows, lens - 1][:, None]
+        if plan is not None:
+            return self._head_mesh(params, last, plan), caches
         return last @ params["lm_head"], caches
 
     # ---------------------------------------------------------- slot ops ---
@@ -420,6 +605,7 @@ class Model:
         slot's ring) into row ``slot`` of ``pool_caches``, in place: the
         batcher gathers a wave's exact-length prefills with it."""
         self._no_vlm("cache-slot writes")
+        self._no_mesh("single cache-slot writes")
         for pool, pre in zip(_cache_leaves(pool_caches),
                              _cache_leaves(prefill_caches)):
             rows = tuple(slice(0, d) for d in pre.shape[2:])
@@ -436,6 +622,9 @@ class Model:
         index on the card is a device assert.  K/V rows past the prompt
         are zeroed, as the JAX scatter pads them."""
         self._no_vlm("cache-slot writes")
+        if current_mesh() is not None:
+            return self._write_prefill_slots_mesh(pool_caches,
+                                                  prefill_caches, slots)
         slots = np.asarray(slots, np.int64)
         pools, pres = _cache_leaves(pool_caches), _cache_leaves(prefill_caches)
         keep = np.nonzero((slots >= 0) & (slots < pools[0].shape[1]))[0]
@@ -451,6 +640,48 @@ class Model:
             pool[:, dst, p:] = 0
         return pool_caches
 
+    def _write_prefill_slots_mesh(self, pool_caches, prefill_caches, slots):
+        """``write_prefill_slots`` on the mesh: each rank writes the wave
+        rows it holds (``prefill_ragged``'s K/V, cut as the caches' batch
+        and heads) into its block of the slots, the positions of its
+        sequence block only.  The wave and the pool must cut their batch
+        alike, so no row crosses ranks."""
+        cfg = self.cfg
+        mesh, rules = current_mesh(), current_rules()
+        k_pool = pool_caches["kv"][0]
+        whole = getattr(k_pool, "mesh_whole", None)
+        if whole is None:
+            raise ValueError("write_prefill_slots on a mesh takes caches "
+                             "from init_caches under the same mesh")
+        slots = np.asarray(slots, np.int64)
+        spec = batch_spec("kv/0", whole, mesh, rules)
+        wave = batch_spec("kv/0", (cfg.n_layers, slots.size, mesh.size,
+                                   cfg.n_kv_heads, cfg.head_dim), mesh, rules)
+        p_ax, s_ax = col.axes_of(spec[1]), col.axes_of(spec[2])
+        if col.axes_of(wave[1]) != p_ax:
+            raise NotImplementedError(
+                f"a wave of {slots.size} rows and a pool of {whole[1]} slots "
+                f"cut apart on the mesh: {tfm._QUEUED}")
+        nl, s_loc = k_pool.shape[1], k_pool.shape[2]
+        first = col.axis_index(p_ax) * nl
+        mine = col.local_slice(torch.as_tensor(slots), p_ax, 0).numpy()
+        keep = np.nonzero((mine >= 0) & (mine < whole[1]))[0]
+        if not keep.size:
+            return pool_caches
+        local = mine[keep] - first
+        if ((local < 0) | (local >= nl)).any():
+            raise NotImplementedError(
+                f"wave rows whose slots lie on other ranks: {tfm._QUEUED}")
+        start = col.axis_index(s_ax) * s_loc
+        dst = torch.as_tensor(local, device=self.device)
+        src = torch.as_tensor(keep, device=self.device)
+        for pool, pre in zip(pool_caches["kv"], prefill_caches["kv"]):
+            part = pre[:, src, start:start + s_loc]
+            n = part.shape[2]
+            pool[:, dst, :n] = part.to(pool.dtype)
+            pool[:, dst, n:] = 0
+        return pool_caches
+
     def write_prefill_blocks(self, pool_caches, prefill_caches,
                              wave_tables):
         """Scatter a whole prefill wave's K/V into freshly allocated pool
@@ -458,6 +689,7 @@ class Model:
         [W, NBP] (host-side ids) maps wave row j's logical blocks to pool
         blocks; entries outside ``[0, n_blocks)`` (the runtime uses
         ``n_blocks`` for unused entries) are dropped on the host."""
+        self._no_mesh("paged prefill writes")
         tables = np.asarray(wave_tables, np.int64)
         nbp = tables.shape[1]
         ids = tables.reshape(-1)
@@ -491,6 +723,7 @@ class Model:
         them by index; on the card an out-of-range index is a device
         assert)."""
         self._no_vlm("cache-slot writes")
+        self._no_mesh("chunked prefill writes")
         slots = np.asarray(slots, np.int64)
         offsets = np.asarray(offsets, np.int64)
         lens = np.asarray(lens, np.int64)
@@ -577,6 +810,7 @@ class Model:
         self._no_decode("prefill")
         self._attention_only("suffix prefills")
         self._no_vlm("suffix prefills")
+        self._no_mesh("suffix prefills")
         tokens = batch["tokens"]
         dev = tokens.device
         x = params["embed"][tokens]
@@ -662,6 +896,9 @@ class Model:
         cfg = self.cfg
         self._no_decode("decode step")
         pos = self._positions(pos, token.shape[0])
+        if current_mesh() is not None:
+            return self._decode_step_mesh(params, lora, caches, token, pos,
+                                          adapter_idx)
         x = params["embed"][token]
         rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta) \
             if cfg.has_attention else None
@@ -682,6 +919,29 @@ class Model:
                                     lora=_layer(lora, i),
                                     adapter_idx=adapter_idx)
         return self._logits(params, x), caches
+
+    def _decode_step_mesh(self, params, lora, caches, token, pos,
+                          adapter_idx):
+        """``decode_step`` on the mesh: every sequence's token and
+        position in, every sequence's logits out, this rank's caches
+        written in place."""
+        cfg = self.cfg
+        b = token.shape[0]
+        plan = self._mesh_plan(b, b, adapter_idx)
+        whole = getattr(caches["kv"][0], "mesh_whole", None)
+        if whole is None or whole[1] != b:
+            raise ValueError(f"decode_step on a mesh takes the caches of "
+                             f"init_caches({b}, ...) under the same mesh")
+        x = self._embed_mesh(params, token, plan)
+        pos = col.local_slice(pos, plan.rows, 0)
+        rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        k_all, v_all = caches["kv"]
+        for i in range(cfg.n_layers):
+            x = tfm.block_decode_mesh(_layer(params["blocks"], i), x, cfg,
+                                      (k_all[i], v_all[i]), pos, rope_cs,
+                                      _layer(lora, i), plan)
+        return self._head_mesh(params, rms_norm(x, params["final_norm"]),
+                               plan), caches
 
     def _vlm_decode(self, params, lora, caches, x, pos, rope_cs):
         """The VLM's decode: each unit's dense blocks over their
@@ -720,6 +980,7 @@ class Model:
         self._no_decode("decode step")
         self._attention_only("paged decode steps")
         self._no_vlm("paged decode steps")
+        self._no_mesh("paged decode steps")
         k_all, v_all = caches["kv"]
         bs = k_all.shape[2]
         pos = self._positions(pos, token.shape[0])

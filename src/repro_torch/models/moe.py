@@ -32,9 +32,18 @@ the reference's float32 softmax is within two float32 ulps of them.
 
 No kernel is written for this module: the reference computes the
 experts as einsums outside any Pallas kernel (``src/repro/kernels/``
-has no MoE function), so the expert products are ``torch.bmm``.  The
-reference's ``moe_decode_shardmap`` runs only under a device mesh
-(``_shardmap_eligible``); a one-card port takes the grouped path alone.
+has no MoE function), so the expert products are ``torch.bmm``.
+
+Under a mesh (``models/sharding.py``), ``moe_mlp`` takes the reference's
+``moe_decode_shardmap`` at up to 1,024 tokens where the rule table's
+axes divide the weights (``_shardmap_eligible``): the tokens are
+replicated and routed alike on every rank, each rank contracts its
+resident (D-slice x F-slice) blocks of its experts, and only
+capacity-sized float32 partials cross the mesh.  Both expert layouts run
+it: EP (experts over the model axis, moonshot) and TP (the per-expert ff
+over it, grok).  Past 1,024 tokens, or where the axes do not divide,
+the reference lets GSPMD partition the grouped einsums; the port
+refuses that (a later slice of the mesh).
 """
 from __future__ import annotations
 
@@ -45,7 +54,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.mesh import param_spec
+from repro_torch.models import collectives as col
 from repro_torch.models.layers import dense_init
+from repro_torch.models.sharding import current_mesh, current_rules
 
 # an MoE block's leaves the JAX init makes float32 whatever the params'
 # dtype (``convert.py`` keeps them so)
@@ -130,12 +142,98 @@ def check_grouping(tokens: int, group_size: int = 512) -> int:
     return gsz
 
 
+def moe_decode_shardmap(params: Dict, x: torch.Tensor, cfg: ModelConfig
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's explicit-SPMD MoE for small-token (decode) steps.
+
+    x [Bt, S, D] is every token, the same on every rank; ``params`` hold
+    this rank's blocks of the expert weights (cut as ``launch.mesh.
+    param_spec`` says; the router is gathered whole).  Every rank routes
+    all tokens in one group (the float64-then-float32 softmax: the same
+    bits everywhere), copies the kept choices into its experts' inputs
+    ``[E_l, C, D_l]``, contracts its resident blocks, and the partials
+    meet as in the reference: a sum over ``w_embed``'s axis for the
+    up-projections, over ``expert_ff``'s for the down-projection, over
+    ``experts``' for the combine, then a tiled gather over ``w_embed``'s
+    axis.  Returns ([Bt, S, D], aux)."""
+    mesh, rules = current_mesh(), current_rules()
+    bt, s, d = x.shape
+    e, k, f = cfg.n_experts, cfg.top_k, cfg.d_ff
+    t = bt * s
+    xt = x.reshape(t, d)
+    cap = capacity(t, cfg)
+
+    def ax(a):
+        return col.axes_of(a if isinstance(a, str) else None, mesh)
+
+    d_ax, e_ax, f_ax = ax(rules.w_embed), ax(rules.experts), \
+        ax(rules.expert_ff)
+
+    def resident(name, shape, want):
+        have = param_spec("blocks/moe/" + name, (1,) + shape, cfg, mesh,
+                          rules)[1:]
+        return col.reshard(params[name], have, want, mesh)
+
+    router = resident("router", (d, e), (None, None))
+    wg = resident("wg", (e, d, f), (e_ax, d_ax, f_ax))
+    wu = resident("wu", (e, d, f), (e_ax, d_ax, f_ax))
+    wd = resident("wd", (e, f, d), (e_ax, f_ax, d_ax))
+    e_n, d_n = col.axis_size(e_ax, mesh), col.axis_size(d_ax, mesh)
+    el, dl = e // e_n, d // d_n
+    e0 = col.axis_index(e_ax, mesh) * el
+    logits = xt.float() @ router                              # [T, E]
+    expert, slot, kept, gates, aux = _route(logits[None], k, cap)
+    expert, slot, kept, gates = expert[0], slot[0], kept[0], gates[0]
+    # dispatch: this rank's experts' rows of the reference's one-hot
+    # einsum, cut to its D-slice
+    n_rows = el * cap
+    rows = (expert - e0) * cap + slot                         # [T, K]
+    mine = kept & (expert >= e0) & (expert < e0 + el)
+    dest = torch.where(mine, rows, n_rows).reshape(-1)
+    xs = col.local_slice(xt, d_ax, 1, mesh)
+    src = xs[:, None].expand(t, k, dl).reshape(-1, dl)
+    ein = xs.new_zeros((n_rows + 1, dl)).index_copy(0, dest, src)
+    ein = ein[:n_rows].view(el, cap, dl)
+    h_g, h_u = col.psum_many([torch.bmm(ein, wg).float(),
+                              torch.bmm(ein, wu).float()], d_ax, mesh)
+    h = (F.silu(h_g) * h_u).to(x.dtype)                       # [E_l, C, F_l]
+    eout = col.psum(torch.bmm(h, wd).float(), f_ax, mesh)     # [E_l, C, D_l]
+    # combine: float32 gates of this rank's kept choices
+    w = torch.where(mine, gates, 0.0)                         # [T, K]
+    picked = eout.reshape(n_rows, dl)[torch.where(mine, rows, 0)]
+    y = col.psum((w[..., None] * picked).sum(dim=1), e_ax, mesh)
+    y = col.all_gather(y, d_ax, 1, mesh)
+    return y.to(x.dtype).reshape(bt, s, d), aux
+
+
+def _shardmap_eligible(cfg: ModelConfig) -> bool:
+    mesh = current_mesh()
+    if mesh is None:
+        return False
+    rules = current_rules()
+    for dim, ax in ((cfg.d_model, rules.w_embed),
+                    (cfg.n_experts, rules.experts),
+                    (cfg.d_ff, rules.expert_ff)):
+        if isinstance(ax, str) and ax in mesh.shape \
+                and dim % mesh.shape[ax] != 0:
+            return False
+    return True
+
+
 def moe_mlp(params: Dict, x: torch.Tensor, cfg: ModelConfig,
             group_size: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [Bt, S, D] -> ([Bt, S, D], aux float32 scalar)."""
     bt, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     tokens = bt * s
+    if current_mesh() is not None:
+        if tokens <= 1024 and _shardmap_eligible(cfg):
+            return moe_decode_shardmap(params, x, cfg)
+        raise NotImplementedError(
+            f"{cfg.name}: MoE on a mesh past 1,024 tokens, or where the "
+            "rule table's axes do not divide the expert weights (the "
+            "reference's GSPMD-partitioned grouped dispatch) is queued for "
+            "a later slice of the mesh (ROADMAP.md)")
     gsz = check_grouping(tokens, group_size)
     g = tokens // gsz
     cap = capacity(gsz, cfg)

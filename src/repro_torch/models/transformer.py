@@ -32,9 +32,21 @@ Decode writes the new token's K/V (an SSM layer: its conv tail and
 state; a hybrid layer: both) into the caller's cache tensors IN PLACE
 (the JAX blocks return new caches); the returned caches are the same
 tensors.
+
+On a device mesh (dense and MoE stacks; ``Model`` builds a ``MeshPlan``
+under ``sharding_context``) the ``*_mesh`` blocks run on each rank's
+blocks of the weights and caches: q/k/v and the MLP's gate/up
+column-parallel, o and down row-parallel with an all-reduce over the
+heads' (ff's) axis, weight dims cut along the rows' axis (FSDP)
+gathered before use.  Attention runs on the rank's heads (dense up to
+1,024 tokens, ``flash_attention`` past them) or, where the rule table
+cuts the cache's sequence (``kv_seq``, no sliding window),
+``attention_decode_seqsharded``.  Tables that move heads to the query
+sequence (``q_seq``) are refused (a later slice of the mesh).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
@@ -43,13 +55,17 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.launch.mesh import batch_spec, param_spec
+from repro_torch.models import collectives as col
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (
     apply_rope, attention_blockwise, attention_decode, attention_decode_paged,
-    attention_dense, attention_prefix_suffix, dense_init, rms_norm,
+    attention_decode_seqsharded, attention_dense, attention_prefix_suffix,
+    dense_init, rms_norm,
 )
 from repro_torch.models.moe import init_moe, moe_mlp
+from repro_torch.models.sharding import _filter_spec
 
 
 # a cross block's leaves the JAX init makes float32 whatever the params'
@@ -403,3 +419,277 @@ def cross_block(cp, x, vkv, cfg: ModelConfig, kv_len=None):
                             kv_len)
     y, _ = _mlp_out(cp, rms_norm(x, cp["ln2"]), cfg, None)
     return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * y
+
+
+# ------------------------------------------------------------- the mesh ---
+_QUEUED = "queued for a later slice of the mesh (ROADMAP.md)"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """Where one call's tensors lie on the mesh, as axis tuples (empty:
+    whole on every rank): ``rows`` the activations' rows (the batch),
+    ``heads`` the attention's query heads, ``kv_batch`` / ``kv_seq`` /
+    ``kv_heads`` the KV cache's dims.  Rows are whole up to 1,024 tokens
+    a call (so decode keeps every weight block resident: its projections
+    sum partial products, as the reference's ``moe_decode_shardmap``
+    does at the same bound), cut along the rule table's batch axes past
+    them (FSDP weight gathers)."""
+    cfg: Any
+    mesh: Any
+    rules: Any
+    rows: Tuple[str, ...]
+    heads: Tuple[str, ...]
+    kv_batch: Tuple[str, ...]
+    kv_seq: Tuple[str, ...]
+    kv_heads: Tuple[str, ...]
+
+    def wspec(self, path: str, shape) -> tuple:
+        """The spec of one layer's weight at ``blocks/<path>``."""
+        return param_spec("blocks/" + path, (1,) + tuple(shape), self.cfg,
+                          self.mesh, self.rules)[1:]
+
+
+def mesh_plan(cfg: ModelConfig, mesh, rules, batch: int,
+              tokens: int) -> MeshPlan:
+    """The plan of a call of ``batch`` sequences, ``tokens`` in all.  The
+    caches' sequence is taken to divide the ``kv_seq`` axes (``Model.
+    init_caches`` refuses a length that does not)."""
+
+    def cut(entry, dim):
+        return col.axes_of(_filter_spec((entry,), mesh, (dim,))[0], mesh)
+
+    if col.axes_of(rules.q_seq, mesh):
+        raise NotImplementedError(
+            f"{cfg.name}: a rule table that moves attention from the heads "
+            f"to the query sequence (q_seq; {cfg.n_heads} heads on a "
+            f"{mesh.shape} mesh): {_QUEUED}")
+    spec = batch_spec("kv/0", (cfg.n_layers, batch, mesh.size,
+                               cfg.n_kv_heads, cfg.head_dim), mesh, rules)
+    kv_batch, kv_seq, kv_heads = (col.axes_of(e, mesh) for e in spec[1:4])
+    if kv_seq and (cfg.sliding_window > 0 or kv_heads):
+        raise NotImplementedError(
+            f"{cfg.name}: a cache cut along its sequence with a sliding-"
+            f"window ring or with its heads cut too: {_QUEUED}")
+    rows = () if tokens <= 1024 else cut(rules.batch, batch)
+    heads = cut(rules.heads, cfg.n_heads)
+    tp = set(heads) | set(kv_seq) | set(kv_heads)
+    for name in ("ff", "vocab", "experts", "expert_ff"):
+        tp |= set(col.axes_of(getattr(rules, name), mesh))
+    if tp & (set(rows) | set(kv_batch)):
+        raise NotImplementedError(
+            f"{cfg.name}: rows cut along an axis that also cuts heads, "
+            f"ff, vocab or experts ({rules}): {_QUEUED}")
+    return MeshPlan(cfg, mesh, rules, rows, heads, kv_batch, kv_seq,
+                    kv_heads)
+
+
+def _psum_many(ys, axes):
+    """``lora.psum_rounded`` of projections that share their rows, in one
+    all-reduce."""
+    if not col.axes_of(axes):
+        return ys
+    return [y.to(ys[0].dtype) for y in col.psum_many(
+        [y.float() for y in ys], axes)]
+
+
+def _kv_for_heads(t: torch.Tensor, have, plan: MeshPlan) -> torch.Tensor:
+    """The KV heads ``[..., Hkv_l, Dh]`` (cut along ``have``) that this
+    rank's query heads read."""
+    if have == plan.heads:
+        return t
+    if have:
+        raise NotImplementedError(
+            f"KV heads cut along {have}, query heads along {plan.heads}: "
+            f"{_QUEUED}")
+    cfg = plan.cfg
+    hq_l = cfg.n_heads // col.axis_size(plan.heads)
+    g = cfg.n_heads // cfg.n_kv_heads
+    if hq_l % g and g % hq_l:
+        raise NotImplementedError(
+            f"{hq_l} query heads a rank in groups of {g}: {_QUEUED}")
+    first = col.axis_index(plan.heads) * hq_l // g
+    return t[:, :, first:first + max(1, hq_l // g)]
+
+
+def _proj_qkv_mesh(p, x, cfg: ModelConfig, lora, plan: MeshPlan, q_want,
+                   kv_want):
+    """q/k/v on the mesh: [B, S, heads cut along ``q_want`` (q) or
+    ``kv_want`` (k, v), Dh].  The three partial sums meet in one
+    all-reduce, and where all three are gathered whole, in one
+    all-gather."""
+    hd = cfg.head_dim
+    ys, y_axes = [], []
+    for name, n in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
+                    ("v", cfg.n_kv_heads)):
+        y, k_rest, y_ax = lora_lib.project_sharded(
+            x, p["w" + name], plan.wspec(f"attn/w{name}", (cfg.d_model,
+                                                            n * hd)),
+            lora.get(name) if lora else None, cfg.lora.scaling,
+            rows=plan.rows, reduce=False)
+        ys.append(y)
+        y_axes.append((k_rest, y_ax))
+    if len(set(y_axes)) == 1:
+        ys = _psum_many(ys, y_axes[0][0])
+    else:
+        ys = [lora_lib.psum_rounded(y, k) for y, (k, _) in zip(ys, y_axes)]
+    out = []
+    for y, (_, y_ax), name, n in zip(ys, y_axes, "qkv",
+                                     (cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.n_kv_heads)):
+        if "b" + name in p:             # bias after the LoRA bypass
+            bias_have = plan.wspec(f"attn/b{name}", (n * hd,))
+            y = y + col.reshard_dim(p["b" + name], 0, bias_have[0], y_ax)
+        out.append(y)
+    wants = (q_want, kv_want, kv_want)
+    if all(ax for _, ax in y_axes) and not any(wants) \
+            and len(set(y_axes)) == 1:
+        out = col.gather_last_many(out, y_axes[0][1])
+    else:
+        out = [col.reshard_dim(y, -1, ax, w)
+               for y, (_, ax), w in zip(out, y_axes, wants)]
+    q, k, v = (y.reshape(x.shape[0], x.shape[1], -1, hd) for y in out)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    return q, k, v
+
+
+def _out_proj_mesh(p, o, cfg: ModelConfig, lora, plan: MeshPlan, o_axes):
+    """o [B, S, H_l * Dh] (heads cut along ``o_axes``) @ wo, row-parallel;
+    the result whole on every rank of its rows."""
+    y, y_ax = lora_lib.project_sharded(
+        o, p["wo"], plan.wspec("attn/wo", (cfg.n_heads * cfg.head_dim,
+                                           cfg.d_model)),
+        lora.get("o") if lora else None, cfg.lora.scaling, x_axes=o_axes,
+        rows=plan.rows)
+    return col.reshard_dim(y, -1, y_ax, ())
+
+
+def _kv_attn_axes(cfg: ModelConfig, plan: MeshPlan):
+    """The cut of the K/V heads a prefill computes: the query heads' axis
+    where the KV heads divide it, else whole."""
+    n = col.axis_size(plan.heads)
+    return plan.heads if cfg.n_kv_heads % n == 0 else ()
+
+
+def attn_full_mesh(p, x, cfg: ModelConfig, rope_cs, lora, plan: MeshPlan,
+                   block_kv: int = 512):
+    """``attn_full`` on the mesh: x [B_rows, S, D] (rows cut along
+    ``plan.rows``); attention on this rank's heads over its cache rows.
+    Returns (out [B_rows, S, D], (k, v) in the cache's batch and head
+    cut, every position)."""
+    kv_ax = _kv_attn_axes(cfg, plan)
+    q, k, v = _proj_qkv_mesh(p, x, cfg, lora, plan, plan.heads, kv_ax)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q, k, v = (col.reshard_dim(t, 0, plan.rows, plan.kv_batch)
+               for t in (q, k, v))
+    kq, vq = _kv_for_heads(k, kv_ax, plan), _kv_for_heads(v, kv_ax, plan)
+    causal = not cfg.encoder_only
+    s = x.shape[1]
+    if use_dense_prefill(cfg, s):
+        o = attention_dense(q, kq, vq, causal=causal,
+                            window=cfg.sliding_window)
+    else:
+        o = attention_blockwise(q, kq, vq, causal=causal,
+                                window=cfg.sliding_window, block_kv=block_kv)
+    o = col.reshard_dim(o.reshape(o.shape[0], s, -1), 0, plan.kv_batch,
+                        plan.rows)
+    out = _out_proj_mesh(p, o, cfg, lora, plan, plan.heads)
+    cache_heads = plan.kv_heads
+    return out, tuple(col.reshard_dim(t, 2, kv_ax, cache_heads)
+                      for t in (k, v))
+
+
+def attn_decode_mesh(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora,
+                     plan: MeshPlan):
+    """``attn_decode`` on the mesh: x [B, 1, D] (rows cut along
+    ``plan.rows``), pos [B] likewise; the caches this rank's block,
+    written in place.  Where the cache's sequence is cut
+    (``plan.kv_seq``) every rank takes all heads through
+    ``attention_decode_seqsharded`` (the reference's ``use_sharded``);
+    otherwise its own heads through the paged kernel."""
+    k_cache, v_cache = cache_kv
+    seq = bool(plan.kv_seq)
+    q, k, v = _proj_qkv_mesh(p, x, cfg, lora, plan,
+                             () if seq else plan.heads,
+                             () if seq else plan.kv_heads)
+    if rope_cs is not None:
+        cos, sin = rope_cs  # [B, 1, Dh/2]
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    q, k, v, pos = (col.reshard_dim(t, 0, plan.rows, plan.kv_batch)
+                    for t in (q, k, v, pos))
+    if seq:
+        o, _ = attention_decode_seqsharded(q, k, v, k_cache, v_cache, pos,
+                                           plan.kv_seq)
+    else:
+        cache_len = k_cache.shape[1]
+        wpos = torch.remainder(pos, cache_len) if cfg.sliding_window > 0 \
+            else pos
+        rows = torch.arange(q.shape[0], device=q.device)
+        k_cache[rows, wpos.long()] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, wpos.long()] = v[:, 0].to(v_cache.dtype)
+        kv_len = torch.clamp(pos + 1, max=cache_len)
+        o = attention_decode(q, _kv_for_heads(k_cache, plan.kv_heads, plan),
+                             _kv_for_heads(v_cache, plan.kv_heads, plan),
+                             kv_len)
+    o = col.reshard_dim(o.reshape(o.shape[0], 1, -1), 0, plan.kv_batch,
+                        plan.rows)
+    out = _out_proj_mesh(p, o, cfg, lora, plan, () if seq else plan.heads)
+    return out, (k_cache, v_cache)
+
+
+def _mlp_out_mesh(bp, h, cfg: ModelConfig, lora, plan: MeshPlan):
+    """``_mlp_out`` on the mesh: gate/up column-parallel over ff, down
+    row-parallel; an MoE layer takes ``moe_mlp``'s mesh path on every
+    row.  Returns (y [B_rows, S, D], aux or None)."""
+    if "moe" in bp:
+        y, aux = moe_mlp(bp["moe"], col.all_gather(h, plan.rows, 0), cfg)
+        return col.local_slice(y, plan.rows, 0), aux
+    sc = cfg.lora.scaling
+    mlp = bp["mlp"]
+    d, f = cfg.d_model, cfg.d_ff
+    g, k_g, g_ax = lora_lib.project_sharded(
+        h, mlp["wg"], plan.wspec("mlp/wg", (d, f)),
+        lora.get("gate") if lora else None, sc, rows=plan.rows,
+        reduce=False)
+    u, k_u, u_ax = lora_lib.project_sharded(
+        h, mlp["wu"], plan.wspec("mlp/wu", (d, f)),
+        lora.get("up") if lora else None, sc, rows=plan.rows, reduce=False)
+    if k_g == k_u:                      # both partial sums in one
+        g, u = _psum_many([g, u], k_g)
+    else:
+        g, u = lora_lib.psum_rounded(g, k_g), lora_lib.psum_rounded(u, k_u)
+    hidden = F.silu(g) * col.reshard_dim(u, -1, u_ax, g_ax)
+    y, y_ax = lora_lib.project_sharded(
+        hidden, mlp["wd"], plan.wspec("mlp/wd", (f, d)),
+        lora.get("down") if lora else None, sc, x_axes=g_ax, rows=plan.rows)
+    return col.reshard_dim(y, -1, y_ax, ()), None
+
+
+def block_full_mesh(bp, x, cfg: ModelConfig, rope_cs, lora, plan: MeshPlan,
+                    block_kv: int = 512):
+    """``block_full`` on the mesh (attention-only stacks).  Returns (x,
+    (k, v), aux)."""
+    attn_out, kv = attn_full_mesh(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
+                                  rope_cs, lora, plan, block_kv=block_kv)
+    x = x + attn_out
+    aux = None
+    if cfg.d_ff > 0:
+        y, aux = _mlp_out_mesh(bp, rms_norm(x, bp["ln2"]), cfg, lora, plan)
+        x = x + y
+    return x, kv, aux
+
+
+def block_decode_mesh(bp, x, cfg: ModelConfig, cache_kv, pos, rope_cs,
+                      lora, plan: MeshPlan):
+    """``block_decode`` on the mesh (attention-only stacks)."""
+    attn_out, _ = attn_decode_mesh(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
+                                   cache_kv, pos, rope_cs, lora, plan)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + _mlp_out_mesh(bp, rms_norm(x, bp["ln2"]), cfg, lora,
+                              plan)[0]          # the aux is dropped
+    return x

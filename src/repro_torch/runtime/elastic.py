@@ -1,13 +1,40 @@
-"""Elastic scaling, serving side: replicas join and leave the pool at
-runtime (``repro.runtime.elastic.ElasticServingPool``).
+"""Elastic scaling — the port of ``repro.runtime.elastic``: checkpoint-
+based re-meshing and replica join/leave for the serving path.
 
-The training side of the reference module (``shardings_for`` and
-``elastic_restore``, checkpoint-based re-meshing onto an XLA device
-mesh) belongs to the XLA/TPU-mesh tooling, which the port scopes out: it
-lowers XLA programs for TPU meshes and has no single-card counterpart
-(ROADMAP.md, item 6).
+``elastic_restore`` restarts from a checkpoint written under mesh A (or
+by one process) onto mesh B: the checkpoint stores whole logical
+arrays, and each rank of B reads the leaves and keeps its block under
+B's shardings (``Checkpointer.restore(shardings=)``).  Nothing in the
+step functions changes: they read the blocks' layout from the rule
+table in force (``models/sharding.py``).
 """
 from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+from repro_torch.checkpoint.checkpointer import (
+    Checkpointer, _tree_paths, _unflatten,
+)
+from repro_torch.launch.mesh import MeshSharding
+
+
+def shardings_for(tree: Any, mesh, spec_fn: Callable[[str, Any], tuple]
+                  ) -> Any:
+    """A ``MeshSharding`` tree from a per-leaf spec function (key, leaf)
+    -> spec, keys as the checkpoint names the leaves."""
+    return _unflatten(tree, iter(MeshSharding(mesh, spec_fn(key, leaf))
+                                 for key, leaf in _tree_paths(tree)))
+
+
+def elastic_restore(ckpt: Checkpointer, template: Any, new_mesh,
+                    spec_fn: Callable[[str, Any], tuple],
+                    step: Optional[int] = None,
+                    device=None) -> Tuple[Any, Dict]:
+    """Restore a checkpoint onto a *different* mesh (elastic restart):
+    this rank's blocks of ``template``'s leaves on ``device``."""
+    shardings = shardings_for(template, new_mesh, spec_fn)
+    return ckpt.restore(template, step=step, device=device,
+                        shardings=shardings)
 
 
 class ElasticServingPool:

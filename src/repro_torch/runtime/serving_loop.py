@@ -130,6 +130,7 @@ import torch
 from repro_torch.configs.base import Family
 from repro_torch.core.interfaces import slack_order
 from repro_torch.models.lora import lora_shapes
+from repro_torch.models.sharding import current_mesh
 from repro_torch.models.transformer import use_dense_prefill
 from repro_torch.runtime.paging import BlockAllocator, PrefixCache, blocks_for
 from repro_torch.runtime.sanitize import adapter_sanitizer, lifecycle_sanitizer
@@ -609,6 +610,12 @@ class ContinuousBatcher:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         refuse_encoder(cfg)
         refuse_vlm(cfg)
+        if current_mesh() is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the continuous batcher (per-slot writes, the "
+                "paged pool, prefix sharing, multi-tenant decode) on a mesh "
+                "is queued for a later slice of the mesh (ROADMAP.md); "
+                "static_batch_serve serves on one")
         if cfg.sliding_window > 0 and prompt_pad > cfg.sliding_window:
             raise ValueError(
                 f"{cfg.name}: prompt_pad {prompt_pad} exceeds the "
@@ -1941,7 +1948,12 @@ def static_batch_serve(engine, params, lora, requests: Sequence[GenRequest],
     request of the batch finishes (max_new_tokens or EOS); finished
     requests ride along as dead slots.  The greedy math and the EOS rule
     are ``ContinuousBatcher``'s, so a throughput difference is pure
-    scheduling."""
+    scheduling.
+
+    Under a mesh (``sharding_context``; ``params`` this rank's blocks)
+    every rank runs this loop on the same requests: the model returns
+    every sequence's logits on every rank, so all ranks pull the same
+    argmax and admit, decode and finish alike."""
     model = engine.model
     cfg = model.cfg
     refuse_encoder(cfg)

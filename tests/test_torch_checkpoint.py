@@ -1,8 +1,9 @@
 """The port's checkpointer (``repro_torch.checkpoint``):
 
 * twins of ``tests/test_checkpoint.py``'s first five tests on tensor
-  trees (the elastic restore onto another mesh is scoped out with the
-  XLA/TPU-mesh tooling, ROADMAP item 6);
+  trees, ``restore(shardings=)`` keeping a rank's block of each leaf
+  (the elastic restore across meshes of spawned ranks is in
+  ``tests/test_torch_mesh.py``);
 * cross-package, bitwise, both ways: a checkpoint of the reduced qwen's
   ``(lora, AdamWState)`` after two JAX train steps (nonzero moments and
   step), carried into the port through ``repro_torch.convert``, written
@@ -16,6 +17,7 @@
 import json
 import os
 import threading
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ from repro.data.synthetic import SyntheticDataset
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.checkpoint import checkpointer as ckpt_mod
 from repro_torch.convert import lora_from_numpy, opt_state_from_numpy
+from repro_torch.launch.mesh import MeshSharding
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -116,8 +119,17 @@ def test_restore_casts_and_places_as_asked(tmp_path):
     assert torch.equal(got["w"], tree["w"].double())
     with pytest.raises(KeyError, match="missing leaf"):
         ck.restore({"x": torch.zeros(1)})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ck.restore(tree, shardings={"w": None})
+    # shardings= keeps this rank's block of each whole leaf: here rank 1
+    # of a 2-way "data" axis (a stand-in mesh: shape and coordinates)
+    mesh = SimpleNamespace(shape={"data": 2}, coords={"data": 1})
+    shd = {"w": MeshSharding(mesh, ("data", None)),
+           "opt": {"m": MeshSharding(mesh, (None,)),
+                   "step": MeshSharding(mesh, ())}}
+    part, _ = ck.restore(meta, device="cpu", shardings=shd)
+    assert torch.equal(part["w"], tree["w"].double()[2:])
+    assert torch.equal(part["opt"]["m"], tree["opt"]["m"])
+    with pytest.raises(ValueError, match="shardings"):
+        ck.restore(tree, shardings={"w": shd["w"]})
 
 
 def test_default_device_raises_without_a_card(tmp_path):
