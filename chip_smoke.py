@@ -179,8 +179,13 @@ Phases, each printing JSON lines:
               ``rules_for``'s table and a forced ``kv_seq`` table (the
               sequence-sharded decode through the ``return_lse`` launch);
               every rank's tokens equal, the logits of every step both
-              runs reached alike within MESH_TOL (MoE: 60% and the
-              median), every rank's launches nonzero and as derived and
+              runs reached alike within MESH_TOL of the unsharded
+              run's (MoE: of a 1 x 1 mesh's run of the same weights,
+              which rounds the expert sums as the mesh path does, its
+              expert choices replayed on the ranks, and over the
+              prefill wave about as few of them tipped as the unsharded
+              run tips against it), every rank's launches
+              nonzero and as derived and
               its shapes checked by a kernel phase, every rank's serve
               peak under half the unsharded weights and caches; prints
               the backend, ranks, cards and whether they share one;
@@ -5306,15 +5311,28 @@ MESH_MODELS = [
 # sharded vs unsharded logits, relative to the largest: bf16 rounds in
 # other places (each rank's partial products, the lse combine), the rule
 # the script holds two bf16 paths of a model to; float32 as
-# tests/test_shardmap_decode.py holds JAX.  A bf16 MoE stack under the
-# reference's MoE rule (60% of the compared steps and the median within
-# the bound): its expert products are partial sums rounded apart, and the
-# mesh path keeps their float32 sums where the plain path rounds them to
-# bf16 (the reference's two paths do the same), which moonshot's eight
-# MoE layers carry to a median of 2.2–2.4e-2 (my chip runs, PR 29); so
-# 5e-2, RING_TOL's bound for two bf16 paths that round apart
+# tests/test_shardmap_decode.py holds JAX.  Every compared step is held.
+# An MoE stack is held to its run on a 1 x 1 mesh of the same weights
+# (moe_decode_shardmap with every collective the identity): the mesh
+# path keeps the expert sums in float32 where the plain moe_mlp rounds
+# them to bf16 (the reference's two paths do the same), so the unsharded
+# run is the wrong yardstick for it; its gap to that run is printed.
+# The mesh's MoE routings take the 1 x 1 run's experts (MeshRouteTap's
+# replay): one choice that rounding tips across a near tie makes two
+# free runs compute different functions from there on (a bf16 free run
+# of moonshot against the 1 x 1 one: 0.117 of the largest logit at its
+# worst step, median 2.2e-2; my chip run R0, PR 29), so the choices are
+# held apart: over the prefill wave (the same prompts in every run) the
+# (token, layer) expert sets the mesh's own router picks otherwise than
+# the replayed ones may number MESH_TIPPED_SLACK times those two correct
+# single-process paths (the unsharded run replaying the 1 x 1 one's)
+# tip between themselves, plus MESH_TIPPED_FLOOR of the choices (a
+# count of a few is noise: grok's 2 of 512 against the mesh's 4, my
+# chip run R3, PR 29); a router that reads a wrong weight or token
+# block tips most of them
 MESH_TOL = {False: 2e-2, True: 5e-5}
-MESH_MOE_BF16_TOL = 5e-2
+MESH_TIPPED_SLACK = 2
+MESH_TIPPED_FLOOR = 0.005
 # the rule-table names launch.mesh's parameter table cuts weights by: two
 # tables equal in these cut the weights alike
 WEIGHT_AXES = ("vocab", "w_embed", "heads", "ff", "experts", "expert_ff")
@@ -5374,28 +5392,110 @@ class LogitsTap:
         return False
 
 
-def mesh_serve(eng, params, lora, n, plen, gen):
+def forced_route(logits, expert, capacity):
+    """``moe._route`` with the experts given (``expert`` [G, T, K]): the
+    gates, slots, kept flags and aux it computes for those choices."""
+    g, t, e = logits.shape
+    k = expert.shape[-1]
+    probs = torch.softmax(logits.double(), dim=-1).float()
+    gates = probs.gather(-1, expert)
+    total = gates[..., 0]
+    for j in range(1, k):
+        total = total + gates[..., j]
+    gates = gates / torch.clamp(total, min=1e-9)[..., None]
+    me = probs.mean(dim=1)
+    ce = F.one_hot(expert[..., 0], e).float().mean(dim=1)
+    aux = (me * ce).sum(-1).mean() * e
+    oh = F.one_hot(expert.transpose(1, 2).reshape(g, k * t), e)
+    pos = ((torch.cumsum(oh, dim=1) - oh) * oh).sum(-1)
+    slot = pos.reshape(g, k, t).transpose(1, 2)
+    return expert, slot, slot < capacity, gates, aux
+
+
+class MeshRouteTap:
+    """Records the experts every MoE routing picks while it is entered
+    (``moe._route``, which ``moe_mlp`` and ``moe_decode_shardmap`` call
+    once a layer a step): one [tokens, top_k] tensor a call, the tokens
+    batch-major, on the host.  Given ``replay`` (another run's record),
+    each routing takes the replayed experts in place of its own
+    (``forced_route``) and counts the tokens whose own set of experts
+    differed (``tipped``: (tokens, tipped) a call); where none did, the
+    forced routing is held bitwise to the routing's own.  Neither
+    recording nor replaying (``record`` False, no ``replay``), it leaves
+    the routing alone."""
+
+    def __init__(self, replay=None, record=False):
+        self.replay, self.record = replay, record or replay is not None
+        self.tipped = []
+        self.experts = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._moe, self._orig = moe, moe._route
+        if not self.record:
+            return self
+
+        def route(logits, top_k, capacity):
+            out = self._orig(logits, top_k, capacity)
+            if self.replay is not None:
+                want = self.replay[len(self.experts)].to(
+                    out[0].device).reshape(out[0].shape)
+                forced = forced_route(logits, want, capacity)
+                if torch.equal(want, out[0]) and not all(
+                        torch.equal(x, y) for x, y in zip(forced, out)):
+                    raise AssertionError("forced_route is not moe._route")
+                differ = (want.sort(-1)[0] != out[0].sort(-1)[0]).any(-1)
+                self.tipped.append((differ.numel(), int(differ.sum())))  # lint: host-sync-ok the check's count, one a layer a step
+                out = forced
+            self.experts.append(out[0].reshape(-1, top_k).cpu())  # lint: host-sync-ok the check's copy, one a layer a step
+            return out
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._orig
+        return False
+
+
+def mesh_serve(eng, params, lora, n, plen, gen, replay=None,
+               record=False):
     """``static_batch_serve`` of ``n`` requests of ``plen`` + ``gen``
-    tokens in one batch; (tokens, stats, logits of each step)."""
+    tokens in one batch; (tokens, stats, logits of each step, the
+    ``MeshRouteTap``: the MoE routings' experts of each layer and step
+    where ``record``ed or replayed from ``replay``)."""
     from repro_torch.runtime.serving_loop import (
         GenRequest, static_batch_serve,
     )
     reqs = [GenRequest(request_id=i, prompt=p.copy(), max_new_tokens=gen)
             for i, p in enumerate(mesh_prompts(eng.model.cfg.vocab_size, n,
                                                plen))]
-    with LogitsTap() as tap:
+    with LogitsTap() as tap, MeshRouteTap(replay, record) as routes:
         stats = static_batch_serve(eng, params, lora, reqs, batch_size=n,
                                    prompt_pad=plen, max_seq=plen + gen)
     torch.cuda.synchronize()
-    return [list(r.tokens) for r in reqs], stats, tap.logits
+    if replay is not None and len(routes.experts) != len(replay):
+        raise AssertionError(f"{len(routes.experts)} routings replayed "
+                             f"{len(replay)}")
+    return [list(r.tokens) for r in reqs], stats, tap.logits, routes
 
 
-def mesh_rank(mesh):
+def prefill_tipped(routes, tokens):
+    """(choices, tipped) of a ``MeshRouteTap``'s replayed routings over
+    the prefill wave's ``tokens`` (the same prompts in both runs; a
+    decode step's token may differ once the greedy tokens part)."""
+    calls = [c for c in routes.tipped if c[0] == tokens]
+    return sum(c for c, _ in calls), sum(k for _, k in calls)
+
+
+def mesh_rank(mesh, replays):
     """One rank of the mesh phase: every model of MESH_MODELS under each
     of its tables, its weights ``init_sharded`` from the unsharded run's
-    seed; per run the tokens, each rank's launch counts (set to 0 just
-    before the run, read just after, held against the derived ones),
-    peak memory while serving, wall time; rank 0 also the logits."""
+    seed (an MoE stack's routings replayed from ``replays``, the 1 x 1
+    mesh's record); per run the tokens, each rank's launch counts (set
+    to 0 just before the run, read just after, held against the derived
+    ones), peak memory while serving, wall time, the routings' tipped
+    choices; rank 0 also the logits."""
     import dataclasses
 
     from repro_torch.configs.registry import get_config
@@ -5442,8 +5542,10 @@ def mesh_rank(mesh):
                     pda.lse_launches = 0                  # main path starts
                     t0 = time.perf_counter()
                     with LoraShapeTap() as ltap, AttnShapeTap() as atap:
-                        tokens, stats, logits = mesh_serve(
-                            eng, params, lora, n, plen, gen_tokens)
+                        tokens, stats, logits, routes = mesh_serve(
+                            eng, params, lora, n, plen, gen_tokens,
+                            replays.get((mesh_key(arch, layers, f32),
+                                         name)))
                     wall = time.perf_counter() - t0
                     got = {"paged_decode_attention": pda.launches,
                            "paged_decode_attention_lse": pda.lse_launches,
@@ -5468,6 +5570,7 @@ def mesh_rank(mesh):
                         "init_s": init_s, "init_peak_bytes": init_peak,
                         "param_bytes": _param_bytes(params),
                         "logits": logits if mesh.rank == 0 else None,
+                        "tipped": prefill_tipped(routes, n * plen),
                         "lora_shapes": lora_summary(ltap),
                         "attn_shapes": atap.summary()}
         params = lora = eng = None
@@ -5481,7 +5584,8 @@ def phase_mesh(make_engine, get_config):
     caches' bytes), then four ranks of a 2 x 2 mesh, one process a rank
     (NCCL with a card a rank where the machine has four; else gloo, the
     ranks sharing card 0: times then measure no sharding speed), serving
-    the same requests on the same weights.  Held: every rank's tokens
+    the same requests on the same weights (an MoE stack's also on a 1 x
+    1 mesh in this process, its yardstick).  Held: every rank's tokens
     equal; the logits of every step whose earlier tokens agree within
     MESH_TOL of the largest (float32: every token equal too); every
     rank's launches nonzero and derived; every rank's peak memory while
@@ -5489,8 +5593,15 @@ def phase_mesh(make_engine, get_config):
     import gc
     import tempfile
 
-    from repro_torch.launch.mesh import spawn_ranks
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh, rules_for, spawn_ranks
+    from repro_torch.models.sharding import sharding_context
     ref = {}
+    one_store = tempfile.TemporaryDirectory()
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(one_store.name, "filestore"), 1), rank=0, world_size=1)
+    one = make_mesh((1, 1), ("data", "model"), "cuda")
     for arch, layers, f32, tables, traffic in MESH_MODELS:
         cfg = mesh_config(get_config, arch, layers, f32)
         eng = make_engine(cfg, device="cuda")
@@ -5500,8 +5611,8 @@ def phase_mesh(make_engine, get_config):
         mkey = mesh_key(arch, layers, f32)
         for name, n, plen, gen_tokens in traffic:
             t0 = time.perf_counter()
-            tokens, stats, logits = mesh_serve(eng, params, lora, n, plen,
-                                               gen_tokens)
+            tokens, stats, logits, _ = mesh_serve(eng, params, lora, n,
+                                                  plen, gen_tokens)
             caches = eng.model.init_caches(n, plen + gen_tokens)["kv"]
             ref[(mkey, name)] = {
                 "tokens": tokens, "logits": logits,
@@ -5510,12 +5621,27 @@ def phase_mesh(make_engine, get_config):
                 "bytes": _param_bytes(params) + _param_bytes(
                     dict(enumerate(caches)))}
             caches = None
+            if cfg.family.value == "moe":
+                with sharding_context(one, rules_for(cfg, one, "decode")):
+                    tokens, _, logits, routes = mesh_serve(
+                        eng, params, lora, n, plen, gen_tokens, record=True)
+                # two correct single-process paths' tipped choices: the
+                # unsharded run replaying the 1 x 1 run's
+                _, _, _, base_routes = mesh_serve(
+                    eng, params, lora, n, plen, gen_tokens,
+                    replay=routes.experts)
+                ref[(mkey, name)]["one"] = {
+                    "tokens": tokens, "logits": logits,
+                    "routes": routes.experts,
+                    "tipped": prefill_tipped(base_routes, n * plen)}
             emit("mesh_unsharded", model=mkey, traffic=name,
                  **{k: v for k, v in ref[(mkey, name)].items()
-                    if k not in ("tokens", "logits")})
+                    if k not in ("tokens", "logits", "one")})
         params = lora = eng = None
         gc.collect()
         torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    one_store.cleanup()
     cards = torch.cuda.device_count()
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
     backend = "nccl" if cards >= world else "gloo"
@@ -5523,6 +5649,8 @@ def phase_mesh(make_engine, get_config):
     with tempfile.TemporaryDirectory() as store:
         ranks = spawn_ranks(mesh_rank, MESH_SHAPE, backend=backend,
                             store_dir=store, device_type="cuda",
+                            args=({k: r["one"]["routes"] for k, r in
+                                   ref.items() if "one" in r},),
                             timeout_s=900)
     spawn_s = time.perf_counter() - t0
     rows = {}
@@ -5532,21 +5660,21 @@ def phase_mesh(make_engine, get_config):
         f32 = mkey.endswith("_f32")
         got = [r[key] for r in ranks]
         agree = all(g["tokens"] == got[0]["tokens"] for g in got)
-        rels = mesh_logit_err(base, got[0])
+        yard = base.get("one", base)
+        rels = mesh_logit_err(yard, got[0])
         compared = len(rels)
         err = rels[-1] if rels else math.inf
-        # MoE: a token whose rounding moves it across a near tie of its
-        # experts' probabilities routes otherwise, so MoE logits are held
-        # to the reference's MoE rule (moe_walk): 60% of the compared
-        # (request, step) logits and the median within MESH_TOL
-        moe = get_config(mkey.split("_")[0]).family.value == "moe"
-        tol = MESH_MOE_BF16_TOL if moe and not f32 else MESH_TOL[f32]
+        tol = MESH_TOL[f32]
         within = sum(r <= tol for r in rels)
-        held = bool(rels) and (
-            within >= 0.6 * compared and rels[compared // 2] <= tol
-            if moe else err <= tol)
+        choices, tipped = max(g["tipped"] for g in got)
+        base_tipped = base["one"]["tipped"][1] if "one" in base else 0
+        tipped_max = MESH_TIPPED_SLACK * base_tipped \
+            + MESH_TIPPED_FLOOR * choices
+        held = bool(rels) and err <= tol and tipped <= tipped_max
         same_tokens = sum(a == b for a, b in zip(base["tokens"],
                                                  got[0]["tokens"]))
+        # the 1 x 1 mesh's run against the unsharded one (MoE)
+        one_rels = mesh_logit_err(base, yard) if "one" in base else []
         half = 0.5 * base["bytes"]
         row = {"model": mkey, "table": table, "traffic": name,
                "backend": backend, "ranks": world, "cards": cards,
@@ -5556,7 +5684,18 @@ def phase_mesh(make_engine, get_config):
                "logits_rel_err_median": rels[compared // 2]
                if rels else None,
                "steps_within_tol": within, "steps_compared": compared,
-               "rule": "moe: 60% and the median" if moe else "all",
+               "routes": "replayed from the 1x1 mesh's run" if "one" in base
+               else None,
+               "prefill_choices": choices, "prefill_choices_tipped": tipped,
+               "unsharded_vs_1x1_choices_tipped": base_tipped,
+               "tipped_max": tipped_max,
+               "yardstick": "1x1 mesh" if "one" in base else "unsharded",
+               "requests_same_tokens_as_yardstick": sum(
+                   a == b for a, b in zip(yard["tokens"], got[0]["tokens"])),
+               "one_vs_unsharded_rel_err": one_rels[-1] if one_rels
+               else None,
+               "one_vs_unsharded_rel_err_median":
+               one_rels[len(one_rels) // 2] if one_rels else None,
                "requests_same_tokens_as_unsharded": same_tokens,
                "requests": len(base["tokens"]),
                "launches_by_rank": [g["launches"] for g in got],
@@ -5585,9 +5724,9 @@ def phase_mesh(make_engine, get_config):
 
 
 def mesh_logit_err(base, got):
-    """|sharded - unsharded| logits over the steps each request reached
+    """|sharded - yardstick| logits over the steps each request reached
     with the same earlier tokens in both runs, relative to the largest
-    unsharded logit there: each compared (request, step)'s largest,
+    yardstick logit there: each compared (request, step)'s largest,
     sorted."""
     errs, scale = [], 0.0
     n = len(base["tokens"])

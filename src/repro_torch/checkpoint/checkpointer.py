@@ -238,7 +238,7 @@ class Checkpointer:
         ``meta`` device (shapes and dtypes only, as ``jax.eval_shape``
         gives them) lands on ``device``, by default the card.
 
-        ``shardings`` (a matching tree of ``launch.mesh.MeshSharding``,
+        ``shardings`` (a matching tree of ``models.sharding.MeshSharding``,
         for any mesh: the checkpoint holds whole leaves, whatever mesh
         wrote them) restores each rank's block of every leaf: the rank
         reads the leaf and keeps its block.  Returns (tree, the

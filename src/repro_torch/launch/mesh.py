@@ -1,44 +1,32 @@
-"""Device meshes and sharding-rule selection for the port — the
-counterpart of ``repro.launch.mesh``.
+"""Device meshes for the port — the counterpart of ``repro.launch.mesh``.
 
-``rules_for`` adapts the logical-axis rule table per architecture x step
-kind: archs whose head counts don't divide the model axis fall back to
-sequence sharding for attention balance (the port refuses that table:
-``models/transformer.py``); GQA caches too big for batch sharding alone
-shard their sequence dim; training enables sequence-parallel residual
-activations.
-
-``param_shardings`` / ``batch_shardings`` map the port's trees
-(parameters, adapters, caches, batches; nested dicts whose paths are the
-reference's, ``blocks/attn/wq``, ``kv/0``) to ``MeshSharding``s by tree
-path, the table the model, ``init_sharded``, ``shard_tree`` /
-``gather_tree`` and the checkpoint restore share.
+The rule selection and the parameter and batch tables (``rules_for``,
+``logical_axes_for``, ``param_shardings``, ``batch_shardings``) live in
+``models/sharding.py``, beside the rule tables the model code reads;
+this module re-exports them under the reference's names.
 
 ``make_mesh`` names the axes of the ranks of a process group that
 ``spawn_ranks`` starts: one process per rank, joined through a
 ``FileStore`` (no socket), with the caller's backend (gloo on CPU
 tensors, or on CUDA tensors of ranks that share one card; NCCL with one
-card per rank).  The reference's ``make_production_mesh`` builds the
-256- and 512-chip TPU meshes of its XLA dry run, which the port scopes
-out with the dry run (``README.md``).
+card per rank).  ``shard_tree`` / ``gather_tree`` cut each rank's blocks
+from whole trees and put them back.  The reference's
+``make_production_mesh`` builds the 256- and 512-chip TPU meshes of its
+XLA dry run, which the port scopes out with the dry run (``README.md``).
 """
 from __future__ import annotations
 
-import dataclasses
 import datetime
 import os
 import pickle
-import re
 import traceback
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import Any, Callable, Sequence
 
 import torch
 
-from repro_torch.configs.base import Family, ModelConfig
-from repro_torch.models import collectives
 from repro_torch.models.collectives import Mesh
-from repro_torch.models.sharding import (
-    RULES_TP_FSDP, ShardingRules, Spec, _axes, _filter_spec,
+from repro_torch.models.sharding import (  # noqa: F401  (re-exported)
+    batch_shardings, logical_axes_for, param_shardings, rules_for,
 )
 
 
@@ -47,184 +35,6 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     """The (``axes``) mesh of ``shape`` over the default process group's
     ranks, row-major; its collectives run on ``device_type`` tensors."""
     return Mesh(shape, axes, device_type)
-
-
-def rules_for(cfg: ModelConfig, mesh, kind: str,
-              base: Optional[ShardingRules] = None) -> ShardingRules:
-    """Pick the rule table for (arch x step kind) on this mesh (anything
-    with a ``shape`` dict of axis sizes)."""
-    rules = base or RULES_TP_FSDP
-    model_n = mesh.shape.get("model", 1)
-    upd = {}
-    if kind == "train":
-        # sequence-parallel residual stream
-        upd["act_seq"] = "model"
-    if cfg.n_heads % model_n != 0:
-        # 25/40-head archs: heads can't split the model axis — balance
-        # attention by sharding the query sequence dim instead
-        upd["heads"] = None
-        upd["kv_heads"] = None
-        upd["q_seq"] = "model"
-    if cfg.n_kv_heads % model_n != 0:
-        # GQA caches too big for batch sharding alone: shard the cache
-        # sequence dim
-        upd["kv_seq"] = "model"
-    if cfg.family is Family.MOE:
-        if cfg.moe_shard == "ep" and cfg.n_experts % model_n == 0:
-            upd["experts"] = "model"
-            upd["expert_ff"] = None
-        else:  # grok: 8 experts on a 16-way axis -> per-expert ff TP
-            upd["experts"] = None
-            upd["expert_ff"] = "model"
-    return dataclasses.replace(rules, **upd)
-
-
-# --------------------------------------------------------------------------
-# path -> logical axes for every parameter in the model tree
-# --------------------------------------------------------------------------
-_PARAM_TABLE = [
-    # (path regex, logical axes EXCLUDING stacked leading dims)
-    (r"embed$", ("vocab", "w_embed")),
-    (r"lm_head$", ("w_embed", "vocab")),
-    (r"final_norm$", ()),
-    (r"attn/w[qkv]$", ("w_embed", "heads")),
-    (r"attn/wo$", ("heads", "w_embed")),
-    (r"attn/b[qkv]$", ("heads",)),
-    (r"attn/[qk]_norm$", ()),
-    (r"mlp/w[gu]$", ("w_embed", "ff")),
-    (r"mlp/wd$", ("ff", "w_embed")),
-    (r"moe/router$", ("w_embed", None)),
-    (r"moe/w[gu]$", ("experts", "w_embed", "expert_ff")),
-    (r"moe/wd$", ("experts", "expert_ff", "w_embed")),
-    (r"ssm/in_proj$", ("w_embed", "ssm_inner")),
-    (r"ssm/out_proj$", ("ssm_inner", "w_embed")),
-    (r"ssm/conv_w$", (None, "ssm_inner")),
-    (r"ssm/conv_b$", ("ssm_inner",)),
-    (r"ssm/(A_log|D_skip|dt_bias)$", ()),
-    (r"ssm/norm$", ("ssm_inner",)),
-    (r"ln[12]$", ()),
-    (r"gate_(attn|mlp)$", ()),
-    # LoRA adapters + optimizer state over them: tiny, replicated
-    (r"(^|/)(a|b)$", None),
-]
-
-
-def _leading(path: str, cfg: ModelConfig) -> int:
-    if path.startswith("blocks/"):
-        return 2 if cfg.family is Family.VLM else 1
-    if path.startswith("cross/"):
-        return 1
-    return 0
-
-
-def logical_axes_for(path: str, ndim: int, cfg: ModelConfig
-                     ) -> Tuple[Optional[str], ...]:
-    lead = _leading(path, cfg)
-    for pat, axes in _PARAM_TABLE:
-        if re.search(pat, path):
-            if axes is None:
-                return (None,) * ndim
-            out = (None,) * lead + tuple(axes)
-            if len(out) < ndim:            # defensive: pad with None
-                out = out + (None,) * (ndim - len(out))
-            return out[:ndim]
-    return (None,) * ndim
-
-
-def _resolve(rules: ShardingRules, names, shape, mesh) -> Spec:
-    spec = _filter_spec(rules.resolve(*names), mesh, shape)
-    # drop duplicate mesh-axis usage across dims (illegal in XLA)
-    seen = set()
-    out = []
-    for entry in spec:
-        kept = tuple(a for a in _axes(entry) if a not in seen)
-        seen.update(kept)
-        out.append(kept if len(kept) > 1 else (kept[0] if kept else None))
-    return tuple(out)
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshSharding:
-    """A whole tensor's layout on a mesh: ``spec`` names the axes each
-    dim is cut along (the reference's ``NamedSharding``)."""
-    mesh: Any
-    spec: Spec
-
-    def local_shape(self, shape) -> Tuple[int, ...]:
-        return tuple(n // collectives.axis_size(e, self.mesh)
-                     for n, e in zip(shape, self.spec))
-
-    def local(self, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's block of ``whole`` (a view)."""
-        for d, e in enumerate(self.spec):
-            whole = collectives.local_slice(whole, e, d, self.mesh)
-        return whole
-
-    def gather(self, part: torch.Tensor) -> torch.Tensor:
-        """The whole tensor from every rank's block (a collective)."""
-        for d, e in enumerate(self.spec):
-            part = collectives.all_gather(part, e, d, self.mesh)
-        return part
-
-
-def _map_paths(fn: Callable[[str, Any], Any], tree: Any,
-               prefix: str = "") -> Any:
-    if isinstance(tree, dict):
-        return {k: _map_paths(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_paths(fn, v, f"{prefix}{i}/")
-                          for i, v in enumerate(tree))
-    return fn(prefix[:-1], tree)
-
-
-def param_spec(path: str, shape, cfg: ModelConfig, mesh,
-               rules: ShardingRules) -> Spec:
-    """The spec of the parameter (or adapter) leaf at ``path`` of whole
-    shape ``shape``."""
-    return _resolve(rules, logical_axes_for(path, len(shape), cfg), shape,
-                    mesh)
-
-
-def param_shardings(tree: Any, cfg: ModelConfig, mesh,
-                    rules: ShardingRules) -> Any:
-    """A tree of ``MeshSharding`` for a params or adapter tree of whole
-    shapes (tensors, ``meta`` tensors, or anything with ``shape``)."""
-    return _map_paths(lambda path, leaf: MeshSharding(
-        mesh, param_spec(path, tuple(leaf.shape), cfg, mesh, rules)), tree)
-
-
-# --------------------------------------------------------------- batches --
-_BATCH_TABLE = [
-    (r"tokens$|labels$|mask$|token$", ("batch", None)),
-    (r"embeds$|vision$", ("batch", None, None)),
-    (r"pos$", ()),
-    # caches (leading dims added below by _leading-style logic)
-    (r"kv/[01]$", ("kv_batch", "kv_seq", "kv_heads", None)),
-    (r"cross_kv/[01]$", ("kv_batch", None, "kv_heads", None)),
-    (r"ssm/conv$", ("kv_batch", None, "ssm_inner")),
-    (r"ssm/state$", ("kv_batch", "ssm_heads", None, None)),
-]
-
-
-def batch_spec(path: str, shape, mesh, rules: ShardingRules) -> Spec:
-    """The spec of the batch or cache leaf at ``path`` of whole shape
-    ``shape``."""
-    ndim = len(shape)
-    names: Tuple[Optional[str], ...] = (None,) * ndim
-    for pat, axes in _BATCH_TABLE:
-        if re.search(pat, path):
-            lead = ndim - len(axes)
-            names = ((None,) * max(lead, 0) + tuple(axes))[:ndim]
-            break
-    return _resolve(rules, names, shape, mesh)
-
-
-def batch_shardings(tree: Any, cfg: ModelConfig, mesh,
-                    rules: ShardingRules) -> Any:
-    """A tree of ``MeshSharding`` for a batch or cache tree of whole
-    shapes."""
-    return _map_paths(lambda path, leaf: MeshSharding(
-        mesh, batch_spec(path, tuple(leaf.shape), mesh, rules)), tree)
 
 
 # ------------------------------------------------------- whole <-> local --

@@ -13,8 +13,7 @@ group of the ranks that differ only in the named axis.
 Only ``all_reduce`` (SUM, MAX) and the list ``all_gather`` are used:
 what gloo takes on CUDA tensors as well as on CPU tensors (four ranks
 sharing one card: ``scripts/gloo_cuda_probe.py``), and NCCL on CUDA
-tensors; a small gather of CUDA tensors over gloo is a sum of
-zero-padded blocks.  Every function is the identity on an axis of size 1 (or
+tensors.  Every function is the identity on an axis of size 1 (or
 an empty tuple of axes) and outside a mesh, so model code calls them
 unconditionally.  An axis argument is an axis name, a tuple of names
 (major to minor, as a spec entry lists them) or None.
@@ -120,15 +119,6 @@ def pmax(x: torch.Tensor, entry: Axes, mesh=None) -> torch.Tensor:
     return _reduce(x, entry, dist.ReduceOp.MAX, mesh)
 
 
-# gloo on CUDA tensors: below this many bytes gathered, a gather is one
-# all-reduce of the ranks' blocks each in its place in a zeroed buffer:
-# exact (x + 0 is x), and gloo's all_reduce of CUDA tensors takes a
-# quarter of its list all_gather's time at 1 MiB on one card
-# (scripts/gloo_cuda_probe.py: 1.95 ms against 7.35, NVIDIA H100 80GB
-# HBM3, 700 W); on CPU tensors gloo's all_gather is the faster one
-GATHER_BY_SUM_BYTES = 1 << 20
-
-
 def all_gather(x: torch.Tensor, entry: Axes, dim: int,
                mesh=None) -> torch.Tensor:
     """The ranks' tensors along the axes concatenated on ``dim`` in axis
@@ -136,22 +126,10 @@ def all_gather(x: torch.Tensor, entry: Axes, dim: int,
     mesh = _mesh(mesh)
     axes = axes_of(entry, mesh)
     for a in reversed(axes):               # minor axis first
-        n = mesh.shape[a]
         x = x.contiguous()
-        group = mesh.group(a)
-        if x.is_cuda and dist.get_backend(group) == "gloo" \
-                and x.numel() * x.element_size() * n <= GATHER_BY_SUM_BYTES:
-            shape = list(x.shape)
-            size = shape[dim]
-            shape[dim] = size * n
-            buf = x.new_zeros(shape)
-            buf.narrow(dim, mesh.coords[a] * size, size).copy_(x)
-            dist.all_reduce(buf, group=group)
-            x = buf
-        else:
-            parts = [torch.empty_like(x) for _ in range(n)]
-            dist.all_gather(parts, x, group=group)
-            x = torch.cat(parts, dim=dim)
+        parts = [torch.empty_like(x) for _ in range(mesh.shape[a])]
+        dist.all_gather(parts, x, group=mesh.group(a))
+        x = torch.cat(parts, dim=dim)
     return x
 
 

@@ -152,7 +152,7 @@ def project(x: torch.Tensor, w: torch.Tensor, pair: Optional[Dict],
 
 def project_sharded(x: torch.Tensor, w: torch.Tensor, w_spec,
                     pair: Optional[Dict], scaling: float, x_axes=(),
-                    rows=(), reduce: bool = True):
+                    rows=(), reduce: bool = True, adapter_idx=None):
     """``project`` on a mesh: x [..., K_x] whose rows (dim 0) are cut along
     the axes ``rows`` and whose features are cut along ``x_axes``; ``w``
     this rank's block of a whole ``[K, N]`` weight cut as ``w_spec`` (two
@@ -165,7 +165,9 @@ def project_sharded(x: torch.Tensor, w: torch.Tensor, w_spec,
     parallel).  The output dim keeps its other cuts (column parallel).
     ``reduce=False`` returns (partial, the axes still to sum over, the
     output's axes) for a caller that sums several projections at once
-    (``psum_rounded`` on their concatenation)."""
+    (``psum_rounded`` on their concatenation).  With every spec entry
+    None (outside a mesh) it is ``project`` (``adapter_idx`` included)
+    and every collective is the identity."""
     k_ax, n_ax = (col.axes_of(e) for e in w_spec)
 
     def fsdp(axes):
@@ -180,10 +182,10 @@ def project_sharded(x: torch.Tensor, w: torch.Tensor, w_spec,
     k_rest = () if k_g else k_ax
     n_rest = () if n_g else n_ax
     x = col.reshard_dim(x, -1, x_axes, k_rest)
-    if pair is not None:
+    if pair is not None and (k_rest or n_rest):
         pair = {"a": col.local_slice(pair["a"], k_rest, 0).contiguous(),
                 "b": col.local_slice(pair["b"], n_rest, 1).contiguous()}
-    y = project(x, w, pair, scaling)
+    y = project(x, w, pair, scaling, adapter_idx)
     if not reduce:
         return y, k_rest, n_rest
     return psum_rounded(y, k_rest), n_rest

@@ -71,15 +71,15 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig
-from repro_torch.launch.mesh import (
-    MeshSharding, _leading, _map_paths, batch_spec, param_spec,
-)
 from repro_torch.models import collectives as col
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import mamba2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import dense_init, rms_norm, rope_tables
-from repro_torch.models.sharding import current_mesh, current_rules
+from repro_torch.models.sharding import (
+    MeshSharding, _leading, _map_paths, batch_spec, current_mesh,
+    current_rules, param_spec,
+)
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -205,7 +205,7 @@ class Model:
     def init_sharded(self, generator: torch.Generator, mesh,
                      rules) -> Dict:
         """This rank's blocks of ``init``'s weights on ``mesh`` under
-        ``rules`` (as ``launch.mesh.param_shardings`` cuts them): every
+        ``rules`` (as ``sharding.param_shardings`` cuts them): every
         leaf is drawn whole from ``generator``, as ``init`` draws it (so
         the blocks are those of the unsharded model from the same seed),
         cut, and the draw freed.  The ranks draw one after another, so
@@ -250,12 +250,6 @@ class Model:
         return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
 
     # ------------------------------------------------------------ forward --
-    def _embed(self, params, batch) -> torch.Tensor:
-        if self.cfg.encoder_only and "embeds" in batch:
-            return batch["embeds"].to(getattr(torch, self.cfg.dtype))
-        return params["embed"][batch["tokens"]]
-
-    # ------------------------------------------------------------- mesh ---
     def _mesh_family(self, what: str) -> None:
         if self.cfg.family not in (Family.DENSE, Family.MOE):
             raise NotImplementedError(
@@ -267,50 +261,60 @@ class Model:
             raise NotImplementedError(f"{self.cfg.name}: {what} on a mesh"
                                       f": {tfm._QUEUED}")
 
-    def _mesh_plan(self, batch: int, tokens: int, adapter_idx=None):
-        """The ``MeshPlan`` of a call under ``sharding_context``, None
-        outside one."""
+    def _mesh_plan(self, batch, adapter_idx=None) -> tfm.MeshPlan:
+        """The ``MeshPlan`` of a call over ``batch["tokens"]`` under
+        ``sharding_context``, ``NO_PLAN`` outside one."""
         mesh = current_mesh()
         if mesh is None:
-            return None
+            return tfm.NO_PLAN
         self._mesh_family("serving")
         if adapter_idx is not None:
             raise NotImplementedError(
                 f"{self.cfg.name}: multi-tenant (per-row adapter) serving "
                 f"on a mesh: {tfm._QUEUED}")
-        return tfm.mesh_plan(self.cfg, mesh, current_rules(), batch, tokens)
+        tokens = batch["tokens"]
+        return tfm.mesh_plan(self.cfg, mesh, current_rules(),
+                             tokens.shape[0], tokens.numel())
 
-    def _embed_mesh(self, params, tokens, plan) -> torch.Tensor:
-        """Vocab-parallel lookup of every sequence's ``tokens`` [B, S]:
-        each rank reads the rows of its vocab block (zeros elsewhere), the
-        vocab ranks sum them, the ``w_embed`` ranks' columns are gathered.
-        Returns the rows ``plan.rows`` keeps, [B_rows, S, D]."""
+    def _embed(self, params, batch, plan=tfm.NO_PLAN) -> torch.Tensor:
+        """Token embeddings [B, S, D] (an encoder's ``embeds`` where the
+        batch carries them).  On a mesh a vocab-parallel lookup of every
+        sequence's tokens: each rank reads the rows of its vocab block
+        (zeros elsewhere), the vocab ranks sum them, the ``w_embed``
+        ranks' columns are gathered; the rows ``plan.rows`` keeps."""
         cfg = self.cfg
-        v_ax, d_ax = (col.axes_of(e) for e in param_spec(
-            "embed", (cfg.vocab_size, cfg.d_model), cfg, plan.mesh,
-            plan.rules))
+        if cfg.encoder_only and "embeds" in batch:
+            return batch["embeds"].to(getattr(torch, cfg.dtype))
+        tokens = batch["tokens"]
+        v_ax, d_ax = (col.axes_of(e) for e in plan.spec(
+            "embed", (cfg.vocab_size, cfg.d_model)))
         early = not set(d_ax) & set(plan.rows)
         if early:                  # the column gather stays within rows
             tokens = col.local_slice(tokens, plan.rows, 0)
-        vl = cfg.vocab_size // col.axis_size(v_ax)
-        idx = tokens.long() - col.axis_index(v_ax) * vl
-        inside = (idx >= 0) & (idx < vl)
-        e = params["embed"][idx.clamp(0, vl - 1)]
-        e = torch.where(inside[..., None], e, torch.zeros_like(e))
-        e = col.all_gather(col.psum(e, v_ax), d_ax, -1)
+        if v_ax:
+            vl = cfg.vocab_size // col.axis_size(v_ax)
+            idx = tokens.long() - col.axis_index(v_ax) * vl
+            inside = (idx >= 0) & (idx < vl)
+            e = params["embed"][idx.clamp(0, vl - 1)]
+            e = col.psum(torch.where(inside[..., None], e,
+                                     torch.zeros_like(e)), v_ax)
+        else:
+            e = params["embed"][tokens]
+        e = col.all_gather(e, d_ax, -1)
         return e if early else col.local_slice(e, plan.rows, 0)
 
-    def _head_mesh(self, params, hidden, plan) -> torch.Tensor:
-        """Vocab-parallel head: normed ``hidden`` [B_rows, S, D] (rows of
-        ``plan.rows``) -> every sequence's full-vocab logits [B, S, V] on
-        every rank (the rows gathered, the contraction's partials summed
-        over ``w_embed``'s axes, the vocab blocks gathered)."""
+    def _head(self, params, hidden, plan=tfm.NO_PLAN) -> torch.Tensor:
+        """Normed ``hidden`` [B, S, D] @ ``lm_head``.  On a mesh
+        vocab-parallel: hidden holds the rows of ``plan.rows``, and every
+        sequence's full-vocab logits [B, S, V] come out on every rank
+        (the rows gathered, the contraction's partials summed over
+        ``w_embed``'s axes, the vocab blocks gathered)."""
         cfg = self.cfg
-        spec = param_spec("lm_head", (cfg.d_model, cfg.vocab_size), cfg,
-                          plan.mesh, plan.rules)
         h = col.all_gather(hidden, plan.rows, 0)
-        y, y_ax = lora_lib.project_sharded(h, params["lm_head"], spec, None,
-                                           0.0)
+        y, y_ax = lora_lib.project_sharded(
+            h, params["lm_head"], plan.spec("lm_head", (cfg.d_model,
+                                                        cfg.vocab_size)),
+            None, 0.0)
         return col.all_gather(y, y_ax, -1)
 
     def _no_decode(self, what: str) -> None:
@@ -331,13 +335,13 @@ class Model:
         summed over the layers, None for a stack without MoE layers.
         ``block_kv`` and ``skip_masked_blocks`` reach the blockwise
         attention of sequences past the dense limit; ``adapter_idx`` [B]
-        selects each row's slot of a stacked ``lora`` tree."""
+        selects each row's slot of a stacked ``lora`` tree.  On a mesh
+        the hidden rows ``plan.rows`` keeps, and K/V ``[L, B_kv, S,
+        Hkv_l, Dh]`` in the caches' batch and head cut, every
+        position."""
         cfg = self.cfg
-        if current_mesh() is not None:
-            return self._hidden_states_mesh(params, lora, batch,
-                                            collect_caches, block_kv,
-                                            adapter_idx, return_aux)
-        x = self._embed(params, batch)
+        plan = self._mesh_plan(batch, adapter_idx)
+        x = self._embed(params, batch, plan)
         s = x.shape[1]
         rope_cs = rope_tables(torch.arange(s, device=x.device),
                               cfg.head_dim, cfg.rope_theta) \
@@ -356,7 +360,7 @@ class Model:
                 _layer(params["blocks"], i), x, cfg, rope_cs,
                 lora=_layer(lora, i), block_kv=block_kv,
                 skip_masked_blocks=skip_masked_blocks,
-                adapter_idx=adapter_idx)
+                adapter_idx=adapter_idx, plan=plan)
             if layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux
             if collect_caches:
@@ -370,32 +374,6 @@ class Model:
             caches = {"ssm": _stack(per_layer)}
         elif collect_caches:
             caches = {"kv": tuple(torch.stack(t) for t in zip(*per_layer))}
-        hidden = rms_norm(x, params["final_norm"])
-        return (hidden, caches, aux) if return_aux else (hidden, caches)
-
-    def _hidden_states_mesh(self, params, lora, batch, collect_caches,
-                            block_kv, adapter_idx, return_aux):
-        """``hidden_states`` on the mesh: the hidden rows ``plan.rows``
-        keeps; K/V ``[L, B_kv, S, Hkv_l, Dh]`` in the caches' batch and
-        head cut, every position."""
-        cfg = self.cfg
-        tokens = batch["tokens"]
-        plan = self._mesh_plan(tokens.shape[0], tokens.numel(), adapter_idx)
-        x = self._embed_mesh(params, tokens, plan)
-        s = x.shape[1]
-        rope_cs = rope_tables(torch.arange(s, device=x.device),
-                              cfg.head_dim, cfg.rope_theta)
-        kvs, aux = [], None
-        for i in range(cfg.n_layers):
-            x, kv, layer_aux = tfm.block_full_mesh(
-                _layer(params["blocks"], i), x, cfg, rope_cs, _layer(lora, i),
-                plan, block_kv=block_kv)
-            if layer_aux is not None:
-                aux = layer_aux if aux is None else aux + layer_aux
-            if collect_caches:
-                kvs.append(kv)
-        caches = {"kv": tuple(torch.stack(t) for t in zip(*kvs))} \
-            if collect_caches else None
         hidden = rms_norm(x, params["final_norm"])
         return (hidden, caches, aux) if return_aux else (hidden, caches)
 
@@ -460,10 +438,7 @@ class Model:
         hidden, _ = self.hidden_states(
             params, lora, batch, block_kv=block_kv,
             skip_masked_blocks=skip_masked_blocks)
-        if current_mesh() is not None:
-            return self._head_mesh(params, hidden, self._mesh_plan(
-                batch["tokens"].shape[0], batch["tokens"].numel()))
-        return hidden @ params["lm_head"]
+        return self._head(params, hidden, self._mesh_plan(batch))
 
     # ------------------------------------------------------------- caches --
     def _cache_dtype(self, dtype) -> torch.dtype:
@@ -508,7 +483,7 @@ class Model:
 
     def _init_caches_mesh(self, batch: int, seq: int, dtype) -> Dict:
         """This rank's blocks of the ``[L, batch, seq, Hkv, Dh]`` caches,
-        cut as ``launch.mesh.batch_shardings`` says; each K/V tensor
+        cut as ``sharding.batch_shardings`` says; each K/V tensor
         carries the whole shape as ``mesh_whole``.  ``seq`` must divide
         the ``kv_seq`` axes (the layout of every later call rests on it)."""
         cfg = self.cfg
@@ -584,17 +559,12 @@ class Model:
         hidden, caches = self.hidden_states(
             params, lora, batch, collect_caches=True, block_kv=block_kv,
             skip_masked_blocks=skip_masked_blocks, adapter_idx=adapter_idx)
-        lens = torch.as_tensor(prompt_lens, device=hidden.device).long()
-        plan = None
-        if current_mesh() is not None:
-            tokens = batch["tokens"]
-            plan = self._mesh_plan(tokens.shape[0], tokens.numel())
-            lens = col.local_slice(lens, plan.rows, 0)
+        plan = self._mesh_plan(batch)
+        lens = col.local_slice(torch.as_tensor(
+            prompt_lens, device=hidden.device).long(), plan.rows, 0)
         rows = torch.arange(hidden.shape[0], device=hidden.device)
         last = hidden[rows, lens - 1][:, None]
-        if plan is not None:
-            return self._head_mesh(params, last, plan), caches
-        return last @ params["lm_head"], caches
+        return self._head(params, last, plan), caches
 
     # ---------------------------------------------------------- slot ops ---
     def write_prefill_slot(self, pool_caches, prefill_caches, slot: int,
@@ -882,8 +852,8 @@ class Model:
         pos = torch.as_tensor(pos, device=self.device)
         return pos.expand(batch) if pos.dim() == 0 else pos
 
-    def _logits(self, params, x):
-        return rms_norm(x, params["final_norm"]) @ params["lm_head"]
+    def _logits(self, params, x, plan=tfm.NO_PLAN):
+        return self._head(params, rms_norm(x, params["final_norm"]), plan)
 
     def decode_step(self, params, lora, caches, token, pos,
                     adapter_idx=None):
@@ -892,14 +862,21 @@ class Model:
         (logits [B,1,V], caches updated in place).  An SSM stack ignores
         ``pos``: its state carries the position.  A VLM stack reads each
         unit's ``cross_kv`` and serves one adapter (``adapter_idx``
-        raises)."""
+        raises).  On a mesh every sequence's token and position in,
+        every sequence's logits out, this rank's caches written in
+        place."""
         cfg = self.cfg
         self._no_decode("decode step")
         pos = self._positions(pos, token.shape[0])
-        if current_mesh() is not None:
-            return self._decode_step_mesh(params, lora, caches, token, pos,
-                                          adapter_idx)
-        x = params["embed"][token]
+        plan = self._mesh_plan({"tokens": token}, adapter_idx)
+        if plan.mesh is not None:
+            whole = getattr(caches["kv"][0], "mesh_whole", None)
+            if whole is None or whole[1] != token.shape[0]:
+                raise ValueError(
+                    f"decode_step on a mesh takes the caches of init_caches("
+                    f"{token.shape[0]}, ...) under the same mesh")
+        x = self._embed(params, {"tokens": token}, plan)
+        pos = col.local_slice(pos, plan.rows, 0)
         rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta) \
             if cfg.has_attention else None
         if cfg.family is Family.VLM:
@@ -917,31 +894,8 @@ class Model:
             x, _ = tfm.block_decode(_layer(params["blocks"], i), x, cfg,
                                     layer, pos, rope_cs,
                                     lora=_layer(lora, i),
-                                    adapter_idx=adapter_idx)
-        return self._logits(params, x), caches
-
-    def _decode_step_mesh(self, params, lora, caches, token, pos,
-                          adapter_idx):
-        """``decode_step`` on the mesh: every sequence's token and
-        position in, every sequence's logits out, this rank's caches
-        written in place."""
-        cfg = self.cfg
-        b = token.shape[0]
-        plan = self._mesh_plan(b, b, adapter_idx)
-        whole = getattr(caches["kv"][0], "mesh_whole", None)
-        if whole is None or whole[1] != b:
-            raise ValueError(f"decode_step on a mesh takes the caches of "
-                             f"init_caches({b}, ...) under the same mesh")
-        x = self._embed_mesh(params, token, plan)
-        pos = col.local_slice(pos, plan.rows, 0)
-        rope_cs = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-        k_all, v_all = caches["kv"]
-        for i in range(cfg.n_layers):
-            x = tfm.block_decode_mesh(_layer(params["blocks"], i), x, cfg,
-                                      (k_all[i], v_all[i]), pos, rope_cs,
-                                      _layer(lora, i), plan)
-        return self._head_mesh(params, rms_norm(x, params["final_norm"]),
-                               plan), caches
+                                    adapter_idx=adapter_idx, plan=plan)
+        return self._logits(params, x, plan), caches
 
     def _vlm_decode(self, params, lora, caches, x, pos, rope_cs):
         """The VLM's decode: each unit's dense blocks over their

@@ -54,10 +54,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.mesh import param_spec
 from repro_torch.models import collectives as col
 from repro_torch.models.layers import dense_init
-from repro_torch.models.sharding import current_mesh, current_rules
+from repro_torch.models.sharding import current_mesh, current_rules, param_spec
 
 # an MoE block's leaves the JAX init makes float32 whatever the params'
 # dtype (``convert.py`` keeps them so)
@@ -147,7 +146,7 @@ def moe_decode_shardmap(params: Dict, x: torch.Tensor, cfg: ModelConfig
     """The reference's explicit-SPMD MoE for small-token (decode) steps.
 
     x [Bt, S, D] is every token, the same on every rank; ``params`` hold
-    this rank's blocks of the expert weights (cut as ``launch.mesh.
+    this rank's blocks of the expert weights (cut as ``sharding.
     param_spec`` says; the router is gathered whole).  Every rank routes
     all tokens in one group (the float64-then-float32 softmax: the same
     bits everywhere), copies the kept choices into its experts' inputs

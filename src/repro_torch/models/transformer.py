@@ -34,11 +34,13 @@ state; a hybrid layer: both) into the caller's cache tensors IN PLACE
 tensors.
 
 On a device mesh (dense and MoE stacks; ``Model`` builds a ``MeshPlan``
-under ``sharding_context``) the ``*_mesh`` blocks run on each rank's
-blocks of the weights and caches: q/k/v and the MLP's gate/up
-column-parallel, o and down row-parallel with an all-reduce over the
-heads' (ff's) axis, weight dims cut along the rows' axis (FSDP)
-gathered before use.  Attention runs on the rank's heads (dense up to
+under ``sharding_context``, ``NO_PLAN`` outside one) the same blocks run
+on each rank's blocks of the weights and caches: q/k/v and the MLP's
+gate/up column-parallel, o and down row-parallel with an all-reduce
+over the heads' (ff's) axis, weight dims cut along the rows' axis
+(FSDP) gathered before use.  Every projection goes through
+``lora.project_sharded`` and every reshard through ``collectives``,
+which are ``lora.project`` and the identity under ``NO_PLAN``.  Attention runs on the rank's heads (dense up to
 1,024 tokens, ``flash_attention`` past them) or, where the rule table
 cuts the cache's sequence (``kv_seq``, no sliding window),
 ``attention_decode_seqsharded``.  Tables that move heads to the query
@@ -55,7 +57,6 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
-from repro_torch.launch.mesh import batch_spec, param_spec
 from repro_torch.models import collectives as col
 from repro_torch.models import lora as lora_lib
 from repro_torch.models import mamba2
@@ -65,7 +66,7 @@ from repro_torch.models.layers import (
     dense_init, rms_norm,
 )
 from repro_torch.models.moe import init_moe, moe_mlp
-from repro_torch.models.sharding import _filter_spec
+from repro_torch.models.sharding import _filter_spec, batch_spec, param_spec
 
 
 # a cross block's leaves the JAX init makes float32 whatever the params'
@@ -146,281 +147,6 @@ def init_cross_block(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     }
 
 
-# ------------------------------------------------------------- attention ---
-def _proj_qkv(p, x, cfg: ModelConfig, lora, adapter_idx=None):
-    sc = cfg.lora.scaling
-    q = lora_lib.project(x, p["wq"], lora.get("q") if lora else None, sc,
-                         adapter_idx)
-    k = lora_lib.project(x, p["wk"], lora.get("k") if lora else None, sc,
-                         adapter_idx)
-    v = lora_lib.project(x, p["wv"], lora.get("v") if lora else None, sc,
-                         adapter_idx)
-    if "bq" in p:                      # bias after the LoRA bypass
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    b, s = x.shape[0], x.shape[1]
-    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    if "q_norm" in p:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    return q, k, v
-
-
-def _out_proj(p, o, cfg: ModelConfig, lora, adapter_idx=None):
-    return lora_lib.project(o, p["wo"], lora.get("o") if lora else None,
-                            cfg.lora.scaling, adapter_idx)
-
-
-def use_dense_prefill(cfg: ModelConfig, s: int) -> bool:
-    """Whether full-sequence attention at length ``s`` takes the dense
-    (full score matrix) path — the JAX package's rule."""
-    return cfg.attn_impl == "dense" or (
-        cfg.attn_impl == "auto" and s * s <= 1024 * 1024
-        and not cfg.unroll_attn_blocks)
-
-
-def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None,
-              block_kv: int = 512, skip_masked_blocks: bool = False,
-              adapter_idx=None
-              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence attention (training / prefill): the dense path up
-    to ``s*s <= 1M`` (``use_dense_prefill``), the blockwise online
-    softmax past it (on the card, the ``flash_attention`` kernels).
-    Returns (out, (k, v)) so prefill can stash the KV cache."""
-    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
-    if rope_cs is not None:
-        cos, sin = rope_cs
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    causal = not cfg.encoder_only
-    s = x.shape[1]
-    if use_dense_prefill(cfg, s):
-        o = attention_dense(q, k, v, causal=causal,
-                            window=cfg.sliding_window)
-    else:
-        o = attention_blockwise(q, k, v, causal=causal,
-                                window=cfg.sliding_window,
-                                block_kv=block_kv,
-                                skip_masked_blocks=skip_masked_blocks
-                                and causal)
-    o = o.reshape(x.shape[0], s, cfg.n_heads * cfg.head_dim)
-    return _out_proj(p, o, cfg, lora, adapter_idx), (k, v)
-
-
-def attn_prefill_suffix(p, x, cfg: ModelConfig, prefix_kv, prefix_len,
-                        rope_cs, lora=None, adapter_idx=None):
-    """Ragged suffix-prefill attention for one layer: the queries are the
-    uncached suffix tokens (absolute positions ``prefix_len + i``, RoPE
-    tables per row), the keys the cached prefix K/V ``prefix_kv`` (each
-    ``[B, Pp, Hkv, Dh]``, gathered from the cache) plus the suffix's
-    own.  Always the dense formulation (``use_dense_prefill`` gates the
-    features that call it).  Returns (out, (k_suf, v_suf)) for the
-    runtime to write into the suffix's cache rows."""
-    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
-    if rope_cs is not None:
-        cos, sin = rope_cs
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    k_pre, v_pre = prefix_kv
-    o = attention_prefix_suffix(q, k_pre, v_pre, k, v, prefix_len,
-                                window=cfg.sliding_window)
-    o = o.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
-    return _out_proj(p, o, cfg, lora, adapter_idx), (k, v)
-
-
-def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None,
-                adapter_idx=None):
-    """One-token attention against a contiguous KV cache, ragged slots.
-
-    cache_kv: (k_cache, v_cache) [B,S,Hkv,Dh]; pos: [B] int per-sequence
-    positions of the new token.  Sliding-window archs keep a ring buffer
-    of window size (writes wrap at S).  The new K/V are written into the
-    caches in place.  Returns (out, caches)."""
-    k_cache, v_cache = cache_kv
-    cache_len = k_cache.shape[1]
-    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
-    if rope_cs is not None:
-        cos, sin = rope_cs  # [B, 1, Dh/2]
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    wpos = torch.remainder(pos, cache_len) if cfg.sliding_window > 0 \
-        else pos
-    rows = torch.arange(x.shape[0], device=x.device)
-    wpos = wpos.long()
-    k_cache[rows, wpos] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, wpos] = v[:, 0].to(v_cache.dtype)
-    kv_len = torch.clamp(pos + 1, max=cache_len)
-    o = attention_decode(q, k_cache, v_cache, kv_len)
-    o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
-    return _out_proj(p, o, cfg, lora, adapter_idx), (k_cache, v_cache)
-
-
-def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
-                      block_tables, write_block, write_off, kv_len,
-                      lora=None, adapter_idx=None):
-    """One-token attention against one layer's paged KV block pool.
-
-    pool_kv: (k_pool, v_pool) [n_blocks, block_size, Hkv, Dh];
-    block_tables: [B, NB] int32; write_block/write_off: [B] pool block id
-    and in-block offset of each sequence's new K/V; kv_len: [B] valid
-    logical length AFTER the write.  The write lands in the pools in
-    place, before the attention reads them (inactive slots all write
-    scratch block 0, where the duplicate writes are harmless).  Returns
-    (out, pools)."""
-    k_pool, v_pool = pool_kv
-    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
-    if rope_cs is not None:
-        cos, sin = rope_cs
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    k_pool[write_block, write_off] = k[:, 0].to(k_pool.dtype)
-    v_pool[write_block, write_off] = v[:, 0].to(v_pool.dtype)
-    o = attention_decode_paged(q, k_pool, v_pool, block_tables, kv_len)
-    o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
-    return _out_proj(p, o, cfg, lora, adapter_idx), (k_pool, v_pool)
-
-
-def vision_kv(p, vis: torch.Tensor, cfg: ModelConfig):
-    """Project vision embeddings [B, T, d_model] to the cross K/V, each
-    [B, T, Hkv, Dh]: once per request at prefill, cached for decode."""
-    b, t = vis.shape[0], vis.shape[1]
-    k = (vis @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = (vis @ p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    return k, v
-
-
-def cross_attn(p, x, vkv, cfg: ModelConfig, kv_len=None):
-    """Cross-attention over the vision K/V ``vkv`` (no RoPE, no cache
-    write: vision tokens are static per request).  One query per
-    sequence (decode) runs ``decode_attention`` over the head-major
-    views of the K/V, with ``kv_len`` [B] int32 (default: all T valid);
-    longer queries (prefill) the dense non-causal attention, as JAX runs
-    every length."""
-    b, s = x.shape[0], x.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k, v = vkv
-    if s == 1:
-        if kv_len is None:
-            kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
-                                device=k.device)
-        o = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
-                             kv_len)[:, None]
-    else:
-        o = attention_dense(q, k, v, causal=False)
-    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
-
-
-# ----------------------------------------------------------------- blocks --
-def _mlp_out(bp, h, cfg: ModelConfig, lora, adapter_idx=None):
-    """(MLP or MoE output, the MoE's aux loss; None for an MLP, which
-    makes no aux tensor)."""
-    if "moe" in bp:
-        return moe_mlp(bp["moe"], h, cfg)
-    sc = cfg.lora.scaling
-    mlp = bp["mlp"]
-    g = lora_lib.project(h, mlp["wg"], lora.get("gate") if lora else None,
-                         sc, adapter_idx)
-    u = lora_lib.project(h, mlp["wu"], lora.get("up") if lora else None, sc,
-                         adapter_idx)
-    hidden = F.silu(g) * u
-    return lora_lib.project(hidden, mlp["wd"],
-                            lora.get("down") if lora else None, sc,
-                            adapter_idx), None
-
-
-def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
-               block_kv: int = 512, skip_masked_blocks: bool = False,
-               adapter_idx=None):
-    """Full-sequence block (prefill, training).  Returns (x, (k, v), aux),
-    or for an SSM layer (x, {"conv", "state"}, aux): the conv tail and
-    final state prefill hands to decode; a hybrid layer (x, {"kv": (k,
-    v), "ssm": {"conv", "state"}}, aux).  ``aux`` is an MoE layer's
-    load-balancing loss (float32 scalar), None for every other layer."""
-    h = rms_norm(x, bp["ln1"])
-    if cfg.family is Family.SSM:
-        y, ssm_cache = mamba2.ssm_mixer(bp["ssm"], h, cfg, lora=lora)
-        return x + y, ssm_cache, None
-    attn_out, kv = attn_full(bp["attn"], h, cfg, rope_cs, lora=lora,
-                             block_kv=block_kv,
-                             skip_masked_blocks=skip_masked_blocks,
-                             adapter_idx=adapter_idx)
-    cache = kv
-    if cfg.family is Family.HYBRID:
-        ssm_out, ssm_cache = mamba2.ssm_mixer(bp["ssm"], h, cfg, lora=lora)
-        attn_out = 0.5 * (attn_out + ssm_out)
-        cache = {"kv": kv, "ssm": ssm_cache}
-    x = x + attn_out
-    aux = None
-    if cfg.d_ff > 0:
-        y, aux = _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx)
-        x = x + y
-    return x, cache, aux
-
-
-def block_prefill_suffix(bp, x, cfg: ModelConfig, prefix_kv, prefix_len,
-                         rope_cs, lora=None, adapter_idx=None):
-    """Suffix-prefill block (attention-only stacks): the prefix caching
-    and chunked prefill programs.  Returns (x, (k_suf, v_suf))."""
-    attn_out, kv = attn_prefill_suffix(bp["attn"], rms_norm(x, bp["ln1"]),
-                                       cfg, prefix_kv, prefix_len, rope_cs,
-                                       lora=lora, adapter_idx=adapter_idx)
-    x = x + attn_out
-    if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
-                         adapter_idx)[0]       # the aux is dropped
-    return x, kv
-
-
-def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None,
-                 adapter_idx=None):
-    """One-token block.  caches: {"kv": (k, v)} of this layer, an SSM
-    layer's {"ssm": {"conv", "state"}}, or a hybrid layer's both
-    (updated in place).  Returns (x, caches)."""
-    h = rms_norm(x, bp["ln1"])
-
-    def ssm_step():
-        ssm = caches["ssm"]
-        y, new = mamba2.ssm_mixer(bp["ssm"], h, cfg, cache=ssm, lora=lora)
-        ssm["conv"].copy_(new["conv"])
-        ssm["state"].copy_(new["state"])
-        return y
-
-    if cfg.family is Family.SSM:
-        return x + ssm_step(), caches
-    attn_out, _ = attn_decode(bp["attn"], h, cfg, caches["kv"], pos, rope_cs,
-                              lora=lora, adapter_idx=adapter_idx)
-    if cfg.family is Family.HYBRID:
-        attn_out = 0.5 * (attn_out + ssm_step())
-    x = x + attn_out
-    if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
-                         adapter_idx)[0]       # the aux is dropped
-    return x, caches
-
-
-def block_decode_paged(bp, x, cfg: ModelConfig, pool_kv, rope_cs,
-                       block_tables, write_block, write_off, kv_len,
-                       lora=None, adapter_idx=None):
-    """One-token block against one layer's paged KV pool (updated in
-    place).  Returns (x, pools)."""
-    attn_out, pool_kv = attn_decode_paged(
-        bp["attn"], rms_norm(x, bp["ln1"]), cfg, pool_kv, rope_cs,
-        block_tables, write_block, write_off, kv_len, lora=lora,
-        adapter_idx=adapter_idx)
-    x = x + attn_out
-    if cfg.d_ff > 0:
-        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
-                         adapter_idx)[0]       # the aux is dropped
-    return x, pool_kv
-
-
-def cross_block(cp, x, vkv, cfg: ModelConfig, kv_len=None):
-    """The VLM's gated cross-attention block; ``kv_len`` reaches the
-    decode kernel (``cross_attn``)."""
-    ga = torch.tanh(cp["gate_attn"]).to(x.dtype)   # f32 gate, carry dtype
-    x = x + ga * cross_attn(cp["attn"], rms_norm(x, cp["ln1"]), vkv, cfg,
-                            kv_len)
-    y, _ = _mlp_out(cp, rms_norm(x, cp["ln2"]), cfg, None)
-    return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * y
-
-
 # ------------------------------------------------------------- the mesh ---
 _QUEUED = "queued for a later slice of the mesh (ROADMAP.md)"
 
@@ -444,10 +170,21 @@ class MeshPlan:
     kv_seq: Tuple[str, ...]
     kv_heads: Tuple[str, ...]
 
+    def spec(self, path: str, shape) -> tuple:
+        """The spec of the parameter at ``path`` (every dim whole outside
+        a mesh)."""
+        if self.mesh is None:
+            return (None,) * len(shape)
+        return param_spec(path, tuple(shape), self.cfg, self.mesh,
+                          self.rules)
+
     def wspec(self, path: str, shape) -> tuple:
         """The spec of one layer's weight at ``blocks/<path>``."""
-        return param_spec("blocks/" + path, (1,) + tuple(shape), self.cfg,
-                          self.mesh, self.rules)[1:]
+        return self.spec("blocks/" + path, (1,) + tuple(shape))[1:]
+
+
+# outside a mesh: every tensor whole, every collective the identity
+NO_PLAN = MeshPlan(None, None, None, (), (), (), (), ())
 
 
 def mesh_plan(cfg: ModelConfig, mesh, rules, batch: int,
@@ -512,12 +249,20 @@ def _kv_for_heads(t: torch.Tensor, have, plan: MeshPlan) -> torch.Tensor:
     return t[:, :, first:first + max(1, hq_l // g)]
 
 
-def _proj_qkv_mesh(p, x, cfg: ModelConfig, lora, plan: MeshPlan, q_want,
-                   kv_want):
-    """q/k/v on the mesh: [B, S, heads cut along ``q_want`` (q) or
-    ``kv_want`` (k, v), Dh].  The three partial sums meet in one
-    all-reduce, and where all three are gathered whole, in one
-    all-gather."""
+def _kv_attn_axes(cfg: ModelConfig, plan: MeshPlan):
+    """The cut of the K/V heads a prefill computes: the query heads' axis
+    where the KV heads divide it, else whole."""
+    n = col.axis_size(plan.heads)
+    return plan.heads if cfg.n_kv_heads % n == 0 else ()
+
+
+# ------------------------------------------------------------- attention ---
+def _proj_qkv(p, x, cfg: ModelConfig, lora, adapter_idx=None,
+              plan: MeshPlan = NO_PLAN, q_want=(), kv_want=()):
+    """q/k/v [B, S, heads, Dh], column-parallel on a mesh: the heads cut
+    along ``q_want`` (q) or ``kv_want`` (k, v).  The three partial sums
+    meet in one all-reduce, and where all three are gathered whole, in
+    one all-gather."""
     hd = cfg.head_dim
     ys, y_axes = [], []
     for name, n in (("q", cfg.n_heads), ("k", cfg.n_kv_heads),
@@ -526,7 +271,7 @@ def _proj_qkv_mesh(p, x, cfg: ModelConfig, lora, plan: MeshPlan, q_want,
             x, p["w" + name], plan.wspec(f"attn/w{name}", (cfg.d_model,
                                                             n * hd)),
             lora.get(name) if lora else None, cfg.lora.scaling,
-            rows=plan.rows, reduce=False)
+            rows=plan.rows, reduce=False, adapter_idx=adapter_idx)
         ys.append(y)
         y_axes.append((k_rest, y_ax))
     if len(set(y_axes)) == 1:
@@ -555,32 +300,40 @@ def _proj_qkv_mesh(p, x, cfg: ModelConfig, lora, plan: MeshPlan, q_want,
     return q, k, v
 
 
-def _out_proj_mesh(p, o, cfg: ModelConfig, lora, plan: MeshPlan, o_axes):
-    """o [B, S, H_l * Dh] (heads cut along ``o_axes``) @ wo, row-parallel;
-    the result whole on every rank of its rows."""
+def _out_proj(p, o, cfg: ModelConfig, lora, adapter_idx=None,
+              plan: MeshPlan = NO_PLAN, o_axes=()):
+    """o [B, S, H * Dh] (on a mesh: heads cut along ``o_axes``) @ wo,
+    row-parallel; the result whole on every rank of its rows."""
     y, y_ax = lora_lib.project_sharded(
         o, p["wo"], plan.wspec("attn/wo", (cfg.n_heads * cfg.head_dim,
                                            cfg.d_model)),
         lora.get("o") if lora else None, cfg.lora.scaling, x_axes=o_axes,
-        rows=plan.rows)
+        rows=plan.rows, adapter_idx=adapter_idx)
     return col.reshard_dim(y, -1, y_ax, ())
 
 
-def _kv_attn_axes(cfg: ModelConfig, plan: MeshPlan):
-    """The cut of the K/V heads a prefill computes: the query heads' axis
-    where the KV heads divide it, else whole."""
-    n = col.axis_size(plan.heads)
-    return plan.heads if cfg.n_kv_heads % n == 0 else ()
+def use_dense_prefill(cfg: ModelConfig, s: int) -> bool:
+    """Whether full-sequence attention at length ``s`` takes the dense
+    (full score matrix) path — the JAX package's rule."""
+    return cfg.attn_impl == "dense" or (
+        cfg.attn_impl == "auto" and s * s <= 1024 * 1024
+        and not cfg.unroll_attn_blocks)
 
 
-def attn_full_mesh(p, x, cfg: ModelConfig, rope_cs, lora, plan: MeshPlan,
-                   block_kv: int = 512):
-    """``attn_full`` on the mesh: x [B_rows, S, D] (rows cut along
-    ``plan.rows``); attention on this rank's heads over its cache rows.
-    Returns (out [B_rows, S, D], (k, v) in the cache's batch and head
-    cut, every position)."""
+def attn_full(p, x, cfg: ModelConfig, rope_cs, lora=None,
+              block_kv: int = 512, skip_masked_blocks: bool = False,
+              adapter_idx=None, plan: MeshPlan = NO_PLAN
+              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Full-sequence attention (training / prefill): the dense path up
+    to ``s*s <= 1M`` (``use_dense_prefill``), the blockwise online
+    softmax past it (on the card, the ``flash_attention`` kernels).
+    Returns (out, (k, v)) so prefill can stash the KV cache.  On a mesh
+    x holds the rows ``plan.rows`` keeps and attention runs on this
+    rank's heads over its cache rows; (k, v) come in the cache's batch
+    and head cut, every position."""
     kv_ax = _kv_attn_axes(cfg, plan)
-    q, k, v = _proj_qkv_mesh(p, x, cfg, lora, plan, plan.heads, kv_ax)
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx, plan, plan.heads,
+                        kv_ax)
     if rope_cs is not None:
         cos, sin = rope_cs
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -594,28 +347,56 @@ def attn_full_mesh(p, x, cfg: ModelConfig, rope_cs, lora, plan: MeshPlan,
                             window=cfg.sliding_window)
     else:
         o = attention_blockwise(q, kq, vq, causal=causal,
-                                window=cfg.sliding_window, block_kv=block_kv)
+                                window=cfg.sliding_window,
+                                block_kv=block_kv,
+                                skip_masked_blocks=skip_masked_blocks
+                                and causal)
     o = col.reshard_dim(o.reshape(o.shape[0], s, -1), 0, plan.kv_batch,
                         plan.rows)
-    out = _out_proj_mesh(p, o, cfg, lora, plan, plan.heads)
-    cache_heads = plan.kv_heads
-    return out, tuple(col.reshard_dim(t, 2, kv_ax, cache_heads)
+    out = _out_proj(p, o, cfg, lora, adapter_idx, plan, plan.heads)
+    return out, tuple(col.reshard_dim(t, 2, kv_ax, plan.kv_heads)
                       for t in (k, v))
 
 
-def attn_decode_mesh(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora,
-                     plan: MeshPlan):
-    """``attn_decode`` on the mesh: x [B, 1, D] (rows cut along
-    ``plan.rows``), pos [B] likewise; the caches this rank's block,
-    written in place.  Where the cache's sequence is cut
+def attn_prefill_suffix(p, x, cfg: ModelConfig, prefix_kv, prefix_len,
+                        rope_cs, lora=None, adapter_idx=None):
+    """Ragged suffix-prefill attention for one layer: the queries are the
+    uncached suffix tokens (absolute positions ``prefix_len + i``, RoPE
+    tables per row), the keys the cached prefix K/V ``prefix_kv`` (each
+    ``[B, Pp, Hkv, Dh]``, gathered from the cache) plus the suffix's
+    own.  Always the dense formulation (``use_dense_prefill`` gates the
+    features that call it).  Returns (out, (k_suf, v_suf)) for the
+    runtime to write into the suffix's cache rows."""
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    k_pre, v_pre = prefix_kv
+    o = attention_prefix_suffix(q, k_pre, v_pre, k, v, prefix_len,
+                                window=cfg.sliding_window)
+    o = o.reshape(x.shape[0], x.shape[1], cfg.n_heads * cfg.head_dim)
+    return _out_proj(p, o, cfg, lora, adapter_idx), (k, v)
+
+
+def attn_decode(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora=None,
+                adapter_idx=None, plan: MeshPlan = NO_PLAN):
+    """One-token attention against a contiguous KV cache, ragged slots.
+
+    cache_kv: (k_cache, v_cache) [B,S,Hkv,Dh]; pos: [B] int per-sequence
+    positions of the new token.  Sliding-window archs keep a ring buffer
+    of window size (writes wrap at S).  The new K/V are written into the
+    caches in place.  Returns (out, caches).
+
+    On a mesh x and pos hold the rows ``plan.rows`` keeps and the caches
+    are this rank's block.  Where the cache's sequence is cut
     (``plan.kv_seq``) every rank takes all heads through
     ``attention_decode_seqsharded`` (the reference's ``use_sharded``);
     otherwise its own heads through the paged kernel."""
     k_cache, v_cache = cache_kv
     seq = bool(plan.kv_seq)
-    q, k, v = _proj_qkv_mesh(p, x, cfg, lora, plan,
-                             () if seq else plan.heads,
-                             () if seq else plan.kv_heads)
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx, plan,
+                        () if seq else plan.heads,
+                        () if seq else plan.kv_heads)
     if rope_cs is not None:
         cos, sin = rope_cs  # [B, 1, Dh/2]
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -629,22 +410,80 @@ def attn_decode_mesh(p, x, cfg: ModelConfig, cache_kv, pos, rope_cs, lora,
         wpos = torch.remainder(pos, cache_len) if cfg.sliding_window > 0 \
             else pos
         rows = torch.arange(q.shape[0], device=q.device)
-        k_cache[rows, wpos.long()] = k[:, 0].to(k_cache.dtype)
-        v_cache[rows, wpos.long()] = v[:, 0].to(v_cache.dtype)
+        wpos = wpos.long()
+        k_cache[rows, wpos] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, wpos] = v[:, 0].to(v_cache.dtype)
         kv_len = torch.clamp(pos + 1, max=cache_len)
         o = attention_decode(q, _kv_for_heads(k_cache, plan.kv_heads, plan),
                              _kv_for_heads(v_cache, plan.kv_heads, plan),
                              kv_len)
     o = col.reshard_dim(o.reshape(o.shape[0], 1, -1), 0, plan.kv_batch,
                         plan.rows)
-    out = _out_proj_mesh(p, o, cfg, lora, plan, () if seq else plan.heads)
-    return out, (k_cache, v_cache)
+    return _out_proj(p, o, cfg, lora, adapter_idx, plan,
+                     () if seq else plan.heads), (k_cache, v_cache)
 
 
-def _mlp_out_mesh(bp, h, cfg: ModelConfig, lora, plan: MeshPlan):
-    """``_mlp_out`` on the mesh: gate/up column-parallel over ff, down
-    row-parallel; an MoE layer takes ``moe_mlp``'s mesh path on every
-    row.  Returns (y [B_rows, S, D], aux or None)."""
+def attn_decode_paged(p, x, cfg: ModelConfig, pool_kv, rope_cs,
+                      block_tables, write_block, write_off, kv_len,
+                      lora=None, adapter_idx=None):
+    """One-token attention against one layer's paged KV block pool.
+
+    pool_kv: (k_pool, v_pool) [n_blocks, block_size, Hkv, Dh];
+    block_tables: [B, NB] int32; write_block/write_off: [B] pool block id
+    and in-block offset of each sequence's new K/V; kv_len: [B] valid
+    logical length AFTER the write.  The write lands in the pools in
+    place, before the attention reads them (inactive slots all write
+    scratch block 0, where the duplicate writes are harmless).  Returns
+    (out, pools)."""
+    k_pool, v_pool = pool_kv
+    q, k, v = _proj_qkv(p, x, cfg, lora, adapter_idx)
+    if rope_cs is not None:
+        cos, sin = rope_cs
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    k_pool[write_block, write_off] = k[:, 0].to(k_pool.dtype)
+    v_pool[write_block, write_off] = v[:, 0].to(v_pool.dtype)
+    o = attention_decode_paged(q, k_pool, v_pool, block_tables, kv_len)
+    o = o.reshape(x.shape[0], 1, cfg.n_heads * cfg.head_dim)
+    return _out_proj(p, o, cfg, lora, adapter_idx), (k_pool, v_pool)
+
+
+def vision_kv(p, vis: torch.Tensor, cfg: ModelConfig):
+    """Project vision embeddings [B, T, d_model] to the cross K/V, each
+    [B, T, Hkv, Dh]: once per request at prefill, cached for decode."""
+    b, t = vis.shape[0], vis.shape[1]
+    k = (vis @ p["wk"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = (vis @ p["wv"]).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attn(p, x, vkv, cfg: ModelConfig, kv_len=None):
+    """Cross-attention over the vision K/V ``vkv`` (no RoPE, no cache
+    write: vision tokens are static per request).  One query per
+    sequence (decode) runs ``decode_attention`` over the head-major
+    views of the K/V, with ``kv_len`` [B] int32 (default: all T valid);
+    longer queries (prefill) the dense non-causal attention, as JAX runs
+    every length."""
+    b, s = x.shape[0], x.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k, v = vkv
+    if s == 1:
+        if kv_len is None:
+            kv_len = torch.full((b,), k.shape[1], dtype=torch.int32,
+                                device=k.device)
+        o = decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2),
+                             kv_len)[:, None]
+    else:
+        o = attention_dense(q, k, v, causal=False)
+    return o.reshape(b, s, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+# ----------------------------------------------------------------- blocks --
+def _mlp_out(bp, h, cfg: ModelConfig, lora, adapter_idx=None,
+             plan: MeshPlan = NO_PLAN):
+    """(MLP or MoE output, the MoE's aux loss; None for an MLP, which
+    makes no aux tensor).  On a mesh gate/up are column-parallel over
+    ff and down row-parallel; an MoE layer takes ``moe_mlp``'s mesh path
+    on every row."""
     if "moe" in bp:
         y, aux = moe_mlp(bp["moe"], col.all_gather(h, plan.rows, 0), cfg)
         return col.local_slice(y, plan.rows, 0), aux
@@ -654,10 +493,11 @@ def _mlp_out_mesh(bp, h, cfg: ModelConfig, lora, plan: MeshPlan):
     g, k_g, g_ax = lora_lib.project_sharded(
         h, mlp["wg"], plan.wspec("mlp/wg", (d, f)),
         lora.get("gate") if lora else None, sc, rows=plan.rows,
-        reduce=False)
+        reduce=False, adapter_idx=adapter_idx)
     u, k_u, u_ax = lora_lib.project_sharded(
         h, mlp["wu"], plan.wspec("mlp/wu", (d, f)),
-        lora.get("up") if lora else None, sc, rows=plan.rows, reduce=False)
+        lora.get("up") if lora else None, sc, rows=plan.rows, reduce=False,
+        adapter_idx=adapter_idx)
     if k_g == k_u:                      # both partial sums in one
         g, u = _psum_many([g, u], k_g)
     else:
@@ -665,31 +505,105 @@ def _mlp_out_mesh(bp, h, cfg: ModelConfig, lora, plan: MeshPlan):
     hidden = F.silu(g) * col.reshard_dim(u, -1, u_ax, g_ax)
     y, y_ax = lora_lib.project_sharded(
         hidden, mlp["wd"], plan.wspec("mlp/wd", (f, d)),
-        lora.get("down") if lora else None, sc, x_axes=g_ax, rows=plan.rows)
+        lora.get("down") if lora else None, sc, x_axes=g_ax, rows=plan.rows,
+        adapter_idx=adapter_idx)
     return col.reshard_dim(y, -1, y_ax, ()), None
 
 
-def block_full_mesh(bp, x, cfg: ModelConfig, rope_cs, lora, plan: MeshPlan,
-                    block_kv: int = 512):
-    """``block_full`` on the mesh (attention-only stacks).  Returns (x,
-    (k, v), aux)."""
-    attn_out, kv = attn_full_mesh(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
-                                  rope_cs, lora, plan, block_kv=block_kv)
+def block_full(bp, x, cfg: ModelConfig, rope_cs, lora=None,
+               block_kv: int = 512, skip_masked_blocks: bool = False,
+               adapter_idx=None, plan: MeshPlan = NO_PLAN):
+    """Full-sequence block (prefill, training).  Returns (x, (k, v), aux),
+    or for an SSM layer (x, {"conv", "state"}, aux): the conv tail and
+    final state prefill hands to decode; a hybrid layer (x, {"kv": (k,
+    v), "ssm": {"conv", "state"}}, aux).  ``aux`` is an MoE layer's
+    load-balancing loss (float32 scalar), None for every other layer.
+    ``plan``: the mesh's (attention-only stacks)."""
+    h = rms_norm(x, bp["ln1"])
+    if cfg.family is Family.SSM:
+        y, ssm_cache = mamba2.ssm_mixer(bp["ssm"], h, cfg, lora=lora)
+        return x + y, ssm_cache, None
+    attn_out, kv = attn_full(bp["attn"], h, cfg, rope_cs, lora=lora,
+                             block_kv=block_kv,
+                             skip_masked_blocks=skip_masked_blocks,
+                             adapter_idx=adapter_idx, plan=plan)
+    cache = kv
+    if cfg.family is Family.HYBRID:
+        ssm_out, ssm_cache = mamba2.ssm_mixer(bp["ssm"], h, cfg, lora=lora)
+        attn_out = 0.5 * (attn_out + ssm_out)
+        cache = {"kv": kv, "ssm": ssm_cache}
     x = x + attn_out
     aux = None
     if cfg.d_ff > 0:
-        y, aux = _mlp_out_mesh(bp, rms_norm(x, bp["ln2"]), cfg, lora, plan)
+        y, aux = _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora, adapter_idx,
+                          plan)
         x = x + y
-    return x, kv, aux
+    return x, cache, aux
 
 
-def block_decode_mesh(bp, x, cfg: ModelConfig, cache_kv, pos, rope_cs,
-                      lora, plan: MeshPlan):
-    """``block_decode`` on the mesh (attention-only stacks)."""
-    attn_out, _ = attn_decode_mesh(bp["attn"], rms_norm(x, bp["ln1"]), cfg,
-                                   cache_kv, pos, rope_cs, lora, plan)
+def block_prefill_suffix(bp, x, cfg: ModelConfig, prefix_kv, prefix_len,
+                         rope_cs, lora=None, adapter_idx=None):
+    """Suffix-prefill block (attention-only stacks): the prefix caching
+    and chunked prefill programs.  Returns (x, (k_suf, v_suf))."""
+    attn_out, kv = attn_prefill_suffix(bp["attn"], rms_norm(x, bp["ln1"]),
+                                       cfg, prefix_kv, prefix_len, rope_cs,
+                                       lora=lora, adapter_idx=adapter_idx)
     x = x + attn_out
     if cfg.d_ff > 0:
-        x = x + _mlp_out_mesh(bp, rms_norm(x, bp["ln2"]), cfg, lora,
-                              plan)[0]          # the aux is dropped
-    return x
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
+                         adapter_idx)[0]       # the aux is dropped
+    return x, kv
+
+
+def block_decode(bp, x, cfg: ModelConfig, caches, pos, rope_cs, lora=None,
+                 adapter_idx=None, plan: MeshPlan = NO_PLAN):
+    """One-token block.  caches: {"kv": (k, v)} of this layer, an SSM
+    layer's {"ssm": {"conv", "state"}}, or a hybrid layer's both
+    (updated in place).  ``plan``: the mesh's (attention-only stacks).
+    Returns (x, caches)."""
+    h = rms_norm(x, bp["ln1"])
+
+    def ssm_step():
+        ssm = caches["ssm"]
+        y, new = mamba2.ssm_mixer(bp["ssm"], h, cfg, cache=ssm, lora=lora)
+        ssm["conv"].copy_(new["conv"])
+        ssm["state"].copy_(new["state"])
+        return y
+
+    if cfg.family is Family.SSM:
+        return x + ssm_step(), caches
+    attn_out, _ = attn_decode(bp["attn"], h, cfg, caches["kv"], pos, rope_cs,
+                              lora=lora, adapter_idx=adapter_idx, plan=plan)
+    if cfg.family is Family.HYBRID:
+        attn_out = 0.5 * (attn_out + ssm_step())
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
+                         adapter_idx, plan)[0]  # the aux is dropped
+    return x, caches
+
+
+def block_decode_paged(bp, x, cfg: ModelConfig, pool_kv, rope_cs,
+                       block_tables, write_block, write_off, kv_len,
+                       lora=None, adapter_idx=None):
+    """One-token block against one layer's paged KV pool (updated in
+    place).  Returns (x, pools)."""
+    attn_out, pool_kv = attn_decode_paged(
+        bp["attn"], rms_norm(x, bp["ln1"]), cfg, pool_kv, rope_cs,
+        block_tables, write_block, write_off, kv_len, lora=lora,
+        adapter_idx=adapter_idx)
+    x = x + attn_out
+    if cfg.d_ff > 0:
+        x = x + _mlp_out(bp, rms_norm(x, bp["ln2"]), cfg, lora,
+                         adapter_idx)[0]       # the aux is dropped
+    return x, pool_kv
+
+
+def cross_block(cp, x, vkv, cfg: ModelConfig, kv_len=None):
+    """The VLM's gated cross-attention block; ``kv_len`` reaches the
+    decode kernel (``cross_attn``)."""
+    ga = torch.tanh(cp["gate_attn"]).to(x.dtype)   # f32 gate, carry dtype
+    x = x + ga * cross_attn(cp["attn"], rms_norm(x, cp["ln1"]), vkv, cfg,
+                            kv_len)
+    y, _ = _mlp_out(cp, rms_norm(x, cp["ln2"]), cfg, None)
+    return x + torch.tanh(cp["gate_mlp"]).to(x.dtype) * y

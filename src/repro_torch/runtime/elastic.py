@@ -15,7 +15,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 from repro_torch.checkpoint.checkpointer import (
     Checkpointer, _tree_paths, _unflatten,
 )
-from repro_torch.launch.mesh import MeshSharding
+from repro_torch.models.sharding import MeshSharding
 
 
 def shardings_for(tree: Any, mesh, spec_fn: Callable[[str, Any], tuple]

@@ -18,13 +18,13 @@ from repro_torch.configs.registry import get_config
 from repro_torch.convert import lora_from_numpy, params_from_numpy
 from repro_torch.core.engine import make_engine
 from repro_torch.launch.mesh import (
-    MeshSharding, gather_tree, make_mesh, param_shardings, param_spec,
-    rules_for, shard_tree, spawn_ranks,
+    gather_tree, make_mesh, shard_tree, spawn_ranks,
 )
 from repro_torch.models.model import build
 from repro_torch.models.moe import moe_mlp
 from repro_torch.models.sharding import (
-    RULES_TP_ONLY, ShardingRules, sharding_context,
+    RULES_TP_ONLY, MeshSharding, ShardingRules, param_shardings, param_spec,
+    rules_for, sharding_context,
 )
 from repro_torch.runtime.elastic import elastic_restore, shardings_for
 from repro_torch.runtime.serving_loop import (

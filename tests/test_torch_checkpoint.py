@@ -33,7 +33,7 @@ from repro.data.synthetic import SyntheticDataset
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.checkpoint import checkpointer as ckpt_mod
 from repro_torch.convert import lora_from_numpy, opt_state_from_numpy
-from repro_torch.launch.mesh import MeshSharding
+from repro_torch.models.sharding import MeshSharding
 from repro_torch.optim.adamw import AdamWState
 
 

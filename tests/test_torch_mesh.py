@@ -17,12 +17,11 @@ mesh_cases``); the JAX references run in this process.
   decode, as that test holds JAX.
 * Prefill and serving: ``prefill_ragged`` then ``static_batch_serve`` of
   4 ragged requests with 2 KV heads (``rules_for`` keeps each rank's
-  heads; the forced table cuts the sequence): the logits within 5e-5
-  (scaled) of the port's unsharded prefill, the greedy tokens equal to
-  the unsharded port's and to ``reference_greedy`` on the JAX model; and
-  a wave of 4 x 272 tokens (past 1,024: rows cut over data, the FSDP
-  weight dims gathered): logits within 5e-5 and tokens of the unsharded
-  port.
+  heads; the forced table cuts the sequence), and a wave of 4 x 272
+  tokens (past 1,024: rows cut over data, the FSDP weight dims
+  gathered): the logits within 5e-5 (scaled) of JAX's unsharded
+  ``prefill_ragged`` and of the port's, the greedy tokens equal to
+  ``reference_greedy`` on the JAX model and to the unsharded port's.
 * The ``return_lse`` launch's plain version against a float64 softmax:
   kv_len 0 (zeros, -inf), 1 and S.
 * Restore: whole -> 2 x 2 -> written from the mesh -> 1 x 4
@@ -132,7 +131,17 @@ def ran(tmp_path_factory):
                           jnp.int32(t))
         logits.append(np.asarray(lg))
     ref["decode"] = np.stack(logits)
-    # serving: JAX's reference_greedy and the unsharded port
+    # serving: JAX's prefill_ragged and reference_greedy, and the
+    # unsharded port
+    jprefill = jax.jit(sjm.prefill_ragged)
+
+    def jax_prefill(prompts, lens, pad):
+        lg, _ = jprefill(sjp, sjl, {"tokens": jnp.asarray(
+            cases._pad(prompts, pad), jnp.int32)}, jnp.asarray(lens,
+                                                              jnp.int32))
+        return np.asarray(lg)
+
+    ref["jax_prefill"] = jax_prefill(prompts, LENS, 10)
     ref["greedy"] = [reference_greedy(sjm, sjp, sjl, prompts[i], GENS[i])
                      for i in range(len(LENS))]
     engine = make_engine(cfg, device="cpu")
@@ -159,6 +168,10 @@ def ran(tmp_path_factory):
     static_batch_serve(engine, params, lora, reqs, batch_size=4,
                        prompt_pad=LONG_PAD, max_seq=d["max_seq"])
     ref["long"] = (lg.numpy(), [list(r.tokens) for r in reqs])
+    ref["long_jax"] = (
+        jax_prefill(d["prompts"], LONG_LENS, LONG_PAD),
+        [reference_greedy(sjm, sjp, sjl, p, g)
+         for p, g in zip(d["prompts"], LONG_GENS)])
     return ref, wait(), cfg, out
 
 
@@ -247,25 +260,34 @@ def test_decode_on_2x2_matches_jax_unsharded(ran, table):
         np.testing.assert_array_equal(r, got[0])
 
 
+def _held(got, jax_logits, jax_tokens, port_logits, port_tokens):
+    """Every rank's prefill logits within 5e-5 of the largest of JAX's
+    unsharded ``prefill_ragged`` and of the port's, its greedy tokens
+    JAX's ``reference_greedy`` and the unsharded port's."""
+    assert port_tokens == jax_tokens
+    for want in (jax_logits, port_logits):
+        scale = float(np.abs(want).max())
+        for logits, _ in got:
+            assert logits.shape == want.shape
+            assert float(np.abs(logits - want).max()) / scale < 5e-5
+    for _, toks in got:
+        assert toks == jax_tokens
+
+
 @pytest.mark.parametrize("table", ["rules", "forced"])
 def test_prefill_and_static_serve_on_2x2(ran, table):
     ref = ran[0]
-    got = _case(ran, f"serve_{table}")
-    scale = float(np.abs(ref["prefill"]).max())
-    for logits, toks in got:
-        assert float(np.abs(logits - ref["prefill"]).max()) / scale < 5e-5
-        assert toks == ref["unsharded"] == ref["greedy"]
+    _held(_case(ran, f"serve_{table}"), ref["jax_prefill"], ref["greedy"],
+          ref["prefill"], ref["unsharded"])
 
 
 @pytest.mark.parametrize("table", ["rules", "forced"])
 def test_long_prefill_cut_by_rows_on_2x2(ran, table):
     """Past 1,024 tokens a call cuts its rows over data and gathers the
-    FSDP weight dims: the logits and tokens of the unsharded port."""
-    logits_ref, toks_ref = ran[0]["long"]
-    scale = float(np.abs(logits_ref).max())
-    for logits, toks in _case(ran, f"long_{table}"):
-        assert float(np.abs(logits - logits_ref).max()) / scale < 5e-5
-        assert toks == toks_ref
+    FSDP weight dims: JAX's logits and tokens (and the unsharded
+    port's)."""
+    ref = ran[0]
+    _held(_case(ran, f"long_{table}"), *ref["long_jax"], *ref["long"])
 
 
 # -------------------------------------------------------------------- lse --
